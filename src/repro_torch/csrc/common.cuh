@@ -6,14 +6,16 @@
 #include <math.h>
 #include <stdint.h>
 
-// dtype codes passed from Python (kernels/_build.DTYPE_CODES)
-enum ReproDType : int { kF32 = 0, kBF16 = 1 };
+// dtype codes passed from Python (kernels/_build._DTYPE_CODES); int8 is
+// taken only as a KV page payload, with f32 scale pages beside it
+enum ReproDType : int { kF32 = 0, kBF16 = 1, kI8 = 2 };
 
 // activation codes (kernels/mx_matmul.ACT_CODES)
 enum ReproAct : int { kNone = 0, kRelu = 1, kGelu = 2, kSilu = 3, kSwiglu = 4 };
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_f32(int8_t x) { return static_cast<float>(x); }
 
 __device__ __forceinline__ void from_f32(float* p, float v) { *p = v; }
 __device__ __forceinline__ void from_f32(__nv_bfloat16* p, float v) {

@@ -29,7 +29,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 SOURCES = ("mx_matmul", "baseline_matmul", "mx_flash_decode")
 
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}  # csrc/common.cuh
+FLOATS = (torch.float32, torch.bfloat16)
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -114,14 +115,14 @@ def load(name: str) -> ctypes.CDLL:
     return lib
 
 
-def function(name: str, symbol: str, argtypes) -> Callable[..., int]:
-    """C launcher `symbol` of csrc/<name>.cu with its argument types set
-    (c_void_p for every pointer and the stream, so none is cut to 32 bits)
-    and a cudaError_t (int) result."""
+def function(name: str, symbol: str, argtypes, restype=ctypes.c_int) -> Callable:
+    """C function `symbol` of csrc/<name>.cu with its argument types set
+    (c_void_p for every pointer and the stream, so none is cut to 32 bits);
+    a launcher's result is its cudaError_t (int)."""
     fn = getattr(load(name), symbol)
     if fn.argtypes is None:
         fn.argtypes = list(argtypes)
-        fn.restype = ctypes.c_int
+        fn.restype = restype
     return fn
 
 
@@ -132,13 +133,13 @@ def check(err: int, name: str, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA launch failed: {msg} ({err})")
 
 
-def dtype_code(dtype: torch.dtype, what: str) -> int:
-    """The kernels' dtype code (csrc/common.cuh ReproDType)."""
-    try:
-        return _DTYPE_CODES[dtype]
-    except KeyError:
-        raise TypeError(f"{what}: the CUDA kernels take float32 or bfloat16, "
-                        f"got {dtype}") from None
+def dtype_code(dtype: torch.dtype, what: str, allowed=FLOATS) -> int:
+    """The kernels' dtype code (csrc/common.cuh ReproDType) of an operand
+    that may be any of `allowed` (int8 only for KV pages, with scales)."""
+    if dtype not in allowed:
+        names = " or ".join(str(t).removeprefix("torch.") for t in allowed)
+        raise TypeError(f"{what}: the CUDA kernels take {names}, got {dtype}")
+    return _DTYPE_CODES[dtype]
 
 
 def stream_ptr(t: torch.Tensor) -> int:

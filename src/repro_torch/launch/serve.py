@@ -7,10 +7,15 @@ Runs on the card unless asked otherwise:
 CPU smoke (the plain PyTorch path, no GPU needed):
   PYTHONPATH=src python -m repro_torch.launch.serve --smoke --prefix-cache \\
       --prefill-chunk 4 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --smoke --speculate 4 \\
+      --draft ngram --prefill-chunk 4 --device cpu   # add --kv-cache int8
+--speculate K drafts K tokens per slot and verifies all K+1 in one pass
+(greedy-exact); --draft is `ngram` or an arch id for a draft model that
+shares the target's vocabulary; --kv-cache int8 stores the pages as int8
+with per-row scales.
 
 Flags of the JAX launcher that are not ported yet (--continuous without
---paged, --kv-cache int8, --chaos, --abft, --speculate, --disagg, ...) are
-rejected.
+--paged, --max-len, --chaos, --abft, --disagg, ...) are rejected.
 """
 from __future__ import annotations
 
@@ -24,10 +29,10 @@ import torch
 from ..configs import ARCH_IDS, get_config
 from ..core.device import resolve_device
 from ..models import build_model
+from ..models.modules import param_device
 
-UNPORTED_FLAGS = ("--continuous", "--max-len", "--kv-cache", "--chaos",
-                  "--chaos-seed", "--abft", "--fault-rate", "--speculate",
-                  "--draft", "--disagg", "--disagg-migrate")
+UNPORTED_FLAGS = ("--continuous", "--max-len", "--chaos", "--chaos-seed", "--abft",
+                  "--fault-rate", "--disagg", "--disagg-migrate")
 
 
 def make_trace(cfg, n_req: int, prompt_len: int, gen: int, prefix_cache: bool):
@@ -50,11 +55,40 @@ def make_trace(cfg, n_req: int, prompt_len: int, gen: int, prefix_cache: bool):
     return reqs
 
 
+def _draft_config(cfg, args):
+    """The draft model's config for --draft <arch id>: its vocabulary must
+    equal the target's."""
+    if args.draft not in ARCH_IDS:
+        raise SystemExit(f"--draft {args.draft}: 'ngram' or one of {ARCH_IDS}")
+    dcfg = get_config(args.draft + ("-smoke" if args.smoke else ""))
+    if dcfg.vocab != cfg.vocab:
+        raise SystemExit(f"--draft {args.draft}: draft vocab {dcfg.vocab} != "
+                         f"target vocab {cfg.vocab}")
+    return dcfg
+
+
+def make_drafter(cfg, args, device):
+    """The drafter of --draft: `ngram` (prompt lookup), or a draft model of
+    another arch id whose weights come from seed 1."""
+    from ..runtime.speculative import DraftModelProposer, NGramDrafter
+
+    if args.draft == "ngram":
+        return NGramDrafter()
+    dmodel = build_model(_draft_config(cfg, args))
+    return DraftModelProposer(dmodel, dmodel.init(1, device=device))
+
+
 def _run_continuous(model, cfg, params, args) -> int:
     """2x requests stream through --batch decode slots over the paged KV
     cache; --prefix-cache shares a common system prompt across them."""
     from ..runtime.batcher import ContinuousBatcher
 
+    drafter = make_drafter(cfg, args, param_device(params)) if args.speculate else None
+    kv_quant = None
+    if args.kv_cache == "int8":
+        from ..core.precision import QuantSpec
+
+        kv_quant = QuantSpec("int8", "tile")
     B = args.batch
     max_len = args.prompt_len + args.gen
     # the prefix cache keeps pinned pages resident across requests: size the
@@ -62,8 +96,8 @@ def _run_continuous(model, cfg, params, args) -> int:
     num_pages = (B + 2) * -(-max_len // args.page_size) if args.prefix_cache else None
     batcher = ContinuousBatcher(
         model, params, batch_slots=B, max_len=max_len, page_size=args.page_size,
-        num_pages=num_pages, prefix_cache=args.prefix_cache,
-        prefill_chunk=args.prefill_chunk)
+        num_pages=num_pages, kv_quant=kv_quant, prefix_cache=args.prefix_cache,
+        prefill_chunk=args.prefill_chunk, speculate=args.speculate, drafter=drafter)
     reqs = make_trace(cfg, 2 * B, args.prompt_len, args.gen, args.prefix_cache)
     t0 = time.perf_counter()
     for r in reqs:
@@ -74,6 +108,10 @@ def _run_continuous(model, cfg, params, args) -> int:
     wall = time.perf_counter() - t0
     total = sum(len(r.prompt) + len(r.output) for r in finished.values())
     mode = "paged+prefix" if args.prefix_cache else "paged"
+    if args.kv_cache == "int8":
+        mode += "+int8"
+    if args.speculate:
+        mode += f"+spec{args.speculate}"
     where = (torch.cuda.get_device_name(batcher.device)
              if batcher.device.type == "cuda" else "CPU")
     print(f"continuous batching [{mode} cache]: {len(finished)} requests "
@@ -82,6 +120,13 @@ def _run_continuous(model, cfg, params, args) -> int:
     print(f"  pages: {st.pages_in_use} in use / {st.num_pages} pool "
           f"(high water {st.high_water}, page_size {st.page_size}, "
           f"peak utilization {st.high_water / st.num_pages:.2f})")
+    if args.speculate:
+        sp = batcher.spec_stats()
+        print(f"  speculation [k={args.speculate}, draft {args.draft}]: "
+              f"{sp['accepted']}/{sp['drafted']} drafts accepted "
+              f"({sp['acceptance_rate']:.0%}), "
+              f"{sp['emitted']} tokens over {sp['launches']} launches "
+              f"({sp['tokens_per_launch']:.2f} tok/launch)")
     if args.prefix_cache:
         ps = batcher.prefix_stats()
         print(f"  prefix cache: {ps['hits']}/{ps['hits'] + ps['misses']} "
@@ -114,6 +159,17 @@ def main(argv=None) -> int:
     ap.add_argument("--prefill-chunk", type=int, default=0,
                     help="push each prompt through the cache this many "
                          "tokens per launch (0 = token stepping)")
+    ap.add_argument("--kv-cache", choices=("f32", "int8"), default="f32",
+                    help="KV page payload: f32, or int8 with per-row f32 "
+                         "scale pages (quantized on write)")
+    ap.add_argument("--speculate", type=int, default=0, metavar="K",
+                    help="speculative decoding (implies --paged): draft K "
+                         "tokens per slot per step and verify all K+1 "
+                         "positions in one pass; greedy-exact")
+    ap.add_argument("--draft", default="ngram",
+                    help="drafter under --speculate: 'ngram' (prompt lookup, "
+                         "no extra model) or an arch id for a draft model "
+                         "sharing the target's vocabulary")
     ap.add_argument("--device", default="cuda",
                     help="'cuda' (default; raises without a GPU) or 'cpu'")
     args, unknown = ap.parse_known_args(argv)
@@ -123,6 +179,10 @@ def main(argv=None) -> int:
                  "(see ROADMAP.md, queue 1)")
     if unknown:
         ap.error(f"unrecognized arguments: {' '.join(unknown)}")
+    if args.speculate < 0:
+        ap.error(f"--speculate must be >= 0, got {args.speculate}")
+    if args.speculate:
+        args.paged = True  # drafts land in (and roll back over) KV pages
     device = resolve_device(args.device)
 
     cfg = get_config(args.arch + ("-smoke" if args.smoke else ""))
@@ -130,6 +190,8 @@ def main(argv=None) -> int:
     if not model.supports_paged():
         raise SystemExit(f"{cfg.name}: only dense attention-only models are "
                          "ported (see ROADMAP.md)")
+    if args.speculate and args.draft != "ngram":
+        _draft_config(cfg, args)  # refuse a mismatched draft before any weights
     params = model.init(0, device=device)
     return _run_continuous(model, cfg, params, args)
 

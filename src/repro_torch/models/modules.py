@@ -76,6 +76,13 @@ def _stack(trees):
     return torch.stack(trees)
 
 
+def param_device(params) -> torch.device:
+    """The device of a parameter tree (its first leaf's)."""
+    while isinstance(params, dict):
+        params = next(iter(params.values()))
+    return params.device
+
+
 def layer_slice(tree, i: int):
     """Layer i of a layer-stacked tree, as views (writes go through)."""
     if isinstance(tree, dict):

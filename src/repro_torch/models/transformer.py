@@ -7,10 +7,13 @@ in a Python loop over views of the stacks.  The paged KV cache is stacked
 the same way, (n_layers, P, ps, Hkv, hd) per operand, and every step writes
 it in place.
 
-Not ported yet: `DecoderLM.__call__` (the full forward with `full_attention`
-/ `chunked_attention`), the dense cache path (`make_cache`, `decode_step`,
-`prefill_step`), speculative `verify_step_paged`, the MoE / SSM / xLSTM /
-shared-block / encoder-decoder / prefix-embedding variants.
+`DecoderLM.__call__` is the full forward (the draft model of speculative
+decoding); `verify_step_paged` scores a speculative window of S tokens per
+slot in one pass over the layers.
+
+Not ported yet: the dense cache path (`make_cache`, `decode_step`,
+`prefill_step`), the MoE / SSM / xLSTM / shared-block / encoder-decoder /
+prefix-embedding variants.
 """
 from __future__ import annotations
 
@@ -35,11 +38,13 @@ class TransformerBlock(Module):
     qkv_bias: bool = False
     rope_theta: float = 1e4
     activation: str = "silu"
+    chunk_threshold: int = 2048
     precision: Optional[str] = None
 
     def _attn(self) -> Attention:
         return Attention(self.d_model, self.n_heads, self.n_kv_heads, self.head_dim,
                          qkv_bias=self.qkv_bias, rope_theta=self.rope_theta,
+                         chunked_threshold=self.chunk_threshold,
                          precision=self.precision)
 
     def _ffn(self) -> MLP:
@@ -62,6 +67,11 @@ class TransformerBlock(Module):
     def _ffn_residual(self, p, x):
         return self._ffn()(p["ffn"], rms_norm(x, p["ln2"]), residual=x)
 
+    def __call__(self, p, x):
+        """The full-sequence block: (x, aux) with aux 0 for a dense MLP."""
+        x = self._attn()(p["attn"], rms_norm(x, p["ln1"]), residual=x)
+        return self._ffn_residual(p, x), torch.zeros((), device=x.device)
+
     def decode_paged(self, p, x, cache, index, page_table, lengths):
         # residual adds fuse into the output-projection write-backs
         x, cache = self._attn().decode_paged(p["attn"], rms_norm(x, p["ln1"]), cache,
@@ -72,6 +82,12 @@ class TransformerBlock(Module):
         """Multi-token page-writing step (chunked prefill into pages)."""
         x, cache = self._attn().prefill_paged(p["attn"], rms_norm(x, p["ln1"]), cache,
                                               index, page_table, residual=x)
+        return self._ffn_residual(p, x), cache
+
+    def verify_paged(self, p, x, cache, index, page_table, lengths):
+        """Speculative batched-verify step: S window tokens per slot."""
+        x, cache = self._attn().verify_paged(p["attn"], rms_norm(x, p["ln1"]), cache,
+                                             index, page_table, lengths, residual=x)
         return self._ffn_residual(p, x), cache
 
 
@@ -90,7 +106,7 @@ def make_block(kind: str, cfg) -> Module:
     return TransformerBlock(
         cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_ff, head_dim=cfg.head_dim,
         qkv_bias=cfg.qkv_bias, rope_theta=cfg.rope_theta, activation=cfg.activation,
-        precision=prec)
+        chunk_threshold=cfg.attn_chunk_threshold, precision=prec)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -127,6 +143,18 @@ class DecoderLM(Module):
         return ops.linear(x, p["lm_head"], out_dtype=torch.float32,
                           tp_mode="allgather")
 
+    def __call__(self, p, tokens):
+        """tokens: (B, S) -> (logits (B, S, vocab) f32, aux loss).  Dense
+        blocks carry no auxiliary loss, so aux is a zero scalar."""
+        x = self._embed_inputs(p, tokens)
+        aux = torch.zeros((), device=x.device)
+        for i, seg in enumerate(self.segments()):
+            block = make_block(seg.kind, self.cfg)
+            for layer in range(seg.n):
+                x, a = block(layer_slice(p[f"seg{i}"], layer), x)
+                aux = aux + a
+        return self._head(p, x), aux
+
     # ---- paged decode / chunked prefill ----
 
     def supports_paged(self) -> bool:
@@ -139,8 +167,9 @@ class DecoderLM(Module):
     def make_paged_cache(self, num_pages: int, page_size: int, *,
                          dtype=torch.float32, device="cuda", kv_quant=None):
         """Per segment, layer-stacked page pools (n, num_pages, page_size,
-        Hkv, hd).  The page table and lengths are per-step scheduler outputs
-        shared by every layer, not part of the cache."""
+        Hkv, hd), with (n, num_pages, page_size, Hkv) scale pages for an
+        int8 `kv_quant`.  The page table and lengths are per-step scheduler
+        outputs shared by every layer, not part of the cache."""
         if not self.supports_paged():
             raise ValueError(f"{self.cfg.name}: paged decode needs dense "
                              "attention-only segments")
@@ -148,8 +177,7 @@ class DecoderLM(Module):
         for i, seg in enumerate(self.segments()):
             one = make_block(seg.kind, self.cfg).init_paged_cache(
                 num_pages, page_size, dtype=dtype, device=device, kv_quant=kv_quant)
-            cache[f"seg{i}"] = {k: torch.zeros((seg.n, *v.shape), dtype=v.dtype,
-                                               device=v.device)
+            cache[f"seg{i}"] = {k: v.expand(seg.n, *v.shape).clone()
                                 for k, v in one.items()}
         return cache
 
@@ -181,6 +209,22 @@ class DecoderLM(Module):
         x = self._embed_inputs(p, tokens)
         x = self._run_layers(p, x, cache, lambda blk, lp, h, lc: blk.prefill_paged(
             lp, h, lc, index, page_table))
+        return self._head(p, x), cache
+
+    def verify_step_paged(self, p, tokens, cache, index, page_table, lengths):
+        """Score S = k+1 window tokens per slot through the whole stack in
+        one pass -- the speculative verify.  tokens: (B, S) (each slot's
+        committed token, then its k drafts); index: (B,) window start
+        positions; lengths: (B,) live counts including the window.  Returns
+        (logits (B, S, V) f32, cache): logits[:, r] scores position
+        index + r, so row 0 is the plain decode step's output and rows
+        1..k are the extra tokens this pass buys."""
+        if not self.supports_paged():
+            raise ValueError(f"{self.cfg.name}: speculative verify needs dense "
+                             "attention-only segments")
+        x = self._embed_inputs(p, tokens)
+        x = self._run_layers(p, x, cache, lambda blk, lp, h, lc: blk.verify_paged(
+            lp, h, lc, index, page_table, lengths))
         return self._head(p, x), cache
 
 

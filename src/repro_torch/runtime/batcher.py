@@ -8,7 +8,8 @@ pages from the free list (back-pressuring the queue when the pool is
 exhausted instead of crashing), eviction returns them with NO zeroing, and
 each decode step attends only over pages the live sequences touch.  The
 device step is `model.decode_step_paged` (the CUDA `mx_flash_decode` and
-`mx_matmul_fused` kernels on the card).
+`mx_matmul_fused` kernels on the card).  ``kv_quant=QuantSpec("int8")``
+stores the pages as int8 with per-row f32 scale pages.
 
   - ``prefix_cache=True``: a content index over the page pool
     (runtime/prefix_cache) maps each request's longest already-prefilled
@@ -20,15 +21,24 @@ device step is `model.decode_step_paged` (the CUDA `mx_flash_decode` and
     into the slot's pages.  The prompt's LAST token always rides the
     ordinary decode step.
 
+  - ``speculate=k``: decode runs speculative windows.  A ``drafter``
+    (runtime/speculative; default NGramDrafter) proposes up to k tokens per
+    decoding slot, one `model.verify_step_paged` pass (`mx_flash_verify`
+    on the card) scores all k+1 window rows, and the drafts that match the
+    verify argmax chain are emitted (greedy-exact: the stream equals
+    speculate=0).  Rejected drafts roll back by not advancing the slot's
+    length; their rows stay stale in the slot's reserved pages.  Slots
+    still prefilling ride the same pass as forced-token windows.
+
 The request lifecycle (runtime/lifecycle) on top: typed finish reasons,
 priorities, step deadlines with load shedding, and preemption with
 page-backed recompute (a preempted request's full pages are published
 into the prefix index, so re-admission recomputes only the unshared tail).
 
 Not ported yet: the dense (non-paged) cache backend, chaos injection
-(with the non-finite-logit quarantine it drives), speculative decoding,
-the ABFT logits audit, and the external pool / prefix index that
-disaggregated serving shares; the first four raise NotImplementedError.
+(with the non-finite-logit quarantine it drives), the ABFT logits audit,
+and the external pool / prefix index that disaggregated serving shares;
+the first three raise NotImplementedError.
 """
 from __future__ import annotations
 
@@ -39,10 +49,12 @@ from typing import Deque, Dict, List, Optional
 import numpy as np
 import torch
 
+from ..models.modules import param_device
 from .fault import DeviceFailure, StragglerDetector
 from .kv_pages import PagePool
 from .lifecycle import FinishReason, Request, RequestState, RetryPolicy, StepHealth
 from .prefix_cache import PrefixIndex
+from .speculative import DraftProposer, NGramDrafter, SpecStats, accept_greedy
 
 __all__ = ["ContinuousBatcher", "Request", "FinishReason"]
 
@@ -64,17 +76,12 @@ def _next_pow2(n: int) -> int:
     return 1 if n <= 1 else 1 << (n - 1).bit_length()
 
 
-def _param_device(params) -> torch.device:
-    while isinstance(params, dict):
-        params = next(iter(params.values()))
-    return params.device
-
-
 class ContinuousBatcher:
     """model: DecoderLM; params: its parameters (the batcher runs on their
     device); B slots; max_len tokens per slot.  ``page_size`` tokens per
     page, ``num_pages`` allocatable pages (default: every slot at max_len).
-    ``prefix_cache`` / ``prefill_chunk`` as in the module docstring."""
+    ``kv_quant``, ``prefix_cache``, ``prefill_chunk``, ``speculate`` and
+    ``drafter`` as in the module docstring."""
 
     def __init__(self, model, params, batch_slots: int, max_len: int,
                  cache_dtype=torch.float32, *, paged: bool = True,
@@ -83,7 +90,8 @@ class ContinuousBatcher:
                  prefill_chunk: int = 0,
                  chaos=None, retry: Optional[RetryPolicy] = None,
                  straggler: Optional[StragglerDetector] = None,
-                 speculate: int = 0, drafter=None, abft: bool = False):
+                 speculate: int = 0, drafter: Optional[DraftProposer] = None,
+                 abft: bool = False):
         if not paged:
             raise NotImplementedError(
                 "the dense (paged=False) cache backend is not ported yet "
@@ -91,9 +99,8 @@ class ContinuousBatcher:
         if chaos is not None:
             raise NotImplementedError(
                 "chaos injection is not ported yet (ROADMAP queue 1 item 13)")
-        if speculate or drafter is not None:
-            raise NotImplementedError(
-                "speculative decoding is not ported yet (ROADMAP queue 1 item 9)")
+        if speculate < 0:
+            raise ValueError(f"speculate must be >= 0, got {speculate}")
         if abft:
             raise NotImplementedError(
                 "the ABFT logits audit is not ported yet (ROADMAP queue 1 item 11)")
@@ -102,7 +109,7 @@ class ContinuousBatcher:
                              "attention-only dense segments)")
         self.model = model
         self.params = params
-        self.device = _param_device(params)
+        self.device = param_device(params)
         self.B = batch_slots
         self.max_len = max_len
         self.slots = [_Slot() for _ in range(batch_slots)]
@@ -123,6 +130,11 @@ class ContinuousBatcher:
         self.resume_latencies: List[int] = []  # steps preempted -> readmitted
         self.retries_total = 0
         self._submit_order = 0
+
+        # speculative decoding state
+        self.speculate = int(speculate)
+        self.drafter = (drafter or NGramDrafter()) if self.speculate else None
+        self.spec = SpecStats()
 
         self.page_size = page_size
         self._table_width = -(-max_len // page_size)
@@ -428,6 +440,11 @@ class ContinuousBatcher:
     def pool_stats(self):
         return self.pool.stats()
 
+    def spec_stats(self) -> Optional[dict]:
+        """Acceptance accounting of the verify launches (None when
+        speculate=0)."""
+        return self.spec.as_dict() if self.speculate else None
+
     def prefix_stats(self) -> Optional[dict]:
         """Prefix-cache hit/reuse counters (None when prefix_cache off)."""
         if self.prefix is None:
@@ -470,13 +487,15 @@ class ContinuousBatcher:
     # the step
     # ------------------------------------------------------------------
 
-    def _device_step(self, args):
-        """One device step under the retry policy: a DeviceFailure is
-        transient and the step is retried from unchanged inputs."""
+    def _device_step(self, args, fn=None):
+        """One device step (`fn`, the decode step unless given) under the
+        retry policy: a DeviceFailure is transient and the step is retried
+        from unchanged inputs."""
+        fn = fn if fn is not None else self.model.decode_step_paged
         attempts = 0
         while True:
             try:
-                return self.model.decode_step_paged(*args), attempts
+                return fn(*args), attempts
             except DeviceFailure:
                 attempts += 1
                 self.retries_total += 1
@@ -487,6 +506,8 @@ class ContinuousBatcher:
 
     def step(self) -> int:
         """One batched decode step across all slots; returns #active slots."""
+        if self.speculate:
+            return self._step_speculative()
         now = self.steps_run
         health = StepHealth(step=now)
         t0 = time.perf_counter()
@@ -543,6 +564,144 @@ class ContinuousBatcher:
                 req.first_token_at = now
                 req.log_event("first_token", now)
             hit_eos = req.eos_id is not None and req.output[-1] == req.eos_id
+            if hit_eos:
+                self._finish_slot(i, FinishReason.EOS)
+            elif len(req.output) >= req.max_new:
+                self._finish_slot(i, FinishReason.MAX_NEW)
+            elif s.pos >= self.max_len:
+                self._finish_slot(i, FinishReason.MAX_LEN)
+            elif out_of_room:
+                self._finish_slot(i, FinishReason.TRUNCATED)
+        self._flush_health(health, t0, ran_device_step=True)
+        return self.active
+
+    def _step_speculative(self) -> int:
+        """One speculative verify step across all slots: a (B, k+1) token
+        window through `verify_step_paged` in one pass, then host-side
+        greedy-exact acceptance.
+
+        Window layout per active slot (S = speculate+1 rows, padded with
+        zeros -- pad rows write into future positions of the slot's own
+        reserved pages or the dump page, both dead under the length mask):
+
+          - still prefilling: the next up-to-S prompt tokens, forced
+            (accepted by construction).  If the window reaches the LAST
+            prompt row, up to k drafts ride behind it.
+          - decoding: row 0 is the committed last output token, rows 1..k
+            the drafter's proposals.
+
+        Acceptance publishes by advancing s.pos and the pool length over
+        rows whose fed token is committed; a rejected draft's K/V rows are
+        never published.  Every finish path and the prefix-cache publish
+        point mirror the plain step, so the emitted argmax stream equals
+        speculate=0."""
+        now = self.steps_run
+        health = StepHealth(step=now)
+        t0 = time.perf_counter()
+        self._expire_running(health)
+        self._admit(health)
+        health.active = self.active
+        health.queued = len(self.queue)
+        health.pages_free = self.pool.pages_free
+        if self.active == 0:
+            self._flush_health(health, t0, ran_device_step=False)
+            return 0
+        S = self.speculate + 1
+        tokens = np.zeros((self.B, S), np.int64)
+        index = np.zeros((self.B,), np.int64)
+        lengths = np.zeros((self.B,), np.int32)
+        meta = {}
+        for i, s in enumerate(self.slots):
+            if s.free:
+                continue
+            req = s.req
+            cap = len(self.pool.owned(i)) * self.page_size
+            was_prefill = s.prompt_left > 0
+            if was_prefill:
+                start = len(s.seq) - s.prompt_left
+                take = min(S, s.prompt_left, cap - s.pos)
+                tokens[i, :take] = s.seq[start:start + take]
+                completes = take == s.prompt_left
+            else:
+                take = 1
+                tokens[i, 0] = req.output[-1]
+                completes = True
+            kd = 0
+            drafts = ()
+            if completes:
+                # drafts stay inside the reservation, max_len and the
+                # max_new budget: every finish path lands on the same token
+                # as without speculation
+                kd = max(0, min(S - take,
+                                min(cap, self.max_len) - s.pos - take,
+                                req.remaining_new() - 1))
+                if kd > 0:
+                    prop = np.asarray(self.drafter.propose(req.sequence(), kd),
+                                      np.int32).reshape(-1)[:kd]
+                    kd = int(prop.size)
+                    if kd:
+                        tokens[i, take:take + kd] = prop
+                    drafts = tuple(int(t) for t in prop)
+            index[i] = s.pos
+            # the kernel's row-r mask is kpos <= lengths-S+r: pos+S makes
+            # row r attend exactly through its own position
+            lengths[i] = s.pos + S
+            meta[i] = (take, kd, drafts, completes, was_prefill, cap)
+        deepest = max(s.pos for s in self.slots if not s.free)
+        # window rows reach position pos+S-1, so the table covers one window
+        # past the deepest slot, NOT capped at max_len's width like the
+        # plain step's (entries past a slot's pages are the dump page, where
+        # pad-row writes land harmlessly)
+        w = _next_pow2(self.pool.pages_for(deepest + S))
+        table = self._dev(self.pool.page_table(self.B, w))
+        (logits, self.cache), health.retries = self._device_step(
+            (self.params, self._dev(tokens), self.cache, self._dev(index), table,
+             self._dev(lengths)), fn=self.model.verify_step_paged)
+        self.spec.launches += 1
+        rows = logits.argmax(dim=-1).cpu().numpy().astype(np.int32)  # (B, S)
+        for i, s in enumerate(self.slots):
+            if s.free:
+                continue
+            req = s.req
+            take, kd, drafts, completes, was_prefill, cap = meta[i]
+            pos0 = s.pos
+            emitted: List[int] = []
+            a = 0  # drafts the model agreed with (before EOS truncation)
+            if completes:
+                emitted, a = accept_greedy(drafts, rows[i, take - 1:take + kd])
+            hit_eos = False
+            if req.eos_id is not None:
+                for j, t in enumerate(emitted):
+                    if t == req.eos_id:
+                        emitted = emitted[:j + 1]
+                        hit_eos = True
+                        break
+            a_kept = max(len(emitted) - 1, 0)
+            s.pos = pos0 + take + a_kept
+            if was_prefill:
+                s.prompt_left -= take
+            self.pool.set_length(i, s.pos)
+            if kd > 0:
+                self.spec.windows += 1
+                self.spec.drafted += kd
+                self.spec.accepted += a
+                req.log_event(f"speculated:{a}/{kd}", now)
+            self.spec.emitted += len(emitted)
+            out_of_room = s.pos >= cap
+            if not completes:
+                if out_of_room:
+                    self._finish_slot(i, FinishReason.TRUNCATED)
+                continue
+            if was_prefill:
+                req.state = RequestState.DECODE
+                # the plain path's publish condition, at the position the
+                # LAST PROMPT row landed
+                if self.prefix is not None and pos0 + take < cap:
+                    self.prefix.insert(s.seq, self.pool.owned(i))
+            req.output.extend(emitted)
+            if req.first_token_at is None:
+                req.first_token_at = now
+                req.log_event("first_token", now)
             if hit_eos:
                 self._finish_slot(i, FinishReason.EOS)
             elif len(req.output) >= req.max_new:

@@ -143,7 +143,6 @@ def test_lifecycle_trace_matches_jax():
 def test_unported_options_raise():
     tm = build_model(get_config(NAME))
     tp = tm.init(0, device="cpu")
-    for bad in (dict(paged=False), dict(chaos=object()), dict(speculate=2),
-                dict(abft=True)):
+    for bad in (dict(paged=False), dict(chaos=object()), dict(abft=True)):
         with pytest.raises(NotImplementedError):
             ContinuousBatcher(tm, tp, batch_slots=1, max_len=8, **bad)

@@ -23,12 +23,17 @@ from repro_torch.core import ops  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import mx_matmul as mm  # noqa: E402
 from repro_torch.kernels.baseline_matmul import baseline_matmul  # noqa: E402
-from repro_torch.kernels.mx_flash_decode import mx_flash_decode  # noqa: E402
-from repro_torch.kernels.ref import baseline_matmul_ref, paged_decode_ref  # noqa: E402
+from repro_torch.core.precision import QuantSpec  # noqa: E402
+from repro_torch.kernels.mx_flash_decode import mx_flash_decode, mx_flash_verify  # noqa: E402
+from repro_torch.kernels.quant import quantize  # noqa: E402
+from repro_torch.kernels.ref import (  # noqa: E402
+    baseline_matmul_ref, paged_decode_ref, paged_verify_ref,
+)
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.runtime.batcher import ContinuousBatcher  # noqa: E402
 from repro_torch.runtime.kv_pages import PagePool  # noqa: E402
 from repro_torch.runtime.lifecycle import Request  # noqa: E402
+from repro_torch.runtime.speculative import NGramDrafter, TraceDrafter  # noqa: E402
 
 pytestmark = pytest.mark.requires_cuda
 
@@ -102,9 +107,11 @@ def test_baseline_kernel_matches_plain(cuda, dtype, M):
         baseline_matmul(a, b, bk=16)
 
 
-def _pages(B, H, Hkv, d, ps, W, lengths, dtype, dev, poison=False):
+def _pages(B, H, Hkv, d, ps, W, lengths, dtype, dev, poison=False, S=None):
+    """q ((B, H, d), or (B, S, H, d) for a window), page pools with every
+    non-live row poisoned on request, the table and the lengths."""
     P = B * W + 1
-    q = _randn((B, H, d), dtype, dev, 7)
+    q = _randn((B, H, d) if S is None else (B, S, H, d), dtype, dev, 7)
     kp = _randn((P, ps, Hkv, d), dtype, dev, 8)
     vp = _randn((P, ps, Hkv, d), dtype, dev, 9)
     pool = PagePool(P - 1, ps)
@@ -143,6 +150,120 @@ def test_flash_decode_kernel_matches_plain(cuda, dtype, B, H, Hkv, d, ps, W,
     for i, ln in enumerate(lengths):
         if ln == 0:
             assert torch.all(got[i] == 0)
+
+
+def _int8(kp, vp):
+    """The pages quantized per row and head as the int8 cache stores them:
+    (k payload, v payload, k scales, v scales)."""
+    (qk, ks), (qv, vs) = (quantize(t, QuantSpec("int8"), axis=-1) for t in (kp, vp))
+    return qk, qv, ks[..., 0].contiguous(), vs[..., 0].contiguous()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,Hkv,d,ps,W,lengths", [
+    (8, 32, 8, 64, 16, 16, (1, 17, 0, 160, 33, 64, 250, 5)),  # llama3.2-1b
+    (3, 14, 2, 64, 16, 4, (9, 0, 64)),                        # G = 7
+])
+def test_flash_decode_int8_scale_pages_match_plain(cuda, dtype, B, H, Hkv, d, ps, W,
+                                                   lengths):
+    q, kp, vp, table, lns = _pages(B, H, Hkv, d, ps, W, lengths, torch.float32, cuda)
+    kp, vp, ks, vs = _int8(kp, vp)
+    q = q.to(dtype)
+    got = mx_flash_decode(q, kp, vp, table, lns, k_scale=ks, v_scale=vs)
+    want = paged_decode_ref(q, kp, vp, table, lns, k_scale=ks, v_scale=vs)
+    torch.cuda.synchronize()
+    _close(got, want, dtype)
+
+
+@pytest.mark.parametrize("pages", ["same", "int8"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,Hkv,d,ps,W,S,lengths,poison", [
+    (8, 32, 8, 64, 16, 16, 5, (5, 17, 0, 160, 33, 64, 250, 9), False),  # llama, k=4
+    (8, 32, 8, 64, 16, 16, 9, (9, 17, 0, 160, 33, 64, 250, 12), False),  # k = 8
+    (4, 14, 2, 64, 16, 11, 5, (33, 0, 160, 7), False),                 # qwen2, G = 7
+    (2, 4, 2, 16, 4, 4, 3, (6, 9), True),                              # stale pages
+    (3, 4, 2, 16, 4, 2, 2, (0, 0, 0), False),                          # all free
+])
+def test_flash_verify_kernel_matches_plain(cuda, pages, dtype, B, H, Hkv, d, ps, W,
+                                           S, lengths, poison):
+    q, kp, vp, table, lns = _pages(B, H, Hkv, d, ps, W, lengths,
+                                   dtype if pages == "same" else torch.float32,
+                                   cuda, poison, S=S)
+    kw = {}
+    if pages == "int8":
+        kp, vp, ks, vs = _int8(kp, vp)  # a poisoned row keeps its 1e30 in the scale
+        kw = dict(k_scale=ks, v_scale=vs)
+        q = q.to(dtype)
+    before = mx_flash_verify.launches
+    got = mx_flash_verify(q, kp, vp, table, lns, **kw)
+    want = paged_verify_ref(q, kp, vp, table, lns, **kw)
+    torch.cuda.synchronize()
+    assert mx_flash_verify.launches == before + 1
+    assert got.dtype == dtype and got.shape == q.shape and torch.isfinite(got).all()
+    _close(got, want, dtype)
+    for i, ln in enumerate(lengths):
+        if ln == 0:
+            assert torch.all(got[i] == 0)
+
+
+@pytest.mark.parametrize("pages", ["f32", "int8"])
+def test_flash_verify_one_row_equals_decode_kernel(cuda, pages):
+    lengths = (1, 17, 0, 160, 33, 64, 250, 5)
+    q, kp, vp, table, lns = _pages(8, 32, 8, 64, 16, 16, lengths, torch.float32, cuda)
+    kw = {}
+    if pages == "int8":
+        kp, vp, ks, vs = _int8(kp, vp)
+        kw = dict(k_scale=ks, v_scale=vs)
+    ver = mx_flash_verify(q[:, None].contiguous(), kp, vp, table, lns, **kw)[:, 0]
+    dec = mx_flash_decode(q, kp, vp, table, lns, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(ver, dec)
+
+
+def test_flash_verify_refuses_a_window_past_shared_memory(cuda):
+    q = torch.zeros(1, 64, 32, 128, device=cuda)
+    kp = torch.zeros(2, 16, 2, 128, device=cuda)
+    with pytest.raises(ValueError, match="232448"):
+        mx_flash_verify(q, kp, kp, torch.zeros(1, 1, dtype=torch.int32, device=cuda),
+                        torch.ones(1, dtype=torch.int32, device=cuda))
+
+
+def test_verify_shared_memory_covers_every_paged_config_to_k8(cuda):
+    """The verify CTA keeps q and the accumulator in shared memory: every
+    paged config of the repo fits at k = 8 with 16-token pages (sizes read
+    from the library the kernel is launched from)."""
+    from repro_torch.configs import ARCH_IDS
+    from repro_torch.kernels.mx_flash_decode import _limit
+
+    limit = _limit("mx_flash_max_smem_bytes")
+    assert limit == 232448
+    for name in ARCH_IDS:
+        cfg = get_config(name)
+        if cfg.n_kv_heads and not cfg.shared_attn_every and not cfg.frontend_dim \
+                and all(kind in ("dense", "moe") for kind, _ in cfg.blocks):
+            G = cfg.n_heads // cfg.n_kv_heads
+            assert _limit("mx_flash_verify_smem_bytes", 9, G, cfg.hd, 16) <= limit, name
+
+
+@pytest.mark.parametrize("kernel", ["mx_flash_decode", "mx_flash_verify"])
+def test_attention_counts_only_launches(cuda, kernel):
+    """An empty batch launches nothing and counts nothing; a real call
+    counts one."""
+    fn = {"mx_flash_decode": mx_flash_decode, "mx_flash_verify": mx_flash_verify}[kernel]
+    kp = torch.zeros(3, 4, 2, 16, device=cuda)
+
+    def call(B):
+        q = torch.zeros((B, 4, 16) if fn is mx_flash_decode else (B, 2, 4, 16),
+                        device=cuda)
+        return fn(q, kp, kp, torch.ones(B, 1, dtype=torch.int32, device=cuda),
+                  torch.full((B,), 2, dtype=torch.int32, device=cuda))
+
+    kernels.reset_launch_counts()
+    assert call(0).shape[0] == 0
+    assert kernels.launch_counts()[kernel] == 0
+    call(2)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()[kernel] == 1
 
 
 def test_model_steps_kernel_path_matches_plain_path(cuda):
@@ -199,3 +320,66 @@ def test_batcher_streams_equal_across_backends(cuda):
         else:
             assert counts == {k: 0 for k in counts}
     assert outs["cuda_mx"] == outs["torch"]
+
+
+@pytest.mark.parametrize("kv", [None, "int8"])
+def test_verify_step_kernel_path_matches_plain_path(cuda, kv):
+    cfg = get_config("llama3.2-1b-smoke")
+    model = build_model(cfg)
+    params = model.init(0, device=cuda)
+    kv_quant = QuantSpec(kv) if kv else None
+    pool = PagePool(12, 4)
+    pool.reserve(0, 16)
+    pool.reserve(1, 16)
+    table = torch.as_tensor(pool.page_table(3, 8), device=cuda)
+    toks = torch.randint(0, cfg.vocab, (2, 6), device=cuda)
+    win = torch.randint(0, cfg.vocab, (3, 4), device=cuda)
+    index = torch.tensor([6, 9, 0], device=cuda)
+    lengths = torch.tensor([10, 13, 0], dtype=torch.int32, device=cuda)
+    res = []
+    for backend in ("cuda_mx", "torch"):
+        cache = model.make_paged_cache(pool.total_pages, 4, device=cuda, kv_quant=kv_quant)
+        with ops.use_policy(ops.MXPolicy(backend)):
+            model.prefill_step_paged(params, toks, cache, torch.tensor([0, 3], device=cuda),
+                                     table[:2])
+            kernels.reset_launch_counts()
+            vl, cache = model.verify_step_paged(params, win, cache, index, table, lengths)
+            torch.cuda.synchronize()
+        res.append((vl, cache, kernels.launch_counts()))
+    _close(res[0][0], res[1][0], torch.float32)
+    assert res[0][2]["mx_flash_verify"] == cfg.n_layers
+    assert res[1][2]["mx_flash_verify"] == 0
+    for k, v in res[0][1]["seg0"].items():
+        if v.dtype == torch.int8:  # the projections differ in summation order:
+            # a row may round one quantum apart
+            assert (v.int() - res[1][1]["seg0"][k].int()).abs().max() <= 1
+        else:
+            _close(v, res[1][1]["seg0"][k], torch.float32)
+
+
+@pytest.mark.parametrize("kv", [None, "int8"])
+def test_speculative_streams_equal_plain_streams_on_the_card(cuda, kv):
+    cfg = get_config("llama3.2-1b-smoke")
+    model = build_model(cfg)
+    params = model.init(0, device=cuda)
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, cfg.vocab, n).astype(np.int32) for n in (6, 9, 13, 7)]
+    kv_quant = QuantSpec(kv) if kv else None
+
+    def run(speculate, drafter=None):
+        kernels.reset_launch_counts()
+        b = ContinuousBatcher(model, params, batch_slots=3, max_len=24, page_size=4,
+                              prefill_chunk=4, kv_quant=kv_quant, speculate=speculate,
+                              drafter=drafter)
+        for i, p in enumerate(prompts):
+            b.submit(Request(rid=i, prompt=p, max_new=8))
+        fin = b.run_to_completion()
+        return {r: fin[r].output for r in fin}, kernels.launch_counts()
+
+    plain, counts = run(0)
+    assert counts["mx_flash_decode"] > 0 and counts["mx_flash_verify"] == 0
+    traces = [tuple(int(t) for t in p) + tuple(plain[i]) for i, p in enumerate(prompts)]
+    for drafter in (NGramDrafter(), TraceDrafter(traces, overlap=0.5, seed=3)):
+        spec, counts = run(4, drafter)
+        assert spec == plain
+        assert counts["mx_flash_verify"] > 0 and counts["mx_flash_decode"] == 0

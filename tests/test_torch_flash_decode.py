@@ -91,13 +91,23 @@ def test_all_free_slots_give_exact_zeros():
     assert np.all(got == 0.0) and np.all(want == 0.0)
 
 
-def test_unported_scale_pages_raise():
-    q = torch.zeros(1, 2, 8)
-    kp = torch.zeros(3, 4, 1, 8)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t_decode(q, kp, kp, torch.zeros(1, 1, dtype=torch.int32),
-                 torch.ones(1, dtype=torch.int32),
-                 k_scale=torch.ones(3, 4, 1), v_scale=torch.ones(3, 4, 1))
+def test_scale_pages_match_jax_kernel():
+    """Per-row dequant scale pages steered by the same table, on f32 pages
+    that hold int8 values (the layout of tests/test_flash_decode.py); the
+    int8 page dtype itself is held in tests/test_torch_flash_verify.py."""
+    rng = np.random.default_rng(1)
+    B, H, Hkv, d, ps, W = 3, 8, 4, 16, 8, 3
+    q = rng.standard_normal((B, H, d)).astype(np.float32)
+    kp, vp, table, lns = _paged_setup(rng, B, Hkv, d, ps, W, (20, 3, 24))
+    kp, vp = np.round(kp * 40).astype(np.float32), np.round(vp * 40).astype(np.float32)
+    ks = rng.uniform(0.001, 0.05, kp.shape[:3]).astype(np.float32)
+    vs = rng.uniform(0.001, 0.05, kp.shape[:3]).astype(np.float32)
+    want = j_decode(jnp.asarray(q), jnp.asarray(kp), jnp.asarray(vp), jnp.asarray(table),
+                    jnp.asarray(lns), k_scale=jnp.asarray(ks), v_scale=jnp.asarray(vs),
+                    interpret=True)
+    got = t_decode(*(torch.from_numpy(a) for a in (q, kp, vp, table, lns)),
+                   k_scale=torch.from_numpy(ks), v_scale=torch.from_numpy(vs))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 
 @pytest.mark.parametrize("S,index", [(1, (0, 5)), (4, (3, 9)), (5, (0, 0))])

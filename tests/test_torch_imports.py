@@ -50,11 +50,30 @@ def test_serve_smoke_on_cpu_returns_zero(capsys):
     assert "prefix cache:" in out
 
 
-@pytest.mark.parametrize("flag", ["--chaos", "--speculate=2", "--kv-cache=int8",
-                                  "--disagg=2"])
+@pytest.mark.parametrize("flag", ["--chaos", "--disagg=2"])
 def test_serve_rejects_unported_flags(flag):
     with pytest.raises(SystemExit):
         serve.main(["--smoke", "--device", "cpu", flag])
+
+
+@pytest.mark.parametrize("flags,mode", [
+    (["--speculate", "2", "--draft", "ngram"], "paged+spec2"),
+    (["--speculate", "2", "--draft", "qwen2-0.5b"], "paged+spec2"),
+    (["--kv-cache", "int8"], "paged+int8"),
+])
+def test_serve_speculative_and_int8_on_cpu(capsys, flags, mode):
+    assert serve.main(["--smoke", "--prefill-chunk", "4", "--device", "cpu",
+                       *flags]) == 0
+    out = capsys.readouterr().out
+    assert f"continuous batching [{mode} cache]: 8 requests" in out
+    assert ("speculation [k=2" in out) == ("--speculate" in flags)
+
+
+def test_serve_rejects_a_draft_model_of_another_vocab():
+    """llama3.2-1b (128256 tokens) cannot draft for qwen2-0.5b (151936)."""
+    with pytest.raises(SystemExit, match="vocab"):
+        serve.main(["--arch", "qwen2-0.5b", "--speculate", "2", "--draft",
+                    "llama3.2-1b", "--device", "cpu"])
 
 
 def test_chip_smoke_fails_without_a_gpu():
