@@ -38,13 +38,33 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      profiles a prefill
      chunk and four decode steps and one verify step (device time by
      kernel, busy share), and requires identical token streams at smoke
-     size across backends, plain and speculative, for f32 and int8 pages.
+     size across backends, plain and speculative, for f32 and int8 pages;
+  6. frees llama and serves grok-1-314b at full width (d_model 6144, 48 /
+     8 heads, 8 experts top-2, expert d_ff 32768, vocab 131072, untied
+     head), its depth cut from 64 to 2 layers, f32 weights from seed 0,
+     through the same batcher and trace (16 new tokens each): every expert
+     GEMM runs `mx_grouped_matmul`, required at exactly 2 launches per MoE
+     layer per step or prefill chunk; prints the peak device memory;
+  7. holds grok's kernel path against its plain path on one cache state (a
+     64-token chunk, G = 16 routing groups; a 31-token chunk, G = 1, where
+     capacity drops are possible; a decode step) at 1e-3 * max|ref|, with
+     the smallest 2nd-3rd router probability gap and the first routing flip
+     between the paths (a flip at a router error <= 1e-4 is a near tie,
+     not a fault), profiles one decode step, and requires identical token
+     streams across backends at smoke size for grok-1 and kimi-k2.
+Phase 3 also holds `mx_grouped_matmul` against `grouped_matmul_ref`: grok's
+decode (T = 64, 8 rows per expert) and expert-major prefill (8 x 128 rows)
+projections, ragged sizes with empty groups, tiles straddling four groups,
+sum < T (tail rows exactly zero) and sum > T, T/K/N off the tiles, and
+kimi-k2's 384 experts in bf16 (an 11.3 GB stack, offsets past 2^31).
 The line before the last is the kernel summary JSON; the last line is
 {"ok": true, "device": {...}}.  Details go to chiprun_out/chip_smoke.json.
 """
 from __future__ import annotations
 
 import contextlib
+import dataclasses
+import gc
 import json
 import math
 import statistics
@@ -63,12 +83,14 @@ TPU_KERNELS = {  # file:line of the Pallas wrapper each CUDA kernel replaces
     "baseline_matmul": "src/repro/kernels/baseline_matmul.py:45",
     "mx_flash_decode": "src/repro/kernels/mx_flash_decode.py:108",
     "mx_flash_verify": "src/repro/kernels/mx_flash_decode.py:257",
+    "mx_grouped_matmul": "src/repro/kernels/mx_grouped_matmul.py:218",
 }
 SOURCES = {
     "mx_matmul_fused": "src/repro_torch/csrc/mx_matmul.cu",
     "baseline_matmul": "src/repro_torch/csrc/baseline_matmul.cu",
     "mx_flash_decode": "src/repro_torch/csrc/mx_flash_decode.cu",
     "mx_flash_verify": "src/repro_torch/csrc/mx_flash_decode.cu",
+    "mx_grouped_matmul": "src/repro_torch/csrc/mx_grouped_matmul.cu",
 }
 
 
@@ -356,6 +378,90 @@ def check_verify(torch, dev, B, H, Hkv, d, ps, S, lengths, dtype_name, seed, poi
                 library=library, bound_ms=bound, bound_by=by)
 
 
+def _expert_stack(torch, dev, G, K, N, dt, gen):
+    """(G, K, N) expert weights of std 1/sqrt(K), drawn expert by expert in
+    `dt` (no f32 copy of a stack of up to 12.9 GB)."""
+    w = torch.empty((G, K, N), dtype=dt, device=dev)
+    for g in range(G):
+        w[g].normal_(generator=gen).mul_(K ** -0.5)
+    return w
+
+
+def check_grouped(torch, dev, label, T, sizes, K, N, dtype_name, act, seed, w=None):
+    """mx_grouped_matmul against grouped_matmul_ref; rows no group owns must
+    be exact zeros.  The bound counts x's owned rows, the weights of the
+    groups that own rows and the output once each; every stack here is
+    past L2, so each call reads its weights cold."""
+    from repro_torch.kernels.mx_grouped_matmul import mx_grouped_matmul
+    from repro_torch.kernels.ref import grouped_matmul_ref
+
+    dt = getattr(torch, dtype_name)
+    G = len(sizes)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((T, K), generator=gen, device=dev).to(dt)
+    w = _expert_stack(torch, dev, G, K, N, dt, gen) if w is None else w
+    wg = _expert_stack(torch, dev, G, K, N, dt, gen) if act == "swiglu" else None
+    gs = torch.tensor(sizes, dtype=torch.int32, device=dev)
+    got = mx_grouped_matmul(x, w, gs, w_gate=wg, activation=act)
+    ref = grouped_matmul_ref(x, w, gs, w_gate=wg, activation=act)
+    torch.cuda.synchronize()
+    err, tol = _err(torch, got, ref, dtype_name)
+    owned, start = [], 0  # each group's rows, clamped to T as the kernel reads them
+    for n in sizes:
+        end = min(start + n, T)
+        owned.append(end - start)
+        start = end
+    rows, live = sum(owned), sum(1 for n in owned if n)
+    nmat = 2 if act == "swiglu" else 1
+    el = torch.finfo(dt).bits // 8
+    nbytes = el * (rows * K + nmat * live * K * N + T * N)
+    fns = dict(ms=(lambda: mx_grouped_matmul(x, w, gs, w_gate=wg, activation=act), [()]),
+               plain_ms=(lambda: grouped_matmul_ref(x, w, gs, w_gate=wg, activation=act),
+                         [()]))
+    library = None
+    if act == "none" and len(set(sizes)) == 1 and rows == T:
+        library = "torch.bmm over (E, C, K) x (E, K, N)"
+        xe = x.view(G, T // G, K)
+        fns["library_ms"] = (lambda: torch.bmm(xe, w), [()])
+    bound, by = _bound_ms(nbytes, 2 * rows * K * N * nmat, dtype_name)
+    return dict(kernel="mx_grouped_matmul", label=label, T=T, G=G, K=K, N=N, act=act,
+                dtype=dtype_name, live_groups=live, rows=rows, max_abs_err=err, tol=tol,
+                zero_rows_exact=bool(torch.all(got[rows:] == 0)),
+                finite=bool(torch.isfinite(got).all()), **_time_ms(torch, fns, iters=5),
+                library=library, bound_ms=bound, bound_by=by)
+
+
+def grouped_checks(torch, dev):
+    """Grok-1's expert GEMMs at full width, ragged edge cases, kimi-k2's 384
+    experts (bf16, offsets past 2^31)."""
+    checks = []
+    ragged = [  # (label, T, sizes, act): T/K/N off every tile
+        ("ragged, empty groups, tail", 70, [0, 13, 0, 0, 40, 3, 0, 7], "swiglu"),
+        ("tile straddles 4 groups", 70, [2, 3, 1, 0, 9, 20, 0, 35], "gelu"),
+        ("oversubscribed, sum 90 > T", 70, [50, 40], "silu"),
+        ("sum 128 < T, big tile", 200, [64, 0, 64], "relu"),
+    ]
+    for dtype_name in ("float32", "bfloat16"):
+        for label, T, C, K, N, act in (
+                ("grok decode up+gate", 64, 8, 6144, 32768, "swiglu"),
+                ("grok decode down", 64, 8, 32768, 6144, "none"),
+                ("grok prefill up+gate", 1024, 128, 6144, 32768, "swiglu"),
+                ("grok prefill down", 1024, 128, 32768, 6144, "none")):
+            checks.append(check_grouped(torch, dev, label, T, [C] * 8, K, N, dtype_name,
+                                        act, 200 + len(checks)))
+        for label, T, sizes, act in ragged:
+            checks.append(check_grouped(torch, dev, label, T, sizes, 6100, 2050,
+                                        dtype_name, act, 200 + len(checks)))
+    gen = torch.Generator(device=dev).manual_seed(300)
+    w = _expert_stack(torch, dev, 384, 7168, 2048, torch.bfloat16, gen)
+    for label, sizes in (("kimi decode, 384 x 8", [8] * 384),
+                         ("kimi ragged, 48 of 384 live", [64 if g % 8 == 7 else 0
+                                                          for g in range(384)])):
+        checks.append(check_grouped(torch, dev, label, 3072, sizes, 7168, 2048, "bfloat16",
+                                    "none", 301 + len(checks), w=w))
+    return checks
+
+
 def phase_kernels(torch, dev):
     checks = []
     gemm_shapes = [  # (K, N, epilogue): every llama3.2-1b projection, qwen2 widths
@@ -394,8 +500,11 @@ def phase_kernels(torch, dev):
                 wl = tuple(ln + S if ln else 0 for ln in lns)
                 checks.append(check_verify(torch, dev, *shape, 64, 16, S, wl, dtype_name,
                                            103 + S, poison=poison, pages=pages))
+    checks += grouped_checks(torch, dev)
     for c in checks:
-        if "M" in c:
+        if c["kernel"] == "mx_grouped_matmul":
+            shape = f"T={c['T']} G={c['G']} K={c['K']} N={c['N']} {c['act']} [{c['label']}]"
+        elif "M" in c:
             shape = f"M={c['M']} K={c['K']} N={c['N']} {c.get('epilogue', '')}"
         else:
             shape = (f"B={c['B']} {'S=%d ' % c['S'] if 'S' in c else ''}H={c['H']} "
@@ -465,6 +574,7 @@ def serve(torch, model, params, cfg, backend, n_req, gen, prompt_len=128, slots=
         prompt_len=prompt_len, kv_cache="int8" if kw.get("kv_quant") else "f32",
         speculate=kw.get("speculate", 0), spec=batcher.spec_stats(),
         gen=gen, wall_s=wall, steps=batcher.steps_run,
+        device_steps=sum(h.active > 0 for h in batcher.health),
         prefill_launches=batcher.prefill_launches, generated_tokens=generated,
         generated_tok_per_s=generated / wall,
         total_tok_per_s=sum(len(r.prompt) + len(r.output)
@@ -540,44 +650,48 @@ def hold_steps(torch, dev, model, params, cfg, cache0, num_pages):
     return out
 
 
-def profile_steps(torch, dev, model, params, cfg, cache, num_pages, n_decode=4):
-    """torch.profiler over one prefill chunk and `n_decode` decode steps on
-    the kernel path: device time by kernel and the device's busy share of
-    the window.  A profiler that records no device time reports
-    "not measured"."""
+def _profile(torch, fn):
+    """torch.profiler over one call of `fn` (after one warm call): device
+    time by kernel and the device's busy share of the window.  A profiler
+    that records no device time reports "not measured"."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.core import ops
-
-    table, toks, tok, index, lengths = _step_inputs(torch, dev, cfg, num_pages)
-    with ops.use_policy(ops.MXPolicy("cuda_mx")):
-        model.decode_step_paged(params, tok, cache, index, table, lengths)  # warm
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            model.prefill_step_paged(params, toks, cache, torch.tensor([0], device=dev),
-                                     table[:1])
-            for _ in range(n_decode):
-                model.decode_step_paged(params, tok, cache, index, table, lengths)
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
-    rows = []
-    for e in prof.key_averages():
-        # device-side events only (kernels, copies): a CPU op's "self device
-        # time" is the kernels it launched, which appear as their own rows
-        if e.device_type == DeviceType.CPU:
-            continue
-        us = e.self_device_time_total
-        if us > 0:
-            rows.append((e.key, us / 1e3, e.count))
-    rows.sort(key=lambda r: -r[1])
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    # device-side events only (kernels, copies): a CPU op's "self device
+    # time" is the kernels it launched, which appear as their own rows
+    rows = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
+                   for e in prof.key_averages()
+                   if e.device_type != DeviceType.CPU and e.self_device_time_total > 0),
+                  key=lambda r: -r[1])
     device_ms = sum(r[1] for r in rows)
     if device_ms == 0:
         return dict(measured=False, window_ms=wall_ms)
     return dict(measured=True, window_ms=wall_ms, device_ms=device_ms,
-                busy_share=device_ms / wall_ms, n_decode=n_decode,
+                busy_share=device_ms / wall_ms,
                 top=[dict(name=k[:90], ms=ms, calls=n) for k, ms, n in rows[:12]])
+
+
+def profile_steps(torch, dev, model, params, cfg, cache, num_pages, n_decode=4):
+    """One prefill chunk and `n_decode` decode steps on the kernel path."""
+    from repro_torch.core import ops
+
+    table, toks, tok, index, lengths = _step_inputs(torch, dev, cfg, num_pages)
+
+    def steps():
+        model.prefill_step_paged(params, toks, cache, torch.tensor([0], device=dev),
+                                 table[:1])
+        for _ in range(n_decode):
+            model.decode_step_paged(params, tok, cache, index, table, lengths)
+
+    with ops.use_policy(ops.MXPolicy("cuda_mx")):
+        return dict(_profile(torch, steps), n_decode=n_decode)
 
 
 def _verify_inputs(torch, dev, cfg, num_pages, S=5):
@@ -663,32 +777,13 @@ def hold_verify(torch, dev, model, params, cfg, cache0, num_pages, rel_tol=1e-3)
 
 
 def profile_verify(torch, dev, model, params, cfg, cache, num_pages):
-    """torch.profiler over one verify step (S = 5, 8 slots) on the kernel
-    path, as `profile_steps` does for prefill and decode."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
+    """One verify step (S = 5, 8 slots) on the kernel path."""
     from repro_torch.core import ops
 
     table, win, index, vlen, _ = _verify_inputs(torch, dev, cfg, num_pages)
     with ops.use_policy(ops.MXPolicy("cuda_mx")):
-        model.verify_step_paged(params, win, cache, index, table, vlen)  # warm
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            model.verify_step_paged(params, win, cache, index, table, vlen)
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
-    rows = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
-                   for e in prof.key_averages()
-                   if e.device_type != DeviceType.CPU and e.self_device_time_total > 0),
-                  key=lambda r: -r[1])
-    device_ms = sum(r[1] for r in rows)
-    if device_ms == 0:
-        return dict(measured=False, window_ms=wall_ms)
-    return dict(measured=True, window_ms=wall_ms, device_ms=device_ms,
-                busy_share=device_ms / wall_ms,
-                top=[dict(name=k[:90], ms=ms, calls=n) for k, ms, n in rows[:8]])
+        return _profile(torch, lambda: model.verify_step_paged(params, win, cache, index,
+                                                               table, vlen))
 
 
 def smoke_streams(torch, dev):
@@ -760,47 +855,14 @@ def divergences(torch, model, params, plain, other, kv_quant=None):
 # ---------------------------------------------------------------------------
 
 
-def main() -> int:
-    import torch
-
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device is visible; this smoke test needs a GPU",
-              file=sys.stderr)
-        return 2
-    sys.path.insert(0, str(ROOT / "src"))
+def llama_phases(torch, dev):
+    """Phases 4 and 5: llama3.2-1b at full width.  Returns the runs and
+    holds, and each kernel's launches on its serving path."""
     from repro_torch.configs import get_config
     from repro_torch.core.precision import QuantSpec
-    from repro_torch.kernels import _build
     from repro_torch.models import build_model
     from repro_torch.models.modules import param_count
     from repro_torch.runtime.speculative import DraftModelProposer, NGramDrafter, TraceDrafter
-
-    dev = torch.device("cuda")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
-    print(smi)
-    print(f"[1] device: {smi} | torch {torch.__version__} cuda {torch.version.cuda}")
-
-    build_s = _build.build_all()
-    print(f"[2] built {len(_build.SOURCES)} CUDA sources for sm_90a in {build_s:.1f} s")
-    for name in _build.SOURCES:
-        entry = ""
-        for line in _build.ptxas_report(name).splitlines():
-            if "Compiling entry function" in line:
-                entry = line.split("'")[1][:48]  # the mangled kernel name
-            elif "registers" in line or "spill" in line:
-                print(f"    {name} {entry}: {line.strip()}")
-    sass = sass_rmw_counts()
-    print(f"    output read-modify-write in the SASS (ld/st.global.cg = *.STRONG.GPU): "
-          f"{sass}")
-    if not (sass["baseline_matmul"][0] and sass["baseline_matmul"][1]):
-        raise AssertionError("the baseline kernel's output round trip was compiled away")
-
-    print("[3] kernels against their plain versions")
-    checks = phase_kernels(torch, dev)
 
     print("[4] serving llama3.2-1b (f32, full width) through the paged batcher")
     cfg = get_config("llama3.2-1b")
@@ -859,13 +921,15 @@ def main() -> int:
     _print_serve(dm_run)
     spec_runs[dm_run["label"]] = dm_run
 
-    launches = dict(main_run["launches"])
+    # llama is dense: the grouped kernel's launches come from grok (phase 6)
+    launches = {k: n for k, n in main_run["launches"].items() if k != "mx_grouped_matmul"}
     launches["baseline_matmul"] = base_run["launches"]["baseline_matmul"]
     launches["mx_flash_verify"] = spec_runs["(b) spec4 ngram"]["launches"]["mx_flash_verify"]
     for name, n in launches.items():
         if n <= 0:
             raise AssertionError(f"kernel {name} was not launched on its serving path")
-    if main_run["launches"]["baseline_matmul"] or base_run["launches"]["mx_matmul_fused"]:
+    if main_run["launches"]["baseline_matmul"] or base_run["launches"]["mx_matmul_fused"] \
+            or main_run["launches"]["mx_grouped_matmul"]:
         raise AssertionError(f"backends leaked into each other: {main_run['launches']} "
                              f"/ {base_run['launches']}")
     for label, run in spec_runs.items():
@@ -908,16 +972,8 @@ def main() -> int:
                          batcher.pool.total_pages)
     prof_v = profile_verify(torch, dev, model, params, cfg, batcher.cache,
                             batcher.pool.total_pages)
-    for what, p in ((f"1 prefill chunk + {prof.get('n_decode')} decode steps", prof),
-                    ("1 verify step, S = 5", prof_v)):
-        if p["measured"]:
-            print(f"    profile ({what}): window {p['window_ms']:.2f} ms, device busy "
-                  f"{p['device_ms']:.2f} ms ({100 * p['busy_share']:.1f}%)")
-            for r in p["top"]:
-                print(f"      {r['ms']:9.3f} ms  x{r['calls']:<5d} {r['name']}")
-        else:
-            print(f"    profile ({what}): device time not measured "
-                  f"(window {p['window_ms']:.2f} ms)")
+    _print_profile(f"1 prefill chunk + {prof['n_decode']} decode steps", prof)
+    _print_profile("1 verify step, S = 5", prof_v)
     same, streams = smoke_streams(torch, dev)
     print(f"    smoke-size token streams equal across cuda_mx / torch, plain / "
           f"speculative, f32 and int8 (each within its page type): {same}")
@@ -933,6 +989,237 @@ def main() -> int:
             raise AssertionError(f"{label}: streams leave the plain ones away from a "
                                  f"near tie (kernel-path error {near_tie:.3e}): {bad}")
 
+    return launches, dict(serve=main_run, serve_baseline=base_run, serve_spec=spec_runs,
+                          hold=held, hold_verify=held_v, hold_verify_int8=held_v8,
+                          profile=prof, profile_verify=prof_v, smoke_streams=streams)
+
+
+@contextlib.contextmanager
+def _router_probs_recorded(out):
+    """Every MoE router call appends its (G, Tg, E) probabilities to `out`."""
+    from repro_torch.models.moe import MoE
+
+    probs = MoE.router_probs
+
+    def recorded(self, p, xg):
+        pr = probs(self, p, xg)
+        out.append(pr.detach().clone())
+        return pr
+
+    MoE.router_probs = recorded
+    try:
+        yield
+    finally:
+        MoE.router_probs = probs
+
+
+def hold_moe_steps(torch, dev, model, params, cfg, cache0, num_pages, rel_tol=1e-3):
+    """A 64-token prefill chunk (G = 16 routing groups) and a 31-token chunk
+    (G = 1) for slot 0, then a decode step over 8 slots, on "cuda_mx" and
+    on "torch", each from its own copy of one cache state.  Logits within
+    rel_tol * max|ref|.  Routing is plain torch on both paths, fed by
+    different GEMMs: the router probabilities of every MoE call are
+    compared, giving the smallest 2nd-3rd probability gap (top-2) and the
+    first call whose top-k sets differ, with the largest probability error
+    up to it."""
+    from repro_torch import kernels
+    from repro_torch.core import ops
+
+    table, toks, tok, index, lengths = _step_inputs(torch, dev, cfg, num_pages)
+    g = torch.Generator(device=dev).manual_seed(7)
+    toks31 = torch.randint(0, cfg.vocab, (1, 31), generator=g, device=dev)
+    res = {}
+    for backend in ("cuda_mx", "torch"):
+        cache, probs, logits, counts = _clone(cache0), [], [], []
+        with ops.use_policy(ops.MXPolicy(backend)), _router_probs_recorded(probs):
+            for step in (
+                    lambda: model.prefill_step_paged(params, toks, cache,
+                                                     torch.tensor([0], device=dev), table[:1]),
+                    lambda: model.prefill_step_paged(params, toks31, cache,
+                                                     torch.tensor([64], device=dev),
+                                                     table[:1]),
+                    lambda: model.decode_step_paged(params, tok, cache, index, table,
+                                                    lengths)):
+                kernels.reset_launch_counts()
+                logits.append(step()[0])
+                torch.cuda.synchronize()
+                counts.append(kernels.launch_counts())
+        res[backend] = (logits, counts, probs)
+    out = {}
+    for i, what in enumerate(("prefill64_logits", "prefill31_logits", "decode_logits")):
+        got, ref = res["cuda_mx"][0][i], res["torch"][0][i]
+        err = (got - ref).abs().max().item()
+        tol = rel_tol * ref.abs().max().item()
+        out[what] = dict(max_abs_err=err, tol=tol, ok=err <= tol,
+                         argmax_equal=bool(torch.equal(got.argmax(-1), ref.argmax(-1))))
+    pk, pp = res["cuda_mx"][2], res["torch"][2]
+    k = cfg.top_k
+    top = [p.topk(k + 1, dim=-1).values for p in pk]
+    gaps = [(v[..., k - 1] - v[..., k]).min().item() for v in top]
+    flip, err_to_flip = None, 0.0
+    for i, (a, b) in enumerate(zip(pk, pp)):
+        err_to_flip = max(err_to_flip, (a - b).abs().max().item())
+        if not torch.equal(a.topk(k, dim=-1).indices.sort(-1).values,
+                           b.topk(k, dim=-1).indices.sort(-1).values):
+            flip = i
+            break
+    out["router"] = dict(calls=len(pk), min_gap_2nd_3rd=min(gaps), first_flip_call=flip,
+                         prob_err_to_flip=err_to_flip)
+    out["launches"] = dict(zip(("prefill64", "prefill31", "decode"), res["cuda_mx"][1]))
+    out["torch_backend_launches"] = res["torch"][1]
+    return out
+
+
+def moe_smoke_streams(torch, dev):
+    """grok-1 and kimi-k2 at smoke size: "cuda_mx" and "torch" streams must
+    agree, and the kernel path launches the grouped kernel twice per MoE
+    layer per step or chunk."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    out = {}
+    for name in ("grok-1-314b-smoke", "kimi-k2-1t-a32b-smoke"):
+        cfg = get_config(name)
+        model = build_model(cfg)
+        params = model.init(0, device=dev)
+        runs = {b: serve(torch, model, params, cfg, b, n_req=6, gen=8, prompt_len=24,
+                         slots=2)[0] for b in ("cuda_mx", "torch")}
+        r = runs["cuda_mx"]
+        out[name] = dict(
+            same=runs["torch"]["streams"] == r["streams"],
+            grouped_launches=r["launches"]["mx_grouped_matmul"],
+            want=2 * cfg.n_layers * (r["device_steps"] + r["prefill_launches"]),
+            streams={b: v["streams"] for b, v in runs.items()})
+    return out
+
+
+def _print_profile(what, p):
+    if p["measured"]:
+        print(f"    profile ({what}): window {p['window_ms']:.2f} ms, device busy "
+              f"{p['device_ms']:.2f} ms ({100 * p['busy_share']:.1f}%)")
+        for r in p["top"]:
+            print(f"      {r['ms']:9.3f} ms  x{r['calls']:<5d} {r['name']}")
+    else:
+        print(f"    profile ({what}): device time not measured "
+              f"(window {p['window_ms']:.2f} ms)")
+
+
+def grok_phases(torch, dev):
+    """Phases 6 and 7: grok-1-314b at full width, 2 of its 64 layers."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import ops
+    from repro_torch.models import build_model
+    from repro_torch.models.modules import param_count
+
+    full = get_config("grok-1-314b")
+    cfg = dataclasses.replace(full, n_layers=2, blocks=(("moe", 2),))
+    print(f"[6] serving grok-1-314b (f32, full width) through the paged batcher; depth "
+          f"cut: n_layers {full.n_layers} -> {cfg.n_layers}")
+    model = build_model(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init(0, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    print(f"    init {init_s:.1f} s, {param_count(params) / 1e9:.3f} B params, "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    run, batcher, _ = serve(torch, model, params, cfg, "cuda_mx", n_req=16, gen=16)
+    run["peak_memory_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    _print_serve(run)
+    print(f"      peak device memory {run['peak_memory_gib']:.2f} GiB; "
+          f"{run['device_steps']} device steps")
+    n = run["launches"]
+    want = 2 * cfg.n_layers * (run["device_steps"] + run["prefill_launches"])
+    if n["mx_grouped_matmul"] != want or not n["mx_matmul_fused"] \
+            or not n["mx_flash_decode"] or n["baseline_matmul"] or n["mx_flash_verify"]:
+        raise AssertionError(f"grok serving: launches {n}, want {want} grouped launches "
+                             f"(2 per MoE layer per step or chunk)")
+
+    print("[7] grok kernel path against plain path")
+    held = hold_moe_steps(torch, dev, model, params, cfg, batcher.cache,
+                          batcher.pool.total_pages)
+    rt = held["router"]
+    print(f"    router: {rt['calls']} calls, smallest 2nd-3rd probability gap "
+          f"{rt['min_gap_2nd_3rd']:.3e}; first top-2 flip between the paths: "
+          f"{rt['first_flip_call']} (router probability error up to it "
+          f"{rt['prob_err_to_flip']:.3e})")
+    for what in ("prefill64_logits", "prefill31_logits", "decode_logits"):
+        h = held[what]
+        print(f"    {what}: err {h['max_abs_err']:.3e} (tol {h['tol']:.3e}) "
+              f"argmax equal {h['argmax_equal']}")
+        # a failure behind a routing flip decided by less than 1e-4 of
+        # probability is a near tie, not a fault
+        near_tie = rt["first_flip_call"] is not None and rt["prob_err_to_flip"] <= 1e-4
+        if not h["ok"] and not near_tie:
+            raise AssertionError(f"grok {what}: the kernel path disagrees: {h}, {rt}")
+        h["near_tie"] = not h["ok"] and near_tie
+    for what, c in held["launches"].items():
+        print(f"    launches per {what}: {c}")
+        if c["mx_grouped_matmul"] != 2 * cfg.n_layers:
+            raise AssertionError(f"grok {what}: {c['mx_grouped_matmul']} grouped launches, "
+                                 f"want {2 * cfg.n_layers}")
+    table, _, tok, index, lengths = _step_inputs(torch, dev, cfg, batcher.pool.total_pages)
+    with ops.use_policy(ops.MXPolicy("cuda_mx")):
+        prof = _profile(torch, lambda: model.decode_step_paged(
+            params, tok, batcher.cache, index, table, lengths))
+    _print_profile("1 grok decode step, 8 slots", prof)
+    del params, batcher, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    streams = moe_smoke_streams(torch, dev)
+    for name, r in streams.items():
+        print(f"    {name}: streams equal across cuda_mx / torch: {r['same']}; grouped "
+              f"launches {r['grouped_launches']} (want {r['want']})")
+        if not r["same"] or r["grouped_launches"] != r["want"]:
+            raise AssertionError(f"{name}: {r}")
+    return dict(config=dict(name=cfg.name, n_layers=cfg.n_layers, cut_from=full.n_layers),
+                init_s=init_s, serve=run, hold=held, profile_decode=prof,
+                smoke_streams=streams)
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is visible; this smoke test needs a GPU",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels import _build
+
+    dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    print(smi)
+    print(f"[1] device: {smi} | torch {torch.__version__} cuda {torch.version.cuda}")
+
+    build_s = _build.build_all()
+    print(f"[2] built {len(_build.SOURCES)} CUDA sources for sm_90a in {build_s:.1f} s")
+    for name in _build.SOURCES:
+        entry = ""
+        for line in _build.ptxas_report(name).splitlines():
+            if "Compiling entry function" in line:
+                entry = line.split("'")[1][:48]  # the mangled kernel name
+            elif "registers" in line or "spill" in line:
+                print(f"    {name} {entry}: {line.strip()}")
+    sass = sass_rmw_counts()
+    print(f"    output read-modify-write in the SASS (ld/st.global.cg = *.STRONG.GPU): "
+          f"{sass}")
+    if not (sass["baseline_matmul"][0] and sass["baseline_matmul"][1]):
+        raise AssertionError("the baseline kernel's output round trip was compiled away")
+
+    print("[3] kernels against their plain versions")
+    checks = phase_kernels(torch, dev)
+
+    launches, llama = llama_phases(torch, dev)
+    gc.collect()
+    torch.cuda.empty_cache()  # llama's weights and caches are gone
+    grok = grok_phases(torch, dev)
+    launches["mx_grouped_matmul"] = grok["serve"]["launches"]["mx_grouped_matmul"]
+
     headline = {  # a decode-step call of each kernel on the main path, f32
         # the down projection: one library call (addmm) computes the same function
         "mx_matmul_fused": dict(M=8, K=8192, N=2048, epilogue=dict(residual=True)),
@@ -940,6 +1227,8 @@ def main() -> int:
         "mx_flash_decode": dict(B=8, H=32, poison=False, pages="same"),
         # the llama decode window (k = 4): f32 q and pages
         "mx_flash_verify": dict(B=8, H=32, S=5, poison=False, pages="same"),
+        # grok's decode down projection: one library call (bmm) computes it
+        "mx_grouped_matmul": dict(label="grok decode down"),
     }
     summary = []
     for name, sel in headline.items():
@@ -950,15 +1239,14 @@ def main() -> int:
             launches=launches[name], max_abs_err=c["max_abs_err"], ms=c["ms"],
             plain_ms=c["plain_ms"], bound_ms=c["bound_ms"], bound_by=c["bound_by"],
             library_ms=c["library_ms"],
-            shape={k: c[k] for k in ("M", "K", "N", "B", "S", "H", "Hkv", "d") if k in c},
+            shape={k: c[k] for k in ("M", "T", "G", "K", "N", "B", "S", "H", "Hkv", "d")
+                   if k in c},
             dtype="float32"))
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(dict(
-        device=smi, build_s=build_s, checks=checks, serve=main_run,
-        serve_baseline=base_run, serve_spec=spec_runs, hold=held,
-        hold_verify=held_v, hold_verify_int8=held_v8, profile=prof, profile_verify=prof_v,
-        smoke_streams=streams, kernels=summary), indent=1, default=str))
+        device=smi, build_s=build_s, checks=checks, **llama, grok=grok, kernels=summary),
+        indent=1, default=str))
     print(json.dumps({"kernels": summary}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

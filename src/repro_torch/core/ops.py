@@ -20,9 +20,14 @@ wrappers themselves run their plain versions on CPU tensors, so
 card.
 
 The TPU tile planner (`repro/core/tiling.py`, VMEM and MXU constants) is
-not ported: the CUDA kernels use fixed Hopper tiles chosen by M, and the
-baseline runs at its default read-modify-write chunk (bk = 128, the JAX
-default).
+not ported: the CUDA kernels use fixed Hopper tiles chosen by M (by the
+mean rows per group for the grouped GEMM), and the baseline runs at its
+default read-modify-write chunk (bk = 128, the JAX default).
+
+`grouped_matmul` (the MoE expert GEMMs) runs the plain
+`grouped_matmul_ref` on "torch" and the MX grouped kernel on both CUDA
+backends: JAX's "pallas_baseline" takes its reference there, but the port
+runs no plain version on the card, and the paper's A/B is the dense GEMM.
 """
 from __future__ import annotations
 
@@ -35,7 +40,9 @@ import torch
 import torch.distributed as dist
 
 from ..kernels.baseline_matmul import baseline_matmul
+from ..kernels.mx_grouped_matmul import mx_grouped_matmul
 from ..kernels.mx_matmul import Epilogue, apply_epilogue, dot_f32, mx_matmul_fused
+from ..kernels.ref import grouped_matmul_ref
 
 BACKENDS = ("torch", "cuda_mx", "cuda_baseline")
 TP_MODES = ("allgather", "reduce_scatter")
@@ -164,3 +171,20 @@ def linear(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None, *
             if activation == "swiglu" else None)
     return apply_epilogue(y, ep, bias=b, gate=gate, residual=residual,
                           out_dtype=out_dtype)
+
+
+def grouped_matmul(x: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tensor, *,
+                   activation: str = "none", w_gate: Optional[torch.Tensor] = None,
+                   policy: Optional[MXPolicy] = None, out_dtype=None, precision=None,
+                   abft=None) -> torch.Tensor:
+    """Ragged grouped GEMM: out[t] = act(x[t] @ w[g(t)]) for rows sorted by
+    group.  x: (T, K), w: (G, K, N), group_sizes: (G,) on x's device.  One
+    kernel launch for all groups on the CUDA backends."""
+    _reject_unported(precision, abft)
+    policy = policy or current_policy()
+    out_dtype = out_dtype or x.dtype
+    if policy.resolve(x) == "torch":
+        return grouped_matmul_ref(x, w, group_sizes, w_gate=w_gate,
+                                  activation=activation, out_dtype=out_dtype)
+    return mx_grouped_matmul(x.contiguous(), w, group_sizes, w_gate=w_gate,
+                             activation=activation, out_dtype=out_dtype)

@@ -1,4 +1,4 @@
-// The (BM x BN) output-tile machinery shared by the MX and the baseline GEMM:
+// The (BM x BN) output-tile machinery shared by the MX, grouped and baseline GEMMs:
 // masked operand staging through shared memory, and the register FMA chain.
 //
 // A is (M, K) row-major, B is (K, N) row-major (the JAX layout: w is
@@ -93,6 +93,55 @@ __device__ __forceinline__ void fma_tile(float (&acc)[TM][TN], float (&accg)[TM]
       for (int i = 0; i < TM; ++i)
 #pragma unroll
         for (int j = 0; j < TN; ++j) accg[i][j] = fmaf(av[i], bv[j], accg[i][j]);
+    }
+  }
+}
+
+// The whole K loop of one (BM x BN) output tile, shared by the MX GEMM and
+// the grouped GEMM: the f32 register accumulators are zeroed (the C-tile
+// reset) and never reloaded; A and B (and the gate weight Bg when GATE)
+// stage through shared memory one BK step at a time, the next step's
+// operands fetched into registers while the current step's FMAs run.  A is
+// read for rows < M, B for columns < N.  Ends after a barrier, so the
+// caller may stage another sweep into the same shared memory at once.
+template <typename T, int BM, int BN, int BK, int TM, int TN, bool GATE>
+__device__ __forceinline__ void sweep_k(float (&acc)[TM][TN], float (&accg)[TM][TN],
+                                        float (*As)[BM + 1], float (*Bs)[BN],
+                                        float (*Bgs)[BN], const T* __restrict__ A,
+                                        const T* __restrict__ B, const T* __restrict__ Bg,
+                                        int M, int N, int K, int m0, int n0, int tx,
+                                        int ty) {
+  using Cfg = TileCfg<BM, BN, BK, TM, TN>;
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int j = 0; j < TN; ++j) acc[i][j] = accg[i][j] = 0.0f;
+
+  float ra[Cfg::kAPer], rb[Cfg::kBPer], rg[Cfg::kBPer];  // rg: gate weight
+  const int nk = (K + BK - 1) / BK;
+  load_a<Cfg, BM, BK>(ra, A, M, K, m0, 0);
+  load_b<Cfg, BN, BK>(rb, B, N, K, n0, 0);
+  if constexpr (GATE) load_b<Cfg, BN, BK>(rg, Bg, N, K, n0, 0);
+  store_a<Cfg, BM, BK>(As, ra);
+  store_b<Cfg, BN, BK>(Bs, rb);
+  if constexpr (GATE) store_b<Cfg, BN, BK>(Bgs, rg);
+  __syncthreads();
+
+  for (int kt = 0; kt < nk; ++kt) {
+    const bool more = kt + 1 < nk;
+    if (more) {  // next K step's operands in flight during this step's FMAs
+      const int k0 = (kt + 1) * BK;
+      load_a<Cfg, BM, BK>(ra, A, M, K, m0, k0);
+      load_b<Cfg, BN, BK>(rb, B, N, K, n0, k0);
+      if constexpr (GATE) load_b<Cfg, BN, BK>(rg, Bg, N, K, n0, k0);
+    }
+    fma_tile<Cfg, BM, BN, BK, TM, TN, GATE>(acc, accg, As, Bs, Bgs, tx, ty);
+    __syncthreads();
+    if (more) {
+      store_a<Cfg, BM, BK>(As, ra);
+      store_b<Cfg, BN, BK>(Bs, rb);
+      if constexpr (GATE) store_b<Cfg, BN, BK>(Bgs, rg);
+      __syncthreads();
     }
   }
 }

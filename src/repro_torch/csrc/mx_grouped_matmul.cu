@@ -1,0 +1,143 @@
+// Grouped (ragged) MX GEMM for Hopper (sm_90a): every expert of an MoE
+// layer in one launch.
+//
+// Replaces the TPU kernel repro/kernels/mx_grouped_matmul.py::
+// mx_grouped_matmul (_grouped_kernel): out[t] = act(x[t] @ w[g(t)]) for rows
+// sorted by group, group g owning the next sizes[g] rows; swiglu gates with
+// a second weight set, silu(x @ w_gate[g]) * (x @ w[g]).  Rows at or past
+// sum(sizes) are written as exact zeros.
+//
+// The TPU kernel steers its DMAs with per-slot (group, row tile) maps from
+// scalar prefetch and visits a straddled row tile once per group, merging
+// the visits in VMEM.  Here the grid is static, one CTA per (BM x BN)
+// output tile, and the CTA reads the group sizes itself: a running sum over
+// them gives each group's rows (clamped to T, as make_group_metadata clamps
+// to the padded rows, so oversubscribed sizes drop rows that do not exist;
+// a negative size counts as 0).  For every non-empty group that overlaps its
+// rows the CTA runs the whole K loop over that expert's weights with f32
+// accumulators in registers (the paper's inter-k buffer, zeroed per group),
+// applies the epilogue in registers and stores only the rows the group
+// owns; rows past the last group are stored as zeros.  Each output row is
+// written once, by one CTA: the TPU kernel's first-writer merge has nothing
+// left to do.  Empty groups cost one step of the scan and no weight bytes.
+//
+// Weight offsets are int64: kimi-k2's (384, 7168, 2048) expert stack holds
+// 5.64 G elements, past int32.
+//
+// What bounds it on the H100: at decode (8 rows per expert) every expert's
+// weights are streamed for a handful of rows -- HBM bytes bound (3.35 TB/s).
+// That tile keeps one thread per output column over all 8 rows (8 FMAs per
+// staged weight element, so shared memory is not the limit) and 128-column
+// CTAs, 2048 of them for grok's up projection.  At an expert-major prefill
+// chunk (128 rows per expert) it is f32 FLOP bound on the CUDA cores (67
+// TFLOP/s), on the MX GEMM's 4 x 4 register tiles.  Tensor cores (wgmma),
+// TMA and a persistent group-aware schedule are left to later work.
+#include "gemm_tile.cuh"
+
+REPRO_EXPORT_ERROR_STRING
+
+template <typename T, int BM, int BN, int BK, int TM, int TN, bool GATE>
+__global__ void __launch_bounds__(TileCfg<BM, BN, BK, TM, TN>::kThreads)
+grouped_kernel(const T* __restrict__ X, const T* __restrict__ W, const T* __restrict__ Wg,
+               const int* __restrict__ sizes, void* __restrict__ out, int out_dt, int Trows,
+               int N, int K, int G, int act) {
+  using Cfg = TileCfg<BM, BN, BK, TM, TN>;
+  __shared__ float As[BK][BM + 1];
+  __shared__ float Bs[BK][BN];
+  __shared__ float Bgs[GATE ? BK : 1][BN];
+
+  const int tx = threadIdx.x % Cfg::kTX, ty = threadIdx.x / Cfg::kTX;
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+  const int m1 = min(m0 + BM, Trows);
+  const int64_t kn = (int64_t)K * N;
+
+  int64_t cum = 0;  // rows owned by groups [0, g)
+  for (int g = 0; g < G; ++g) {
+    const int s = (int)min(cum, (int64_t)Trows);
+    cum += max(sizes[g], 0);
+    const int e = (int)min(cum, (int64_t)Trows);
+    if (e <= m0 || s >= m1 || s == e) continue;  // no rows of this tile
+
+    float acc[TM][TN], accg[TM][TN];  // this group's inter-k buffer(s)
+    sweep_k<T, BM, BN, BK, TM, TN, GATE>(acc, accg, As, Bs, Bgs, X, W + g * kn,
+                                         GATE ? Wg + g * kn : nullptr, e, N, K, m0, n0,
+                                         tx, ty);
+    // the single write-back of the rows group g owns, epilogue in registers
+#pragma unroll
+    for (int i = 0; i < TM; ++i) {
+      const int gm = m0 + ty * TM + i;
+      if (gm < s || gm >= e) continue;
+#pragma unroll
+      for (int j = 0; j < TN; ++j) {
+        const int gn = n0 + tx + j * Cfg::kTX;
+        if (gn >= N) continue;
+        float y = acc[i][j];
+        if constexpr (GATE)
+          y = silu_f(accg[i][j]) * y;
+        else
+          y = activation_f(y, act);
+        store_dt(out, out_dt, (int64_t)gm * N + gn, y);
+      }
+    }
+  }
+
+  // rows no group owns: exact zeros
+  const int tail = (int)min(cum, (int64_t)Trows);
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    const int gm = m0 + ty * TM + i;
+    if (gm < tail || gm >= Trows) continue;
+#pragma unroll
+    for (int j = 0; j < TN; ++j) {
+      const int gn = n0 + tx + j * Cfg::kTX;
+      if (gn < N) store_dt(out, out_dt, (int64_t)gm * N + gn, 0.0f);
+    }
+  }
+}
+
+template <typename T, int BM, int BN, int BK, int TM, int TN>
+static void launch(const void* x, const void* w, const void* wg, const int* sizes,
+                   void* out, int out_dt, int T_, int N, int K, int G, int act,
+                   cudaStream_t stream) {
+  using Cfg = TileCfg<BM, BN, BK, TM, TN>;
+  dim3 grid((N + BN - 1) / BN, (T_ + BM - 1) / BM);
+  const T* X = static_cast<const T*>(x);
+  const T* W = static_cast<const T*>(w);
+  if (act == kSwiglu)
+    grouped_kernel<T, BM, BN, BK, TM, TN, true><<<grid, Cfg::kThreads, 0, stream>>>(
+        X, W, static_cast<const T*>(wg), sizes, out, out_dt, T_, N, K, G, act);
+  else
+    grouped_kernel<T, BM, BN, BK, TM, TN, false><<<grid, Cfg::kThreads, 0, stream>>>(
+        X, W, nullptr, sizes, out, out_dt, T_, N, K, G, act);
+}
+
+// The tile follows the mean rows per group, T / G, as the JAX dispatch plans
+// for max(T // G, 1): the rows one expert's weights are streamed for.
+template <typename T>
+static void dispatch(const void* x, const void* w, const void* wg, const int* sizes,
+                     void* out, int out_dt, int T_, int N, int K, int G, int act,
+                     cudaStream_t s) {
+  const int mean = T_ / (G > 0 ? G : 1);
+  if (mean <= 8)  // decode: bytes bound, one thread per column over 8 rows
+    launch<T, 8, 128, 32, 8, 1>(x, w, wg, sizes, out, out_dt, T_, N, K, G, act, s);
+  else if (mean <= 64)
+    launch<T, 32, 64, 16, 2, 4>(x, w, wg, sizes, out, out_dt, T_, N, K, G, act, s);
+  else  // an expert-major prefill chunk: FLOP bound
+    launch<T, 64, 64, 16, 4, 4>(x, w, wg, sizes, out, out_dt, T_, N, K, G, act, s);
+}
+
+// x (T, K), w / w_gate (G, K, N): dtype `in_dt` (f32 or bf16), row-major,
+// contiguous; sizes (G,) int32 on the device; out (T, N) in `out_dt`.
+// w_gate is null unless act == kSwiglu.
+extern "C" int mx_grouped_matmul_launch(const void* x, const void* w, const void* w_gate,
+                                        const void* sizes, void* out, int out_dt, int T_,
+                                        int N, int K, int G, int in_dt, int act,
+                                        void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int* sz = static_cast<const int*>(sizes);
+  if (in_dt == kBF16)
+    dispatch<__nv_bfloat16>(x, w, w_gate, sz, out, out_dt, T_, N, K, G, act, s);
+  else
+    dispatch<float>(x, w, w_gate, sz, out, out_dt, T_, N, K, G, act, s);
+  return static_cast<int>(cudaGetLastError());
+}

@@ -41,39 +41,9 @@ mx_matmul_kernel(const T* __restrict__ A, const T* __restrict__ B,
   const int tx = threadIdx.x % Cfg::kTX, ty = threadIdx.x / Cfg::kTX;
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
 
-  float acc[TM][TN], accg[TM][TN];  // the inter-k buffer(s), C-tile reset
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = accg[i][j] = 0.0f;
-
-  float ra[Cfg::kAPer], rb[Cfg::kBPer], rg[Cfg::kBPer];  // rg: gate weight
-  const int nk = (K + BK - 1) / BK;
-  load_a<Cfg, BM, BK>(ra, A, M, K, m0, 0);
-  load_b<Cfg, BN, BK>(rb, B, N, K, n0, 0);
-  if constexpr (GATE) load_b<Cfg, BN, BK>(rg, Bg, N, K, n0, 0);
-  store_a<Cfg, BM, BK>(As, ra);
-  store_b<Cfg, BN, BK>(Bs, rb);
-  if constexpr (GATE) store_b<Cfg, BN, BK>(Bgs, rg);
-  __syncthreads();
-
-  for (int kt = 0; kt < nk; ++kt) {
-    const bool more = kt + 1 < nk;
-    if (more) {  // next K step's operands in flight during this step's FMAs
-      const int k0 = (kt + 1) * BK;
-      load_a<Cfg, BM, BK>(ra, A, M, K, m0, k0);
-      load_b<Cfg, BN, BK>(rb, B, N, K, n0, k0);
-      if constexpr (GATE) load_b<Cfg, BN, BK>(rg, Bg, N, K, n0, k0);
-    }
-    fma_tile<Cfg, BM, BN, BK, TM, TN, GATE>(acc, accg, As, Bs, Bgs, tx, ty);
-    __syncthreads();
-    if (more) {
-      store_a<Cfg, BM, BK>(As, ra);
-      store_b<Cfg, BN, BK>(Bs, rb);
-      if constexpr (GATE) store_b<Cfg, BN, BK>(Bgs, rg);
-      __syncthreads();
-    }
-  }
+  float acc[TM][TN], accg[TM][TN];  // the inter-k buffer(s)
+  sweep_k<T, BM, BN, BK, TM, TN, GATE>(acc, accg, As, Bs, Bgs, A, B, Bg, M, N, K, m0, n0,
+                                       tx, ty);
 
   // the single write-back, epilogue applied in registers
 #pragma unroll

@@ -8,9 +8,11 @@
 |   (f32/bf16 pages, int8 pages with k_scale / v_scale)                       |
 | mx_flash_decode.py::mx_flash_verify | mx_flash_decode.py + csrc/mx_flash_decode.cu |
 |   (the same page types; S = k+1 window rows per slot)                       |
+| mx_grouped_matmul.py::mx_grouped_matmul | mx_grouped_matmul.py + csrc/mx_grouped_matmul.cu |
+|   (dense f32/bf16 experts, every activation; plain version in ref.py)       |
 
-Not ported yet: mx_grouped_matmul, mx_flash_attention, ssd_scan, the GEMM's
-scale / 2:4 / ABFT stages and the ring composites (ROADMAP queue 2).
+Not ported yet: mx_flash_attention, ssd_scan, the scale / 2:4 / ABFT stages
+of both GEMMs and the ring composites (ROADMAP queue 2).
 """
 from __future__ import annotations
 
@@ -18,6 +20,7 @@ from typing import Dict
 
 from .baseline_matmul import baseline_matmul
 from .mx_flash_decode import mx_flash_decode, mx_flash_verify
+from .mx_grouped_matmul import mx_grouped_matmul
 from .mx_matmul import mx_matmul_fused
 
 WRAPPERS = {
@@ -25,6 +28,7 @@ WRAPPERS = {
     "baseline_matmul": baseline_matmul,
     "mx_flash_decode": mx_flash_decode,
     "mx_flash_verify": mx_flash_verify,
+    "mx_grouped_matmul": mx_grouped_matmul,
 }
 
 

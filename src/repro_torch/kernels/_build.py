@@ -27,7 +27,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-SOURCES = ("mx_matmul", "baseline_matmul", "mx_flash_decode")
+SOURCES = ("mx_matmul", "baseline_matmul", "mx_flash_decode", "mx_grouped_matmul")
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}  # csrc/common.cuh
 FLOATS = (torch.float32, torch.bfloat16)

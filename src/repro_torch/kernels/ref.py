@@ -11,6 +11,8 @@ import math
 
 import torch
 
+from .mx_matmul import apply_activation
+
 
 def matmul_ref(a: torch.Tensor, b: torch.Tensor, out_dtype=None) -> torch.Tensor:
     """D = A @ B with f32 accumulation (the MX semantic: full-precision
@@ -122,3 +124,35 @@ def paged_verify_ref(q, k_pages, v_pages, page_table, lengths, *,
                           k_scale=k_scale, v_scale=v_scale)
     return torch.where((lengths > 0)[:, None, None, None], o,
                        torch.zeros((), dtype=o.dtype, device=o.device))
+
+
+def grouped_matmul_ref(x: torch.Tensor, w: torch.Tensor, group_sizes, *,
+                       w_gate=None, activation: str = "none",
+                       out_dtype=None) -> torch.Tensor:
+    """Oracle for `mx_grouped_matmul` (port of `grouped_matmul_reference`
+    and `_ragged_dot_f32`): out[t] = act(x[t] @ w[g(t)]) for rows sorted by
+    group, swiglu as silu(x @ w_gate[g]) * (x @ w[g]), all in f32, cast to
+    out_dtype at the end.  x: (T, K); w, w_gate: (G, K, N); group_sizes:
+    (G,) ints, group g owning the next group_sizes[g] rows.
+
+    Group ranges are clamped to T (oversubscribed sizes drop the rows that
+    do not exist, as the TPU kernel clamps to its padded rows) and a
+    negative size counts as 0, the kernel's reading; rows at or past
+    sum(sizes) are exact zeros.  The sizes are read on the host, one dense
+    GEMM per non-empty group: an empty group reads none of its weights."""
+    T = x.shape[0]
+    N = w.shape[-1]
+    out = torch.zeros((T, N), dtype=torch.float32, device=x.device)
+    start = 0
+    for g, n in enumerate(torch.as_tensor(group_sizes).tolist()):
+        end = min(start + max(n, 0), T)
+        if end > start:
+            xs = x[start:end].float()
+            h = torch.matmul(xs, w[g].float())
+            if activation == "swiglu":
+                h = torch.nn.functional.silu(torch.matmul(xs, w_gate[g].float())) * h
+            else:
+                h = apply_activation(h, activation)
+            out[start:end] = h
+        start = end
+    return out.to(out_dtype or x.dtype)

@@ -7,6 +7,8 @@ Runs on the card unless asked otherwise:
 CPU smoke (the plain PyTorch path, no GPU needed):
   PYTHONPATH=src python -m repro_torch.launch.serve --smoke --prefix-cache \\
       --prefill-chunk 4 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch grok-1-314b --smoke \\
+      --prefix-cache --prefill-chunk 4 --device cpu   # MoE blocks
   PYTHONPATH=src python -m repro_torch.launch.serve --smoke --speculate 4 \\
       --draft ngram --prefill-chunk 4 --device cpu   # add --kv-cache int8
 --speculate K drafts K tokens per slot and verifies all K+1 in one pass
@@ -188,8 +190,9 @@ def main(argv=None) -> int:
     cfg = get_config(args.arch + ("-smoke" if args.smoke else ""))
     model = build_model(cfg)
     if not model.supports_paged():
-        raise SystemExit(f"{cfg.name}: only dense attention-only models are "
-                         "ported (see ROADMAP.md)")
+        raise SystemExit(f"{cfg.name}: the SSM, xLSTM, shared-block, encoder-decoder "
+                         "and prefix-embedding models are not ported yet (see "
+                         "ROADMAP.md); dense and MoE attention-only models are")
     if args.speculate and args.draft != "ngram":
         _draft_config(cfg, args)  # refuse a mismatched draft before any weights
     params = model.init(0, device=device)

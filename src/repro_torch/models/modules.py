@@ -25,7 +25,7 @@ from __future__ import annotations
 import dataclasses
 import hashlib
 import math
-from typing import Optional, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -41,39 +41,69 @@ class Builder:
     device: torch.device
     dtype: torch.dtype = torch.float32
     path: Tuple[str, ...] = ()
+    # preallocated leaves by full parameter path (`stacked` fills each layer
+    # of its stacks in place through these)
+    into: Optional[Dict[Tuple[str, ...], torch.Tensor]] = None
 
     def param(self, name: str, shape: Sequence[int], *, init: str = "normal",
               scale: Optional[float] = None) -> torch.Tensor:
         shape = tuple(int(s) for s in shape)
+        out = None if self.into is None else self.into[self.path + (name,)]
         if self.device.type == "meta" or init == "zeros":
-            return torch.zeros(shape, dtype=self.dtype, device=self.device)
+            return self._const(out, shape, 0.0)
         if init == "ones":
-            return torch.ones(shape, dtype=self.dtype, device=self.device)
+            return self._const(out, shape, 1.0)
         if init != "normal":
             raise ValueError(f"unknown init {init!r}")
         s = scale if scale is not None else (
             1.0 / math.sqrt(shape[0]) if len(shape) >= 2 else 0.02)
         gen = torch.Generator(device=self.device)
         gen.manual_seed(_leaf_seed(self.seed, self.path + (name,)))
-        x = torch.randn(shape, generator=gen, device=self.device,
-                        dtype=torch.float32)
-        return (x * s).to(self.dtype)
+        # f32 normals scaled in place (randn is normal_ on a fresh tensor, so
+        # drawing into a preallocated f32 leaf gives the same bits)
+        if out is not None and out.dtype == torch.float32:
+            return out.normal_(generator=gen).mul_(s)
+        x = torch.randn(shape, generator=gen, device=self.device, dtype=torch.float32)
+        x = x.mul_(s).to(self.dtype)
+        return x if out is None else out.copy_(x)
+
+    def _const(self, out, shape, value: float) -> torch.Tensor:
+        if out is None:
+            return torch.full(shape, value, dtype=self.dtype, device=self.device)
+        return out.fill_(value)
 
     def child(self, name: str, module: "Module"):
         return module.build(dataclasses.replace(self, path=self.path + (name,)))
 
     def stacked(self, name: str, module: "Module", n: int):
         """Parameters for `n` identical layers stacked on a leading layer
-        axis; each layer has its own seed path."""
-        layers = [module.build(dataclasses.replace(self, path=self.path + (name, str(i))))
-                  for i in range(n)]
-        return _stack(layers)
+        axis; each layer has its own seed path.  Each stacked leaf is
+        allocated once and layer i is drawn into its slice, so a segment is
+        never held twice (grok-1's 2 layers are 39 GB in f32)."""
+        shapes = module.build(dataclasses.replace(
+            self, device=torch.device("meta"), path=self.path + (name, "0"), into=None))
+        stack = _map(lambda t: torch.empty((n, *t.shape), dtype=self.dtype,
+                                           device=self.device), shapes)
+        for i in range(n):
+            path = self.path + (name, str(i))
+            into = {path + k: v for k, v in _flatten(layer_slice(stack, i))}
+            module.build(dataclasses.replace(self, path=path, into=into))
+        return stack
 
 
-def _stack(trees):
-    if isinstance(trees[0], dict):
-        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
-    return torch.stack(trees)
+def _map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def _flatten(tree, prefix: Tuple[str, ...] = ()):
+    """(path, leaf) pairs of a nested dict."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _flatten(v, prefix + (k,))
+    else:
+        yield prefix, tree
 
 
 def param_device(params) -> torch.device:

@@ -1,5 +1,6 @@
 """Decoder-only LM over homogeneous segments (port of
-`repro/models/transformer.py`, the paged-serving subset for "dense" blocks).
+`repro/models/transformer.py`, the paged-serving subset for "dense" and
+"moe" blocks).
 
 Layers of a segment keep their parameters stacked on a leading layer axis
 (the JAX layout, which `jax.lax.scan` consumes); the port walks the layers
@@ -8,11 +9,12 @@ the same way, (n_layers, P, ps, Hkv, hd) per operand, and every step writes
 it in place.
 
 `DecoderLM.__call__` is the full forward (the draft model of speculative
-decoding); `verify_step_paged` scores a speculative window of S tokens per
+decoding), returning the MoE blocks' summed auxiliary loss beside the
+logits; `verify_step_paged` scores a speculative window of S tokens per
 slot in one pass over the layers.
 
 Not ported yet: the dense cache path (`make_cache`, `decode_step`,
-`prefill_step`), the MoE / SSM / xLSTM / shared-block / encoder-decoder /
+`prefill_step`), the SSM / xLSTM / shared-block / encoder-decoder /
 prefix-embedding variants.
 """
 from __future__ import annotations
@@ -24,11 +26,12 @@ import torch
 
 from .layers import MLP, Attention, Embedding, rms_norm
 from .modules import Builder, Module, layer_slice
+from .moe import MoE
 
 
 @dataclasses.dataclass(frozen=True)
 class TransformerBlock(Module):
-    """Pre-norm attention + MLP block."""
+    """Pre-norm attention + MLP or MoE block."""
 
     d_model: int
     n_heads: int
@@ -37,9 +40,14 @@ class TransformerBlock(Module):
     head_dim: Optional[int] = None
     qkv_bias: bool = False
     rope_theta: float = 1e4
+    use_moe: bool = False
+    n_experts: int = 0
+    top_k: int = 0
     activation: str = "silu"
     chunk_threshold: int = 2048
     precision: Optional[str] = None
+    moe_groups: int = 1
+    moe_capacity_factor: float = 1.25
 
     def _attn(self) -> Attention:
         return Attention(self.d_model, self.n_heads, self.n_kv_heads, self.head_dim,
@@ -47,7 +55,12 @@ class TransformerBlock(Module):
                          chunked_threshold=self.chunk_threshold,
                          precision=self.precision)
 
-    def _ffn(self) -> MLP:
+    def _ffn(self):
+        if self.use_moe:
+            return MoE(self.d_model, self.d_ff, self.n_experts, self.top_k,
+                       activation=self.activation, n_groups=self.moe_groups,
+                       capacity_factor=self.moe_capacity_factor,
+                       precision=self.precision)
         return MLP(self.d_model, self.d_ff, activation=self.activation,
                    precision=self.precision)
 
@@ -65,30 +78,38 @@ class TransformerBlock(Module):
                                              device=device, kv_quant=kv_quant)
 
     def _ffn_residual(self, p, x):
-        return self._ffn()(p["ffn"], rms_norm(x, p["ln2"]), residual=x)
+        """(x + ffn(rms_norm(x)), the MoE's auxiliary loss or None).  A dense
+        MLP fuses the residual add into its down-projection write-back; the
+        MoE adds it after the combine, as JAX does."""
+        h = rms_norm(x, p["ln2"])
+        if self.use_moe:
+            y, aux = self._ffn()(p["ffn"], h)
+            return x + y, aux
+        return self._ffn()(p["ffn"], h, residual=x), None
 
     def __call__(self, p, x):
-        """The full-sequence block: (x, aux) with aux 0 for a dense MLP."""
+        """The full-sequence block: (x, aux), aux 0 for a dense MLP."""
         x = self._attn()(p["attn"], rms_norm(x, p["ln1"]), residual=x)
-        return self._ffn_residual(p, x), torch.zeros((), device=x.device)
+        x, aux = self._ffn_residual(p, x)
+        return x, torch.zeros((), device=x.device) if aux is None else aux
 
     def decode_paged(self, p, x, cache, index, page_table, lengths):
         # residual adds fuse into the output-projection write-backs
         x, cache = self._attn().decode_paged(p["attn"], rms_norm(x, p["ln1"]), cache,
                                              index, page_table, lengths, residual=x)
-        return self._ffn_residual(p, x), cache
+        return self._ffn_residual(p, x)[0], cache
 
     def prefill_paged(self, p, x, cache, index, page_table):
         """Multi-token page-writing step (chunked prefill into pages)."""
         x, cache = self._attn().prefill_paged(p["attn"], rms_norm(x, p["ln1"]), cache,
                                               index, page_table, residual=x)
-        return self._ffn_residual(p, x), cache
+        return self._ffn_residual(p, x)[0], cache
 
     def verify_paged(self, p, x, cache, index, page_table, lengths):
         """Speculative batched-verify step: S window tokens per slot."""
         x, cache = self._attn().verify_paged(p["attn"], rms_norm(x, p["ln1"]), cache,
                                              index, page_table, lengths, residual=x)
-        return self._ffn_residual(p, x), cache
+        return self._ffn_residual(p, x)[0], cache
 
 
 @dataclasses.dataclass(frozen=True)
@@ -98,20 +119,24 @@ class Segment:
 
 
 def make_block(kind: str, cfg) -> Module:
-    """cfg is an ArchConfig (configs/base.py).  Only "dense" is ported."""
-    if kind != "dense":
+    """cfg is an ArchConfig (configs/base.py).  "dense" and "moe" are
+    ported."""
+    if kind not in ("dense", "moe"):
         raise NotImplementedError(
-            f"block kind {kind!r} is not ported yet (ROADMAP queue 1 items 12-14)")
+            f"block kind {kind!r} is not ported yet (ROADMAP queue 1 items 13-14)")
     prec = getattr(cfg, "precision", None)
     return TransformerBlock(
         cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_ff, head_dim=cfg.head_dim,
-        qkv_bias=cfg.qkv_bias, rope_theta=cfg.rope_theta, activation=cfg.activation,
-        chunk_threshold=cfg.attn_chunk_threshold, precision=prec)
+        qkv_bias=cfg.qkv_bias, rope_theta=cfg.rope_theta, use_moe=(kind == "moe"),
+        n_experts=cfg.n_experts, top_k=cfg.top_k, activation=cfg.activation,
+        chunk_threshold=cfg.attn_chunk_threshold, precision=prec,
+        moe_groups=cfg.moe_groups, moe_capacity_factor=cfg.moe_capacity_factor)
 
 
 @dataclasses.dataclass(frozen=True)
 class DecoderLM(Module):
-    """Decoder LM over segments of stacked dense blocks, tied or untied head."""
+    """Decoder LM over segments of stacked dense or MoE blocks, tied or
+    untied head."""
 
     cfg: Any  # ArchConfig
 
@@ -144,8 +169,8 @@ class DecoderLM(Module):
                           tp_mode="allgather")
 
     def __call__(self, p, tokens):
-        """tokens: (B, S) -> (logits (B, S, vocab) f32, aux loss).  Dense
-        blocks carry no auxiliary loss, so aux is a zero scalar."""
+        """tokens: (B, S) -> (logits (B, S, vocab) f32, aux loss): the sum of
+        the MoE blocks' load-balancing losses (0 for dense blocks)."""
         x = self._embed_inputs(p, tokens)
         aux = torch.zeros((), device=x.device)
         for i, seg in enumerate(self.segments()):
@@ -158,11 +183,11 @@ class DecoderLM(Module):
     # ---- paged decode / chunked prefill ----
 
     def supports_paged(self) -> bool:
-        """Attention-only segments with no shared block and no modality
-        prefix -- and, in this port, dense blocks only."""
+        """Attention-only (dense or MoE) segments with no shared block and
+        no modality prefix."""
         cfg = self.cfg
         return (not cfg.shared_attn_every and not cfg.frontend_dim
-                and all(kind == "dense" for kind, _ in cfg.blocks))
+                and all(kind in ("dense", "moe") for kind, _ in cfg.blocks))
 
     def make_paged_cache(self, num_pages: int, page_size: int, *,
                          dtype=torch.float32, device="cuda", kv_quant=None):
@@ -171,7 +196,7 @@ class DecoderLM(Module):
         int8 `kv_quant`.  The page table and lengths are per-step scheduler
         outputs shared by every layer, not part of the cache."""
         if not self.supports_paged():
-            raise ValueError(f"{self.cfg.name}: paged decode needs dense "
+            raise ValueError(f"{self.cfg.name}: paged decode needs "
                              "attention-only segments")
         cache = {}
         for i, seg in enumerate(self.segments()):
@@ -204,7 +229,7 @@ class DecoderLM(Module):
         directly into the pages.  tokens: (B, S); index: (B,) chunk start
         positions; page_table: (B, W).  Returns (logits, cache)."""
         if not self.supports_paged():
-            raise ValueError(f"{self.cfg.name}: paged prefill needs dense "
+            raise ValueError(f"{self.cfg.name}: paged prefill needs "
                              "attention-only segments")
         x = self._embed_inputs(p, tokens)
         x = self._run_layers(p, x, cache, lambda blk, lp, h, lc: blk.prefill_paged(
@@ -220,7 +245,7 @@ class DecoderLM(Module):
         index + r, so row 0 is the plain decode step's output and rows
         1..k are the extra tokens this pass buys."""
         if not self.supports_paged():
-            raise ValueError(f"{self.cfg.name}: speculative verify needs dense "
+            raise ValueError(f"{self.cfg.name}: speculative verify needs "
                              "attention-only segments")
         x = self._embed_inputs(p, tokens)
         x = self._run_layers(p, x, cache, lambda blk, lp, h, lc: blk.verify_paged(

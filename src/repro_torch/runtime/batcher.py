@@ -106,7 +106,7 @@ class ContinuousBatcher:
                 "the ABFT logits audit is not ported yet (ROADMAP queue 1 item 11)")
         if not model.supports_paged():
             raise ValueError("model does not support paged decode (needs "
-                             "attention-only dense segments)")
+                             "attention-only segments)")
         self.model = model
         self.params = params
         self.device = param_device(params)

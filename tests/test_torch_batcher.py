@@ -65,11 +65,21 @@ def _run_port(tm, tp, trace):
 
 
 def test_batcher_trace_matches_jax():
-    jm = j_build(j_get_config(NAME))
+    _trace_parity(NAME)
+
+
+def test_moe_batcher_trace_matches_jax():
+    """grok-1 (smoke): every decode step and prefill chunk routes through
+    the MoE blocks; the streams still equal the JAX batcher's."""
+    _trace_parity("grok-1-314b-smoke")
+
+
+def _trace_parity(name):
+    jm = j_build(j_get_config(name))
     jp = jm.init(jax.random.PRNGKey(0))
-    tm = build_model(get_config(NAME))
-    tp = from_jax_params(jax.tree.map(np.asarray, jp), get_config(NAME), device="cpu")
-    trace = _trace(get_config(NAME).vocab)
+    tm = build_model(get_config(name))
+    tp = from_jax_params(jax.tree.map(np.asarray, jp), get_config(name), device="cpu")
+    trace = _trace(get_config(name).vocab)
 
     jb, jfin = _run_jax(jm, jp, trace)
     tb, tfin = _run_port(tm, tp, trace)

@@ -25,9 +25,10 @@ from repro_torch.kernels import mx_matmul as mm  # noqa: E402
 from repro_torch.kernels.baseline_matmul import baseline_matmul  # noqa: E402
 from repro_torch.core.precision import QuantSpec  # noqa: E402
 from repro_torch.kernels.mx_flash_decode import mx_flash_decode, mx_flash_verify  # noqa: E402
+from repro_torch.kernels.mx_grouped_matmul import mx_grouped_matmul  # noqa: E402
 from repro_torch.kernels.quant import quantize  # noqa: E402
 from repro_torch.kernels.ref import (  # noqa: E402
-    baseline_matmul_ref, paged_decode_ref, paged_verify_ref,
+    baseline_matmul_ref, grouped_matmul_ref, paged_decode_ref, paged_verify_ref,
 )
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.runtime.batcher import ContinuousBatcher  # noqa: E402
@@ -383,3 +384,112 @@ def test_speculative_streams_equal_plain_streams_on_the_card(cuda, kv):
         spec, counts = run(4, drafter)
         assert spec == plain
         assert counts["mx_flash_verify"] > 0 and counts["mx_flash_decode"] == 0
+
+
+GROUPED_SIZES = {  # T = 70 rows; every tile shape (mean rows 3, 8, 17, 70)
+    "ragged_tail": [5, 0, 12, 3, 11, 0, 7, 2, 9, 0, 4, 1, 6, 0, 3, 0, 2, 0, 1, 0],  # sum 66
+    "decode_8": [8] * 8 + [0],  # sum 64: the tail rows stay zero
+    "straddle": [2, 3, 1, 0, 9, 20, 0, 35],  # sum 70: exact
+    "oversubscribed": [50, 40],  # sum 90 > T
+    "one_group": [70],
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("act", ["none", "relu", "gelu", "silu", "swiglu"])
+@pytest.mark.parametrize("case", sorted(GROUPED_SIZES))
+def test_grouped_kernel_matches_plain(cuda, case, act, dtype):
+    sizes = GROUPED_SIZES[case]
+    T, K, N, G = 70, 300, 77, len(sizes)  # K, N ragged against every tile
+    x = _randn((T, K), dtype, cuda, 0)
+    w = (_randn((G, K, N), torch.float32, cuda, 1) / K ** 0.5).to(dtype)
+    wg = (_randn((G, K, N), torch.float32, cuda, 2) / K ** 0.5).to(dtype) \
+        if act == "swiglu" else None
+    gs = torch.tensor(sizes, dtype=torch.int32, device=cuda)
+    got = mx_grouped_matmul(x, w, gs, w_gate=wg, activation=act)
+    ref = grouped_matmul_ref(x, w, gs, w_gate=wg, activation=act)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == (T, N)
+    _close(got, ref, dtype)
+    assert torch.all(got[min(sum(sizes), T):] == 0)
+    f32 = mx_grouped_matmul(x, w, gs, w_gate=wg, activation=act, out_dtype=torch.float32)
+    _close(f32, grouped_matmul_ref(x, w, gs, w_gate=wg, activation=act,
+                                   out_dtype=torch.float32), dtype)
+
+
+def test_grouped_kernel_counts_only_launches(cuda):
+    """T = 0 launches nothing and counts nothing; a real call counts one,
+    and int64 sizes are taken."""
+    w = torch.ones(2, 8, 4, device=cuda)
+    kernels.reset_launch_counts()
+    out = mx_grouped_matmul(torch.ones(0, 8, device=cuda), w,
+                            torch.zeros(2, dtype=torch.int32, device=cuda))
+    assert out.shape == (0, 4) and kernels.launch_counts()["mx_grouped_matmul"] == 0
+    out = mx_grouped_matmul(torch.ones(3, 8, device=cuda), w,
+                            torch.tensor([1, 2], device=cuda))
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["mx_grouped_matmul"] == 1
+    assert torch.all(out == 8)
+    with pytest.raises(ValueError, match="group_sizes is on"):
+        mx_grouped_matmul(torch.ones(3, 8, device=cuda), w, torch.tensor([1, 2]))
+
+
+def test_grouped_kernel_int64_weight_offsets(cuda):
+    """kimi-k2's expert stack, (384, 7168, 2048) in bf16, is 5.64 G elements,
+    past int32: the last experts' rows must match the plain version."""
+    G, K, N = 384, 7168, 2048
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    w = torch.empty((G, K, N), dtype=torch.bfloat16, device=cuda)
+    for g in range(G):
+        w[g].normal_(generator=gen).mul_(K ** -0.5)
+    sizes = torch.zeros(G, dtype=torch.int32, device=cuda)
+    sizes[[0, 200, 381, 383]] = torch.tensor([3, 5, 8, 8], dtype=torch.int32, device=cuda)
+    x = _randn((24, K), torch.bfloat16, cuda, 4)
+    got = mx_grouped_matmul(x, w, sizes)
+    ref = grouped_matmul_ref(x, w, sizes)
+    torch.cuda.synchronize()
+    _close(got, ref, torch.bfloat16)
+    _close(got[16:], ref[16:], torch.bfloat16)  # experts 381 and 383
+    del w
+
+
+def test_stacked_init_on_the_card_equals_the_per_layer_stack(cuda):
+    """`Builder.stacked` draws each layer into its preallocated stack; on the
+    card too that equals building the layers one by one and stacking."""
+    from repro_torch.models.modules import Builder
+    from repro_torch.models.transformer import make_block
+
+    cfg = get_config("grok-1-314b-smoke")
+    seg = build_model(cfg).init(5, device=cuda)["seg0"]
+    layers = [make_block("moe", cfg).build(Builder(5, cuda, path=("seg0", str(i))))
+              for i in range(cfg.blocks[0][1])]
+    for k in ("router", "wi", "wg", "wo"):
+        assert torch.equal(seg["ffn"][k], torch.stack([lay["ffn"][k] for lay in layers]))
+    assert torch.equal(seg["attn"]["wq"],
+                       torch.stack([lay["attn"]["wq"] for lay in layers]))
+
+
+@pytest.mark.parametrize("name", ["grok-1-314b-smoke", "kimi-k2-1t-a32b-smoke"])
+def test_moe_streams_equal_across_backends(cuda, name):
+    """MoE serving at smoke size: the grouped kernel on every MoE layer of
+    every step and chunk, two launches each, and the plain path's streams."""
+    cfg = get_config(name)
+    model = build_model(cfg)
+    params = model.init(0, device=cuda)
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(0, cfg.vocab, n).astype(np.int32) for n in (6, 9, 13, 7)]
+    out = {}
+    for backend in ("cuda_mx", "torch"):
+        with ops.use_policy(ops.MXPolicy(backend)):
+            kernels.reset_launch_counts()
+            b = ContinuousBatcher(model, params, batch_slots=3, max_len=24, page_size=4,
+                                  prefill_chunk=4)
+            for i, p in enumerate(prompts):
+                b.submit(Request(rid=i, prompt=p, max_new=8))
+            fin = b.run_to_completion()
+            steps = sum(h.active > 0 for h in b.health)
+            out[backend] = ({r: fin[r].output for r in fin}, kernels.launch_counts(),
+                            steps + b.prefill_launches)
+    assert out["cuda_mx"][0] == out["torch"][0]
+    assert out["cuda_mx"][1]["mx_grouped_matmul"] == 2 * cfg.n_layers * out["cuda_mx"][2]
+    assert out["torch"][1]["mx_grouped_matmul"] == 0

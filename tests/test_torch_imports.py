@@ -21,6 +21,7 @@ def test_port_imports_no_jax_and_no_reference_package():
     mods = sorted(m.name for m in pkgutil.walk_packages(repro_torch.__path__,
                                                          "repro_torch."))
     assert "repro_torch.runtime.batcher" in mods and "repro_torch.kernels._build" in mods
+    assert {"repro_torch.models.moe", "repro_torch.kernels.mx_grouped_matmul"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"sys.path[:0] = [{str(ROOT / 'src')!r}, {str(ROOT)!r}]\n"
@@ -48,6 +49,18 @@ def test_serve_smoke_on_cpu_returns_zero(capsys):
     out = capsys.readouterr().out
     assert "continuous batching [paged+prefix cache]: 8 requests" in out
     assert "prefix cache:" in out
+
+
+@pytest.mark.parametrize("arch", ["grok-1-314b", "kimi-k2-1t-a32b"])
+def test_serve_moe_smoke_on_cpu(capsys, arch):
+    assert serve.main(["--arch", arch, "--smoke", "--prefix-cache", "--prefill-chunk",
+                       "4", "--device", "cpu"]) == 0
+    assert "continuous batching [paged+prefix cache]: 8 requests" in capsys.readouterr().out
+
+
+def test_serve_names_the_unported_model_families():
+    with pytest.raises(SystemExit, match="not ported yet"):
+        serve.main(["--arch", "zamba2-2.7b", "--smoke", "--device", "cpu"])
 
 
 @pytest.mark.parametrize("flag", ["--chaos", "--disagg=2"])

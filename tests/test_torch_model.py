@@ -1,8 +1,9 @@
 """Model parity: JAX parameters carried across with `from_jax_params`, then
-paged prefill and paged decode through both packages on the same inputs.
-JAX runs its Pallas kernels in interpret mode; the port runs its default
-CPU path.  Logits and the written page pools agree to rtol = atol = 1e-5
-(f32)."""
+paged prefill and paged decode through both packages on the same inputs,
+for dense (llama, qwen2) and MoE (grok-1, kimi-k2) smoke configs.  JAX
+runs its Pallas kernels in interpret mode; the port runs its default CPU
+path.  Logits, aux losses and the written page pools agree to rtol = atol
+= 1e-5 (f32)."""
 import numpy as np
 import pytest
 
@@ -42,7 +43,10 @@ def _pages(cache):
     return {k: v for k, v in cache["seg0"].items()}
 
 
-@pytest.mark.parametrize("name", ["llama3.2-1b-smoke", "qwen2-0.5b-smoke"])
+MOE = ["grok-1-314b-smoke", "kimi-k2-1t-a32b-smoke"]
+
+
+@pytest.mark.parametrize("name", ["llama3.2-1b-smoke", "qwen2-0.5b-smoke"] + MOE)
 def test_paged_prefill_and_decode_match_jax(name):
     cfg = get_config(name)
     jm, jp, tm, tp = _models(name)
@@ -123,11 +127,11 @@ def test_own_init_matches_jax_distributions_and_layout():
                            tp["embed"]["table"])
 
 
-@pytest.mark.parametrize("name", ["llama3.2-1b-smoke", "qwen2-0.5b-smoke"])
+@pytest.mark.parametrize("name", ["llama3.2-1b-smoke", "qwen2-0.5b-smoke"] + MOE)
 def test_full_forward_matches_jax(name):
     """`DecoderLM.__call__` (the draft model's forward) against JAX's
-    `model(params, tokens)`: f32 logits, and a zero aux loss for dense
-    blocks."""
+    `model(params, tokens)`: f32 logits, and the aux loss -- the MoE
+    blocks' summed load-balancing losses, zero for dense blocks."""
     cfg = get_config(name)
     jm, jp, tm, tp = _models(name)
     toks = np.random.default_rng(3).integers(0, cfg.vocab, (2, 11)).astype(np.int32)
@@ -135,7 +139,8 @@ def test_full_forward_matches_jax(name):
     tl, taux = tm(tp, torch.from_numpy(toks).long())
     assert tl.dtype == torch.float32 and tuple(tl.shape) == (2, 11, cfg.vocab)
     np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **TOL)
-    assert float(taux) == float(jaux) == 0.0
+    np.testing.assert_allclose(float(taux), float(jaux), **TOL)
+    assert (float(taux) > 0) == (name in MOE)
 
 
 @pytest.mark.parametrize("causal,q_offset", [(True, 0), (True, 5), (False, 0)])
@@ -180,10 +185,20 @@ def test_verify_step_paged_matches_jax(kv):
     """A prefill chunk, then one speculative window of S = 4 over three
     slots (slot 2 free), through both packages: logits and every written
     page -- int8 payloads and scale pages included -- agree."""
+    _verify_parity("llama3.2-1b-smoke", kv)
+
+
+@pytest.mark.parametrize("name", MOE)
+def test_moe_verify_step_paged_matches_jax(name):
+    """The same window over MoE blocks: 3 slots x 4 rows through routing
+    (G = 1) and the expert GEMMs."""
+    _verify_parity(name, "f32")
+
+
+def _verify_parity(name, kv):
     from repro.core.precision import QuantSpec as JQuantSpec
     from repro_torch.core.precision import QuantSpec
 
-    name = "llama3.2-1b-smoke"
     cfg = get_config(name)
     jm, jp, tm, tp = _models(name)
     ps, B, S = 4, 3, 4
@@ -230,3 +245,45 @@ def test_verify_step_paged_matches_jax(kv):
                                  torch.from_numpy(np.where(lengths > 0, index + 1, 0)
                                                   .astype(np.int32)))
     np.testing.assert_allclose(dl[:, 0].numpy(), tl[:, 0].numpy(), **TOL)
+
+
+@pytest.mark.parametrize("name", MOE)
+def test_from_jax_params_carries_moe_trees(name):
+    """Router and expert stacks keep the JAX layout, (n_layers, E, d, f)."""
+    cfg = get_config(name)
+    tree = jax.tree.map(np.asarray, j_build(j_get_config(name)).init(jax.random.PRNGKey(0)))
+    tp = from_jax_params(tree, cfg, device="cpu")
+    ffn = tp["seg0"]["ffn"]
+    assert set(ffn) == {"router", "wi", "wg", "wo"}
+    n = cfg.blocks[0][1]
+    assert tuple(ffn["wi"].shape) == (n, cfg.n_experts, cfg.d_model, cfg.d_ff)
+    assert tuple(ffn["wo"].shape) == (n, cfg.n_experts, cfg.d_ff, cfg.d_model)
+    assert tuple(ffn["router"].shape) == (n, cfg.d_model, cfg.n_experts)
+    for k in ffn:
+        np.testing.assert_array_equal(ffn[k].numpy(), tree["seg0"]["ffn"][k])
+    assert tuple(tp["lm_head"].shape) == (cfg.d_model, cfg.vocab)  # untied head
+    del tree["seg0"]["ffn"]["wg"]
+    with pytest.raises(ValueError, match="keys"):
+        from_jax_params(tree, cfg, device="cpu")
+
+
+@pytest.mark.parametrize("name", ["llama3.2-1b-smoke"] + MOE)
+def test_stacked_init_fills_in_place_with_the_per_layer_values(name):
+    """`Builder.stacked` draws each layer into a preallocated stack; every
+    leaf equals what building the layers one by one and stacking them gave."""
+    from repro_torch.models.modules import Builder
+    from repro_torch.models.transformer import make_block
+
+    cfg = get_config(name)
+    tp = build_model(cfg).init(5, device="cpu")
+    layers = [make_block(cfg.blocks[0][0], cfg).build(
+        Builder(5, torch.device("cpu"), path=("seg0", str(i)))) for i in range(cfg.blocks[0][1])]
+
+    def check(got, parts, path):
+        if isinstance(got, dict):
+            for k in got:
+                check(got[k], [p[k] for p in parts], path + (k,))
+        else:
+            assert torch.equal(got, torch.stack(parts)), path
+
+    check(tp["seg0"], layers, ())
