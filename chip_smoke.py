@@ -57,6 +57,35 @@ decode (T = 64, 8 rows per expert) and expert-major prefill (8 x 128 rows)
 projections, ragged sizes with empty groups, tiles straddling four groups,
 sum < T (tail rows exactly zero) and sum > T, T/K/N off the tiles, and
 kimi-k2's 384 experts in bf16 (an 11.3 GB stack, offsets past 2^31).
+
+The quantized path (stages 1b and 5b of the GEMMs, fp8 KV pages):
+  3q. every quantized operand pair -- (bf16, int8) "int8", (bf16, fp8)
+      "fp8", (int8, int8) "int8_all", (fp8, fp8) "fp8_all" -- through both
+      GEMMs at llama's decode and 64-row chunk widths and grok's expert
+      widths, with the policies' own scales, against the plain versions
+      within 1e-4 * max|ref| ("int8_all" with scales only bitwise); flash
+      decode and verify over fp8 pages as over int8 pages.  The bound
+      counts payloads at their own bytes plus f32 scales; the library
+      yardstick is torch._int_mm (int8 x int8) or torch._scaled_mm with
+      row-wise scales (fp8 x fp8), where their shape rules allow;
+  4q. (after phase 4, before any profiler session) llama3.2-1b on the same
+      weights under Config.precision "int8" (the phase 4 trace),
+      "int8_all" (a shorter pass) and "fp8" with fp8 pages (plain and
+      k = 4 n-gram);
+  5q. (after phase 5) each held against the plain path on one cache
+      state: every GEMM call of a prefill chunk and a decode step against
+      its plain version at 1e-3 * max|ref|, and the logits at half the
+      quantization's own effect on them (quantized activations round
+      last-bit differences of the two paths to neighbouring quanta); one
+      step profiled; identical streams across backends at smoke size
+      (llama under "int8", "int8_all", fp8 pages, "fp8" with fp8 pages);
+  6q. (after phase 6) grok-1, the same cut, under "int8": its f32 weights
+      on the card and the int8 payloads kept beside them (peak memory
+      printed), 2 grouped launches per MoE layer per step or chunk;
+  7q. (after phase 7) grok int8 held against the plain path as in 5q, a
+      64-token chunk (G = 16) under "int8_tensor" (one activation amax per
+      routing group), and identical smoke streams for grok-1 and kimi-k2
+      under "int8" and "int8_all".
 The line before the last is the kernel summary JSON; the last line is
 {"ok": true, "device": {...}}.  Details go to chiprun_out/chip_smoke.json.
 """
@@ -75,8 +104,10 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM (NVIDIA data sheet)
-PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}  # dense; f32 off the tensor cores
+PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12,  # dense; f32 off the tensor cores
+              "int8": 1979e12, "float8_e4m3fn": 1979e12}
 REL_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+QUANT_POLICIES = ("int8", "fp8", "int8_all", "fp8_all")  # the quantized operand pairs
 L2_BYTES = 50 * 2**20
 TPU_KERNELS = {  # file:line of the Pallas wrapper each CUDA kernel replaces
     "mx_matmul_fused": "src/repro/kernels/mx_matmul.py:382",
@@ -230,10 +261,10 @@ def _attn_inputs(torch, dev, B, H, Hkv, d, ps, lengths, dtype_name, seed, poison
     """Copies (together past L2) of q ((B, H, d), or (B, S, H, d) for a
     window) and the page pools over a table that reserves each slot's
     length, plus the table, the lengths and the bytes one call must move.
-    pages "same": pools in q's dtype; "int8": int8 payloads quantized per
+    pages "same": pools in q's dtype; "int8" / "fp8": payloads quantized per
     row and head as the cache stores them, with f32 scale pages.  poison:
-    every non-live row (stale pages, the dump page) is 1e30 -- for int8 the
-    1e30 lands in the row's scale."""
+    every non-live row (stale pages, the dump page) is 1e30 -- for quantized
+    pages the 1e30 lands in the row's scale."""
     import numpy as np
 
     from repro_torch.core.precision import QuantSpec
@@ -252,11 +283,12 @@ def _attn_inputs(torch, dev, B, H, Hkv, d, ps, lengths, dtype_name, seed, poison
     lns = torch.as_tensor(pool.lengths(B), device=dev)
     g = torch.Generator(device=dev).manual_seed(seed)
     el = torch.finfo(dt).bits // 8
-    pel = 1 if pages == "int8" else el
+    quantized = pages != "same"
+    pel = 1 if quantized else el
     live_rows = sum(lengths)
     rows_q = B * H * d * (S or 1)
     nbytes = (2 * el * rows_q + 2 * pel * live_rows * Hkv * d + 4 * (B * W + B)
-              + (2 * 4 * live_rows * Hkv if pages == "int8" else 0))
+              + (2 * 4 * live_rows * Hkv if quantized else 0))
     dead = None
     if poison:
         live = np.zeros((P, ps), bool)
@@ -272,13 +304,14 @@ def _attn_inputs(torch, dev, B, H, Hkv, d, ps, lengths, dtype_name, seed, poison
         kp, vp = (torch.randn((P, ps, Hkv, d), generator=g, device=dev) for _ in "kv")
         if dead is not None:
             kp, vp = kp.masked_fill(dead, 1e30), vp.masked_fill(dead, 1e30)
-        if pages != "int8":
+        if not quantized:
             return q, kp.to(dt), vp.to(dt), {}
-        (qk, ks), (qv, vs) = (quantize(t, QuantSpec("int8"), axis=-1) for t in (kp, vp))
+        spec = QuantSpec({"int8": "int8", "fp8": "fp8_e4m3"}[pages])
+        (qk, ks), (qv, vs) = (quantize(t, spec, axis=-1) for t in (kp, vp))
         return q, qk, qv, dict(k_scale=ks[..., 0].contiguous(),
                                v_scale=vs[..., 0].contiguous())
 
-    pool_bytes = P * ps * Hkv * (2 * pel * d + (8 if pages == "int8" else 0))
+    pool_bytes = P * ps * Hkv * (2 * pel * d + (8 if quantized else 0))
     sets = [make() for _ in range(_copies(pool_bytes))]
     return sets, table, lns, W, nbytes
 
@@ -316,7 +349,7 @@ def check_decode(torch, dev, B, H, Hkv, d, ps, lengths, dtype_name, seed, poison
         plain_ms=(lambda q_, k_, v_, kw_: paged_decode_ref(q_, k_, v_, table, lns, **kw_),
                   sets))
     library = None
-    if pages != "int8":  # no single call dequantizes int8 pages
+    if pages == "same":  # no single call dequantizes int8 / fp8 pages
         # library yardstick: SDPA over the same rows gathered densely beforehand
         library = "F.scaled_dot_product_attention on pre-gathered dense K/V"
         mask = (torch.arange(W * ps, device=dev)[None, :] < lns[:, None])[:, None, None, :]
@@ -363,7 +396,7 @@ def check_verify(torch, dev, B, H, Hkv, d, ps, S, lengths, dtype_name, seed, poi
         plain_ms=(lambda q_, k_, v_, kw_: paged_verify_ref(q_, k_, v_, table, lns, **kw_),
                   sets))
     library = None
-    if pages != "int8":
+    if pages == "same":
         library = "F.scaled_dot_product_attention on pre-gathered dense K/V, window mask"
         kpos = torch.arange(W * ps, device=dev)
         last = (lns - S)[:, None] + torch.arange(S, device=dev)  # (B, S)
@@ -462,6 +495,158 @@ def grouped_checks(torch, dev):
     return checks
 
 
+def _peak_type(a, b) -> str:
+    """The peak rate a pair's operations are priced at: the payload type
+    when both operands share it, else bf16 (the narrow weight widens to the
+    activation's type)."""
+    if a.dtype == b.dtype:
+        return str(a.dtype).removeprefix("torch.")
+    return "bfloat16"
+
+
+def check_quant_gemm(torch, dev, pol, M, K, N, ep_kw, seed):
+    """mx_matmul_fused on the payloads and scales of named policy `pol`
+    against mx_matmul_fused_plain on the same ones (f32 output, within
+    1e-4 * max|ref|; "int8_all" with scales only must be bitwise).  The
+    bound counts the payloads at their own bytes plus the f32 scales.  The
+    library yardstick, where one call's shape rules allow it: torch._int_mm
+    (the int32 product, scales left out) for int8 x int8, torch._scaled_mm
+    with row-wise scales (bf16 output) for fp8 x fp8, with its error."""
+    from repro_torch.core.precision import NAMED_POLICIES
+    from repro_torch.kernels import mx_matmul as mm
+    from repro_torch.kernels.quant import quantize_operand
+
+    P = NAMED_POLICIES[pol]
+    g = torch.Generator(device=dev).manual_seed(seed)
+    gated = ep_kw.get("activation") == "swiglu"
+
+    def make():
+        x = torch.randn((M, K), generator=g, device=dev)
+        qa, a_s = quantize_operand(x, P.a, "a")
+        qb, b_s = quantize_operand(torch.randn((K, N), generator=g, device=dev) / math.sqrt(K),
+                                   P.b, "b")
+        qg = bg_s = None
+        if gated:
+            qg, bg_s = quantize_operand(
+                torch.randn((K, N), generator=g, device=dev) / math.sqrt(K), P.b, "b")
+        kw = dict(b_gate=qg, a_scale=a_s, b_scale=b_s, bg_scale=bg_s,
+                  bias=torch.randn((N,), generator=g, device=dev) if ep_kw.get("bias") else None,
+                  residual=torch.randn((M, N), generator=g, device=dev)
+                  if ep_kw.get("residual") else None, out_dtype=torch.float32)
+        return qa.contiguous(), qb, kw
+
+    nmat = 2 if gated else 1
+    a0, b0, kw0 = make()
+    ep = mm.Epilogue(**ep_kw, a_scale=kw0["a_scale"] is not None,
+                     b_scale=kw0["b_scale"] is not None)
+    nbytes = (a0.element_size() * M * K + nmat * b0.element_size() * K * N + 4 * M * N
+              + (4 * M if ep.a_scale else 0) + (4 * nmat * N if ep.b_scale else 0)
+              + (4 * N if ep.bias else 0) + (4 * M * N if ep.residual else 0))
+    sets = [(a0, b0, kw0)] + [make() for _ in range(_copies(nbytes) - 1)]
+    got = mm.mx_matmul_fused(a0, b0, epilogue=ep, **kw0)
+    ref = mm.mx_matmul_fused_plain(a0, b0, epilogue=ep, **kw0)
+    torch.cuda.synchronize()
+    err, tol = _err(torch, got, ref, "float32")
+    out = dict(finite=bool(torch.isfinite(got).all()))
+    if pol == "int8_all" and not ep_kw:
+        out["bitwise"] = bool(torch.equal(got, ref))
+    fns = dict(
+        ms=(lambda a_, b_, kw_: mm.mx_matmul_fused(a_, b_, epilogue=ep, **kw_), sets),
+        plain_ms=(lambda a_, b_, kw_: mm.mx_matmul_fused_plain(a_, b_, epilogue=ep, **kw_),
+                  sets))
+    library = None
+    if not ep_kw and M > 16 and pol == "int8_all":
+        library = "torch._int_mm (int32 product; scales left out)"
+        fns["library_ms"] = (lambda a_, b_, kw_: torch._int_mm(a_, b_), sets)
+    elif not ep_kw and M % 16 == 0 and pol == "fp8_all":
+        library = "torch._scaled_mm, row-wise scales, bf16 output"
+        cm = [(a_, b_.t().contiguous().t(), kw_) for a_, b_, kw_ in sets]
+        fns["library_ms"] = (lambda a_, b_, kw_: torch._scaled_mm(
+            a_, b_, scale_a=kw_["a_scale"], scale_b=kw_["b_scale"],
+            out_dtype=torch.bfloat16), cm)
+        lib = fns["library_ms"][0](*cm[0])
+        out["library_err"] = (lib.float() - ref).abs().max().item()
+    bound, by = _bound_ms(nbytes, 2 * M * N * K * nmat, _peak_type(a0, b0))
+    return dict(kernel="mx_matmul_fused", M=M, K=K, N=N, dtype=pol,
+                pair=f"{a0.dtype} x {b0.dtype}", epilogue=ep_kw, max_abs_err=err, tol=tol,
+                **out, **_time_ms(torch, fns), library=library, bound_ms=bound, bound_by=by)
+
+
+def check_quant_grouped(torch, dev, pol, label, T, C, K, N, act, seed):
+    """mx_grouped_matmul on grok's expert widths with named policy `pol`'s
+    payloads and per-expert scales, against grouped_matmul_ref (f32 output,
+    1e-4 * max|ref|; "int8_all" without activation bitwise).  Each expert
+    is drawn in f32 and quantized on its own (per-column scales are per
+    expert), so no f32 stack is held."""
+    from repro_torch.core.precision import NAMED_POLICIES
+    from repro_torch.kernels.mx_grouped_matmul import mx_grouped_matmul
+    from repro_torch.kernels.quant import quantize_operand
+    from repro_torch.kernels.ref import grouped_matmul_ref
+
+    P = NAMED_POLICIES[pol]
+    G = T // C
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    qx, a_s = quantize_operand(torch.randn((T, K), generator=gen, device=dev), P.a, "a")
+    qx = qx.contiguous()
+
+    def stack():
+        q = torch.empty((G, K, N), dtype=P.b.torch_dtype, device=dev)
+        sc = torch.empty((G, 1, N), device=dev)
+        for e in range(G):
+            q[e], sc[e] = quantize_operand(
+                torch.randn((K, N), generator=gen, device=dev) / math.sqrt(K), P.b, "b")
+        return q, sc
+
+    w, b_s = stack()
+    wg, bg_s = stack() if act == "swiglu" else (None, None)
+    gs = torch.full((G,), C, dtype=torch.int32, device=dev)
+    kw = dict(w_gate=wg, activation=act, a_scale=a_s, b_scale=b_s, bg_scale=bg_s,
+              out_dtype=torch.float32)
+    got = mx_grouped_matmul(qx, w, gs, **kw)
+    ref = grouped_matmul_ref(qx, w, gs, **kw)
+    torch.cuda.synchronize()
+    err, tol = _err(torch, got, ref, "float32")
+    out = dict(finite=bool(torch.isfinite(got).all()))
+    if pol == "int8_all" and act == "none":
+        out["bitwise"] = bool(torch.equal(got, ref))
+    nmat = 2 if act == "swiglu" else 1
+    nbytes = (qx.element_size() * T * K + nmat * w.element_size() * G * K * N + 4 * T * N
+              + (4 * T if a_s is not None else 0) + 4 * nmat * G * N)
+    fns = dict(ms=(lambda: mx_grouped_matmul(qx, w, gs, **kw), [()]),
+               plain_ms=(lambda: grouped_matmul_ref(qx, w, gs, **kw), [()]))
+    bound, by = _bound_ms(nbytes, 2 * T * K * N * nmat, _peak_type(qx, w))
+    return dict(kernel="mx_grouped_matmul", label=label, T=T, G=G, K=K, N=N, act=act,
+                dtype=pol, pair=f"{qx.dtype} x {w.dtype}", max_abs_err=err, tol=tol,
+                zero_rows_exact=True, **out, **_time_ms(torch, fns, iters=5),
+                library=None, bound_ms=bound, bound_by=by)
+
+
+def quant_checks(torch, dev):
+    """Stage 1b / 5b: every quantized operand pair at llama's decode and
+    prefill-chunk widths (dense) and grok's expert widths (grouped)."""
+    checks, seed = [], 400
+    for pol in QUANT_POLICIES:
+        for M in (8, 64):  # decode slots, a prefill chunk
+            for K, N, ep in ((2048, 8192, dict(activation="swiglu")),
+                             (8192, 2048, dict(residual=True))):
+                seed += 1
+                checks.append(check_quant_gemm(torch, dev, pol, M, K, N, ep, seed))
+            if pol.endswith("_all"):  # scales only: bitwise for int8, library yardstick
+                seed += 1
+                checks.append(check_quant_gemm(torch, dev, pol, M, 2048, 8192, {}, seed))
+    for pol in QUANT_POLICIES:
+        for label, T, C, K, N, act in (
+                ("grok decode up+gate", 64, 8, 6144, 32768, "swiglu"),
+                ("grok decode down", 64, 8, 32768, 6144, "none"),
+                ("grok prefill up+gate", 1024, 128, 6144, 32768, "swiglu"),
+                ("grok prefill down", 1024, 128, 32768, 6144, "none")):
+            seed += 1
+            checks.append(check_quant_grouped(torch, dev, pol, label, T, C, K, N, act, seed))
+            gc.collect()
+            torch.cuda.empty_cache()
+    return checks
+
+
 def phase_kernels(torch, dev):
     checks = []
     gemm_shapes = [  # (K, N, epilogue): every llama3.2-1b projection, qwen2 widths
@@ -484,7 +669,7 @@ def phase_kernels(torch, dev):
             checks.append(check_baseline(torch, dev, M, 2048, 8192, dtype_name, seed))
         lengths = (128, 160, 0, 97, 143, 1, 129, 150)  # ragged, one free slot
         qwen = (33, 0, 160, 7)
-        for pages in ("same", "int8"):
+        for pages in ("same", "int8", "fp8"):
             checks.append(check_decode(torch, dev, 8, 32, 8, 64, 16, lengths, dtype_name,
                                        100, pages=pages))
             checks.append(check_decode(torch, dev, 4, 14, 2, 64, 16, qwen, dtype_name,
@@ -501,6 +686,7 @@ def phase_kernels(torch, dev):
                 checks.append(check_verify(torch, dev, *shape, 64, 16, S, wl, dtype_name,
                                            103 + S, poison=poison, pages=pages))
     checks += grouped_checks(torch, dev)
+    checks += quant_checks(torch, dev)
     for c in checks:
         if c["kernel"] == "mx_grouped_matmul":
             shape = f"T={c['T']} G={c['G']} K={c['K']} N={c['N']} {c['act']} [{c['label']}]"
@@ -508,14 +694,19 @@ def phase_kernels(torch, dev):
             shape = f"M={c['M']} K={c['K']} N={c['N']} {c.get('epilogue', '')}"
         else:
             shape = (f"B={c['B']} {'S=%d ' % c['S'] if 'S' in c else ''}H={c['H']} "
-                     f"Hkv={c['Hkv']} {'int8 ' if c['pages'] == 'int8' else ''}"
+                     f"Hkv={c['Hkv']} {c['pages'] + ' ' if c['pages'] != 'same' else ''}"
                      f"{'poisoned' if c['poison'] else ''}")
         ok = c["max_abs_err"] <= c["tol"] and c.get("zero_rows_exact", True) \
-            and c.get("finite", True) and c.get("decode_err", 0) <= c.get("decode_tol", 0)
+            and c.get("finite", True) and c.get("decode_err", 0) <= c.get("decode_tol", 0) \
+            and c.get("bitwise", True)
         c["ok"] = ok
         lib = "none" if c["library_ms"] is None else f"{c['library_ms']:.4f}"
         extra = (f" vs decode {c['decode_err']:.1e} bitwise {c['decode_bitwise']}"
                  if "decode_err" in c else "")
+        if "bitwise" in c:
+            extra += f" bitwise {c['bitwise']}"
+        if "library_err" in c:
+            extra += f" lib err {c['library_err']:.2e}"
         print(f"  {c['kernel']:16s} {c['dtype']:8s} {shape:40s} err {c['max_abs_err']:.3e} "
               f"(tol {c['tol']:.3e}){extra} {'ok' if ok else 'FAIL'}  ms {c['ms']:.4f} "
               f"(spread {100 * _spread(c):.0f}%) plain "
@@ -571,7 +762,9 @@ def serve(torch, model, params, cfg, backend, n_req, gen, prompt_len=128, slots=
     generated = sum(len(r.output) for r in finished.values())
     out = dict(
         label=label or backend, backend=backend, requests=len(finished), slots=slots,
-        prompt_len=prompt_len, kv_cache="int8" if kw.get("kv_quant") else "f32",
+        prompt_len=prompt_len,
+        kv_cache=kw["kv_quant"].dtype if kw.get("kv_quant") else "f32",
+        precision=getattr(cfg, "precision", "none"),
         speculate=kw.get("speculate", 0), spec=batcher.spec_stats(),
         gen=gen, wall_s=wall, steps=batcher.steps_run,
         device_steps=sum(h.active > 0 for h in batcher.health),
@@ -617,33 +810,101 @@ def _step_inputs(torch, dev, cfg, num_pages):
     return table, toks, tok, index, lengths
 
 
-def hold_steps(torch, dev, model, params, cfg, cache0, num_pages):
+@contextlib.contextmanager
+def _calls_held(calls, rel_tol=1e-3):
+    """Inside the block every GEMM kernel call of the dispatch is also
+    computed by its plain version on the same operands: each call appends
+    (kernel, max_abs_err, rel_tol * max|ref|) to `calls`.  The plain
+    versions launch no kernel, so the launch counts are those of the
+    kernel path alone."""
+    from repro_torch.core import ops
+    from repro_torch.kernels.mx_matmul import mx_matmul_fused_plain
+    from repro_torch.kernels.ref import grouped_matmul_ref
+
+    fused, grouped = ops.mx_matmul_fused, ops.mx_grouped_matmul
+
+    def held(name, kernel, plain):
+        def call(*args, **kw):
+            got = kernel(*args, **kw)
+            ref = plain(*args, **kw).float()
+            calls.append((name, (got.float() - ref).abs().max().item(),
+                          rel_tol * ref.abs().max().item()))
+            return got
+        return call
+
+    ops.mx_matmul_fused = held("mx_matmul_fused", fused, mx_matmul_fused_plain)
+    ops.mx_grouped_matmul = held("mx_grouped_matmul", grouped, grouped_matmul_ref)
+    try:
+        yield calls
+    finally:
+        ops.mx_matmul_fused, ops.mx_grouped_matmul = fused, grouped
+
+
+def _calls_summary(calls):
+    worst = max(calls, key=lambda c: c[1] / max(c[2], 1e-30))
+    return dict(calls=len(calls), ok=all(e <= t for _, e, t in calls),
+                worst=dict(kernel=worst[0], max_abs_err=worst[1], tol=worst[2]))
+
+
+def _hold_logits(torch, got, ref, f32, rel_tol):
+    """The kernel path's logits against the plain path's.  A quantized
+    configuration (`f32` holds the full-precision plain logits) is held at
+    half the quantization's own effect on the logits: its quantized
+    activations (bf16 casts, int8, fp8) round f32 values that differ in the
+    last bit between the paths to neighbouring quanta, which no f32
+    tolerance covers; each GEMM call is held at 1e-3 * max|ref| on its own
+    operands instead (`_calls_held`)."""
+    err = (got - ref).abs().max().item()
+    out = dict(max_abs_err=err, argmax_equal=bool(torch.equal(got.argmax(-1),
+                                                              ref.argmax(-1))))
+    if f32 is None:
+        out["tol"] = rel_tol * ref.abs().max().item()
+    else:
+        out["quant_effect"] = (ref - f32).abs().max().item()
+        out["tol"] = 0.5 * out["quant_effect"]
+        out["rel_err"] = err / ref.abs().max().item()
+    out["ok"] = err <= out["tol"]
+    return out
+
+
+def hold_steps(torch, dev, model, params, cfg, cache0, num_pages, quant=False):
+    """One 64-token prefill chunk and one decode step on "cuda_mx" and on
+    "torch", each from its own copy of one cache state: logits within
+    1e-3 * max|ref|.  With `quant` (a quantized Config.precision) every
+    GEMM call of the kernel path is held against its plain version at
+    1e-3 * max|ref|, and the logits as `_hold_logits` says."""
     from repro_torch import kernels
     from repro_torch.core import ops
+    from repro_torch.models import build_model
 
     table, toks, tok, index, lengths = _step_inputs(torch, dev, cfg, num_pages)
-    res = {}
-    for backend in ("cuda_mx", "torch"):
+    res, calls = {}, []
+    backends = ("cuda_mx", "torch", "f32") if quant else ("cuda_mx", "torch")
+    for backend in backends:
         cache = {seg: {k: v.clone() for k, v in leaves.items()}
                  for seg, leaves in cache0.items()}
-        with ops.use_policy(ops.MXPolicy(backend)):
+        m = model
+        if backend == "f32":
+            m = build_model(dataclasses.replace(cfg, precision="none"))
+        held = _calls_held(calls) if quant and backend == "cuda_mx" \
+            else contextlib.nullcontext()
+        with ops.use_policy(ops.MXPolicy("torch" if backend == "f32" else backend)), held:
             kernels.reset_launch_counts()
-            pl, cache = model.prefill_step_paged(params, toks, cache,
-                                                 torch.tensor([0], device=dev), table[:1])
+            pl, cache = m.prefill_step_paged(params, toks, cache,
+                                             torch.tensor([0], device=dev), table[:1])
             torch.cuda.synchronize()
             pre = kernels.launch_counts()
             kernels.reset_launch_counts()
-            dl, cache = model.decode_step_paged(params, tok, cache, index, table, lengths)
+            dl, cache = m.decode_step_paged(params, tok, cache, index, table, lengths)
             torch.cuda.synchronize()
             dec = kernels.launch_counts()
         res[backend] = (pl, dl, pre, dec)
     out = {}
     for i, what in ((0, "prefill_logits"), (1, "decode_logits")):
-        got, ref = res["cuda_mx"][i], res["torch"][i]
-        err = (got - ref).abs().max().item()
-        tol = 1e-3 * ref.abs().max().item()
-        out[what] = dict(max_abs_err=err, tol=tol, ok=err <= tol,
-                         argmax_equal=bool(torch.equal(got.argmax(-1), ref.argmax(-1))))
+        out[what] = _hold_logits(torch, res["cuda_mx"][i], res["torch"][i],
+                                 res["f32"][i] if quant else None, 1e-3)
+    if quant:
+        out["calls"] = _calls_summary(calls)
     out["launches_per_prefill_chunk"] = res["cuda_mx"][2]
     out["launches_per_decode_step"] = res["cuda_mx"][3]
     out["torch_backend_launches"] = [res["torch"][2], res["torch"][3]]
@@ -811,6 +1072,154 @@ def smoke_streams(torch, dev):
     return same, streams
 
 
+def smoke_streams_across_backends(torch, dev, names, precisions):
+    """Serving at smoke size: for each arch of `names` and each
+    (Config.precision, KV page type) of `precisions`, the "cuda_mx" and
+    "torch" streams must agree, the kernel path launching the MX GEMM and
+    the grouped kernel twice per MoE layer per step or chunk, the plain
+    path nothing."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.precision import QuantSpec
+    from repro_torch.models import build_model
+
+    out = {}
+    for name in names:
+        base = get_config(name)
+        params = build_model(base).init(0, device=dev)
+        for prec, kv in precisions:
+            cfg = dataclasses.replace(base, precision=prec)
+            model = build_model(cfg)
+            runs = {b: serve(torch, model, params, cfg, b, n_req=6, gen=8, prompt_len=24,
+                             slots=2, kv_quant=QuantSpec(kv) if kv else None)[0]
+                    for b in ("cuda_mx", "torch")}
+            r = runs["cuda_mx"]
+            want = 2 * cfg.n_layers * (r["device_steps"] + r["prefill_launches"]) \
+                if cfg.n_experts else 0
+            out[f"{name} {prec} {kv or 'f32'} pages"] = dict(
+                same=runs["torch"]["streams"] == r["streams"],
+                grouped_launches=r["launches"]["mx_grouped_matmul"], want=want,
+                fused_launches=r["launches"]["mx_matmul_fused"],
+                torch_launches=sum(runs["torch"]["launches"].values()),
+                streams={b: v["streams"] for b, v in runs.items()})
+        del params
+    for label, r in out.items():
+        print(f"    {label}: streams equal across cuda_mx / torch: {r['same']}; fused "
+              f"launches {r['fused_launches']}, grouped {r['grouped_launches']} (want "
+              f"{r['want']})")
+        if not r["same"] or r["grouped_launches"] != r["want"] or not r["fused_launches"] \
+                or r["torch_launches"]:
+            raise AssertionError(f"{label}: {r}")
+    return out
+
+
+def _check_launches(label, run, want_grouped=0):
+    """The kernels a serving run's path must launch: the MX GEMM, decode or
+    (speculating) verify attention, the grouped GEMM `want_grouped` times;
+    nothing of another backend."""
+    n = run["launches"]
+    spec = run["speculate"] > 0
+    if not n["mx_matmul_fused"] or (n["mx_flash_verify"] > 0) != spec \
+            or (n["mx_flash_decode"] > 0) == spec or n["baseline_matmul"] \
+            or n["mx_grouped_matmul"] != want_grouped:
+        raise AssertionError(f"{label}: unexpected kernel launches {n} (want "
+                             f"{want_grouped} grouped launches)")
+
+
+def _print_hold(held, whats):
+    for what in whats:
+        h = held[what]
+        effect = (f", quantization's own effect {h['quant_effect']:.3e}"
+                  if "quant_effect" in h else "")
+        print(f"    {what}: err {h['max_abs_err']:.3e} (tol {h['tol']:.3e}{effect}) "
+              f"argmax equal {h['argmax_equal']}")
+    if "calls" in held:
+        c = held["calls"]
+        print(f"    every GEMM call of the kernel path against its plain version: "
+              f"{c['calls']} calls, worst {c['worst']['kernel']} err "
+              f"{c['worst']['max_abs_err']:.3e} (tol {c['worst']['tol']:.3e}) "
+              f"{'ok' if c['ok'] else 'FAIL'}")
+
+
+def llama_quant_serve(torch, dev, cfg, params):
+    """Phase 4q: llama3.2-1b at full width on the same f32 weights,
+    quantized through Config.precision (weights quantized once, at the
+    first step): "int8" (the trace of phase 4), "int8_all" (a shorter
+    pass), "fp8" with fp8 pages, plain and k = 4 n-gram.  Each run needs its
+    kernels launched.  They run before any profiler session of the
+    process.  Returns label -> (run, model, batcher)."""
+    from repro_torch.core.precision import QuantSpec
+    from repro_torch.models import build_model
+    from repro_torch.runtime.speculative import NGramDrafter
+
+    print("[4q] quantized serving of llama3.2-1b (the same f32 weights, Config.precision)")
+    fp8 = QuantSpec("fp8_e4m3")
+    runs = {}
+    for label, prec, n_req, gen, kw in (
+            ("(d) int8", "int8", 16, 32, {}),
+            ("(e) int8_all", "int8_all", 8, 8, {}),
+            ("(f) fp8 + fp8 pages", "fp8", 16, 32, dict(kv_quant=fp8)),
+            ("(f) fp8 + fp8 pages spec4 ngram", "fp8", 16, 32,
+             dict(kv_quant=fp8, speculate=4, drafter=NGramDrafter()))):
+        qcfg = dataclasses.replace(cfg, precision=prec)
+        model = build_model(qcfg)
+        run, batcher, _ = serve(torch, model, params, qcfg, "cuda_mx", n_req=n_req,
+                                gen=gen, label=label, **kw)
+        _print_serve(run)
+        _check_launches(label, run)
+        runs[label] = (run, model, batcher)
+    return runs
+
+
+def llama_quant_holds(torch, dev, params, served):
+    """Phase 5q: each quantized run of phase 4q held against the plain path
+    on its cache state (a prefill chunk and a decode step: every GEMM call
+    at 1e-3 * max|ref|, the logits as `_hold_logits` says) and profiled for
+    one decode step (the speculative run: its stream agreement with the
+    plain fp8 run recorded, one verify step profiled); then identical
+    streams across backends at smoke size."""
+    from repro_torch.core import ops
+    from repro_torch.core.precision import QuantSpec
+
+    print("[5q] quantized kernel path against plain path")
+    holds, profs = {}, {}
+    for label, (run, model, batcher) in served.items():
+        qcfg, pages = model.cfg, batcher.pool.total_pages
+        if run["speculate"]:
+            plain = served["(f) fp8 + fp8 pages"][0]
+            run["plain_is"] = plain["label"]
+            run["streams_equal"] = sum(run["streams"][r] == plain["streams"][r]
+                                       for r in run["streams"])
+            run["divergences"] = divergences(torch, model, params, plain, run,
+                                             QuantSpec("fp8_e4m3"))
+            print(f"    {label}: streams equal to [{plain['label']}]: "
+                  f"{run['streams_equal']}/{len(run['streams'])} (recorded; fp8 window "
+                  f"rows are written from the M = 40 GEMM tile, plain rows from M = 8); "
+                  f"divergences {run['divergences']}")
+            profs[label] = profile_verify(torch, dev, model, params, qcfg, batcher.cache,
+                                          pages)
+            _print_profile(f"{label}: 1 verify step, S = 5", profs[label])
+            continue
+        print(f"    {label}:")
+        held = hold_steps(torch, dev, model, params, qcfg, batcher.cache, pages, quant=True)
+        _print_hold(held, ("prefill_logits", "decode_logits"))
+        for what in ("prefill_logits", "decode_logits", "calls"):
+            if not held[what]["ok"]:
+                raise AssertionError(f"{label} {what}: the kernel path disagrees: {held}")
+        holds[label] = held
+        table, _, tok, index, lengths = _step_inputs(torch, dev, qcfg, pages)
+        with ops.use_policy(ops.MXPolicy("cuda_mx")):
+            profs[label] = _profile(torch, lambda: model.decode_step_paged(
+                params, tok, batcher.cache, index, table, lengths))
+        _print_profile(f"{label}: 1 decode step, 8 slots", profs[label])
+    ops.clear_weight_cache()
+    print("    quantized token streams at smoke size across backends:")
+    streams = smoke_streams_across_backends(
+        torch, dev, ("llama3.2-1b-smoke",),
+        (("int8", None), ("int8_all", None), ("none", "fp8_e4m3"), ("fp8", "fp8_e4m3")))
+    return dict(serve={k: v[0] for k, v in served.items()}, hold=holds, profile=profs,
+                smoke_streams=streams)
+
+
 def _plain_logits(torch, model, params, ctx, kv_quant, chunk=64, ps=16):
     """The plain serving path's next-token logits after `ctx`, on a cache
     of the run's page type: the context but its last token in prefill
@@ -933,11 +1342,9 @@ def llama_phases(torch, dev):
         raise AssertionError(f"backends leaked into each other: {main_run['launches']} "
                              f"/ {base_run['launches']}")
     for label, run in spec_runs.items():
-        n = run["launches"]
-        want_verify, want_decode = run["speculate"] > 0, run["speculate"] == 0
-        if (n["mx_flash_verify"] > 0) != want_verify or \
-                (n["mx_flash_decode"] > 0) != want_decode or not n["mx_matmul_fused"]:
-            raise AssertionError(f"{label}: unexpected kernel launches {n}")
+        _check_launches(label, run)
+
+    served = llama_quant_serve(torch, dev, cfg, params)
 
     print("[5] kernel path against plain path")
     held = hold_steps(torch, dev, model, params, cfg, batcher.cache,
@@ -989,9 +1396,11 @@ def llama_phases(torch, dev):
             raise AssertionError(f"{label}: streams leave the plain ones away from a "
                                  f"near tie (kernel-path error {near_tie:.3e}): {bad}")
 
-    return launches, dict(serve=main_run, serve_baseline=base_run, serve_spec=spec_runs,
-                          hold=held, hold_verify=held_v, hold_verify_int8=held_v8,
-                          profile=prof, profile_verify=prof_v, smoke_streams=streams)
+    quant = llama_quant_holds(torch, dev, params, served)
+    return launches, dict(quant=quant, serve=main_run, serve_baseline=base_run,
+                          serve_spec=spec_runs, hold=held, hold_verify=held_v,
+                          hold_verify_int8=held_v8, profile=prof, profile_verify=prof_v,
+                          smoke_streams=streams)
 
 
 @contextlib.contextmanager
@@ -1013,45 +1422,56 @@ def _router_probs_recorded(out):
         MoE.router_probs = probs
 
 
-def hold_moe_steps(torch, dev, model, params, cfg, cache0, num_pages, rel_tol=1e-3):
+MOE_STEPS = ("prefill64", "prefill31", "decode")
+
+
+def hold_moe_steps(torch, dev, model, params, cfg, cache0, num_pages, rel_tol=1e-3,
+                   steps=MOE_STEPS, quant=False):
     """A 64-token prefill chunk (G = 16 routing groups) and a 31-token chunk
-    (G = 1) for slot 0, then a decode step over 8 slots, on "cuda_mx" and
-    on "torch", each from its own copy of one cache state.  Logits within
-    rel_tol * max|ref|.  Routing is plain torch on both paths, fed by
-    different GEMMs: the router probabilities of every MoE call are
-    compared, giving the smallest 2nd-3rd probability gap (top-2) and the
-    first call whose top-k sets differ, with the largest probability error
-    up to it."""
+    (G = 1) for slot 0, then a decode step over 8 slots (those of `steps`,
+    in that order), on "cuda_mx" and on "torch", each from its own copy of
+    one cache state.  Logits within rel_tol * max|ref| (with `quant`, as
+    `hold_steps` holds a quantized configuration: every GEMM call at 1e-3,
+    the logits against the quantization's own effect).  Routing is plain
+    torch on both paths, fed by different GEMMs: the router probabilities
+    of every MoE call are compared, giving the smallest 2nd-3rd probability
+    gap (top-2) and the first call whose top-k sets differ, with the
+    largest probability error up to it."""
     from repro_torch import kernels
     from repro_torch.core import ops
+    from repro_torch.models import build_model
 
     table, toks, tok, index, lengths = _step_inputs(torch, dev, cfg, num_pages)
     g = torch.Generator(device=dev).manual_seed(7)
     toks31 = torch.randint(0, cfg.vocab, (1, 31), generator=g, device=dev)
-    res = {}
-    for backend in ("cuda_mx", "torch"):
+    res, calls = {}, []
+    for backend in ("cuda_mx", "torch", "f32") if quant else ("cuda_mx", "torch"):
         cache, probs, logits, counts = _clone(cache0), [], [], []
-        with ops.use_policy(ops.MXPolicy(backend)), _router_probs_recorded(probs):
-            for step in (
-                    lambda: model.prefill_step_paged(params, toks, cache,
-                                                     torch.tensor([0], device=dev), table[:1]),
-                    lambda: model.prefill_step_paged(params, toks31, cache,
-                                                     torch.tensor([64], device=dev),
-                                                     table[:1]),
-                    lambda: model.decode_step_paged(params, tok, cache, index, table,
-                                                    lengths)):
+        m = model
+        if backend == "f32":
+            m = build_model(dataclasses.replace(cfg, precision="none"))
+        run = dict(
+            prefill64=lambda: m.prefill_step_paged(
+                params, toks, cache, torch.tensor([0], device=dev), table[:1]),
+            prefill31=lambda: m.prefill_step_paged(
+                params, toks31, cache, torch.tensor([64], device=dev), table[:1]),
+            decode=lambda: m.decode_step_paged(params, tok, cache, index, table, lengths))
+        held = _calls_held(calls) if quant and backend == "cuda_mx" \
+            else contextlib.nullcontext()
+        with ops.use_policy(ops.MXPolicy("torch" if backend == "f32" else backend)), \
+                _router_probs_recorded(probs), held:
+            for step in (run[k] for k in steps):
                 kernels.reset_launch_counts()
                 logits.append(step()[0])
                 torch.cuda.synchronize()
                 counts.append(kernels.launch_counts())
         res[backend] = (logits, counts, probs)
     out = {}
-    for i, what in enumerate(("prefill64_logits", "prefill31_logits", "decode_logits")):
-        got, ref = res["cuda_mx"][0][i], res["torch"][0][i]
-        err = (got - ref).abs().max().item()
-        tol = rel_tol * ref.abs().max().item()
-        out[what] = dict(max_abs_err=err, tol=tol, ok=err <= tol,
-                         argmax_equal=bool(torch.equal(got.argmax(-1), ref.argmax(-1))))
+    for i, what in enumerate(f"{k}_logits" for k in steps):
+        out[what] = _hold_logits(torch, res["cuda_mx"][0][i], res["torch"][0][i],
+                                 res["f32"][0][i] if quant else None, rel_tol)
+    if quant:
+        out["calls"] = _calls_summary(calls)
     pk, pp = res["cuda_mx"][2], res["torch"][2]
     k = cfg.top_k
     top = [p.topk(k + 1, dim=-1).values for p in pk]
@@ -1065,31 +1485,8 @@ def hold_moe_steps(torch, dev, model, params, cfg, cache0, num_pages, rel_tol=1e
             break
     out["router"] = dict(calls=len(pk), min_gap_2nd_3rd=min(gaps), first_flip_call=flip,
                          prob_err_to_flip=err_to_flip)
-    out["launches"] = dict(zip(("prefill64", "prefill31", "decode"), res["cuda_mx"][1]))
+    out["launches"] = dict(zip(steps, res["cuda_mx"][1]))
     out["torch_backend_launches"] = res["torch"][1]
-    return out
-
-
-def moe_smoke_streams(torch, dev):
-    """grok-1 and kimi-k2 at smoke size: "cuda_mx" and "torch" streams must
-    agree, and the kernel path launches the grouped kernel twice per MoE
-    layer per step or chunk."""
-    from repro_torch.configs import get_config
-    from repro_torch.models import build_model
-
-    out = {}
-    for name in ("grok-1-314b-smoke", "kimi-k2-1t-a32b-smoke"):
-        cfg = get_config(name)
-        model = build_model(cfg)
-        params = model.init(0, device=dev)
-        runs = {b: serve(torch, model, params, cfg, b, n_req=6, gen=8, prompt_len=24,
-                         slots=2)[0] for b in ("cuda_mx", "torch")}
-        r = runs["cuda_mx"]
-        out[name] = dict(
-            same=runs["torch"]["streams"] == r["streams"],
-            grouped_launches=r["launches"]["mx_grouped_matmul"],
-            want=2 * cfg.n_layers * (r["device_steps"] + r["prefill_launches"]),
-            streams={b: v["streams"] for b, v in runs.items()})
     return out
 
 
@@ -1128,53 +1525,118 @@ def grok_phases(torch, dev):
     _print_serve(run)
     print(f"      peak device memory {run['peak_memory_gib']:.2f} GiB; "
           f"{run['device_steps']} device steps")
-    n = run["launches"]
-    want = 2 * cfg.n_layers * (run["device_steps"] + run["prefill_launches"])
-    if n["mx_grouped_matmul"] != want or not n["mx_matmul_fused"] \
-            or not n["mx_flash_decode"] or n["baseline_matmul"] or n["mx_flash_verify"]:
-        raise AssertionError(f"grok serving: launches {n}, want {want} grouped launches "
-                             f"(2 per MoE layer per step or chunk)")
+    _check_launches("grok serving", run,
+                    2 * cfg.n_layers * (run["device_steps"] + run["prefill_launches"]))
+
+    qserved = grok_quant_serve(torch, dev, cfg, params)
 
     print("[7] grok kernel path against plain path")
+    held = _hold_grok(torch, dev, model, params, cfg, batcher)
+    prof = _profile_grok(torch, dev, model, params, cfg, batcher, "1 grok decode step, 8 slots")
+    del batcher
+    quant = grok_quant_holds(torch, dev, cfg, params, *qserved)
+    del params, model, qserved
+    gc.collect()
+    torch.cuda.empty_cache()
+    streams = smoke_streams_across_backends(
+        torch, dev, ("grok-1-314b-smoke", "kimi-k2-1t-a32b-smoke"),
+        (("none", None), ("int8", None), ("int8_all", None)))
+    return dict(config=dict(name=cfg.name, n_layers=cfg.n_layers, cut_from=full.n_layers),
+                init_s=init_s, serve=run, hold=held, profile_decode=prof,
+                smoke_streams=streams, quant=quant)
+
+
+def _hold_grok(torch, dev, model, params, cfg, batcher, label="grok", steps=MOE_STEPS,
+               quant=False):
+    """hold_moe_steps on the batcher's cache state, printed and required:
+    logits within 1e-3 * max|ref| (with `quant`, as `_hold_logits` says,
+    and every GEMM call at 1e-3 against its plain version; a failure behind
+    a top-2 routing flip decided by less than 1e-4 of router probability is
+    a near tie, not a fault) and 2 grouped launches per MoE layer per step
+    or chunk."""
     held = hold_moe_steps(torch, dev, model, params, cfg, batcher.cache,
-                          batcher.pool.total_pages)
+                          batcher.pool.total_pages, steps=steps, quant=quant)
     rt = held["router"]
     print(f"    router: {rt['calls']} calls, smallest 2nd-3rd probability gap "
           f"{rt['min_gap_2nd_3rd']:.3e}; first top-2 flip between the paths: "
           f"{rt['first_flip_call']} (router probability error up to it "
           f"{rt['prob_err_to_flip']:.3e})")
-    for what in ("prefill64_logits", "prefill31_logits", "decode_logits"):
+    _print_hold(held, [f"{k}_logits" for k in steps])
+    if quant and not held["calls"]["ok"]:
+        raise AssertionError(f"{label}: a GEMM call disagrees with its plain version: "
+                             f"{held['calls']}")
+    for what in (f"{k}_logits" for k in steps):
         h = held[what]
-        print(f"    {what}: err {h['max_abs_err']:.3e} (tol {h['tol']:.3e}) "
-              f"argmax equal {h['argmax_equal']}")
-        # a failure behind a routing flip decided by less than 1e-4 of
-        # probability is a near tie, not a fault
         near_tie = rt["first_flip_call"] is not None and rt["prob_err_to_flip"] <= 1e-4
         if not h["ok"] and not near_tie:
-            raise AssertionError(f"grok {what}: the kernel path disagrees: {h}, {rt}")
+            raise AssertionError(f"{label} {what}: the kernel path disagrees: {h}, {rt}")
         h["near_tie"] = not h["ok"] and near_tie
     for what, c in held["launches"].items():
         print(f"    launches per {what}: {c}")
         if c["mx_grouped_matmul"] != 2 * cfg.n_layers:
-            raise AssertionError(f"grok {what}: {c['mx_grouped_matmul']} grouped launches, "
-                                 f"want {2 * cfg.n_layers}")
+            raise AssertionError(f"{label} {what}: {c['mx_grouped_matmul']} grouped "
+                                 f"launches, want {2 * cfg.n_layers}")
+    return held
+
+
+def _profile_grok(torch, dev, model, params, cfg, batcher, what):
+    from repro_torch.core import ops
+
     table, _, tok, index, lengths = _step_inputs(torch, dev, cfg, batcher.pool.total_pages)
     with ops.use_policy(ops.MXPolicy("cuda_mx")):
         prof = _profile(torch, lambda: model.decode_step_paged(
             params, tok, batcher.cache, index, table, lengths))
-    _print_profile("1 grok decode step, 8 slots", prof)
-    del params, batcher, model
-    gc.collect()
-    torch.cuda.empty_cache()
-    streams = moe_smoke_streams(torch, dev)
-    for name, r in streams.items():
-        print(f"    {name}: streams equal across cuda_mx / torch: {r['same']}; grouped "
-              f"launches {r['grouped_launches']} (want {r['want']})")
-        if not r["same"] or r["grouped_launches"] != r["want"]:
-            raise AssertionError(f"{name}: {r}")
-    return dict(config=dict(name=cfg.name, n_layers=cfg.n_layers, cut_from=full.n_layers),
-                init_s=init_s, serve=run, hold=held, profile_decode=prof,
-                smoke_streams=streams)
+    _print_profile(what, prof)
+    return prof
+
+
+def grok_quant_serve(torch, dev, cfg, params):
+    """Phase 6q: grok-1 (the same cut and f32 weights) served with
+    Config.precision "int8": the f32 weights stay on the card and the int8
+    payloads are kept beside them (quantized once, at the first step); 2
+    grouped launches per MoE layer per step or chunk.  Returns (run, model,
+    batcher)."""
+    from repro_torch.core import ops
+    from repro_torch.models import build_model
+
+    print("[6q] serving grok-1-314b with Config.precision int8 (same cut, same weights)")
+    qcfg = dataclasses.replace(cfg, precision="int8")
+    model = build_model(qcfg)
+    torch.cuda.reset_peak_memory_stats()
+    run, batcher, _ = serve(torch, model, params, qcfg, "cuda_mx", n_req=16, gen=16,
+                            label="grok int8")
+    run["peak_memory_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    run["weight_payload_gib"] = sum(
+        q.numel() * q.element_size() for _, _, q, _ in ops._weights.values()) / 2**30
+    _print_serve(run)
+    print(f"      peak device memory {run['peak_memory_gib']:.2f} GiB, of which int8 weight "
+          f"payloads kept {run['weight_payload_gib']:.2f} GiB; {run['device_steps']} "
+          f"device steps")
+    _check_launches("grok int8", run,
+                    2 * cfg.n_layers * (run["device_steps"] + run["prefill_launches"]))
+    return run, model, batcher
+
+
+def grok_quant_holds(torch, dev, cfg, params, run, model, batcher):
+    """Phase 7q: the grok int8 run's kernel path held against the plain path
+    as in phase 7 (every GEMM call at 1e-3 * max|ref|, the logits as
+    `_hold_logits` says), one decode step profiled, and a 64-token chunk
+    (G = 16 routing groups) under "int8_tensor", whose activation scale is
+    one amax per routing group."""
+    from repro_torch.core import ops
+    from repro_torch.models import build_model
+
+    print("[7q] grok int8 kernel path against plain path")
+    held = _hold_grok(torch, dev, model, params, model.cfg, batcher, "grok int8", quant=True)
+    prof = _profile_grok(torch, dev, model, params, model.cfg, batcher,
+                         "1 grok int8 decode step, 8 slots")
+    ops.clear_weight_cache()
+    tcfg = dataclasses.replace(cfg, precision="int8_tensor")
+    print("    int8_tensor, the 64-token chunk (G = 16 routing groups):")
+    held_t = _hold_grok(torch, dev, build_model(tcfg), params, tcfg, batcher,
+                        "grok int8_tensor", steps=("prefill64",), quant=True)
+    ops.clear_weight_cache()
+    return dict(serve=run, hold=held, hold_int8_tensor=held_t, profile_decode=prof)
 
 
 def main() -> int:
@@ -1198,13 +1660,15 @@ def main() -> int:
 
     build_s = _build.build_all()
     print(f"[2] built {len(_build.SOURCES)} CUDA sources for sm_90a in {build_s:.1f} s")
+    ptxas = []
     for name in _build.SOURCES:
         entry = ""
         for line in _build.ptxas_report(name).splitlines():
             if "Compiling entry function" in line:
                 entry = line.split("'")[1][:48]  # the mangled kernel name
             elif "registers" in line or "spill" in line:
-                print(f"    {name} {entry}: {line.strip()}")
+                ptxas.append(f"{name} {entry}: {line.strip()}")
+                print(f"    {ptxas[-1]}")
     sass = sass_rmw_counts()
     print(f"    output read-modify-write in the SASS (ld/st.global.cg = *.STRONG.GPU): "
           f"{sass}")
@@ -1242,11 +1706,45 @@ def main() -> int:
             shape={k: c[k] for k in ("M", "T", "G", "K", "N", "B", "S", "H", "Hkv", "d")
                    if k in c},
             dtype="float32"))
+    # the quantized variants (stages 1b, 5b, fp8 pages): a decode-step call
+    # each, with its launches in the serving run that takes it
+    qruns = llama["quant"]["serve"]
+    variants = (  # (name, kernel, check selector, launches)
+        ("mx_matmul_fused (bf16 x int8)", "mx_matmul_fused",
+         dict(dtype="int8", M=8, K=8192, N=2048),
+         qruns["(d) int8"]["launches"]["mx_matmul_fused"]),
+        ("mx_matmul_fused (int8 x int8)", "mx_matmul_fused",
+         dict(dtype="int8_all", M=8, K=8192, N=2048),
+         qruns["(e) int8_all"]["launches"]["mx_matmul_fused"]),
+        ("mx_matmul_fused (bf16 x fp8)", "mx_matmul_fused",
+         dict(dtype="fp8", M=8, K=8192, N=2048),
+         qruns["(f) fp8 + fp8 pages"]["launches"]["mx_matmul_fused"]),
+        ("mx_flash_decode (fp8 pages)", "mx_flash_decode",
+         dict(dtype="float32", B=8, H=32, poison=False, pages="fp8"),
+         qruns["(f) fp8 + fp8 pages"]["launches"]["mx_flash_decode"]),
+        ("mx_flash_verify (fp8 pages)", "mx_flash_verify",
+         dict(dtype="float32", B=8, H=32, S=5, poison=False, pages="fp8"),
+         qruns["(f) fp8 + fp8 pages spec4 ngram"]["launches"]["mx_flash_verify"]),
+        ("mx_grouped_matmul (bf16 x int8)", "mx_grouped_matmul",
+         dict(dtype="int8", label="grok decode down"),
+         grok["quant"]["serve"]["launches"]["mx_grouped_matmul"]))
+    for name, kernel, sel, n in variants:
+        if n <= 0:
+            raise AssertionError(f"{name} was not launched on its serving path")
+        c = next(c for c in checks if c["kernel"] == kernel
+                 and all(c.get(k) == v for k, v in sel.items()))
+        summary.append(dict(
+            name=name, route="cuda", source=SOURCES[kernel], replaces=TPU_KERNELS[kernel],
+            launches=n, max_abs_err=c["max_abs_err"], ms=c["ms"], plain_ms=c["plain_ms"],
+            bound_ms=c["bound_ms"], bound_by=c["bound_by"], library_ms=c["library_ms"],
+            shape={k: c[k] for k in ("M", "T", "G", "K", "N", "B", "S", "H", "Hkv", "d")
+                   if k in c},
+            dtype=c.get("pair", c["dtype"])))
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(dict(
-        device=smi, build_s=build_s, checks=checks, **llama, grok=grok, kernels=summary),
-        indent=1, default=str))
+        device=smi, build_s=build_s, ptxas=ptxas, checks=checks, **llama, grok=grok,
+        kernels=summary), indent=1, default=str))
     print(json.dumps({"kernels": summary}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,13 +2,15 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
-// dtype codes passed from Python (kernels/_build._DTYPE_CODES); int8 is
-// taken only as a KV page payload, with f32 scale pages beside it
-enum ReproDType : int { kF32 = 0, kBF16 = 1, kI8 = 2 };
+// dtype codes passed from Python (kernels/_build._DTYPE_CODES); int8 and
+// fp8 (e4m3) are quantized payloads, always with f32 scales beside them:
+// GEMM operands with per-row / per-column scales, KV pages with scale pages
+enum ReproDType : int { kF32 = 0, kBF16 = 1, kI8 = 2, kF8 = 3 };
 
 // activation codes (kernels/mx_matmul.ACT_CODES)
 enum ReproAct : int { kNone = 0, kRelu = 1, kGelu = 2, kSilu = 3, kSwiglu = 4 };
@@ -16,6 +18,7 @@ enum ReproAct : int { kNone = 0, kRelu = 1, kGelu = 2, kSilu = 3, kSwiglu = 4 };
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
 __device__ __forceinline__ float to_f32(int8_t x) { return static_cast<float>(x); }
+__device__ __forceinline__ float to_f32(__nv_fp8_e4m3 x) { return static_cast<float>(x); }
 
 __device__ __forceinline__ void from_f32(float* p, float v) { *p = v; }
 __device__ __forceinline__ void from_f32(__nv_bfloat16* p, float v) {

@@ -7,10 +7,11 @@
 //   - mx_flash_verify (_verify_kernel): S = k+1 query rows per slot (the
 //     speculative window), row r attending positions <= len - S + r, in one
 //     launch.
-// Both take f32 or bf16 queries and f32, bf16 or int8 pages.  An int8
-// cache passes per-row f32 scale pages (P, ps, Hkv), steered by the same
-// page table; each staged K/V row is multiplied by its scale before the
-// dots, as the TPU kernel does.
+// Both take f32 or bf16 queries and f32, bf16, int8 or fp8 (e4m3) pages.
+// A quantized (int8 or fp8) cache passes per-row f32 scale pages
+// (P, ps, Hkv), steered by the same page table; each staged K/V row is
+// widened and multiplied by its scale before the dots, as the TPU kernel
+// does.
 //
 // One CTA per (slot, kv head).  The CTA reads its slot's length and page
 // ids from `lengths` / `page_table` itself (the Pallas scalar prefetch),
@@ -35,7 +36,7 @@
 //
 // What bounds them on the H100: HBM bytes -- each live K/V row is read
 // once (2 * len * d * sizeof(page) bytes per slot and kv head, plus 2 * len
-// * 4 bytes of scales for int8) against 4 * S * G * d FLOPs per row.  The
+// * 4 bytes of scales for int8 / fp8) against 4 * S * G * d FLOPs per row.  The
 // design reads every row with neighbouring threads on neighbouring
 // addresses and keeps all reuse (S * G query rows per K/V row) on chip.
 // With B * Hkv CTAs (64 at 8 slots x 8 kv heads) the card is far from full
@@ -64,7 +65,7 @@ __device__ __forceinline__ void stage_page(const TP* __restrict__ kp, const TP* 
     const int64_t row = (pid * ps + r) * Hkv + h;
     float kv = to_f32(kp[row * d + c]);
     float vv = to_f32(vp[row * d + c]);
-    if (ksc != nullptr) {  // int8 pages: dequant on the way into the dots
+    if (ksc != nullptr) {  // int8 / fp8 pages: dequant on the way into the dots
       kv *= ksc[row];
       vv *= vsc[row];
     }
@@ -249,10 +250,12 @@ static int with_types(int dq, int dp, F&& f) {
     if (dp == kF32) return f(float{}, float{});
     if (dp == kBF16) return f(float{}, __nv_bfloat16{});
     if (dp == kI8) return f(float{}, int8_t{});
+    if (dp == kF8) return f(float{}, __nv_fp8_e4m3{});
   } else if (dq == kBF16) {
     if (dp == kF32) return f(__nv_bfloat16{}, float{});
     if (dp == kBF16) return f(__nv_bfloat16{}, __nv_bfloat16{});
     if (dp == kI8) return f(__nv_bfloat16{}, int8_t{});
+    if (dp == kF8) return f(__nv_bfloat16{}, __nv_fp8_e4m3{});
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -267,7 +270,7 @@ static int prepare(K kern, size_t smem) {
 }
 
 // q (B, H, d) of dtype dq; k_pages / v_pages (P, ps, Hkv, d) of dtype dp;
-// k_scale / v_scale (P, ps, Hkv) f32 or null (required for int8 pages);
+// k_scale / v_scale (P, ps, Hkv) f32 or null (required for int8 / fp8 pages);
 // page_table (B, W) int32; lengths (B,) int32; out (B, H, d) of dtype dq.
 extern "C" int mx_flash_decode_launch(const void* q, const void* kp, const void* vp,
                                       const void* ksc, const void* vsc, const void* table,
@@ -276,7 +279,7 @@ extern "C" int mx_flash_decode_launch(const void* q, const void* kp, const void*
                                       void* stream) {
   const int G = H / Hkv;
   if (G * d > kThreads * kAccPer) return static_cast<int>(cudaErrorInvalidValue);
-  if (dp == kI8 && (ksc == nullptr || vsc == nullptr))
+  if ((dp == kI8 || dp == kF8) && (ksc == nullptr || vsc == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem =
       sizeof(float) * ((size_t)G * d + (size_t)ps * (d + 1) + (size_t)ps * d +
@@ -319,7 +322,7 @@ extern "C" int mx_flash_verify_launch(const void* q, const void* kp, const void*
                                       int Hkv, int d, int ps, int W, int dq, int dp,
                                       float scale, void* stream) {
   const int G = H / Hkv;
-  if (dp == kI8 && (ksc == nullptr || vsc == nullptr))
+  if ((dp == kI8 || dp == kF8) && (ksc == nullptr || vsc == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = mx_flash_verify_smem_bytes(S, G, d, ps);
   cudaStream_t s = static_cast<cudaStream_t>(stream);

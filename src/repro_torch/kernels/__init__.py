@@ -3,16 +3,17 @@
 | TPU kernel (repro/kernels)          | port                                  |
 |-------------------------------------|---------------------------------------|
 | mx_matmul.py::mx_matmul_fused       | mx_matmul.py + csrc/mx_matmul.cu      |
+|   (dense f32/bf16, every epilogue; int8/fp8 payloads with scales)           |
 | baseline_matmul.py::baseline_matmul | baseline_matmul.py + csrc/baseline_matmul.cu |
 | mx_flash_decode.py::mx_flash_decode | mx_flash_decode.py + csrc/mx_flash_decode.cu |
-|   (f32/bf16 pages, int8 pages with k_scale / v_scale)                       |
+|   (f32/bf16 pages, int8 / fp8 pages with k_scale / v_scale)                 |
 | mx_flash_decode.py::mx_flash_verify | mx_flash_decode.py + csrc/mx_flash_decode.cu |
 |   (the same page types; S = k+1 window rows per slot)                       |
 | mx_grouped_matmul.py::mx_grouped_matmul | mx_grouped_matmul.py + csrc/mx_grouped_matmul.cu |
-|   (dense f32/bf16 experts, every activation; plain version in ref.py)       |
+|   (f32/bf16 and int8/fp8 experts with per-expert scales; plain in ref.py)  |
 
-Not ported yet: mx_flash_attention, ssd_scan, the scale / 2:4 / ABFT stages
-of both GEMMs and the ring composites (ROADMAP queue 2).
+Not ported yet: mx_flash_attention, ssd_scan, the 2:4 and ABFT stages of
+both GEMMs and the ring composites (ROADMAP queue 2).
 """
 from __future__ import annotations
 

@@ -29,8 +29,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 SOURCES = ("mx_matmul", "baseline_matmul", "mx_flash_decode", "mx_grouped_matmul")
 
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}  # csrc/common.cuh
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2,
+                torch.float8_e4m3fn: 3}  # csrc/common.cuh ReproDType
 FLOATS = (torch.float32, torch.bfloat16)
+QUANTIZED = (torch.int8, torch.float8_e4m3fn)  # payloads that carry f32 scales
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -135,11 +137,32 @@ def check(err: int, name: str, what: str) -> None:
 
 def dtype_code(dtype: torch.dtype, what: str, allowed=FLOATS) -> int:
     """The kernels' dtype code (csrc/common.cuh ReproDType) of an operand
-    that may be any of `allowed` (int8 only for KV pages, with scales)."""
+    that may be any of `allowed` (int8 / fp8 only as payloads with scales)."""
     if dtype not in allowed:
         names = " or ".join(str(t).removeprefix("torch.") for t in allowed)
         raise TypeError(f"{what}: the CUDA kernels take {names}, got {dtype}")
     return _DTYPE_CODES[dtype]
+
+
+# (A, B) operand pairs of both GEMM kernels (csrc/mx_matmul.cu,
+# csrc/mx_grouped_matmul.cu): the dense pairs and those that
+# core/precision.NAMED_POLICIES produce from f32 or bf16 inputs
+GEMM_PAIRS = (
+    (torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
+    (torch.bfloat16, torch.int8), (torch.bfloat16, torch.float8_e4m3fn),
+    (torch.int8, torch.int8), (torch.float8_e4m3fn, torch.float8_e4m3fn),
+)
+
+
+def pair_codes(a: torch.Tensor, b: torch.Tensor, what: str):
+    """The dtype codes of a GEMM's (A, B) operands; TypeError for a pair
+    the kernels are not built for."""
+    if (a.dtype, b.dtype) not in GEMM_PAIRS:
+        names = ", ".join(f"({str(x).removeprefix('torch.')}, "
+                          f"{str(y).removeprefix('torch.')})" for x, y in GEMM_PAIRS)
+        raise TypeError(f"{what}: operand pair ({a.dtype}, {b.dtype}) is not one the "
+                        f"CUDA kernels take: {names}")
+    return _DTYPE_CODES[a.dtype], _DTYPE_CODES[b.dtype]
 
 
 def stream_ptr(t: torch.Tensor) -> int:

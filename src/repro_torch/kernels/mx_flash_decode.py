@@ -8,9 +8,9 @@ the running max, keeps (m, l, acc) in f32 and stores each output row once.
 On a CPU tensor it runs the plain version (`kernels.ref.paged_decode_ref` /
 `paged_verify_ref`).
 
-Both take f32 or bf16 queries and f32, bf16 or int8 pages; an int8 cache
-passes its f32 `k_scale` / `v_scale` (P, page_size, Hkv) scale pages, which
-the kernels apply to each K/V row as they stage it.
+Both take f32 or bf16 queries and f32, bf16, int8 or fp8 (e4m3) pages; a
+quantized cache passes its f32 `k_scale` / `v_scale` (P, page_size, Hkv)
+scale pages, which the kernels apply to each K/V row as they stage it.
 """
 from __future__ import annotations
 
@@ -26,7 +26,7 @@ from .ref import paged_decode_ref, paged_verify_ref
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _DECODE_ARGTYPES = (_P,) * 8 + (_I,) * 8 + (_F, _P)
 _VERIFY_ARGTYPES = (_P,) * 8 + (_I,) * 9 + (_F, _P)
-_PAGE_DTYPES = (torch.float32, torch.bfloat16, torch.int8)
+_PAGE_DTYPES = (torch.float32, torch.bfloat16, torch.int8, torch.float8_e4m3fn)
 
 
 @functools.lru_cache(maxsize=None)
@@ -58,8 +58,8 @@ def _check(what, q, k_pages, v_pages, page_table, lengths, k_scale, v_scale):
             if t.shape != (P, ps, Hkv):
                 raise ValueError(f"{name} must be (P, ps, Hkv)={(P, ps, Hkv)}, "
                                  f"got {tuple(t.shape)}")
-    elif k_pages.dtype == torch.int8:
-        raise ValueError(f"{what}: int8 pages need k_scale / v_scale")
+    elif k_pages.dtype in _build.QUANTIZED:
+        raise ValueError(f"{what}: {k_pages.dtype} pages need k_scale / v_scale")
 
 
 def _launch(wrapper, symbol, argtypes, q, k_pages, v_pages, page_table, lengths,
@@ -111,8 +111,8 @@ def mx_flash_decode(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tenso
     int32 physical page ids (entries past a slot's pages must still be
     valid ids -- the allocator pads with its dump page); lengths: (B,) live
     token counts; 0 marks a free slot, whose output row is all zeros.
-    GQA: query head h is served by kv head h // (H // Hkv).  An int8 cache
-    passes k_scale / v_scale (P, page_size, Hkv).  Returns (B, H, d) in
+    GQA: query head h is served by kv head h // (H // Hkv).  An int8 or fp8
+    cache passes k_scale / v_scale (P, page_size, Hkv).  Returns (B, H, d) in
     q's dtype."""
     _check("mx_flash_decode", q, k_pages, v_pages, page_table, lengths, k_scale, v_scale)
     if not q.is_cuda:

@@ -9,9 +9,13 @@ register accumulators and stores only that group's rows, so every output
 row is written once.  On a CPU tensor it runs the plain version,
 `kernels.ref.grouped_matmul_ref`.
 
+Quantized experts (stage 5b): x and w carry int8 / fp8 payloads (or bf16
+casts), with per-row `a_scale` (T, 1) and per-expert per-column `b_scale`
+/ `bg_scale` (G, 1, N) f32 scales applied at the store of each group's
+rows; the operand pairs are those of `mx_matmul_fused`.
+
 Not ported yet (they raise NotImplementedError naming the ROADMAP item):
-per-expert dequant scales (ROADMAP queue 2 item 5b), 2:4 sparse experts
-(5c) and per-expert ABFT checksums (5d).
+2:4 sparse experts (queue 2 item 5c) and per-expert ABFT checksums (5d).
 """
 from __future__ import annotations
 
@@ -21,36 +25,39 @@ from typing import Optional
 import torch
 
 from . import _build
-from .mx_matmul import ACT_CODES, ACTIVATIONS, _require_cuda_operand
+from .mx_matmul import ACT_CODES, ACTIVATIONS, _require_cuda_operand, _scale_vec
 from .ref import grouped_matmul_ref
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_ARGTYPES = (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P)
+_ARGTYPES = (_P,) * 8 + (_I,) * 8 + (_P,)
 
 
-def _launch(x, w, w_gate, group_sizes, activation, out_dtype):
+def _launch(x, w, w_gate, group_sizes, activation, a_scale, b_scale, bg_scale,
+            out_dtype):
     T, K = x.shape
     G, _, N = w.shape
-    dt = _build.dtype_code(x.dtype, "mx_grouped_matmul operands")
-    for t, what in ((w, "w"), (w_gate, "w_gate")):
-        if t is not None and t.dtype != x.dtype:
-            raise TypeError(f"mx_grouped_matmul: {what} dtype {t.dtype} != x dtype "
-                            f"{x.dtype} (mixed operands are not ported)")
+    x_dt, w_dt = _build.pair_codes(x, w, "mx_grouped_matmul")
+    if w_gate is not None and w_gate.dtype != w.dtype:
+        raise TypeError(f"mx_grouped_matmul: w_gate dtype {w_gate.dtype} != w dtype "
+                        f"{w.dtype}")
     _require_cuda_operand(x, "x", x.device)
     _require_cuda_operand(w, "w", x.device)
     if w_gate is not None:
         _require_cuda_operand(w_gate, "w_gate", x.device, tuple(w.shape))
     if group_sizes.device != x.device:
         raise ValueError(f"group_sizes is on {group_sizes.device}, expected {x.device}")
+    scales = [_scale_vec(t, n, what, x.device) for t, n, what in (
+        (a_scale, T, "a_scale"), (b_scale, G * N, "b_scale"), (bg_scale, G * N, "bg_scale"))]
     sizes = group_sizes.to(torch.int32).contiguous()
     out = torch.empty((T, N), dtype=out_dtype, device=x.device)
     if T == 0 or N == 0:
         return out
     fn = _build.function("mx_grouped_matmul", "mx_grouped_matmul_launch", _ARGTYPES)
     err = fn(x.data_ptr(), w.data_ptr(),
-             None if w_gate is None else w_gate.data_ptr(), sizes.data_ptr(),
-             out.data_ptr(), _build.dtype_code(out_dtype, "out_dtype"), T, N, K, G, dt,
-             ACT_CODES[activation], _build.stream_ptr(x))
+             None if w_gate is None else w_gate.data_ptr(),
+             *(None if t is None else t.data_ptr() for t in scales), sizes.data_ptr(),
+             out.data_ptr(), _build.dtype_code(out_dtype, "out_dtype"), T, N, K, G, x_dt,
+             w_dt, ACT_CODES[activation], _build.stream_ptr(x))
     _build.check(err, "mx_grouped_matmul", "mx_grouped_matmul")
     mx_grouped_matmul.launches += 1
     return out
@@ -65,14 +72,13 @@ def mx_grouped_matmul(x: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tenso
     (G, K, N); group_sizes: (G,) ints, on x's device.  Rows at or past
     sum(group_sizes) are zero; oversubscribed sizes (sum > T) drop the rows
     that do not exist.  activation "swiglu" gates with w_gate (G, K, N):
-    silu(x @ w_gate[g]) * (x @ w[g]).  out_dtype defaults to x.dtype.
+    silu(x @ w_gate[g]) * (x @ w[g]).  Quantized payloads carry a_scale
+    (T, 1) and per-expert b_scale / bg_scale (G, 1, N); bg_scale is given
+    iff gated and b_scale is.  out_dtype defaults to x.dtype; pass it for
+    quantized payloads.
 
-    A CUDA `x` launches the kernel (f32 or bf16 operands, f32 or bf16
-    output); a CPU `x` takes `grouped_matmul_ref`."""
-    if a_scale is not None or b_scale is not None or bg_scale is not None:
-        raise NotImplementedError(
-            "per-expert dequant scales (a_scale/b_scale) are not ported yet: "
-            "ROADMAP queue 2 item 5b")
+    A CUDA `x` launches the kernel (the operand pairs of `mx_matmul_fused`,
+    f32 or bf16 output); a CPU `x` takes `grouped_matmul_ref`."""
     if b_sparse or w_meta is not None or wg_meta is not None:
         raise NotImplementedError(
             "2:4 sparse experts are not ported yet: ROADMAP queue 2 item 5c")
@@ -93,10 +99,19 @@ def mx_grouped_matmul(x: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tenso
         raise ValueError("w_gate must be given iff activation=='swiglu'")
     if w_gate is not None and w_gate.shape != w.shape:
         raise ValueError(f"w_gate {tuple(w_gate.shape)} != w {tuple(w.shape)}")
+    if (bg_scale is not None) != (activation == "swiglu" and b_scale is not None):
+        raise ValueError("bg_scale must be given iff gated AND b_scale is set")
+    T, (G, _, N) = x.shape[0], w.shape
+    for t, shape, what in ((a_scale, (T, 1), "a_scale"), (b_scale, (G, 1, N), "b_scale"),
+                           (bg_scale, (G, 1, N), "bg_scale")):
+        if t is not None and tuple(t.shape) != shape:
+            raise ValueError(f"{what} must be {shape}, got {tuple(t.shape)}")
     out_dtype = out_dtype or x.dtype
     if x.is_cuda:
-        return _launch(x, w, w_gate, group_sizes, activation, out_dtype)
+        return _launch(x, w, w_gate, group_sizes, activation, a_scale, b_scale, bg_scale,
+                       out_dtype)
     return grouped_matmul_ref(x, w, group_sizes, w_gate=w_gate, activation=activation,
+                              a_scale=a_scale, b_scale=b_scale, bg_scale=bg_scale,
                               out_dtype=out_dtype)
 
 

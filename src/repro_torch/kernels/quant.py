@@ -1,17 +1,28 @@
 """Symmetric-scale quantization (port of `compute_scale` / `quantize` /
-`dequantize` from `repro/kernels/quant.py`).
+`dequantize` / `quantize_operand` from `repro/kernels/quant.py`).
 
-Plain tensor code, as in JAX: the int8 paged KV cache quantizes each K/V
-row on write (`models/layers.py::Attention._write_kv_pages`) and the
-attention kernels dequantize on read.  The arithmetic follows JAX step by
-step so both packages store the same payload bytes: the amax is taken in
-f32, the scale is amax / qmax (1.0 where the amax is 0), the payload is
-`x / scale` (a division, not a multiply by the reciprocal), and int8 rounds
-half to even (`torch.round`, like `jnp.round`) before clipping to +-127.
+Plain tensor code, as in JAX, consumed from two directions:
+  - the int8 / fp8 paged KV cache quantizes each K/V row on write
+    (`models/layers.py::Attention._write_kv_pages`) and the attention
+    kernels dequantize on read;
+  - `quantize_operand` prepares a GEMM operand for `core/ops.py`: the
+    payload in the target dtype plus an f32 scale shaped for the kernel's
+    write-back, (..., M, 1) per row of A and (..., 1, N) per column of B
+    (per expert on a (G, K, N) stack).
+The arithmetic follows JAX step by step so both packages hold the same
+payload bytes: the amax is taken in f32, the scale is amax / qmax (1.0
+where the amax is 0), the payload is `x / scale` (a division, not a
+multiply by the reciprocal), int8 rounds half to even (`torch.round`, like
+`jnp.round`) before clipping to +-127, and fp8 clips to +-448 before the
+cast (an e4m3 overflow would be NaN).
+
+`quantize_int8_tensor`, `quantize_int8_stochastic` and
+`executed_gemm_bytes` (gradient compression and analytics) come with the
+training and analytics items (ROADMAP queue 1 items 16-17).
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -42,14 +53,81 @@ def quantize(x: torch.Tensor, spec: QuantSpec, *, axis=None
                            device=x.device)
     else:
         scale = compute_scale(x, qmax, axis=axis)
+    return payload(x, spec, scale), scale
+
+
+def payload(x: torch.Tensor, spec: QuantSpec, scale: torch.Tensor) -> torch.Tensor:
+    """The quantized payload of x under `scale` (broadcastable to x)."""
     scaled = x.float() / scale
     if spec.dtype == "int8":
-        q = torch.clamp(torch.round(scaled), -qmax, qmax).to(torch.int8)
-    else:
-        q = torch.clamp(scaled, -qmax, qmax).to(spec.torch_dtype)
-    return q, scale
+        return torch.clamp(torch.round(scaled), -spec.qmax, spec.qmax).to(torch.int8)
+    return torch.clamp(scaled, -spec.qmax, spec.qmax).to(spec.torch_dtype)
 
 
 def dequantize(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     """f32 reconstruction; broadcasting covers every scale granularity."""
     return q.float() * scale
+
+
+def quantize_operand(x: torch.Tensor, spec: QuantSpec, operand: str, *,
+                     row_groups: Optional[Sequence[int]] = None
+                     ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Apply one QuantSpec to a GEMM operand.
+
+    operand "a": (..., M, K) activations, "tile" scales per row, returned
+    (..., M, 1); operand "b": (..., K, N) weights, "tile" scales per
+    column, (..., 1, N) (per expert on a (G, K, N) stack).  "tensor" takes
+    one amax over the whole operand (the whole expert stack for "b") and
+    broadcasts it to the same tile shape.  Cast-only specs return
+    (cast payload, None); an "f32" spec is the identity.
+
+    ``row_groups`` (operand "a" (T, K), "tensor" granularity, no static
+    scale): the rows are laid out as (outer, G, inner) = row_groups, and
+    one amax is taken per index of the middle axis -- the routing groups of
+    the MoE's expert-major buffer, which JAX quantizes one group per call."""
+    if operand not in ("a", "b"):
+        raise ValueError(f"operand must be 'a' or 'b', got {operand!r}")
+    if not spec.quantized:
+        if spec.dtype == "f32" or x.dtype == spec.torch_dtype:
+            return x, None
+        return x.to(spec.torch_dtype), None
+    if operand == "b" and x.dim() == 3:
+        return _quantize_stack(x, spec)
+    k_axis = x.dim() - 1 if operand == "a" else x.dim() - 2
+    if spec.granularity == "tile":
+        return quantize(x, spec, axis=k_axis)
+    tile_shape = list(x.shape)
+    tile_shape[k_axis] = 1
+    if row_groups is not None and spec.static_scale is None:
+        if operand != "a" or x.dim() != 2:
+            raise ValueError("row_groups apply to a 2-D activation operand")
+        amax = x.reshape(*row_groups, -1).float().abs().amax(dim=(0, 2, 3))
+        sg = torch.where(amax > 0, amax / spec.qmax, torch.ones_like(amax)).float()
+        scale = sg[None, :, None].expand(*row_groups).reshape(tile_shape)
+        return payload(x, spec, scale), scale
+    q, scale = quantize(x, spec, axis=None)
+    return q, torch.broadcast_to(scale.reshape((1,) * x.dim()), tile_shape)
+
+
+def _quantize_stack(w: torch.Tensor, spec: QuantSpec):
+    """A (G, K, N) expert stack as quantize_operand(w, spec, "b") would
+    quantize it whole (per expert and column; "tensor": one amax over the
+    stack), one expert at a time, so no f32 temporary of the stack is made
+    (grok-1's (8, 6144, 32768) stacks are 6.4 GB each in f32)."""
+    G, _, N = w.shape
+    q = torch.empty(w.shape, dtype=spec.torch_dtype, device=w.device)
+    if spec.granularity == "tile":
+        scale = torch.empty((G, 1, N), dtype=torch.float32, device=w.device)
+        for g in range(G):
+            q[g], scale[g] = quantize(w[g], spec, axis=0)
+        return q, scale
+    if spec.static_scale is not None:
+        s = torch.full((), spec.static_scale, dtype=torch.float32, device=w.device)
+    else:
+        amax = torch.zeros((), dtype=torch.float32, device=w.device)
+        for g in range(G):
+            amax = torch.maximum(amax, w[g].float().abs().amax())
+        s = torch.where(amax > 0, amax / spec.qmax, torch.ones_like(amax))
+    for g in range(G):
+        q[g] = payload(w[g], spec, s)
+    return q, torch.broadcast_to(s.reshape(1, 1, 1), (G, 1, N))

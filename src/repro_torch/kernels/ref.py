@@ -11,7 +11,7 @@ import math
 
 import torch
 
-from .mx_matmul import apply_activation
+from .mx_matmul import apply_activation, dot_f32
 
 
 def matmul_ref(a: torch.Tensor, b: torch.Tensor, out_dtype=None) -> torch.Tensor:
@@ -59,7 +59,7 @@ def paged_decode_ref(q, k_pages, v_pages, page_table, lengths, *,
     q: (B, H, d) one token per slot; k_pages / v_pages: (P, ps, Hkv, d)
     flat page pools; page_table: (B, W) physical page ids; lengths: (B,)
     live token counts (0 = free slot -> zero output row).  Optional
-    k_scale / v_scale: (P, ps, Hkv) per-row dequant scales (int8 cache).
+    k_scale / v_scale: (P, ps, Hkv) per-row dequant scales (int8 / fp8 cache).
     """
     B, H, d = q.shape
     _, ps, Hkv, _ = k_pages.shape
@@ -127,13 +127,21 @@ def paged_verify_ref(q, k_pages, v_pages, page_table, lengths, *,
 
 
 def grouped_matmul_ref(x: torch.Tensor, w: torch.Tensor, group_sizes, *,
-                       w_gate=None, activation: str = "none",
-                       out_dtype=None) -> torch.Tensor:
+                       w_gate=None, activation: str = "none", a_scale=None,
+                       b_scale=None, bg_scale=None, out_dtype=None) -> torch.Tensor:
     """Oracle for `mx_grouped_matmul` (port of `grouped_matmul_reference`
     and `_ragged_dot_f32`): out[t] = act(x[t] @ w[g(t)]) for rows sorted by
-    group, swiglu as silu(x @ w_gate[g]) * (x @ w[g]), all in f32, cast to
-    out_dtype at the end.  x: (T, K); w, w_gate: (G, K, N); group_sizes:
-    (G,) ints, group g owning the next group_sizes[g] rows.
+    group, swiglu as silu(x @ w_gate[g]) * (x @ w[g]), accumulated as
+    `dot_f32` does (f32; exact for int8 x int8), cast to out_dtype at the
+    end.  x: (T, K); w, w_gate: (G, K, N); group_sizes: (G,) ints, group g
+    owning the next group_sizes[g] rows.
+
+    Quantized payloads carry per-row ``a_scale`` (T, 1) and per-expert
+    ``b_scale`` / ``bg_scale`` (G, 1, N), applied to each group's product
+    in the kernel's order: acc * a_scale * b_scale[g] (the gate likewise
+    with bg_scale), then the activation.  Only one expert's weights are
+    widened at a time (grok's (8, 6144, 32768) int8 stack would be 6.4 GB
+    in f32).
 
     Group ranges are clamped to T (oversubscribed sizes drop the rows that
     do not exist, as the TPU kernel clamps to its padded rows) and a
@@ -147,10 +155,19 @@ def grouped_matmul_ref(x: torch.Tensor, w: torch.Tensor, group_sizes, *,
     for g, n in enumerate(torch.as_tensor(group_sizes).tolist()):
         end = min(start + max(n, 0), T)
         if end > start:
-            xs = x[start:end].float()
-            h = torch.matmul(xs, w[g].float())
+            xs = x[start:end]
+            h = dot_f32(xs, w[g])
+            if a_scale is not None:
+                h = h * a_scale[start:end]
+            if b_scale is not None:
+                h = h * b_scale[g]
             if activation == "swiglu":
-                h = torch.nn.functional.silu(torch.matmul(xs, w_gate[g].float())) * h
+                gate = dot_f32(xs, w_gate[g])
+                if a_scale is not None:
+                    gate = gate * a_scale[start:end]
+                if bg_scale is not None:
+                    gate = gate * bg_scale[g]
+                h = torch.nn.functional.silu(gate) * h
             else:
                 h = apply_activation(h, activation)
             out[start:end] = h

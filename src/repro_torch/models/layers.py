@@ -7,11 +7,12 @@ All weight-times-activation contractions route through `core.ops.linear`
 speculative window through `mx_flash_verify`.  The tied LM head, the full
 and chunked attention of the full forward and the paged prefill attention
 stay plain PyTorch, as they stay outside any Pallas kernel in JAX.  An
-int8 KV cache quantizes each K/V row on write (per row and head) and the
-attention dequantizes on read.
+int8 or fp8 (e4m3) KV cache quantizes each K/V row on write (per row and
+head) and the attention dequantizes on read.  Every projection takes the
+block's `precision` declaration, or the ambient `use_precision()` context.
 
 Not ported yet: the dense (non-paged) cache path (`Attention.decode`,
-`prefill`) and fp8 KV pages.
+`prefill`).
 """
 from __future__ import annotations
 
@@ -27,6 +28,9 @@ from ..kernels.mx_flash_decode import mx_flash_decode, mx_flash_verify
 from ..kernels.quant import quantize
 from ..kernels.ref import paged_decode_ref, paged_prefill_ref, paged_verify_ref
 from .modules import Builder, Module
+
+# a quantized page pool's payload dtype -> its QuantSpec dtype name
+_PAGE_SPECS = {torch.int8: "int8", torch.float8_e4m3fn: "fp8_e4m3"}
 
 
 def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -230,12 +234,13 @@ class Attention(Module):
         """Scatter K/V rows into the page pools at (page_ids, offs), IN
         PLACE (`index_put_`; JAX returns an updated copy).  Shared by decode
         (one row per slot), chunked prefill and the verify window.  Free
-        slots' rows land on the dump page; nothing is ever zeroed.  An int8
-        cache (it describes itself by its "k_scale" key) quantizes each row
-        and head on write, with its scale beside it."""
+        slots' rows land on the dump page; nothing is ever zeroed.  A
+        quantized cache (it describes itself by its "k_scale" key; int8 or
+        fp8 by its payload dtype) quantizes each row and head on write, with
+        its scale beside it."""
         idx = (page_ids.long(), offs.long())
         if "k_scale" in cache:
-            spec = QuantSpec("int8", "tile")
+            spec = QuantSpec(_PAGE_SPECS[cache["k_pages"].dtype], "tile")
             qk, ks = quantize(k_new, spec, axis=-1)
             qv, vs = quantize(v_new, spec, axis=-1)
             cache["k_pages"].index_put_(idx, qk)
@@ -251,17 +256,15 @@ class Attention(Module):
     def init_paged_cache(self, num_pages: int, page_size: int, *,
                          dtype=torch.float32, device="cuda", kv_quant=None):
         """Flat page-pool cache: (num_pages, page_size, Hkv, hd) per operand.
-        `kv_quant` (a quantized QuantSpec, e.g. QuantSpec("int8")) stores
-        int8 payloads plus per-row f32 scale pages (num_pages, page_size,
-        Hkv); the cache describes itself by its `k_scale` key."""
+        `kv_quant` (a quantized QuantSpec: QuantSpec("int8") or
+        QuantSpec("fp8_e4m3")) stores payloads of its dtype plus per-row f32
+        scale pages (num_pages, page_size, Hkv); the cache describes itself
+        by its `k_scale` key."""
         shape = (num_pages, page_size, self.n_kv_heads, self.hd)
         if kv_quant is not None and kv_quant.quantized:
-            if kv_quant.dtype != "int8":
-                raise NotImplementedError(
-                    f"{kv_quant.dtype} KV pages are not ported yet (ROADMAP queue 1 "
-                    "item 8); int8 is")
-            return {"k_pages": torch.zeros(shape, dtype=torch.int8, device=device),
-                    "v_pages": torch.zeros(shape, dtype=torch.int8, device=device),
+            dt = kv_quant.torch_dtype
+            return {"k_pages": torch.zeros(shape, dtype=dt, device=device),
+                    "v_pages": torch.zeros(shape, dtype=dt, device=device),
                     "k_scale": torch.ones(shape[:3], dtype=torch.float32, device=device),
                     "v_scale": torch.ones(shape[:3], dtype=torch.float32, device=device)}
         return {"k_pages": torch.zeros(shape, dtype=dtype, device=device),
@@ -328,7 +331,7 @@ class Attention(Module):
         """Batched-verify step of speculative decoding: x (B, S, D) holds
         each slot's S = k+1 window tokens (the committed token plus k
         drafts).  Their K/V rows for positions [index, index+S) are written
-        first (quantized on write for int8), then all S rows attend in one
+        first (quantized on write for int8 / fp8), then all S rows attend in one
         `mx_flash_verify` launch.  lengths: (B,) live counts INCLUDING the
         window (index + S for active slots, 0 for free ones, whose writes
         land on the dump page and whose rows are zero)."""

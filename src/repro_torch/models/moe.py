@@ -16,6 +16,16 @@ only on its own input row and expert, so both layouts compute the same
 function.  The "torch" backend runs the batched einsum of the JAX "xla"
 path, with h cast to the buffer dtype between the two GEMMs.
 
+A declared or ambient precision (`precision`, `use_precision`) routes every
+backend through `ops.grouped_matmul`, as in JAX: the CUDA backends through
+the grouped kernel's scale slots, "torch" through its quantized reference.
+The weights quantize per expert and per column, the activations per row,
+both independent of the buffer's layout; a "tensor"-granularity activation
+scale is the one exception -- JAX takes one amax per routing group (one
+call per group), so the expert-major launch takes one per group too
+(`a_row_groups`), for the up / gate input and again for h.  The router
+stays full precision on every backend.
+
 Combine: expert outputs are gathered back into (token, choice) order,
 weighted by the renormalized gates and summed over the k choices in choice
 order, in f32 (JAX's scatter-add sums them in expert order; for top-2 the
@@ -74,16 +84,17 @@ class MoE(Module):
         logits = dot_f32(xg, p["router"].to(xg.dtype))
         return torch.softmax(logits, dim=-1)
 
-    def _expert_ffn(self, p, xe: torch.Tensor) -> torch.Tensor:
+    def _expert_ffn(self, p, xe: torch.Tensor, n_groups: int = 1) -> torch.Tensor:
         """Every expert GEMM over the expert-major buffer xe: (E, R, D),
-        R = G*C rows per expert."""
-        ops._reject_unported(self.precision, None)
+        R = n_groups * C rows per expert (routing group g's rows at
+        [g*C, (g+1)*C) of each expert)."""
         ops._check_tp_mode("allgather")
         E, R, D = xe.shape
         policy = ops.current_policy()
+        prec = ops._ambient_precision(self.precision)
         wi, wo = p["wi"].to(xe.dtype), p["wo"].to(xe.dtype)
         wg = p["wg"].to(xe.dtype) if self.gated else None
-        if policy.resolve(xe) == "torch":
+        if policy.resolve(xe) == "torch" and prec is None:
             h = dot_f32(xe, wi).to(xe.dtype)
             if self.gated:
                 h = F.silu(dot_f32(xe, wg).to(xe.dtype)) * h
@@ -91,13 +102,14 @@ class MoE(Module):
                 h = F.gelu(h, approximate="tanh")
             return dot_f32(h, wo).to(h.dtype)
         sizes = torch.full((E,), R, dtype=torch.int32, device=xe.device)
+        kw = dict(policy=policy, precision=prec,
+                  a_row_groups=(E, n_groups, R // n_groups) if n_groups > 1 else None)
         x2 = xe.reshape(E * R, D)
         if self.gated:
-            h = ops.grouped_matmul(x2, wi, sizes, activation="swiglu", w_gate=wg,
-                                   policy=policy)
+            h = ops.grouped_matmul(x2, wi, sizes, activation="swiglu", w_gate=wg, **kw)
         else:
-            h = ops.grouped_matmul(x2, wi, sizes, activation="gelu", policy=policy)
-        return ops.grouped_matmul(h, wo, sizes, policy=policy).reshape(E, R, D)
+            h = ops.grouped_matmul(x2, wi, sizes, activation="gelu", **kw)
+        return ops.grouped_matmul(h, wo, sizes, **kw).reshape(E, R, D)
 
     def __call__(self, p, x: torch.Tensor, *, aux_loss_weight: float = 0.01):
         """x: (B, S, D) -> (y, aux_loss)."""
@@ -135,7 +147,7 @@ class MoE(Module):
         row = torch.where(pos < C, se * (G * C) + gidx * C + pos, rows)  # drop -> spare
         buf = torch.zeros((rows + 1, D), dtype=x.dtype, device=dev)
         buf.index_put_((row.reshape(-1),), xg[gidx, order // K].reshape(-1, D))
-        y = self._expert_ffn(p, buf[:rows].view(E, G * C, D)).reshape(rows, D)
+        y = self._expert_ffn(p, buf[:rows].view(E, G * C, D), G).reshape(rows, D)
 
         # combine in (token, choice) order: unsort the rows, gather, weight
         row_tk = torch.empty_like(row).scatter_(1, order, row).reshape(G, Tg, K)

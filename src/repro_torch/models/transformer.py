@@ -193,7 +193,7 @@ class DecoderLM(Module):
                          dtype=torch.float32, device="cuda", kv_quant=None):
         """Per segment, layer-stacked page pools (n, num_pages, page_size,
         Hkv, hd), with (n, num_pages, page_size, Hkv) scale pages for an
-        int8 `kv_quant`.  The page table and lengths are per-step scheduler
+        int8 or fp8 `kv_quant`.  The page table and lengths are per-step scheduler
         outputs shared by every layer, not part of the cache."""
         if not self.supports_paged():
             raise ValueError(f"{self.cfg.name}: paged decode needs "

@@ -9,7 +9,8 @@ exhausted instead of crashing), eviction returns them with NO zeroing, and
 each decode step attends only over pages the live sequences touch.  The
 device step is `model.decode_step_paged` (the CUDA `mx_flash_decode` and
 `mx_matmul_fused` kernels on the card).  ``kv_quant=QuantSpec("int8")``
-stores the pages as int8 with per-row f32 scale pages.
+(or ``QuantSpec("fp8_e4m3")``) stores the pages as int8 (fp8) with per-row
+f32 scale pages.
 
   - ``prefix_cache=True``: a content index over the page pool
     (runtime/prefix_cache) maps each request's longest already-prefilled

@@ -1,7 +1,9 @@
 """The slice as a whole: one request trace through the JAX paged batcher
 (Pallas kernels in interpret mode) and through the port's batcher on the
 CPU, with the JAX weights carried across.  Token streams, finish reasons,
-pool statistics and prefix-cache statistics must be identical."""
+pool statistics and prefix-cache statistics must be identical -- also for
+quantized serving: a `Config.precision` ("int8", "int8_all") and fp8 KV
+pages."""
 import dataclasses
 
 import numpy as np
@@ -48,8 +50,8 @@ KW = dict(batch_slots=2, max_len=20, page_size=4, num_pages=11,
           prefix_cache=True, prefill_chunk=4)
 
 
-def _run_jax(jm, jp, trace):
-    b = JBatcher(jm, jp, paged=True, **KW)
+def _run_jax(jm, jp, trace, **kw):
+    b = JBatcher(jm, jp, paged=True, **KW, **kw)
     with jops.use_policy(JAX_POLICY):
         for rid, prompt, max_new in trace:
             b.submit(JRequest(rid=rid, prompt=prompt, max_new=max_new))
@@ -57,8 +59,8 @@ def _run_jax(jm, jp, trace):
     return b, fin
 
 
-def _run_port(tm, tp, trace):
-    b = ContinuousBatcher(tm, tp, **KW)
+def _run_port(tm, tp, trace, **kw):
+    b = ContinuousBatcher(tm, tp, **KW, **kw)
     for rid, prompt, max_new in trace:
         b.submit(Request(rid=rid, prompt=prompt, max_new=max_new))
     return b, b.run_to_completion()
@@ -74,15 +76,33 @@ def test_moe_batcher_trace_matches_jax():
     _trace_parity("grok-1-314b-smoke")
 
 
-def _trace_parity(name):
-    jm = j_build(j_get_config(name))
-    jp = jm.init(jax.random.PRNGKey(0))
-    tm = build_model(get_config(name))
-    tp = from_jax_params(jax.tree.map(np.asarray, jp), get_config(name), device="cpu")
-    trace = _trace(get_config(name).vocab)
+QUANT_CASES = {  # id -> (arch, Config.precision, KV page type)
+    "llama-int8": (NAME, "int8", None),
+    "llama-int8_all": (NAME, "int8_all", None),
+    "llama-fp8_pages": (NAME, "none", "fp8_e4m3"),
+    "grok-int8": ("grok-1-314b-smoke", "int8", None),
+}
 
-    jb, jfin = _run_jax(jm, jp, trace)
-    tb, tfin = _run_port(tm, tp, trace)
+
+@pytest.mark.parametrize("case", sorted(QUANT_CASES))
+def test_quantized_batcher_trace_matches_jax(case):
+    _trace_parity(*QUANT_CASES[case])
+
+
+def _trace_parity(name, precision="none", kv=None):
+    from repro.core.precision import QuantSpec as JQuantSpec
+    from repro_torch.core.precision import QuantSpec
+
+    jcfg = dataclasses.replace(j_get_config(name), precision=precision)
+    cfg = dataclasses.replace(get_config(name), precision=precision)
+    jm = j_build(jcfg)
+    jp = jm.init(jax.random.PRNGKey(0))
+    tm = build_model(cfg)
+    tp = from_jax_params(jax.tree.map(np.asarray, jp), cfg, device="cpu")
+    trace = _trace(cfg.vocab)
+
+    jb, jfin = _run_jax(jm, jp, trace, **(dict(kv_quant=JQuantSpec(kv)) if kv else {}))
+    tb, tfin = _run_port(tm, tp, trace, **(dict(kv_quant=QuantSpec(kv)) if kv else {}))
 
     assert sorted(tfin) == sorted(jfin) == list(range(len(trace)))
     assert {r: tfin[r].output for r in tfin} == {r: jfin[r].output for r in jfin}

@@ -10,7 +10,10 @@ the plain versions is held by the other tests/test_torch_*.py files.
 
 Tolerances, kernel against plain version on the same inputs: f32 within
 1e-4 * max|ref| (summation order differs), bf16 within 2e-2 * max|ref|
-(one bf16 rounding of an f32 result); free slots exactly zero.
+(one bf16 rounding of an f32 result); free slots exactly zero.  Quantized
+GEMMs (int8 / fp8 payloads with scales, f32 output) within 1e-4 * max|ref|,
+and "int8_all" with scales only bitwise (an exact integer MAC on both
+sides, then the same two f32 multiplies).
 """
 import numpy as np
 import pytest
@@ -23,10 +26,10 @@ from repro_torch.core import ops  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import mx_matmul as mm  # noqa: E402
 from repro_torch.kernels.baseline_matmul import baseline_matmul  # noqa: E402
-from repro_torch.core.precision import QuantSpec  # noqa: E402
+from repro_torch.core.precision import NAMED_POLICIES, QuantSpec, use_precision  # noqa: E402
 from repro_torch.kernels.mx_flash_decode import mx_flash_decode, mx_flash_verify  # noqa: E402
 from repro_torch.kernels.mx_grouped_matmul import mx_grouped_matmul  # noqa: E402
-from repro_torch.kernels.quant import quantize  # noqa: E402
+from repro_torch.kernels.quant import quantize, quantize_operand  # noqa: E402
 from repro_torch.kernels.ref import (  # noqa: E402
     baseline_matmul_ref, grouped_matmul_ref, paged_decode_ref, paged_verify_ref,
 )
@@ -493,3 +496,172 @@ def test_moe_streams_equal_across_backends(cuda, name):
     assert out["cuda_mx"][0] == out["torch"][0]
     assert out["cuda_mx"][1]["mx_grouped_matmul"] == 2 * cfg.n_layers * out["cuda_mx"][2]
     assert out["torch"][1]["mx_grouped_matmul"] == 0
+
+
+QUANTIZED = ["bf16", "int8", "int8_all", "int8_tensor", "fp8", "fp8_all"]
+
+
+def _quantized(pol, x, w, wg=None):
+    P = NAMED_POLICIES[pol]
+    qa, a_s = quantize_operand(x, P.a, "a")
+    qb, b_s = quantize_operand(w, P.b, "b")
+    qg, bg_s = quantize_operand(wg, P.b, "b") if wg is not None else (None, None)
+    return qa.contiguous(), a_s, qb, b_s, qg, bg_s
+
+
+@pytest.mark.parametrize("M", [1, 8, 40, 100])  # all three tile shapes
+@pytest.mark.parametrize("ep", [dict(), dict(activation="swiglu"),
+                                dict(activation="gelu", bias=True, residual=True,
+                                     out_scale=0.5)])
+@pytest.mark.parametrize("pol", QUANTIZED)
+def test_quantized_mx_matmul_kernel_matches_plain(cuda, pol, ep, M):
+    K, N = 300, 77  # ragged against every tile
+    x, w = _randn((M, K), torch.float32, cuda, 0), _randn((K, N), torch.float32, cuda, 1)
+    gated = ep.get("activation") == "swiglu"
+    wg = _randn((K, N), torch.float32, cuda, 2) if gated else None
+    qa, a_s, qb, b_s, qg, bg_s = _quantized(pol, x, w, wg)
+    e = mm.Epilogue(**ep, a_scale=a_s is not None, b_scale=b_s is not None)
+    kw = dict(b_gate=qg, a_scale=a_s, b_scale=b_s,
+              bg_scale=bg_s if gated and b_s is not None else None,
+              bias=_randn((N,), torch.float32, cuda, 3) if e.bias else None,
+              residual=_randn((M, N), torch.float32, cuda, 4) if e.residual else None,
+              out_dtype=torch.float32)
+    before = mm.mx_matmul_fused.launches
+    got = mm.mx_matmul_fused(qa, qb, epilogue=e, **kw)
+    ref = mm.mx_matmul_fused_plain(qa, qb, epilogue=e, **kw)
+    torch.cuda.synchronize()
+    assert mm.mx_matmul_fused.launches == before + 1
+    _close(got, ref, torch.float32)
+    if pol == "int8_all" and not ep:
+        assert torch.equal(got, ref)
+
+
+def test_kernels_refuse_an_operand_pair_they_are_not_built_for(cuda):
+    a = torch.zeros(4, 8, device=cuda)
+    b = torch.zeros(8, 6, dtype=torch.int8, device=cuda)
+    with pytest.raises(TypeError, match="operand pair"):
+        mm.mx_matmul_fused(a, b)
+    with pytest.raises(TypeError, match="operand pair"):
+        mx_grouped_matmul(a, b[None], torch.tensor([4], dtype=torch.int32, device=cuda))
+
+
+@pytest.mark.parametrize("act", ["none", "swiglu", "gelu"])
+@pytest.mark.parametrize("case", ["ragged_tail", "decode_8", "straddle"])
+@pytest.mark.parametrize("pol", QUANTIZED)
+def test_quantized_grouped_kernel_matches_plain(cuda, pol, case, act):
+    """Per-row and per-expert scales; a straddling tile applies each
+    group's own scales to its rows; tail rows stay exact zeros."""
+    sizes = GROUPED_SIZES[case]
+    T, K, N, G = 70, 300, 77, len(sizes)
+    x = _randn((T, K), torch.float32, cuda, 0)
+    w = _randn((G, K, N), torch.float32, cuda, 1) / K ** 0.5
+    w = w * torch.linspace(0.1, 10.0, G, device=cuda)[:, None, None]  # experts' ranges
+    wg = _randn((G, K, N), torch.float32, cuda, 2) / K ** 0.5 if act == "swiglu" else None
+    qa, a_s, qb, b_s, qg, bg_s = _quantized(pol, x, w, wg)
+    gs = torch.tensor(sizes, dtype=torch.int32, device=cuda)
+    kw = dict(w_gate=qg, activation=act, a_scale=a_s, b_scale=b_s,
+              bg_scale=bg_s if act == "swiglu" and b_s is not None else None,
+              out_dtype=torch.float32)
+    got = mx_grouped_matmul(qa, qb, gs, **kw)
+    ref = grouped_matmul_ref(qa, qb, gs, **kw)
+    torch.cuda.synchronize()
+    _close(got, ref, torch.float32)
+    assert torch.all(got[min(sum(sizes), T):] == 0)
+    if pol == "int8_all" and act == "none":
+        assert torch.equal(got, ref)
+
+
+def _fp8(kp, vp):
+    (qk, ks), (qv, vs) = (quantize(t, QuantSpec("fp8_e4m3"), axis=-1) for t in (kp, vp))
+    return qk, qv, ks[..., 0].contiguous(), vs[..., 0].contiguous()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S", [None, 1, 5])
+def test_flash_fp8_pages_match_plain(cuda, dtype, S):
+    """fp8 pages with their scale pages, stale rows poisoned: decode, and
+    verify at S = 5 and at S = 1, where it must equal decode bitwise."""
+    lengths = (6, 17, 0, 160, 33, 64, 250, 9)
+    q, kp, vp, table, lns = _pages(8, 32, 8, 64, 16, 16, lengths, torch.float32, cuda,
+                                   poison=True, S=S)
+    kp, vp, ks, vs = _fp8(kp, vp)
+    kw = dict(k_scale=ks, v_scale=vs)
+    q = q.to(dtype)
+    if S is None:
+        got = mx_flash_decode(q, kp, vp, table, lns, **kw)
+        want = paged_decode_ref(q, kp, vp, table, lns, **kw)
+    else:
+        got = mx_flash_verify(q, kp, vp, table, lns, **kw)
+        want = paged_verify_ref(q, kp, vp, table, lns, **kw)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    _close(got, want, dtype)
+    if S == 1:
+        assert torch.equal(got[:, 0], mx_flash_decode(q[:, 0].contiguous(), kp, vp, table,
+                                                      lns, **kw))
+    with pytest.raises(ValueError, match="need k_scale"):
+        mx_flash_decode(q if S is None else q[:, 0].contiguous(), kp, vp, table, lns)
+
+
+def test_quantized_linear_runs_the_kernel_or_raises_on_the_card(cuda):
+    """On a CUDA tensor a quantized linear launches the kernel (cuda_mx) or
+    raises (cuda_baseline has no scale slots); it never runs the plain
+    version.  The kept weight payload is the fresh one."""
+    x = _randn((8, 256), torch.float32, cuda, 0)
+    w = _randn((256, 96), torch.float32, cuda, 1)
+    kernels.reset_launch_counts()
+    with ops.use_policy(ops.MXPolicy("cuda_mx")):
+        got = ops.linear(x, w, precision="int8")
+        again = ops.linear(x, w, precision="int8")
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["mx_matmul_fused"] == 2 and torch.equal(got, again)
+    with ops.use_policy(ops.MXPolicy("torch")):
+        _close(got, ops.linear(x, w, precision="int8"), torch.float32)
+    q, s = ops._weight_operand(w, QuantSpec("int8"))
+    fq, fs = quantize_operand(w, QuantSpec("int8"), "b")
+    assert torch.equal(q, fq) and torch.equal(s, fs)
+    with ops.use_policy(ops.MXPolicy("cuda_baseline")):
+        with pytest.raises(NotImplementedError, match="scale slots"):
+            ops.linear(x, w, precision="int8")
+        with use_precision("int8_all"), pytest.raises(NotImplementedError):
+            ops.linear(x, w)
+        assert ops.linear(x, w).shape == (8, 96)  # no precision: the baseline GEMM
+
+
+QUANT_SERVING = [("llama3.2-1b-smoke", "int8", None),
+                 ("llama3.2-1b-smoke", "int8_all", None),
+                 ("llama3.2-1b-smoke", "fp8", "fp8_e4m3"),
+                 ("llama3.2-1b-smoke", "none", "fp8_e4m3"),
+                 ("grok-1-314b-smoke", "int8", None),
+                 ("kimi-k2-1t-a32b-smoke", "int8_all", None)]
+
+
+@pytest.mark.parametrize("name,precision,kv", QUANT_SERVING)
+def test_quantized_streams_equal_across_backends(cuda, name, precision, kv):
+    """Quantized serving at smoke size: the kernel path's streams equal the
+    plain path's, every kernel of the path launched (2 grouped launches
+    per MoE layer per step or chunk), none on the plain path."""
+    import dataclasses
+
+    cfg = dataclasses.replace(get_config(name), precision=precision)
+    model = build_model(cfg)
+    params = model.init(0, device=cuda)
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, cfg.vocab, n).astype(np.int32) for n in (6, 9, 13, 7)]
+    out = {}
+    for backend in ("cuda_mx", "torch"):
+        with ops.use_policy(ops.MXPolicy(backend)):
+            kernels.reset_launch_counts()
+            b = ContinuousBatcher(model, params, batch_slots=3, max_len=24, page_size=4,
+                                  prefill_chunk=4, kv_quant=QuantSpec(kv) if kv else None)
+            for i, p in enumerate(prompts):
+                b.submit(Request(rid=i, prompt=p, max_new=8))
+            fin = b.run_to_completion()
+            steps = sum(h.active > 0 for h in b.health) + b.prefill_launches
+            out[backend] = ({r: fin[r].output for r in fin}, kernels.launch_counts(), steps)
+    assert out["cuda_mx"][0] == out["torch"][0]
+    got = out["cuda_mx"][1]
+    assert got["mx_matmul_fused"] > 0 and got["mx_flash_decode"] > 0
+    if cfg.n_experts:
+        assert got["mx_grouped_matmul"] == 2 * cfg.n_layers * out["cuda_mx"][2]
+    assert out["torch"][1] == {k: 0 for k in got}

@@ -118,9 +118,11 @@ def test_grouped_matmul_rejects_bad_inputs():
         mx_grouped_matmul(x, w[0], sizes)
     with pytest.raises(ValueError, match="activation"):
         mx_grouped_matmul(x, w, sizes, activation="tanh")
-    for kw in (dict(b_scale=torch.ones(2, 1, N)), dict(b_sparse=True), dict(abft=True)):
+    with pytest.raises(ValueError, match="b_scale"):
+        mx_grouped_matmul(x, w, sizes, b_scale=torch.ones(2, N))
+    for kw in (dict(b_sparse=True), dict(abft=True)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             mx_grouped_matmul(x, w, sizes, **kw)
-    for kw in (dict(precision="int8"), dict(abft=True)):
+    for kw in (dict(precision="sparse24_int8"), dict(abft=True)):
         with pytest.raises(NotImplementedError):
             tops.grouped_matmul(x, w, sizes, **kw)

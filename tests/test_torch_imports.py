@@ -21,7 +21,8 @@ def test_port_imports_no_jax_and_no_reference_package():
     mods = sorted(m.name for m in pkgutil.walk_packages(repro_torch.__path__,
                                                          "repro_torch."))
     assert "repro_torch.runtime.batcher" in mods and "repro_torch.kernels._build" in mods
-    assert {"repro_torch.models.moe", "repro_torch.kernels.mx_grouped_matmul"} <= set(mods)
+    assert {"repro_torch.models.moe", "repro_torch.kernels.mx_grouped_matmul",
+            "repro_torch.core.precision", "repro_torch.kernels.quant"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"sys.path[:0] = [{str(ROOT / 'src')!r}, {str(ROOT)!r}]\n"
@@ -98,3 +99,55 @@ def test_chip_smoke_fails_without_a_gpu():
     assert out.returncode != 0
     assert "no CUDA device" in out.stderr
     assert '"ok": true' not in out.stdout
+
+
+def test_serve_reaches_quantization_as_jax_does():
+    """Like JAX's launcher, the port's has no precision flag and offers f32
+    or int8 pages; the quantized path is reached through Config.precision
+    or use_precision, and fp8 pages through the batcher's kv_quant."""
+    ap_src = Path(serve.__file__).read_text()
+    jax_src = (ROOT / "src" / "repro" / "launch" / "serve.py").read_text()
+    for src in (ap_src, jax_src):
+        assert "--precision" not in src
+        assert 'add_argument("--kv-cache", choices=("f32", "int8")' in src
+
+
+@pytest.mark.parametrize("arch,precision,kv", [
+    ("llama3.2-1b", "int8", "fp8_e4m3"),
+    ("llama3.2-1b", "fp8_all", None),
+    ("grok-1-314b", "int8_tensor", "int8"),
+])
+def test_quantized_serving_on_cpu(arch, precision, kv):
+    """The serving recipe of the README on the CPU: dataclasses.replace(cfg,
+    precision=...) and QuantSpec pages through the paged batcher, every
+    request to its max_new; under an ambient use_precision the streams of
+    a dense model equal the declared ones (its tied head is never
+    quantized)."""
+    import contextlib
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.precision import QuantSpec, use_precision
+    from repro_torch.models import build_model
+    from repro_torch.runtime.batcher import ContinuousBatcher
+
+    base = get_config(f"{arch}-smoke")
+    kw = dict(batch_slots=2, max_len=24, page_size=4, prefix_cache=True, prefill_chunk=4,
+              kv_quant=QuantSpec(kv) if kv else None)
+
+    def run(cfg, ctx):
+        model = build_model(cfg)
+        params = model.init(0, device="cpu")
+        with ctx:
+            b = ContinuousBatcher(model, params, **kw)
+            for r in serve.make_trace(cfg, 4, 12, 5, prefix_cache=True):
+                b.submit(r)
+            fin = b.run_to_completion()
+        assert all(r.finish_reason == "max_new" and len(r.output) == 5
+                   for r in fin.values())
+        return {r: fin[r].output for r in fin}
+
+    declared = run(dataclasses.replace(base, precision=precision), contextlib.nullcontext())
+    ambient = run(base, use_precision(precision))
+    if base.tie_embeddings:
+        assert declared == ambient

@@ -3,7 +3,11 @@ paged prefill and paged decode through both packages on the same inputs,
 for dense (llama, qwen2) and MoE (grok-1, kimi-k2) smoke configs.  JAX
 runs its Pallas kernels in interpret mode; the port runs its default CPU
 path.  Logits, aux losses and the written page pools agree to rtol = atol
-= 1e-5 (f32)."""
+= 1e-5 (f32).  Quantized models (`Config.precision`, int8 / fp8 KV pages)
+carry the same payload bytes in both packages: their page payloads and
+scales are compared as written."""
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -23,19 +27,21 @@ TOL = dict(rtol=1e-5, atol=1e-5)
 JAX_POLICY = jops.MXPolicy("pallas_mx", interpret=True, bm=16, bn=32, bk=16)
 
 
-def _models(name, seed=0):
-    jm = j_build(j_get_config(name))
+def _models(name, seed=0, precision="none"):
+    jcfg = dataclasses.replace(j_get_config(name), precision=precision)
+    cfg = dataclasses.replace(get_config(name), precision=precision)
+    jm = j_build(jcfg)
     jp = jm.init(jax.random.PRNGKey(seed))
     tree = jax.tree.map(np.asarray, jp)
-    if j_get_config(name).qkv_bias:
+    if jcfg.qkv_bias:
         # JAX inits the qkv biases to zeros; make the bias epilogue count
         rng = np.random.default_rng(7)
         seg = tree["seg0"]["attn"]
         for k in ("bq", "bk", "bv"):
             seg[k] = (0.1 * rng.standard_normal(seg[k].shape)).astype(np.float32)
         jp = jax.tree.map(jnp.asarray, tree)
-    tm = build_model(get_config(name))
-    tp = from_jax_params(tree, get_config(name), device="cpu")
+    tm = build_model(cfg)
+    tp = from_jax_params(tree, cfg, device="cpu")
     return jm, jp, tm, tp
 
 
@@ -48,16 +54,60 @@ MOE = ["grok-1-314b-smoke", "kimi-k2-1t-a32b-smoke"]
 
 @pytest.mark.parametrize("name", ["llama3.2-1b-smoke", "qwen2-0.5b-smoke"] + MOE)
 def test_paged_prefill_and_decode_match_jax(name):
+    _paged_parity(name)
+
+
+QUANT_CASES = {  # id -> (arch, Config.precision, KV page type)
+    "llama-int8": ("llama3.2-1b-smoke", "int8", None),
+    "llama-int8_all": ("llama3.2-1b-smoke", "int8_all", None),
+    "llama-int8_tensor": ("llama3.2-1b-smoke", "int8_tensor", None),
+    "llama-fp8-fp8_pages": ("llama3.2-1b-smoke", "fp8", "fp8_e4m3"),
+    "llama-fp8_pages": ("llama3.2-1b-smoke", "none", "fp8_e4m3"),
+    "qwen2-int8": ("qwen2-0.5b-smoke", "int8", None),
+    "grok-int8": ("grok-1-314b-smoke", "int8", None),
+    "grok-int8_all-int8_pages": ("grok-1-314b-smoke", "int8_all", "int8"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(QUANT_CASES))
+def test_quantized_paged_prefill_and_decode_match_jax(case):
+    """A declared `Config.precision` (every block projection and the MoE
+    experts; the head stays full) and int8 / fp8 KV pages: logits and the
+    written page payloads and scales against JAX's."""
+    _paged_parity(*QUANT_CASES[case])
+
+
+def _kv_quant(kv):
+    from repro.core.precision import QuantSpec as JQuantSpec
+    from repro_torch.core.precision import QuantSpec
+
+    if kv is None:
+        return {}, {}
+    return dict(kv_quant=JQuantSpec(kv)), dict(kv_quant=QuantSpec(kv))
+
+
+def _pages_close(tc, jc):
+    """Every page pool as written, in its own dtype: quantized payloads
+    compared as their f32 values (so equal), f32 pages and scale pages
+    within the tolerance."""
+    for k, v in _pages(tc).items():
+        want = np.asarray(jc["seg0"][k])
+        assert str(v.dtype).removeprefix("torch.") == str(want.dtype), k
+        np.testing.assert_allclose(v.float().numpy(), want.astype(np.float32), **TOL)
+
+
+def _paged_parity(name, precision="none", kv=None):
     cfg = get_config(name)
-    jm, jp, tm, tp = _models(name)
+    jm, jp, tm, tp = _models(name, precision=precision)
+    jkw, tkw = _kv_quant(kv)
     ps, B = 4, 3
     pool = PagePool(12, ps)
     pool.reserve(0, 12)
     pool.reserve(1, 12)  # slot 2 stays free: dump-page table row, length 0
     table = pool.page_table(B, 4)
     rng = np.random.default_rng(1)
-    jc = jm.make_paged_cache(pool.total_pages, ps, dtype=jnp.float32)
-    tc = tm.make_paged_cache(pool.total_pages, ps, device="cpu")
+    jc = jm.make_paged_cache(pool.total_pages, ps, dtype=jnp.float32, **jkw)
+    tc = tm.make_paged_cache(pool.total_pages, ps, device="cpu", **tkw)
 
     # one prefill chunk: slot 0 from position 0, slot 1 from position 2
     toks = rng.integers(0, cfg.vocab, (2, 5)).astype(np.int32)
@@ -69,8 +119,7 @@ def test_paged_prefill_and_decode_match_jax(name):
                                    torch.from_numpy(index).long(),
                                    torch.from_numpy(table[:2]))
     np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **TOL)
-    for k, v in _pages(tc).items():
-        np.testing.assert_allclose(v.numpy(), np.asarray(jc["seg0"][k]), **TOL)
+    _pages_close(tc, jc)
 
     # one decode step over the pages, slot 2 free
     tok = rng.integers(0, cfg.vocab, (B, 1)).astype(np.int32)
@@ -84,8 +133,7 @@ def test_paged_prefill_and_decode_match_jax(name):
                                   torch.from_numpy(table), torch.from_numpy(lengths))
     assert tl.dtype == torch.float32 and tuple(tl.shape) == (B, 1, cfg.vocab)
     np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **TOL)
-    for k, v in _pages(tc).items():
-        np.testing.assert_allclose(v.numpy(), np.asarray(jc["seg0"][k]), **TOL)
+    _pages_close(tc, jc)
 
 
 def test_from_jax_params_keeps_layout_and_rejects_mismatch():
@@ -180,11 +228,11 @@ def test_attention_call_chunked_route_matches_jax():
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 
-@pytest.mark.parametrize("kv", ["f32", "int8"])
+@pytest.mark.parametrize("kv", ["f32", "int8", "fp8_e4m3"])
 def test_verify_step_paged_matches_jax(kv):
     """A prefill chunk, then one speculative window of S = 4 over three
     slots (slot 2 free), through both packages: logits and every written
-    page -- int8 payloads and scale pages included -- agree."""
+    page -- int8 / fp8 payloads and scale pages included -- agree."""
     _verify_parity("llama3.2-1b-smoke", kv)
 
 
@@ -206,8 +254,8 @@ def _verify_parity(name, kv):
     pool.reserve(0, 16)
     pool.reserve(1, 16)
     table = pool.page_table(B, 5)  # wider than the slots' pages: dump-page pad
-    jkw = dict(kv_quant=JQuantSpec("int8")) if kv == "int8" else {}
-    tkw = dict(kv_quant=QuantSpec("int8")) if kv == "int8" else {}
+    jkw = dict(kv_quant=JQuantSpec(kv)) if kv != "f32" else {}
+    tkw = dict(kv_quant=QuantSpec(kv)) if kv != "f32" else {}
     jc = jm.make_paged_cache(pool.total_pages, ps, dtype=jnp.float32, **jkw)
     tc = tm.make_paged_cache(pool.total_pages, ps, device="cpu", **tkw)
     assert set(tc["seg0"]) == set(jc["seg0"])
@@ -231,10 +279,7 @@ def _verify_parity(name, kv):
                                   torch.from_numpy(table), torch.from_numpy(lengths))
     assert tl.dtype == torch.float32 and tuple(tl.shape) == (B, S, cfg.vocab)
     np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **TOL)
-    for k, v in _pages(tc).items():
-        want = np.asarray(jc["seg0"][k])
-        assert v.dtype == (torch.int8 if want.dtype == np.int8 else torch.float32), k
-        np.testing.assert_allclose(v.numpy(), want, **TOL)
+    _pages_close(tc, jc)
 
     # row 0 of the window is the plain decode step on the same state
     tc0 = tm.make_paged_cache(pool.total_pages, ps, device="cpu", **tkw)
@@ -287,3 +332,55 @@ def test_stacked_init_fills_in_place_with_the_per_layer_values(name):
             assert torch.equal(got, torch.stack(parts)), path
 
     check(tp["seg0"], layers, ())
+
+
+@pytest.mark.parametrize("name", ["llama3.2-1b-smoke", "grok-1-314b-smoke"])
+def test_ambient_precision_reaches_the_untied_head_only(name):
+    """Under an ambient use_precision("int8") JAX quantizes grok's untied
+    head (ops.linear with no declaration) and never the tied head
+    (Embedding.attend); a config-declared precision leaves either head at
+    full precision.  The heads of both packages on the same input, and
+    grok's whole forward under the ambient context."""
+    from repro.core.precision import use_precision as j_use_precision
+    from repro_torch.core.precision import use_precision
+
+    cfg = get_config(name)
+    jm, jp, tm, tp = _models(name)
+    jm_d, jp_d, tm_d, tp_d = _models(name, precision="int8")
+    x = np.random.default_rng(8).standard_normal((2, 5, cfg.d_model)).astype(np.float32)
+    jx, tx = jnp.asarray(x), torch.from_numpy(x)
+    full = tm._head(tp, tx)
+    with j_use_precision("int8"), use_precision("int8"):
+        for jmod, jpar, tmod, tpar in ((jm, jp, tm, tp), (jm_d, jp_d, tm_d, tp_d)):
+            got = tmod._head(tpar, tx)
+            np.testing.assert_allclose(got.numpy(), np.asarray(jmod._head(jpar, jx)), **TOL)
+            assert torch.equal(got, full) == cfg.tie_embeddings
+    for jmod, jpar, tmod, tpar in ((jm, jp, tm, tp), (jm_d, jp_d, tm_d, tp_d)):
+        assert torch.equal(tmod._head(tpar, tx), full)  # no context: full precision
+    if not cfg.tie_embeddings:
+        toks = np.random.default_rng(9).integers(0, cfg.vocab, (2, 7)).astype(np.int32)
+        with j_use_precision("int8"):
+            jl, jaux = jm(jp, jnp.asarray(toks))
+        with use_precision("int8"):
+            tl, taux = tm(tp, torch.from_numpy(toks).long())
+        np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **TOL)
+        np.testing.assert_allclose(float(taux), float(jaux), **TOL)
+
+
+def test_transformer_block_precision_declaration_matches_jax():
+    """A block declaring "int8" (every attention and MLP projection)
+    against JAX's, and against the same block at full precision."""
+    from repro.models.transformer import TransformerBlock as JBlock
+    from repro_torch.models.transformer import TransformerBlock
+
+    kw = dict(d_model=64, n_heads=4, n_kv_heads=2, d_ff=128)
+    jparams = JBlock(**kw).init(jax.random.PRNGKey(0))
+    tparams = jax.tree.map(lambda a: torch.from_numpy(np.array(a)), jparams)
+    x = np.random.default_rng(1).standard_normal((2, 8, 64)).astype(np.float32)
+    for prec in ("int8", "int8_all", "fp8"):
+        jy, jaux = JBlock(**kw, precision=prec)(jparams, jnp.asarray(x))
+        ty, taux = TransformerBlock(**kw, precision=prec)(tparams, torch.from_numpy(x))
+        np.testing.assert_allclose(ty.numpy(), np.asarray(jy), **TOL)
+        assert float(taux) == float(jaux) == 0.0
+    full, _ = TransformerBlock(**kw)(tparams, torch.from_numpy(x))
+    assert not torch.allclose(full, ty, rtol=1e-5, atol=1e-5)

@@ -5,7 +5,16 @@ port's expert-major single launch against JAX's per-group loop.
 
 JAX runs its plain ("xla") path and its Pallas path (interpret mode); the
 port its "torch" backend and, on CPU tensors, its CUDA backends (the
-grouped wrapper's plain version).  Tolerance: rtol = atol = 1e-5 (f32)."""
+grouped wrapper's plain version).  Tolerance: rtol = atol = 1e-5 (f32).
+Under a precision (declared or ambient) every backend routes the experts
+through `ops.grouped_matmul`'s quantized path, the router stays full
+precision (so the aux loss is unchanged), and a "tensor"-granularity
+activation scale is one amax per routing group, as in JAX's per-group
+calls.  Quantized outputs are held within 1e-5 * max|ref|, the bound of
+tests/test_torch_quant_gemm.py: jax.nn.gelu / silu and torch's differ in
+the last bit of about a third of their values, and a quantized (bf16 /
+int8) activation can round such a value across a rounding midpoint, which
+moves one element by one quantum."""
 import dataclasses
 
 import numpy as np
@@ -106,9 +115,59 @@ def test_expert_major_launch_matches_the_per_group_loop():
 
 def test_unported_moe_options_raise(monkeypatch):
     _, _, tm, tp, x = _setup("g1")
-    with pytest.raises(NotImplementedError, match="precision"):
-        dataclasses.replace(tm, precision="int8")(tp, torch.from_numpy(x))
+    with pytest.raises(NotImplementedError, match="2:4"):
+        dataclasses.replace(tm, precision="sparse24")(tp, torch.from_numpy(x))
     monkeypatch.setattr(tops.dist, "is_initialized", lambda: True)
     monkeypatch.setattr(tops.dist, "get_world_size", lambda: 2)
     with pytest.raises(NotImplementedError, match="process group"):
         tm(tp, torch.from_numpy(x))
+
+
+PRECISIONS = ["int8", "int8_all", "int8_tensor", "fp8"]
+
+
+def _close_max(got, ref):
+    ref = np.asarray(ref)
+    err = np.abs(np.asarray(got) - ref).max()
+    assert err <= 1e-5 * np.abs(ref).max(), (err, np.abs(ref).max())
+
+
+@pytest.mark.parametrize("jax_backend", sorted(JAX_POLICIES))
+@pytest.mark.parametrize("name", ["g1", "g4", "gelu_experts"])
+@pytest.mark.parametrize("prec", PRECISIONS)
+def test_quantized_moe_matches_jax(prec, name, jax_backend):
+    """A declared expert precision against JAX's; "g4" runs G = 4 routing
+    groups in one expert-major launch, where "int8_tensor" takes one
+    activation amax per group."""
+    jm, jp, tm, tp, x = _setup(name)
+    jm, tm = dataclasses.replace(jm, precision=prec), dataclasses.replace(tm, precision=prec)
+    with jops.use_policy(JAX_POLICIES[jax_backend]):
+        jy, jaux = jm(jp, jnp.asarray(x))
+    for backend in ("torch", "cuda_mx"):
+        with tops.use_policy(tops.MXPolicy(backend)):
+            ty, taux = tm(tp, torch.from_numpy(x))
+        _close_max(ty.numpy(), jy)
+        np.testing.assert_allclose(float(taux), float(jaux), **TOL)
+    full, aux_full = dataclasses.replace(tm, precision=None)(tp, torch.from_numpy(x))
+    assert float(aux_full) == float(taux)  # the router stays full precision
+    assert not torch.allclose(full, ty, rtol=1e-5, atol=1e-5)
+
+
+def test_ambient_int8_tensor_takes_one_amax_per_routing_group():
+    """The ambient context reaches the experts: at G = 4 routing groups of
+    very different ranges (one amax per group, in one expert-major launch)
+    and at G = 1, the port matches JAX."""
+    from repro.core.precision import use_precision as j_use_precision
+    from repro_torch.core.precision import use_precision
+
+    jm, jp, tm, tp, x = _setup("g4")
+    x = x * np.linspace(0.1, 10.0, x.shape[1], dtype=np.float32)[None, :, None]
+    with j_use_precision("int8_tensor"), jops.use_policy(JAX_POLICIES["xla"]):
+        jy, _ = jm(jp, jnp.asarray(x))
+    with use_precision("int8_tensor"):
+        ty, _ = tm(tp, torch.from_numpy(x))
+        one, _ = dataclasses.replace(tm, n_groups=1)(tp, torch.from_numpy(x))
+    _close_max(ty.numpy(), jy)
+    with j_use_precision("int8_tensor"), jops.use_policy(JAX_POLICIES["xla"]):
+        jone, _ = dataclasses.replace(jm, n_groups=1)(jp, jnp.asarray(x))
+    _close_max(one.numpy(), jone)

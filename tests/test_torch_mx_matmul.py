@@ -187,8 +187,8 @@ def test_default_backend_is_torch_on_cpu():
 
 
 @pytest.mark.parametrize("bad", [
-    dict(a_scale=torch.ones(4, 1)),
-    dict(b_scale=torch.ones(1, 6)),
+    dict(b_sparse=True),
+    dict(b_meta=torch.zeros(1, 6, dtype=torch.uint8)),
     dict(b_sparse=True, b_meta=torch.zeros(1, 6, dtype=torch.uint8)),
     dict(abft=object()),
 ])
@@ -198,7 +198,7 @@ def test_kernel_unported_arguments_raise(bad):
         tmm.mx_matmul_fused(a, b, **bad)
 
 
-@pytest.mark.parametrize("bad", [dict(precision="int8"), dict(abft=True)])
+@pytest.mark.parametrize("bad", [dict(precision="sparse24"), dict(abft=True)])
 def test_ops_unported_arguments_raise(bad):
     x, w = torch.zeros(4, 8), torch.zeros(8, 6)
     with pytest.raises(NotImplementedError):
