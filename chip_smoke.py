@@ -86,6 +86,35 @@ The quantized path (stages 1b and 5b of the GEMMs, fp8 KV pages):
       64-token chunk (G = 16) under "int8_tensor" (one activation amax per
       routing group), and identical smoke streams for grok-1 and kimi-k2
       under "int8" and "int8_all".
+The 2:4 sparse and ABFT stages of the GEMMs (1c, 1d, 5c, 5d):
+  3s. both GEMMs on every 2:4 pair -- (f32, f32) and (bf16, bf16)
+      "sparse24", (bf16, int8) "sparse24_int8" -- at llama's decode and
+      chunk widths, qwen2's ragged widths and grok's expert widths (empty
+      groups, straddled tiles), against the plain versions at phase 3's
+      tolerances and BITWISE against the dense kernel on expand_24(payload,
+      meta); the bound counts payload and metadata bytes; the library
+      yardstick is torch.sparse.to_sparse_semi_structured (bf16);
+  3a. both GEMMs, ABFT on the six dense pairs and the three sparse policies
+      (expanded first): on bitwise equal to off with no flag, an injected
+      fault flags exactly its tile and the flag map equals the plain
+      version's, recovery bitwise, the int8 pair catches a delta of 1,
+      max_retries = 0 raises SDCError naming the tile; time on against off;
+  4s. (before any profiler session) llama3.2-1b under "sparse24" and
+      "sparse24_int8" on the phase 4 trace, every GEMM the 2:4 variant;
+  4a. llama3.2-1b with abft=True on the phase 4 trace: streams bitwise those
+      of phase 4, no tile flagged; a short k = 4 n-gram pass with and without
+      ABFT, bitwise equal; the step time against phase 4's;
+  5s. each 2:4 run held against the plain path on its cache state (every
+      GEMM call at 1e-3 * max|ref|; "sparse24" logits at 1e-3 * max|ref|,
+      "sparse24_int8" at half the quantization's own effect), one decode
+      step profiled, identical smoke streams across backends under both
+      policies and with abft=True;
+  6s. / 6a. grok-1 (the same cut) under "sparse24_int8" (peak memory and
+      kept payloads printed, 2 grouped launches per MoE layer, all 2:4),
+      and a short f32 pass with abft=True (grouped checksums, no flag,
+      streams bitwise those without);
+  7s. grok "sparse24_int8" held against the plain path as in 7q; grok-1 and
+      kimi-k2 smoke streams across backends under "sparse24_int8" and abft.
 The line before the last is the kernel summary JSON; the last line is
 {"ok": true, "device": {...}}.  Details go to chiprun_out/chip_smoke.json.
 """
@@ -118,10 +147,14 @@ TPU_KERNELS = {  # file:line of the Pallas wrapper each CUDA kernel replaces
 }
 SOURCES = {
     "mx_matmul_fused": "src/repro_torch/csrc/mx_matmul.cu",
+    "mx_matmul_fused sparse": "src/repro_torch/csrc/mx_matmul_sparse.cu",
+    "mx_matmul_fused abft": "src/repro_torch/csrc/mx_matmul_abft.cu",
     "baseline_matmul": "src/repro_torch/csrc/baseline_matmul.cu",
     "mx_flash_decode": "src/repro_torch/csrc/mx_flash_decode.cu",
     "mx_flash_verify": "src/repro_torch/csrc/mx_flash_decode.cu",
     "mx_grouped_matmul": "src/repro_torch/csrc/mx_grouped_matmul.cu",
+    "mx_grouped_matmul sparse": "src/repro_torch/csrc/mx_grouped_matmul_sparse.cu",
+    "mx_grouped_matmul abft": "src/repro_torch/csrc/mx_grouped_matmul_abft.cu",
 }
 
 
@@ -558,6 +591,19 @@ def check_quant_gemm(torch, dev, pol, M, K, N, ep_kw, seed):
     if not ep_kw and M > 16 and pol == "int8_all":
         library = "torch._int_mm (int32 product; scales left out)"
         fns["library_ms"] = (lambda a_, b_, kw_: torch._int_mm(a_, b_), sets)
+    elif not ep_kw and pol == "int8":
+        # bf16 activations x an int8 weight with per-column scales, bf16 out
+        library = "torch._weight_int8pack_mm (bf16 x int8, per-column scales)"
+        cm = [(a_, b_.t().contiguous(), dict(kw_, sc=kw_["b_scale"].reshape(-1).to(a_.dtype)))
+              for a_, b_, kw_ in sets]
+        try:
+            lib = torch._weight_int8pack_mm(cm[0][0], cm[0][1], cm[0][2]["sc"])
+            fns["library_ms"] = (lambda a_, b_, kw_: torch._weight_int8pack_mm(
+                a_, b_, kw_["sc"]), cm)
+            out["library_err"] = (lib.float() - ref).abs().max().item()
+        except Exception as e:  # the card's torch refuses it
+            library = None
+            out["library_error"] = f"{type(e).__name__}: {str(e)[:160]}"
     elif not ep_kw and M % 16 == 0 and pol == "fp8_all":
         library = "torch._scaled_mm, row-wise scales, bf16 output"
         cm = [(a_, b_.t().contiguous().t(), kw_) for a_, b_, kw_ in sets]
@@ -634,6 +680,9 @@ def quant_checks(torch, dev):
             if pol.endswith("_all"):  # scales only: bitwise for int8, library yardstick
                 seed += 1
                 checks.append(check_quant_gemm(torch, dev, pol, M, 2048, 8192, {}, seed))
+            if pol == "int8":  # the down projection bare: torch._weight_int8pack_mm
+                seed += 1
+                checks.append(check_quant_gemm(torch, dev, pol, M, 8192, 2048, {}, seed))
     for pol in QUANT_POLICIES:
         for label, T, C, K, N, act in (
                 ("grok decode up+gate", 64, 8, 6144, 32768, "swiglu"),
@@ -644,6 +693,326 @@ def quant_checks(torch, dev):
             checks.append(check_quant_grouped(torch, dev, pol, label, T, C, K, N, act, seed))
             gc.collect()
             torch.cuda.empty_cache()
+    return checks
+
+
+SPARSE_POLICIES = {  # the pairs of the 2:4 kernels: (name, activation dtype, weight spec)
+    "sparse24 f32": ("float32", "f32"), "sparse24 bf16": ("bfloat16", "bf16"),
+    "sparse24_int8": ("bfloat16", "int8"),
+}
+
+
+def _sparse_operands(torch, dev, pol, M, K, N, gated, gen, G=None):
+    """Activations and 2:4 weights of one sparse pair as ops prepares them:
+    the weight drawn in f32 (one expert at a time for a stack), pruned,
+    quantized / cast, compressed; returns a, and per weight (payload,
+    scale, meta)."""
+    from repro_torch.core import ops
+    from repro_torch.core.precision import QuantSpec
+
+    adt, wspec = SPARSE_POLICIES[pol]
+    spec = QuantSpec(wspec)
+    a = torch.randn((M, K), generator=gen, device=dev).to(getattr(torch, adt))
+
+    def weight():
+        if G is None:
+            return ops._sparse_operand(
+                torch.randn((K, N), generator=gen, device=dev) / math.sqrt(K), spec)
+        parts = [ops._sparse_operand(torch.randn((K, N), generator=gen, device=dev)
+                                     / math.sqrt(K), spec) for _ in range(G)]
+        return tuple(None if p[0] is None else torch.stack(p) for p in zip(*parts))
+
+    return a.contiguous(), weight(), weight() if gated else (None, None, None)
+
+
+def check_sparse_gemm(torch, dev, pol, M, K, N, ep_kw, seed):
+    """Stage 1c: mx_matmul_fused on 2:4 operands against the plain version
+    (phase 3's tolerance for the output dtype) and BITWISE against the
+    dense kernel on expand_24(payload, meta).  The bound counts the payload
+    and metadata bytes (`sparse_b_bytes_per_elem`); the library yardstick
+    is one torch.sparse semi-structured product on the bf16 weight, its
+    sparsity along K, where the card's torch takes it."""
+    from repro_torch.kernels import mx_matmul as mm
+    from repro_torch.kernels.sparse import expand_24, sparse_b_bytes_per_elem
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    gated = ep_kw.get("activation") == "swiglu"
+    a, (qb, bs, bm_), (qg, gs, gm_) = _sparse_operands(torch, dev, pol, M, K, N, gated, g)
+    out_dtype = torch.float32 if qb.dtype == torch.int8 else a.dtype
+    ep = mm.Epilogue(**ep_kw, b_scale=bs is not None)
+    kw = dict(epilogue=ep, b_gate=qg, b_scale=bs, bg_scale=gs,
+              bias=torch.randn((N,), generator=g, device=dev).to(out_dtype)
+              if ep.bias else None,
+              residual=torch.randn((M, N), generator=g, device=dev).to(out_dtype)
+              if ep.residual else None, out_dtype=out_dtype)
+    skw = dict(kw, b_sparse=True, b_meta=bm_, bg_meta=gm_)
+    got = mm.mx_matmul_fused(a, qb, **skw)
+    ref = mm.mx_matmul_fused_plain(a, qb, b_meta=bm_, bg_meta=gm_, **kw)
+    dense_b = expand_24(qb, bm_)
+    dense_g = expand_24(qg, gm_) if gated else None
+    dense = mm.mx_matmul_fused(a, dense_b, **dict(kw, b_gate=dense_g))
+    torch.cuda.synchronize()
+    err, tol = _err(torch, got, ref, "float32" if out_dtype == torch.float32 else "bfloat16")
+    nmat = 2 if gated else 1
+    wbytes = nmat * K * N * sparse_b_bytes_per_elem(qb.element_size())
+    osz = torch.finfo(out_dtype).bits // 8
+    nbytes = (a.element_size() * M * K + wbytes + osz * M * N
+              + (4 * nmat * N if bs is not None else 0)
+              + (osz * N if ep.bias else 0) + (osz * M * N if ep.residual else 0))
+    fns = dict(ms=(lambda: mm.mx_matmul_fused(a, qb, **skw), [()]),
+               plain_ms=(lambda: mm.mx_matmul_fused_plain(a, qb, b_meta=bm_, bg_meta=gm_, **kw),
+                         [()]),
+               dense_ms=(lambda: mm.mx_matmul_fused(a, dense_b, **dict(kw, b_gate=dense_g)),
+                         [()]))
+    library, lib_error = None, None
+    if not ep_kw:
+        try:  # (N, K) weight, 2:4 along its last axis: y^T = W^T x^T (int8: scales left out)
+            from torch.sparse import to_sparse_semi_structured
+            wt = to_sparse_semi_structured(dense_b.t().contiguous().to(torch.bfloat16))
+            at = a.to(torch.bfloat16).t().contiguous()
+            torch.mm(wt, at)
+            fns["library_ms"] = (lambda: torch.mm(wt, at), [()])
+            library = "torch.sparse.to_sparse_semi_structured (bf16 weight) @ x^T"
+        except Exception as e:  # the card's torch refuses this shape or dtype
+            lib_error = f"{type(e).__name__}: {str(e)[:160]}"
+    times = _time_ms(torch, fns, windows=3, iters=10)
+    times["dense_kernel_ms"] = statistics.median(times["windows_ms"]["dense_ms"])
+    bound, by = _bound_ms(nbytes, 2 * M * N * K * nmat, _peak_type(a, qb))
+    return dict(kernel="mx_matmul_fused", variant="sparse", M=M, K=K, N=N, dtype=pol,
+                pair=f"{a.dtype} x {qb.dtype}", epilogue=ep_kw, max_abs_err=err, tol=tol,
+                bitwise_vs_dense=bool(torch.equal(got, dense)),
+                finite=bool(torch.isfinite(got).all()), **times, library=library,
+                library_error=lib_error, bound_ms=bound, bound_by=by, weight_bytes=wbytes)
+
+
+def check_sparse_grouped(torch, dev, pol, label, T, sizes, K, N, act, seed):
+    """Stage 5c: mx_grouped_matmul on per-expert 2:4 operands against
+    grouped_matmul_ref, and bitwise against the dense grouped kernel on the
+    expanded stack; rows no group owns exactly zero."""
+    from repro_torch.kernels.mx_grouped_matmul import mx_grouped_matmul
+    from repro_torch.kernels.ref import grouped_matmul_ref
+    from repro_torch.kernels.sparse import expand_24, sparse_b_bytes_per_elem
+
+    G = len(sizes)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    gated = act == "swiglu"
+    x, (w, bs, wm), (wg, gs, gm_) = _sparse_operands(torch, dev, pol, T, K, N, gated, gen, G)
+    out_dtype = torch.float32 if w.dtype == torch.int8 else x.dtype
+    sz = torch.tensor(sizes, dtype=torch.int32, device=dev)
+    kw = dict(w_gate=wg, activation=act, b_scale=bs, bg_scale=gs, out_dtype=out_dtype)
+    got = mx_grouped_matmul(x, w, sz, b_sparse=True, w_meta=wm, wg_meta=gm_, **kw)
+    ref = grouped_matmul_ref(x, w, sz, w_meta=wm, wg_meta=gm_, **kw)
+    dense = mx_grouped_matmul(x, expand_24(w, wm), sz,
+                              **dict(kw, w_gate=expand_24(wg, gm_) if gated else None))
+    torch.cuda.synchronize()
+    err, tol = _err(torch, got, ref, "float32" if out_dtype == torch.float32 else "bfloat16")
+    owned, start = [], 0
+    for n in sizes:
+        end = min(start + n, T)
+        owned.append(end - start)
+        start = end
+    rows, live = sum(owned), sum(1 for n in owned if n)
+    nmat = 2 if gated else 1
+    osz = torch.finfo(out_dtype).bits // 8
+    wbytes = nmat * live * K * N * sparse_b_bytes_per_elem(w.element_size())
+    nbytes = x.element_size() * rows * K + wbytes + osz * T * N
+    fns = dict(ms=(lambda: mx_grouped_matmul(x, w, sz, b_sparse=True, w_meta=wm,
+                                             wg_meta=gm_, **kw), [()]),
+               plain_ms=(lambda: grouped_matmul_ref(x, w, sz, w_meta=wm, wg_meta=gm_, **kw),
+                         [()]))
+    bound, by = _bound_ms(nbytes, 2 * rows * K * N * nmat, _peak_type(x, w))
+    return dict(kernel="mx_grouped_matmul", variant="sparse", label=label, T=T, G=G, K=K,
+                N=N, act=act, dtype=pol, pair=f"{x.dtype} x {w.dtype}", max_abs_err=err,
+                tol=tol, bitwise_vs_dense=bool(torch.equal(got, dense)),
+                zero_rows_exact=bool(torch.all(got[rows:] == 0)),
+                finite=bool(torch.isfinite(got).all()), **_time_ms(torch, fns, windows=3, iters=5),
+                library=None, bound_ms=bound, bound_by=by, weight_bytes=wbytes)
+
+
+def sparse_checks(torch, dev):
+    """Phase 3s: both GEMMs on every sparse pair at llama's decode and
+    64-row chunk widths, qwen2's ragged widths and grok's expert widths."""
+    checks, seed = [], 600
+    for pol in SPARSE_POLICIES:
+        for M in (8, 64):
+            for K, N, ep in ((2048, 8192, dict(activation="swiglu")),
+                             (8192, 2048, dict(residual=True)), (8192, 2048, {})):
+                seed += 1
+                checks.append(check_sparse_gemm(torch, dev, pol, M, K, N, ep, seed))
+        for M, K, N, ep in ((8, 896, 128, dict(bias=True)), (64, 4864, 896, dict(residual=True))):
+            seed += 1
+            checks.append(check_sparse_gemm(torch, dev, pol, M, K, N, ep, seed))
+        for label, T, sizes, K, N, act in (
+                ("grok decode up+gate", 64, [8] * 8, 6144, 32768, "swiglu"),
+                ("grok decode down", 64, [8] * 8, 32768, 6144, "none"),
+                ("grok prefill up+gate", 1024, [128] * 8, 6144, 32768, "swiglu"),
+                ("ragged, empty groups, straddles", 70, [0, 13, 0, 0, 40, 3, 0, 7], 6096,
+                 2050, "swiglu")):
+            seed += 1
+            checks.append(check_sparse_grouped(torch, dev, pol, label, T, sizes, K, N, act,
+                                               seed))
+            gc.collect()
+            torch.cuda.empty_cache()
+    return checks
+
+
+def _dense_pair(torch, dev, pol, M, K, N, gated, gen, G=None):
+    """Operands of one ABFT pair: a dense named policy's payloads and
+    scales, or a sparse policy's expanded (dense-masked) weight, as ops
+    hands them to the checksummed launch.  Returns (a, a_scale, (b, b_s),
+    (g, g_s))."""
+    from repro_torch.core.precision import NAMED_POLICIES
+    from repro_torch.kernels.quant import quantize_operand
+    from repro_torch.kernels.sparse import expand_24
+
+    if pol in SPARSE_POLICIES:
+        a, (qb, bs, bmeta), (qg, gs, gmeta) = _sparse_operands(torch, dev, pol, M, K, N,
+                                                                gated, gen, G)
+        return a, None, (expand_24(qb, bmeta), bs), (
+            expand_24(qg, gmeta) if gated else None, gs)
+    P = NAMED_POLICIES[pol]
+    qa, a_s = quantize_operand(torch.randn((M, K), generator=gen, device=dev), P.a, "a")
+    shape = (K, N) if G is None else (G, K, N)
+
+    def weight():
+        return quantize_operand(torch.randn(shape, generator=gen, device=dev) / math.sqrt(K),
+                                P.b, "b")
+
+    return qa.contiguous(), a_s, weight(), weight() if gated else (None, None)
+
+
+ABFT_PAIRS = ("f32", "bf16", "int8", "fp8", "int8_all", "fp8_all", *SPARSE_POLICIES)
+
+
+def check_abft(torch, dev, pol, grouped, seed, fused_shape=(8, 2048, 8192),
+               grouped_shape=(70, 6144, 4096)):
+    """Stage 1d / 5d on one pair: ABFT on bitwise equal to off with no
+    tile flagged; an injected fault flags exactly its tile and the flag map
+    equals the plain version's; recovery (ops) bitwise; max_retries = 0
+    raises SDCError naming the tile; for int8 x int8 a delta of 1 is
+    caught.  Times ABFT on against off."""
+    from repro_torch.core import ops
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import abft as ab
+    from repro_torch.kernels import mx_matmul as mm
+    from repro_torch.kernels.mx_grouped_matmul import abft_spec_for as grouped_spec
+    from repro_torch.kernels.mx_grouped_matmul import mx_grouped_matmul
+    from repro_torch.kernels.ref import grouped_matmul_ref
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    if grouped:
+        (T, K, N), sizes, G = grouped_shape, [0, 13, 0, 0, 40, 3, 0, 7], 8
+        x, a_s, (w, bs), (wg, gs) = _dense_pair(torch, dev, pol, T, K, N, True, gen, G)
+        sz = torch.tensor(sizes, dtype=torch.int32, device=dev)
+        out_dtype = torch.float32
+        kw = dict(w_gate=wg, activation="swiglu", a_scale=a_s, b_scale=bs, bg_scale=gs,
+                  out_dtype=out_dtype)
+        spec = grouped_spec(x, w)
+        bm, bn, _ = _build.grouped_tile(T, G)
+
+        def run(**k):
+            return mx_grouped_matmul(x, w, sz, **kw, **k)
+
+        def plain(**k):
+            return grouped_matmul_ref(x, w, sz, **kw, **k)
+
+        def recover(cfg):
+            return ops._abft_grouped_gemm(x, w, sz, activation="swiglu", w_gate=wg, a_s=a_s,
+                                          b_s=bs, bg_s=gs, out_dtype=out_dtype, cfg=cfg)
+        fault_tile = (1, 5)  # rows 8-15: groups 1 and 4 straddle it
+        M = T
+    else:
+        M, K, N = fused_shape
+        x, a_s, (w, bs), (wg, gs) = _dense_pair(torch, dev, pol, M, K, N, True, gen)
+        out_dtype = torch.float32
+        ep = mm.Epilogue(activation="swiglu", a_scale=a_s is not None, b_scale=bs is not None)
+        kw = dict(epilogue=ep, b_gate=wg, a_scale=a_s, b_scale=bs, bg_scale=gs,
+                  out_dtype=out_dtype)
+        spec = mm.abft_spec_for(x, w)
+        bm, bn, _ = _build.gemm_tile(M)
+
+        def run(**k):
+            return mm.mx_matmul_fused(x, w, **kw, **k)
+
+        def plain(**k):
+            return mm.mx_matmul_fused_plain(x, w, **kw, **k)
+
+        def recover(cfg):
+            return ops._abft_fused_gemm(x, w, ep=ep, bias=None, residual=None, w_gate=wg,
+                                        a_s=a_s, b_s=bs, bg_s=gs, out_dtype=out_dtype, cfg=cfg)
+        fault_tile = (0, 37)
+    off = run()
+    on, flags = run(abft=spec)
+    torch.cuda.synchronize()
+    out = dict(clean_bitwise=bool(torch.equal(on, off)), clean_flags=int(flags.sum()))
+    gm, gn = flags.shape
+    # int8 x int8 compares exactly: a unit delta; a float delta far above
+    # the tolerance (fp8 x fp8 sums reach ~1e8 at these widths)
+    delta = 1.0 if spec.exact else 1e8
+    fault = ab.TileFault(*fault_tile, row=3, col=5, delta=delta)
+    fd, fr, fc = ab.build_fault_operands(fault, gm, gn, bm, bn, device=dev)
+    fkw = dict(abft=spec.with_inject(True), fault_delta=fd, fault_row=fr, fault_col=fc)
+    _, kflags = run(**fkw)
+    _, pflags = plain(**fkw)
+    want = torch.zeros_like(kflags)
+    want[fault_tile] = 1
+    out.update(fault_flags_exact=bool(torch.equal(kflags, want)),
+               flags_equal_plain=bool(torch.equal(kflags, pflags.to(kflags.device))))
+    ab.reset_abft_stats()
+    rec = recover(ab.AbftConfig(fault=fault))
+    out["recovery_bitwise"] = bool(torch.equal(rec, off))
+    out["stats"] = ab.abft_stats()
+    try:
+        recover(ab.AbftConfig(max_retries=0, fault=fault))
+        out["sdc_raised"] = False
+    except ab.SDCError as e:
+        out["sdc_raised"] = list(e.flagged) == [fault_tile]
+    ref, _ = plain(abft=spec)
+    err, tol = _err(torch, on, ref, "float32")
+    times = _time_ms(torch, dict(ms=(lambda: run(abft=spec), [()]),
+                                 off_ms=(lambda: run(), [()]),
+                                 plain_ms=(lambda: plain(abft=spec), [()])), windows=3, iters=5)
+    out.update(abft_ms=times["ms"], ms=times["ms"], plain_ms=times["plain_ms"],
+               off_ms=statistics.median(times["windows_ms"]["off_ms"]), max_abs_err=err,
+               tol=tol, library_ms=None)
+    # the bound: each operand and the output once (the rows groups own, the
+    # weights of live experts), the gated product's operations
+    if grouped:
+        rows, live = sum(min(n, T) for n in sizes), sum(1 for n in sizes if n)
+    else:
+        rows, live = M, 1
+    nbytes = (x.element_size() * rows * K + 2 * live * w.element_size() * K * N + 4 * M * N
+              + (4 * rows if a_s is not None else 0) + (8 * live * N if bs is not None else 0))
+    out["bound_ms"], out["bound_by"] = _bound_ms(nbytes, 4 * rows * K * N, _peak_type(x, w))
+    out["ok"] = (out["clean_bitwise"] and not out["clean_flags"] and out["fault_flags_exact"]
+                 and out["flags_equal_plain"] and out["recovery_bitwise"]
+                 and out["sdc_raised"] is True and err <= tol)
+    return dict(kernel="mx_grouped_matmul" if grouped else "mx_matmul_fused", variant="abft",
+                dtype=pol, pair=f"{x.dtype} x {w.dtype}", M=M, K=K, N=N, exact=spec.exact,
+                delta=delta, **out)
+
+
+def abft_checks(torch, dev):
+    """Phase 3a: both GEMMs on the six dense pairs and the three sparse
+    policies (expanded first)."""
+    checks, seed = [], 700
+    for grouped in (False, True):
+        for pol in ABFT_PAIRS:
+            seed += 1
+            c = check_abft(torch, dev, pol, grouped, seed)
+            checks.append(c)
+            print(f"  {c['kernel']:17s} abft {pol:14s} {c['pair']:32s} clean bitwise "
+                  f"{c['clean_bitwise']} flags {c['clean_flags']}; fault (delta {c['delta']}) "
+                  f"flags its tile {c['fault_flags_exact']}, = plain {c['flags_equal_plain']}; "
+                  f"recovery bitwise {c['recovery_bitwise']}; SDCError {c['sdc_raised']}; "
+                  f"err vs plain {c['max_abs_err']:.2e} (tol {c['tol']:.2e}); ms on "
+                  f"{c['abft_ms']:.4f} off {c['off_ms']:.4f} plain {c['plain_ms']:.4f} bound "
+                  f"{c['bound_ms']:.4f} {'ok' if c['ok'] else 'FAIL'}")
+            gc.collect()
+            torch.cuda.empty_cache()
+    bad = [c for c in checks if not c["ok"]]
+    if bad:
+        raise AssertionError(f"{len(bad)} ABFT check(s) failed: {bad}")
     return checks
 
 
@@ -687,6 +1056,9 @@ def phase_kernels(torch, dev):
                                            103 + S, poison=poison, pages=pages))
     checks += grouped_checks(torch, dev)
     checks += quant_checks(torch, dev)
+    print("[3s] the 2:4 sparse kernels: against the plain versions and bitwise against the "
+          "dense kernels on the expanded weights")
+    checks += sparse_checks(torch, dev)
     for c in checks:
         if c["kernel"] == "mx_grouped_matmul":
             shape = f"T={c['T']} G={c['G']} K={c['K']} N={c['N']} {c['act']} [{c['label']}]"
@@ -698,7 +1070,7 @@ def phase_kernels(torch, dev):
                      f"{'poisoned' if c['poison'] else ''}")
         ok = c["max_abs_err"] <= c["tol"] and c.get("zero_rows_exact", True) \
             and c.get("finite", True) and c.get("decode_err", 0) <= c.get("decode_tol", 0) \
-            and c.get("bitwise", True)
+            and c.get("bitwise", True) and c.get("bitwise_vs_dense", True)
         c["ok"] = ok
         lib = "none" if c["library_ms"] is None else f"{c['library_ms']:.4f}"
         extra = (f" vs decode {c['decode_err']:.1e} bitwise {c['decode_bitwise']}"
@@ -707,6 +1079,12 @@ def phase_kernels(torch, dev):
             extra += f" bitwise {c['bitwise']}"
         if "library_err" in c:
             extra += f" lib err {c['library_err']:.2e}"
+        if "bitwise_vs_dense" in c:
+            extra += f" = dense kernel on expanded: {c['bitwise_vs_dense']}"
+            if c.get("dense_kernel_ms") is not None:
+                extra += f" (dense {c['dense_kernel_ms']:.4f} ms)"
+        if c.get("library_error"):
+            extra += f" lib refused: {c['library_error'][:80]}"
         print(f"  {c['kernel']:16s} {c['dtype']:8s} {shape:40s} err {c['max_abs_err']:.3e} "
               f"(tol {c['tol']:.3e}){extra} {'ok' if ok else 'FAIL'}  ms {c['ms']:.4f} "
               f"(spread {100 * _spread(c):.0f}%) plain "
@@ -726,11 +1104,12 @@ def phase_kernels(torch, dev):
 def serve(torch, model, params, cfg, backend, n_req, gen, prompt_len=128, slots=8,
           label=None, **kw):
     """The trace of `make_trace` through the paged batcher with the prefix
-    cache under `backend`; `kw` (kv_quant, speculate, drafter) goes to the
-    batcher.  Launch counts are set to 0 just before the run and read just
-    after it."""
+    cache under `backend`; `kw` (kv_quant, speculate, drafter, abft) goes to
+    the batcher.  Launch counts (and the ABFT counters) are set to 0 just
+    before the run and read just after it."""
     from repro_torch import kernels
     from repro_torch.core import ops
+    from repro_torch.kernels import abft as abft_mod
     from repro_torch.launch.serve import make_trace
     from repro_torch.runtime.batcher import ContinuousBatcher
 
@@ -744,6 +1123,7 @@ def serve(torch, model, params, cfg, backend, n_req, gen, prompt_len=128, slots=
         reqs = make_trace(cfg, n_req, prompt_len, gen, prefix_cache=True)
         torch.cuda.synchronize()
         kernels.reset_launch_counts()
+        abft_mod.reset_abft_stats()
         t0 = time.perf_counter()
         for r in reqs:
             batcher.submit(r)
@@ -751,6 +1131,8 @@ def serve(torch, model, params, cfg, backend, n_req, gen, prompt_len=128, slots=
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = kernels.launch_counts()
+        variants = kernels.variant_launch_counts()
+        abft_stats = abft_mod.abft_stats()
     step_dt = {h.step: h.dt_s for h in batcher.health}
     # steps that admitted nobody run no prefill chunk: pure decode / verify
     admit_steps = {at for r in finished.values() for kind, at in r.events
@@ -778,7 +1160,9 @@ def serve(torch, model, params, cfg, backend, n_req, gen, prompt_len=128, slots=
         steps_without_admission=len(plain_steps),
         finish_reasons=batcher.health_summary()["finish_reasons"],
         pool=batcher.pool_stats().as_dict(), prefix=batcher.prefix_stats(),
-        launches=counts, streams={r: finished[r].output for r in sorted(finished)},
+        launches=counts, variants=variants, abft_stats=abft_stats,
+        abft=batcher.health_summary()["abft"],
+        streams={r: finished[r].output for r in sorted(finished)},
         prompts={r: finished[r].prompt.tolist() for r in sorted(finished)})
     assert len(finished) == n_req, finished.keys()
     assert all(r.finish_reason == "max_new" and len(r.output) == gen
@@ -826,7 +1210,8 @@ def _calls_held(calls, rel_tol=1e-3):
     def held(name, kernel, plain):
         def call(*args, **kw):
             got = kernel(*args, **kw)
-            ref = plain(*args, **kw).float()
+            # the plain versions take 2:4 operands by their metadata alone
+            ref = plain(*args, **{k: v for k, v in kw.items() if k != "b_sparse"}).float()
             calls.append((name, (got.float() - ref).abs().max().item(),
                           rel_tol * ref.abs().max().item()))
             return got
@@ -867,26 +1252,30 @@ def _hold_logits(torch, got, ref, f32, rel_tol):
     return out
 
 
-def hold_steps(torch, dev, model, params, cfg, cache0, num_pages, quant=False):
+def hold_steps(torch, dev, model, params, cfg, cache0, num_pages, quant=False,
+               calls_held=None, ref_precision="none"):
     """One 64-token prefill chunk and one decode step on "cuda_mx" and on
     "torch", each from its own copy of one cache state: logits within
     1e-3 * max|ref|.  With `quant` (a quantized Config.precision) every
     GEMM call of the kernel path is held against its plain version at
-    1e-3 * max|ref|, and the logits as `_hold_logits` says."""
+    1e-3 * max|ref| (`calls_held`, default `quant`), and the logits as
+    `_hold_logits` says, the quantization's own effect taken against the
+    plain path under `ref_precision`."""
     from repro_torch import kernels
     from repro_torch.core import ops
     from repro_torch.models import build_model
 
     table, toks, tok, index, lengths = _step_inputs(torch, dev, cfg, num_pages)
     res, calls = {}, []
+    calls_held = quant if calls_held is None else calls_held
     backends = ("cuda_mx", "torch", "f32") if quant else ("cuda_mx", "torch")
     for backend in backends:
         cache = {seg: {k: v.clone() for k, v in leaves.items()}
                  for seg, leaves in cache0.items()}
         m = model
         if backend == "f32":
-            m = build_model(dataclasses.replace(cfg, precision="none"))
-        held = _calls_held(calls) if quant and backend == "cuda_mx" \
+            m = build_model(dataclasses.replace(cfg, precision=ref_precision))
+        held = _calls_held(calls) if calls_held and backend == "cuda_mx" \
             else contextlib.nullcontext()
         with ops.use_policy(ops.MXPolicy("torch" if backend == "f32" else backend)), held:
             kernels.reset_launch_counts()
@@ -903,7 +1292,7 @@ def hold_steps(torch, dev, model, params, cfg, cache0, num_pages, quant=False):
     for i, what in ((0, "prefill_logits"), (1, "decode_logits")):
         out[what] = _hold_logits(torch, res["cuda_mx"][i], res["torch"][i],
                                  res["f32"][i] if quant else None, 1e-3)
-    if quant:
+    if calls_held:
         out["calls"] = _calls_summary(calls)
     out["launches_per_prefill_chunk"] = res["cuda_mx"][2]
     out["launches_per_decode_step"] = res["cuda_mx"][3]
@@ -953,6 +1342,18 @@ def profile_steps(torch, dev, model, params, cfg, cache, num_pages, n_decode=4):
 
     with ops.use_policy(ops.MXPolicy("cuda_mx")):
         return dict(_profile(torch, steps), n_decode=n_decode)
+
+
+def profile_abft_step(torch, dev, model, params, cfg, cache, num_pages):
+    """One decode step on the kernel path under use_abft(): the ABFT
+    kernels and the host read of every GEMM's flag map."""
+    from repro_torch.core import ops
+    from repro_torch.kernels.abft import use_abft
+
+    table, _, tok, index, lengths = _step_inputs(torch, dev, cfg, num_pages)
+    with ops.use_policy(ops.MXPolicy("cuda_mx")), use_abft():
+        return _profile(torch, lambda: model.decode_step_paged(params, tok, cache, index,
+                                                               table, lengths))
 
 
 def _verify_inputs(torch, dev, cfg, num_pages, S=5):
@@ -1074,7 +1475,7 @@ def smoke_streams(torch, dev):
 
 def smoke_streams_across_backends(torch, dev, names, precisions):
     """Serving at smoke size: for each arch of `names` and each
-    (Config.precision, KV page type) of `precisions`, the "cuda_mx" and
+    (Config.precision, KV page type[, abft]) of `precisions`, the "cuda_mx" and
     "torch" streams must agree, the kernel path launching the MX GEMM and
     the grouped kernel twice per MoE layer per step or chunk, the plain
     path nothing."""
@@ -1086,16 +1487,17 @@ def smoke_streams_across_backends(torch, dev, names, precisions):
     for name in names:
         base = get_config(name)
         params = build_model(base).init(0, device=dev)
-        for prec, kv in precisions:
+        for prec, kv, *abft in precisions:
+            abft = bool(abft and abft[0])
             cfg = dataclasses.replace(base, precision=prec)
             model = build_model(cfg)
             runs = {b: serve(torch, model, params, cfg, b, n_req=6, gen=8, prompt_len=24,
-                             slots=2, kv_quant=QuantSpec(kv) if kv else None)[0]
+                             slots=2, kv_quant=QuantSpec(kv) if kv else None, abft=abft)[0]
                     for b in ("cuda_mx", "torch")}
             r = runs["cuda_mx"]
             want = 2 * cfg.n_layers * (r["device_steps"] + r["prefill_launches"]) \
                 if cfg.n_experts else 0
-            out[f"{name} {prec} {kv or 'f32'} pages"] = dict(
+            out[f"{name} {prec} {kv or 'f32'} pages{' abft' if abft else ''}"] = dict(
                 same=runs["torch"]["streams"] == r["streams"],
                 grouped_launches=r["launches"]["mx_grouped_matmul"], want=want,
                 fused_launches=r["launches"]["mx_matmul_fused"],
@@ -1261,6 +1663,134 @@ def divergences(torch, model, params, plain, other, kv_quant=None):
     return out
 
 
+def _sparse_payload_gib(ops):
+    """The kept 2:4 payloads and metadata (the weight cache's sparse entries)."""
+    return sum(t.numel() * t.element_size() for key, (_, _, made) in ops._weights.items()
+               if key[-1] is not None for t in made if t is not None) / 2**30
+
+
+def _check_variant(label, run, variant, grouped=False, dense_heads=0):
+    """A run of a 2:4 or ABFT configuration must launch that variant of the
+    GEMM(s); a 2:4 run no dense one (no fallback) but its `dense_heads`
+    launches of an untied head, which keeps its declared precision, as in
+    JAX.  An ABFT run's prefill chunks run dense GEMMs: the batcher
+    checksums its device step, as JAX's does."""
+    v = run["variants"]
+    names = ("mx_matmul_fused",) + (("mx_grouped_matmul",) if grouped else ())
+    for name in names:
+        heads = dense_heads if name == "mx_matmul_fused" else 0
+        if v[f"{name} {variant}"] <= 0 or (variant == "sparse" and v[f"{name} dense"] != heads):
+            raise AssertionError(f"{label}: {name} launches by variant {v}")
+
+
+def llama_sparse_serve(torch, dev, cfg, params):
+    """Phase 4s: llama3.2-1b on the same f32 weights under Config.precision
+    "sparse24" and "sparse24_int8" (the phase 4 trace; the tied head stays
+    dense f32, as in JAX), each GEMM's pruned, quantized, compressed weight
+    made once at the first step.  Every GEMM launch is the 2:4 variant.
+    Returns label -> (run, model, batcher)."""
+    from repro_torch.core import ops
+    from repro_torch.models import build_model
+
+    print("[4s] 2:4 sparse serving of llama3.2-1b (the same f32 weights, Config.precision)")
+    runs = {}
+    for label, prec in (("(g) sparse24", "sparse24"), ("(h) sparse24_int8", "sparse24_int8")):
+        qcfg = dataclasses.replace(cfg, precision=prec)
+        model = build_model(qcfg)
+        run, batcher, _ = serve(torch, model, params, qcfg, "cuda_mx", n_req=16, gen=32,
+                                label=label)
+        run["sparse_payload_gib"] = _sparse_payload_gib(ops)
+        _print_serve(run)
+        print(f"      kept 2:4 payloads + metadata {run['sparse_payload_gib']:.3f} GiB; "
+              f"launches by variant {run['variants']}")
+        _check_launches(label, run)
+        _check_variant(label, run, "sparse")
+        runs[label] = (run, model, batcher)
+    return runs
+
+
+def llama_abft_serve(torch, dev, cfg, model, params, main_run):
+    """Phase 4a: llama f32 with abft=True on the phase 4 trace: streams
+    bitwise those of phase 4, no tile flagged, no host-copy SDC; then a short
+    pass (8 requests x 8 tokens) with k = 4 n-gram speculation, with and
+    without ABFT (bitwise equal streams).  The eager protocol reads each
+    GEMM's flag map on the host: one sync per GEMM, its cost in the step."""
+    from repro_torch.runtime.speculative import NGramDrafter
+
+    print("[4a] ABFT serving of llama3.2-1b (f32, abft=True)")
+    run, _, _ = serve(torch, model, params, cfg, "cuda_mx", n_req=16, gen=32,
+                      label="(i) abft", abft=True)
+    _print_serve(run)
+    run["gemms_verified_per_step"] = run["abft_stats"]["gemms_verified"] / run["device_steps"]
+    run["streams_equal_plain"] = run["streams"] == main_run["streams"]
+    run["step_ms_vs_plain"] = run["step_ms_median"] / main_run["step_ms_median"]
+    print(f"      abft counters {run['abft_stats']}, host audit {run['abft']}; "
+          f"{run['gemms_verified_per_step']:.1f} verified GEMMs (host syncs) per step; "
+          f"streams bitwise equal to phase 4's: {run['streams_equal_plain']}; median step "
+          f"{run['step_ms_median']:.2f} ms against {main_run['step_ms_median']:.2f} ms "
+          f"({run['step_ms_vs_plain']:.2f}x)")
+    spec = {}
+    for abft in (True, False):
+        spec[abft], _, _ = serve(torch, model, params, cfg, "cuda_mx", n_req=8, gen=8,
+                                 label=f"(i) spec4 ngram {'abft' if abft else 'plain'}",
+                                 speculate=4, drafter=NGramDrafter(), abft=abft)
+        _print_serve(spec[abft])
+    s = run["abft_stats"]
+    ok = (run["streams_equal_plain"] and s["gemms_verified"] > 0 and s["tiles_flagged"] == 0
+          and s["sdc_errors"] == 0 and run["abft"]["sdc_detected"] == 0
+          and spec[True]["streams"] == spec[False]["streams"]
+          and spec[True]["abft_stats"]["tiles_flagged"] == 0
+          and spec[True]["abft_stats"]["gemms_verified"] > 0)
+    print(f"      speculative pass: streams with ABFT equal without: "
+          f"{spec[True]['streams'] == spec[False]['streams']}; counters "
+          f"{spec[True]['abft_stats']}")
+    _check_launches("(i) abft", run)
+    _check_variant("(i) abft", run, "abft")
+    _check_variant("(i) spec4 ngram abft", spec[True], "abft")
+    if not ok:
+        raise AssertionError(f"ABFT serving: {run['abft_stats']} {run['abft']} "
+                             f"{spec[True]['abft_stats']}")
+    return dict(serve=run, spec=spec[True], spec_plain=spec[False])
+
+
+def llama_sparse_holds(torch, dev, params, served):
+    """Phase 5s: each sparse run of phase 4s on its cache state, a prefill
+    chunk and a decode step: every GEMM call against its plain version at
+    1e-3 * max|ref|; "sparse24" logits at 1e-3 * max|ref| against the plain
+    path (no activation is quantized), "sparse24_int8" logits at half the
+    quantization's own effect (against the plain "sparse24" path, so the
+    pruning is not counted as quantization); then identical smoke-size
+    streams across backends under both policies and with abft=True."""
+    from repro_torch.core import ops
+
+    print("[5s] 2:4 kernel path against plain path")
+    holds, profs = {}, {}
+    for label, (run, model, batcher) in served.items():
+        qcfg = model.cfg
+        quant = qcfg.precision == "sparse24_int8"
+        held = hold_steps(torch, dev, model, params, qcfg, batcher.cache,
+                          batcher.pool.total_pages, quant=quant, calls_held=True,
+                          ref_precision="sparse24")
+        print(f"    {label}:")
+        _print_hold(held, ("prefill_logits", "decode_logits"))
+        for what in ("prefill_logits", "decode_logits", "calls"):
+            if not held[what]["ok"]:
+                raise AssertionError(f"{label} {what}: the kernel path disagrees: {held}")
+        holds[label] = held
+        table, _, tok, index, lengths = _step_inputs(torch, dev, qcfg, batcher.pool.total_pages)
+        with ops.use_policy(ops.MXPolicy("cuda_mx")):
+            profs[label] = _profile(torch, lambda: model.decode_step_paged(
+                params, tok, batcher.cache, index, table, lengths))
+        _print_profile(f"{label}: 1 decode step, 8 slots", profs[label])
+    ops.clear_weight_cache()
+    print("    2:4 and ABFT token streams at smoke size across backends:")
+    streams = smoke_streams_across_backends(
+        torch, dev, ("llama3.2-1b-smoke",),
+        (("sparse24", None), ("sparse24_int8", None), ("none", None, True)))
+    return dict(serve={k: v[0] for k, v in served.items()}, hold=holds, profile=profs,
+                smoke_streams=streams)
+
+
 # ---------------------------------------------------------------------------
 
 
@@ -1345,6 +1875,8 @@ def llama_phases(torch, dev):
         _check_launches(label, run)
 
     served = llama_quant_serve(torch, dev, cfg, params)
+    sparse_served = llama_sparse_serve(torch, dev, cfg, params)
+    abft = llama_abft_serve(torch, dev, cfg, model, params, main_run)
 
     print("[5] kernel path against plain path")
     held = hold_steps(torch, dev, model, params, cfg, batcher.cache,
@@ -1381,6 +1913,10 @@ def llama_phases(torch, dev):
                             batcher.pool.total_pages)
     _print_profile(f"1 prefill chunk + {prof['n_decode']} decode steps", prof)
     _print_profile("1 verify step, S = 5", prof_v)
+    prof_a = profile_abft_step(torch, dev, model, params, cfg, batcher.cache,
+                               batcher.pool.total_pages)
+    _print_profile("1 decode step with ABFT (a host sync per GEMM)", prof_a)
+    abft["profile_decode"] = prof_a
     same, streams = smoke_streams(torch, dev)
     print(f"    smoke-size token streams equal across cuda_mx / torch, plain / "
           f"speculative, f32 and int8 (each within its page type): {same}")
@@ -1397,7 +1933,9 @@ def llama_phases(torch, dev):
                                  f"near tie (kernel-path error {near_tie:.3e}): {bad}")
 
     quant = llama_quant_holds(torch, dev, params, served)
-    return launches, dict(quant=quant, serve=main_run, serve_baseline=base_run,
+    sparse = llama_sparse_holds(torch, dev, params, sparse_served)
+    return launches, dict(quant=quant, sparse=sparse, abft=abft, serve=main_run,
+                          serve_baseline=base_run,
                           serve_spec=spec_runs, hold=held, hold_verify=held_v,
                           hold_verify_int8=held_v8, profile=prof, profile_verify=prof_v,
                           smoke_streams=streams)
@@ -1529,21 +2067,31 @@ def grok_phases(torch, dev):
                     2 * cfg.n_layers * (run["device_steps"] + run["prefill_launches"]))
 
     qserved = grok_quant_serve(torch, dev, cfg, params)
+    sserved = grok_sparse_serve(torch, dev, cfg, params)
+    abft = grok_abft_pass(torch, dev, cfg, model, params)
 
     print("[7] grok kernel path against plain path")
     held = _hold_grok(torch, dev, model, params, cfg, batcher)
     prof = _profile_grok(torch, dev, model, params, cfg, batcher, "1 grok decode step, 8 slots")
     del batcher
+    print("[7s] grok sparse24_int8 kernel path against plain path")
+    srun, smodel, sbatcher = sserved
+    sheld = _hold_grok(torch, dev, smodel, params, smodel.cfg, sbatcher, "grok sparse24_int8",
+                       quant=True)
+    del sserved, smodel, sbatcher
+    ops.clear_weight_cache()  # the 2:4 payloads; 7q makes its int8 ones again
     quant = grok_quant_holds(torch, dev, cfg, params, *qserved)
     del params, model, qserved
     gc.collect()
     torch.cuda.empty_cache()
     streams = smoke_streams_across_backends(
         torch, dev, ("grok-1-314b-smoke", "kimi-k2-1t-a32b-smoke"),
-        (("none", None), ("int8", None), ("int8_all", None)))
+        (("none", None), ("int8", None), ("int8_all", None), ("sparse24_int8", None),
+         ("none", None, True)))
     return dict(config=dict(name=cfg.name, n_layers=cfg.n_layers, cut_from=full.n_layers),
                 init_s=init_s, serve=run, hold=held, profile_decode=prof,
-                smoke_streams=streams, quant=quant)
+                smoke_streams=streams, quant=quant, abft=abft,
+                sparse=dict(serve=srun, hold=sheld))
 
 
 def _hold_grok(torch, dev, model, params, cfg, batcher, label="grok", steps=MOE_STEPS,
@@ -1607,7 +2155,7 @@ def grok_quant_serve(torch, dev, cfg, params):
                             label="grok int8")
     run["peak_memory_gib"] = torch.cuda.max_memory_allocated() / 2**30
     run["weight_payload_gib"] = sum(
-        q.numel() * q.element_size() for _, _, q, _ in ops._weights.values()) / 2**30
+        made[0].numel() * made[0].element_size() for _, _, made in ops._weights.values()) / 2**30
     _print_serve(run)
     print(f"      peak device memory {run['peak_memory_gib']:.2f} GiB, of which int8 weight "
           f"payloads kept {run['weight_payload_gib']:.2f} GiB; {run['device_steps']} "
@@ -1615,6 +2163,60 @@ def grok_quant_serve(torch, dev, cfg, params):
     _check_launches("grok int8", run,
                     2 * cfg.n_layers * (run["device_steps"] + run["prefill_launches"]))
     return run, model, batcher
+
+
+def grok_sparse_serve(torch, dev, cfg, params):
+    """Phase 6s: grok-1 (the same cut and f32 weights) under "sparse24_int8":
+    each expert stack pruned, quantized and compressed one expert at a time
+    at the first step and kept beside the f32 weights (peak memory
+    printed); 2 grouped launches per MoE layer per step or chunk, every one
+    the 2:4 variant.  Returns (run, model, batcher)."""
+    from repro_torch.core import ops
+    from repro_torch.models import build_model
+
+    print("[6s] serving grok-1-314b with Config.precision sparse24_int8 (same cut, same "
+          "weights)")
+    ops.clear_weight_cache()
+    qcfg = dataclasses.replace(cfg, precision="sparse24_int8")
+    model = build_model(qcfg)
+    torch.cuda.reset_peak_memory_stats()
+    run, batcher, _ = serve(torch, model, params, qcfg, "cuda_mx", n_req=16, gen=16,
+                            label="grok sparse24_int8")
+    run["peak_memory_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    run["sparse_payload_gib"] = _sparse_payload_gib(ops)
+    _print_serve(run)
+    print(f"      peak device memory {run['peak_memory_gib']:.2f} GiB, of which 2:4 int8 "
+          f"payloads + metadata kept {run['sparse_payload_gib']:.2f} GiB; "
+          f"{run['device_steps']} device steps; launches by variant {run['variants']}")
+    _check_launches("grok sparse24_int8", run,
+                    2 * cfg.n_layers * (run["device_steps"] + run["prefill_launches"]))
+    _check_variant("grok sparse24_int8", run, "sparse", grouped=True,
+                   dense_heads=run["device_steps"] + run["prefill_launches"])
+    return run, model, batcher
+
+
+def grok_abft_pass(torch, dev, cfg, model, params):
+    """Phase 6a: a short grok-1 f32 pass (8 requests x 4 tokens) with
+    abft=True -- the grouped GEMM's per-expert checksums -- against the same
+    pass without: bitwise equal streams, no tile flagged."""
+    print("[6a] grok-1-314b f32 with abft=True (grouped checksums)")
+    runs = {}
+    for abft in (True, False):
+        runs[abft], _, _ = serve(torch, model, params, cfg, "cuda_mx", n_req=8, gen=4,
+                                 label=f"grok {'abft' if abft else 'plain'} 8 x 4",
+                                 abft=abft)
+        _print_serve(runs[abft])
+    run = runs[True]
+    run["streams_equal_plain"] = run["streams"] == runs[False]["streams"]
+    print(f"      abft counters {run['abft_stats']}, host audit {run['abft']}; streams "
+          f"bitwise equal without ABFT: {run['streams_equal_plain']}; median step "
+          f"{run['step_ms_median']:.2f} ms against {runs[False]['step_ms_median']:.2f} ms")
+    _check_variant("grok abft", run, "abft", grouped=True)
+    s = run["abft_stats"]
+    if not (run["streams_equal_plain"] and s["tiles_flagged"] == 0 and s["gemms_verified"] > 0
+            and run["abft"]["sdc_detected"] == 0):
+        raise AssertionError(f"grok ABFT pass: {s} {run['abft']}")
+    return dict(serve=run, plain=runs[False])
 
 
 def grok_quant_holds(torch, dev, cfg, params, run, model, batcher):
@@ -1677,6 +2279,9 @@ def main() -> int:
 
     print("[3] kernels against their plain versions")
     checks = phase_kernels(torch, dev)
+    print("[3a] the ABFT kernels: clean bitwise, faults flagged, flag maps = plain, "
+          "recovery bitwise")
+    abft_checks_ = abft_checks(torch, dev)
 
     launches, llama = llama_phases(torch, dev)
     gc.collect()
@@ -1711,7 +2316,7 @@ def main() -> int:
     qruns = llama["quant"]["serve"]
     variants = (  # (name, kernel, check selector, launches)
         ("mx_matmul_fused (bf16 x int8)", "mx_matmul_fused",
-         dict(dtype="int8", M=8, K=8192, N=2048),
+         dict(dtype="int8", M=8, K=8192, N=2048, epilogue={}),
          qruns["(d) int8"]["launches"]["mx_matmul_fused"]),
         ("mx_matmul_fused (int8 x int8)", "mx_matmul_fused",
          dict(dtype="int8_all", M=8, K=8192, N=2048),
@@ -1727,14 +2332,33 @@ def main() -> int:
          qruns["(f) fp8 + fp8 pages spec4 ngram"]["launches"]["mx_flash_verify"]),
         ("mx_grouped_matmul (bf16 x int8)", "mx_grouped_matmul",
          dict(dtype="int8", label="grok decode down"),
-         grok["quant"]["serve"]["launches"]["mx_grouped_matmul"]))
+         grok["quant"]["serve"]["launches"]["mx_grouped_matmul"]),
+        # stage 1c / 5c: the 2:4 variants, launches from the sparse serving runs
+        ("mx_matmul_fused (2:4, f32)", "mx_matmul_fused",
+         dict(variant="sparse", dtype="sparse24 f32", M=8, K=8192, N=2048, epilogue={}),
+         llama["sparse"]["serve"]["(g) sparse24"]["variants"]["mx_matmul_fused sparse"]),
+        ("mx_matmul_fused (2:4, bf16 x int8)", "mx_matmul_fused",
+         dict(variant="sparse", dtype="sparse24_int8", M=8, K=8192, N=2048, epilogue={}),
+         llama["sparse"]["serve"]["(h) sparse24_int8"]["variants"]["mx_matmul_fused sparse"]),
+        ("mx_grouped_matmul (2:4, bf16 x int8)", "mx_grouped_matmul",
+         dict(variant="sparse", dtype="sparse24_int8", label="grok decode down"),
+         grok["sparse"]["serve"]["variants"]["mx_grouped_matmul sparse"]),
+        # stage 1d / 5d: the ABFT variants, launches from the ABFT serving runs
+        ("mx_matmul_fused (ABFT, f32)", "mx_matmul_fused", dict(variant="abft", dtype="f32"),
+         llama["abft"]["serve"]["variants"]["mx_matmul_fused abft"]),
+        ("mx_grouped_matmul (ABFT, f32)", "mx_grouped_matmul",
+         dict(variant="abft", dtype="f32"),
+         grok["abft"]["serve"]["variants"]["mx_grouped_matmul abft"]))
     for name, kernel, sel, n in variants:
         if n <= 0:
             raise AssertionError(f"{name} was not launched on its serving path")
-        c = next(c for c in checks if c["kernel"] == kernel
+        c = next(c for c in checks + abft_checks_ if c["kernel"] == kernel
                  and all(c.get(k) == v for k, v in sel.items()))
+        variant = sel.get("variant")
         summary.append(dict(
-            name=name, route="cuda", source=SOURCES[kernel], replaces=TPU_KERNELS[kernel],
+            name=name, route="cuda", source=SOURCES[kernel if variant is None
+                                                     else f"{kernel} {variant}"],
+            replaces=TPU_KERNELS[kernel],
             launches=n, max_abs_err=c["max_abs_err"], ms=c["ms"], plain_ms=c["plain_ms"],
             bound_ms=c["bound_ms"], bound_by=c["bound_by"], library_ms=c["library_ms"],
             shape={k: c[k] for k in ("M", "T", "G", "K", "N", "B", "S", "H", "Hkv", "d")
@@ -1743,8 +2367,8 @@ def main() -> int:
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(dict(
-        device=smi, build_s=build_s, ptxas=ptxas, checks=checks, **llama, grok=grok,
-        kernels=summary), indent=1, default=str))
+        device=smi, build_s=build_s, ptxas=ptxas, checks=checks, abft_checks=abft_checks_,
+        **llama, grok=grok, kernels=summary), indent=1, default=str))
     print(json.dumps({"kernels": summary}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -42,10 +42,27 @@ and raises on a CUDA tensor, where the port runs no plain version.
 
 Weights are quantized once: the (payload, scale) of each weight operand
 is kept and reused while the parameter is unchanged (the key is the
-tensor, its in-place version counter and the spec), the same bits as
-quantizing at every call, which JAX's jitted step does.  Activations are
-quantized at every call.  2:4 sparse policies and ABFT raise, naming their
-ROADMAP items.
+tensor, its in-place version counter, the spec and the sparsity), the same
+bits as quantizing at every call, which JAX's jitted step does.
+Activations are quantized at every call.
+
+2:4 sparse policies ("sparse24", "sparse24_int8") prune the original
+weight, quantize it, then compress the quantized payload (`kernels/
+sparse.py`), once per parameter version like the quantized payloads; the
+CUDA GEMMs take the compressed payload and its metadata (stages 1c / 5c),
+"torch" expands it (JAX's unfused reference).  K % 8 != 0 keeps the
+pruned weight dense-masked (no metadata), as in JAX.
+
+ABFT (``abft=`` per call, or the ambient `kernels.abft.use_abft()`)
+engages on "cuda_mx" only, as on JAX's "pallas_mx": the checksummed
+kernels (stages 1d / 5d) return a per-tile flag map, which is read on the
+host after each GEMM (one sync per GEMM), and each flagged tile is
+recomputed alone through the same kernel on slices of the operands --
+bitwise what the fault-free launch writes, since every output element is
+one sequential MAC chain over K whatever the tile -- with `max_retries`
+attempts before a typed `SDCError` (`abft_stats()` counts).  A sparse
+weight under ABFT is expanded first (recovery slices dense panels), as in
+JAX.
 """
 from __future__ import annotations
 
@@ -58,12 +75,19 @@ from typing import Dict, Optional, Sequence
 import torch
 import torch.distributed as dist
 
+from ..kernels import _build
+from ..kernels import abft as abft_mod
+from ..kernels.abft import AbftConfig, SDCError
 from ..kernels.baseline_matmul import baseline_matmul
 from ..kernels.mx_grouped_matmul import mx_grouped_matmul
-from ..kernels.mx_matmul import Epilogue, apply_epilogue, dot_f32, mx_matmul_fused
+from ..kernels.mx_grouped_matmul import abft_spec_for as grouped_abft_spec
+from ..kernels.mx_matmul import (Epilogue, abft_spec_for, apply_epilogue, dot_f32,
+                                 mx_matmul_fused)
 from ..kernels.quant import quantize_operand
 from ..kernels.ref import grouped_matmul_ref
-from .precision import PrecisionPolicy, QuantSpec, current_precision, resolve_precision
+from ..kernels.sparse import compress_24, expand_24, prune_24
+from .precision import (PrecisionPolicy, QuantSpec, SparsitySpec, current_precision,
+                        resolve_precision)
 
 BACKENDS = ("torch", "cuda_mx", "cuda_baseline")
 TP_MODES = ("allgather", "reduce_scatter")
@@ -101,14 +125,16 @@ def use_policy(policy: MXPolicy):
         _state.policy = prev
 
 
-def _reject_unported(prec: Optional[PrecisionPolicy], abft) -> None:
-    if prec is not None and prec.b_sparse is not None:
-        raise NotImplementedError(
-            "2:4 sparse GEMMs (a policy with b_sparse) are not ported yet (ROADMAP "
-            "queue 1 item 10)")
-    if abft is not None and abft is not False:
-        raise NotImplementedError(
-            "abft: checksummed GEMMs are not ported yet (ROADMAP queue 1 item 11)")
+def _resolve_abft(abft) -> Optional[AbftConfig]:
+    """Per-call ``abft=`` wins (True -> defaults, False -> off, or an
+    AbftConfig); None takes the ambient use_abft() context."""
+    if abft is False:
+        return None
+    if abft is None:
+        return abft_mod.current_abft()
+    if abft is True:
+        return AbftConfig()
+    return abft
 
 
 def _ambient_precision(precision) -> Optional[PrecisionPolicy]:
@@ -127,32 +153,59 @@ def _effective_precision(prec, a_dtype, b_dtype) -> Optional[PrecisionPolicy]:
     return prec
 
 
-# (data_ptr, shape, strides, dtype, device, spec) -> (weakref to the
-# parameter's base tensor, its version, payload, scale)
+# (data_ptr, shape, strides, dtype, device, spec, sparsity) -> (weakref to
+# the parameter's base tensor, its version, (payload, scale, metadata))
 _weights: Dict[tuple, tuple] = {}
 
 
-def _weight_operand(w: torch.Tensor, spec: QuantSpec):
-    """`quantize_operand(w, spec, "b")`, made once per parameter version:
-    reused while the same tensor (a view of the same base, e.g. a layer of
-    a stacked leaf) is unchanged in place.  The entry goes when the base
-    tensor does."""
-    if not spec.transforms(w.dtype):
-        return w, None
+def _sparse_operand(w: torch.Tensor, spec: QuantSpec):
+    """JAX's sparse pipeline on one weight: prune the ORIGINAL weight, then
+    quantize (per-column scales are constant along K, so pruning commutes
+    with them), then compress the quantized payload.  Returns (payload,
+    scale, metadata); metadata None when K % 8 != 0 (the pruned weight
+    stays dense-masked).  An expert stack goes one expert at a time, except
+    under a "tensor" spec, whose one scale spans the stack."""
+    if w.dim() == 3 and not (spec.quantized and spec.granularity == "tensor"):
+        first = _sparse_operand(w[0], spec)
+        outs = [None if t is None else
+                torch.empty((w.shape[0], *t.shape), dtype=t.dtype, device=t.device)
+                for t in first]
+        for g in range(w.shape[0]):
+            part = first if g == 0 else _sparse_operand(w[g], spec)
+            for o, t in zip(outs, part):
+                if o is not None:
+                    o[g] = t
+        return tuple(outs)
+    q, scale = quantize_operand(prune_24(w), spec, "b")
+    if w.shape[-2] % 8 != 0:
+        return q, scale, None
+    payload, meta = compress_24(q)
+    return payload, scale, meta
+
+
+def _weight_operand(w: torch.Tensor, spec: QuantSpec,
+                    sparse: Optional[SparsitySpec] = None):
+    """(payload, scale, metadata) of weight `w` under `spec` (and 2:4
+    `sparse`), made once per parameter version: reused while the same
+    tensor (a view of the same base, e.g. a layer of a stacked leaf) is
+    unchanged in place.  The entry goes when the base tensor does."""
+    if sparse is None and not spec.transforms(w.dtype):
+        return w, None, None
     base = w if w._base is None else w._base
-    key = (w.data_ptr(), tuple(w.shape), w.stride(), w.dtype, w.device, spec)
+    key = (w.data_ptr(), tuple(w.shape), w.stride(), w.dtype, w.device, spec, sparse)
     hit = _weights.get(key)
     if hit is not None and hit[0]() is base and hit[1] == w._version:
-        return hit[2], hit[3]
+        return hit[2]
 
     def drop(ref, key=key):
         entry = _weights.get(key)
         if entry is not None and entry[0] is ref:
             del _weights[key]
 
-    q, scale = quantize_operand(w, spec, "b")
-    _weights[key] = (weakref.ref(base, drop), w._version, q, scale)
-    return q, scale
+    made = (_sparse_operand(w, spec) if sparse is not None
+            else (*quantize_operand(w, spec, "b"), None))
+    _weights[key] = (weakref.ref(base, drop), w._version, made)
+    return made
 
 
 def clear_weight_cache() -> None:
@@ -162,15 +215,152 @@ def clear_weight_cache() -> None:
 
 def _prepare_quantized(x, w, w_gate, prec: PrecisionPolicy,
                        a_row_groups: Optional[Sequence[int]] = None):
-    """Quantize / cast one GEMM's operands per the policy.  Returns (qa,
-    a_s, qb, b_s, qg, bg_s); scales are None for cast-only specs.  The gate
-    weight quantizes under the same spec as w with its OWN scales."""
+    """Quantize / cast / compress one GEMM's operands per the policy.
+    Returns (qa, a_s, qb, b_s, qg, bg_s, b_meta, bg_meta); scales are None
+    for cast-only specs, the metadata None for dense policies (and for
+    K % 8 != 0).  The gate weight takes the same spec as w with its OWN
+    scales."""
     qa, a_s = quantize_operand(x, prec.a, "a", row_groups=a_row_groups)
-    qb, b_s = _weight_operand(w, prec.b)
-    qg = bg_s = None
+    qb, b_s, b_meta = _weight_operand(w, prec.b, prec.b_sparse)
+    qg = bg_s = bg_meta = None
     if w_gate is not None:
-        qg, bg_s = _weight_operand(w_gate, prec.b)
-    return qa, a_s, qb, b_s, qg, bg_s
+        qg, bg_s, bg_meta = _weight_operand(w_gate, prec.b, prec.b_sparse)
+    return qa, a_s, qb, b_s, qg, bg_s, b_meta, bg_meta
+
+
+def _expand_sparse(qb, qg, b_meta, bg_meta):
+    """A prepared sparse weight pair back to dense-masked form (the unfused
+    reference, and the ABFT path): the SAME payload the sparse kernel
+    streams, so both agree on the weight values bit for bit."""
+    qb = expand_24(qb, b_meta)
+    if qg is not None:
+        qg = expand_24(qg, bg_meta)
+    return qb, qg
+
+
+def _flagged(flags: torch.Tensor):
+    """The flagged tiles of a flag map, read on the host (a sync)."""
+    return [tuple(t) for t in torch.nonzero(flags).tolist()]
+
+
+def _sdc(flagged, what, cfg):
+    abft_mod._bump("sdc_errors")
+    raise SDCError(f"SDC persisted in {len(flagged)} {what}(s) {flagged} after "
+                   f"{cfg.max_retries} recompute attempt(s)",
+                   flagged=flagged, attempts=cfg.max_retries)
+
+
+def _cols(t, c0, c1):
+    return None if t is None else t[..., c0:c1].contiguous()
+
+
+def _abft_fused_gemm(x2, w, *, ep, bias, residual, w_gate, a_s, b_s, bg_s, out_dtype,
+                     cfg: AbftConfig):
+    """One checksummed fused GEMM and the recovery protocol (JAX
+    `_abft_fused_gemm`, eager): the kernel returns the (grid_m, grid_n)
+    flag map; each flagged tile is recomputed ALONE, the same kernel on the
+    tile's rows of x and columns of the weight (and of bias, residual and
+    scales), which gives the fault-free launch's bits; `cfg.max_retries`
+    attempts, then SDCError.  `cfg.fault` corrupts the first attempt only."""
+    M, K = x2.shape
+    N = w.shape[-1]
+    bm, bn, _ = _build.gemm_tile(M)
+    gm, gn = -(-M // bm), -(-N // bn)
+    spec = abft_spec_for(x2, w)
+    base = dict(epilogue=ep, b_gate=w_gate, bias=bias, residual=residual, a_scale=a_s,
+                b_scale=b_s, bg_scale=bg_s, out_dtype=out_dtype)
+    fault = abft_mod.build_fault_operands(cfg.fault, gm, gn, bm, bn, device=x2.device)
+    fkw = {} if fault is None else dict(zip(("fault_delta", "fault_row", "fault_col"), fault))
+    out, flags = mx_matmul_fused(x2, w, abft=spec.with_inject(fault is not None), **fkw,
+                                 **base)
+    abft_mod._bump("gemms_verified")
+    flagged = _flagged(flags)
+    if not flagged:
+        return out
+    abft_mod._bump("tiles_flagged", len(flagged))
+    n_bad = len(flagged)
+    for _ in range(cfg.max_retries):
+        still = []
+        for ti, tj in flagged:
+            r0, c0 = ti * bm, tj * bn
+            r1, c1 = min(r0 + bm, M), min(c0 + bn, N)
+            xs, ws = x2[r0:r1], _cols(w, c0, c1)
+            t_out, t_flags = mx_matmul_fused(
+                xs, ws, epilogue=ep, b_gate=_cols(w_gate, c0, c1), bias=_cols(bias, c0, c1),
+                residual=None if residual is None else _cols(residual[r0:r1], c0, c1),
+                a_scale=None if a_s is None else a_s[r0:r1], b_scale=_cols(b_s, c0, c1),
+                bg_scale=_cols(bg_s, c0, c1), out_dtype=out_dtype,
+                abft=abft_spec_for(xs, ws))
+            if _flagged(t_flags):
+                still.append((ti, tj))
+                continue
+            out[r0:r1, c0:c1] = t_out
+        flagged = still
+        if not flagged:
+            abft_mod._bump("tiles_recovered", n_bad)
+            return out
+    _sdc(flagged, "tile", cfg)
+
+
+def _abft_grouped_gemm(x, w, group_sizes, *, activation, w_gate, a_s, b_s, bg_s,
+                       out_dtype, cfg: AbftConfig):
+    """Checksummed grouped GEMM and recovery (JAX `_abft_grouped_gemm`,
+    eager): each flagged (row tile, column tile) is recomputed per
+    OVERLAPPING expert through the fused kernel on the tile's rows of x and
+    that expert's weight columns, with the grouped kernel's epilogue order,
+    and only that expert's rows are written back: the fault-free grouped
+    launch's bits.  A flagged tile whose rows no group owns needs no
+    recompute (its rows are zeros whatever the accumulator)."""
+    T, K = x.shape
+    G, _, N = w.shape
+    bm, bn, _ = _build.grouped_tile(T, G)
+    gm, gn = -(-T // bm), -(-N // bn)
+    spec = grouped_abft_spec(x, w)
+    base = dict(w_gate=w_gate, activation=activation, a_scale=a_s, b_scale=b_s,
+                bg_scale=bg_s, out_dtype=out_dtype)
+    fault = abft_mod.build_fault_operands(cfg.fault, gm, gn, bm, bn, device=x.device)
+    fkw = {} if fault is None else dict(zip(("fault_delta", "fault_row", "fault_col"), fault))
+    out, flags = mx_grouped_matmul(x, w, group_sizes, abft=spec.with_inject(fault is not None),
+                                   **fkw, **base)
+    abft_mod._bump("gemms_verified")
+    flagged = _flagged(flags)
+    if not flagged:
+        return out
+    abft_mod._bump("tiles_flagged", len(flagged))
+    spans, start = [], 0
+    for n in group_sizes.tolist():
+        end = min(start + max(n, 0), T)
+        spans.append((start, end))
+        start = end
+    ep = Epilogue(activation=activation, a_scale=a_s is not None, b_scale=b_s is not None)
+    n_bad = len(flagged)
+    for _ in range(cfg.max_retries):
+        still = []
+        for t, j in flagged:
+            r0, c0 = t * bm, j * bn
+            r1, c1 = min(r0 + bm, T), min(c0 + bn, N)
+            xs = x[r0:r1]
+            for g, (s, e) in enumerate(spans):
+                g0, g1 = max(r0, s), min(r1, e)
+                if g0 >= g1:
+                    continue
+                ws = _cols(w[g], c0, c1)
+                t_out, t_flags = mx_matmul_fused(
+                    xs, ws, epilogue=ep,
+                    b_gate=None if w_gate is None else _cols(w_gate[g], c0, c1),
+                    a_scale=None if a_s is None else a_s[r0:r1],
+                    b_scale=None if b_s is None else _cols(b_s[g], c0, c1),
+                    bg_scale=None if bg_s is None else _cols(bg_s[g], c0, c1),
+                    out_dtype=out_dtype, abft=abft_spec_for(xs, ws))
+                if _flagged(t_flags):
+                    still.append((t, j))
+                    break
+                out[g0:g1, c0:c1] = t_out[g0 - r0:g1 - r0]
+        flagged = still
+        if not flagged:
+            abft_mod._bump("tiles_recovered", n_bad)
+            return out
+    _sdc(flagged, "grouped tile", cfg)
 
 
 def _flatten_leading(a: torch.Tensor):
@@ -183,19 +373,25 @@ def matmul(a: torch.Tensor, b: torch.Tensor, *, policy: Optional[MXPolicy] = Non
     """D = A @ B through the MX dispatch.  a: (..., M, K), b: (K, N).
     ``precision`` (explicit only: the ambient use_precision() context
     applies to linear and grouped_matmul, not to raw matmuls) routes
-    through `linear`'s quantized path."""
+    through `linear`'s quantized path.  ``abft`` (config, True / False, or
+    None for the ambient use_abft() context) checksums the product on
+    "cuda_mx"."""
     policy = policy or current_policy()
     out_dtype = out_dtype or a.dtype
     prec = _effective_precision(resolve_precision(precision), a.dtype, b.dtype)
     if prec is not None:
         return linear(a, b, None, policy=policy, out_dtype=out_dtype, precision=prec,
                       abft=abft)
-    _reject_unported(None, abft)
     backend = policy.resolve(a)
     if backend == "torch":
         return dot_f32(a, b).to(out_dtype)
     a2, lead = _flatten_leading(a)
-    if backend == "cuda_mx":
+    cfg = _resolve_abft(abft) if backend == "cuda_mx" else None
+    if cfg is not None:
+        out = _abft_fused_gemm(a2.contiguous(), b, ep=Epilogue(), bias=None, residual=None,
+                               w_gate=None, a_s=None, b_s=None, bg_s=None,
+                               out_dtype=out_dtype, cfg=cfg)
+    elif backend == "cuda_mx":
         out = mx_matmul_fused(a2.contiguous(), b, out_dtype=out_dtype)
     else:
         out = baseline_matmul(a2.contiguous(), b, out_dtype=out_dtype)
@@ -232,12 +428,14 @@ def linear(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None, *
     operands; its ``out`` overrides out_dtype.
 
     On "cuda_mx" the whole epilogue, dequant scales first, happens inside
-    the kernel's single write-back; the other backends compute the same
-    math unfused."""
+    the kernel's single write-back (a 2:4 policy streams the compressed
+    weight); ``abft`` (config, True / False, or None for the ambient
+    use_abft() context) checksums it, with recovery.  The other backends
+    compute the same math unfused, and take no ABFT, as JAX's xla and
+    pallas_baseline take none."""
     policy = policy or current_policy()
     out_dtype = out_dtype or x.dtype
     prec = _effective_precision(_ambient_precision(precision), x.dtype, w.dtype)
-    _reject_unported(prec, abft)
     _check_tp_mode(tp_mode)
     if prec is not None and prec.out is not None:
         out_dtype = prec.out_torch_dtype
@@ -250,9 +448,10 @@ def linear(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None, *
     if backend == "cuda_mx":
         x2, lead = _flatten_leading(x)
         M, N = x2.shape[0], w.shape[-1]
-        a_s = b_s = bg_s = None
+        a_s = b_s = bg_s = b_meta = bg_meta = None
         if prec is not None:
-            x2, a_s, w, b_s, w_gate, bg_s = _prepare_quantized(x2, w, w_gate, prec)
+            (x2, a_s, w, b_s, w_gate, bg_s,
+             b_meta, bg_meta) = _prepare_quantized(x2, w, w_gate, prec)
         ep = Epilogue(activation=activation, bias=b is not None,
                       residual=residual is not None, out_scale=out_scale,
                       a_scale=a_s is not None, b_scale=b_s is not None)
@@ -260,23 +459,36 @@ def linear(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None, *
         if residual is not None:
             full = (*lead, x.shape[-2], N) if lead else (M, N)
             res2 = torch.broadcast_to(residual, full).reshape(M, N).contiguous()
-        out = mx_matmul_fused(x2.contiguous(), w, epilogue=ep, b_gate=w_gate, bias=b,
-                              residual=res2, a_scale=a_s, b_scale=b_s, bg_scale=bg_s,
-                              out_dtype=out_dtype)
+        cfg = _resolve_abft(abft)
+        if b_meta is not None and cfg is not None:
+            # recovery slices dense weight panels: decompress first, as JAX
+            w, w_gate = _expand_sparse(w, w_gate, b_meta, bg_meta)
+            b_meta = bg_meta = None
+        if cfg is not None:
+            out = _abft_fused_gemm(x2.contiguous(), w, ep=ep, bias=b, residual=res2,
+                                   w_gate=w_gate, a_s=a_s, b_s=b_s, bg_s=bg_s,
+                                   out_dtype=out_dtype, cfg=cfg)
+        else:
+            out = mx_matmul_fused(x2.contiguous(), w, epilogue=ep, b_gate=w_gate, bias=b,
+                                  residual=res2, a_scale=a_s, b_scale=b_s, bg_scale=bg_s,
+                                  b_sparse=b_meta is not None, b_meta=b_meta,
+                                  bg_meta=bg_meta, out_dtype=out_dtype)
         if x.dim() > 2:
             out = out.reshape(*lead, x.shape[-2], N)
         return out
     if prec is not None:
-        # JAX's unfused quantized reference: the SAME payloads through the
-        # same dot_f32 accumulation, dequantized by apply_epilogue.  The
-        # baseline GEMM has no scale slots, and the port runs no plain
-        # version on the card in its place.
+        # JAX's unfused quantized reference: the SAME payloads (2:4 ones
+        # expanded) through the same dot_f32 accumulation, dequantized by
+        # apply_epilogue.  The baseline GEMM has no scale or 2:4 slots, and
+        # the port runs no plain version on the card in its place.
         if backend == "cuda_baseline" and x.is_cuda:
             raise NotImplementedError(
-                "cuda_baseline with a quantizing precision: the baseline GEMM has no "
-                "scale slots (JAX's pallas_baseline computes its jnp reference "
-                "there); use cuda_mx, or torch for the reference")
-        qa, a_s, qb, b_s, qg, bg_s = _prepare_quantized(x, w, w_gate, prec)
+                "cuda_baseline with a quantizing or 2:4 sparse precision: the baseline "
+                "GEMM has no scale slots and no 2:4 slots (JAX's pallas_baseline computes "
+                "its jnp reference there); use cuda_mx, or torch for the reference")
+        qa, a_s, qb, b_s, qg, bg_s, b_meta, bg_meta = _prepare_quantized(x, w, w_gate, prec)
+        if b_meta is not None:
+            qb, qg = _expand_sparse(qb, qg, b_meta, bg_meta)
         y = dot_f32(qa, qb)
         gate = dot_f32(qa, qg) if activation == "swiglu" else None
         ep = Epilogue(activation=activation, bias=b is not None,
@@ -289,8 +501,8 @@ def linear(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None, *
     # epilogue step is its own op
     ep = Epilogue(activation=activation, bias=b is not None,
                   residual=residual is not None, out_scale=out_scale)
-    y = matmul(x, w, policy=policy, out_dtype=torch.float32)
-    gate = (matmul(x, w_gate, policy=policy, out_dtype=torch.float32)
+    y = matmul(x, w, policy=policy, out_dtype=torch.float32, abft=False)
+    gate = (matmul(x, w_gate, policy=policy, out_dtype=torch.float32, abft=False)
             if activation == "swiglu" else None)
     return apply_epilogue(y, ep, bias=b, gate=gate, residual=residual,
                           out_dtype=out_dtype)
@@ -310,19 +522,35 @@ def grouped_matmul(x: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tensor, 
     weight scales apply at each group's store.  ``a_row_groups`` = (E, R,
     C): x's rows are the MoE's expert-major buffer (E experts x R routing
     groups x C rows), and a "tensor"-granularity activation scale is taken
-    per routing group, as JAX's one call per group takes it."""
+    per routing group, as JAX's one call per group takes it.
+
+    A 2:4 policy streams each expert's compressed payload (the sparse
+    kernel; "torch" expands it).  ``abft`` checksums every expert's
+    product on "cuda_mx" (per-expert recovery); a sparse stack is expanded
+    first."""
     policy = policy or current_policy()
     out_dtype = out_dtype or x.dtype
     prec = _effective_precision(_ambient_precision(precision), x.dtype, w.dtype)
-    _reject_unported(prec, abft)
     if prec is not None and prec.out is not None:
         out_dtype = prec.out_torch_dtype
-    a_s = b_s = bg_s = None
+    a_s = b_s = bg_s = b_meta = bg_meta = None
     if prec is not None:
-        x, a_s, w, b_s, w_gate, bg_s = _prepare_quantized(x, w, w_gate, prec,
-                                                          a_row_groups)
+        (x, a_s, w, b_s, w_gate, bg_s,
+         b_meta, bg_meta) = _prepare_quantized(x, w, w_gate, prec, a_row_groups)
     kw = dict(w_gate=w_gate, activation=activation, a_scale=a_s, b_scale=b_s,
               bg_scale=bg_s, out_dtype=out_dtype)
-    if policy.resolve(x) == "torch":
-        return grouped_matmul_ref(x, w, group_sizes, **kw)
-    return mx_grouped_matmul(x.contiguous(), w, group_sizes, **kw)
+    backend = policy.resolve(x)
+    if backend == "torch":
+        return grouped_matmul_ref(x, w, group_sizes, **kw, w_meta=b_meta, wg_meta=bg_meta)
+    cfg = _resolve_abft(abft) if backend == "cuda_mx" else None
+    if b_meta is not None and cfg is not None:
+        # per-expert recovery slices dense panels: decompress first, as JAX
+        w, w_gate = _expand_sparse(w, w_gate, b_meta, bg_meta)
+        b_meta = bg_meta = None
+        kw["w_gate"] = w_gate
+    if cfg is not None:
+        return _abft_grouped_gemm(x.contiguous(), w, group_sizes, activation=activation,
+                                  w_gate=w_gate, a_s=a_s, b_s=b_s, bg_s=bg_s,
+                                  out_dtype=out_dtype, cfg=cfg)
+    return mx_grouped_matmul(x.contiguous(), w, group_sizes, **kw,
+                             b_sparse=b_meta is not None, w_meta=b_meta, wg_meta=bg_meta)

@@ -16,9 +16,10 @@ Pure metadata, as in JAX:
     the ambient context every `ops.linear` / `ops.grouped_matmul` inside it
     takes (an explicit per-call declaration wins).
 
-``SparsitySpec`` is metadata only here: the 2:4 sparse GEMMs are not
-ported yet (ROADMAP queue 1 item 10), and `core/ops.py` refuses a policy
-that carries one.
+``SparsitySpec`` declares 2:4 sparsity on the weight operand: `core/ops.py`
+prunes the original weight, quantizes it under ``b``, and compresses the
+payload to the wire format of `kernels/sparse.py`, which the 2:4 GEMM
+kernels stream ("sparse24", "sparse24_int8").
 """
 from __future__ import annotations
 
@@ -43,8 +44,9 @@ SPARSITY_KINDS = ("2:4",)
 @dataclasses.dataclass(frozen=True)
 class SparsitySpec:
     """Structured N:M sparsity declaration for the weight (B) operand: of
-    every 4 consecutive elements along K the 2 largest survive.  Metadata
-    only in the port (ROADMAP queue 1 item 10)."""
+    every 4 consecutive elements along K the 2 largest survive, and the
+    weight travels as the kept values plus 2-bit position metadata
+    (`kernels/sparse.py`)."""
 
     kind: str = "2:4"
 
@@ -119,8 +121,8 @@ class PrecisionPolicy:
     ``a`` is the activation operand, ``b`` the weight operand.  Accumulation
     is always f32 (exact int32 for int8 x int8); ``out`` overrides the
     output dtype (None = the caller's out_dtype).  ``b_sparse`` declares 2:4
-    sparsity on the weight (not ported: dispatch raises).  Frozen and
-    hashable, as in JAX."""
+    sparsity on the weight (pruned, quantized, then compressed by
+    `core/ops.py`).  Frozen and hashable, as in JAX."""
 
     a: QuantSpec = QuantSpec()
     b: QuantSpec = QuantSpec()

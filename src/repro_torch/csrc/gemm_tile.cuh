@@ -1,5 +1,7 @@
 // The (BM x BN) output-tile machinery shared by the MX, grouped and baseline GEMMs:
-// masked operand staging through shared memory, and the register MAC chain.
+// masked operand staging through shared memory, and the register MAC chain
+// (sweep_k); the 2:4 weight staging and the hooked K loop of the sparse and
+// ABFT variants (sweep_k_variant).
 //
 // A is (M, K) row-major, B is (K, N) row-major (the JAX layout: w is
 // (d_in, d_out), read as stored, no transpose).  Ragged M/N/K edges are
@@ -161,6 +163,139 @@ __device__ __forceinline__ void sweep_k(S (&acc)[TM][TN], S (&accg)[TM][TN],
       store_a<Cfg, BM, BK>(As, ra);
       store_b<Cfg, BN, BK>(Bs, rb);
       if constexpr (GATE) store_b<Cfg, BN, BK>(Bgs, rg);
+      __syncthreads();
+    }
+  }
+}
+
+// The B operand's staging for one K step, 2:4 sparse (stage 1c / 5c): the
+// step's BK/2 payload rows of the (K/2, N) payload, read in the payload's
+// own width, and its BK/8 rows of the (K/8, N) uint8 metadata, expanded
+// into the same dense (BK x BN) shared tile with kernels/sparse.expand_24's
+// compare-select rule: dense row 8b + 4h + j = (i0 == j ? p[4b + 2h] : 0) +
+// (i1 == j ? p[4b + 2h + 1] : 0), nibble h of metadata byte b holding
+// (i0, i1).  The widened values are those the dense kernel stages from
+// expand_24's weight, so fma_tile runs unchanged and the product is
+// bitwise the dense kernel's.  One work item is (metadata byte, column):
+// 1 byte and 4 payload values in, 8 dense rows out; neighbouring threads
+// take neighbouring columns.  K % 8 == 0 (the wrapper checks); rows past K
+// expand from zero payload.
+template <typename Cfg, int BN, int BK>
+struct Sparse24 {
+  static_assert(BK % 8 == 0, "a 2:4 K step must cover whole metadata bytes");
+  static constexpr int kItems = (BK / 8) * BN;
+  static constexpr int kPer = (kItems + Cfg::kThreads - 1) / Cfg::kThreads;
+};
+
+template <typename Cfg, int BN, int BK, typename S, typename T>
+__device__ __forceinline__ void load_b24(uint8_t (&m)[Sparse24<Cfg, BN, BK>::kPer],
+                                         S (&p)[Sparse24<Cfg, BN, BK>::kPer][4],
+                                         const T* __restrict__ P,
+                                         const uint8_t* __restrict__ Mt, int N, int K,
+                                         int n0, int k0) {
+  using Sp = Sparse24<Cfg, BN, BK>;
+#pragma unroll
+  for (int r = 0; r < Sp::kPer; ++r) {
+    const int e = threadIdx.x + r * Cfg::kThreads;
+    const int gb = k0 / 8 + e / BN, gn = n0 + e % BN;
+    const bool ok = e < Sp::kItems && gb < K / 8 && gn < N;
+    m[r] = ok ? Mt[(int64_t)gb * N + gn] : 0;
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      p[r][q] = ok ? widen<S>(P[((int64_t)gb * 4 + q) * N + gn]) : S(0);
+  }
+}
+
+template <typename Cfg, int BN, int BK, typename S>
+__device__ __forceinline__ void store_b24(S (*Bs)[BN],
+                                          const uint8_t (&m)[Sparse24<Cfg, BN, BK>::kPer],
+                                          const S (&p)[Sparse24<Cfg, BN, BK>::kPer][4]) {
+  using Sp = Sparse24<Cfg, BN, BK>;
+#pragma unroll
+  for (int r = 0; r < Sp::kPer; ++r) {
+    const int e = threadIdx.x + r * Cfg::kThreads;
+    if (e >= Sp::kItems) continue;
+    const int b = e / BN, n = e % BN;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int nib = h ? (m[r] >> 4) : (m[r] & 0xF);
+      const int i0 = nib & 3, i1 = (nib >> 2) & 3;
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        Bs[8 * b + 4 * h + j][n] =
+            (i0 == j ? p[r][2 * h] : S(0)) + (i1 == j ? p[r][2 * h + 1] : S(0));
+    }
+  }
+}
+
+// What runs beside each staged K step's MACs: nothing (NoHook), or the
+// ABFT checksums (abft_tile.cuh).
+struct NoHook {
+  template <typename SA, typename SB>
+  __device__ __forceinline__ void step(SA, SB) {}
+};
+
+// sweep_k for the 2:4 and ABFT variants (csrc/mx_matmul.cuh,
+// csrc/mx_grouped_matmul.cuh): the same K loop and the same MAC chain, with
+// B and the gate weight Bg (type TB) dense or, with SPARSE, their 2:4
+// payloads with metadata Bm / Bgm, and `hook.step` (NoHook, or the ABFT
+// checksums of abft_tile.cuh) seeing each staged step after its MACs (all
+// threads call it).  The dense kernels keep sweep_k above: built from this
+// one they took longer at decode on the H100 (more registers), so the
+// dense code is left as it was.
+template <typename S, typename TA, typename TB, int BM, int BN, int BK, int TM, int TN,
+          bool GATE, bool SPARSE, typename Hook>
+__device__ __forceinline__ void sweep_k_variant(S (&acc)[TM][TN], S (&accg)[TM][TN],
+                                        S (*As)[BM + 1], S (*Bs)[BN], S (*Bgs)[BN],
+                                        const TA* __restrict__ A, const TB* __restrict__ B,
+                                        const TB* __restrict__ Bg,
+                                        const uint8_t* __restrict__ Bm,
+                                        const uint8_t* __restrict__ Bgm, Hook& hook, int M,
+                                        int N, int K, int m0, int n0, int tx, int ty) {
+  using Cfg = TileCfg<BM, BN, BK, TM, TN>;
+  using Sp = Sparse24<Cfg, BN, SPARSE ? BK : 8>;
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int j = 0; j < TN; ++j) acc[i][j] = accg[i][j] = S(0);
+
+  S ra[Cfg::kAPer];
+  S rb[SPARSE ? 1 : Cfg::kBPer], rg[SPARSE ? 1 : Cfg::kBPer];  // dense B, gate
+  uint8_t mb[Sp::kPer], mg[Sp::kPer];                            // 2:4 B, gate
+  S pb[Sp::kPer][4], pg[Sp::kPer][4];
+  auto load = [&](int k0) {  // global -> registers
+    load_a<Cfg, BM, BK>(ra, A, M, K, m0, k0);
+    if constexpr (SPARSE) {
+      load_b24<Cfg, BN, BK>(mb, pb, B, Bm, N, K, n0, k0);
+      if constexpr (GATE) load_b24<Cfg, BN, BK>(mg, pg, Bg, Bgm, N, K, n0, k0);
+    } else {
+      load_b<Cfg, BN, BK>(rb, B, N, K, n0, k0);
+      if constexpr (GATE) load_b<Cfg, BN, BK>(rg, Bg, N, K, n0, k0);
+    }
+  };
+  auto store = [&]() {  // registers -> shared memory
+    store_a<Cfg, BM, BK>(As, ra);
+    if constexpr (SPARSE) {
+      store_b24<Cfg, BN, BK>(Bs, mb, pb);
+      if constexpr (GATE) store_b24<Cfg, BN, BK>(Bgs, mg, pg);
+    } else {
+      store_b<Cfg, BN, BK>(Bs, rb);
+      if constexpr (GATE) store_b<Cfg, BN, BK>(Bgs, rg);
+    }
+  };
+  const int nk = (K + BK - 1) / BK;
+  load(0);
+  store();
+  __syncthreads();
+
+  for (int kt = 0; kt < nk; ++kt) {
+    const bool more = kt + 1 < nk;
+    if (more) load((kt + 1) * BK);  // the next step's operands in flight during the FMAs
+    fma_tile<Cfg, BM, BN, BK, TM, TN, GATE>(acc, accg, As, Bs, Bgs, tx, ty);
+    hook.step(As, Bs);
+    __syncthreads();
+    if (more) {
+      store();
       __syncthreads();
     }
   }

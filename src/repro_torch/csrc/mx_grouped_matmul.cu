@@ -1,5 +1,7 @@
 // Grouped (ragged) MX GEMM for Hopper (sm_90a): every expert of an MoE
-// layer in one launch.
+// layer in one launch; dense experts (stages 5a and 5b).  The 2:4 sparse
+// (5c) and ABFT (5d) variants are mx_grouped_matmul_sparse.cu and
+// mx_grouped_matmul_abft.cu (kernel body mx_grouped_matmul.cuh).
 //
 // Replaces the TPU kernel repro/kernels/mx_grouped_matmul.py::
 // mx_grouped_matmul (_grouped_kernel): out[t] = act(x[t] @ w[g(t)]) for rows
@@ -142,48 +144,51 @@ static void launch(const void* x, const void* w, const void* wg, const Args& r,
         r.K, r.G, r.act);
 }
 
-// The tile follows the mean rows per group, T / G, as the JAX dispatch plans
-// for max(T // G, 1): the rows one expert's weights are streamed for.
+// The tiles of kernels/_build.grouped_tile, which follows the mean rows per
+// group, T / G, as the JAX dispatch plans for max(T // G, 1): the rows one
+// expert's weights are streamed for.  The caller passes the tile.
 template <typename S, typename TA, typename TB>
-static int dispatch(const void* x, const void* w, const void* wg, const Args& r,
-                    cudaStream_t s) {
-  const int mean = r.T / (r.G > 0 ? r.G : 1);
-  if (mean <= 8)  // decode: bytes bound, one thread per column over 8 rows
+static int dispatch(const void* x, const void* w, const void* wg, const Args& r, int bm,
+                    int bn, int bk, cudaStream_t s) {
+  if (bm == 8 && bn == 128 && bk == 32)  // decode: bytes bound, a thread per column
     launch<S, TA, TB, 8, 128, 32, 8, 1>(x, w, wg, r, s);
-  else if (mean <= 64)
+  else if (bm == 32 && bn == 64 && bk == 16)
     launch<S, TA, TB, 32, 64, 16, 2, 4>(x, w, wg, r, s);
-  else  // an expert-major prefill chunk: FLOP bound
+  else if (bm == 64 && bn == 64 && bk == 16)  // an expert-major prefill chunk
     launch<S, TA, TB, 64, 64, 16, 4, 4>(x, w, wg, r, s);
+  else
+    return static_cast<int>(cudaErrorInvalidValue);
   return 0;
 }
 
 // x (T, K) of dtype x_dt; w / w_gate (G, K, N) of dtype w_dt, one of the
 // pairs above; row-major, contiguous.  a_scale (T,), b_scale / bg_scale
 // (G, N) f32 or null; sizes (G,) int32 on the device; out (T, N) in
-// `out_dt`.  w_gate is null unless act == kSwiglu.  An unsupported pair
-// returns cudaErrorInvalidValue.
+// `out_dt`.  w_gate is null unless act == kSwiglu.  (bm, bn, bk): the tile.
+// An unsupported pair or tile returns cudaErrorInvalidValue.
 extern "C" int mx_grouped_matmul_launch(const void* x, const void* w, const void* w_gate,
                                         const void* a_scale, const void* b_scale,
                                         const void* bg_scale, const void* sizes, void* out,
                                         int out_dt, int T_, int N, int K, int G, int x_dt,
-                                        int w_dt, int act, void* stream) {
+                                        int w_dt, int act, int bm, int bn, int bk,
+                                        void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Args r{static_cast<const float*>(a_scale), static_cast<const float*>(b_scale),
                static_cast<const float*>(bg_scale), static_cast<const int*>(sizes), out,
                out_dt, T_, N, K, G, act};
   int err = static_cast<int>(cudaErrorInvalidValue);
   if (x_dt == kF32 && w_dt == kF32)
-    err = dispatch<float, float, float>(x, w, w_gate, r, s);
+    err = dispatch<float, float, float>(x, w, w_gate, r, bm, bn, bk, s);
   else if (x_dt == kBF16 && w_dt == kBF16)
-    err = dispatch<float, __nv_bfloat16, __nv_bfloat16>(x, w, w_gate, r, s);
+    err = dispatch<float, __nv_bfloat16, __nv_bfloat16>(x, w, w_gate, r, bm, bn, bk, s);
   else if (x_dt == kBF16 && w_dt == kI8)
-    err = dispatch<float, __nv_bfloat16, int8_t>(x, w, w_gate, r, s);
+    err = dispatch<float, __nv_bfloat16, int8_t>(x, w, w_gate, r, bm, bn, bk, s);
   else if (x_dt == kBF16 && w_dt == kF8)
-    err = dispatch<float, __nv_bfloat16, __nv_fp8_e4m3>(x, w, w_gate, r, s);
+    err = dispatch<float, __nv_bfloat16, __nv_fp8_e4m3>(x, w, w_gate, r, bm, bn, bk, s);
   else if (x_dt == kI8 && w_dt == kI8)
-    err = dispatch<int, int8_t, int8_t>(x, w, w_gate, r, s);
+    err = dispatch<int, int8_t, int8_t>(x, w, w_gate, r, bm, bn, bk, s);
   else if (x_dt == kF8 && w_dt == kF8)
-    err = dispatch<float, __nv_fp8_e4m3, __nv_fp8_e4m3>(x, w, w_gate, r, s);
+    err = dispatch<float, __nv_fp8_e4m3, __nv_fp8_e4m3>(x, w, w_gate, r, bm, bn, bk, s);
   if (err) return err;
   return static_cast<int>(cudaGetLastError());
 }

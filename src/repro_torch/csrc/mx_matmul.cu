@@ -1,4 +1,6 @@
-// MX GEMM with the fused epilogue, for Hopper (sm_90a).
+// MX GEMM with the fused epilogue, for Hopper (sm_90a): dense B (stages 1a
+// and 1b).  The 2:4 sparse (1c) and ABFT (1d) variants are
+// mx_matmul_sparse.cu and mx_matmul_abft.cu (kernel body mx_matmul.cuh).
 //
 // Replaces the TPU kernel repro/kernels/mx_matmul.py::mx_matmul_fused
 // (_fused_kernel): D = epilogue(A @ B [, A @ B_gate]), with quantized
@@ -121,46 +123,53 @@ static void launch(const void* a, const void* b, const void* bg, const Args& r,
             r.res_dt, r.out, r.out_dt, r.M, r.N, r.K, r.act, r.has_scale, r.out_scale);
 }
 
+// The tiles of kernels/_build.gemm_tile (the one tile rule: the caller
+// passes the tile, and no other is instantiated): decode (M <= 16:
+// HBM-bound weight streaming, narrow tiles for more CTAs), a prefill chunk
+// (M <= 64: FMA-bound, half-height tiles), larger M.
 template <typename S, typename TA, typename TB>
-static int dispatch(const void* a, const void* b, const void* bg, const Args& r,
-                    cudaStream_t s) {
-  if (r.M <= 16)  // decode: HBM-bound weight streaming, narrow tiles for more CTAs
+static int dispatch(const void* a, const void* b, const void* bg, const Args& r, int bm,
+                    int bn, int bk, cudaStream_t s) {
+  if (bm == 16 && bn == 16 && bk == 128)
     launch<S, TA, TB, 16, 16, 128, 1, 1>(a, b, bg, r, s);
-  else if (r.M <= 64)  // a prefill chunk: FMA-bound, half-height tiles
+  else if (bm == 32 && bn == 64 && bk == 16)
     launch<S, TA, TB, 32, 64, 16, 2, 4>(a, b, bg, r, s);
-  else
+  else if (bm == 64 && bn == 64 && bk == 16)
     launch<S, TA, TB, 64, 64, 16, 4, 4>(a, b, bg, r, s);
+  else
+    return static_cast<int>(cudaErrorInvalidValue);
   return 0;
 }
 
 // a (M, K) of dtype a_dt; b, b_gate (K, N) of dtype b_dt, one of the pairs
 // above; row-major, contiguous.  a_scale (M,), b_scale / bg_scale (N,) f32
 // or null.  bias (N,), residual (M, N), out (M, N): their own dtypes; null
-// when absent.  An unsupported pair returns cudaErrorInvalidValue.
+// when absent.  (bm, bn, bk): the tile, one of `dispatch`'s.  An unsupported
+// pair or tile returns cudaErrorInvalidValue.
 extern "C" int mx_matmul_fused_launch(const void* a, const void* b, const void* b_gate,
                                       const void* a_scale, const void* b_scale,
                                       const void* bg_scale, const void* bias, int bias_dt,
                                       const void* residual, int res_dt, void* out,
                                       int out_dt, int M, int N, int K, int a_dt, int b_dt,
-                                      int act, int has_scale, float out_scale,
-                                      void* stream) {
+                                      int act, int has_scale, float out_scale, int bm,
+                                      int bn, int bk, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Args r{static_cast<const float*>(a_scale), static_cast<const float*>(b_scale),
                static_cast<const float*>(bg_scale), bias, bias_dt, residual, res_dt, out,
                out_dt, M, N, K, act, has_scale, out_scale};
   int err = static_cast<int>(cudaErrorInvalidValue);
   if (a_dt == kF32 && b_dt == kF32)
-    err = dispatch<float, float, float>(a, b, b_gate, r, s);
+    err = dispatch<float, float, float>(a, b, b_gate, r, bm, bn, bk, s);
   else if (a_dt == kBF16 && b_dt == kBF16)
-    err = dispatch<float, __nv_bfloat16, __nv_bfloat16>(a, b, b_gate, r, s);
+    err = dispatch<float, __nv_bfloat16, __nv_bfloat16>(a, b, b_gate, r, bm, bn, bk, s);
   else if (a_dt == kBF16 && b_dt == kI8)
-    err = dispatch<float, __nv_bfloat16, int8_t>(a, b, b_gate, r, s);
+    err = dispatch<float, __nv_bfloat16, int8_t>(a, b, b_gate, r, bm, bn, bk, s);
   else if (a_dt == kBF16 && b_dt == kF8)
-    err = dispatch<float, __nv_bfloat16, __nv_fp8_e4m3>(a, b, b_gate, r, s);
+    err = dispatch<float, __nv_bfloat16, __nv_fp8_e4m3>(a, b, b_gate, r, bm, bn, bk, s);
   else if (a_dt == kI8 && b_dt == kI8)
-    err = dispatch<int, int8_t, int8_t>(a, b, b_gate, r, s);
+    err = dispatch<int, int8_t, int8_t>(a, b, b_gate, r, bm, bn, bk, s);
   else if (a_dt == kF8 && b_dt == kF8)
-    err = dispatch<float, __nv_fp8_e4m3, __nv_fp8_e4m3>(a, b, b_gate, r, s);
+    err = dispatch<float, __nv_fp8_e4m3, __nv_fp8_e4m3>(a, b, b_gate, r, bm, bn, bk, s);
   if (err) return err;
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,0 +1,49 @@
+// MX GEMM with a 2:4 sparse B (stage 1c), for Hopper (sm_90a): the kernel
+// body is mx_matmul.cuh with the 2:4 staging of gemm_tile.cuh (load_b24 /
+// store_b24).
+//
+// Replaces the b_sparse path of repro/kernels/mx_matmul.py::mx_matmul_fused:
+// B and B_gate arrive as 2:4 payloads (K/2, N) with uint8 metadata (K/8, N)
+// each (kernels/sparse.compress_24), and every staged K step expands its
+// BK/2 payload rows and BK/8 metadata rows into the dense shared tile, so
+// device memory streams only the compressed weight and the MAC loop is the
+// dense kernel's: the product is bitwise that of the dense kernel on
+// expand_24(payload, meta).  The pairs are those the sparse policies
+// produce: (f32, f32) and (bf16, bf16) for "sparse24", (bf16, int8) for
+// "sparse24_int8".
+//
+// What bounds it on the H100: at decode the weight bytes, now
+// itemsize / 2 + 1/8 per dense element (0.53x of f32 dense, 0.16x with
+// int8); the expansion is a few compare-selects per staged element.
+#include "mx_matmul.cuh"
+
+REPRO_EXPORT_ERROR_STRING
+
+static int dispatch_pair(const GemmArgs& r, int a_dt, int b_dt, int bm, int bn, int bk,
+                         cudaStream_t s) {
+  REPRO_GEMM_PAIR(kSparseB, kF32, kF32, float, float, float)
+  REPRO_GEMM_PAIR(kSparseB, kBF16, kBF16, float, __nv_bfloat16, __nv_bfloat16)
+  REPRO_GEMM_PAIR(kSparseB, kBF16, kI8, float, __nv_bfloat16, int8_t)
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// As mx_matmul_fused_launch, with b / b_gate the (K/2, N) payloads and
+// b_meta / bg_meta their (K/8, N) metadata; K % 8 == 0.
+extern "C" int mx_matmul_sparse_launch(const void* a, const void* b, const void* b_gate,
+                                       const void* b_meta, const void* bg_meta,
+                                       const void* a_scale, const void* b_scale,
+                                       const void* bg_scale, const void* bias, int bias_dt,
+                                       const void* residual, int res_dt, void* out,
+                                       int out_dt, int M, int N, int K, int a_dt, int b_dt,
+                                       int act, int has_scale, float out_scale, int bm,
+                                       int bn, int bk, void* stream) {
+  const GemmArgs r{a, b, b_gate, static_cast<const uint8_t*>(b_meta),
+                   static_cast<const uint8_t*>(bg_meta), static_cast<const float*>(a_scale),
+                   static_cast<const float*>(b_scale), static_cast<const float*>(bg_scale),
+                   bias, bias_dt, residual, res_dt, out, out_dt, M, N, K, act, has_scale,
+                   out_scale, nullptr, nullptr, nullptr, nullptr, 0.0f, 0.0f};
+  const int err = dispatch_pair(r, a_dt, b_dt, bm, bn, bk,
+                                          static_cast<cudaStream_t>(stream));
+  if (err) return err;
+  return static_cast<int>(cudaGetLastError());
+}

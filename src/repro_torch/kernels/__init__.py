@@ -2,18 +2,23 @@
 
 | TPU kernel (repro/kernels)          | port                                  |
 |-------------------------------------|---------------------------------------|
-| mx_matmul.py::mx_matmul_fused       | mx_matmul.py + csrc/mx_matmul.cu      |
-|   (dense f32/bf16, every epilogue; int8/fp8 payloads with scales)           |
+| mx_matmul.py::mx_matmul_fused       | mx_matmul.py + csrc/mx_matmul*.cu     |
+|   (dense f32/bf16, every epilogue; int8/fp8 payloads with scales;         |
+|    2:4 sparse weights: _sparse.cu; ABFT checksums + flags: _abft.cu)     |
 | baseline_matmul.py::baseline_matmul | baseline_matmul.py + csrc/baseline_matmul.cu |
 | mx_flash_decode.py::mx_flash_decode | mx_flash_decode.py + csrc/mx_flash_decode.cu |
 |   (f32/bf16 pages, int8 / fp8 pages with k_scale / v_scale)                 |
 | mx_flash_decode.py::mx_flash_verify | mx_flash_decode.py + csrc/mx_flash_decode.cu |
 |   (the same page types; S = k+1 window rows per slot)                       |
-| mx_grouped_matmul.py::mx_grouped_matmul | mx_grouped_matmul.py + csrc/mx_grouped_matmul.cu |
-|   (f32/bf16 and int8/fp8 experts with per-expert scales; plain in ref.py)  |
+| mx_grouped_matmul.py::mx_grouped_matmul | mx_grouped_matmul.py + csrc/mx_grouped_matmul*.cu |
+|   (f32/bf16 and int8/fp8 experts with per-expert scales, 2:4 sparse      |
+|    experts, per-expert ABFT; plain in ref.py)                              |
 
-Not ported yet: mx_flash_attention, ssd_scan, the 2:4 and ABFT stages of
-both GEMMs and the ring composites (ROADMAP queue 2).
+`sparse.py` (the 2:4 wire format) and `abft.py` (checksum specs, fault
+operands, the recovery policy and counters) are plain Python beside them.
+
+Not ported yet: mx_flash_attention, ssd_scan and the ring composites
+(ROADMAP queue 2).
 """
 from __future__ import annotations
 
@@ -34,10 +39,20 @@ WRAPPERS = {
 
 
 def launch_counts() -> Dict[str, int]:
-    """Kernel launches made on CUDA tensors since the last reset."""
+    """Kernel launches made on CUDA tensors since the last reset (every
+    variant of a GEMM counted under its wrapper)."""
     return {name: fn.launches for name, fn in WRAPPERS.items()}
+
+
+def variant_launch_counts() -> Dict[str, int]:
+    """The GEMMs' launches by variant since the last reset, as
+    "<wrapper> <variant>" -> count (variants "dense", "sparse", "abft")."""
+    return {f"{name} {v}": n for name, fn in WRAPPERS.items()
+            for v, n in getattr(fn, "variants", {}).items()}
 
 
 def reset_launch_counts() -> None:
     for fn in WRAPPERS.values():
         fn.launches = 0
+        for v in getattr(fn, "variants", {}):
+            fn.variants[v] = 0

@@ -27,7 +27,9 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-SOURCES = ("mx_matmul", "baseline_matmul", "mx_flash_decode", "mx_grouped_matmul")
+SOURCES = ("mx_matmul", "mx_matmul_sparse", "mx_matmul_abft", "baseline_matmul",
+           "mx_flash_decode", "mx_grouped_matmul", "mx_grouped_matmul_sparse",
+           "mx_grouped_matmul_abft")
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2,
                 torch.float8_e4m3fn: 3}  # csrc/common.cuh ReproDType
@@ -154,15 +156,52 @@ GEMM_PAIRS = (
 )
 
 
-def pair_codes(a: torch.Tensor, b: torch.Tensor, what: str):
+# the pairs of the 2:4 sparse variants (csrc/*_sparse.cu): "sparse24" on f32
+# and bf16 models, "sparse24_int8"
+SPARSE_PAIRS = (
+    (torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
+    (torch.bfloat16, torch.int8),
+)
+
+
+def pair_codes(a: torch.Tensor, b: torch.Tensor, what: str, sparse: bool = False):
     """The dtype codes of a GEMM's (A, B) operands; TypeError for a pair
-    the kernels are not built for."""
-    if (a.dtype, b.dtype) not in GEMM_PAIRS:
+    the kernels (the 2:4 sparse variants with `sparse`) are not built for."""
+    pairs = SPARSE_PAIRS if sparse else GEMM_PAIRS
+    if (a.dtype, b.dtype) not in pairs:
         names = ", ".join(f"({str(x).removeprefix('torch.')}, "
-                          f"{str(y).removeprefix('torch.')})" for x, y in GEMM_PAIRS)
+                          f"{str(y).removeprefix('torch.')})" for x, y in pairs)
+        kind = "2:4 sparse " if sparse else ""
         raise TypeError(f"{what}: operand pair ({a.dtype}, {b.dtype}) is not one the "
-                        f"CUDA kernels take: {names}")
+                        f"{kind}CUDA kernels take: {names}")
     return _DTYPE_CODES[a.dtype], _DTYPE_CODES[b.dtype]
+
+
+# The one tile rule of both GEMM kernels: (BM, BN, BK) of the CTA tile the
+# kernel launches (csrc/mx_matmul.cuh `dispatch`, csrc/mx_grouped_matmul.cuh
+# `grouped_dispatch`, which take these and no other).  The ABFT flag map's
+# grid, the fault operands' grid, abft_rtol and the plain versions' ABFT
+# tiling all read these, on the CPU too.
+def gemm_tile(M: int):
+    """The MX GEMM's tile for M rows: decode (M <= 16, bytes bound: narrow
+    tiles for more CTAs), a prefill chunk (M <= 64), larger M."""
+    if M <= 16:
+        return 16, 16, 128
+    if M <= 64:
+        return 32, 64, 16
+    return 64, 64, 16
+
+
+def grouped_tile(T: int, G: int):
+    """The grouped GEMM's tile, by the mean rows per group T / G (the rows
+    one expert's weights are streamed for), as the JAX dispatch plans for
+    max(T // G, 1)."""
+    mean = T // max(G, 1)
+    if mean <= 8:
+        return 8, 128, 32
+    if mean <= 64:
+        return 32, 64, 16
+    return 64, 64, 16
 
 
 def stream_ptr(t: torch.Tensor) -> int:

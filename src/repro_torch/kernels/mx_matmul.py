@@ -13,8 +13,17 @@ Quantized operands (stage 1b): a / b / b_gate carry int8 or fp8 payloads
 `bg_scale` (1, N) f32 dequant scales applied at the single write-back;
 int8 x int8 accumulates exactly (an integer MAC), every other pair in f32.
 
-Not ported yet (they raise NotImplementedError naming the ROADMAP item):
-2:4 sparse weights (queue 2, item 1c) and ABFT checksums (1d).
+2:4 sparse weights (stage 1c): b / b_gate carry the compressed payloads
+(K/2, N) with uint8 metadata (K/8, N) (`kernels/sparse.py`); the CUDA
+variant `csrc/mx_matmul_sparse.cu` expands them in shared memory, the plain
+version through `expand_24`.
+
+ABFT (stage 1d): with ``abft`` (an `AbftSpec`) the call returns (out,
+flags), flags the (grid_m, grid_n) int32 per-tile corruption map over the
+tiles of `_build.gemm_tile` (`csrc/mx_matmul_abft.cu` on the card; on the
+CPU the plain version takes JAX's checksum arithmetic over the same
+tiles), with optional per-tile fault operands.  The output is bitwise the
+output without ABFT.
 """
 from __future__ import annotations
 
@@ -26,6 +35,8 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
+from .abft import AbftSpec, make_abft_spec
+from .sparse import expand_24
 
 ACTIVATIONS = ("none", "relu", "gelu", "silu", "swiglu")
 ACT_CODES = {a: i for i, a in enumerate(ACTIVATIONS)}  # csrc/common.cuh ReproAct
@@ -143,20 +154,99 @@ def apply_epilogue(y, epilogue: Epilogue, *, bias=None, gate=None,
     return y if out_dtype is None else y.to(out_dtype)
 
 
+def abft_spec_for(a: torch.Tensor, b: torch.Tensor, *, inject: bool = False) -> AbftSpec:
+    """The AbftSpec of an (M, K) x (K, N) launch of `mx_matmul_fused` on
+    these operand dtypes, its rtol from the tile the kernel launches."""
+    bm, bn, _ = _build.gemm_tile(a.shape[0])
+    return make_abft_spec(a.dtype, b.dtype, a.shape[1], bm, bn, inject=inject)
+
+
+def _pad2(t: torch.Tensor, rows: int, cols: int) -> torch.Tensor:
+    return F.pad(t, (0, cols - t.shape[1], 0, rows - t.shape[0]))
+
+
+def abft_plain(a, b, acc, spec: AbftSpec, bm: int, bn: int, fault_delta=None,
+               fault_row=None, fault_col=None):
+    """JAX's checksum arithmetic (`abft_accumulate` / `abft_inject` /
+    `abft_verify`) over the (bm, bn) tiles of one (M, K) x (K, N) product:
+    returns the finished accumulator with the fault operands applied (f32;
+    integers exact below 2^24, as the kernel widens them) and the (grid_m,
+    grid_n) int32 flag map.  `acc` is the product `dot_f32(a, b)`.  Integer
+    payloads sum exactly (in f64, exact here) and compare modulo 2^32, as
+    the kernel's wrapping 32-bit sums; floats compare against rtol *
+    |.|-checksum + atol in f32."""
+    M, K = a.shape
+    N = b.shape[1]
+    gm, gn = -(-M // bm), -(-N // bn)
+    Mp, Np = gm * bm, gn * bn
+    ct = torch.float64 if spec.exact else torch.float32
+    ap, bp = _pad2(a.to(ct), Mp, K), _pad2(b.to(ct), K, Np)
+    full = torch.matmul(ap, bp) if spec.exact else _pad2(acc.float(), Mp, Np)
+    faults = [] if fault_delta is None else torch.nonzero(fault_delta != 0).tolist()
+    for ti, tj in faults:
+        r = ti * bm + int(fault_row[ti, tj])
+        c = tj * bn + int(fault_col[ti, tj])
+        d = float(fault_delta[ti, tj])
+        full[r, c] += float(int(d)) if spec.exact else d
+
+    def sums(x, y):
+        return (x.reshape(gm, bm, K).sum(1) @ y,        # ccol (gm, Np)
+                x @ y.reshape(K, gn, bn).sum(2))        # crow (Mp, gn)
+
+    ccol, crow = sums(ap, bp)
+    scol = full.reshape(gm, bm, Np).sum(1)
+    srow = full.reshape(Mp, gn, bn).sum(2)
+    if spec.exact:
+        col_bad = (scol - ccol).long() % 2**32 != 0
+        row_bad = (srow - crow).long() % 2**32 != 0
+    else:
+        acol, arow = sums(ap.abs(), bp.abs())
+        col_bad = (scol - ccol).abs() > spec.rtol * acol + spec.atol
+        row_bad = (srow - crow).abs() > spec.rtol * arow + spec.atol
+    flags = (col_bad.reshape(gm, gn, bn).any(-1)
+             | row_bad.reshape(gm, bm, gn).any(1)).to(torch.int32)
+    # with no fault the accumulator is returned as given: the epilogue then
+    # sees the very tensor it sees without ABFT (torch's CPU activations
+    # may round a strided view differently)
+    return (full[:M, :N].float().contiguous() if faults else acc), flags
+
+
 def mx_matmul_fused_plain(a, b, *, epilogue: Epilogue = Epilogue(),
                           b_gate=None, bias=None, residual=None, a_scale=None,
-                          b_scale=None, bg_scale=None, out_dtype=None):
+                          b_scale=None, bg_scale=None, b_meta=None, bg_meta=None,
+                          out_dtype=None, abft: Optional[AbftSpec] = None,
+                          fault_delta=None, fault_row=None, fault_col=None):
     """The plain PyTorch version of the fused kernel: `dot_f32` of the same
-    payloads, then `apply_epilogue` with the scales."""
+    payloads (2:4 payloads through `expand_24` first), then
+    `apply_epilogue` with the scales; with ``abft`` also the flag map
+    (`abft_plain` over `_build.gemm_tile`'s tiles), returned as (out,
+    flags)."""
+    if b_meta is not None:
+        b = expand_24(b, b_meta)
+        if b_gate is not None:
+            b_gate = expand_24(b_gate, bg_meta)
     y = dot_f32(a, b)
+    flags = None
+    if abft is not None:
+        bm, bn, _ = _build.gemm_tile(a.shape[0])
+        y, flags = abft_plain(a, b, y, abft, bm, bn, fault_delta, fault_row, fault_col)
     gate = dot_f32(a, b_gate) if epilogue.has_gate else None
-    return apply_epilogue(y, epilogue, bias=bias, gate=gate, residual=residual,
-                          a_scale=a_scale, b_scale=b_scale, bg_scale=bg_scale,
-                          out_dtype=out_dtype or a.dtype)
+    out = apply_epilogue(y, epilogue, bias=bias, gate=gate, residual=residual,
+                         a_scale=a_scale, b_scale=b_scale, bg_scale=bg_scale,
+                         out_dtype=out_dtype or a.dtype)
+    return out if abft is None else (out, flags)
 
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_ARGTYPES = (_P,) * 7 + (_I, _P, _I, _P) + (_I,) * 8 + (_F, _P)
+# a, b, b_gate, [b_meta, bg_meta], a_scale, b_scale, bg_scale, bias, then
+# _EPI, then [flags, fault_delta, fault_row, fault_col, rtol, atol], stream
+_EPI = (_I, _P, _I, _P) + (_I,) * 8 + (_F,) + (_I,) * 3  # bias_dt .. out_scale, bm, bn, bk
+_LAUNCHERS = {  # variant -> (source, symbol, argtypes)
+    "dense": ("mx_matmul", "mx_matmul_fused_launch", (_P,) * 7 + _EPI + (_P,)),
+    "sparse": ("mx_matmul_sparse", "mx_matmul_sparse_launch", (_P,) * 9 + _EPI + (_P,)),
+    "abft": ("mx_matmul_abft", "mx_matmul_abft_launch",
+             (_P,) * 7 + _EPI + (_P,) * 4 + (_F, _F, _P)),
+}
 
 
 def _require_cuda_operand(t: torch.Tensor, what: str, device, shape=None):
@@ -177,42 +267,106 @@ def _scale_vec(t, n: int, what: str, device):
     return t.reshape(n).to(torch.float32).contiguous()
 
 
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _fault_operands(fault, device):
+    """The fault operands as the contiguous f32 / int32 / int32 arrays the
+    kernels read (or Nones)."""
+    if fault[0] is None:
+        return None, None, None
+    return tuple(t.to(device=device, dtype=dt).contiguous()
+                 for t, dt in zip(fault, (torch.float32, torch.int32, torch.int32)))
+
+
 def _launch_fused(a, b, epilogue, b_gate, bias, residual, a_scale, b_scale, bg_scale,
-                  out_dtype):
+                  out_dtype, b_meta=None, bg_meta=None, abft=None, fault=(None,) * 3):
+    """Launch the dense, 2:4 sparse (b_meta given) or ABFT (abft given)
+    variant of the kernel on CUDA operands; returns out, or (out, flags)."""
     M, K = a.shape
     N = b.shape[1]
-    a_dt, b_dt = _build.pair_codes(a, b, "mx_matmul_fused")
+    variant = "sparse" if b_meta is not None else "abft" if abft is not None else "dense"
+    a_dt, b_dt = _build.pair_codes(a, b, "mx_matmul_fused", sparse=variant == "sparse")
     if b_gate is not None and b_gate.dtype != b.dtype:
         raise TypeError(f"mx_matmul_fused: b_gate dtype {b_gate.dtype} != b dtype "
                         f"{b.dtype}")
+    kb = K // 2 if variant == "sparse" else K
     _require_cuda_operand(a, "a", a.device)
-    _require_cuda_operand(b, "b", a.device, (K, N))
+    _require_cuda_operand(b, "b", a.device, (kb, N))
     if b_gate is not None:
-        _require_cuda_operand(b_gate, "b_gate", a.device, (K, N))
+        _require_cuda_operand(b_gate, "b_gate", a.device, (kb, N))
+    for t, what in ((b_meta, "b_meta"), (bg_meta, "bg_meta")):
+        if t is not None:
+            _require_cuda_operand(t, what, a.device, (K // 8, N))
     if bias is not None:
         _require_cuda_operand(bias, "bias", a.device, (N,))
     if residual is not None:
         _require_cuda_operand(residual, "residual", a.device, (M, N))
     scales = [_scale_vec(t, n, what, a.device) for t, n, what in (
         (a_scale, M, "a_scale"), (b_scale, N, "b_scale"), (bg_scale, N, "bg_scale"))]
+    bm, bn, bk = _build.gemm_tile(M)
     out = torch.empty((M, N), dtype=out_dtype, device=a.device)
+    flags = None
+    if abft is not None:
+        flags = torch.zeros((-(-M // bm), -(-N // bn)), dtype=torch.int32, device=a.device)
     if M == 0 or N == 0:
-        return out
-    fn = _build.function("mx_matmul", "mx_matmul_fused_launch", _ARGTYPES)
-    err = fn(a.data_ptr(), b.data_ptr(),
-             None if b_gate is None else b_gate.data_ptr(),
-             *(None if t is None else t.data_ptr() for t in scales),
-             None if bias is None else bias.data_ptr(),
-             0 if bias is None else _build.dtype_code(bias.dtype, "bias"),
-             None if residual is None else residual.data_ptr(),
-             0 if residual is None else _build.dtype_code(residual.dtype, "residual"),
-             out.data_ptr(), _build.dtype_code(out_dtype, "out_dtype"),
-             M, N, K, a_dt, b_dt, ACT_CODES[epilogue.activation],
-             int(epilogue.out_scale is not None),
-             float(epilogue.out_scale or 0.0), _build.stream_ptr(a))
-    _build.check(err, "mx_matmul", "mx_matmul_fused")
+        return out if flags is None else (out, flags)
+    source, symbol, argtypes = _LAUNCHERS[variant]
+    fn = _build.function(source, symbol, argtypes)
+    head = [a.data_ptr(), b.data_ptr(), _ptr(b_gate)]
+    if variant == "sparse":
+        head += [b_meta.data_ptr(), _ptr(bg_meta)]
+    args = [*head, *(_ptr(t) for t in scales), _ptr(bias),
+            0 if bias is None else _build.dtype_code(bias.dtype, "bias"), _ptr(residual),
+            0 if residual is None else _build.dtype_code(residual.dtype, "residual"),
+            out.data_ptr(), _build.dtype_code(out_dtype, "out_dtype"),
+            M, N, K, a_dt, b_dt, ACT_CODES[epilogue.activation],
+            int(epilogue.out_scale is not None), float(epilogue.out_scale or 0.0),
+            bm, bn, bk]
+    if variant == "abft":
+        fd, fr, fc = _fault_operands(fault, a.device)
+        args += [flags.data_ptr(), _ptr(fd), _ptr(fr), _ptr(fc), abft.rtol, abft.atol]
+    err = fn(*args, _build.stream_ptr(a))
+    _build.check(err, source, "mx_matmul_fused")
     mx_matmul_fused.launches += 1
-    return out
+    mx_matmul_fused.variants[variant] += 1
+    return out if flags is None else (out, flags)
+
+
+def _check_variant_args(b_sparse, meta, gmeta, gated, abft, fault, K, kb, N, Gshape=()):
+    """JAX's argument rules for the 2:4 and ABFT slots, shared by both
+    GEMM wrappers.  `kb`: the weight's contraction rows as given."""
+    if abft is not None and not isinstance(abft, AbftSpec):
+        raise TypeError(f"abft must be an AbftSpec (kernels/abft.make_abft_spec, or the "
+                        f"wrapper's abft_spec_for), got {abft!r}")
+    inject = abft is not None and abft.inject
+    if inject != (fault[0] is not None):
+        raise ValueError("fault operands must be given iff abft.inject")
+    if any(t is not None for t in fault) and any(t is None for t in fault):
+        raise ValueError("fault_delta, fault_row and fault_col go together")
+    if b_sparse != (meta is not None):
+        raise ValueError("the metadata (b_meta / w_meta) must be given iff b_sparse")
+    if (gmeta is not None) != (b_sparse and gated):
+        raise ValueError("the gate metadata (bg_meta / wg_meta) must be given iff "
+                         "b_sparse AND gated")
+    if b_sparse and abft is not None:
+        raise ValueError("b_sparse does not compose with abft in-kernel; "
+                         "decompress to dense for the checksummed path")
+    if not b_sparse:
+        if kb != K:
+            raise ValueError(f"contraction mismatch: K={K} vs the weight's {kb}")
+        return
+    if 2 * kb != K:
+        raise ValueError(f"sparse payload K/2={kb} inconsistent with the activations' "
+                         f"K={K}")
+    if K % 8 != 0:
+        raise ValueError(f"2:4 sparse GEMM needs K % 8 == 0, got {K}")
+    want = (*Gshape, K // 8, N)
+    for t in (meta, gmeta):
+        if t is not None and (tuple(t.shape) != want or t.dtype != torch.uint8):
+            raise ValueError(f"the metadata must be uint8 {want}, got {t.dtype} "
+                             f"{tuple(t.shape)}")
 
 
 def mx_matmul_fused(a: torch.Tensor, b: torch.Tensor, *,
@@ -222,7 +376,8 @@ def mx_matmul_fused(a: torch.Tensor, b: torch.Tensor, *,
                     residual: Optional[torch.Tensor] = None,
                     a_scale=None, b_scale=None, bg_scale=None,
                     b_sparse: bool = False, b_meta=None, bg_meta=None,
-                    out_dtype=None, abft=None) -> torch.Tensor:
+                    out_dtype=None, abft: Optional[AbftSpec] = None,
+                    fault_delta=None, fault_row=None, fault_col=None):
     """D = epilogue(A @ B), the epilogue fused into the single write-back.
     a: (M, K), b: (K, N); bias: (N,); residual: (M, N); b_gate: (K, N)
     when epilogue.activation == "swiglu".
@@ -233,22 +388,30 @@ def mx_matmul_fused(a: torch.Tensor, b: torch.Tensor, *,
     given iff its epilogue flag is set.  out_dtype defaults to a.dtype;
     pass it for quantized payloads.
 
-    A CUDA `a` launches `csrc/mx_matmul.cu` for the operand pairs
-    (f32, f32), (bf16, bf16), (bf16, int8), (bf16, fp8), (int8, int8) and
-    (fp8, fp8) (a TypeError for any other), f32 or bf16 output, ragged
-    edges masked in the kernel; a CPU `a` takes `mx_matmul_fused_plain`.
+    2:4 sparsity: with ``b_sparse`` b / b_gate are the compressed payloads
+    (K/2, N) and ``b_meta`` / ``bg_meta`` their uint8 metadata (K/8, N)
+    (`kernels/sparse.compress_24`); K % 8 == 0.  Not with ``abft``.
+
+    ABFT: with ``abft`` (`AbftSpec`, see `abft_spec_for`) returns (out,
+    flags), flags the (grid_m, grid_n) int32 map over `_build.gemm_tile`'s
+    tiles (0 = verified clean); ``fault_*`` are the optional (grid_m,
+    grid_n) injection operands (`kernels/abft.build_fault_operands`),
+    given iff ``abft.inject``.  out is bitwise the output without ABFT.
+
+    A CUDA `a` launches `csrc/mx_matmul.cu` (dense; the pairs (f32, f32),
+    (bf16, bf16), (bf16, int8), (bf16, fp8), (int8, int8), (fp8, fp8)),
+    `csrc/mx_matmul_sparse.cu` (2:4; (f32, f32), (bf16, bf16), (bf16,
+    int8)) or `csrc/mx_matmul_abft.cu` (ABFT; the dense pairs); a TypeError
+    for any other pair.  A CPU `a` takes `mx_matmul_fused_plain`.
     """
-    if b_sparse or b_meta is not None or bg_meta is not None:
-        raise NotImplementedError(
-            "2:4 sparse weights are not ported yet: ROADMAP queue 2 item 1c")
-    if abft is not None:
-        raise NotImplementedError(
-            "ABFT checksums are not ported yet: ROADMAP queue 2 item 1d")
     if a.dim() != 2 or b.dim() != 2:
         raise ValueError(f"mx_matmul expects 2-D operands, got {tuple(a.shape)}, "
                          f"{tuple(b.shape)}")
-    if a.shape[1] != b.shape[0]:
-        raise ValueError(f"contraction mismatch: {tuple(a.shape)} @ {tuple(b.shape)}")
+    fault = (fault_delta, fault_row, fault_col)
+    M, K = a.shape
+    N = b.shape[1]
+    _check_variant_args(b_sparse, b_meta, bg_meta, epilogue.has_gate, abft, fault, K,
+                        b.shape[0], N)
     if epilogue.has_gate != (b_gate is not None):
         raise ValueError("b_gate must be given iff epilogue.activation=='swiglu'")
     if epilogue.bias != (bias is not None):
@@ -262,22 +425,30 @@ def mx_matmul_fused(a: torch.Tensor, b: torch.Tensor, *,
     if (bg_scale is not None) != (epilogue.has_gate and epilogue.b_scale):
         raise ValueError("bg_scale must be given iff the epilogue is gated "
                          "AND b_scale is set")
-    M, N = a.shape[0], b.shape[1]
     for t, shape, what in ((a_scale, (M, 1), "a_scale"), (b_scale, (1, N), "b_scale"),
                            (bg_scale, (1, N), "bg_scale")):
         if t is not None and tuple(t.shape) != shape:
             raise ValueError(f"{what} must be {shape}, got {tuple(t.shape)}")
+    if fault_delta is not None:
+        bm, bn, _ = _build.gemm_tile(M)
+        grid = (-(-M // bm), -(-N // bn))
+        for t in fault:
+            if tuple(t.shape) != grid:
+                raise ValueError(f"fault operand shape {tuple(t.shape)} != grid {grid}")
     out_dtype = out_dtype or a.dtype
     if a.is_cuda:
         return _launch_fused(a, b, epilogue, b_gate, bias, residual, a_scale, b_scale,
-                             bg_scale, out_dtype)
+                             bg_scale, out_dtype, b_meta, bg_meta, abft, fault)
     return mx_matmul_fused_plain(a, b, epilogue=epilogue, b_gate=b_gate,
                                  bias=bias, residual=residual, a_scale=a_scale,
-                                 b_scale=b_scale, bg_scale=bg_scale,
-                                 out_dtype=out_dtype)
+                                 b_scale=b_scale, bg_scale=bg_scale, b_meta=b_meta,
+                                 bg_meta=bg_meta, out_dtype=out_dtype, abft=abft,
+                                 fault_delta=fault_delta, fault_row=fault_row,
+                                 fault_col=fault_col)
 
 
-mx_matmul_fused.launches = 0  # kernel launches (CUDA tensors only)
+mx_matmul_fused.launches = 0  # kernel launches (CUDA tensors only), every variant
+mx_matmul_fused.variants = {"dense": 0, "sparse": 0, "abft": 0}  # by variant
 
 
 def mx_matmul(a: torch.Tensor, b: torch.Tensor, c: Optional[torch.Tensor] = None,

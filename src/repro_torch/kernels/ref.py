@@ -11,7 +11,9 @@ import math
 
 import torch
 
-from .mx_matmul import apply_activation, dot_f32
+from ._build import grouped_tile
+from .mx_matmul import abft_plain, apply_activation, dot_f32
+from .sparse import expand_24
 
 
 def matmul_ref(a: torch.Tensor, b: torch.Tensor, out_dtype=None) -> torch.Tensor:
@@ -126,9 +128,69 @@ def paged_verify_ref(q, k_pages, v_pages, page_table, lengths, *,
                        torch.zeros((), dtype=o.dtype, device=o.device))
 
 
+def _group_epilogue(h, gate, a_s, b_s, bg_s, activation):
+    """A group's f32 product through the kernel's store: acc * a_scale *
+    b_scale[g] (the gate likewise with bg_scale), then the activation."""
+    if a_s is not None:
+        h = h * a_s
+    if b_s is not None:
+        h = h * b_s
+    if activation != "swiglu":
+        return apply_activation(h, activation)
+    if a_s is not None:
+        gate = gate * a_s
+    if bg_s is not None:
+        gate = gate * bg_s
+    return torch.nn.functional.silu(gate) * h
+
+
+def _group_spans(group_sizes, T):
+    """(group, first row, end row) of every non-empty group, clamped to T, a
+    negative size as 0 -- the kernel's reading of the sizes."""
+    spans, start = [], 0
+    for g, n in enumerate(torch.as_tensor(group_sizes).tolist()):
+        end = min(start + max(n, 0), T)
+        if end > start:
+            spans.append((g, start, end))
+        start = end
+    return spans
+
+
+def _grouped_flags(x, w, wd, spans, spec, faults):
+    """JAX's per-expert checksums over the grouped kernel's tiles
+    (`_build.grouped_tile`): every visit of a row tile by an overlapping
+    group verifies that group's accumulator (the tile's rows of x past the
+    group's end are zero, as the kernel reads them), the verdicts OR-ed into
+    the tile's flag; a tile no group covers keeps flag 0.  `wd(g)` is
+    expert g's dense weight, `faults` (tile -> (row, col, delta))."""
+    T, K = x.shape
+    G, N = w.shape[0], w.shape[-1]
+    bm, bn, _ = grouped_tile(T, G)
+    gm, gn = -(-T // bm), -(-N // bn)
+    flags = torch.zeros((gm, gn), dtype=torch.int32, device=x.device)
+    for g, s, e in spans:
+        wg = wd(g)
+        for t in range(s // bm, (e - 1) // bm + 1):
+            m0 = t * bm
+            xs = x[m0:min(m0 + bm, e)]
+            fd = torch.zeros((1, gn), dtype=torch.float32)
+            fr = torch.zeros((1, gn), dtype=torch.int32)
+            fc = torch.zeros((1, gn), dtype=torch.int32)
+            for (ti, tj), (r, c, d) in faults.items():
+                if ti == t:
+                    fd[0, tj], fr[0, tj], fc[0, tj] = d, r, c
+            # one visit = a (bm, K) x (K, N) product over this row tile
+            xs = torch.nn.functional.pad(xs, (0, 0, 0, bm - xs.shape[0]))
+            _, f = abft_plain(xs, wg, dot_f32(xs, wg), spec, bm, bn, fd, fr, fc)
+            flags[t] |= f[0].to(flags.device)
+    return flags
+
+
 def grouped_matmul_ref(x: torch.Tensor, w: torch.Tensor, group_sizes, *,
                        w_gate=None, activation: str = "none", a_scale=None,
-                       b_scale=None, bg_scale=None, out_dtype=None) -> torch.Tensor:
+                       b_scale=None, bg_scale=None, w_meta=None, wg_meta=None,
+                       out_dtype=None, abft=None, fault_delta=None, fault_row=None,
+                       fault_col=None):
     """Oracle for `mx_grouped_matmul` (port of `grouped_matmul_reference`
     and `_ragged_dot_f32`): out[t] = act(x[t] @ w[g(t)]) for rows sorted by
     group, swiglu as silu(x @ w_gate[g]) * (x @ w[g]), accumulated as
@@ -140,8 +202,14 @@ def grouped_matmul_ref(x: torch.Tensor, w: torch.Tensor, group_sizes, *,
     ``b_scale`` / ``bg_scale`` (G, 1, N), applied to each group's product
     in the kernel's order: acc * a_scale * b_scale[g] (the gate likewise
     with bg_scale), then the activation.  Only one expert's weights are
-    widened at a time (grok's (8, 6144, 32768) int8 stack would be 6.4 GB
-    in f32).
+    widened (or, with ``w_meta`` / ``wg_meta`` (G, K/8, N), expanded from
+    the 2:4 payloads (G, K/2, N)) at a time (grok's (8, 6144, 32768) int8
+    stack would be 6.4 GB in f32).
+
+    With ``abft`` (an AbftSpec) it returns (out, flags), the flag map of
+    the grouped kernel's tiles (`_grouped_flags`); the fault operands
+    (row_tiles, col_tiles) add their delta to the accumulator element they
+    name, in the output too where a group owns that row.
 
     Group ranges are clamped to T (oversubscribed sizes drop the rows that
     do not exist, as the TPU kernel clamps to its padded rows) and a
@@ -150,26 +218,38 @@ def grouped_matmul_ref(x: torch.Tensor, w: torch.Tensor, group_sizes, *,
     GEMM per non-empty group: an empty group reads none of its weights."""
     T = x.shape[0]
     N = w.shape[-1]
+
+    def dense(stack, meta, g):
+        return stack[g] if meta is None else expand_24(stack[g], meta[g])
+
+    faults = {}
+    if fault_delta is not None:
+        bm, bn, _ = grouped_tile(T, w.shape[0])
+        for ti, tj in torch.nonzero(fault_delta != 0).tolist():
+            faults[(ti, tj)] = (int(fault_row[ti, tj]), int(fault_col[ti, tj]),
+                                float(fault_delta[ti, tj]))
     out = torch.zeros((T, N), dtype=torch.float32, device=x.device)
-    start = 0
-    for g, n in enumerate(torch.as_tensor(group_sizes).tolist()):
-        end = min(start + max(n, 0), T)
-        if end > start:
-            xs = x[start:end]
-            h = dot_f32(xs, w[g])
-            if a_scale is not None:
-                h = h * a_scale[start:end]
-            if b_scale is not None:
-                h = h * b_scale[g]
-            if activation == "swiglu":
-                gate = dot_f32(xs, w_gate[g])
-                if a_scale is not None:
-                    gate = gate * a_scale[start:end]
-                if bg_scale is not None:
-                    gate = gate * bg_scale[g]
-                h = torch.nn.functional.silu(gate) * h
+    spans = _group_spans(group_sizes, T)
+    for g, start, end in spans:
+        xs = x[start:end]
+        wg = dense(w, w_meta, g)
+        h = dot_f32(xs, wg)
+        exact = abft is not None and abft.exact
+        for (ti, tj), (r, c, d) in faults.items():
+            row, col = ti * bm + r, tj * bn + c
+            if not (start <= row < end and col < N):
+                continue  # no output row of this group: only the flag sees it
+            if exact:  # the int32 accumulator plus an integer delta, then widened
+                acc = torch.dot(x[row].double(), wg[:, col].double()) + float(int(d))
+                h[row - start, col] = acc.float()
             else:
-                h = apply_activation(h, activation)
-            out[start:end] = h
-        start = end
-    return out.to(out_dtype or x.dtype)
+                h[row - start, col] += d
+        gate = dot_f32(xs, dense(w_gate, wg_meta, g)) if activation == "swiglu" else None
+        out[start:end] = _group_epilogue(
+            h, gate, None if a_scale is None else a_scale[start:end],
+            None if b_scale is None else b_scale[g], None if bg_scale is None else bg_scale[g],
+            activation)
+    out = out.to(out_dtype or x.dtype)
+    if abft is None:
+        return out
+    return out, _grouped_flags(x, w, lambda g: dense(w, w_meta, g), spans, abft, faults)

@@ -11,13 +11,16 @@ CPU smoke (the plain PyTorch path, no GPU needed):
       --prefix-cache --prefill-chunk 4 --device cpu   # MoE blocks
   PYTHONPATH=src python -m repro_torch.launch.serve --smoke --speculate 4 \\
       --draft ngram --prefill-chunk 4 --device cpu   # add --kv-cache int8
+  PYTHONPATH=src python -m repro_torch.launch.serve --smoke --abft \
+      --prefill-chunk 4 --device cpu   # checksummed serving
 --speculate K drafts K tokens per slot and verifies all K+1 in one pass
 (greedy-exact); --draft is `ngram` or an arch id for a draft model that
 shares the target's vocabulary; --kv-cache int8 stores the pages as int8
-with per-row scales.
+with per-row scales; --abft checksums every MX GEMM of the step (on the
+card: the ABFT kernels with tile recovery) and the host logits copy.
 
 Flags of the JAX launcher that are not ported yet (--continuous without
---paged, --max-len, --chaos, --abft, --disagg, ...) are rejected.
+--paged, --max-len, --chaos, --disagg, ...) are rejected.
 """
 from __future__ import annotations
 
@@ -33,8 +36,8 @@ from ..core.device import resolve_device
 from ..models import build_model
 from ..models.modules import param_device
 
-UNPORTED_FLAGS = ("--continuous", "--max-len", "--chaos", "--chaos-seed", "--abft",
-                  "--fault-rate", "--disagg", "--disagg-migrate")
+UNPORTED_FLAGS = ("--continuous", "--max-len", "--chaos", "--chaos-seed", "--fault-rate",
+                  "--disagg", "--disagg-migrate")
 
 
 def make_trace(cfg, n_req: int, prompt_len: int, gen: int, prefix_cache: bool):
@@ -99,7 +102,8 @@ def _run_continuous(model, cfg, params, args) -> int:
     batcher = ContinuousBatcher(
         model, params, batch_slots=B, max_len=max_len, page_size=args.page_size,
         num_pages=num_pages, kv_quant=kv_quant, prefix_cache=args.prefix_cache,
-        prefill_chunk=args.prefill_chunk, speculate=args.speculate, drafter=drafter)
+        prefill_chunk=args.prefill_chunk, speculate=args.speculate, drafter=drafter,
+        abft=args.abft)
     reqs = make_trace(cfg, 2 * B, args.prompt_len, args.gen, args.prefix_cache)
     t0 = time.perf_counter()
     for r in reqs:
@@ -114,6 +118,8 @@ def _run_continuous(model, cfg, params, args) -> int:
         mode += "+int8"
     if args.speculate:
         mode += f"+spec{args.speculate}"
+    if args.abft:
+        mode += "+abft"
     where = (torch.cuda.get_device_name(batcher.device)
              if batcher.device.type == "cuda" else "CPU")
     print(f"continuous batching [{mode} cache]: {len(finished)} requests "
@@ -138,6 +144,10 @@ def _run_continuous(model, cfg, params, args) -> int:
               f"(peak shared {ps['shared_high_water']}), "
               f"{ps['cow_copies']} COW copies, "
               f"{ps['evicted_pages']} pages evicted")
+    if args.abft:
+        hs = batcher.health_summary()
+        print(f"  abft: {hs['abft']['sdc_detected']} SDC detected / "
+              f"{hs['abft']['sdc_corrected']} corrected (0 bit flips injected)")
     for rid in sorted(finished)[:2]:
         print(f"  req {rid}: {finished[rid].output[:8]}")
     return 0
@@ -164,6 +174,12 @@ def main(argv=None) -> int:
     ap.add_argument("--kv-cache", choices=("f32", "int8"), default="f32",
                     help="KV page payload: f32, or int8 with per-row f32 "
                          "scale pages (quantized on write)")
+    ap.add_argument("--abft", action="store_true",
+                    help="checksummed serving: every MX GEMM verifies ABFT "
+                         "checksums at its write-back (flagged tiles "
+                         "recomputed) and the host logits copy is "
+                         "checksummed against the device array "
+                         "(kernels/abft, runtime/batcher)")
     ap.add_argument("--speculate", type=int, default=0, metavar="K",
                     help="speculative decoding (implies --paged): draft K "
                          "tokens per slot per step and verify all K+1 "

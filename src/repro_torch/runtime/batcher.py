@@ -36,10 +36,20 @@ priorities, step deadlines with load shedding, and preemption with
 page-backed recompute (a preempted request's full pages are published
 into the prefix index, so re-admission recomputes only the unshared tail).
 
+  - ``abft=True``: silent-data-corruption detection end to end.  The
+    device step runs under `kernels.abft.use_abft()` (every "cuda_mx" GEMM
+    inside it verifies its checksums, with recovery), and token derivation
+    reads a host copy of the logits verified against the device array by
+    an exact checksum; on a mismatch the copy is fetched again and the
+    ``sdc_detected`` / ``sdc_corrected`` counters of `health_summary()`
+    advance.  With no corruption the streams are bitwise those of
+    ``abft=False``.
+
 Not ported yet: the dense (non-paged) cache backend, chaos injection
-(with the non-finite-logit quarantine it drives), the ABFT logits audit,
-and the external pool / prefix index that disaggregated serving shares;
-the first three raise NotImplementedError.
+(with the non-finite-logit quarantine it drives, and the host-copy bit
+flips it would feed the ABFT audit), and the external pool / prefix index
+that disaggregated serving shares; the first two raise
+NotImplementedError.
 """
 from __future__ import annotations
 
@@ -50,6 +60,7 @@ from typing import Deque, Dict, List, Optional
 import numpy as np
 import torch
 
+from ..kernels.abft import use_abft
 from ..models.modules import param_device
 from .fault import DeviceFailure, StragglerDetector
 from .kv_pages import PagePool
@@ -102,9 +113,6 @@ class ContinuousBatcher:
                 "chaos injection is not ported yet (ROADMAP queue 1 item 13)")
         if speculate < 0:
             raise ValueError(f"speculate must be >= 0, got {speculate}")
-        if abft:
-            raise NotImplementedError(
-                "the ABFT logits audit is not ported yet (ROADMAP queue 1 item 11)")
         if not model.supports_paged():
             raise ValueError("model does not support paged decode (needs "
                              "attention-only segments)")
@@ -136,6 +144,11 @@ class ContinuousBatcher:
         self.speculate = int(speculate)
         self.drafter = (drafter or NGramDrafter()) if self.speculate else None
         self.spec = SpecStats()
+
+        # ABFT (SDC detection) state
+        self.abft = bool(abft)
+        self.sdc_detected = 0
+        self.sdc_corrected = 0
 
         self.page_size = page_size
         self._table_width = -(-max_len // page_size)
@@ -476,6 +489,8 @@ class ContinuousBatcher:
                                    if r.finish_reason == FinishReason.DEADLINE),
             "stragglers": len(self.watchdog.flagged),
             "finish_reasons": dict(reasons),
+            "abft": ({"sdc_detected": self.sdc_detected,
+                      "sdc_corrected": self.sdc_corrected} if self.abft else None),
         }
 
     def _active_width(self) -> int:
@@ -496,6 +511,9 @@ class ContinuousBatcher:
         attempts = 0
         while True:
             try:
+                if self.abft:  # every "cuda_mx" GEMM of the step checksummed
+                    with use_abft():
+                        return fn(*args), attempts
                 return fn(*args), attempts
             except DeviceFailure:
                 attempts += 1
@@ -504,6 +522,36 @@ class ContinuousBatcher:
                     raise
                 if self.retry.backoff_s:
                     time.sleep(self.retry.delay(attempts))
+
+    @staticmethod
+    def _logit_checksum(t: torch.Tensor) -> torch.Tensor:
+        """Per-row checksum over the vocab axis: the f32 bit patterns read as
+        int32 and summed in int64 -- exact and independent of the order, so
+        the device array and its host copy give the same value bit for bit
+        wherever it is taken (JAX takes one jnp reduction on one device; a
+        float sum on the card and one on the CPU can differ)."""
+        return t.float().contiguous().view(torch.int32).to(torch.int64).sum(-1)
+
+    @staticmethod
+    def _to_host(t: torch.Tensor) -> torch.Tensor:
+        """The host copy of device logits that token derivation reads."""
+        return t.detach().to("cpu", copy=True)
+
+    def _abft_host_logits(self, device_logits: torch.Tensor) -> torch.Tensor:
+        """The host copy of the logits, verified against the device array by
+        an exact checksum; on a mismatch it is fetched again (recovery is a
+        re-transfer, bitwise the fault-free copy) and the SDC counters
+        advance."""
+        host = self._to_host(device_logits)
+        want = self._logit_checksum(device_logits).cpu()
+        bad = self._logit_checksum(host) != want
+        if bool(bad.any()):
+            n = int(bad.sum())
+            self.sdc_detected += n
+            host = self._to_host(device_logits)
+            if bool((self._logit_checksum(host) == want).all()):
+                self.sdc_corrected += n
+        return host
 
     def step(self) -> int:
         """One batched decode step across all slots; returns #active slots."""
@@ -539,8 +587,10 @@ class ContinuousBatcher:
         (logits, self.cache), health.retries = self._device_step(
             (self.params, self._dev(tokens), self.cache, self._dev(index),
              table, lengths))
-        # torch.argmax, like jnp.argmax, takes the first maximal index
-        next_tok = logits[:, -1].argmax(dim=-1).cpu().numpy().astype(np.int32)
+        # torch.argmax, like jnp.argmax, takes the first maximal index; with
+        # ABFT it reads the verified host copy
+        last = self._abft_host_logits(logits[:, -1]) if self.abft else logits[:, -1]
+        next_tok = last.argmax(dim=-1).cpu().numpy().astype(np.int32)
         for i, s in enumerate(self.slots):
             if s.free:
                 continue
@@ -659,7 +709,8 @@ class ContinuousBatcher:
             (self.params, self._dev(tokens), self.cache, self._dev(index), table,
              self._dev(lengths)), fn=self.model.verify_step_paged)
         self.spec.launches += 1
-        rows = logits.argmax(dim=-1).cpu().numpy().astype(np.int32)  # (B, S)
+        win = self._abft_host_logits(logits) if self.abft else logits
+        rows = win.argmax(dim=-1).cpu().numpy().astype(np.int32)  # (B, S)
         for i, s in enumerate(self.slots):
             if s.free:
                 continue

@@ -81,6 +81,9 @@ QUANT_CASES = {  # id -> (arch, Config.precision, KV page type)
     "llama-int8_all": (NAME, "int8_all", None),
     "llama-fp8_pages": (NAME, "none", "fp8_e4m3"),
     "grok-int8": ("grok-1-314b-smoke", "int8", None),
+    "llama-sparse24": (NAME, "sparse24", None),
+    "llama-sparse24_int8": (NAME, "sparse24_int8", None),
+    "grok-sparse24_int8": ("grok-1-314b-smoke", "sparse24_int8", None),
 }
 
 
@@ -171,8 +174,13 @@ def test_lifecycle_trace_matches_jax():
 
 
 def test_unported_options_raise():
+    """The dense cache and chaos injection still raise; abft=True (which
+    raised until ABFT was ported) builds a batcher with the audit armed
+    (its streams: tests/test_torch_abft.py)."""
     tm = build_model(get_config(NAME))
     tp = tm.init(0, device="cpu")
-    for bad in (dict(paged=False), dict(chaos=object()), dict(abft=True)):
+    for bad in (dict(paged=False), dict(chaos=object())):
         with pytest.raises(NotImplementedError):
             ContinuousBatcher(tm, tp, batch_slots=1, max_len=8, **bad)
+    b = ContinuousBatcher(tm, tp, batch_slots=1, max_len=8, abft=True)
+    assert b.abft and b.health_summary()["abft"] == {"sdc_detected": 0, "sdc_corrected": 0}

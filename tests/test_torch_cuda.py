@@ -13,7 +13,10 @@ Tolerances, kernel against plain version on the same inputs: f32 within
 (one bf16 rounding of an f32 result); free slots exactly zero.  Quantized
 GEMMs (int8 / fp8 payloads with scales, f32 output) within 1e-4 * max|ref|,
 and "int8_all" with scales only bitwise (an exact integer MAC on both
-sides, then the same two f32 multiplies).
+sides, then the same two f32 multiplies).  The 2:4 sparse kernels are
+bitwise the dense kernels on the expanded weight; the ABFT kernels are
+bitwise the kernels without ABFT, and their flag maps equal the plain
+versions'.
 """
 import numpy as np
 import pytest
@@ -617,9 +620,9 @@ def test_quantized_linear_runs_the_kernel_or_raises_on_the_card(cuda):
     assert kernels.launch_counts()["mx_matmul_fused"] == 2 and torch.equal(got, again)
     with ops.use_policy(ops.MXPolicy("torch")):
         _close(got, ops.linear(x, w, precision="int8"), torch.float32)
-    q, s = ops._weight_operand(w, QuantSpec("int8"))
+    q, s, meta = ops._weight_operand(w, QuantSpec("int8"))
     fq, fs = quantize_operand(w, QuantSpec("int8"), "b")
-    assert torch.equal(q, fq) and torch.equal(s, fs)
+    assert torch.equal(q, fq) and torch.equal(s, fs) and meta is None
     with ops.use_policy(ops.MXPolicy("cuda_baseline")):
         with pytest.raises(NotImplementedError, match="scale slots"):
             ops.linear(x, w, precision="int8")
@@ -665,3 +668,257 @@ def test_quantized_streams_equal_across_backends(cuda, name, precision, kv):
     if cfg.n_experts:
         assert got["mx_grouped_matmul"] == 2 * cfg.n_layers * out["cuda_mx"][2]
     assert out["torch"][1] == {k: 0 for k in got}
+
+
+# ---------------------------------------------------------------------------
+# stages 1c / 5c (2:4 sparse weights) and 1d / 5d (ABFT)
+# ---------------------------------------------------------------------------
+
+SPARSE_PAIRS = {"sparse24 f32": (torch.float32, QuantSpec("f32")),
+                "sparse24 bf16": (torch.bfloat16, QuantSpec("bf16")),
+                "sparse24_int8": (torch.bfloat16, QuantSpec("int8"))}
+
+
+def _sparse(pair, x, w):
+    adt, spec = SPARSE_PAIRS[pair]
+    payload, scale, meta = ops._sparse_operand(w, spec)
+    return x.to(adt).contiguous(), payload, scale, meta
+
+
+@pytest.mark.parametrize("M", [1, 8, 40, 100])  # all three tiles
+@pytest.mark.parametrize("act", ["none", "swiglu"])
+@pytest.mark.parametrize("pair", sorted(SPARSE_PAIRS))
+def test_sparse_kernel_bitwise_equals_dense_kernel_on_expanded_weight(cuda, pair, act, M):
+    from repro_torch.kernels.sparse import expand_24
+
+    K, N = 296, 77  # K % 8 == 0, off every BK; N ragged
+    x, w, wg = (_randn(s, torch.float32, cuda, i) for i, s in
+                enumerate(((M, K), (K, N), (K, N))))
+    xa, pb, bs, mb = _sparse(pair, x, w)
+    _, pg, gs, mg = _sparse(pair, x, wg)
+    gated = act == "swiglu"
+    e = mm.Epilogue(activation=act, b_scale=bs is not None, residual=True)
+    kw = dict(epilogue=e, b_gate=pg if gated else None, b_scale=bs,
+              bg_scale=gs if gated else None, out_dtype=torch.float32,
+              residual=_randn((M, N), torch.float32, cuda, 5))
+    kernels.reset_launch_counts()
+    got = mm.mx_matmul_fused(xa, pb, b_sparse=True, b_meta=mb,
+                             bg_meta=mg if gated else None, **kw)
+    dense = mm.mx_matmul_fused(xa, expand_24(pb, mb),
+                               **dict(kw, b_gate=expand_24(pg, mg) if gated else None))
+    ref = mm.mx_matmul_fused_plain(xa, pb, b_meta=mb, bg_meta=mg if gated else None, **kw)
+    torch.cuda.synchronize()
+    assert kernels.variant_launch_counts()["mx_matmul_fused sparse"] == 1
+    assert torch.equal(got, dense)
+    _close(got, ref, torch.float32)
+
+
+@pytest.mark.parametrize("act", ["none", "swiglu"])
+@pytest.mark.parametrize("case", ["ragged_tail", "decode_8", "straddle"])
+@pytest.mark.parametrize("pair", sorted(SPARSE_PAIRS))
+def test_sparse_grouped_kernel_bitwise_equals_dense_on_expanded(cuda, pair, case, act):
+    from repro_torch.kernels.sparse import expand_24
+
+    sizes = GROUPED_SIZES[case]
+    T, K, N, G = 70, 296, 77, len(sizes)
+    x = _randn((T, K), torch.float32, cuda, 0)
+    w, wg = (_randn((G, K, N), torch.float32, cuda, s) / K ** 0.5 for s in (1, 2))
+    xa, pb, bs, mb = _sparse(pair, x, w)
+    _, pg, gs, mg = _sparse(pair, x, wg)
+    gated = act == "swiglu"
+    sz = torch.tensor(sizes, dtype=torch.int32, device=cuda)
+    kw = dict(activation=act, b_scale=bs, bg_scale=gs if gated else None,
+              out_dtype=torch.float32)
+    got = mx_grouped_matmul(xa, pb, sz, w_gate=pg if gated else None, b_sparse=True,
+                            w_meta=mb, wg_meta=mg if gated else None, **kw)
+    dense = mx_grouped_matmul(xa, expand_24(pb, mb), sz,
+                              w_gate=expand_24(pg, mg) if gated else None, **kw)
+    ref = grouped_matmul_ref(xa, pb, sz, w_gate=pg if gated else None, w_meta=mb,
+                             wg_meta=mg if gated else None, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, dense)
+    _close(got, ref, torch.float32)
+
+
+ABFT_PAIRS = ["f32", "bf16", "int8", "int8_all", "fp8", "fp8_all"]
+
+
+@pytest.mark.parametrize("M", [8, 40, 100])
+@pytest.mark.parametrize("pol", ABFT_PAIRS)
+def test_abft_kernel_bitwise_and_flag_maps_equal_plain(cuda, pol, M):
+    """ABFT on is bitwise ABFT off with no flag; a fault flags exactly its
+    tile, and the flag map equals the plain version's (the same tiles)."""
+    from repro_torch.kernels import abft as ab
+
+    K, N = 300, 200
+    x, w, wg = (_randn(s, torch.float32, cuda, i) for i, s in
+                enumerate(((M, K), (K, N), (K, N))))
+    qa, a_s, qb, b_s, qg, bg_s = _quantized(pol, x, w, wg)
+    e = mm.Epilogue(activation="swiglu", a_scale=a_s is not None, b_scale=b_s is not None)
+    kw = dict(epilogue=e, b_gate=qg, a_scale=a_s, b_scale=b_s, bg_scale=bg_s,
+              out_dtype=torch.float32)
+    spec = mm.abft_spec_for(qa, qb)
+    off = mm.mx_matmul_fused(qa, qb, **kw)
+    kernels.reset_launch_counts()
+    on, flags = mm.mx_matmul_fused(qa, qb, abft=spec, **kw)
+    assert kernels.variant_launch_counts()["mx_matmul_fused abft"] == 1
+    assert torch.equal(on, off) and not flags.any()
+    bm, bn, _ = _build.gemm_tile(M)
+    gm, gn = flags.shape
+    assert (gm, gn) == (-(-M // bm), -(-N // bn))
+    fault = ab.TileFault(gm - 1, gn - 1, 3, 5, 1.0 if spec.exact else 1e8)
+    fd, fr, fc = ab.build_fault_operands(fault, gm, gn, bm, bn, device=cuda)
+    fkw = dict(abft=spec.with_inject(True), fault_delta=fd, fault_row=fr, fault_col=fc)
+    _, kflags = mm.mx_matmul_fused(qa, qb, **fkw, **kw)
+    _, pflags = mm.mx_matmul_fused_plain(qa, qb, **fkw, **kw)
+    assert kflags.sum() == 1 and kflags[gm - 1, gn - 1] == 1
+    assert torch.equal(kflags, pflags)
+
+
+@pytest.mark.parametrize("case", ["ragged_tail", "decode_8", "straddle"])
+@pytest.mark.parametrize("pol", ABFT_PAIRS)
+def test_abft_grouped_kernel_flag_maps_equal_plain(cuda, pol, case):
+    from repro_torch.kernels import abft as ab
+    from repro_torch.kernels.mx_grouped_matmul import abft_spec_for
+
+    sizes = GROUPED_SIZES[case]
+    T, K, N, G = 70, 300, 200, len(sizes)
+    x = _randn((T, K), torch.float32, cuda, 0)
+    w, wg = (_randn((G, K, N), torch.float32, cuda, s) / K ** 0.5 for s in (1, 2))
+    qa, a_s, qb, b_s, qg, bg_s = _quantized(pol, x, w, wg)
+    sz = torch.tensor(sizes, dtype=torch.int32, device=cuda)
+    kw = dict(w_gate=qg, activation="swiglu", a_scale=a_s, b_scale=b_s, bg_scale=bg_s,
+              out_dtype=torch.float32)
+    spec = abft_spec_for(qa, qb)
+    off = mx_grouped_matmul(qa, qb, sz, **kw)
+    on, flags = mx_grouped_matmul(qa, qb, sz, abft=spec, **kw)
+    assert torch.equal(on, off) and not flags.any()
+    bm, bn, _ = _build.grouped_tile(T, G)
+    gm, gn = flags.shape
+    for ti in range(gm):  # every row tile: straddled, single-group, uncovered
+        fault = ab.TileFault(ti, 1, 1, 5, 1.0 if spec.exact else 1e8)
+        fd, fr, fc = ab.build_fault_operands(fault, gm, gn, bm, bn, device=cuda)
+        fkw = dict(abft=spec.with_inject(True), fault_delta=fd, fault_row=fr, fault_col=fc)
+        _, kflags = mx_grouped_matmul(qa, qb, sz, **fkw, **kw)
+        _, pflags = grouped_matmul_ref(qa, qb, sz, **fkw, **kw)
+        assert torch.equal(kflags, pflags.to(kflags.device)), ti
+        assert kflags.sum() <= 1
+
+
+def test_one_tile_rule_the_kernels_take_the_python_table_and_nothing_else(cuda):
+    """The tile of every launch comes from _build.gemm_tile / grouped_tile,
+    which the launchers take as (bm, bn, bk): each table tile launches (and
+    its ABFT flag map has the table's grid); any other tile is refused."""
+    from repro_torch.kernels.mx_matmul import _LAUNCHERS
+
+    x = _randn((100, 64), torch.float32, cuda, 0)
+    w = _randn((64, 48), torch.float32, cuda, 1)
+    out = torch.empty((100, 48), device=cuda)
+    source, symbol, argtypes = _LAUNCHERS["dense"]
+    fn = _build.function(source, symbol, argtypes)
+
+    def launch(M, tile):
+        return fn(x.data_ptr(), w.data_ptr(), None, None, None, None, None, 0, None, 0,
+                  out.data_ptr(), 0, M, 48, 64, 0, 0, 0, 0, 0.0, *tile,
+                  _build.stream_ptr(x))
+
+    tiles = {_build.gemm_tile(M) for M in (1, 16, 17, 64, 65, 100)}
+    assert len(tiles) == 3
+    for tile in tiles:
+        assert launch(100, tile) == 0
+    assert launch(100, (16, 16, 16)) != 0 and launch(100, (8, 128, 32)) != 0
+    gtiles = {_build.grouped_tile(T, G) for T, G in ((64, 8), (70, 8), (512, 8), (1024, 8))}
+    assert len(gtiles) == 3
+    for M in (5, 40, 100):
+        _, flags = mm.mx_matmul_fused(x[:M], w, abft=mm.abft_spec_for(x[:M], w))
+        bm, bn, _ = _build.gemm_tile(M)
+        assert tuple(flags.shape) == (-(-M // bm), -(-48 // bn))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("grouped", [False, True])
+def test_abft_recovery_is_bitwise_on_the_card(cuda, grouped):
+    """A flagged tile recomputed alone (the fused kernel on slices, per
+    overlapping expert for the grouped GEMM) is bitwise the fault-free
+    launch: every output element is one MAC chain over K in any tile."""
+    from repro_torch.kernels import abft as ab
+
+    x = _randn((100, 512), torch.float32, cuda, 0)
+    ab.reset_abft_stats()
+    with ops.use_policy(ops.MXPolicy("cuda_mx")):
+        if grouped:
+            w = _randn((3, 512, 200), torch.float32, cuda, 1) / 512 ** 0.5
+            sz = torch.tensor([30, 0, 60], dtype=torch.int32, device=cuda)
+            clean = ops.grouped_matmul(x, w, sz)
+            got = ops.grouped_matmul(x, w, sz, abft=ab.AbftConfig(
+                fault=ab.TileFault(0, 2, 5, 7, 1e8)))
+        else:
+            w = _randn((512, 200), torch.float32, cuda, 1)
+            clean = ops.linear(x, w, activation="gelu")
+            got = ops.linear(x, w, activation="gelu", abft=ab.AbftConfig(
+                fault=ab.TileFault(1, 2, 5, 7, 1e8)))
+    torch.cuda.synchronize()
+    assert torch.equal(got, clean)
+    s = ab.abft_stats()
+    assert s["tiles_flagged"] == 1 and s["tiles_recovered"] == 1
+
+
+def test_sparse_and_abft_dispatch_launch_their_kernels_or_raise(cuda):
+    """No fallback: on CUDA tensors a sparse policy launches the 2:4 kernel
+    and abft= the ABFT kernel (the sparse weight expanded first); the
+    baseline backend raises on a sparse policy."""
+    x = _randn((8, 256), torch.float32, cuda, 0)
+    w = _randn((256, 96), torch.float32, cuda, 1)
+    kernels.reset_launch_counts()
+    with ops.use_policy(ops.MXPolicy("cuda_mx")):
+        sp = ops.linear(x, w, precision="sparse24")
+        sa = ops.linear(x, w, precision="sparse24", abft=True)
+        ops.linear(x, w, abft=True)
+    torch.cuda.synchronize()
+    v = kernels.variant_launch_counts()
+    assert v["mx_matmul_fused sparse"] == 1 and v["mx_matmul_fused abft"] == 2
+    assert v["mx_matmul_fused dense"] == 0 and torch.equal(sp, sa)
+    with ops.use_policy(ops.MXPolicy("cuda_baseline")):
+        with pytest.raises(NotImplementedError, match="2:4"):
+            ops.linear(x, w, precision="sparse24")
+
+
+@pytest.mark.parametrize("name,precision,abft", [
+    ("llama3.2-1b-smoke", "sparse24", False), ("llama3.2-1b-smoke", "sparse24_int8", False),
+    ("llama3.2-1b-smoke", "none", True), ("grok-1-314b-smoke", "sparse24_int8", False),
+    ("grok-1-314b-smoke", "none", True)])
+def test_sparse_and_abft_streams_equal_across_backends(cuda, name, precision, abft):
+    import dataclasses
+
+    from repro_torch.kernels import abft as ab
+
+    cfg = dataclasses.replace(get_config(name), precision=precision)
+    model = build_model(cfg)
+    params = model.init(0, device=cuda)
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, cfg.vocab, n).astype(np.int32) for n in (6, 9, 13, 7)]
+    out = {}
+    for backend in ("cuda_mx", "torch"):
+        with ops.use_policy(ops.MXPolicy(backend)):
+            kernels.reset_launch_counts()
+            ab.reset_abft_stats()
+            b = ContinuousBatcher(model, params, batch_slots=3, max_len=24, page_size=4,
+                                  prefill_chunk=4, abft=abft)
+            for i, p in enumerate(prompts):
+                b.submit(Request(rid=i, prompt=p, max_new=8))
+            fin = b.run_to_completion()
+            steps = sum(h.active > 0 for h in b.health) + b.prefill_launches
+            out[backend] = ({r: fin[r].output for r in fin}, kernels.variant_launch_counts(),
+                            ab.abft_stats(), steps)
+    assert out["cuda_mx"][0] == out["torch"][0]
+    v, stats, steps = out["cuda_mx"][1:]
+    kind = "abft" if abft else "sparse"  # ABFT checksums the decode step, not prefill
+    # a 2:4 run launches no dense GEMM but the untied head's, one per step or
+    # chunk (the head keeps its declared precision, as in JAX)
+    heads = 0 if cfg.tie_embeddings else steps
+    names = ("mx_matmul_fused", "mx_grouped_matmul") if cfg.n_experts else ("mx_matmul_fused",)
+    for n in names:
+        assert v[f"{n} {kind}"] > 0
+        assert abft or v[f"{n} dense"] == (heads if n == "mx_matmul_fused" else 0)
+    if abft:
+        assert stats["gemms_verified"] > 0 and stats["tiles_flagged"] == 0

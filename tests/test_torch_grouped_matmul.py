@@ -120,9 +120,21 @@ def test_grouped_matmul_rejects_bad_inputs():
         mx_grouped_matmul(x, w, sizes, activation="tanh")
     with pytest.raises(ValueError, match="b_scale"):
         mx_grouped_matmul(x, w, sizes, b_scale=torch.ones(2, N))
-    for kw in (dict(b_sparse=True), dict(abft=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            mx_grouped_matmul(x, w, sizes, **kw)
-    for kw in (dict(precision="sparse24_int8"), dict(abft=True)):
-        with pytest.raises(NotImplementedError):
-            tops.grouped_matmul(x, w, sizes, **kw)
+    # the 2:4 and ABFT slots (once unported): a payload without its metadata
+    # and an ABFT flag that is not a spec are bad inputs; through the
+    # dispatch both run, the sparse policy on the pruned weights and ABFT
+    # bitwise equal to ABFT off
+    with pytest.raises(ValueError, match="iff b_sparse"):
+        mx_grouped_matmul(x, w, sizes, b_sparse=True)
+    with pytest.raises(TypeError, match="AbftSpec"):
+        mx_grouped_matmul(x, w, sizes, abft=True)
+    from repro_torch.kernels.sparse import prune_24
+
+    mx = tops.MXPolicy("cuda_mx")
+    k8 = x.shape[1] // 8 * 8  # the 2:4 wire format tiles K in 8s
+    x8, w8 = x[:, :k8], w[:, :k8].contiguous()
+    got = tops.grouped_matmul(x8, w8, sizes, precision="sparse24_int8", policy=mx)
+    want = tops.grouped_matmul(x8, prune_24(w8), sizes, precision="int8", policy=mx)
+    assert torch.equal(got, want)
+    assert torch.equal(tops.grouped_matmul(x, w, sizes, abft=True, policy=mx),
+                       tops.grouped_matmul(x, w, sizes, policy=mx))

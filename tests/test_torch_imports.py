@@ -22,7 +22,8 @@ def test_port_imports_no_jax_and_no_reference_package():
                                                          "repro_torch."))
     assert "repro_torch.runtime.batcher" in mods and "repro_torch.kernels._build" in mods
     assert {"repro_torch.models.moe", "repro_torch.kernels.mx_grouped_matmul",
-            "repro_torch.core.precision", "repro_torch.kernels.quant"} <= set(mods)
+            "repro_torch.core.precision", "repro_torch.kernels.quant",
+            "repro_torch.kernels.sparse", "repro_torch.kernels.abft"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"sys.path[:0] = [{str(ROOT / 'src')!r}, {str(ROOT)!r}]\n"
@@ -81,6 +82,20 @@ def test_serve_speculative_and_int8_on_cpu(capsys, flags, mode):
     out = capsys.readouterr().out
     assert f"continuous batching [{mode} cache]: 8 requests" in out
     assert ("speculation [k=2" in out) == ("--speculate" in flags)
+
+
+@pytest.mark.parametrize("flags,mode", [
+    (["--abft"], "paged+abft"),
+    (["--abft", "--speculate", "2", "--draft", "ngram"], "paged+spec2+abft"),
+    (["--abft", "--arch", "grok-1-314b", "--prefix-cache"], "paged+prefix+abft"),
+])
+def test_serve_abft_on_cpu(capsys, flags, mode):
+    """--abft as JAX's launcher prints it: the mode's +abft and the audit
+    line (no flip is injected: --chaos stays unported)."""
+    assert serve.main(["--smoke", "--prefill-chunk", "4", "--device", "cpu", *flags]) == 0
+    out = capsys.readouterr().out
+    assert f"continuous batching [{mode} cache]: 8 requests" in out
+    assert "abft: 0 SDC detected / 0 corrected" in out
 
 
 def test_serve_rejects_a_draft_model_of_another_vocab():

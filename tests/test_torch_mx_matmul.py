@@ -188,23 +188,89 @@ def test_default_backend_is_torch_on_cpu():
 
 @pytest.mark.parametrize("bad", [
     dict(b_sparse=True),
-    dict(b_meta=torch.zeros(1, 6, dtype=torch.uint8)),
-    dict(b_sparse=True, b_meta=torch.zeros(1, 6, dtype=torch.uint8)),
-    dict(abft=object()),
+    dict(b_sparse=True, activation="swiglu"),
+    dict(abft=True),
+    dict(abft=True, inject=True),
 ])
 def test_kernel_unported_arguments_raise(bad):
-    a, b = torch.zeros(4, 8), torch.zeros(8, 6)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tmm.mx_matmul_fused(a, b, **bad)
+    """The 2:4 and ABFT slots raised while unported; now each case matches
+    JAX's kernel (interpret mode) on the same inputs: the 2:4 payload and
+    metadata (gated too), and the ABFT flag map with and without a fault at
+    tile (0, 0), element (0, 0) (the tiles differ between the packages, that
+    tile and element do not).  A slot given without its partner raises
+    ValueError, as in JAX."""
+    from repro.kernels import abft as jab
+    from repro.kernels import sparse as jsp
+    from repro_torch.kernels import abft as tab
+    from repro_torch.kernels import sparse as tsp
+
+    rng = np.random.default_rng(3)
+    Kp = 40  # the 2:4 wire format tiles K in 8s
+    a = rng.standard_normal((M, Kp)).astype(np.float32)
+    b = (rng.standard_normal((Kp, N)) * 0.2).astype(np.float32)
+    bg = (rng.standard_normal((Kp, N)) * 0.2).astype(np.float32)
+    gated = bad.get("activation") == "swiglu"
+    ep, jep = tmm.Epilogue(activation=bad.get("activation", "none")), JEpilogue(
+        activation=bad.get("activation", "none"))
+    ta, tb, tg = (torch.from_numpy(t) for t in (a, b, bg))
+    if bad.get("b_sparse"):
+        (pb, mb), (pg, mg) = (tsp.compress_24(tsp.prune_24(t)) for t in (tb, tg))
+        got = tmm.mx_matmul_fused(ta, pb, epilogue=ep, b_gate=pg if gated else None,
+                                  b_sparse=True, b_meta=mb, bg_meta=mg if gated else None)
+        (jpb, jmb), (jpg, jmg) = (jsp.compress_24(jsp.prune_24(jnp.asarray(t)))
+                                  for t in (b, bg))
+        want = j_fused(jnp.asarray(a), jpb, epilogue=jep, b_gate=jpg if gated else None,
+                       b_sparse=True, b_meta=jmb, bg_meta=jmg if gated else None,
+                       bm=8, bn=16, bk=16, interpret=True)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+        with pytest.raises(ValueError, match="iff b_sparse"):
+            tmm.mx_matmul_fused(ta, pb, b_sparse=True)
+        with pytest.raises(ValueError, match="iff b_sparse"):
+            tmm.mx_matmul_fused(ta, tb, b_meta=mb)
+        return
+    inject = bad.get("inject", False)
+    spec = tmm.abft_spec_for(ta, tb, inject=inject)
+    kw = {}
+    jspec = jab.make_abft_spec(jnp.float32, jnp.float32, Kp, 8, 16, inject=inject)
+    jkw = {}
+    if inject:
+        fault = tab.TileFault(0, 0, 0, 0, 2.0 ** 16)
+        bm, bn, _ = tmm._build.gemm_tile(M)
+        kw = dict(zip(("fault_delta", "fault_row", "fault_col"),
+                      tab.build_fault_operands(fault, -(-M // bm), -(-N // bn), bm, bn)))
+        jkw = dict(zip(("fault_delta", "fault_row", "fault_col"),
+                       jab.build_fault_operands(jab.TileFault(0, 0, 0, 0, 2.0 ** 16),
+                                                2, 3, 8, 16)))
+    got, flags = tmm.mx_matmul_fused(ta, tb, abft=spec, **kw)
+    want, jflags = j_fused(jnp.asarray(a), jnp.asarray(b), abft=jspec, bm=8, bn=16, bk=16,
+                           interpret=True, **jkw)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    assert int(flags.sum()) == int(np.asarray(jflags).sum()) == int(inject)
+    assert int(flags[0, 0]) == int(np.asarray(jflags)[0, 0]) == int(inject)
+    zeros = dict(fault_delta=torch.zeros(1, 3), fault_row=torch.zeros(1, 3, dtype=torch.int32),
+                 fault_col=torch.zeros(1, 3, dtype=torch.int32))
+    with pytest.raises(ValueError, match="iff abft.inject"):  # faults without inject, or
+        tmm.mx_matmul_fused(ta, tb, abft=spec, **({} if inject else zeros))  # the reverse
 
 
 @pytest.mark.parametrize("bad", [dict(precision="sparse24"), dict(abft=True)])
 def test_ops_unported_arguments_raise(bad):
-    x, w = torch.zeros(4, 8), torch.zeros(8, 6)
-    with pytest.raises(NotImplementedError):
-        tops.linear(x, w, **bad)
-    with pytest.raises(NotImplementedError):
-        tops.matmul(x, w, **bad)
+    """Raised while 2:4 and ABFT were unported; now linear and matmul take
+    them on every backend and match JAX's Pallas path (interpret mode)."""
+    rng = np.random.default_rng(4)
+    x = rng.standard_normal((4, 16)).astype(np.float32)
+    w = rng.standard_normal((16, 6)).astype(np.float32)
+    pol = jops.MXPolicy("pallas_mx", interpret=True, **BLOCKS)
+    for backend in tops.BACKENDS:
+        p = tops.MXPolicy(backend)
+        got = tops.linear(torch.from_numpy(x), torch.from_numpy(w), policy=p, **bad)
+        np.testing.assert_allclose(
+            got.numpy(), np.asarray(jops.linear(jnp.asarray(x), jnp.asarray(w), policy=pol,
+                                                **bad)), **TOL)
+        got = tops.matmul(torch.from_numpy(x), torch.from_numpy(w), policy=p, **bad)
+        np.testing.assert_allclose(
+            got.numpy(), np.asarray(jops.matmul(jnp.asarray(x), jnp.asarray(w), policy=pol,
+                                                **bad)), **TOL)
 
 
 def test_tp_mode_is_inert_without_a_process_group():

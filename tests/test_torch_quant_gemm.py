@@ -9,7 +9,8 @@ wrappers' plain versions).  Tolerance: 1e-5 * max|ref| (f32 sums in
 another order over the same payloads); the "int8_all" product (an exact
 integer MAC in both packages) is bitwise.  Also pinned: the kept weight
 payloads equal fresh quantization and refresh after an in-place write,
-and what is not ported still raises."""
+and the sparse policies and ABFT, which raised until they were ported,
+match JAX."""
 import gc
 
 import numpy as np
@@ -176,14 +177,14 @@ def test_weight_cache_same_bits_and_refreshes_after_an_in_place_write():
     spec = QuantSpec("int8", "tile")
     stack = torch.from_numpy(_grouped_inputs(6, "none")["w"].copy())
     tops.clear_weight_cache()
-    q1, s1 = tops._weight_operand(stack[1], spec)
+    q1, s1, meta = tops._weight_operand(stack[1], spec)
     fq, fs = quantize_operand(stack[1], spec, "b")
-    assert torch.equal(q1, fq) and torch.equal(s1, fs)
-    q2, _ = tops._weight_operand(stack[1], spec)  # a new view of the same layer
+    assert torch.equal(q1, fq) and torch.equal(s1, fs) and meta is None
+    q2, _, _ = tops._weight_operand(stack[1], spec)  # a new view of the same layer
     assert q2 is q1
     assert tops._weight_operand(stack[2], spec)[0] is not q1
     stack[1].mul_(3.0)  # in place: the version counter moves
-    q3, s3 = tops._weight_operand(stack[1], spec)
+    q3, s3, _ = tops._weight_operand(stack[1], spec)
     fq, fs = quantize_operand(stack[1], spec, "b")
     assert q3 is not q1 and torch.equal(q3, fq) and torch.equal(s3, fs)
     x = torch.randn(5, stack.shape[1])
@@ -200,17 +201,34 @@ def test_weight_cache_same_bits_and_refreshes_after_an_in_place_write():
 
 @pytest.mark.parametrize("name", ["sparse24", "sparse24_int8"])
 def test_sparse_policies_and_abft_still_raise(name):
-    x, w = torch.randn(4, 8), torch.randn(8, 6)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        tops.linear(x, w, precision=name)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        tops.matmul(x, w, precision=name)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        tops.grouped_matmul(x, w[None], torch.tensor([4]), precision=name)
-    with use_precision(name), pytest.raises(NotImplementedError, match="item 10"):
-        tops.linear(x, w)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        tops.linear(x, w, precision="int8", abft=True)
+    """Once raising (2:4 and ABFT were not ported), now parity cases: the
+    sparse policies through linear, matmul, grouped_matmul and the ambient
+    context, and ABFT under a quantizing policy, against JAX's reference
+    (within 1e-5 * max|ref|; ABFT on bitwise equal to off)."""
+    rng = np.random.default_rng(13)
+    xn = rng.standard_normal((4, 16)).astype(np.float32)
+    wn = rng.standard_normal((16, 6)).astype(np.float32)
+    x, w = torch.from_numpy(xn), torch.from_numpy(wn)
+    jx, jw = jnp.asarray(xn), jnp.asarray(wn)
+    xla = JAX_POLICIES["xla"]
+    for backend in ("torch", "cuda_mx"):
+        pol = tops.MXPolicy(backend)
+        _close(tops.linear(x, w, precision=name, policy=pol),
+               jops.linear(jx, jw, precision=name, policy=xla))
+        _close(tops.matmul(x, w, precision=name, policy=pol),
+               jops.matmul(jx, jw, precision=name, policy=xla))
+        _close(tops.grouped_matmul(x, w[None], torch.tensor([4]), precision=name,
+                                   policy=pol),
+               jops.grouped_matmul(jx, jw[None], jnp.asarray([4]), precision=name,
+                                   policy=xla))
+        with use_precision(name):
+            got = tops.linear(x, w, policy=pol)
+        with j_use_precision(name):
+            _close(got, jops.linear(jx, jw, policy=xla))
+    mx = tops.MXPolicy("cuda_mx")
+    on = tops.linear(x, w, precision="int8", abft=True, policy=mx)
+    assert torch.equal(on, tops.linear(x, w, precision="int8", policy=mx))
+    _close(on, jops.linear(jx, jw, precision="int8", abft=True, policy=JAX_POLICIES["pallas_mx"]))
 
 
 def test_kernel_scale_slots_validate_like_jax():
