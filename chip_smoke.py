@@ -10,7 +10,8 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      one nvcc per source, all started together, and prints each kernel's
      registers and spills;
   3. holds each kernel against its plain PyTorch version at the shapes of
-     the main path (llama3.2-1b, plus qwen2-0.5b's ragged widths), in f32
+     the main path (llama3.2-1b, plus qwen2-0.5b's ragged widths and
+     zamba2-2.7b's Mamba2 projections, N = 10448 off every tile), in f32
      and bf16: the GEMMs; flash decode with f32/bf16 and with int8 pages
      and scales; flash verify at S = 5 and 9, G = 7, poisoned stale pages
      and S = 1 (also against the decode kernel), with the same page types.
@@ -115,6 +116,33 @@ The 2:4 sparse and ABFT stages of the GEMMs (1c, 1d, 5c, 5d):
       streams bitwise those without);
   7s. grok "sparse24_int8" held against the plain path as in 7q; grok-1 and
       kimi-k2 smoke streams across backends under "sparse24_int8" and abft.
+The dense cache, Mamba2 and the zamba2 hybrid (ssd_scan, mx_flash_attention):
+  3.  (with phase 3) ssd_scan at zamba2's head shape (8 x 80 heads, P = S =
+      64, chunk 128; L = 512, a ragged L = 200, bf16) and a hard reset
+      (a_log = -50 at one step), mx_flash_attention at zamba2's shared block
+      (8 x 32 heads, d = 80, L = 512, causal; f32 and bf16), the llama draft
+      forward (32 / 8 heads, d = 64, L = 256) and the cross shape (Lq = 33,
+      Lk = 70, non-causal), against the plain versions at phase 3's
+      tolerances; the attention's yardstick is
+      torch.nn.functional.scaled_dot_product_attention, the scan has none;
+  8.  (before phase 4: no profiler session has run yet) zamba2-2.7b at full
+      width (54 Mamba2 layers, d_model 2560, the shared block every 6;
+      nothing cut), f32 weights from seed 0: the full forward of
+      launch/steps.make_prefill_step on 4 x 512 tokens, 54 ssd_scan and 9
+      mx_flash_attention launches required, logits within 1e-3 * max|ref| of
+      the plain path; 16 tokens through decode_step from an empty dense
+      cache against the forward's logits at 1e-3 * max|ref|; the dense
+      continuous batcher on JAX's non-prefix launcher trace (16 requests,
+      prompts of 2-128 tokens, 16 new tokens, 8 slots, f32 cache) on the
+      kernel and the plain path, equal full-width streams counted; dense
+      smoke streams equal across backends (zamba2, and llama dense = paged);
+      the static launcher once in its own process; and, last of the run, one
+      decode step profiled;
+  9.  (before phase 5) llama3.2-1b on the dense cache: a short trace through
+      ContinuousBatcher(paged=False) and (paged=True), streams equal (a
+      divergence passes only at a near tie); the static launcher with
+      --prefill-chunk 64.  The draft-model run of phase 4 must launch
+      mx_flash_attention (its full forwards).
 The line before the last is the kernel summary JSON; the last line is
 {"ok": true, "device": {...}}.  Details go to chiprun_out/chip_smoke.json.
 """
@@ -125,6 +153,7 @@ import dataclasses
 import gc
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -144,6 +173,8 @@ TPU_KERNELS = {  # file:line of the Pallas wrapper each CUDA kernel replaces
     "mx_flash_decode": "src/repro/kernels/mx_flash_decode.py:108",
     "mx_flash_verify": "src/repro/kernels/mx_flash_decode.py:257",
     "mx_grouped_matmul": "src/repro/kernels/mx_grouped_matmul.py:218",
+    "ssd_scan": "src/repro/kernels/ssd_scan.py:68",
+    "mx_flash_attention": "src/repro/kernels/mx_flash_attention.py:70",
 }
 SOURCES = {
     "mx_matmul_fused": "src/repro_torch/csrc/mx_matmul.cu",
@@ -155,6 +186,8 @@ SOURCES = {
     "mx_grouped_matmul": "src/repro_torch/csrc/mx_grouped_matmul.cu",
     "mx_grouped_matmul sparse": "src/repro_torch/csrc/mx_grouped_matmul_sparse.cu",
     "mx_grouped_matmul abft": "src/repro_torch/csrc/mx_grouped_matmul_abft.cu",
+    "ssd_scan": "src/repro_torch/csrc/ssd_scan.cu",
+    "mx_flash_attention": "src/repro_torch/csrc/mx_flash_attention.cu",
 }
 
 
@@ -1027,6 +1060,8 @@ def phase_kernels(torch, dev):
         (2048, 8192, dict()),  # the paper's A/B against the baseline GEMM
         (896, 128, dict(bias=True)),  # qwen2-0.5b k, v (qkv bias)
         (4864, 896, dict(residual=True)),  # qwen2-0.5b down
+        (2560, 10448, dict()),  # zamba2-2.7b Mamba2 in_proj: N off every tile
+        (5120, 2560, dict()),  # zamba2-2.7b Mamba2 out_proj
     ]
     seed = 0
     for dtype_name in ("float32", "bfloat16"):
@@ -1860,15 +1895,22 @@ def llama_phases(torch, dev):
     _print_serve(dm_run)
     spec_runs[dm_run["label"]] = dm_run
 
-    # llama is dense: the grouped kernel's launches come from grok (phase 6)
-    launches = {k: n for k, n in main_run["launches"].items() if k != "mx_grouped_matmul"}
+    # the draft model's full forwards run the flash attention kernel; no
+    # other llama run does (its paged path has no full forward)
+    if dm_run["launches"]["mx_flash_attention"] <= 0 or dm_run["launches"]["ssd_scan"]:
+        raise AssertionError(f"draft-model run: unexpected launches {dm_run['launches']}")
+    # llama is dense: the grouped kernel's launches come from grok (phase 6),
+    # ssd_scan's and the flash attention's from zamba2's forward (phase 8)
+    launches = {k: n for k, n in main_run["launches"].items()
+                if k not in ("mx_grouped_matmul", "ssd_scan", "mx_flash_attention")}
     launches["baseline_matmul"] = base_run["launches"]["baseline_matmul"]
     launches["mx_flash_verify"] = spec_runs["(b) spec4 ngram"]["launches"]["mx_flash_verify"]
     for name, n in launches.items():
         if n <= 0:
             raise AssertionError(f"kernel {name} was not launched on its serving path")
     if main_run["launches"]["baseline_matmul"] or base_run["launches"]["mx_matmul_fused"] \
-            or main_run["launches"]["mx_grouped_matmul"]:
+            or main_run["launches"]["mx_grouped_matmul"] or main_run["launches"]["ssd_scan"] \
+            or main_run["launches"]["mx_flash_attention"]:
         raise AssertionError(f"backends leaked into each other: {main_run['launches']} "
                              f"/ {base_run['launches']}")
     for label, run in spec_runs.items():
@@ -1877,6 +1919,7 @@ def llama_phases(torch, dev):
     served = llama_quant_serve(torch, dev, cfg, params)
     sparse_served = llama_sparse_serve(torch, dev, cfg, params)
     abft = llama_abft_serve(torch, dev, cfg, model, params, main_run)
+    dense = llama_dense_phase(torch, dev, model, params, cfg)
 
     print("[5] kernel path against plain path")
     held = hold_steps(torch, dev, model, params, cfg, batcher.cache,
@@ -1926,7 +1969,7 @@ def llama_phases(torch, dev):
     # only at a near tie, a top-2 logit gap below the kernel path's error
     near_tie = max(held["decode_logits"]["max_abs_err"],
                    held_v["verify_logits"]["max_abs_err"])
-    for label, run in spec_runs.items():
+    for label, run in (*spec_runs.items(), ("llama dense vs paged", dense)):
         bad = [d for d in run.get("divergences", ()) if d["top2_gap"] > near_tie]
         if bad:
             raise AssertionError(f"{label}: streams leave the plain ones away from a "
@@ -1934,7 +1977,7 @@ def llama_phases(torch, dev):
 
     quant = llama_quant_holds(torch, dev, params, served)
     sparse = llama_sparse_holds(torch, dev, params, sparse_served)
-    return launches, dict(quant=quant, sparse=sparse, abft=abft, serve=main_run,
+    return launches, dict(quant=quant, sparse=sparse, abft=abft, dense=dense, serve=main_run,
                           serve_baseline=base_run,
                           serve_spec=spec_runs, hold=held, hold_verify=held_v,
                           hold_verify_int8=held_v8, profile=prof, profile_verify=prof_v,
@@ -2241,6 +2284,411 @@ def grok_quant_holds(torch, dev, cfg, params, run, model, batcher):
     return dict(serve=run, hold=held, hold_int8_tensor=held_t, profile_decode=prof)
 
 
+# ---------------------------------------------------------------------------
+# phase 3 (this slice's kernels): ssd_scan and mx_flash_attention
+# ---------------------------------------------------------------------------
+
+
+def check_ssd(torch, dev, label, B, L, H, G, P, S, chunk, dtype_name, seed, reset=False):
+    """`ssd_scan` against `ssd_scan_plain` on the same inputs.  The bound
+    counts each input read once and y written once, and per chunk of q live
+    rows and head q (q + 1) (S + P) operations for the lower triangles of
+    C B^T and of the masked product times X (the decay mask zeroes the
+    rest) plus 4 q S P for C h and the state update; no single PyTorch call
+    computes the scan (library "none")."""
+    from repro_torch.kernels.ref import ssd_scan_plain
+    from repro_torch.kernels.ssd_scan import ssd_scan
+
+    dt = getattr(torch, dtype_name)
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def inputs():
+        x = torch.randn((B, L, H, P), generator=g, device=dev).to(dt)
+        a = -torch.rand((B, L, H), generator=g, device=dev) * 0.3
+        if reset:  # a hard reset: the decay is masked before the exp
+            a[:, L // 2] = -50.0
+        b = (torch.randn((B, L, G, S), generator=g, device=dev) * 0.3).to(dt)
+        c = (torch.randn((B, L, G, S), generator=g, device=dev) * 0.3).to(dt)
+        return x, a, b, c
+
+    args = inputs()
+    got = ssd_scan(*args, chunk=chunk)
+    ref = ssd_scan_plain(*args, chunk)
+    torch.cuda.synchronize()
+    err, tol = _err(torch, got, ref, dtype_name)
+    nbytes = sum(t.numel() * t.element_size() for t in (*args, got))
+    flops = B * H * sum(q * (q + 1) * (S + P) + 4 * q * S * P
+                        for q in (min(chunk, L - t) for t in range(0, L, chunk)))
+    sets = [args] + [inputs() for _ in range(_copies(nbytes) - 1)]
+    t = _time_ms(torch, {"ms": (lambda *a: ssd_scan(*a, chunk=chunk), sets),
+                         "plain_ms": (lambda *a: ssd_scan_plain(*a, chunk), sets)})
+    bound, by = _bound_ms(nbytes, flops, dtype_name)
+    return dict(kernel="ssd_scan", label=label, dtype=dtype_name, B=B, L=L, H=H, G=G, P=P,
+                S=S, chunk=chunk, reset=reset, max_abs_err=err, tol=tol,
+                finite=bool(torch.isfinite(got).all()), bytes=nbytes, flops=flops,
+                bound_ms=bound, bound_by=by, **t)
+
+
+def check_flash(torch, dev, label, B, Lq, Lk, H, Hkv, d, causal, dtype_name, seed):
+    """`mx_flash_attention` against `flash_attention_plain`; the library
+    yardstick is one `scaled_dot_product_attention` call on (B, H, L, d)
+    views of the same tensors (never on the port's path).  Operations:
+    4 B H Lq Lk d, halved by the causal mask."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.mx_flash_attention import mx_flash_attention
+    from repro_torch.kernels.ref import flash_attention_plain
+
+    dt = getattr(torch, dtype_name)
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def inputs():
+        return (torch.randn((B, Lq, H, d), generator=g, device=dev).to(dt),
+                torch.randn((B, Lk, Hkv, d), generator=g, device=dev).to(dt),
+                torch.randn((B, Lk, Hkv, d), generator=g, device=dev).to(dt))
+
+    def library(q, k, v):
+        return F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), is_causal=causal,
+            enable_gqa=H != Hkv).transpose(1, 2)
+
+    args = inputs()
+    got = mx_flash_attention(*args, causal=causal)
+    ref = flash_attention_plain(*args, causal=causal)
+    torch.cuda.synchronize()
+    err, tol = _err(torch, got, ref, dtype_name)
+    out = dict(kernel="mx_flash_attention", label=label, dtype=dtype_name, B=B, Lq=Lq,
+               Lk=Lk, H=H, Hkv=Hkv, d=d, causal=causal, max_abs_err=err, tol=tol)
+    fns = {"ms": (lambda *a: mx_flash_attention(*a, causal=causal), None),
+           "plain_ms": (lambda *a: flash_attention_plain(*a, causal=causal), None)}
+    try:
+        out["library_err"] = (library(*args).float() - ref.float()).abs().max().item()
+        fns["library_ms"] = (library, None)
+    except RuntimeError as e:  # a yardstick the installed PyTorch refuses
+        out["library_error"] = str(e)
+    nbytes = sum(t.numel() * t.element_size() for t in (*args, got))
+    flops = (2 if causal else 4) * B * H * Lq * Lk * d
+    sets = [args] + [inputs() for _ in range(_copies(nbytes) - 1)]
+    out.update(_time_ms(torch, {k: (fn, sets) for k, (fn, _) in fns.items()}))
+    out["bound_ms"], out["bound_by"] = _bound_ms(nbytes, flops, dtype_name)
+    out.update(bytes=nbytes, flops=flops)
+    return out
+
+
+def ssd_flash_checks(torch, dev):
+    """Phase 3 for this slice's kernels, at the shapes of zamba2-2.7b's
+    full forward (80 heads of P = 64, state 64, chunk 128; the shared
+    block's 32 heads of d = 80) and the llama draft forward (32 / 8 heads,
+    d = 64), plus a ragged L, a hard reset, the cross shape of
+    tests/test_kernels_flash.py and bf16."""
+    checks = [
+        check_ssd(torch, dev, "zamba2 L=512", 8, 512, 80, 1, 64, 64, 128, "float32", 1),
+        check_ssd(torch, dev, "zamba2 L=200 ragged", 8, 200, 80, 1, 64, 64, 128, "float32", 2),
+        check_ssd(torch, dev, "hard reset", 2, 300, 8, 1, 64, 64, 128, "float32", 3,
+                  reset=True),
+        check_ssd(torch, dev, "zamba2 L=512 bf16", 8, 512, 80, 1, 64, 64, 128, "bfloat16", 4),
+        check_flash(torch, dev, "zamba2 shared block", 8, 512, 512, 32, 32, 80, True,
+                    "float32", 5),
+        check_flash(torch, dev, "llama draft", 4, 256, 256, 32, 8, 64, True, "float32", 6),
+        check_flash(torch, dev, "cross", 1, 33, 70, 1, 1, 8, False, "float32", 7),
+        check_flash(torch, dev, "zamba2 shared block bf16", 8, 512, 512, 32, 32, 80, True,
+                    "bfloat16", 8),
+    ]
+    for c in checks:
+        c["ok"] = c["max_abs_err"] <= c["tol"] and c.get("finite", True)
+        if c["kernel"] == "ssd_scan":
+            shape = f"B={c['B']} L={c['L']} H={c['H']} P={c['P']} S={c['S']} Q={c['chunk']}"
+        else:
+            shape = (f"B={c['B']} Lq={c['Lq']} Lk={c['Lk']} H={c['H']} Hkv={c['Hkv']} "
+                     f"d={c['d']} {'causal' if c['causal'] else 'full'}")
+        lib = "none" if c["library_ms"] is None else f"{c['library_ms']:.4f}"
+        extra = f" lib err {c['library_err']:.2e}" if "library_err" in c else ""
+        if c.get("library_error"):
+            extra += f" lib refused: {c['library_error'][:80]}"
+        print(f"  {c['kernel']:18s} {c['dtype']:8s} {c['label']:24s} {shape:44s} err "
+              f"{c['max_abs_err']:.3e} (tol {c['tol']:.3e}){extra} "
+              f"{'ok' if c['ok'] else 'FAIL'}  ms {c['ms']:.4f} (spread "
+              f"{100 * _spread(c):.0f}%) plain {c['plain_ms']:.4f} lib {lib} bound "
+              f"{c['bound_ms']:.4f} ({c['bound_by']})")
+    bad = [c for c in checks if not c["ok"]]
+    if bad:
+        raise AssertionError(f"{len(bad)} ssd_scan / flash attention check(s) disagree "
+                             f"with the plain version: {bad}")
+    return checks
+
+
+# ---------------------------------------------------------------------------
+# phases 8 and 9: dense-cache serving, zamba2-2.7b at full width
+# ---------------------------------------------------------------------------
+
+
+def serve_dense(torch, model, params, cfg, backend, n_req, gen, prompt_len, slots,
+                label=None):
+    """JAX's non-prefix launcher trace through the DENSE continuous batcher
+    under `backend` (prompts stepped token by token, f32 cache).  Launch
+    counts are set to 0 just before the run and read just after it."""
+    from repro_torch import kernels
+    from repro_torch.core import ops
+    from repro_torch.launch.serve import make_trace
+    from repro_torch.runtime.batcher import ContinuousBatcher
+
+    with ops.use_policy(ops.MXPolicy(backend)):
+        batcher = ContinuousBatcher(model, params, batch_slots=slots,
+                                    max_len=prompt_len + gen, paged=False)
+        reqs = make_trace(cfg, n_req, prompt_len, gen, prefix_cache=False)
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        for r in reqs:
+            batcher.submit(r)
+        finished = batcher.run_to_completion()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = kernels.launch_counts()
+    step_dt = {h.step: h.dt_s for h in batcher.health}
+    device_steps = [1e3 * h.dt_s for h in batcher.health if h.active > 0]
+    ttft_steps = [r.first_token_at - r.submitted_at for r in finished.values()]
+    ttft_ms = [1e3 * sum(step_dt[s] for s in range(r.submitted_at, r.first_token_at + 1))
+               for r in finished.values()]
+    generated = sum(len(r.output) for r in finished.values())
+    out = dict(label=label or backend, backend=backend, requests=len(finished), slots=slots,
+               prompt_len=prompt_len, gen=gen, wall_s=wall, steps=batcher.steps_run,
+               device_steps=len(device_steps), generated_tokens=generated,
+               generated_tok_per_s=generated / wall,
+               total_tok_per_s=sum(len(r.prompt) + len(r.output)
+                                   for r in finished.values()) / wall,
+               ttft_steps_mean=sum(ttft_steps) / len(ttft_steps),
+               ttft_steps_max=max(ttft_steps), ttft_ms_mean=sum(ttft_ms) / len(ttft_ms),
+               ttft_ms_max=max(ttft_ms), step_ms_median=statistics.median(device_steps),
+               finish_reasons=batcher.health_summary()["finish_reasons"], launches=counts,
+               streams={r: finished[r].output for r in sorted(finished)},
+               prompts={r: finished[r].prompt.tolist() for r in sorted(finished)})
+    assert len(finished) == n_req, finished.keys()
+    assert all(r.finish_reason == "max_new" and len(r.output) == gen
+               for r in finished.values()), out["finish_reasons"]
+    return out
+
+
+def _print_dense(r):
+    print(f"    [{r['label']}] {r['requests']} requests x {r['gen']} new tokens through "
+          f"{r['slots']} dense slots: {r['wall_s']:.2f} s, {r['generated_tok_per_s']:.1f} "
+          f"generated tok/s ({r['total_tok_per_s']:.1f} incl. prompt), {r['steps']} steps")
+    print(f"      TTFT {r['ttft_steps_mean']:.1f} steps mean / {r['ttft_steps_max']} max, "
+          f"{r['ttft_ms_mean']:.1f} ms mean / {r['ttft_ms_max']:.1f} ms max; median step "
+          f"{r['step_ms_median']:.2f} ms; launches {r['launches']}")
+
+
+def launcher(args, timeout=300):
+    """`python -m repro_torch.launch.serve <args>` on the card in its own
+    process; its output lines, required to exit 0."""
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve", *args],
+                         capture_output=True, text=True, timeout=timeout,
+                         cwd=ROOT, env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+    if out.returncode != 0:
+        raise AssertionError(f"serve {' '.join(args)} exited {out.returncode}:\n"
+                             f"{out.stdout[-2000:]}\n{out.stderr[-4000:]}")
+    lines = out.stdout.strip().splitlines()
+    print(f"    $ python -m repro_torch.launch.serve {' '.join(args)}  "
+          f"({time.perf_counter() - t0:.1f} s with start-up)")
+    for ln in lines:
+        print(f"      {ln}")
+    return lines
+
+
+def dense_smoke_streams(torch, dev):
+    """Smoke size, the dense batcher: zamba2's and llama's streams equal
+    across "cuda_mx" / "torch", and llama's dense streams equal its paged
+    ones on each backend."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import ops
+    from repro_torch.launch.serve import make_trace
+    from repro_torch.models import build_model
+    from repro_torch.runtime.batcher import ContinuousBatcher
+
+    out = {}
+    for name in ("zamba2-2.7b-smoke", "llama3.2-1b-smoke"):
+        cfg = get_config(name)
+        model = build_model(cfg)
+        params = model.init(0, device=dev)
+        modes = (("dense", {"paged": False}),) if "zamba" in name else (
+            ("dense", {"paged": False}), ("paged", {"paged": True, "page_size": 4}))
+        for backend in ("cuda_mx", "torch"):
+            for mode, kw in modes:
+                with ops.use_policy(ops.MXPolicy(backend)):
+                    b = ContinuousBatcher(model, params, batch_slots=3, max_len=32, **kw)
+                    for r in make_trace(cfg, 7, 24, 8, prefix_cache=False):
+                        b.submit(r)
+                    fin = b.run_to_completion()
+                out[f"{name} {backend} {mode}"] = {r: fin[r].output for r in sorted(fin)}
+    same = {}
+    for name in ("zamba2-2.7b-smoke", "llama3.2-1b-smoke"):
+        runs = [v for k, v in out.items() if k.startswith(name)]
+        same[name] = all(v == runs[0] for v in runs)
+    return same, out
+
+
+def llama_dense_phase(torch, dev, model, params, cfg):
+    """Phase 9: llama3.2-1b at full width on the dense cache: a short trace
+    through ContinuousBatcher(paged=False) and (paged=True), token-stepped
+    both, on the kernel path; streams equal (a divergence passes only at a
+    near tie of the plain logits -- the dense attention is plain PyTorch,
+    the paged one the decode kernel); the static launcher with
+    --prefill-chunk 64 in its own process."""
+    from repro_torch.core import ops
+    from repro_torch.launch.serve import make_trace
+    from repro_torch.runtime.batcher import ContinuousBatcher
+
+    print("[9] llama3.2-1b (full width) on the dense cache")
+    dense = serve_dense(torch, model, params, cfg, "cuda_mx", n_req=8, gen=8, prompt_len=64,
+                        slots=8, label="llama dense")
+    _print_dense(dense)
+    with ops.use_policy(ops.MXPolicy("cuda_mx")):
+        b = ContinuousBatcher(model, params, batch_slots=8, max_len=72, page_size=16)
+        for r in make_trace(cfg, 8, 64, 8, prefix_cache=False):
+            b.submit(r)
+        fin = b.run_to_completion()
+    paged = dict(streams={r: fin[r].output for r in sorted(fin)},
+                 prompts=dense["prompts"])
+    equal = sum(paged["streams"][r] == dense["streams"][r] for r in dense["streams"])
+    div = divergences(torch, model, params, dense, paged)
+    print(f"    dense streams equal to paged: {equal}/{len(dense['streams'])}; "
+          f"divergences {div}")
+    lines = launcher(["--arch", "llama3.2-1b", "--batch", "8", "--prompt-len", "128",
+                      "--gen", "16", "--prefill-chunk", "64"])
+    return dict(serve=dense, paged_streams=paged["streams"], streams_equal=equal,
+                divergences=div, launcher=lines)
+
+
+def _moved(tree, dev):
+    """A nested dict of tensors, copied to `dev`."""
+    return {k: _moved(v, dev) if isinstance(v, dict) else v.to(dev) for k, v in tree.items()}
+
+
+def zamba2_phase(torch, dev):
+    """Phase 8: zamba2-2.7b at full width (54 Mamba2 layers, d_model 2560,
+    the shared block after every 6; nothing cut), f32 weights from seed 0.
+    Returns the results, the model and its weights parked in host memory
+    for the profile that ends the run (off the card while llama and grok
+    run, so their peak memory is theirs alone)."""
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.core import ops
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import build_model
+    from repro_torch.models.modules import param_count
+
+    cfg = get_config("zamba2-2.7b")
+    n_mamba = sum(n for kind, n in cfg.blocks if kind == "mamba2")
+    n_shared = n_mamba // cfg.shared_attn_every
+    print(f"[8] zamba2-2.7b (f32, full width: {n_mamba} Mamba2 layers, shared block every "
+          f"{cfg.shared_attn_every}, d_model {cfg.d_model}; nothing cut)")
+    model = build_model(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init(0, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    weights_gib = torch.cuda.memory_allocated() / 2**30
+    print(f"    init {init_s:.1f} s, {param_count(params) / 1e9:.3f} B params, weights "
+          f"{weights_gib:.2f} GiB")
+    # the cacheless prefill step: the full forward on 4 x 512 tokens
+    toks = torch.randint(0, cfg.vocab, (4, 512), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(0))
+    prefill = make_prefill_step(model, cfg)
+    fwd = {}
+    for backend in ("cuda_mx", "torch"):
+        with ops.use_policy(ops.MXPolicy(backend)), torch.no_grad():
+            prefill(params, {"tokens": toks[:1, :64]})  # warm
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            logits = prefill(params, {"tokens": toks})
+            torch.cuda.synchronize()
+            fwd[backend] = dict(ms=(time.perf_counter() - t0) * 1e3,
+                                launches=kernels.launch_counts(), logits=logits)
+    launches = fwd["cuda_mx"]["launches"]
+    held = _hold_logits(torch, fwd["cuda_mx"]["logits"], fwd["torch"]["logits"], None, 1e-3)
+    print(f"    full forward 4 x 512 tokens: kernel path {fwd['cuda_mx']['ms']:.1f} ms, "
+          f"plain path {fwd['torch']['ms']:.1f} ms; launches {launches}")
+    print(f"    logits against the plain path: err {held['max_abs_err']:.3e} (tol "
+          f"{held['tol']:.3e}) argmax equal {held['argmax_equal']}")
+    if launches["ssd_scan"] != n_mamba or launches["mx_flash_attention"] != n_shared:
+        raise AssertionError(f"zamba2 forward: want {n_mamba} ssd_scan and {n_shared} "
+                             f"mx_flash_attention launches, got {launches}")
+    if fwd["torch"]["launches"]["ssd_scan"] or fwd["torch"]["launches"]["mx_flash_attention"]:
+        raise AssertionError(f"the plain path launched kernels: {fwd['torch']['launches']}")
+    if not held["ok"]:
+        raise AssertionError(f"zamba2 forward: the kernel path disagrees: {held}")
+    # 16 tokens stepped through decode_step from an empty dense cache
+    ref16 = fwd["cuda_mx"]["logits"][:, :16]
+    del fwd["cuda_mx"]["logits"], fwd["torch"]["logits"], logits
+    with ops.use_policy(ops.MXPolicy("cuda_mx")), torch.no_grad():
+        cache = model.make_cache(4, 16, dtype=torch.float32, device=dev)
+        steps = []
+        for t in range(16):
+            lg, cache = model.decode_step(params, toks[:, t:t + 1], cache, t)
+            steps.append(lg)
+    dec = _hold_logits(torch, torch.cat(steps, dim=1), ref16, None, 1e-3)
+    print(f"    16 decode steps against the forward's logits: err {dec['max_abs_err']:.3e} "
+          f"(tol {dec['tol']:.3e}) argmax equal {dec['argmax_equal']}")
+    if not dec["ok"]:
+        raise AssertionError(f"zamba2 decode disagrees with the forward: {dec}")
+    del cache, steps, ref16
+    gc.collect()
+    torch.cuda.empty_cache()
+    # JAX's non-prefix trace through the dense batcher, kernel then plain path
+    runs = {}
+    for backend in ("cuda_mx", "torch"):
+        runs[backend] = serve_dense(torch, model, params, cfg, backend, n_req=16, gen=16,
+                                    prompt_len=128, slots=8, label=f"zamba2 dense {backend}")
+        _print_dense(runs[backend])
+    equal = sum(runs["cuda_mx"]["streams"][r] == runs["torch"]["streams"][r]
+                for r in runs["torch"]["streams"])
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"    full-width streams equal across cuda_mx / torch: {equal}/16 (recorded); "
+          f"peak device memory {peak:.2f} GiB")
+    params = _moved(params, "cpu")
+    gc.collect()
+    torch.cuda.empty_cache()
+    same, streams = dense_smoke_streams(torch, dev)
+    print(f"    smoke-size dense streams equal across backends (and llama dense = paged): "
+          f"{same}")
+    if not all(same.values()):
+        raise AssertionError(f"dense smoke streams differ: {streams}")
+    lines = launcher(["--arch", "zamba2-2.7b", "--batch", "8", "--prompt-len", "64",
+                      "--gen", "16"])
+    for fw in fwd.values():
+        fw.pop("logits", None)
+    return dict(init_s=init_s, weights_gib=weights_gib, peak_memory_gib=peak,
+                forward=fwd, hold_forward=held, hold_decode=dec, serve=runs,
+                streams_equal=equal, smoke_streams=streams, launcher=lines,
+                launches=dict(ssd_scan=launches["ssd_scan"],
+                              mx_flash_attention=launches["mx_flash_attention"])), \
+        model, params
+
+
+def zamba2_profile(torch, dev, model, params):
+    """One zamba2-2.7b decode step at 8 slots on the kernel path, profiled
+    (last: a profiler session slows later launches of the process), with
+    phase 8's weights."""
+    from repro_torch.core import ops
+
+    cfg = model.cfg
+    params = _moved(params, dev)
+    cache = model.make_cache(8, 144, dtype=torch.float32, device=dev)
+    tok = torch.randint(0, cfg.vocab, (8, 1), device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(1))
+    index = torch.arange(8, device=dev) * 16
+    with ops.use_policy(ops.MXPolicy("cuda_mx")), torch.no_grad():
+        prof = _profile(torch, lambda: model.decode_step(params, tok, cache, index))
+    _print_profile("1 zamba2 decode step, 8 dense slots", prof)
+    del params, model, cache
+    gc.collect()
+    torch.cuda.empty_cache()
+    return prof
+
+
 def main() -> int:
     import torch
 
@@ -2261,7 +2709,8 @@ def main() -> int:
     print(f"[1] device: {smi} | torch {torch.__version__} cuda {torch.version.cuda}")
 
     build_s = _build.build_all()
-    print(f"[2] built {len(_build.SOURCES)} CUDA sources for sm_90a in {build_s:.1f} s")
+    print(f"[2] built {len(_build.SOURCES)} CUDA sources for sm_90a in {build_s:.1f} s; "
+          f"nvcc CPU s per source {_build.NVCC_CPU_SECONDS}")
     ptxas = []
     for name in _build.SOURCES:
         entry = ""
@@ -2279,15 +2728,22 @@ def main() -> int:
 
     print("[3] kernels against their plain versions")
     checks = phase_kernels(torch, dev)
+    checks += ssd_flash_checks(torch, dev)
     print("[3a] the ABFT kernels: clean bitwise, faults flagged, flag maps = plain, "
           "recovery bitwise")
     abft_checks_ = abft_checks(torch, dev)
 
+    # zamba2 serves first: its times come before any profiler session
+    zamba2, zmodel, zparams = zamba2_phase(torch, dev)
     launches, llama = llama_phases(torch, dev)
     gc.collect()
     torch.cuda.empty_cache()  # llama's weights and caches are gone
     grok = grok_phases(torch, dev)
     launches["mx_grouped_matmul"] = grok["serve"]["launches"]["mx_grouped_matmul"]
+    launches.update(zamba2["launches"])
+    print("[8p] zamba2-2.7b decode step profiled")
+    zamba2["profile_decode"] = zamba2_profile(torch, dev, zmodel, zparams)
+    del zmodel, zparams
 
     headline = {  # a decode-step call of each kernel on the main path, f32
         # the down projection: one library call (addmm) computes the same function
@@ -2298,6 +2754,10 @@ def main() -> int:
         "mx_flash_verify": dict(B=8, H=32, S=5, poison=False, pages="same"),
         # grok's decode down projection: one library call (bmm) computes it
         "mx_grouped_matmul": dict(label="grok decode down"),
+        # every Mamba2 layer of zamba2's forward: 8 x 80 heads (no library call)
+        "ssd_scan": dict(label="zamba2 L=512"),
+        # zamba2's shared block, causal: one library call (SDPA) computes it
+        "mx_flash_attention": dict(label="zamba2 shared block"),
     }
     summary = []
     for name, sel in headline.items():
@@ -2308,8 +2768,8 @@ def main() -> int:
             launches=launches[name], max_abs_err=c["max_abs_err"], ms=c["ms"],
             plain_ms=c["plain_ms"], bound_ms=c["bound_ms"], bound_by=c["bound_by"],
             library_ms=c["library_ms"],
-            shape={k: c[k] for k in ("M", "T", "G", "K", "N", "B", "S", "H", "Hkv", "d")
-                   if k in c},
+            shape={k: c[k] for k in ("M", "T", "G", "K", "N", "B", "S", "H", "Hkv", "d",
+                                     "L", "P", "chunk", "Lq", "Lk") if k in c},
             dtype="float32"))
     # the quantized variants (stages 1b, 5b, fp8 pages): a decode-step call
     # each, with its launches in the serving run that takes it
@@ -2348,7 +2808,12 @@ def main() -> int:
          llama["abft"]["serve"]["variants"]["mx_matmul_fused abft"]),
         ("mx_grouped_matmul (ABFT, f32)", "mx_grouped_matmul",
          dict(variant="abft", dtype="f32"),
-         grok["abft"]["serve"]["variants"]["mx_grouped_matmul abft"]))
+         grok["abft"]["serve"]["variants"]["mx_grouped_matmul abft"]),
+        # this slice: the flash attention kernel on the llama draft forward
+        # (its launches in the phase 4 draft-model run)
+        ("mx_flash_attention (llama draft)", "mx_flash_attention",
+         dict(label="llama draft", dtype="float32"),
+         llama["serve_spec"]["draft-model spec4"]["launches"]["mx_flash_attention"]))
     for name, kernel, sel, n in variants:
         if n <= 0:
             raise AssertionError(f"{name} was not launched on its serving path")
@@ -2361,14 +2826,15 @@ def main() -> int:
             replaces=TPU_KERNELS[kernel],
             launches=n, max_abs_err=c["max_abs_err"], ms=c["ms"], plain_ms=c["plain_ms"],
             bound_ms=c["bound_ms"], bound_by=c["bound_by"], library_ms=c["library_ms"],
-            shape={k: c[k] for k in ("M", "T", "G", "K", "N", "B", "S", "H", "Hkv", "d")
-                   if k in c},
+            shape={k: c[k] for k in ("M", "T", "G", "K", "N", "B", "S", "H", "Hkv", "d",
+                                     "Lq", "Lk") if k in c},
             dtype=c.get("pair", c["dtype"])))
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(dict(
-        device=smi, build_s=build_s, ptxas=ptxas, checks=checks, abft_checks=abft_checks_,
-        **llama, grok=grok, kernels=summary), indent=1, default=str))
+        device=smi, build_s=build_s, nvcc_cpu_s=_build.NVCC_CPU_SECONDS, ptxas=ptxas,
+        checks=checks, abft_checks=abft_checks_,
+        **llama, grok=grok, zamba2=zamba2, kernels=summary), indent=1, default=str))
     print(json.dumps({"kernels": summary}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -13,21 +13,28 @@
 | mx_grouped_matmul.py::mx_grouped_matmul | mx_grouped_matmul.py + csrc/mx_grouped_matmul*.cu |
 |   (f32/bf16 and int8/fp8 experts with per-expert scales, 2:4 sparse      |
 |    experts, per-expert ABFT; plain in ref.py)                              |
+| ssd_scan.py::ssd_scan               | ssd_scan.py + csrc/ssd_scan.cu        |
+|   (batched (B, L, H, P), b / c per group, f32/bf16; plain in ref.py)       |
+| mx_flash_attention.py::mx_flash_attention | mx_flash_attention.py +          |
+|   csrc/mx_flash_attention.cu ((B, S, H, d), GQA, causal or not, d <= 128, |
+|   f32/bf16; plain in ref.py)                                              |
 
 `sparse.py` (the 2:4 wire format) and `abft.py` (checksum specs, fault
 operands, the recovery policy and counters) are plain Python beside them.
 
-Not ported yet: mx_flash_attention, ssd_scan and the ring composites
-(ROADMAP queue 2).
+Not ported yet: the ring composites of mx_collective_matmul.py (ROADMAP
+queue 2).
 """
 from __future__ import annotations
 
 from typing import Dict
 
 from .baseline_matmul import baseline_matmul
+from .mx_flash_attention import mx_flash_attention
 from .mx_flash_decode import mx_flash_decode, mx_flash_verify
 from .mx_grouped_matmul import mx_grouped_matmul
 from .mx_matmul import mx_matmul_fused
+from .ssd_scan import ssd_scan
 
 WRAPPERS = {
     "mx_matmul_fused": mx_matmul_fused,
@@ -35,6 +42,8 @@ WRAPPERS = {
     "mx_flash_decode": mx_flash_decode,
     "mx_flash_verify": mx_flash_verify,
     "mx_grouped_matmul": mx_grouped_matmul,
+    "ssd_scan": ssd_scan,
+    "mx_flash_attention": mx_flash_attention,
 }
 
 

@@ -29,7 +29,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 SOURCES = ("mx_matmul", "mx_matmul_sparse", "mx_matmul_abft", "baseline_matmul",
            "mx_flash_decode", "mx_grouped_matmul", "mx_grouped_matmul_sparse",
-           "mx_grouped_matmul_abft")
+           "mx_grouped_matmul_abft", "ssd_scan", "mx_flash_attention")
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2,
                 torch.float8_e4m3fn: 3}  # csrc/common.cuh ReproDType
@@ -38,6 +38,7 @@ QUANTIZED = (torch.int8, torch.float8_e4m3fn)  # payloads that carry f32 scales
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
+NVCC_CPU_SECONDS: Dict[str, float] = {}  # per source built in this process
 
 
 def _nvcc() -> str:
@@ -77,7 +78,9 @@ def _start(name: str):
 
 def _finish(name: str, job) -> None:
     out, tmp, log, proc = job
-    rc = proc.wait()
+    _, status, usage = os.wait4(proc.pid, 0)  # nvcc and the tools it waited for
+    proc.returncode = rc = os.waitstatus_to_exitcode(status)
+    NVCC_CPU_SECONDS[name] = usage.ru_utime + usage.ru_stime
     if rc != 0:
         raise RuntimeError(f"nvcc failed for csrc/{name}.cu (rc={rc}):\n"
                            + log.read_text()[-4000:])

@@ -41,6 +41,130 @@ def baseline_matmul_ref(a: torch.Tensor, b: torch.Tensor, bk: int,
     return out
 
 
+def ssd_scan_ref(x, a_log, b, c, chunk: int = 0):
+    """Mamba-2 SSD oracle: the exact sequential scan of one head.
+
+    x: (L, P); a_log: (L,) log of the per-step decay; b, c: (L, S).
+    h_t = exp(a_log_t) h_{t-1} + b_t^T x_t and y_t = c_t h_t in f32; returns
+    y (L, P) in x's dtype.  `chunk` is unused: the chunked kernel and
+    `ssd_scan_plain` must agree with this for every chunk size."""
+    L, P = x.shape
+    h = torch.zeros((b.shape[-1], P), dtype=torch.float32, device=x.device)
+    xf, af, bf, cf = (t.float() for t in (x, a_log, b, c))
+    ys = []
+    for t in range(L):
+        h = torch.exp(af[t]) * h + torch.outer(bf[t], xf[t])
+        ys.append(cf[t] @ h)
+    if not ys:
+        return torch.zeros_like(x)
+    return torch.stack(ys).to(x.dtype)
+
+
+def _group_heads(t: torch.Tensor, H: int) -> torch.Tensor:
+    """(B, L, G, S) -> (B, L, H, S): head h reads group h // (H / G)."""
+    G = t.shape[2]
+    if G == H:
+        return t
+    return t[:, :, torch.arange(H, device=t.device) // (H // G)]
+
+
+def ssd_scan_plain(x, a_log, b, c, chunk: int = 128):
+    """The plain version of the `ssd_scan` kernel: JAX's batched chunked SSD
+    (`repro/models/ssm.py::ssd_chunked`'s scan body), its `lax.scan` over
+    chunks written as a loop.
+
+    x: (B, L, H, P); a_log: (B, L, H); b, c: (B, L, G, S) with G dividing H
+    (head h reads group h // (H / G)).  L is padded to a multiple of
+    `chunk` with a_log = 0 and b = 0, which leaves the state untouched;
+    every product runs in f32.  Returns y (B, L, H, P) in x's dtype."""
+    B, L, H, P = x.shape
+    b, c = _group_heads(b, H), _group_heads(c, H)
+    S = b.shape[-1]
+    pad = (-L) % chunk
+    xf, af, bf, cf = (t.float() for t in (x, a_log, b, c))
+    if pad:
+        xf = torch.nn.functional.pad(xf, (0, 0, 0, 0, 0, pad))
+        af = torch.nn.functional.pad(af, (0, 0, 0, pad))
+        bf = torch.nn.functional.pad(bf, (0, 0, 0, 0, 0, pad))
+        cf = torch.nn.functional.pad(cf, (0, 0, 0, 0, 0, pad))
+    tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool, device=x.device))
+    tri = tri[None, :, :, None]
+    h = torch.zeros((B, H, S, P), dtype=torch.float32, device=x.device)
+    ys = []
+    for start in range(0, L + pad, chunk):
+        xq, aq, bq, cq = (t[:, start:start + chunk] for t in (xf, af, bf, cf))
+        acum = torch.cumsum(aq, dim=1)  # (B, Q, H) inclusive
+        # decay[t, s] = exp(acum_t - acum_s), masked before the exp
+        delta = acum[:, :, None, :] - acum[:, None, :, :]  # (B, Q, Q, H)
+        decay = torch.where(tri, torch.exp(torch.where(tri, delta, torch.zeros_like(delta))),
+                            torch.zeros_like(delta))
+        g = torch.einsum("blhs,bmhs->blmh", cq, bq)
+        y = torch.einsum("blmh,bmhp->blhp", g * decay, xq)
+        y = y + torch.exp(acum)[..., None] * torch.einsum("blhs,bhsp->blhp", cq, h)
+        p_last = torch.exp(acum[:, -1:, :])  # (B, 1, H)
+        scale = torch.exp(acum[:, -1:, :] - acum)  # (B, Q, H)
+        h = p_last[:, 0, :, None, None] * h + torch.einsum(
+            "blhs,blhp->bhsp", bq * scale[..., None], xq)
+        ys.append(y)
+    if not ys:
+        return torch.zeros_like(x)
+    return torch.cat(ys, dim=1)[:, :L].to(x.dtype)
+
+
+def flash_attention_ref(q, k, v, *, causal: bool = True, scale=None):
+    """Softmax attention oracle of one head: q (Lq, d), k / v (Lk, d).  The
+    causal mask is JAX's oracle's, aligned bottom-right (query i sees keys
+    <= i + Lk - Lq); at Lq == Lk it is the kernel's top-left mask."""
+    Lq, d = q.shape
+    Lk = k.shape[0]
+    scale = scale if scale is not None else 1.0 / (d ** 0.5)
+    s = (q.float() @ k.float().t()) * scale
+    if causal:
+        mask = torch.tril(torch.ones((Lq, Lk), dtype=torch.bool, device=q.device),
+                          diagonal=Lk - Lq)
+        s = s.masked_fill(~mask, float("-inf"))
+    p = torch.softmax(s, dim=-1)
+    return (p @ v.float()).to(q.dtype)
+
+
+def flash_attention_plain(q, k, v, *, causal: bool = True, bk: int = 128):
+    """The plain version of the `mx_flash_attention` kernel: the online
+    softmax of `repro/kernels/mx_flash_attention.py::_flash_kernel` over KV
+    tiles of `bk` rows, for every (batch, head) at once.
+
+    q: (B, Lq, H, d); k, v: (B, Lk, Hkv, d), query head h reading kv head
+    h // (H / Hkv).  Scores at scale 1/sqrt(d) in f32, the causal mask
+    top-left (qpos >= kpos, no offset); (m, l, acc) in f32, the
+    probabilities rounded to v's dtype for the PV product; a row masked
+    throughout gives 0.  Returns (B, Lq, H, d) in q's dtype."""
+    B, Lq, H, d = q.shape
+    Lk, Hkv = k.shape[1], k.shape[2]
+    heads = torch.arange(H, device=q.device) // (H // Hkv)
+    qf = q.float().transpose(1, 2)                      # (B, H, Lq, d)
+    kf = k.float()[:, :, heads].transpose(1, 2)         # (B, H, Lk, d)
+    vf = v[:, :, heads].transpose(1, 2)
+    scale = 1.0 / math.sqrt(d)
+    qpos = torch.arange(Lq, device=q.device)[:, None]
+    m = torch.full((B, H, Lq), float("-inf"), device=q.device)
+    l = torch.zeros((B, H, Lq), device=q.device)
+    acc = torch.zeros((B, H, Lq, d), device=q.device)
+    for k0 in range(0, Lk, bk):
+        s = torch.einsum("bhqd,bhkd->bhqk", qf, kf[:, :, k0:k0 + bk]) * scale
+        if causal:
+            kpos = k0 + torch.arange(s.shape[-1], device=q.device)[None, :]
+            s = s.masked_fill(~(qpos >= kpos), float("-inf"))
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        m_safe = torch.where(torch.isfinite(m_new), m_new, torch.zeros_like(m_new))
+        alpha = torch.where(torch.isfinite(m), torch.exp(m - m_safe), torch.zeros_like(m))
+        p = torch.exp(s - m_safe[..., None])  # masked: exp(-inf) == 0
+        l = l * alpha + p.sum(dim=-1)
+        acc = acc * alpha[..., None] + torch.einsum(
+            "bhqk,bhkd->bhqd", p.to(v.dtype).float(), vf[:, :, k0:k0 + bk].float())
+        m = m_new
+    out = acc / torch.clamp(l[..., None], min=1e-30)
+    return out.transpose(1, 2).to(q.dtype)
+
+
 def _gather_pages(pages: torch.Tensor, page_table: torch.Tensor,
                   scale=None) -> torch.Tensor:
     """(P, ps, Hkv, d) pool + (B, W) table -> (B, W*ps, Hkv, d) f32, each

@@ -1,26 +1,41 @@
-"""Serving launcher: continuous batching over the paged KV cache (port of
-the `_run_continuous` path of `repro/launch/serve.py`).
+"""Serving launcher (port of `repro/launch/serve.py`): static generation
+over the dense cache, or continuous batching over the dense or paged cache.
 
 Runs on the card unless asked otherwise:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \\
       --batch 8 --prompt-len 128 --gen 32 --prefix-cache --prefill-chunk 64
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b \\
+      --batch 8 --prompt-len 64 --gen 16       # static, dense cache
 CPU smoke (the plain PyTorch path, no GPU needed):
+  PYTHONPATH=src python -m repro_torch.launch.serve --smoke --prefill-chunk 8 \\
+      --device cpu                        # static: chunked prefill + decode
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b --smoke \\
+      --device cpu                        # Mamba2 hybrid, token-stepped prompt
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b --smoke \\
+      --continuous --device cpu           # the dense continuous batcher
   PYTHONPATH=src python -m repro_torch.launch.serve --smoke --prefix-cache \\
       --prefill-chunk 4 --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --arch grok-1-314b --smoke \\
       --prefix-cache --prefill-chunk 4 --device cpu   # MoE blocks
   PYTHONPATH=src python -m repro_torch.launch.serve --smoke --speculate 4 \\
       --draft ngram --prefill-chunk 4 --device cpu   # add --kv-cache int8
-  PYTHONPATH=src python -m repro_torch.launch.serve --smoke --abft \
+  PYTHONPATH=src python -m repro_torch.launch.serve --smoke --abft --paged \\
       --prefill-chunk 4 --device cpu   # checksummed serving
---speculate K drafts K tokens per slot and verifies all K+1 in one pass
-(greedy-exact); --draft is `ngram` or an arch id for a draft model that
-shares the target's vocabulary; --kv-cache int8 stores the pages as int8
-with per-row scales; --abft checksums every MX GEMM of the step (on the
-card: the ABFT kernels with tile recovery) and the host logits copy.
+As in JAX: without --continuous / --paged (or a flag that implies one) the
+launcher generates statically -- a (batch, max_len) bf16 dense cache, the
+prompt through chunked prefill where the model supports it
+(--prefill-chunk), token stepping otherwise, then greedy decode.
+--continuous streams 2x requests through --batch slots of the dense
+batcher, --paged through the paged one; --prefix-cache and --speculate
+imply --paged, --abft implies --continuous.  --speculate K drafts K tokens
+per slot and verifies all K+1 in one pass (greedy-exact); --draft is
+`ngram` or an arch id for a draft model that shares the target's
+vocabulary; --kv-cache int8 (with --paged) stores the pages as int8 with
+per-row scales; --abft checksums every MX GEMM of the step (on the card:
+the ABFT kernels with tile recovery) and the host logits copy.
 
-Flags of the JAX launcher that are not ported yet (--continuous without
---paged, --max-len, --chaos, --disagg, ...) are rejected.
+Flags of the JAX launcher that are not ported yet (--chaos, --disagg, ...)
+are rejected.
 """
 from __future__ import annotations
 
@@ -35,9 +50,11 @@ from ..configs import ARCH_IDS, get_config
 from ..core.device import resolve_device
 from ..models import build_model
 from ..models.modules import param_device
+from .steps import make_chunked_prefill_step, make_serve_step
 
-UNPORTED_FLAGS = ("--continuous", "--max-len", "--chaos", "--chaos-seed", "--fault-rate",
-                  "--disagg", "--disagg-migrate")
+UNPORTED_FLAGS = ("--chaos", "--chaos-seed", "--fault-rate", "--disagg",
+                  "--disagg-migrate")
+PORTED_BLOCKS = ("dense", "moe", "mamba2")
 
 
 def make_trace(cfg, n_req: int, prompt_len: int, gen: int, prefix_cache: bool):
@@ -83,9 +100,67 @@ def make_drafter(cfg, args, device):
     return DraftModelProposer(dmodel, dmodel.init(1, device=device))
 
 
+def _where(device: torch.device) -> str:
+    return torch.cuda.get_device_name(device) if device.type == "cuda" else "CPU"
+
+
+def _run_static(model, cfg, params, args) -> int:
+    """JAX's static generation: --batch prompts of --prompt-len random tokens
+    (numpy seed 0) into a (batch, max_len) dense cache of JAX's default
+    bf16, prefilled in --prefill-chunk blocks where the model supports it
+    and token by token otherwise, then --gen greedy tokens."""
+    B = args.batch
+    max_len = args.max_len or (args.prompt_len + args.gen)
+    device = param_device(params)
+    rng = np.random.default_rng(0)
+    prompt = rng.integers(0, cfg.vocab, (B, args.prompt_len)).astype(np.int32)
+    prompt = torch.as_tensor(prompt, device=device).long()
+    cache = model.make_cache(B, max_len, device=device)
+    step = make_serve_step(model, cfg)
+    chunk = args.prefill_chunk
+    can_chunk = chunk > 1 and model.supports_chunked_prefill()
+    if chunk > 1 and not can_chunk:
+        print(f"chunked prefill unsupported for {cfg.name}; "
+              "falling back to token stepping")
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+
+    sync()
+    t0 = time.perf_counter()
+    if can_chunk:
+        prefill = make_chunked_prefill_step(model, cfg)
+        t = 0
+        while t < args.prompt_len:
+            c = min(chunk, args.prompt_len - t)
+            logits, cache = prefill(params, cache, prompt[:, t:t + c], t)
+            t += c
+        sync()
+        print(f"prefill: {args.prompt_len} tokens in chunks of {chunk}; "
+              f"TTFT {(time.perf_counter() - t0) * 1e3:.1f}ms")
+    else:
+        for t in range(args.prompt_len):
+            logits, cache = step(params, cache, prompt[:, t:t + 1], t)
+    out_tokens = []
+    for t in range(args.prompt_len, args.prompt_len + args.gen):
+        tok = logits[:, -1].argmax(dim=-1)[:, None]
+        out_tokens.append(tok)
+        logits, cache = step(params, cache, tok, t)
+    sync()
+    wall = time.perf_counter() - t0
+    gen = torch.cat(out_tokens, dim=1).cpu().numpy()
+    total_tokens = B * (args.prompt_len + args.gen)
+    print(f"generated {gen.shape} tokens; "
+          f"{total_tokens / wall:.1f} tok/s (batch {B}, {_where(device)})")
+    print("sample:", gen[0][:16].tolist())
+    return 0
+
+
 def _run_continuous(model, cfg, params, args) -> int:
-    """2x requests stream through --batch decode slots over the paged KV
-    cache; --prefix-cache shares a common system prompt across them."""
+    """2x requests stream through --batch decode slots of the dense batcher,
+    or the paged one with --paged; --prefix-cache shares a common system
+    prompt across them."""
     from ..runtime.batcher import ContinuousBatcher
 
     drafter = make_drafter(cfg, args, param_device(params)) if args.speculate else None
@@ -95,15 +170,16 @@ def _run_continuous(model, cfg, params, args) -> int:
 
         kv_quant = QuantSpec("int8", "tile")
     B = args.batch
-    max_len = args.prompt_len + args.gen
+    max_len = args.max_len or (args.prompt_len + args.gen)
     # the prefix cache keeps pinned pages resident across requests: size the
     # pool above the dense rectangle so pins don't starve admissions
     num_pages = (B + 2) * -(-max_len // args.page_size) if args.prefix_cache else None
     batcher = ContinuousBatcher(
-        model, params, batch_slots=B, max_len=max_len, page_size=args.page_size,
-        num_pages=num_pages, kv_quant=kv_quant, prefix_cache=args.prefix_cache,
-        prefill_chunk=args.prefill_chunk, speculate=args.speculate, drafter=drafter,
-        abft=args.abft)
+        model, params, batch_slots=B, max_len=max_len, paged=args.paged,
+        page_size=args.page_size, num_pages=num_pages, kv_quant=kv_quant,
+        prefix_cache=args.prefix_cache,
+        prefill_chunk=args.prefill_chunk if args.paged else 0,
+        speculate=args.speculate, drafter=drafter, abft=args.abft)
     reqs = make_trace(cfg, 2 * B, args.prompt_len, args.gen, args.prefix_cache)
     t0 = time.perf_counter()
     for r in reqs:
@@ -113,21 +189,22 @@ def _run_continuous(model, cfg, params, args) -> int:
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     total = sum(len(r.prompt) + len(r.output) for r in finished.values())
-    mode = "paged+prefix" if args.prefix_cache else "paged"
+    mode = "paged" if args.paged else "dense"
+    if args.prefix_cache:
+        mode += "+prefix"
     if args.kv_cache == "int8":
         mode += "+int8"
     if args.speculate:
         mode += f"+spec{args.speculate}"
     if args.abft:
         mode += "+abft"
-    where = (torch.cuda.get_device_name(batcher.device)
-             if batcher.device.type == "cuda" else "CPU")
     print(f"continuous batching [{mode} cache]: {len(finished)} requests "
-          f"through {B} slots; {total / wall:.1f} tok/s ({where})")
-    st = batcher.pool_stats()
-    print(f"  pages: {st.pages_in_use} in use / {st.num_pages} pool "
-          f"(high water {st.high_water}, page_size {st.page_size}, "
-          f"peak utilization {st.high_water / st.num_pages:.2f})")
+          f"through {B} slots; {total / wall:.1f} tok/s ({_where(batcher.device)})")
+    if args.paged:
+        st = batcher.pool_stats()
+        print(f"  pages: {st.pages_in_use} in use / {st.num_pages} pool "
+              f"(high water {st.high_water}, page_size {st.page_size}, "
+              f"peak utilization {st.high_water / st.num_pages:.2f})")
     if args.speculate:
         sp = batcher.spec_stats()
         print(f"  speculation [k={args.speculate}, draft {args.draft}]: "
@@ -160,8 +237,14 @@ def main(argv=None) -> int:
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=16)
     ap.add_argument("--gen", type=int, default=16)
+    ap.add_argument("--max-len", type=int, default=None,
+                    help="cache length per sequence (default prompt-len + gen)")
+    ap.add_argument("--continuous", action="store_true",
+                    help="continuous batching: 2x requests stream through "
+                         "--batch decode slots (runtime/batcher.py)")
     ap.add_argument("--paged", action="store_true",
-                    help="paged KV cache (the only cache backend ported)")
+                    help="paged KV cache (implies --continuous): page-pool "
+                         "allocator + split-KV flash decode")
     ap.add_argument("--page-size", type=int, default=16,
                     help="tokens per KV page")
     ap.add_argument("--prefix-cache", action="store_true",
@@ -199,20 +282,30 @@ def main(argv=None) -> int:
         ap.error(f"unrecognized arguments: {' '.join(unknown)}")
     if args.speculate < 0:
         ap.error(f"--speculate must be >= 0, got {args.speculate}")
+    if args.abft:
+        args.continuous = True  # the ABFT guard lives in the batcher's step
+    if args.prefix_cache:
+        args.paged = True  # the prefix index lives on the page pool
     if args.speculate:
         args.paged = True  # drafts land in (and roll back over) KV pages
+    if args.kv_cache != "f32" and not args.paged:
+        ap.error("--kv-cache int8 requires --paged (the quantized cache "
+                 "lives in the page pool)")
     device = resolve_device(args.device)
 
     cfg = get_config(args.arch + ("-smoke" if args.smoke else ""))
+    if (cfg.model_kind == "encdec" or cfg.frontend_dim
+            or any(kind not in PORTED_BLOCKS for kind, _ in cfg.blocks)):
+        raise SystemExit(f"{cfg.name}: the xLSTM, encoder-decoder and prefix-embedding "
+                         "models are not ported yet (see ROADMAP.md); dense, MoE and "
+                         "Mamba2 / zamba2 hybrid decoders are")
     model = build_model(cfg)
-    if not model.supports_paged():
-        raise SystemExit(f"{cfg.name}: the SSM, xLSTM, shared-block, encoder-decoder "
-                         "and prefix-embedding models are not ported yet (see "
-                         "ROADMAP.md); dense and MoE attention-only models are")
     if args.speculate and args.draft != "ngram":
         _draft_config(cfg, args)  # refuse a mismatched draft before any weights
     params = model.init(0, device=device)
-    return _run_continuous(model, cfg, params, args)
+    if args.continuous or args.paged:
+        return _run_continuous(model, cfg, params, args)
+    return _run_static(model, cfg, params, args)
 
 
 if __name__ == "__main__":

@@ -4,15 +4,18 @@ attention (full, chunked, and over a paged KV cache), MLP.
 
 All weight-times-activation contractions route through `core.ops.linear`
 (the MX dispatch); paged decode attention through `mx_flash_decode`, the
-speculative window through `mx_flash_verify`.  The tied LM head, the full
-and chunked attention of the full forward and the paged prefill attention
-stay plain PyTorch, as they stay outside any Pallas kernel in JAX.  An
-int8 or fp8 (e4m3) KV cache quantizes each K/V row on write (per row and
-head) and the attention dequantizes on read.  Every projection takes the
-block's `precision` declaration, or the ambient `use_precision()` context.
+speculative window through `mx_flash_verify`, and the full and chunked
+attention of the full forward through `mx_flash_attention` on the CUDA
+backends (JAX's models compute that attention in jnp; the TPU kernel
+computes the same function per head).  The tied LM head, the paged
+prefill attention and the dense-cache decode and prefill attention stay
+plain PyTorch, as they stay outside any Pallas kernel in JAX.  An int8 or
+fp8 (e4m3) KV cache quantizes each K/V row on write (per row and head) and
+the attention dequantizes on read.  Every projection takes the block's
+`precision` declaration, or the ambient `use_precision()` context.
 
-Not ported yet: the dense (non-paged) cache path (`Attention.decode`,
-`prefill`).
+The dense cache (`init_cache`, `decode`, `prefill`) is the
+(batch, max_len, Hkv, hd) rectangle of JAX's, written in place.
 """
 from __future__ import annotations
 
@@ -24,6 +27,7 @@ import torch
 
 from ..core import ops
 from ..core.precision import QuantSpec
+from ..kernels.mx_flash_attention import mx_flash_attention
 from ..kernels.mx_flash_decode import mx_flash_decode, mx_flash_verify
 from ..kernels.quant import quantize
 from ..kernels.ref import paged_decode_ref, paged_prefill_ref, paged_verify_ref
@@ -111,7 +115,15 @@ def _repeat_kv(k: torch.Tensor, groups: int) -> torch.Tensor:
     return k[:, :, :, None, :].expand(b, s, h, groups, d).reshape(b, s, h * groups, d)
 
 
-def full_attention(q, k, v, *, causal: bool, q_offset: int = 0) -> torch.Tensor:
+def _promoted(p: torch.Tensor, v: torch.Tensor):
+    """p and v in their promoted dtype: jnp.einsum promotes mixed operands
+    (f32 probabilities against a bf16 cache give f32), torch.einsum does
+    not."""
+    dt = torch.promote_types(p.dtype, v.dtype)
+    return p.to(dt), v.to(dt)
+
+
+def full_attention(q, k, v, *, causal: bool, q_offset=0) -> torch.Tensor:
     """q: (B, Sq, H, D), k/v: (B, Sk, H, D).  Materializes the (Sq, Sk)
     scores in f32; the probabilities are cast to q's dtype before the PV
     product, as in JAX."""
@@ -123,7 +135,7 @@ def full_attention(q, k, v, *, causal: bool, q_offset: int = 0) -> torch.Tensor:
         kpos = torch.arange(sk, device=q.device)[None, :]
         s = s.masked_fill(~(qpos >= kpos), float("-inf"))
     p = torch.softmax(s, dim=-1).to(q.dtype)
-    return torch.einsum("bhqk,bkhd->bqhd", p, v)
+    return torch.einsum("bhqk,bkhd->bqhd", *_promoted(p, v))
 
 
 def chunked_attention(q, k, v, *, causal: bool, block_kv: int = 512,
@@ -212,20 +224,94 @@ class Attention(Module):
     def __call__(self, p, x, *, positions=None, residual=None):
         """Self-attention over x: (B, S, D) at `positions` (B, S), 0..S-1 by
         default; `residual` fuses into the output projection's write-back.
-        (JAX's cross-attention `kv=` comes with the encoder-decoder model.)"""
+        On the CUDA backends both of JAX's branches (full attention, and
+        the chunked online softmax past `chunked_threshold` keys) are one
+        `mx_flash_attention` launch over every head, reading each kv head
+        in place; the "torch" backend runs JAX's two plain forms.  (JAX's
+        cross-attention `kv=` comes with the encoder-decoder model.)"""
         b, s, _ = x.shape
         if positions is None:
             positions = torch.arange(s, device=x.device).expand(b, s)
         q, k, v = self._qkv(p, x, positions)
-        groups = self.n_heads // self.n_kv_heads
-        k, v = _repeat_kv(k, groups), _repeat_kv(v, groups)
-        if k.shape[1] > self.chunked_threshold:
-            o = chunked_attention(q, k, v, causal=self.causal)
+        if ops.current_policy().resolve(x) == "torch":
+            groups = self.n_heads // self.n_kv_heads
+            k, v = _repeat_kv(k, groups), _repeat_kv(v, groups)
+            if k.shape[1] > self.chunked_threshold:
+                o = chunked_attention(q, k, v, causal=self.causal)
+            else:
+                o = full_attention(q, k, v, causal=self.causal)
         else:
-            o = full_attention(q, k, v, causal=self.causal)
+            o = mx_flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                                   causal=self.causal)
         o = o.reshape(b, s, self.n_heads * self.hd)
         return ops.linear(o, p["wo"], residual=residual, out_dtype=x.dtype,
                           tp_mode="reduce_scatter", precision=self.precision)
+
+    # ---------------- dense KV cache ----------------
+
+    def init_cache(self, batch: int, max_len: int, *, dtype=torch.bfloat16,
+                   device="cuda"):
+        """The dense (batch, max_len, Hkv, hd) K and V rectangle, zeroed
+        (bf16 by default, as in JAX)."""
+        shape = (batch, max_len, self.n_kv_heads, self.hd)
+        return {"k": torch.zeros(shape, dtype=dtype, device=device),
+                "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+    def decode(self, p, x, cache, index, *, residual=None):
+        """One decode step against the dense cache.  x: (B, 1, D); index: a
+        scalar position shared by the batch, or (B,) per-slot positions
+        (continuous batching).  The new K/V row is written IN PLACE (JAX:
+        `dynamic_update_slice` or a scatter into a copy); the attention is
+        plain PyTorch on every backend, as it is jnp in JAX.  Returns
+        (out, cache)."""
+        b = x.shape[0]
+        index = torch.as_tensor(index, device=x.device)
+        idx_b = torch.broadcast_to(index, (b,)).long()
+        q, k_new, v_new = self._qkv(p, x, idx_b[:, None])
+        dt = cache["k"].dtype
+        if index.dim() == 0:
+            cache["k"][:, int(index)] = k_new[:, 0].to(dt)
+            cache["v"][:, int(index)] = v_new[:, 0].to(dt)
+        else:  # per-slot scatter
+            rows = torch.arange(b, device=x.device)
+            cache["k"][rows, idx_b] = k_new[:, 0].to(dt)
+            cache["v"][rows, idx_b] = v_new[:, 0].to(dt)
+        # every cache row at or before each slot's own position, in JAX's
+        # dtypes: f32 scores, probabilities in q's dtype, the PV promoted
+        groups = self.n_heads // self.n_kv_heads
+        k = _repeat_kv(cache["k"], groups)
+        v = _repeat_kv(cache["v"], groups)
+        s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) / math.sqrt(self.hd)
+        kpos = torch.arange(k.shape[1], device=x.device)[None, None, None, :]
+        s = s.masked_fill(~(kpos <= idx_b[:, None, None, None]), float("-inf"))
+        pr = torch.softmax(s, dim=-1).to(q.dtype)
+        o = torch.einsum("bhqk,bkhd->bqhd", *_promoted(pr, v))
+        o = o.reshape(b, 1, self.n_heads * self.hd)
+        out = ops.linear(o, p["wo"], residual=residual, out_dtype=x.dtype,
+                         tp_mode="reduce_scatter", precision=self.precision)
+        return out, cache
+
+    def prefill(self, p, x, cache, index, *, residual=None):
+        """Chunked prefill into the dense cache: x (B, S, D) writes rows
+        [index, index+S) in place (index a scalar shared by the batch) and
+        attends causally over the cache at q_offset = index, plain on every
+        backend (JAX: `full_attention(q_offset=index)`).  The causal mask
+        never reads past the written prefix, so attending over the whole
+        cache is exact."""
+        b, sq, _ = x.shape
+        index = int(index)
+        positions = (index + torch.arange(sq, device=x.device)).expand(b, sq)
+        q, k_new, v_new = self._qkv(p, x, positions)
+        dt = cache["k"].dtype
+        cache["k"][:, index:index + sq] = k_new.to(dt)
+        cache["v"][:, index:index + sq] = v_new.to(dt)
+        groups = self.n_heads // self.n_kv_heads
+        o = full_attention(q, _repeat_kv(cache["k"], groups),
+                           _repeat_kv(cache["v"], groups), causal=True, q_offset=index)
+        o = o.reshape(b, sq, self.n_heads * self.hd)
+        out = ops.linear(o, p["wo"], residual=residual, out_dtype=x.dtype,
+                         tp_mode="reduce_scatter", precision=self.precision)
+        return out, cache
 
     # ---------------- paged KV cache ----------------
 

@@ -1,16 +1,29 @@
-"""Continuous-batching serving scheduler over a paged KV cache (port of the
-paged path of `repro/runtime/batcher.py`).
+"""Continuous-batching serving scheduler (port of
+`repro/runtime/batcher.py`).
 
 Fixed B decode slots; requests stream in, each slot decodes at its own
-position.  The KV cache is a flat page pool + per-slot page tables
-(runtime/kv_pages): admission reserves ceil(expected_tokens/page_size)
-pages from the free list (back-pressuring the queue when the pool is
-exhausted instead of crashing), eviction returns them with NO zeroing, and
-each decode step attends only over pages the live sequences touch.  The
-device step is `model.decode_step_paged` (the CUDA `mx_flash_decode` and
-`mx_matmul_fused` kernels on the card).  ``kv_quant=QuantSpec("int8")``
-(or ``QuantSpec("fp8_e4m3")``) stores the pages as int8 (fp8) with per-row
-f32 scale pages.
+position.  Two cache backends:
+
+  - paged (``paged=True``, the port's default): a flat page pool + per-slot
+    page tables (runtime/kv_pages): admission reserves
+    ceil(expected_tokens/page_size) pages from the free list
+    (back-pressuring the queue when the pool is exhausted instead of
+    crashing), eviction returns them with NO zeroing, and each decode step
+    attends only over pages the live sequences touch.  The device step is
+    `model.decode_step_paged` (the CUDA `mx_flash_decode` and
+    `mx_matmul_fused` kernels on the card).  ``kv_quant=QuantSpec("int8")``
+    (or ``QuantSpec("fp8_e4m3")``) stores the pages as int8 (fp8) with
+    per-row f32 scale pages.
+  - dense (``paged=False``, JAX's default): the (slots, max_len) rectangle
+    of `model.make_cache` (`cache_dtype`), and Mamba2 blocks' recurrent
+    state beside it -- the backend of state-block and shared-block models
+    (zamba2).  The device step is `model.decode_step` with a (B,) index; a
+    free slot still steps, with token 0 at index 0, as in JAX.  Admission
+    is immediate, each prompt is stepped token by token, and finishing or
+    preempting a slot zeroes its rows of every cache leaf (JAX resets a
+    slot there, not at admission).  The prefix cache, chunked prefill,
+    speculation and `kv_quant` need the pages and raise ValueError
+    without them, as in JAX.
 
   - ``prefix_cache=True``: a content index over the page pool
     (runtime/prefix_cache) maps each request's longest already-prefilled
@@ -45,11 +58,10 @@ into the prefix index, so re-admission recomputes only the unshared tail).
     advance.  With no corruption the streams are bitwise those of
     ``abft=False``.
 
-Not ported yet: the dense (non-paged) cache backend, chaos injection
-(with the non-finite-logit quarantine it drives, and the host-copy bit
-flips it would feed the ABFT audit), and the external pool / prefix index
-that disaggregated serving shares; the first two raise
-NotImplementedError.
+Not ported yet: chaos injection (with the non-finite-logit quarantine it
+drives, and the host-copy bit flips it would feed the ABFT audit), which
+raises NotImplementedError, and the external pool / prefix index that
+disaggregated serving shares.
 """
 from __future__ import annotations
 
@@ -90,10 +102,12 @@ def _next_pow2(n: int) -> int:
 
 class ContinuousBatcher:
     """model: DecoderLM; params: its parameters (the batcher runs on their
-    device); B slots; max_len tokens per slot.  ``page_size`` tokens per
-    page, ``num_pages`` allocatable pages (default: every slot at max_len).
-    ``kv_quant``, ``prefix_cache``, ``prefill_chunk``, ``speculate`` and
-    ``drafter`` as in the module docstring."""
+    device); B slots; max_len tokens per slot.  ``paged`` picks the cache
+    backend; ``page_size`` tokens per page, ``num_pages`` allocatable pages
+    (default: every slot at max_len).  ``cache_dtype`` is the K/V dtype of
+    either backend.  ``kv_quant``, ``prefix_cache``, ``prefill_chunk``,
+    ``speculate`` and ``drafter`` (paged only) as in the module
+    docstring."""
 
     def __init__(self, model, params, batch_slots: int, max_len: int,
                  cache_dtype=torch.float32, *, paged: bool = True,
@@ -104,19 +118,25 @@ class ContinuousBatcher:
                  straggler: Optional[StragglerDetector] = None,
                  speculate: int = 0, drafter: Optional[DraftProposer] = None,
                  abft: bool = False):
-        if not paged:
-            raise NotImplementedError(
-                "the dense (paged=False) cache backend is not ported yet "
-                "(ROADMAP: dense cache path)")
         if chaos is not None:
             raise NotImplementedError(
-                "chaos injection is not ported yet (ROADMAP queue 1 item 13)")
+                "chaos injection is not ported yet (ROADMAP queue 1 item 6)")
+        if (prefix_cache or prefill_chunk) and not paged:
+            raise ValueError("prefix_cache / prefill_chunk require "
+                             "paged=True (they operate on the page pool)")
+        if speculate and not paged:
+            raise ValueError("speculate requires paged=True (the verify "
+                             "window writes through the page tables)")
         if speculate < 0:
             raise ValueError(f"speculate must be >= 0, got {speculate}")
-        if not model.supports_paged():
-            raise ValueError("model does not support paged decode (needs "
-                             "attention-only segments)")
+        if kv_quant is not None and not paged:
+            raise ValueError("kv_quant requires paged=True (the dense "
+                             "cache dtype is `cache_dtype`)")
+        if paged and not model.supports_paged():
+            raise ValueError("model does not support paged decode (needs attention-"
+                             "only segments; state/shared-block archs use dense)")
         self.model = model
+        self.paged = paged
         self.params = params
         self.device = param_device(params)
         self.B = batch_slots
@@ -150,6 +170,11 @@ class ContinuousBatcher:
         self.sdc_detected = 0
         self.sdc_corrected = 0
 
+        if not paged:
+            self.pool = None
+            self.cache = model.make_cache(batch_slots, max_len, dtype=cache_dtype,
+                                          device=self.device)
+            return
         self.page_size = page_size
         self._table_width = -(-max_len // page_size)
         self.pool = PagePool(
@@ -304,6 +329,15 @@ class ContinuousBatcher:
             if idx is None:
                 return
             req = self._pick_next()
+            if not self.paged:
+                self.queue.remove(req)
+                s = self.slots[idx]
+                s.req = req
+                s.seq = req.sequence()
+                s.pos = 0
+                s.prompt_left = len(s.seq)
+                self._mark_admitted(s, req)
+                continue
             if not self._admit_paged(idx, self.slots[idx], req):
                 # pool exhausted: preempt strictly-lower-priority slots
                 # until the reservation fits or no victim remains
@@ -410,10 +444,13 @@ class ContinuousBatcher:
         s = self.slots[i]
         req = s.req
         now = self.steps_run
-        written = s.pos  # rows actually resident (seq[:written])
-        if self.prefix is not None and written >= self.page_size:
-            self.prefix.insert(s.seq[:written], self.pool.owned(i))
-        self.pool.release(i)
+        if self.paged:
+            written = s.pos  # rows actually resident (seq[:written])
+            if self.prefix is not None and written >= self.page_size:
+                self.prefix.insert(s.seq[:written], self.pool.owned(i))
+            self.pool.release(i)
+        else:
+            self._reset_slot_cache(i)
         req.preemptions += 1
         req.state = RequestState.QUEUED
         req.log_event("preempted", now)
@@ -441,7 +478,18 @@ class ContinuousBatcher:
         self._finalize(s.req, reason)
         s.req = None
         s.seq = None
-        self.pool.release(i)  # O(1); no zeroing
+        if self.paged:
+            self.pool.release(i)  # O(1); no zeroing
+        else:
+            self._reset_slot_cache(i)
+
+    def _reset_slot_cache(self, i: int):
+        """Dense backend: zero slot i's rows of every cache leaf, IN PLACE --
+        the O(max_len) write the paged backend replaces with a free-list
+        release.  Every leaf is stacked (n, B, ...), so the slot axis is 1."""
+        for seg in self.cache.values():
+            for t in seg.values():
+                t[:, i].zero_()
 
     # ------------------------------------------------------------------
     # introspection
@@ -452,7 +500,8 @@ class ContinuousBatcher:
         return sum(0 if s.free else 1 for s in self.slots)
 
     def pool_stats(self):
-        return self.pool.stats()
+        """The paged backend's allocator stats (None on the dense backend)."""
+        return self.pool.stats() if self.pool is not None else None
 
     def spec_stats(self) -> Optional[dict]:
         """Acceptance accounting of the verify launches (None when
@@ -507,7 +556,8 @@ class ContinuousBatcher:
         """One device step (`fn`, the decode step unless given) under the
         retry policy: a DeviceFailure is transient and the step is retried
         from unchanged inputs."""
-        fn = fn if fn is not None else self.model.decode_step_paged
+        if fn is None:
+            fn = self.model.decode_step_paged if self.paged else self.model.decode_step
         attempts = 0
         while True:
             try:
@@ -564,7 +614,8 @@ class ContinuousBatcher:
         self._admit(health)
         health.active = self.active
         health.queued = len(self.queue)
-        health.pages_free = self.pool.pages_free
+        if self.pool is not None:
+            health.pages_free = self.pool.pages_free
         if self.active == 0:
             self._flush_health(health, t0, ran_device_step=False)
             return 0
@@ -579,14 +630,17 @@ class ContinuousBatcher:
             else:  # decode phase: feed the last generated token
                 tokens[i, 0] = req.output[-1]
             index[i] = s.pos
-        for i, s in enumerate(self.slots):
-            if not s.free:
-                self.pool.set_length(i, s.pos + 1)
-        table = self._dev(self.pool.page_table(self.B, self._active_width()))
-        lengths = self._dev(self.pool.lengths(self.B))
-        (logits, self.cache), health.retries = self._device_step(
-            (self.params, self._dev(tokens), self.cache, self._dev(index),
-             table, lengths))
+        if self.paged:
+            for i, s in enumerate(self.slots):
+                if not s.free:
+                    self.pool.set_length(i, s.pos + 1)
+            table = self._dev(self.pool.page_table(self.B, self._active_width()))
+            lengths = self._dev(self.pool.lengths(self.B))
+            args = (self.params, self._dev(tokens), self.cache, self._dev(index),
+                    table, lengths)
+        else:  # free slots step token 0 at index 0, as in JAX
+            args = (self.params, self._dev(tokens), self.cache, self._dev(index))
+        (logits, self.cache), health.retries = self._device_step(args)
         # torch.argmax, like jnp.argmax, takes the first maximal index; with
         # ABFT it reads the verified host copy
         last = self._abft_host_logits(logits[:, -1]) if self.abft else logits[:, -1]
@@ -597,8 +651,9 @@ class ContinuousBatcher:
             req = s.req
             s.pos += 1
             # a slot that exhausted its page reservation (an over-long
-            # prompt) is truncated and evicted
-            out_of_room = s.pos >= len(self.pool.owned(i)) * self.page_size
+            # prompt) is truncated and evicted; the dense rectangle's cap is
+            # max_len, below
+            out_of_room = self.paged and s.pos >= len(self.pool.owned(i)) * self.page_size
             if s.prompt_left > 1:
                 s.prompt_left -= 1  # still prefilling; ignore the logit
                 if out_of_room:

@@ -174,13 +174,28 @@ def test_lifecycle_trace_matches_jax():
 
 
 def test_unported_options_raise():
-    """The dense cache and chaos injection still raise; abft=True (which
-    raised until ABFT was ported) builds a batcher with the audit armed
-    (its streams: tests/test_torch_abft.py)."""
+    """Chaos injection still raises.  The dense cache (paged=False), which
+    raised until it was ported, serves a short trace with the JAX dense
+    batcher's streams and finish reasons; abft=True (which raised until
+    ABFT was ported) builds a batcher with the audit armed (its streams:
+    tests/test_torch_abft.py)."""
+    jm = j_build(j_get_config(NAME))
+    jp = jm.init(jax.random.PRNGKey(0))
     tm = build_model(get_config(NAME))
-    tp = tm.init(0, device="cpu")
-    for bad in (dict(paged=False), dict(chaos=object())):
-        with pytest.raises(NotImplementedError):
-            ContinuousBatcher(tm, tp, batch_slots=1, max_len=8, **bad)
+    tp = from_jax_params(jax.tree.map(np.asarray, jp), get_config(NAME), device="cpu")
+    with pytest.raises(NotImplementedError):
+        ContinuousBatcher(tm, tp, batch_slots=1, max_len=8, chaos=object())
+    trace = [(rid, p[:6], m) for rid, p, m in _trace(get_config(NAME).vocab)[:4]]
+    jb = JBatcher(jm, jp, batch_slots=2, max_len=12)
+    for rid, prompt, max_new in trace:
+        jb.submit(JRequest(rid=rid, prompt=prompt, max_new=max_new))
+    jfin = jb.run_to_completion()
+    tb = ContinuousBatcher(tm, tp, batch_slots=2, max_len=12, paged=False)
+    for rid, prompt, max_new in trace:
+        tb.submit(Request(rid=rid, prompt=prompt, max_new=max_new))
+    tfin = tb.run_to_completion()
+    assert {r: (v.output, v.finish_reason) for r, v in tfin.items()} == \
+        {r: (v.output, v.finish_reason) for r, v in jfin.items()}
+    assert tb.steps_run == jb.steps_run and tb.pool_stats() is None
     b = ContinuousBatcher(tm, tp, batch_slots=1, max_len=8, abft=True)
     assert b.abft and b.health_summary()["abft"] == {"sdc_detected": 0, "sdc_corrected": 0}

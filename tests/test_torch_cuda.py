@@ -16,7 +16,9 @@ and "int8_all" with scales only bitwise (an exact integer MAC on both
 sides, then the same two f32 multiplies).  The 2:4 sparse kernels are
 bitwise the dense kernels on the expanded weight; the ABFT kernels are
 bitwise the kernels without ABFT, and their flag maps equal the plain
-versions'.
+versions'.  `ssd_scan` and `mx_flash_attention` (f32 within 1e-4 * max|ref|,
+bf16 within 2e-2 * max|ref|) against `ssd_scan_plain` / the sequential
+oracle and `flash_attention_plain`.
 """
 import numpy as np
 import pytest
@@ -33,9 +35,12 @@ from repro_torch.core.precision import NAMED_POLICIES, QuantSpec, use_precision 
 from repro_torch.kernels.mx_flash_decode import mx_flash_decode, mx_flash_verify  # noqa: E402
 from repro_torch.kernels.mx_grouped_matmul import mx_grouped_matmul  # noqa: E402
 from repro_torch.kernels.quant import quantize, quantize_operand  # noqa: E402
+from repro_torch.kernels.mx_flash_attention import mx_flash_attention  # noqa: E402
 from repro_torch.kernels.ref import (  # noqa: E402
-    baseline_matmul_ref, grouped_matmul_ref, paged_decode_ref, paged_verify_ref,
+    baseline_matmul_ref, flash_attention_plain, grouped_matmul_ref, paged_decode_ref,
+    paged_verify_ref, ssd_scan_plain, ssd_scan_ref,
 )
+from repro_torch.kernels.ssd_scan import ssd_scan  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.runtime.batcher import ContinuousBatcher  # noqa: E402
 from repro_torch.runtime.kv_pages import PagePool  # noqa: E402
@@ -922,3 +927,122 @@ def test_sparse_and_abft_streams_equal_across_backends(cuda, name, precision, ab
         assert abft or v[f"{n} dense"] == (heads if n == "mx_matmul_fused" else 0)
     if abft:
         assert stats["gemms_verified"] > 0 and stats["tiles_flagged"] == 0
+
+
+# ---------------------------------------------------------------------------
+# ssd_scan and mx_flash_attention
+# ---------------------------------------------------------------------------
+
+
+def _ssd_inputs(dev, B, L, H, G, P, S, dtype, seed, decay=0.3):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((B, L, H, P), generator=g, device=dev).to(dtype)
+    a = -torch.rand((B, L, H), generator=g, device=dev) * decay
+    b = (torch.randn((B, L, G, S), generator=g, device=dev) * 0.3).to(dtype)
+    c = (torch.randn((B, L, G, S), generator=g, device=dev) * 0.3).to(dtype)
+    return x, a, b, c
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,L,H,G,P,S,chunk", [
+    (2, 512, 8, 1, 64, 64, 128),   # zamba2's head shape, four full chunks
+    (2, 200, 8, 1, 64, 64, 128),   # a ragged last chunk
+    (1, 70, 4, 2, 16, 8, 32),      # grouped b / c
+    (1, 33, 3, 3, 128, 16, 16),    # P at the tile limit, one group per head
+    (3, 1, 2, 1, 8, 4, 128),       # one step
+])
+def test_ssd_scan_kernel_matches_plain(cuda, dtype, B, L, H, G, P, S, chunk):
+    x, a, b, c = _ssd_inputs(cuda, B, L, H, G, P, S, dtype, L + P)
+    before = ssd_scan.launches
+    got = ssd_scan(x, a, b, c, chunk=chunk)
+    torch.cuda.synchronize()
+    assert ssd_scan.launches == before + 1
+    _close(got, ssd_scan_plain(x, a, b, c, chunk), dtype)
+
+
+def test_ssd_scan_kernel_against_the_sequential_scan_and_a_hard_reset(cuda):
+    """One head against the exact scan; a_log = -50 at one step keeps every
+    value finite (the decay is masked before the exp) and cuts the state."""
+    x, a, b, c = (t[0, :, 0] for t in _ssd_inputs(cuda, 1, 300, 1, 1, 32, 16,
+                                                   torch.float32, 7))
+    a = a.clone()
+    a[150] = -50.0
+    got = ssd_scan(x, a, b, c, chunk=128)
+    assert torch.isfinite(got).all()
+    _close(got, ssd_scan_ref(x, a, b, c), torch.float32)
+    x2 = x.clone()
+    x2[:100] = 0
+    again = ssd_scan(x2, a, b, c, chunk=128)
+    assert (got[151:] - again[151:]).abs().max().item() <= 1e-4 * got.abs().max().item()
+
+
+def test_ssd_scan_refuses_what_it_does_not_take(cuda):
+    x, a, b, c = _ssd_inputs(cuda, 1, 16, 2, 1, 8, 4, torch.float32, 0)
+    with pytest.raises(RuntimeError, match="at most 128"):
+        ssd_scan(x, a, b, c, chunk=256)
+    with pytest.raises(TypeError):
+        ssd_scan(x, a, b.bfloat16(), c, chunk=16)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Lq,Lk,H,Hkv,d,causal", [
+    (2, 512, 512, 32, 32, 80, True),   # zamba2's shared block
+    (2, 256, 256, 32, 8, 64, True),    # the llama draft forward, GQA 4
+    (1, 33, 70, 1, 1, 8, False),       # tests/test_kernels_flash.py's cross shape
+    (2, 100, 100, 4, 2, 128, True),    # d at the accumulator limit, ragged tiles
+    (1, 40, 100, 4, 4, 32, True),      # causal top-left, Lq < Lk
+    (1, 100, 40, 4, 1, 32, True),      # causal top-left, Lq > Lk
+    (3, 1, 7, 2, 2, 16, False),        # one query row
+])
+def test_flash_attention_kernel_matches_plain(cuda, dtype, B, Lq, Lk, H, Hkv, d, causal):
+    q = _randn((B, Lq, H, d), dtype, cuda, Lq + d)
+    k = _randn((B, Lk, Hkv, d), dtype, cuda, Lk + d + 1)
+    v = _randn((B, Lk, Hkv, d), dtype, cuda, Lk + d + 2)
+    before = mx_flash_attention.launches
+    got = mx_flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert mx_flash_attention.launches == before + 1
+    _close(got, flash_attention_plain(q, k, v, causal=causal), dtype)
+
+
+def test_flash_attention_refuses_what_it_does_not_take(cuda):
+    q = _randn((1, 8, 2, 160), torch.float32, cuda, 0)
+    with pytest.raises(RuntimeError, match="head dim of at most 128"):
+        mx_flash_attention(q, q, q)
+    q = _randn((1, 8, 2, 16), torch.float32, cuda, 0)
+    with pytest.raises(TypeError):
+        mx_flash_attention(q, q.bfloat16(), q)
+
+
+def test_zamba2_forward_and_dense_streams_across_backends(cuda):
+    """zamba2-smoke on the card: the full forward launches ssd_scan once per
+    Mamba2 layer and mx_flash_attention once per shared-block application,
+    its logits within 1e-3 * max|ref| of the plain path; the dense
+    batcher's streams are equal across backends (decode is plain apart
+    from the GEMMs)."""
+    cfg = get_config("zamba2-2.7b-smoke")
+    model = build_model(cfg)
+    params = model.init(0, device=cuda)
+    toks = torch.randint(0, cfg.vocab, (2, 150), device=cuda,
+                         generator=torch.Generator(device=cuda).manual_seed(1))
+    out = {}
+    for backend in ("cuda_mx", "torch"):
+        with ops.use_policy(ops.MXPolicy(backend)):
+            kernels.reset_launch_counts()
+            logits, _ = model(params, toks)
+            counts = kernels.launch_counts()
+            b = ContinuousBatcher(model, params, batch_slots=3, max_len=24, paged=False)
+            rng = np.random.default_rng(3)
+            for i, n in enumerate((6, 9, 13, 7)):
+                b.submit(Request(rid=i, prompt=rng.integers(0, cfg.vocab, n).astype(np.int32),
+                                 max_new=8))
+            fin = b.run_to_completion()
+        out[backend] = (logits, counts, {r: fin[r].output for r in fin})
+    n_mamba = sum(n for kind, n in cfg.blocks if kind == "mamba2")
+    assert out["cuda_mx"][1]["ssd_scan"] == n_mamba
+    assert out["cuda_mx"][1]["mx_flash_attention"] == n_mamba // cfg.shared_attn_every
+    assert out["torch"][1]["ssd_scan"] == out["torch"][1]["mx_flash_attention"] == 0
+    ref = out["torch"][0]
+    err = (out["cuda_mx"][0] - ref).abs().max().item()
+    assert err <= 1e-3 * ref.abs().max().item()
+    assert out["cuda_mx"][2] == out["torch"][2]

@@ -23,7 +23,9 @@ def test_port_imports_no_jax_and_no_reference_package():
     assert "repro_torch.runtime.batcher" in mods and "repro_torch.kernels._build" in mods
     assert {"repro_torch.models.moe", "repro_torch.kernels.mx_grouped_matmul",
             "repro_torch.core.precision", "repro_torch.kernels.quant",
-            "repro_torch.kernels.sparse", "repro_torch.kernels.abft"} <= set(mods)
+            "repro_torch.kernels.sparse", "repro_torch.kernels.abft",
+            "repro_torch.models.ssm", "repro_torch.kernels.ssd_scan",
+            "repro_torch.kernels.mx_flash_attention", "repro_torch.launch.steps"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"sys.path[:0] = [{str(ROOT / 'src')!r}, {str(ROOT)!r}]\n"
@@ -62,7 +64,33 @@ def test_serve_moe_smoke_on_cpu(capsys, arch):
 
 def test_serve_names_the_unported_model_families():
     with pytest.raises(SystemExit, match="not ported yet"):
-        serve.main(["--arch", "zamba2-2.7b", "--smoke", "--device", "cpu"])
+        serve.main(["--arch", "xlstm-125m", "--smoke", "--device", "cpu"])
+
+
+@pytest.mark.parametrize("flags,line", [
+    ([], "sample:"),  # static: token-stepped prompt, bf16 dense cache
+    (["--prefill-chunk", "4"], "chunked prefill unsupported for zamba2-2.7b-smoke"),
+    (["--continuous", "--max-len", "40"], "continuous batching [dense cache]: 8 requests"),
+])
+def test_serve_zamba2_smoke_on_cpu(capsys, flags, line):
+    """The Mamba2 hybrid through the launcher, statically (with JAX's
+    fallback message for --prefill-chunk) and through the dense batcher."""
+    assert serve.main(["--arch", "zamba2-2.7b", "--smoke", "--device", "cpu", *flags]) == 0
+    assert line in capsys.readouterr().out
+
+
+def test_serve_static_llama_on_cpu(capsys):
+    """Without --continuous / --paged the launcher generates statically, as
+    JAX's does: chunked prefill, then greedy decode."""
+    assert serve.main(["--smoke", "--prefill-chunk", "8", "--device", "cpu"]) == 0
+    out = capsys.readouterr().out
+    assert "prefill: 16 tokens in chunks of 8" in out
+    assert "generated (4, 16) tokens" in out
+
+
+def test_serve_paged_needs_an_attention_only_model():
+    with pytest.raises(ValueError, match="paged"):
+        serve.main(["--arch", "zamba2-2.7b", "--smoke", "--paged", "--device", "cpu"])
 
 
 @pytest.mark.parametrize("flag", ["--chaos", "--disagg=2"])
@@ -74,7 +102,7 @@ def test_serve_rejects_unported_flags(flag):
 @pytest.mark.parametrize("flags,mode", [
     (["--speculate", "2", "--draft", "ngram"], "paged+spec2"),
     (["--speculate", "2", "--draft", "qwen2-0.5b"], "paged+spec2"),
-    (["--kv-cache", "int8"], "paged+int8"),
+    (["--kv-cache", "int8", "--paged"], "paged+int8"),
 ])
 def test_serve_speculative_and_int8_on_cpu(capsys, flags, mode):
     assert serve.main(["--smoke", "--prefill-chunk", "4", "--device", "cpu",
@@ -85,7 +113,7 @@ def test_serve_speculative_and_int8_on_cpu(capsys, flags, mode):
 
 
 @pytest.mark.parametrize("flags,mode", [
-    (["--abft"], "paged+abft"),
+    (["--abft", "--paged"], "paged+abft"),
     (["--abft", "--speculate", "2", "--draft", "ngram"], "paged+spec2+abft"),
     (["--abft", "--arch", "grok-1-314b", "--prefix-cache"], "paged+prefix+abft"),
 ])
