@@ -8,11 +8,16 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      turns TF32 off (the plain versions and the tied head run in full f32);
   2. builds the CUDA kernels from src/repro_torch/csrc with nvcc (sm_90a),
      one nvcc per source, all started together, and prints each kernel's
-     registers and spills;
+     registers and spills; requires the baseline library's SASS to hold its
+     output round trip (ld/st.global.cg) and the MX library's none;
   3. holds each kernel against its plain PyTorch version at the shapes of
      the main path (llama3.2-1b, plus qwen2-0.5b's ragged widths and
      zamba2-2.7b's Mamba2 projections, N = 10448 off every tile), in f32
-     and bf16: the GEMMs; flash decode with f32/bf16 and with int8 pages
+     and bf16: the GEMMs (the dense decode tile, M <= 16, at M = 1, 8 and
+     16, with an operand 4 bytes off a 16-byte boundary, each launch's tile,
+     ring depth and shared memory printed; the paper's A/B line, MX against
+     the baseline at M = 8; M = 64 and 256 on the prefill tiles); flash
+     decode with f32/bf16 and with int8 pages
      and scales; flash verify at S = 5 and 9, G = 7, poisoned stale pages
      and S = 1 (also against the decode kernel), with the same page types.
      Max error against 1e-4 * max|ref| (f32) / 2e-2 * max|ref| (bf16),
@@ -27,7 +32,8 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      baseline GEMM, then with speculation (k = 4; a trace drafter over the
      plain streams, and the n-gram drafter), with int8 pages (plain and
      k = 4 n-gram), and a short pass with the target itself as the draft
-     model -- and requires every kernel's launch count > 0 on its path and
+     model -- and requires every kernel's launch count > 0 on its path (the
+     decode steps' GEMMs on the decode tile, MX and baseline) and
      every speculative stream equal to its plain stream (a divergence
      passes only at a near tie, see phase 5);
   5. holds the kernel path against the plain path: one prefill chunk, one
@@ -167,6 +173,7 @@ PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12,  # dense; f32 off the tensor
 REL_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 QUANT_POLICIES = ("int8", "fp8", "int8_all", "fp8_all")  # the quantized operand pairs
 L2_BYTES = 50 * 2**20
+SPIN_CYCLES_PER_S = 2.0e9  # torch.cuda._sleep cycles per second (H100 SM clock <= 1.98 GHz)
 TPU_KERNELS = {  # file:line of the Pallas wrapper each CUDA kernel replaces
     "mx_matmul_fused": "src/repro/kernels/mx_matmul.py:382",
     "baseline_matmul": "src/repro/kernels/baseline_matmul.py:45",
@@ -197,11 +204,30 @@ def _bound_ms(nbytes: float, flops: float, dtype: str):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def _host_s(torch, fn, arg_sets, calls=5):
+    """Host seconds one call of fn takes to enqueue (after a warm-up)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(calls):
+        fn(*arg_sets[i % len(arg_sets)])
+    host = (time.perf_counter() - t0) / calls
+    torch.cuda.synchronize()
+    return host
+
+
+def _queue_ahead(torch, host_s):
+    """Keep the card busy (a spin kernel) for longer than the host takes to
+    enqueue the timed calls, so they run back to back and the events time
+    the device, not the Python wrappers' launch overhead."""
+    torch.cuda._sleep(int(1.5 * host_s * SPIN_CYCLES_PER_S) + 100_000)
+
+
 def _time_ms(torch, fns, windows=5, iters=20, warmup=3):
     """Time each `name -> (fn, arg_sets)` of `fns` with CUDA events over
     `windows` windows of `iters` calls, the functions taking turns window by
     window, each call cycling through its `arg_sets` (copies of the inputs
-    that together exceed L2, so every call reads cold).  Returns `ms`,
+    that together exceed L2, so every call reads cold); each window starts
+    behind a spin kernel that outlasts its enqueue.  Returns `ms`,
     `plain_ms` and `library_ms` as the median of the windows' mean ms per
     call (None where `fns` lacks the name) and `windows_ms`, every window's
     mean, as the spread."""
@@ -209,11 +235,13 @@ def _time_ms(torch, fns, windows=5, iters=20, warmup=3):
         for i in range(warmup):
             fn(*arg_sets[i % len(arg_sets)])
     torch.cuda.synchronize()
+    host = {name: _host_s(torch, fn, arg_sets) for name, (fn, arg_sets) in fns.items()}
     per = {name: [] for name in fns}
     for _ in range(windows):
         for name, (fn, arg_sets) in fns.items():
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
+            _queue_ahead(torch, iters * host[name])
             start.record()
             for i in range(iters):
                 fn(*arg_sets[i % len(arg_sets)])
@@ -248,7 +276,34 @@ def _err(torch, got, ref, dtype: str):
 # ---------------------------------------------------------------------------
 
 
-def check_gemm(torch, dev, M, K, N, dtype_name, ep_kw, seed):
+def _offset(torch, t, nbytes):
+    """t copied into a contiguous view whose data starts nbytes past a
+    16-byte boundary (0: t itself)."""
+    if not nbytes:
+        return t
+    buf = torch.empty(t.numel() + 16, dtype=t.dtype, device=t.device)
+    v = buf[nbytes // t.element_size():][:t.numel()].view(t.shape)
+    v.copy_(t)
+    return v
+
+
+def _decode_tile(a, b, b_gate=None):
+    """The decode tile a launch on these operands takes (M <= 16), as a dict."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import mx_matmul as mm
+
+    if a.shape[0] > _build.DECODE_MAX_M:
+        return None
+    bn, bk, tm, stages, threads, va, vb = mm.decode_launch_tile(a, b, b_gate)
+    t = _build.decode_tile(a.shape[0], b.shape[1], a.dtype, b.dtype, b_gate is not None)
+    return dict(bn=bn, bk=bk, tm=tm, stages=stages, threads=threads, va=va, vb=vb,
+                smem=t.smem, ctas=t.ctas)
+
+
+def check_gemm(torch, dev, M, K, N, dtype_name, ep_kw, seed, offset=None):
+    """mx_matmul_fused against its plain version; `offset` ("a" or "b")
+    makes that operand a contiguous view 4 bytes past a 16-byte boundary
+    (the decode tile's narrow copies)."""
     from repro_torch.kernels import mx_matmul as mm
 
     dt = getattr(torch, dtype_name)
@@ -256,8 +311,10 @@ def check_gemm(torch, dev, M, K, N, dtype_name, ep_kw, seed):
     g = torch.Generator(device=dev).manual_seed(seed)
 
     def make():
-        a = torch.randn((M, K), generator=g, device=dev).to(dt)
-        b = (torch.randn((K, N), generator=g, device=dev) / math.sqrt(K)).to(dt)
+        a = _offset(torch, torch.randn((M, K), generator=g, device=dev).to(dt),
+                    4 if offset == "a" else 0)
+        b = _offset(torch, (torch.randn((K, N), generator=g, device=dev) / math.sqrt(K)).to(dt),
+                    4 if offset == "b" else 0)
         kw = dict(
             b_gate=(torch.randn((K, N), generator=g, device=dev) / math.sqrt(K)).to(dt)
             if ep.has_gate else None,
@@ -291,9 +348,13 @@ def check_gemm(torch, dev, M, K, N, dtype_name, ep_kw, seed):
         fns["library_ms"] = (lambda a_, b_, kw_: torch.addmm(
             kw_["bias"] if ep.bias else kw_["residual"], a_, b_), sets)
     bound, by = _bound_ms(nbytes, flops, dtype_name)
-    return dict(kernel="mx_matmul_fused", M=M, K=K, N=N, dtype=dtype_name,
-                epilogue=ep_kw, max_abs_err=err, tol=tol, **_time_ms(torch, fns),
-                library=library, bound_ms=bound, bound_by=by)
+    out = dict(kernel="mx_matmul_fused", M=M, K=K, N=N, dtype=dtype_name,
+               epilogue=ep_kw, max_abs_err=err, tol=tol, **_time_ms(torch, fns),
+               library=library, bound_ms=bound, bound_by=by,
+               tile=_decode_tile(a, b, kw["b_gate"]))
+    if offset:
+        out["offset"] = offset
+    return out
 
 
 def check_baseline(torch, dev, M, K, N, dtype_name, seed, bk=128):
@@ -319,7 +380,7 @@ def check_baseline(torch, dev, M, K, N, dtype_name, seed, bk=128):
     bound, by = _bound_ms(nbytes, 2 * M * N * K, dtype_name)
     return dict(kernel="baseline_matmul", M=M, K=K, N=N, dtype=dtype_name, bk=bk,
                 max_abs_err=err, tol=tol, **times, library="torch.matmul",
-                bound_ms=bound, bound_by=by)
+                bound_ms=bound, bound_by=by, tile=_decode_tile(a, b))
 
 
 def _attn_inputs(torch, dev, B, H, Hkv, d, ps, lengths, dtype_name, seed, poison, pages,
@@ -648,7 +709,8 @@ def check_quant_gemm(torch, dev, pol, M, K, N, ep_kw, seed):
     bound, by = _bound_ms(nbytes, 2 * M * N * K * nmat, _peak_type(a0, b0))
     return dict(kernel="mx_matmul_fused", M=M, K=K, N=N, dtype=pol,
                 pair=f"{a0.dtype} x {b0.dtype}", epilogue=ep_kw, max_abs_err=err, tol=tol,
-                **out, **_time_ms(torch, fns), library=library, bound_ms=bound, bound_by=by)
+                **out, **_time_ms(torch, fns), library=library, bound_ms=bound, bound_by=by,
+                tile=_decode_tile(a0, b0, kw0["b_gate"]))
 
 
 def check_quant_grouped(torch, dev, pol, label, T, C, K, N, act, seed):
@@ -716,6 +778,10 @@ def quant_checks(torch, dev):
             if pol == "int8":  # the down projection bare: torch._weight_int8pack_mm
                 seed += 1
                 checks.append(check_quant_gemm(torch, dev, pol, M, 8192, 2048, {}, seed))
+        for M in (1, 16):  # the decode tile's other row counts
+            seed += 1
+            checks.append(check_quant_gemm(torch, dev, pol, M, 8192, 2048,
+                                           dict(residual=True), seed))
     for pol in QUANT_POLICIES:
         for label, T, C, K, N, act in (
                 ("grok decode up+gate", 64, 8, 6144, 32768, "swiglu"),
@@ -1071,6 +1137,18 @@ def phase_kernels(torch, dev):
                 checks.append(check_gemm(torch, dev, M, K, N, dtype_name, ep, seed))
             seed += 1
             checks.append(check_baseline(torch, dev, M, 2048, 8192, dtype_name, seed))
+        # the decode tile at its other row counts, and misaligned operands
+        for M in (1, 16):
+            for K, N, ep in ((8192, 2048, dict(residual=True)),
+                             (2048, 8192, dict(activation="swiglu")), (2560, 10448, dict())):
+                seed += 1
+                checks.append(check_gemm(torch, dev, M, K, N, dtype_name, ep, seed))
+            seed += 1
+            checks.append(check_baseline(torch, dev, M, 2048, 8192, dtype_name, seed))
+        for offset in ("a", "b"):
+            seed += 1
+            checks.append(check_gemm(torch, dev, 8, 2048, 2048, dtype_name,
+                                     dict(residual=True), seed, offset=offset))
         lengths = (128, 160, 0, 97, 143, 1, 129, 150)  # ragged, one free slot
         qwen = (33, 0, 160, 7)
         for pages in ("same", "int8", "fp8"):
@@ -1120,10 +1198,26 @@ def phase_kernels(torch, dev):
                 extra += f" (dense {c['dense_kernel_ms']:.4f} ms)"
         if c.get("library_error"):
             extra += f" lib refused: {c['library_error'][:80]}"
+        if c.get("offset"):
+            extra += f" ({c['offset']} 4 bytes off)"
+        if c.get("tile"):
+            t = c["tile"]
+            extra += (f" [decode tile bn {t['bn']} bk {t['bk']} tm {t['tm']} stages "
+                      f"{t['stages']} threads {t['threads']} smem {t['smem']} ctas {t['ctas']}"
+                      f" copies {t['va']}/{t['vb']} B]")
         print(f"  {c['kernel']:16s} {c['dtype']:8s} {shape:40s} err {c['max_abs_err']:.3e} "
               f"(tol {c['tol']:.3e}){extra} {'ok' if ok else 'FAIL'}  ms {c['ms']:.4f} "
               f"(spread {100 * _spread(c):.0f}%) plain "
               f"{c['plain_ms']:.4f} lib {lib} bound {c['bound_ms']:.4f} ({c['bound_by']})")
+    for dtype_name in ("float32", "bfloat16"):  # the paper's A/B on the decode tile
+        mx = next(c for c in checks if c["kernel"] == "mx_matmul_fused" and c["M"] == 8
+                  and c["K"] == 2048 and c["N"] == 8192 and c["epilogue"] == {}
+                  and c["dtype"] == dtype_name)
+        base = next(c for c in checks if c["kernel"] == "baseline_matmul" and c["M"] == 8
+                    and c["dtype"] == dtype_name)
+        print(f"    A/B at M=8 K=2048 N=8192 {dtype_name} (decode tile): MX {mx['ms']:.4f} ms, "
+              f"baseline {base['ms']:.4f} ms (bk 128: 16 output round trips), "
+              f"MX {base['ms'] / mx['ms']:.2f}x faster")
     bad = [c for c in checks if not c["ok"]]
     if bad:
         raise AssertionError(f"{len(bad)} kernel check(s) disagree with the plain "
@@ -1167,6 +1261,7 @@ def serve(torch, model, params, cfg, backend, n_req, gen, prompt_len=128, slots=
         wall = time.perf_counter() - t0
         counts = kernels.launch_counts()
         variants = kernels.variant_launch_counts()
+        decode = kernels.decode_launch_counts()
         abft_stats = abft_mod.abft_stats()
     step_dt = {h.step: h.dt_s for h in batcher.health}
     # steps that admitted nobody run no prefill chunk: pure decode / verify
@@ -1195,7 +1290,7 @@ def serve(torch, model, params, cfg, backend, n_req, gen, prompt_len=128, slots=
         steps_without_admission=len(plain_steps),
         finish_reasons=batcher.health_summary()["finish_reasons"],
         pool=batcher.pool_stats().as_dict(), prefix=batcher.prefix_stats(),
-        launches=counts, variants=variants, abft_stats=abft_stats,
+        launches=counts, variants=variants, decode_launches=decode, abft_stats=abft_stats,
         abft=batcher.health_summary()["abft"],
         streams={r: finished[r].output for r in sorted(finished)},
         prompts={r: finished[r].prompt.tolist() for r in sorted(finished)})
@@ -1908,6 +2003,11 @@ def llama_phases(torch, dev):
     for name, n in launches.items():
         if n <= 0:
             raise AssertionError(f"kernel {name} was not launched on its serving path")
+    # the decode steps' GEMMs (M = 8 slots) run the decode tile (csrc/decode_tile.cuh)
+    if main_run["decode_launches"]["mx_matmul_fused"] <= 0 \
+            or base_run["decode_launches"]["baseline_matmul"] <= 0:
+        raise AssertionError(f"the decode tile was not launched: {main_run['decode_launches']}"
+                             f" / {base_run['decode_launches']}")
     if main_run["launches"]["baseline_matmul"] or base_run["launches"]["mx_matmul_fused"] \
             or main_run["launches"]["mx_grouped_matmul"] or main_run["launches"]["ssd_scan"] \
             or main_run["launches"]["mx_flash_attention"]:
@@ -2445,6 +2545,7 @@ def serve_dense(torch, model, params, cfg, backend, n_req, gen, prompt_len, slot
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = kernels.launch_counts()
+        decode = kernels.decode_launch_counts()
     step_dt = {h.step: h.dt_s for h in batcher.health}
     device_steps = [1e3 * h.dt_s for h in batcher.health if h.active > 0]
     ttft_steps = [r.first_token_at - r.submitted_at for r in finished.values()]
@@ -2461,6 +2562,7 @@ def serve_dense(torch, model, params, cfg, backend, n_req, gen, prompt_len, slot
                ttft_steps_max=max(ttft_steps), ttft_ms_mean=sum(ttft_ms) / len(ttft_ms),
                ttft_ms_max=max(ttft_ms), step_ms_median=statistics.median(device_steps),
                finish_reasons=batcher.health_summary()["finish_reasons"], launches=counts,
+               decode_launches=decode,
                streams={r: finished[r].output for r in sorted(finished)},
                prompts={r: finished[r].prompt.tolist() for r in sorted(finished)})
     assert len(finished) == n_req, finished.keys()
@@ -2475,7 +2577,8 @@ def _print_dense(r):
           f"generated tok/s ({r['total_tok_per_s']:.1f} incl. prompt), {r['steps']} steps")
     print(f"      TTFT {r['ttft_steps_mean']:.1f} steps mean / {r['ttft_steps_max']} max, "
           f"{r['ttft_ms_mean']:.1f} ms mean / {r['ttft_ms_max']:.1f} ms max; median step "
-          f"{r['step_ms_median']:.2f} ms; launches {r['launches']}")
+          f"{r['step_ms_median']:.2f} ms; launches {r['launches']} (decode tile "
+          f"{r['decode_launches']})")
 
 
 def launcher(args, timeout=300):
@@ -2645,6 +2748,10 @@ def zamba2_phase(torch, dev):
         _print_dense(runs[backend])
     equal = sum(runs["cuda_mx"]["streams"][r] == runs["torch"]["streams"][r]
                 for r in runs["torch"]["streams"])
+    # its decode steps' projections (M = 8 slots) run the decode tile
+    if runs["cuda_mx"]["decode_launches"]["mx_matmul_fused"] <= 0:
+        raise AssertionError(f"zamba2 dense batcher: no decode tile launch "
+                             f"{runs['cuda_mx']['decode_launches']}")
     peak = torch.cuda.max_memory_allocated() / 2**30
     print(f"    full-width streams equal across cuda_mx / torch: {equal}/16 (recorded); "
           f"peak device memory {peak:.2f} GiB")
@@ -2725,6 +2832,8 @@ def main() -> int:
           f"{sass}")
     if not (sass["baseline_matmul"][0] and sass["baseline_matmul"][1]):
         raise AssertionError("the baseline kernel's output round trip was compiled away")
+    if any(sass["mx_matmul_fused"]):
+        raise AssertionError(f"the MX library round-trips its output: {sass}")
 
     print("[3] kernels against their plain versions")
     checks = phase_kernels(torch, dev)
@@ -2855,7 +2964,8 @@ def sass_rmw_counts():
         text = subprocess.run([str(cuobjdump), "-sass", str(_build._target(lib))],
                               capture_output=True, text=True, check=True).stdout
         lines = [ln for ln in text.splitlines() if "STRONG.GPU" in ln]
-        out[name] = (sum("LDG" in ln for ln in lines), sum("STG" in ln for ln in lines))
+        # LDG / STG only: the decode tile's LDGSTS (cp.async) is no round trip
+        out[name] = (sum(" LDG." in ln for ln in lines), sum(" STG." in ln for ln in lines))
     return out
 
 
@@ -2872,7 +2982,8 @@ def _print_serve(r):
     print(f"      pool high water {p['high_water']}/{p['num_pages']} pages; prefix hits "
           f"{x['hits']}/{x['hits'] + x['misses']}, {x['tokens_saved']} tokens skipped, "
           f"{x['cow_copies']} COW copies, {x['evicted_pages']} evicted")
-    print(f"      launches {r['launches']}; finish {r['finish_reasons']}")
+    print(f"      launches {r['launches']} (decode tile {r.get('decode_launches')}); "
+          f"finish {r['finish_reasons']}")
     if r["spec"]:
         sp = r["spec"]
         print(f"      speculation: {sp['accepted']}/{sp['drafted']} drafts accepted "

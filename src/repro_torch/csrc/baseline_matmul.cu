@@ -1,7 +1,7 @@
 // Baseline (non-MX) GEMM for Hopper (sm_90a): the paper's comparison.
 //
 // Replaces the TPU kernel repro/kernels/baseline_matmul.py::baseline_matmul
-// (_baseline_kernel): the same (m, n) tiling and operand staging as
+// (_baseline_kernel): the same tiles, operand staging and K loops as
 // csrc/mx_matmul.cu, but WITHOUT inter-k buffering.  The partial sum of
 // every bk-wide K chunk is computed in registers and then added into the
 // output tile in global memory, in the OUTPUT dtype: each chunk reads the
@@ -13,9 +13,18 @@
 // chunks; the output lines stay in the 50 MB L2 between chunks, which is
 // where the H100 puts this traffic.
 //
-// What bounds it: the same as the MX kernel (HBM bytes at decode, f32 FMAs
-// at prefill) plus the output round trips, which grow with K / bk.
-#include "gemm_tile.cuh"
+// Decode rows (M <= 16; baseline_matmul_decode_launch) run decode_tile.cuh's
+// weight-streaming loop with the MX kernel's tile (kernels/_build.decode_tile),
+// the partial zeroed at every bk-wide chunk (bk a multiple of 128, so each
+// chunk ends on one of the loop's 64-row MAC blocks); M > 16 runs
+// gemm_tile.cuh's tiles, picked by M as
+// kernels/_build.gemm_tile picks them.  So the A/B of the paper compares
+// two kernels that differ only in where the partial sums live.
+//
+// What bounds it: the same as the MX kernel (HBM bytes and the serial K
+// chain at decode, f32 FMAs at prefill) plus the output round trips, which
+// grow with K / bk.
+#include "decode_tile.cuh"
 
 REPRO_EXPORT_ERROR_STRING
 
@@ -113,25 +122,82 @@ static void launch(const void* a, const void* b, void* out, int out_dt, int M, i
 }
 
 template <typename T>
-static void dispatch(const void* a, const void* b, void* out, int out_dt, int M, int N,
-                     int K, int bk, cudaStream_t s) {
-  if (M <= 16)  // the same tiles as csrc/mx_matmul.cu
-    launch<T, 16, 16, 128, 1, 1>(a, b, out, out_dt, M, N, K, bk, s);
-  else if (M <= 64)
+static int dispatch(const void* a, const void* b, void* out, int out_dt, int M, int N,
+                    int K, int bk, cudaStream_t s) {
+  if (M <= 16)  // the decode rows: baseline_matmul_decode_launch
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (M <= 64)  // the prefill tiles of csrc/mx_matmul.cu
     launch<T, 32, 64, 16, 2, 4>(a, b, out, out_dt, M, N, K, bk, s);
   else
     launch<T, 64, 64, 16, 4, 4>(a, b, out, out_dt, M, N, K, bk, s);
+  return 0;
+}
+
+// The decode tile: decode_tile.cuh's loop, the partial flushed into the
+// output after every bk-wide chunk of K, in K order.
+template <typename T, int TM>
+__global__ void __launch_bounds__(kDecodeMaxThreads)
+baseline_decode_kernel(const DecodeShape d, void* out, int out_dt, int bk) {
+  const int c = threadIdx.x % d.bn, r0 = threadIdx.x / d.bn * TM;
+  const int gn = blockIdx.x * d.bn + c;
+  float part[TM], unused[TM];  // one chunk's partial sum only
+  auto flush = [&](int k_end) {  // after each MAC block
+    if (k_end % bk != 0 && k_end < d.K) return;
+    const bool first = k_end <= bk;
+#pragma unroll
+    for (int i = 0; i < TM; ++i) {
+      if (gn < d.N) {  // (copy-only threads run no MAC block, so never get here)
+        const int64_t o = (int64_t)(r0 + i) * d.N + gn;
+        const float prev = first ? 0.0f : ld_cg(out, out_dt, o);
+        st_cg(out, out_dt, o, prev + part[i]);
+      }
+      part[i] = 0.0f;
+    }
+  };
+  decode_sweep<float, T, T, TM, false>(part, unused, d, blockIdx.x * d.bn, c, r0, flush);
+}
+
+template <typename T>
+static int decode_dispatch(const DecodeShape& d, void* out, int out_dt, int bk, int tm,
+                           cudaStream_t s) {
+  switch (tm) {
+    case 1: return decode_launch<T, T, 1, false>(baseline_decode_kernel<T, 1>, d, s, out,
+                                                 out_dt, bk);
+    case 2: return decode_launch<T, T, 2, false>(baseline_decode_kernel<T, 2>, d, s, out,
+                                                 out_dt, bk);
+    case 4: return decode_launch<T, T, 4, false>(baseline_decode_kernel<T, 4>, d, s, out,
+                                                 out_dt, bk);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 // a (M, K), b (K, N): dtype in_dt, row-major, contiguous; out (M, N) out_dt.
 // bk: the read-modify-write chunk, a multiple of 128 (every tile's K step
-// divides 128).
+// divides 128).  M > 16 (the decode rows take baseline_matmul_decode_launch).
 extern "C" int baseline_matmul_launch(const void* a, const void* b, void* out, int out_dt,
                                       int M, int N, int K, int in_dt, int bk, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (in_dt == kBF16)
-    dispatch<__nv_bfloat16>(a, b, out, out_dt, M, N, K, bk, s);
-  else
-    dispatch<float>(a, b, out, out_dt, M, N, K, bk, s);
+  const int err = in_dt == kBF16
+                      ? dispatch<__nv_bfloat16>(a, b, out, out_dt, M, N, K, bk, s)
+                      : dispatch<float>(a, b, out, out_dt, M, N, K, bk, s);
+  if (err) return err;
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The decode rows (M <= 16): as baseline_matmul_launch, with the tile of
+// kernels/_build.decode_tile (bn, bks K rows per ring stage, tm, stages,
+// threads) and
+// the copy widths va / vb (kernels/_build.copy_width).
+extern "C" int baseline_matmul_decode_launch(const void* a, const void* b, void* out,
+                                             int out_dt, int M, int N, int K, int in_dt,
+                                             int bk, int bn, int bks, int tm, int stages,
+                                             int threads, int va, int vb, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (bk % 128) return static_cast<int>(cudaErrorInvalidValue);  // KERNEL_BK
+  const DecodeShape d{a, b, nullptr, M, N, K, bn, bks, stages, threads, va, vb};
+  const int err = in_dt == kBF16
+                      ? decode_dispatch<__nv_bfloat16>(d, out, out_dt, bk, tm, s)
+                      : decode_dispatch<float>(d, out, out_dt, bk, tm, s);
+  if (err) return err;
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,0 +1,368 @@
+// The decode tile (M <= 16 rows) of the dense MX GEMM (csrc/mx_matmul.cu) and
+// of the baseline GEMM (csrc/baseline_matmul.cu): one weight-streaming K loop
+// for Hopper (sm_90a).  Both replace the decode path of their TPU kernels
+// (repro/kernels/mx_matmul.py::mx_matmul_fused, baseline_matmul.py).
+//
+// What bounds it on the H100: a decode GEMM reads the whole weight for a
+// handful of rows, so the bytes bound it (3.35 TB/s; f32 M=8 K=8192 N=2048:
+// 64 MB, 0.020 ms), and every output's K chain is serial (one FMA after
+// another, 4 cycles each: 8192 take 0.017 ms).  With about 124 outputs per
+// SM at M = 8, N = 2048, a scheduler holds one warp, so nothing hides that
+// warp's shared-memory read latency: the MAC loop takes several times the
+// chain's 4 cycles per K row, and the ring's copies share the SM's
+// load/store path with it (PERF.md §6).  The earlier (16 x 16 x 128) tile
+// held one 8 KB K step per CTA in flight (about 1 MB across the card, where
+// 3.35 TB/s at about 1 us of latency needs 2-3 MB), ran half its threads on
+// padding rows at M = 8, took two barriers per K step and moved a narrow
+// weight one byte per thread per load.  This loop instead:
+//   * keeps a ring of `stages` shared-memory stages full with 16-byte
+//     cp.async.cg copies (commit / wait groups): a copy carries 4 f32, 8
+//     bf16 or 16 int8 / fp8 weights; the weight stays in its own width in
+//     shared memory (a narrow weight buys deeper K steps for the same bytes)
+//     and is widened to f32, or to int32 for int8 x int8, as the MAC reads
+//     it.  kernels/_build.decode_tile sizes the ring to keep >= 32 KB of
+//     weight in flight per SM;
+//   * one barrier per K step: the wait for stage kt, a barrier, the copies
+//     of stage kt + stages - 1 into the slot stage kt - 1 left, the MACs;
+//   * no padding rows: a CTA owns `bn` columns and the M rows that exist;
+//     thread (r, c) owns column c and rows r*TM .. r*TM + TM - 1 (TM divides
+//     M), the A values a shared-memory broadcast read 16 bytes along k at a
+//     time, the weight read once per thread per k; a CTA holds at least 256
+//     threads, and those past the outputs only issue copies;
+//   * every output keeps its serial K chain, acc = mac(a[k], b[k], acc) for
+//     k = 0 .. K-1 in order, as gemm_tile.cuh's fma_tile sums: the products
+//     are bitwise those of the old tile, so the 2:4 and ABFT variants (still
+//     on gemm_tile.cuh's loop) stay bitwise equal to the dense kernel;
+//   * ragged and misaligned operands in the same kernel: a row of A or B
+//     whose bytes or base address are not 16-byte aligned is copied in the
+//     widest of 8, 4 (cp.async.ca), 2 or 1 bytes (plain loads) that divides
+//     both; chunks past K or N are zero filled (a zero product leaves every
+//     accumulator as it was).
+// The tile (bn, bk, TM, stages, threads) and the copy widths are chosen in
+// Python (kernels/_build.decode_tile / copy_width) and checked by
+// decode_check.
+#pragma once
+
+#include <type_traits>
+
+#include "gemm_tile.cuh"  // common.cuh, and mac: the MAC of fma_tile's chain
+
+constexpr int kDecodeMaxM = 16;
+constexpr int kDecodeMaxThreads = 512;
+constexpr int kDecodeMaxStages = 8;
+constexpr int kDecodeMaxSmem = 232448;  // 227 KB, the opt-in per-CTA maximum
+constexpr int kDecodeSub = 64;  // K rows per MAC block; the baseline's round trips, every
+                                // bk (a multiple of 128) rows, fall on block ends
+
+// Everything the loop needs: operands (A (M, K), B / Bg (K, N), row-major),
+// the tile and the copy widths in bytes.
+struct DecodeShape {
+  const void *a, *b, *bg;
+  int M, N, K;
+  int bn, bk, stages, threads, va, vb;
+};
+
+// The byte layout of one ring slot: A's M rows (bk elements, padded by 16
+// bytes so rows fall on different banks), then B's bk rows of bn columns,
+// then the gate weight's.
+struct DecodeSlot {
+  int a_stride, a_bytes, b_bytes, bytes;
+};
+
+template <typename TA, typename TB, bool GATE>
+__host__ __device__ inline DecodeSlot decode_slot(const DecodeShape& d) {
+  DecodeSlot s;
+  s.a_stride = d.bk * static_cast<int>(sizeof(TA)) + 16;
+  s.a_bytes = d.M * s.a_stride;
+  s.b_bytes = d.bk * d.bn * static_cast<int>(sizeof(TB));
+  s.bytes = s.a_bytes + s.b_bytes * (GATE ? 2 : 1);
+  return s;
+}
+
+static inline bool is_pow2(int x) { return x > 0 && (x & (x - 1)) == 0; }
+
+// The launcher's check of a tile chosen in Python: cudaErrorInvalidValue
+// (as an int) for anything the loop does not take, else 0.
+template <typename TA, typename TB, int TM, bool GATE>
+static int decode_check(const DecodeShape& d) {
+  const int ea = sizeof(TA), eb = sizeof(TB);
+  auto aligned = [](const void* p, int v) {
+    return p == nullptr || reinterpret_cast<uintptr_t>(p) % v == 0;
+  };
+  auto width_ok = [](int v, int64_t row_bytes) {
+    return is_pow2(v) && v <= 16 && row_bytes % v == 0;
+  };
+  const bool ok =
+      d.M >= 1 && d.M <= kDecodeMaxM && d.M % TM == 0 && is_pow2(d.bn) && d.bn <= 64 &&
+      d.bn * eb % 16 == 0 && is_pow2(d.bk) && d.bk >= kDecodeSub && d.bk <= 512 &&
+      d.bk * ea % 16 == 0 && d.stages >= 2 && d.stages <= kDecodeMaxStages &&
+      d.threads >= d.M / TM * d.bn && d.threads <= kDecodeMaxThreads &&
+      width_ok(d.va, static_cast<int64_t>(d.K) * ea) &&
+      width_ok(d.vb, static_cast<int64_t>(d.N) * eb) && aligned(d.a, d.va) &&
+      aligned(d.b, d.vb) && aligned(d.bg, d.vb) &&
+      static_cast<int64_t>(d.stages) * decode_slot<TA, TB, GATE>(d).bytes <= kDecodeMaxSmem;
+  return ok ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+// ---------------------------------------------------------------------------
+// widening: a payload element to the MAC type S (exact for every type)
+// ---------------------------------------------------------------------------
+
+// int8 -> f32 without I2F (a quarter-rate conversion): 0x4B400000 is
+// 1.5 * 2^23, whose mantissa takes a signed 8-bit offset exactly
+__device__ __forceinline__ float s8_to_f32(int s) {
+  return __int_as_float(0x4B400000 + s) - 12582912.0f;
+}
+
+// e4m3 -> f32 by moving its 7 magnitude bits under the f32 exponent (bias
+// 127 - 7 = 120, subnormals included) and the sign to bit 31; S.1111.111 is
+// e4m3's only NaN.  `s` is the byte sign-extended.
+__device__ __forceinline__ float e4m3_to_f32(int s) {
+  const float f = __uint_as_float((static_cast<unsigned>(s) << 20) & 0x87F00000u) * 0x1p120f;
+  return (s & 0x7F) == 0x7F ? __uint_as_float(0x7FC00000u) : f;
+}
+
+// Element j of a 16-byte vector of TA read from shared memory, widened.
+template <typename S, typename T>
+__device__ __forceinline__ S widen_vec(const uint4& v, int j) {
+  const unsigned w = (&v.x)[j * static_cast<int>(sizeof(T)) / 4];
+  if constexpr (std::is_same<T, float>::value) {
+    return __uint_as_float(w);
+  } else if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    return __uint_as_float(j & 1 ? w & 0xFFFF0000u : w << 16);
+  } else {
+    const int s = static_cast<int>(w << (24 - 8 * (j & 3))) >> 24;  // sign-extended byte
+    if constexpr (std::is_same<S, int>::value)
+      return s;  // int8 into the exact int32 MAC
+    else if constexpr (std::is_same<T, int8_t>::value)
+      return s8_to_f32(s);
+    else
+      return e4m3_to_f32(s);
+  }
+}
+
+// A weight element as it sits in shared memory (its own width) and widened.
+template <typename T>
+using RawOf = typename std::conditional<
+    sizeof(T) == 4, float,
+    typename std::conditional<sizeof(T) == 2, uint16_t, int8_t>::type>::type;
+
+template <typename S, typename T>
+__device__ __forceinline__ S widen_raw(RawOf<T> x) {
+  if constexpr (std::is_same<T, float>::value) {
+    return x;
+  } else if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    return __uint_as_float(static_cast<unsigned>(x) << 16);
+  } else if constexpr (std::is_same<S, int>::value) {
+    return x;  // int8 into the exact int32 MAC
+  } else if constexpr (std::is_same<T, int8_t>::value) {
+    return s8_to_f32(x);
+  } else {
+    return e4m3_to_f32(x);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// copies: global -> shared, v bytes (zero filled when !ok)
+// ---------------------------------------------------------------------------
+
+template <int V>
+__device__ __forceinline__ void copy_chunk(unsigned char* dst, const unsigned char* src,
+                                           bool ok) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  const int n = ok ? V : 0;  // bytes read; the rest of the V is zero filled
+  if constexpr (V == 16) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src), "r"(n)
+                 : "memory");
+  } else if constexpr (V == 8 || V == 4) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(d), "l"(src), "n"(V),
+                 "r"(n)
+                 : "memory");
+  } else if constexpr (V == 2) {  // below cp.async's 4 bytes: a plain load and store
+    *reinterpret_cast<uint16_t*>(dst) = ok ? *reinterpret_cast<const uint16_t*>(src) : 0;
+  } else {
+    *dst = ok ? *src : 0;
+  }
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most `pending` of this thread's committed groups are in flight.
+__device__ __forceinline__ void cp_async_wait(int pending) {
+  switch (pending) {
+    case 0: asm volatile("cp.async.wait_group 0;\n" ::: "memory"); break;
+    case 1: asm volatile("cp.async.wait_group 1;\n" ::: "memory"); break;
+    case 2: asm volatile("cp.async.wait_group 2;\n" ::: "memory"); break;
+    case 3: asm volatile("cp.async.wait_group 3;\n" ::: "memory"); break;
+    case 4: asm volatile("cp.async.wait_group 4;\n" ::: "memory"); break;
+    case 5: asm volatile("cp.async.wait_group 5;\n" ::: "memory"); break;
+    default: asm volatile("cp.async.wait_group 6;\n" ::: "memory"); break;
+  }
+}
+
+// The copies of K step `k0` into one slot, in V-byte chunks spread over the
+// CTA's threads, neighbouring threads on neighbouring chunks of a row (the
+// chunks per row are a power of two, so shifts index them).  A: its M rows
+// of bk elements.  B (and the gate weight): bk rows of bn columns.  A chunk
+// past K or N is zero filled.
+template <typename TA, int V>
+__device__ __forceinline__ void copy_a(unsigned char* slot, const DecodeSlot& L,
+                                       const DecodeShape& d, int k0) {
+  constexpr int ea = sizeof(TA);
+  const int per_row = d.bk * ea / V, sh = __ffs(per_row) - 1;
+  const int64_t row = static_cast<int64_t>(d.K) * ea;     // A's row bytes
+  const int64_t left = row - static_cast<int64_t>(k0) * ea;  // of them from k0 on
+  const unsigned char* A = static_cast<const unsigned char*>(d.a) + static_cast<int64_t>(k0) * ea;
+  for (int q = threadIdx.x; q < d.M * per_row; q += blockDim.x) {
+    const int m = q >> sh, o = (q & (per_row - 1)) * V;
+    const bool ok = o < left;
+    copy_chunk<V>(slot + m * L.a_stride + o, A + m * row + (ok ? o : 0), ok);
+  }
+}
+
+template <typename TB, bool GATE, int V>
+__device__ __forceinline__ void copy_b(unsigned char* slot, const DecodeSlot& L,
+                                       const DecodeShape& d, int k0, int n0) {
+  constexpr int eb = sizeof(TB);
+  const int brow = d.bn * eb, per_row = brow / V, sh = __ffs(per_row) - 1;
+  const int64_t row = static_cast<int64_t>(d.N) * eb;  // B's row bytes
+  const int64_t col = static_cast<int64_t>(n0) * eb;
+  const int64_t base = static_cast<int64_t>(k0) * row + col;
+  const int rows_left = d.K - k0;
+  const int64_t cols_left = row - col;
+  const unsigned char* B = static_cast<const unsigned char*>(d.b) + base;
+  unsigned char* dst0 = slot + L.a_bytes;
+  for (int q = threadIdx.x; q < d.bk * per_row; q += blockDim.x) {
+    const int r = q >> sh, o = (q & (per_row - 1)) * V;
+    const bool ok = r < rows_left && o < cols_left;
+    const int64_t g = ok ? r * row + o : 0;
+    unsigned char* dst = dst0 + r * brow + o;
+    copy_chunk<V>(dst, B + g, ok);
+    if constexpr (GATE)
+      copy_chunk<V>(dst + L.b_bytes, static_cast<const unsigned char*>(d.bg) + base + g, ok);
+  }
+}
+
+template <typename TA, typename TB, bool GATE>
+__device__ __forceinline__ void issue_stage(unsigned char* slot, const DecodeSlot& L,
+                                            const DecodeShape& d, int k0, int n0) {
+  switch (d.va) {
+    case 16: copy_a<TA, 16>(slot, L, d, k0); break;
+    case 8: copy_a<TA, 8>(slot, L, d, k0); break;
+    case 4: copy_a<TA, 4>(slot, L, d, k0); break;
+    case 2: copy_a<TA, 2>(slot, L, d, k0); break;
+    default: copy_a<TA, 1>(slot, L, d, k0);
+  }
+  switch (d.vb) {
+    case 16: copy_b<TB, GATE, 16>(slot, L, d, k0, n0); break;
+    case 8: copy_b<TB, GATE, 8>(slot, L, d, k0, n0); break;
+    case 4: copy_b<TB, GATE, 4>(slot, L, d, k0, n0); break;
+    case 2: copy_b<TB, GATE, 2>(slot, L, d, k0, n0); break;
+    default: copy_b<TB, GATE, 1>(slot, L, d, k0, n0);
+  }
+}
+
+// The MACs of one staged K step for thread (column c, rows r0 .. r0+TM-1),
+// in blocks of kDecodeSub rows; `chunk(k_end)` runs after each block that
+// holds rows < K (the baseline's round trip).  Each group of KV rows reads
+// its TM A vectors (16 bytes, a shared-memory broadcast) and its KV weights
+// (and gate weights) of column c, in their own width, and widens them as
+// the MACs take them; the block's trip count is a constant, so the
+// unrolled groups' reads issue ahead of their MACs.
+template <typename S, typename TA, typename TB, int TM, bool GATE, typename Chunk>
+__device__ __forceinline__ void mac_stage(S (&acc)[TM], S (&accg)[TM],
+                                          const unsigned char* slot, const DecodeSlot& L,
+                                          const DecodeShape& d, int k0, int c, int r0,
+                                          Chunk& chunk) {
+  constexpr int KV = 16 / sizeof(TA);  // A elements per 16-byte read
+  constexpr int eb = sizeof(TB);
+  const int brow = d.bn * eb;  // bytes per staged B row
+  const unsigned char* As = slot + r0 * L.a_stride;
+  const unsigned char* Bs = slot + L.a_bytes + c * eb;
+  for (int kb = 0; kb < d.bk && k0 + kb < d.K; kb += kDecodeSub) {
+    const unsigned char* ap = As + kb * static_cast<int>(sizeof(TA));
+    const unsigned char* bp = Bs + kb * brow;
+#pragma unroll 4
+    for (int g = 0; g < kDecodeSub / KV; ++g) {
+      uint4 av[TM];
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+        av[i] = *reinterpret_cast<const uint4*>(ap + i * L.a_stride + g * 16);
+#pragma unroll
+      for (int j = 0; j < KV; ++j) {
+        const unsigned char* p = bp + (g * KV + j) * brow;
+        const S w = widen_raw<S, TB>(*reinterpret_cast<const RawOf<TB>*>(p));
+        S wg = S(0);
+        if constexpr (GATE) wg = widen_raw<S, TB>(*reinterpret_cast<const RawOf<TB>*>(p + L.b_bytes));
+#pragma unroll
+        for (int i = 0; i < TM; ++i) {
+          const S x = widen_vec<S, TA>(av[i], j);
+          acc[i] = mac(x, w, acc[i]);
+          if constexpr (GATE) accg[i] = mac(x, wg, accg[i]);
+        }
+      }
+    }
+    chunk(k0 + kb + kDecodeSub);
+  }
+}
+
+// The whole K loop of one CTA's (M x bn) tile: the accumulators (type S)
+// are zeroed (the C-tile reset) and stay in registers; the ring is primed
+// with stages - 1 K steps, then each K step waits for its stage, passes ONE
+// barrier (its stage has landed for every thread, and every thread is done
+// with the slot the next copies overwrite), issues the copies of the step
+// stages - 1 ahead and runs its MACs.  One group is committed per step,
+// empty or not, so the wait count is constant.
+template <typename S, typename TA, typename TB, int TM, bool GATE, typename Chunk>
+__device__ __forceinline__ void decode_sweep(S (&acc)[TM], S (&accg)[TM], const DecodeShape& d,
+                                             int n0, int c, int r0, Chunk& chunk) {
+  extern __shared__ __align__(16) unsigned char decode_smem[];
+  const DecodeSlot L = decode_slot<TA, TB, GATE>(d);
+#pragma unroll
+  for (int i = 0; i < TM; ++i) acc[i] = accg[i] = S(0);
+  const int nk = (d.K + d.bk - 1) / d.bk;
+  const bool computes = threadIdx.x < d.M / TM * d.bn;  // the rest only copy
+  for (int s = 0; s < d.stages - 1; ++s) {
+    if (s < nk) issue_stage<TA, TB, GATE>(decode_smem + s * L.bytes, L, d, s * d.bk, n0);
+    cp_async_commit();
+  }
+  for (int kt = 0; kt < nk; ++kt) {
+    cp_async_wait(d.stages - 2);
+    __syncthreads();
+    const int nx = kt + d.stages - 1;
+    if (nx < nk)
+      issue_stage<TA, TB, GATE>(decode_smem + (nx % d.stages) * L.bytes, L, d, nx * d.bk, n0);
+    cp_async_commit();
+    if (computes)
+      mac_stage<S, TA, TB, TM, GATE>(acc, accg, decode_smem + (kt % d.stages) * L.bytes, L, d,
+                                     kt * d.bk, c, r0, chunk);
+  }
+  cp_async_wait(0);
+}
+
+// No round trip: the MX GEMM's accumulators never leave the registers.
+struct NoChunk {
+  __device__ __forceinline__ void operator()(int) const {}
+};
+
+// Launch one decode kernel instantiation with the tile d (after
+// decode_check); the opt-in to the full dynamic shared memory is set once
+// per (TA, TB, TM, GATE), which names one kernel within a source.
+template <typename TA, typename TB, int TM, bool GATE, typename Kernel, typename... KArgs>
+static int decode_launch(Kernel kernel, const DecodeShape& d, cudaStream_t s, KArgs... args) {
+  const int bad = decode_check<TA, TB, TM, GATE>(d);
+  if (bad) return bad;
+  static bool opted = false;  // per instantiation
+  if (!opted) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kDecodeMaxSmem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    opted = true;
+  }
+  const int smem = d.stages * decode_slot<TA, TB, GATE>(d).bytes;
+  const dim3 grid((d.N + d.bn - 1) / d.bn);
+  kernel<<<grid, d.threads, smem, s>>>(d, args...);
+  return 0;
+}

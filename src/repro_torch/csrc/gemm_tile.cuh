@@ -31,6 +31,35 @@ __device__ __forceinline__ S widen(T x) {
 __device__ __forceinline__ float mac(float a, float b, float c) { return fmaf(a, b, c); }
 __device__ __forceinline__ int mac(int a, int b, int c) { return a * b + c; }
 
+// The single write-back of one output element (gm, gn) of the MX GEMM: the
+// dequant scales and the epilogue applied to the finished accumulator y
+// (and the gate's, with GATE) in f32, in the order of kernels/mx_matmul.py's
+// Epilogue.  Each step rounds on its own (__fmul_rn / __fadd_rn are never
+// contracted into an FMA), so every kernel that stores through it -- the
+// dense decode and prefill tiles, the 2:4 and ABFT variants -- turns the
+// same accumulator into the same bits.  R: any argument struct with these
+// fields (csrc/mx_matmul.cu Args, csrc/mx_matmul.cuh GemmArgs).
+template <bool GATE, typename R>
+__device__ __forceinline__ void mx_store(const R& r, float y, float gate, int gm, int gn) {
+  if (r.a_scale != nullptr) {
+    const float as = r.a_scale[gm];
+    y = __fmul_rn(y, as);
+    gate = __fmul_rn(gate, as);
+  }
+  if (r.b_scale != nullptr) y = __fmul_rn(y, r.b_scale[gn]);
+  if (r.bias != nullptr) y = __fadd_rn(y, load_dt(r.bias, r.bias_dt, gn));
+  if constexpr (GATE) {
+    if (r.bg_scale != nullptr) gate = __fmul_rn(gate, r.bg_scale[gn]);
+    y = __fmul_rn(silu_f(gate), y);
+  } else {
+    y = activation_f(y, r.act);
+  }
+  const int64_t o = (int64_t)gm * r.N + gn;
+  if (r.res != nullptr) y = __fadd_rn(y, load_dt(r.res, r.res_dt, o));
+  if (r.has_scale) y = __fmul_rn(y, r.out_scale);
+  store_dt(r.out, r.out_dt, o, y);
+}
+
 template <int BM, int BN, int BK, int TM, int TN>
 struct TileCfg {
   static constexpr int kThreads = (BM / TM) * (BN / TN);

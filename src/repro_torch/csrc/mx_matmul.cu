@@ -6,13 +6,12 @@
 // (_fused_kernel): D = epilogue(A @ B [, A @ B_gate]), with quantized
 // operands' dequant scales (stage 1b).
 //
-// The paper's inter-k buffer: one CTA owns one (BM x BN) output tile and
-// keeps its accumulators in registers for the WHOLE K loop (zeroed at
-// k = 0 -- the C-tile reset -- never reloaded); A and B tiles stage through
-// shared memory, the next K step's operands are fetched into registers
-// while the current step's MACs run; the epilogue is applied in registers
-// and the tile is stored ONCE.  swiglu carries a second accumulator for
-// the gate weight.  Epilogue order (repro/kernels/mx_matmul.py L345-366):
+// The paper's inter-k buffer: one CTA owns one output tile and keeps its
+// accumulators in registers for the WHOLE K loop (zeroed at k = 0 -- the
+// C-tile reset -- never reloaded, never stored before the end); the
+// epilogue is applied in registers and the tile is stored ONCE
+// (gemm_tile.cuh's mx_store).  swiglu carries a second accumulator for the
+// gate weight.  Epilogue order (repro/kernels/mx_matmul.py L345-366):
 // acc * a_scale[m] * b_scale[n] -> bias -> activation, or
 // silu(accg * a_scale[m] * bg_scale[n]) * acc -> residual -> out_scale -> cast.
 //
@@ -25,73 +24,24 @@
 // and per column of B (1, N), constant along K, so they apply once, at the
 // store, to the finished accumulator.
 //
-// What bounds it on the H100: at decode (M = slots, e.g. 8) the GEMM reads
-// the whole weight for a handful of rows -- HBM bytes bound (3.35 TB/s),
-// and an int8 / fp8 weight halves or quarters those bytes.  The small-M
-// tile (BM = 16, BK = 128) keeps one K step of weight in flight per CTA,
-// and narrow BN = 16 tiles spread the weight over more CTAs (128 for
-// N = 2048); a narrow weight is still read one byte per thread per load,
-// far from the bound.  At prefill (M = chunk) it is FLOP bound: the MACs
-// run on the CUDA cores (67 TFLOP/s f32 outside the tensor cores), in
-// 2 x 4 (M <= 64) or 4 x 4 register tiles per thread over 32 x 64 or 64 x 64
-// CTA tiles.  Tensor cores (wgmma), TMA, vector loads and warp
-// specialisation are left to later work.
-#include "gemm_tile.cuh"
+// Two tiles, both chosen in Python:
+//   * decode (M <= 16; mx_matmul_decode_launch, tile from
+//     kernels/_build.decode_tile): HBM-bytes bound weight streaming, the K
+//     loop of decode_tile.cuh -- a ring of 16-byte cp.async stages, one
+//     barrier per K step, no padding rows, narrow weights kept narrow in
+//     shared memory.  Its header says what bounds it and what it does
+//     about it.  Threads own (TM rows x 1 column) with TM in {1, 2, 4}.
+//   * prefill (M > 16; mx_matmul_fused_launch, tile from
+//     kernels/_build.gemm_tile): FLOP bound, the MACs on the CUDA cores (67
+//     TFLOP/s f32 outside the tensor cores) in 2 x 4 (M <= 64) or 4 x 4
+//     register tiles per thread over 32 x 64 or 64 x 64 CTA tiles, staged
+//     through gemm_tile.cuh's sweep_k.  Tensor cores (wgmma) and TMA are
+//     left to later work.
+#include "decode_tile.cuh"
 
 REPRO_EXPORT_ERROR_STRING
 
-template <typename S, typename TA, typename TB, int BM, int BN, int BK, int TM, int TN,
-          bool GATE>
-__global__ void __launch_bounds__(TileCfg<BM, BN, BK, TM, TN>::kThreads)
-mx_matmul_kernel(const TA* __restrict__ A, const TB* __restrict__ B,
-                 const TB* __restrict__ Bg, const float* __restrict__ a_scale,
-                 const float* __restrict__ b_scale, const float* __restrict__ bg_scale,
-                 const void* __restrict__ bias, int bias_dt, const void* __restrict__ res,
-                 int res_dt, void* __restrict__ out, int out_dt, int M, int N, int K, int act,
-                 int has_scale, float out_scale) {
-  using Cfg = TileCfg<BM, BN, BK, TM, TN>;
-  __shared__ S As[BK][BM + 1];
-  __shared__ S Bs[BK][BN];
-  __shared__ S Bgs[GATE ? BK : 1][BN];
-
-  const int tx = threadIdx.x % Cfg::kTX, ty = threadIdx.x / Cfg::kTX;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-
-  S acc[TM][TN], accg[TM][TN];  // the inter-k buffer(s)
-  sweep_k<S, TA, TB, BM, BN, BK, TM, TN, GATE>(acc, accg, As, Bs, Bgs, A, B, Bg, M, N, K, m0,
-                                               n0, tx, ty);
-
-  // the single write-back, dequant scales and epilogue applied in registers
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int gm = m0 + ty * TM + i;
-    if (gm >= M) continue;
-    const float as = a_scale != nullptr ? a_scale[gm] : 1.0f;
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int gn = n0 + tx + j * Cfg::kTX;
-      if (gn >= N) continue;
-      float y = static_cast<float>(acc[i][j]);
-      if (a_scale != nullptr) y *= as;
-      if (b_scale != nullptr) y *= b_scale[gn];
-      if (bias != nullptr) y += load_dt(bias, bias_dt, gn);
-      if constexpr (GATE) {
-        float gate = static_cast<float>(accg[i][j]);
-        if (a_scale != nullptr) gate *= as;
-        if (bg_scale != nullptr) gate *= bg_scale[gn];
-        y = silu_f(gate) * y;
-      } else {
-        y = activation_f(y, act);
-      }
-      const int64_t o = (int64_t)gm * N + gn;
-      if (res != nullptr) y += load_dt(res, res_dt, o);
-      if (has_scale) y *= out_scale;
-      store_dt(out, out_dt, o, y);
-    }
-  }
-}
-
-// The launch arguments past the operand pointers, passed through unchanged.
+// The launch arguments past the operands, passed through unchanged.
 struct Args {
   const float *a_scale, *b_scale, *bg_scale;
   const void* bias;
@@ -103,6 +53,52 @@ struct Args {
   float out_scale;
 };
 
+template <typename S, typename TA, typename TB, int BM, int BN, int BK, int TM, int TN,
+          bool GATE>
+__global__ void __launch_bounds__(TileCfg<BM, BN, BK, TM, TN>::kThreads)
+mx_matmul_kernel(const TA* __restrict__ A, const TB* __restrict__ B,
+                 const TB* __restrict__ Bg, const Args r) {
+  using Cfg = TileCfg<BM, BN, BK, TM, TN>;
+  __shared__ S As[BK][BM + 1];
+  __shared__ S Bs[BK][BN];
+  __shared__ S Bgs[GATE ? BK : 1][BN];
+
+  const int tx = threadIdx.x % Cfg::kTX, ty = threadIdx.x / Cfg::kTX;
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+
+  S acc[TM][TN], accg[TM][TN];  // the inter-k buffer(s)
+  sweep_k<S, TA, TB, BM, BN, BK, TM, TN, GATE>(acc, accg, As, Bs, Bgs, A, B, Bg, r.M, r.N,
+                                               r.K, m0, n0, tx, ty);
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    const int gm = m0 + ty * TM + i;
+    if (gm >= r.M) continue;
+#pragma unroll
+    for (int j = 0; j < TN; ++j) {
+      const int gn = n0 + tx + j * Cfg::kTX;
+      if (gn < r.N)
+        mx_store<GATE>(r, static_cast<float>(acc[i][j]), static_cast<float>(accg[i][j]), gm,
+                       gn);
+    }
+  }
+}
+
+// The decode tile: thread (column c, rows r0 .. r0 + TM - 1) of a CTA that
+// owns bn columns and all M rows.
+template <typename S, typename TA, typename TB, int TM, bool GATE>
+__global__ void __launch_bounds__(kDecodeMaxThreads)
+mx_matmul_decode_kernel(const DecodeShape d, const Args r) {
+  const int c = threadIdx.x % d.bn, r0 = threadIdx.x / d.bn * TM;
+  const int n0 = blockIdx.x * d.bn;
+  S acc[TM], accg[TM];  // the inter-k buffer(s)
+  NoChunk none;
+  decode_sweep<S, TA, TB, TM, GATE>(acc, accg, d, n0, c, r0, none);
+  if (r0 >= d.M || n0 + c >= d.N) return;  // a copy-only thread, or past N
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+    mx_store<GATE>(r, static_cast<float>(acc[i]), static_cast<float>(accg[i]), r0 + i, n0 + c);
+}
+
 template <typename S, typename TA, typename TB, int BM, int BN, int BK, int TM, int TN>
 static void launch(const void* a, const void* b, const void* bg, const Args& r,
                    cudaStream_t stream) {
@@ -112,27 +108,20 @@ static void launch(const void* a, const void* b, const void* bg, const Args& r,
   const TB* B = static_cast<const TB*>(b);
   if (r.act == kSwiglu)
     mx_matmul_kernel<S, TA, TB, BM, BN, BK, TM, TN, true>
-        <<<grid, Cfg::kThreads, 0, stream>>>(
-            A, B, static_cast<const TB*>(bg), r.a_scale, r.b_scale, r.bg_scale, r.bias,
-            r.bias_dt, r.res, r.res_dt, r.out, r.out_dt, r.M, r.N, r.K, r.act, r.has_scale,
-            r.out_scale);
+        <<<grid, Cfg::kThreads, 0, stream>>>(A, B, static_cast<const TB*>(bg), r);
   else
     mx_matmul_kernel<S, TA, TB, BM, BN, BK, TM, TN, false>
-        <<<grid, Cfg::kThreads, 0, stream>>>(
-            A, B, nullptr, r.a_scale, r.b_scale, nullptr, r.bias, r.bias_dt, r.res,
-            r.res_dt, r.out, r.out_dt, r.M, r.N, r.K, r.act, r.has_scale, r.out_scale);
+        <<<grid, Cfg::kThreads, 0, stream>>>(A, B, nullptr, r);
 }
 
-// The tiles of kernels/_build.gemm_tile (the one tile rule: the caller
-// passes the tile, and no other is instantiated): decode (M <= 16:
-// HBM-bound weight streaming, narrow tiles for more CTAs), a prefill chunk
-// (M <= 64: FMA-bound, half-height tiles), larger M.
+// The prefill tiles of kernels/_build.gemm_tile for M > 16 (the one tile
+// rule: the caller passes the tile, and no other is instantiated): a
+// prefill chunk (M <= 64: FMA-bound, half-height tiles), larger M.  The
+// decode rows go to mx_matmul_decode_launch.
 template <typename S, typename TA, typename TB>
 static int dispatch(const void* a, const void* b, const void* bg, const Args& r, int bm,
                     int bn, int bk, cudaStream_t s) {
-  if (bm == 16 && bn == 16 && bk == 128)
-    launch<S, TA, TB, 16, 16, 128, 1, 1>(a, b, bg, r, s);
-  else if (bm == 32 && bn == 64 && bk == 16)
+  if (bm == 32 && bn == 64 && bk == 16)
     launch<S, TA, TB, 32, 64, 16, 2, 4>(a, b, bg, r, s);
   else if (bm == 64 && bn == 64 && bk == 16)
     launch<S, TA, TB, 64, 64, 16, 4, 4>(a, b, bg, r, s);
@@ -141,11 +130,43 @@ static int dispatch(const void* a, const void* b, const void* bg, const Args& r,
   return 0;
 }
 
+template <typename S, typename TA, typename TB, int TM>
+static int decode_gate(const DecodeShape& d, const Args& r, cudaStream_t s) {
+  if (r.act == kSwiglu)
+    return decode_launch<TA, TB, TM, true>(mx_matmul_decode_kernel<S, TA, TB, TM, true>, d, s,
+                                           r);
+  return decode_launch<TA, TB, TM, false>(mx_matmul_decode_kernel<S, TA, TB, TM, false>, d,
+                                          s, r);
+}
+
+template <typename S, typename TA, typename TB>
+static int decode_dispatch(const DecodeShape& d, const Args& r, int tm, cudaStream_t s) {
+  switch (tm) {
+    case 1: return decode_gate<S, TA, TB, 1>(d, r, s);
+    case 2: return decode_gate<S, TA, TB, 2>(d, r, s);
+    case 4: return decode_gate<S, TA, TB, 4>(d, r, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// The operand pair's instantiation: F(S, TA, TB) for the pair (a_dt, b_dt),
+// cudaErrorInvalidValue for any other.
+template <typename F>
+static int with_pair(int a_dt, int b_dt, F f) {
+  if (a_dt == kF32 && b_dt == kF32) return f(float(), float(), float());
+  if (a_dt == kBF16 && b_dt == kBF16) return f(float(), __nv_bfloat16(), __nv_bfloat16());
+  if (a_dt == kBF16 && b_dt == kI8) return f(float(), __nv_bfloat16(), int8_t());
+  if (a_dt == kBF16 && b_dt == kF8) return f(float(), __nv_bfloat16(), __nv_fp8_e4m3());
+  if (a_dt == kI8 && b_dt == kI8) return f(int(), int8_t(), int8_t());
+  if (a_dt == kF8 && b_dt == kF8) return f(float(), __nv_fp8_e4m3(), __nv_fp8_e4m3());
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 // a (M, K) of dtype a_dt; b, b_gate (K, N) of dtype b_dt, one of the pairs
 // above; row-major, contiguous.  a_scale (M,), b_scale / bg_scale (N,) f32
 // or null.  bias (N,), residual (M, N), out (M, N): their own dtypes; null
-// when absent.  (bm, bn, bk): the tile, one of `dispatch`'s.  An unsupported
-// pair or tile returns cudaErrorInvalidValue.
+// when absent.  (bm, bn, bk): the prefill tile, one of `dispatch`'s.  An
+// unsupported pair or tile returns cudaErrorInvalidValue.
 extern "C" int mx_matmul_fused_launch(const void* a, const void* b, const void* b_gate,
                                       const void* a_scale, const void* b_scale,
                                       const void* bg_scale, const void* bias, int bias_dt,
@@ -157,19 +178,36 @@ extern "C" int mx_matmul_fused_launch(const void* a, const void* b, const void* 
   const Args r{static_cast<const float*>(a_scale), static_cast<const float*>(b_scale),
                static_cast<const float*>(bg_scale), bias, bias_dt, residual, res_dt, out,
                out_dt, M, N, K, act, has_scale, out_scale};
-  int err = static_cast<int>(cudaErrorInvalidValue);
-  if (a_dt == kF32 && b_dt == kF32)
-    err = dispatch<float, float, float>(a, b, b_gate, r, bm, bn, bk, s);
-  else if (a_dt == kBF16 && b_dt == kBF16)
-    err = dispatch<float, __nv_bfloat16, __nv_bfloat16>(a, b, b_gate, r, bm, bn, bk, s);
-  else if (a_dt == kBF16 && b_dt == kI8)
-    err = dispatch<float, __nv_bfloat16, int8_t>(a, b, b_gate, r, bm, bn, bk, s);
-  else if (a_dt == kBF16 && b_dt == kF8)
-    err = dispatch<float, __nv_bfloat16, __nv_fp8_e4m3>(a, b, b_gate, r, bm, bn, bk, s);
-  else if (a_dt == kI8 && b_dt == kI8)
-    err = dispatch<int, int8_t, int8_t>(a, b, b_gate, r, bm, bn, bk, s);
-  else if (a_dt == kF8 && b_dt == kF8)
-    err = dispatch<float, __nv_fp8_e4m3, __nv_fp8_e4m3>(a, b, b_gate, r, bm, bn, bk, s);
+  const int err = with_pair(a_dt, b_dt, [&](auto s_, auto ta, auto tb) {
+    return dispatch<decltype(s_), decltype(ta), decltype(tb)>(a, b, b_gate, r, bm, bn, bk, s);
+  });
+  if (err) return err;
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The decode rows (M <= 16): as mx_matmul_fused_launch, with the tile of
+// kernels/_build.decode_tile -- bn columns per CTA, bk K rows per ring
+// stage, tm rows per thread, `stages` ring slots, `threads` per CTA (those
+// past M / tm * bn only copy) -- and the copy widths va
+// / vb (bytes) of A's and B's rows (kernels/_build.copy_width).  A tile or
+// width that decode_check refuses returns cudaErrorInvalidValue.
+extern "C" int mx_matmul_decode_launch(const void* a, const void* b, const void* b_gate,
+                                       const void* a_scale, const void* b_scale,
+                                       const void* bg_scale, const void* bias, int bias_dt,
+                                       const void* residual, int res_dt, void* out,
+                                       int out_dt, int M, int N, int K, int a_dt, int b_dt,
+                                       int act, int has_scale, float out_scale, int bn,
+                                       int bk, int tm, int stages, int threads, int va,
+                                       int vb, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Args r{static_cast<const float*>(a_scale), static_cast<const float*>(b_scale),
+               static_cast<const float*>(bg_scale), bias, bias_dt, residual, res_dt, out,
+               out_dt, M, N, K, act, has_scale, out_scale};
+  const DecodeShape d{a, b, act == kSwiglu ? b_gate : nullptr, M, N, K, bn, bk, stages,
+                      threads, va, vb};
+  const int err = with_pair(a_dt, b_dt, [&](auto s_, auto ta, auto tb) {
+    return decode_dispatch<decltype(s_), decltype(ta), decltype(tb)>(d, r, tm, s);
+  });
   if (err) return err;
   return static_cast<int>(cudaGetLastError());
 }

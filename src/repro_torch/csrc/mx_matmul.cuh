@@ -78,27 +78,12 @@ mx_matmul_kernel(const GemmArgs r) {
   for (int i = 0; i < TM; ++i) {
     const int gm = m0 + ty * TM + i;
     if (gm >= r.M) continue;
-    const float as = r.a_scale != nullptr ? r.a_scale[gm] : 1.0f;
 #pragma unroll
     for (int j = 0; j < TN; ++j) {
       const int gn = n0 + tx + j * Cfg::kTX;
-      if (gn >= r.N) continue;
-      float y = static_cast<float>(acc[i][j]);
-      if (r.a_scale != nullptr) y *= as;
-      if (r.b_scale != nullptr) y *= r.b_scale[gn];
-      if (r.bias != nullptr) y += load_dt(r.bias, r.bias_dt, gn);
-      if constexpr (GATE) {
-        float gate = static_cast<float>(accg[i][j]);
-        if (r.a_scale != nullptr) gate *= as;
-        if (r.bg_scale != nullptr) gate *= r.bg_scale[gn];
-        y = silu_f(gate) * y;
-      } else {
-        y = activation_f(y, r.act);
-      }
-      const int64_t o = (int64_t)gm * r.N + gn;
-      if (r.res != nullptr) y += load_dt(r.res, r.res_dt, o);
-      if (r.has_scale) y *= r.out_scale;
-      store_dt(r.out, r.out_dt, o, y);
+      if (gn < r.N)
+        mx_store<GATE>(r, static_cast<float>(acc[i][j]), static_cast<float>(accg[i][j]), gm,
+                       gn);
     }
   }
 }

@@ -4,8 +4,10 @@
 |-------------------------------------|---------------------------------------|
 | mx_matmul.py::mx_matmul_fused       | mx_matmul.py + csrc/mx_matmul*.cu     |
 |   (dense f32/bf16, every epilogue; int8/fp8 payloads with scales;         |
-|    2:4 sparse weights: _sparse.cu; ABFT checksums + flags: _abft.cu)     |
+|    2:4 sparse weights: _sparse.cu; ABFT checksums + flags: _abft.cu;      |
+|    dense decode rows, M <= 16: csrc/decode_tile.cuh's streaming loop)     |
 | baseline_matmul.py::baseline_matmul | baseline_matmul.py + csrc/baseline_matmul.cu |
+|   (decode rows on the same decode_tile.cuh loop, round trip every bk)     |
 | mx_flash_decode.py::mx_flash_decode | mx_flash_decode.py + csrc/mx_flash_decode.cu |
 |   (f32/bf16 pages, int8 / fp8 pages with k_scale / v_scale)                 |
 | mx_flash_decode.py::mx_flash_verify | mx_flash_decode.py + csrc/mx_flash_decode.cu |
@@ -60,8 +62,17 @@ def variant_launch_counts() -> Dict[str, int]:
             for v, n in getattr(fn, "variants", {}).items()}
 
 
+def decode_launch_counts() -> Dict[str, int]:
+    """The dense GEMMs' launches on the decode tile (M <= 16,
+    csrc/decode_tile.cuh) since the last reset."""
+    return {name: fn.decode_launches for name, fn in WRAPPERS.items()
+            if hasattr(fn, "decode_launches")}
+
+
 def reset_launch_counts() -> None:
     for fn in WRAPPERS.values():
         fn.launches = 0
+        if hasattr(fn, "decode_launches"):
+            fn.decode_launches = 0
         for v in getattr(fn, "variants", {}):
             fn.variants[v] = 0

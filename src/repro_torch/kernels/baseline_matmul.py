@@ -4,7 +4,8 @@
 No inter-k buffering: the partial sum of every bk-wide K chunk is added
 into the output tile in the output dtype, read back and written again on
 every chunk.  On a CUDA tensor `baseline_matmul` launches
-`csrc/baseline_matmul.cu`; on a CPU tensor it runs the plain version
+`csrc/baseline_matmul.cu` (the MX kernel's tiles and K loops: at M <= 16
+`_build.decode_tile`'s); on a CPU tensor it runs the plain version
 (`kernels.ref.baseline_matmul_ref`, the same per-chunk rounding).
 """
 from __future__ import annotations
@@ -14,12 +15,16 @@ import ctypes
 import torch
 
 from . import _build
+from .mx_matmul import decode_launch_tile
 from .ref import baseline_matmul_ref
 
-KERNEL_BK = 128  # the CUDA kernel's K staging step; bk must be a multiple
+KERNEL_BK = 128  # the CUDA kernels' K step between round trips; bk must be a multiple
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P)
+# the decode rows: as _ARGTYPES, then the decode tile (bn, bk, tm, stages,
+# threads, va, vb)
+_DECODE_ARGTYPES = _ARGTYPES[:-1] + (_I,) * 7 + (_P,)
 
 
 def _launch(a, b, bk, out_dtype):
@@ -41,12 +46,19 @@ def _launch(a, b, bk, out_dtype):
         return out
     if K == 0:
         return out.zero_()
-    fn = _build.function("baseline_matmul", "baseline_matmul_launch", _ARGTYPES)
-    err = fn(a.data_ptr(), b.data_ptr(), out.data_ptr(),
-             _build.dtype_code(out_dtype, "out_dtype"), M, N, K, dt, bk,
-             _build.stream_ptr(a))
+    args = [a.data_ptr(), b.data_ptr(), out.data_ptr(),
+            _build.dtype_code(out_dtype, "out_dtype"), M, N, K, dt, bk]
+    decode = M <= _build.DECODE_MAX_M
+    if decode:  # the MX kernel's decode tile and loop
+        fn = _build.function("baseline_matmul", "baseline_matmul_decode_launch",
+                             _DECODE_ARGTYPES)
+        args += decode_launch_tile(a, b)
+    else:
+        fn = _build.function("baseline_matmul", "baseline_matmul_launch", _ARGTYPES)
+    err = fn(*args, _build.stream_ptr(a))
     _build.check(err, "baseline_matmul", "baseline_matmul")
     baseline_matmul.launches += 1
+    baseline_matmul.decode_launches += decode
     return out
 
 
@@ -66,3 +78,4 @@ def baseline_matmul(a: torch.Tensor, b: torch.Tensor, *, bk: int = 128,
 
 
 baseline_matmul.launches = 0  # kernel launches (CUDA tensors only)
+baseline_matmul.decode_launches = 0  # of them, those on the decode tile (M <= 16)

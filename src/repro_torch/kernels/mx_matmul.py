@@ -3,7 +3,9 @@
 
 `mx_matmul_fused` computes D = epilogue(A @ B): on a CUDA tensor it launches
 the Hopper kernel `csrc/mx_matmul.cu` (f32 accumulators held in registers
-for the whole K loop, epilogue applied in registers, one store); on a CPU
+for the whole K loop, epilogue applied in registers, one store; decode rows,
+M <= 16, stream the weight through `csrc/decode_tile.cuh`'s loop with
+`_build.decode_tile`'s tile, M > 16 run `_build.gemm_tile`'s); on a CPU
 tensor it runs `mx_matmul_fused_plain`, the plain PyTorch version of the
 same function, which the tests hold against the JAX kernel and which
 `chip_smoke.py` holds the CUDA kernel against on the card.
@@ -239,14 +241,34 @@ def mx_matmul_fused_plain(a, b, *, epilogue: Epilogue = Epilogue(),
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # a, b, b_gate, [b_meta, bg_meta], a_scale, b_scale, bg_scale, bias, then
-# _EPI, then [flags, fault_delta, fault_row, fault_col, rtol, atol], stream
-_EPI = (_I, _P, _I, _P) + (_I,) * 8 + (_F,) + (_I,) * 3  # bias_dt .. out_scale, bm, bn, bk
+# _EPI, then the tile: (bm, bn, bk), or the decode tile's (bn, bk, tm,
+# stages, threads, va, vb); then [flags, fault_delta, fault_row, fault_col,
+# rtol, atol], stream
+_EPI = (_I, _P, _I, _P) + (_I,) * 8 + (_F,)  # bias_dt .. out_scale
+_TILE, _DECODE_TILE = (_I,) * 3, (_I,) * 7
 _LAUNCHERS = {  # variant -> (source, symbol, argtypes)
-    "dense": ("mx_matmul", "mx_matmul_fused_launch", (_P,) * 7 + _EPI + (_P,)),
-    "sparse": ("mx_matmul_sparse", "mx_matmul_sparse_launch", (_P,) * 9 + _EPI + (_P,)),
+    "dense": ("mx_matmul", "mx_matmul_fused_launch", (_P,) * 7 + _EPI + _TILE + (_P,)),
+    "decode": ("mx_matmul", "mx_matmul_decode_launch",
+               (_P,) * 7 + _EPI + _DECODE_TILE + (_P,)),
+    "sparse": ("mx_matmul_sparse", "mx_matmul_sparse_launch",
+               (_P,) * 9 + _EPI + _TILE + (_P,)),
     "abft": ("mx_matmul_abft", "mx_matmul_abft_launch",
-             (_P,) * 7 + _EPI + (_P,) * 4 + (_F, _F, _P)),
+             (_P,) * 7 + _EPI + _TILE + (_P,) * 4 + (_F, _F, _P)),
 }
+
+
+def decode_launch_tile(a: torch.Tensor, b: torch.Tensor, b_gate=None):
+    """The dense decode launch's tile arguments (bn, bk, tm, stages,
+    threads, va, vb) for operands a (M <= 16, K) and b / b_gate (K, N):
+    `_build.decode_tile`, and the copy widths of A's and B's rows from their
+    row bytes and base addresses (`_build.copy_width`)."""
+    M, K = a.shape
+    N = b.shape[1]
+    t = _build.decode_tile(M, N, a.dtype, b.dtype, gated=b_gate is not None)
+    va = _build.copy_width(K * a.element_size(), a.data_ptr(), vec=t.vec)
+    vb = _build.copy_width(N * b.element_size(), b.data_ptr(),
+                           *(() if b_gate is None else (b_gate.data_ptr(),)), vec=t.vec)
+    return t.bn, t.bk, t.tm, t.stages, t.threads, va, vb
 
 
 def _require_cuda_operand(t: torch.Tensor, what: str, device, shape=None):
@@ -312,7 +334,9 @@ def _launch_fused(a, b, epilogue, b_gate, bias, residual, a_scale, b_scale, bg_s
         flags = torch.zeros((-(-M // bm), -(-N // bn)), dtype=torch.int32, device=a.device)
     if M == 0 or N == 0:
         return out if flags is None else (out, flags)
-    source, symbol, argtypes = _LAUNCHERS[variant]
+    # the dense decode rows take the decode tile's loop (csrc/decode_tile.cuh)
+    decode = variant == "dense" and M <= _build.DECODE_MAX_M
+    source, symbol, argtypes = _LAUNCHERS["decode" if decode else variant]
     fn = _build.function(source, symbol, argtypes)
     head = [a.data_ptr(), b.data_ptr(), _ptr(b_gate)]
     if variant == "sparse":
@@ -323,7 +347,7 @@ def _launch_fused(a, b, epilogue, b_gate, bias, residual, a_scale, b_scale, bg_s
             out.data_ptr(), _build.dtype_code(out_dtype, "out_dtype"),
             M, N, K, a_dt, b_dt, ACT_CODES[epilogue.activation],
             int(epilogue.out_scale is not None), float(epilogue.out_scale or 0.0),
-            bm, bn, bk]
+            *(decode_launch_tile(a, b, b_gate) if decode else (bm, bn, bk))]
     if variant == "abft":
         fd, fr, fc = _fault_operands(fault, a.device)
         args += [flags.data_ptr(), _ptr(fd), _ptr(fr), _ptr(fc), abft.rtol, abft.atol]
@@ -331,6 +355,7 @@ def _launch_fused(a, b, epilogue, b_gate, bias, residual, a_scale, b_scale, bg_s
     _build.check(err, source, "mx_matmul_fused")
     mx_matmul_fused.launches += 1
     mx_matmul_fused.variants[variant] += 1
+    mx_matmul_fused.decode_launches += decode
     return out if flags is None else (out, flags)
 
 
@@ -449,6 +474,7 @@ def mx_matmul_fused(a: torch.Tensor, b: torch.Tensor, *,
 
 mx_matmul_fused.launches = 0  # kernel launches (CUDA tensors only), every variant
 mx_matmul_fused.variants = {"dense": 0, "sparse": 0, "abft": 0}  # by variant
+mx_matmul_fused.decode_launches = 0  # of the dense ones, those on the decode tile
 
 
 def mx_matmul(a: torch.Tensor, b: torch.Tensor, c: Optional[torch.Tensor] = None,

@@ -16,9 +16,11 @@ and "int8_all" with scales only bitwise (an exact integer MAC on both
 sides, then the same two f32 multiplies).  The 2:4 sparse kernels are
 bitwise the dense kernels on the expanded weight; the ABFT kernels are
 bitwise the kernels without ABFT, and their flag maps equal the plain
-versions'.  `ssd_scan` and `mx_flash_attention` (f32 within 1e-4 * max|ref|,
-bf16 within 2e-2 * max|ref|) against `ssd_scan_plain` / the sequential
-oracle and `flash_attention_plain`.
+versions'.  The dense decode tile (M <= 16, csrc/decode_tile.cuh) is held
+on every operand pair, epilogue and ragged or misaligned operand, and the
+baseline's at bk = 128 and 256.  `ssd_scan` and `mx_flash_attention` (f32
+within 1e-4 * max|ref|, bf16 within 2e-2 * max|ref|) against
+`ssd_scan_plain` / the sequential oracle and `flash_attention_plain`.
 """
 import numpy as np
 import pytest
@@ -544,6 +546,118 @@ def test_quantized_mx_matmul_kernel_matches_plain(cuda, pol, ep, M):
         assert torch.equal(got, ref)
 
 
+# ---------------------------------------------------------------------------
+# the dense decode tile (M <= 16, csrc/decode_tile.cuh) of both dense GEMMs
+# ---------------------------------------------------------------------------
+
+DECODE_PAIRS = ["f32", "bf16", "int8", "fp8", "int8_all", "fp8_all"]  # every GEMM pair
+DECODE_EPILOGUES = {"none": {}, "bias": dict(bias=True), "residual": dict(residual=True),
+                    "swiglu": dict(activation="swiglu")}
+_DECODE_INPUTS = {}
+
+
+def _decode_inputs(M, K, N, dev):
+    """f32 activations, weight, gate weight, bias and residual, drawn once per
+    shape (the widest weights are 342 MB) and quantized per test."""
+    key = (M, K, N)
+    if key not in _DECODE_INPUTS:
+        if len(_DECODE_INPUTS) > 4:  # at most a few of the 342 MB weights at once
+            _DECODE_INPUTS.clear()
+        _DECODE_INPUTS[key] = (
+            _randn((M, K), torch.float32, dev, 0), _randn((K, N), torch.float32, dev, 1),
+            _randn((K, N), torch.float32, dev, 2), _randn((N,), torch.float32, dev, 3),
+            _randn((M, N), torch.float32, dev, 4))
+    return _DECODE_INPUTS[key]
+
+
+def _decode_call(pol, ep, x, w, wg, bias, res):
+    gated = ep.get("activation") == "swiglu"
+    qa, a_s, qb, b_s, qg, bg_s = _quantized(pol, x, w, wg if gated else None)
+    out_dtype = torch.bfloat16 if pol == "bf16" else torch.float32
+    e = mm.Epilogue(**ep, a_scale=a_s is not None, b_scale=b_s is not None)
+    kw = dict(epilogue=e, b_gate=qg, a_scale=a_s, b_scale=b_s,
+              bg_scale=bg_s if gated and b_s is not None else None,
+              bias=bias.to(out_dtype) if e.bias else None,
+              residual=res.to(out_dtype) if e.residual else None, out_dtype=out_dtype)
+    return qa, qb, kw, out_dtype
+
+
+@pytest.mark.parametrize("ep", sorted(DECODE_EPILOGUES))
+@pytest.mark.parametrize("pol", DECODE_PAIRS)
+@pytest.mark.parametrize("K", [296, 8192])
+@pytest.mark.parametrize("N", [77, 512, 2048, 10448])
+@pytest.mark.parametrize("M", [1, 7, 8, 13, 16])
+def test_decode_tile_matches_plain(cuda, M, N, K, pol, ep):
+    """The dense decode tile on every operand pair and epilogue, at ragged
+    and real widths (zamba2's N = 10448, llama's K = 8192), against
+    mx_matmul_fused_plain: 1e-4 * max|ref| (f32 out), 2e-2 (bf16); int8 x
+    int8 with scales only bitwise."""
+    qa, qb, kw, out_dtype = _decode_call(pol, DECODE_EPILOGUES[ep],
+                                         *_decode_inputs(M, K, N, cuda))
+    kernels.reset_launch_counts()
+    got = mm.mx_matmul_fused(qa, qb, **kw)
+    ref = mm.mx_matmul_fused_plain(qa, qb, **kw)
+    torch.cuda.synchronize()
+    assert kernels.decode_launch_counts()["mx_matmul_fused"] == 1
+    assert got.dtype == out_dtype and got.shape == (M, N)
+    _close(got, ref, out_dtype)
+    if pol == "int8_all" and ep == "none":
+        assert torch.equal(got, ref)
+
+
+def _offset_view(t, nbytes=4):
+    """A contiguous copy of t whose data starts `nbytes` past a 16-byte
+    boundary."""
+    buf = torch.empty(t.numel() + 16, dtype=t.dtype, device=t.device)
+    v = buf[nbytes // t.element_size():][:t.numel()].view(t.shape)
+    v.copy_(t)
+    assert v.is_contiguous() and v.data_ptr() % 16 == nbytes
+    return v
+
+
+@pytest.mark.parametrize("which", ["a", "b", "b_gate"])
+@pytest.mark.parametrize("pol", DECODE_PAIRS)
+def test_decode_tile_takes_a_misaligned_operand(cuda, pol, which):
+    """One operand a contiguous view at a 4-byte offset: its rows take the
+    4-byte copies, in the same kernel, and the result holds the plain
+    version's."""
+    M, K, N = 8, 2048, 2048
+    qa, qb, kw, out_dtype = _decode_call(pol, dict(activation="swiglu", residual=True),
+                                         *_decode_inputs(M, K, N, cuda))
+    if which == "a":
+        qa = _offset_view(qa)
+    elif which == "b":
+        qb = _offset_view(qb)
+    else:
+        kw["b_gate"] = _offset_view(kw["b_gate"])
+    *_, va, vb = mm.decode_launch_tile(qa, qb, kw["b_gate"])  # the copy widths
+    assert (va, vb) == ((4, 16) if which == "a" else (16, 4))
+    got = mm.mx_matmul_fused(qa, qb, **kw)
+    ref = mm.mx_matmul_fused_plain(qa, qb, **kw)
+    torch.cuda.synchronize()
+    _close(got, ref, out_dtype)
+
+
+@pytest.mark.parametrize("K,N", [(517, 96), (2048, 8192)])
+@pytest.mark.parametrize("bk", [128, 256])
+@pytest.mark.parametrize("M", [1, 8, 16])
+@pytest.mark.parametrize("dtype,out_dtype", [(torch.float32, torch.float32),
+                                             (torch.float32, torch.bfloat16),
+                                             (torch.bfloat16, torch.bfloat16)])
+def test_baseline_decode_tile_matches_plain(cuda, dtype, out_dtype, M, bk, K, N):
+    """The baseline on the decode tile: the partial rounded into the output
+    dtype after every bk-wide chunk, as baseline_matmul_ref does."""
+    a = _randn((M, K), dtype, cuda, 5)
+    b = (_randn((K, N), torch.float32, cuda, 6) / K ** 0.5).to(dtype)
+    kernels.reset_launch_counts()
+    got = baseline_matmul(a, b, bk=bk, out_dtype=out_dtype)
+    ref = baseline_matmul_ref(a, b, bk, out_dtype)
+    torch.cuda.synchronize()
+    assert kernels.decode_launch_counts()["baseline_matmul"] == 1
+    assert got.dtype == out_dtype
+    _close(got, ref, out_dtype)
+
+
 def test_kernels_refuse_an_operand_pair_they_are_not_built_for(cuda):
     a = torch.zeros(4, 8, device=cuda)
     b = torch.zeros(8, 6, dtype=torch.int8, device=cuda)
@@ -811,27 +925,45 @@ def test_abft_grouped_kernel_flag_maps_equal_plain(cuda, pol, case):
 
 
 def test_one_tile_rule_the_kernels_take_the_python_table_and_nothing_else(cuda):
-    """The tile of every launch comes from _build.gemm_tile / grouped_tile,
-    which the launchers take as (bm, bn, bk): each table tile launches (and
-    its ABFT flag map has the table's grid); any other tile is refused."""
+    """The tile of every launch comes from _build: gemm_tile for the dense
+    prefill tiles (M > 16), the 2:4 and ABFT variants and their flag maps;
+    decode_tile for the dense decode rows (M <= 16); grouped_tile for the
+    grouped GEMM.  Each launcher takes its table's tiles and refuses any
+    other (the old 16 x 16 x 128 tile included: the dense decode rows take
+    the decode launcher)."""
     from repro_torch.kernels.mx_matmul import _LAUNCHERS
 
     x = _randn((100, 64), torch.float32, cuda, 0)
     w = _randn((64, 48), torch.float32, cuda, 1)
     out = torch.empty((100, 48), device=cuda)
-    source, symbol, argtypes = _LAUNCHERS["dense"]
-    fn = _build.function(source, symbol, argtypes)
+    fn = _build.function(*_LAUNCHERS["dense"])
+    dfn = _build.function(*_LAUNCHERS["decode"])
 
-    def launch(M, tile):
-        return fn(x.data_ptr(), w.data_ptr(), None, None, None, None, None, 0, None, 0,
-                  out.data_ptr(), 0, M, 48, 64, 0, 0, 0, 0, 0.0, *tile,
-                  _build.stream_ptr(x))
+    def launch(M, tile, f=fn, a=x):
+        return f(a.data_ptr(), w.data_ptr(), None, None, None, None, None, 0, None, 0,
+                 out.data_ptr(), 0, M, 48, 64, 0, 0, 0, 0, 0.0, *tile,
+                 _build.stream_ptr(x))
 
-    tiles = {_build.gemm_tile(M) for M in (1, 16, 17, 64, 65, 100)}
-    assert len(tiles) == 3
+    tiles = {_build.gemm_tile(M) for M in (17, 64, 65, 100)}
+    assert len(tiles) == 2
     for tile in tiles:
         assert launch(100, tile) == 0
-    assert launch(100, (16, 16, 16)) != 0 and launch(100, (8, 128, 32)) != 0
+    for tile in ((16, 16, 128), (16, 16, 16), (8, 128, 32)):
+        assert launch(100, tile) != 0
+    for M in (1, 8, 13, 16):
+        t = _build.decode_tile(M, 48, torch.float32, torch.float32)
+        assert launch(M, (t.bn, t.bk, t.tm, t.stages, t.threads, t.vec, t.vec), dfn) == 0
+    t = _build.decode_tile(8, 48, torch.float32, torch.float32)
+    for bad_m, bad in ((8, dict(tm=3)), (1, dict(tm=2)), (8, dict(stages=9)),
+                       (8, dict(bk=96)), (8, dict(bn=2)), (8, dict(threads=1024)),
+                       (8, dict(threads=8)), (17, {})):
+        tile = t._replace(**bad)
+        assert launch(bad_m, (tile.bn, tile.bk, tile.tm, tile.stages, tile.threads, 16, 16),
+                      dfn) != 0
+    shifted = _offset_view(x[:8].contiguous())  # 16-byte copies need an aligned A
+    tile = (t.bn, t.bk, t.tm, t.stages, t.threads)
+    assert launch(8, (*tile, 16, 16), dfn, shifted) != 0
+    assert launch(8, (*tile, 4, 16), dfn, shifted) == 0
     gtiles = {_build.grouped_tile(T, G) for T, G in ((64, 8), (70, 8), (512, 8), (1024, 8))}
     assert len(gtiles) == 3
     for M in (5, 40, 100):
