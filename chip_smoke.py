@@ -9,14 +9,19 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
   2. builds the CUDA kernels from src/repro_torch/csrc with nvcc (sm_90a),
      one nvcc per source, all started together, and prints each kernel's
      registers and spills; requires the baseline library's SASS to hold its
-     output round trip (ld/st.global.cg) and the MX library's none;
+     output round trip (ld/st.global.cg) and the MX library's none, and
+     every prefill-tile kernel (csrc/prefill_tile.cuh) to hold tensor-core
+     instructions (HMMA) and, outside ABFT, at most PREFILL_MAX_FFMA FFMAs
+     (printed on a line before the last);
   3. holds each kernel against its plain PyTorch version at the shapes of
      the main path (llama3.2-1b, plus qwen2-0.5b's ragged widths and
      zamba2-2.7b's Mamba2 projections, N = 10448 off every tile), in f32
      and bf16: the GEMMs (the dense decode tile, M <= 16, at M = 1, 8 and
      16, with an operand 4 bytes off a 16-byte boundary, each launch's tile,
      ring depth and shared memory printed; the paper's A/B line, MX against
-     the baseline at M = 8; M = 64 and 256 on the prefill tiles); flash
+     the baseline at M = 8; M = 40, 64, 256 and 2048 on the tensor-core
+     prefill tile, each with its tile, its 3xTF32 route bound and the
+     library time, and the A/B there); flash
      decode with f32/bf16 and with int8 pages
      and scales; flash verify at S = 5 and 9, G = 7, poisoned stale pages
      and S = 1 (also against the decode kernel), with the same page types.
@@ -28,7 +33,8 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
   4. serves llama3.2-1b at full width (16 layers, f32, random weights from
      seed 0) through the port's paged continuous batcher with the prefix
      cache: 8 slots, 16 requests of 128 tokens sharing a 96-token system
-     prompt, 32 new tokens each -- on the MX kernels, shorter on the
+     prompt, 32 new tokens each -- on the MX kernels (launches on the decode
+     and prefill tiles counted), shorter on the
      baseline GEMM, then with speculation (k = 4; a trace drafter over the
      plain streams, and the n-gram drafter), with int8 pages (plain and
      k = 4 n-gram), and a short pass with the target itself as the draft
@@ -41,7 +47,8 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      same cache state under "cuda_mx" and "torch" (logits within 1e-3 *
      max|ref|; the verify step's plain path and the decode step that its
      row 0 is checked against attend over the pages the kernel path wrote;
-     int8 pages the two paths write on their own within one quantum),
+     int8 pages the two paths write on their own within one quantum; every
+     GEMM of the chunk and of the verify step on the prefill tile),
      profiles a prefill
      chunk and four decode steps and one verify step (device time by
      kernel, busy share), and requires identical token streams at smoke
@@ -102,9 +109,11 @@ The 2:4 sparse and ABFT stages of the GEMMs (1c, 1d, 5c, 5d):
       meta); the bound counts payload and metadata bytes; the library
       yardstick is torch.sparse.to_sparse_semi_structured (bf16);
   3a. both GEMMs, ABFT on the six dense pairs and the three sparse policies
-      (expanded first): on bitwise equal to off with no flag, an injected
-      fault flags exactly its tile and the flag map equals the plain
-      version's, recovery bitwise, the int8 pair catches a delta of 1,
+      (expanded first; the fused GEMM at M = 8 and at M = 40 and 65, the
+      prefill tile's): on bitwise equal to off with no flag, an injected
+      fault (in the last row tile, of 8 and 1 rows at M = 40 and 65) flags
+      exactly its tile and the flag map equals the plain version's,
+      recovery bitwise, the int8 pair catches a delta of 1,
       max_retries = 0 raises SDCError naming the tile; time on against off;
   4s. (before any profiler session) llama3.2-1b under "sparse24" and
       "sparse24_int8" on the phase 4 trace, every GEMM the 2:4 variant;
@@ -170,6 +179,11 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM (NVIDIA data sheet)
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12,  # dense; f32 off the tensor cores
               "int8": 1979e12, "float8_e4m3fn": 1979e12}
+TF32_FLOPS = 495e12  # the tensor cores in TF32: the f32 prefill tile's 3xTF32 route
+# FFMAs a prefill kernel may hold outside the ABFT checksums (its epilogue's
+# activations): fewer than one K step of gemm_tile.cuh's prefill loop, whose
+# smallest tile unrolls 128 (2 x 4 outputs per thread, 16 K rows)
+PREFILL_MAX_FFMA = 127
 REL_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 QUANT_POLICIES = ("int8", "fp8", "int8_all", "fp8_all")  # the quantized operand pairs
 L2_BYTES = 50 * 2**20
@@ -300,6 +314,19 @@ def _decode_tile(a, b, b_gate=None):
                 smem=t.smem, ctas=t.ctas)
 
 
+def _prefill_tile(a, b, b_gate=None, variant="dense"):
+    """The tensor-core prefill tile a launch on these operands takes (f32
+    and bf16, M > 16), as a dict, else None."""
+    from repro_torch.kernels import _build
+
+    if a.shape[0] <= _build.DECODE_MAX_M or (a.dtype, b.dtype) not in _build.MMA_PAIRS:
+        return None
+    t = _build.prefill_tile(a.shape[0], b.shape[1], a.shape[1], a.dtype, b.dtype,
+                            b_gate is not None, variant)
+    return dict(bm=t.bm, bn=t.bn, bk=t.bk, stages=t.stages, split=t.split, parts=t.parts,
+                threads=t.threads, smem=t.smem, ctas=t.ctas)
+
+
 def check_gemm(torch, dev, M, K, N, dtype_name, ep_kw, seed, offset=None):
     """mx_matmul_fused against its plain version; `offset` ("a" or "b")
     makes that operand a contiguous view 4 bytes past a 16-byte boundary
@@ -351,7 +378,11 @@ def check_gemm(torch, dev, M, K, N, dtype_name, ep_kw, seed, offset=None):
     out = dict(kernel="mx_matmul_fused", M=M, K=K, N=N, dtype=dtype_name,
                epilogue=ep_kw, max_abs_err=err, tol=tol, **_time_ms(torch, fns),
                library=library, bound_ms=bound, bound_by=by,
-               tile=_decode_tile(a, b, kw["b_gate"]))
+               tile=_decode_tile(a, b, kw["b_gate"]),
+               prefill_tile=_prefill_tile(a, b, kw["b_gate"]))
+    if out["prefill_tile"] and dtype_name == "float32":
+        # the route's own bound: three TF32 products per f32 product
+        out["route_bound_ms"] = max(nbytes / HBM_BYTES_PER_S, 3 * flops / TF32_FLOPS) * 1e3
     if offset:
         out["offset"] = offset
     return out
@@ -378,9 +409,14 @@ def check_baseline(torch, dev, M, K, N, dtype_name, seed, bk=128):
         plain_ms=(lambda a_, b_: baseline_matmul_ref(a_, b_, bk, dt), sets),
         library_ms=(lambda a_, b_: torch.matmul(a_, b_), sets)))
     bound, by = _bound_ms(nbytes, 2 * M * N * K, dtype_name)
-    return dict(kernel="baseline_matmul", M=M, K=K, N=N, dtype=dtype_name, bk=bk,
-                max_abs_err=err, tol=tol, **times, library="torch.matmul",
-                bound_ms=bound, bound_by=by, tile=_decode_tile(a, b))
+    out = dict(kernel="baseline_matmul", M=M, K=K, N=N, dtype=dtype_name, bk=bk,
+               max_abs_err=err, tol=tol, **times, library="torch.matmul",
+               bound_ms=bound, bound_by=by, tile=_decode_tile(a, b),
+               prefill_tile=_prefill_tile(a, b, variant="baseline"))
+    if out["prefill_tile"] and dtype_name == "float32":
+        out["route_bound_ms"] = max(nbytes / HBM_BYTES_PER_S,
+                                    3 * 2 * M * N * K / TF32_FLOPS) * 1e3
+    return out
 
 
 def _attn_inputs(torch, dev, B, H, Hkv, d, ps, lengths, dtype_name, seed, poison, pages,
@@ -1018,7 +1054,7 @@ def check_abft(torch, dev, pol, grouped, seed, fused_shape=(8, 2048, 8192),
         def recover(cfg):
             return ops._abft_grouped_gemm(x, w, sz, activation="swiglu", w_gate=wg, a_s=a_s,
                                           b_s=bs, bg_s=gs, out_dtype=out_dtype, cfg=cfg)
-        fault_tile = (1, 5)  # rows 8-15: groups 1 and 4 straddle it
+        fault_tile, fault_row = (1, 5), 3  # rows 8-15: groups 1 and 4 straddle it
         M = T
     else:
         M, K, N = fused_shape
@@ -1039,7 +1075,9 @@ def check_abft(torch, dev, pol, grouped, seed, fused_shape=(8, 2048, 8192),
         def recover(cfg):
             return ops._abft_fused_gemm(x, w, ep=ep, bias=None, residual=None, w_gate=wg,
                                         a_s=a_s, b_s=bs, bg_s=gs, out_dtype=out_dtype, cfg=cfg)
-        fault_tile = (0, 37)
+        # the matrix's last row, in the last row tile: at M = 40 (8 rows) and
+        # 65 (1 row) that tile is recomputed on the launch's tensor-core route
+        fault_tile, fault_row = (-(-M // bm) - 1, 37), (M - 1) % bm
     off = run()
     on, flags = run(abft=spec)
     torch.cuda.synchronize()
@@ -1048,7 +1086,7 @@ def check_abft(torch, dev, pol, grouped, seed, fused_shape=(8, 2048, 8192),
     # int8 x int8 compares exactly: a unit delta; a float delta far above
     # the tolerance (fp8 x fp8 sums reach ~1e8 at these widths)
     delta = 1.0 if spec.exact else 1e8
-    fault = ab.TileFault(*fault_tile, row=3, col=5, delta=delta)
+    fault = ab.TileFault(*fault_tile, row=fault_row, col=5, delta=delta)
     fd, fr, fc = ab.build_fault_operands(fault, gm, gn, bm, bn, device=dev)
     fkw = dict(abft=spec.with_inject(True), fault_delta=fd, fault_row=fr, fault_col=fc)
     _, kflags = run(**fkw)
@@ -1095,12 +1133,16 @@ def abft_checks(torch, dev):
     """Phase 3a: both GEMMs on the six dense pairs and the three sparse
     policies (expanded first)."""
     checks, seed = [], 700
-    for grouped in (False, True):
+    for grouped, shape in ((False, (8, 2048, 8192)), (False, (40, 2048, 8192)),
+                           (False, (65, 2048, 8192)), (True, None)):
+        # decode; a verify step and one row past a 64-token chunk (the prefill tile)
         for pol in ABFT_PAIRS:
             seed += 1
-            c = check_abft(torch, dev, pol, grouped, seed)
+            c = check_abft(torch, dev, pol, grouped, seed,
+                           **({} if shape is None else dict(fused_shape=shape)))
             checks.append(c)
-            print(f"  {c['kernel']:17s} abft {pol:14s} {c['pair']:32s} clean bitwise "
+            print(f"  {c['kernel']:17s} abft M={c['M']:<3d} {pol:14s} {c['pair']:32s} "
+                  f"clean bitwise "
                   f"{c['clean_bitwise']} flags {c['clean_flags']}; fault (delta {c['delta']}) "
                   f"flags its tile {c['fault_flags_exact']}, = plain {c['flags_equal_plain']}; "
                   f"recovery bitwise {c['recovery_bitwise']}; SDCError {c['sdc_raised']}; "
@@ -1131,7 +1173,9 @@ def phase_kernels(torch, dev):
     ]
     seed = 0
     for dtype_name in ("float32", "bfloat16"):
-        for M in (8, 64, 256):  # decode slots, a prefill chunk, a large batch
+        # decode slots, a verify step (8 x 5), a prefill chunk, a large batch,
+        # zamba2's forward (4 x 512 tokens)
+        for M in (8, 40, 64, 256, 2048):
             for K, N, ep in gemm_shapes:
                 seed += 1
                 checks.append(check_gemm(torch, dev, M, K, N, dtype_name, ep, seed))
@@ -1200,6 +1244,13 @@ def phase_kernels(torch, dev):
             extra += f" lib refused: {c['library_error'][:80]}"
         if c.get("offset"):
             extra += f" ({c['offset']} 4 bytes off)"
+        if c.get("prefill_tile"):
+            t = c["prefill_tile"]
+            extra += (f" [prefill tile {t['bm']}x{t['bn']} bk {t['bk']} stages {t['stages']}"
+                      f" split {t['split']} parts {t['parts']} smem {t['smem']} ctas "
+                      f"{t['ctas']}]")
+            if "route_bound_ms" in c:
+                extra += f" 3xTF32 bound {c['route_bound_ms']:.4f}"
         if c.get("tile"):
             t = c["tile"]
             extra += (f" [decode tile bn {t['bn']} bk {t['bk']} tm {t['tm']} stages "
@@ -1218,6 +1269,16 @@ def phase_kernels(torch, dev):
         print(f"    A/B at M=8 K=2048 N=8192 {dtype_name} (decode tile): MX {mx['ms']:.4f} ms, "
               f"baseline {base['ms']:.4f} ms (bk 128: 16 output round trips), "
               f"MX {base['ms'] / mx['ms']:.2f}x faster")
+    for dtype_name in ("float32", "bfloat16"):  # the paper's A/B on the prefill tile
+        for M in (40, 64, 256, 2048):
+            mx = next(c for c in checks if c["kernel"] == "mx_matmul_fused" and c["M"] == M
+                      and c["K"] == 2048 and c["N"] == 8192 and c["epilogue"] == {}
+                      and c["dtype"] == dtype_name)
+            base = next(c for c in checks if c["kernel"] == "baseline_matmul"
+                        and c["M"] == M and c["dtype"] == dtype_name)
+            print(f"    A/B at M={M} K=2048 N=8192 {dtype_name} (prefill tile): MX "
+                  f"{mx['ms']:.4f} ms, baseline {base['ms']:.4f} ms, MX "
+                  f"{base['ms'] / mx['ms']:.2f}x faster; library {mx['library_ms']:.4f}")
     bad = [c for c in checks if not c["ok"]]
     if bad:
         raise AssertionError(f"{len(bad)} kernel check(s) disagree with the plain "
@@ -1262,6 +1323,7 @@ def serve(torch, model, params, cfg, backend, n_req, gen, prompt_len=128, slots=
         counts = kernels.launch_counts()
         variants = kernels.variant_launch_counts()
         decode = kernels.decode_launch_counts()
+        prefill_tile = kernels.prefill_launch_counts()
         abft_stats = abft_mod.abft_stats()
     step_dt = {h.step: h.dt_s for h in batcher.health}
     # steps that admitted nobody run no prefill chunk: pure decode / verify
@@ -1290,7 +1352,8 @@ def serve(torch, model, params, cfg, backend, n_req, gen, prompt_len=128, slots=
         steps_without_admission=len(plain_steps),
         finish_reasons=batcher.health_summary()["finish_reasons"],
         pool=batcher.pool_stats().as_dict(), prefix=batcher.prefix_stats(),
-        launches=counts, variants=variants, decode_launches=decode, abft_stats=abft_stats,
+        launches=counts, variants=variants, decode_launches=decode,
+        prefill_tile_launches=prefill_tile, abft_stats=abft_stats,
         abft=batcher.health_summary()["abft"],
         streams={r: finished[r].output for r in sorted(finished)},
         prompts={r: finished[r].prompt.tolist() for r in sorted(finished)})
@@ -1413,11 +1476,12 @@ def hold_steps(torch, dev, model, params, cfg, cache0, num_pages, quant=False,
                                              torch.tensor([0], device=dev), table[:1])
             torch.cuda.synchronize()
             pre = kernels.launch_counts()
+            pre_tile = kernels.prefill_launch_counts()
             kernels.reset_launch_counts()
             dl, cache = m.decode_step_paged(params, tok, cache, index, table, lengths)
             torch.cuda.synchronize()
             dec = kernels.launch_counts()
-        res[backend] = (pl, dl, pre, dec)
+        res[backend] = (pl, dl, pre, dec, pre_tile)
     out = {}
     for i, what in ((0, "prefill_logits"), (1, "decode_logits")):
         out[what] = _hold_logits(torch, res["cuda_mx"][i], res["torch"][i],
@@ -1425,6 +1489,7 @@ def hold_steps(torch, dev, model, params, cfg, cache0, num_pages, quant=False,
     if calls_held:
         out["calls"] = _calls_summary(calls)
     out["launches_per_prefill_chunk"] = res["cuda_mx"][2]
+    out["prefill_tile_per_prefill_chunk"] = res["cuda_mx"][4]
     out["launches_per_decode_step"] = res["cuda_mx"][3]
     out["torch_backend_launches"] = [res["torch"][2], res["torch"][3]]
     return out
@@ -1535,6 +1600,7 @@ def hold_verify(torch, dev, model, params, cfg, cache0, num_pages, rel_tol=1e-3)
         vl, _ = model.verify_step_paged(params, win, cache_k, index, table, vlen)
         torch.cuda.synchronize()
         launches = kernels.launch_counts()
+        verify_tile = kernels.prefill_launch_counts()
         with _pages_frozen():
             dl, _ = model.decode_step_paged(params, win[:, :1], _clone(cache_k), index,
                                             table, dlen)
@@ -1553,6 +1619,7 @@ def hold_verify(torch, dev, model, params, cfg, cache0, num_pages, rel_tol=1e-3)
         out[what] = dict(max_abs_err=err, tol=tol, ok=err <= tol,
                          argmax_equal=bool(torch.equal(got.argmax(-1), ref.argmax(-1))))
     out["launches_per_verify_step"] = launches
+    out["prefill_tile_per_verify_step"] = verify_tile
     out["torch_backend_launches"] = torch_launches
     seg = next(iter(cache0))
     if cache0[seg]["k_pages"].dtype == torch.int8:
@@ -2008,6 +2075,15 @@ def llama_phases(torch, dev):
             or base_run["decode_launches"]["baseline_matmul"] <= 0:
         raise AssertionError(f"the decode tile was not launched: {main_run['decode_launches']}"
                              f" / {base_run['decode_launches']}")
+    # the prefill chunks' GEMMs (M = 64) and the verify steps' (M = 40) run
+    # the tensor-core prefill tile (csrc/prefill_tile.cuh)
+    spec_tile = spec_runs["(b) spec4 ngram"]["prefill_tile_launches"]
+    if main_run["prefill_tile_launches"]["mx_matmul_fused"] <= 0 \
+            or base_run["prefill_tile_launches"]["baseline_matmul"] <= 0 \
+            or spec_tile["mx_matmul_fused"] <= 0:
+        raise AssertionError(f"the prefill tile was not launched: "
+                             f"{main_run['prefill_tile_launches']} / "
+                             f"{base_run['prefill_tile_launches']} / {spec_tile}")
     if main_run["launches"]["baseline_matmul"] or base_run["launches"]["mx_matmul_fused"] \
             or main_run["launches"]["mx_grouped_matmul"] or main_run["launches"]["ssd_scan"] \
             or main_run["launches"]["mx_flash_attention"]:
@@ -2050,6 +2126,17 @@ def llama_phases(torch, dev):
     print(f"    launches per decode step (8 slots): {held['launches_per_decode_step']}")
     print(f"    launches per verify step (8 slots x 5 rows): "
           f"{held_v['launches_per_verify_step']}")
+    # every GEMM of a prefill chunk (M = 64) and of a verify step (M = 40)
+    # on the tensor-core prefill tile
+    print(f"    of them on the prefill tile: chunk {held['prefill_tile_per_prefill_chunk']}, "
+          f"verify step {held_v['prefill_tile_per_verify_step']}")
+    for what, tile, per in (
+            ("prefill chunk", held["prefill_tile_per_prefill_chunk"],
+             held["launches_per_prefill_chunk"]),
+            ("verify step", held_v["prefill_tile_per_verify_step"],
+             held_v["launches_per_verify_step"])):
+        if not 0 < tile["mx_matmul_fused"] == per["mx_matmul_fused"]:
+            raise AssertionError(f"{what}: GEMMs off the prefill tile: {tile} of {per}")
     prof = profile_steps(torch, dev, model, params, cfg, batcher.cache,
                          batcher.pool.total_pages)
     prof_v = profile_verify(torch, dev, model, params, cfg, batcher.cache,
@@ -2546,6 +2633,7 @@ def serve_dense(torch, model, params, cfg, backend, n_req, gen, prompt_len, slot
         wall = time.perf_counter() - t0
         counts = kernels.launch_counts()
         decode = kernels.decode_launch_counts()
+        prefill_tile = kernels.prefill_launch_counts()
     step_dt = {h.step: h.dt_s for h in batcher.health}
     device_steps = [1e3 * h.dt_s for h in batcher.health if h.active > 0]
     ttft_steps = [r.first_token_at - r.submitted_at for r in finished.values()]
@@ -2562,7 +2650,7 @@ def serve_dense(torch, model, params, cfg, backend, n_req, gen, prompt_len, slot
                ttft_steps_max=max(ttft_steps), ttft_ms_mean=sum(ttft_ms) / len(ttft_ms),
                ttft_ms_max=max(ttft_ms), step_ms_median=statistics.median(device_steps),
                finish_reasons=batcher.health_summary()["finish_reasons"], launches=counts,
-               decode_launches=decode,
+               decode_launches=decode, prefill_tile_launches=prefill_tile,
                streams={r: finished[r].output for r in sorted(finished)},
                prompts={r: finished[r].prompt.tolist() for r in sorted(finished)})
     assert len(finished) == n_req, finished.keys()
@@ -2710,10 +2798,17 @@ def zamba2_phase(torch, dev):
             torch.cuda.synchronize()
             fwd[backend] = dict(ms=(time.perf_counter() - t0) * 1e3,
                                 launches=kernels.launch_counts(), logits=logits)
+            # again, warm: the first call at this shape also pays its kernels'
+            # first launches and the allocator's growth
+            t0 = time.perf_counter()
+            prefill(params, {"tokens": toks})
+            torch.cuda.synchronize()
+            fwd[backend]["warm_ms"] = (time.perf_counter() - t0) * 1e3
     launches = fwd["cuda_mx"]["launches"]
     held = _hold_logits(torch, fwd["cuda_mx"]["logits"], fwd["torch"]["logits"], None, 1e-3)
-    print(f"    full forward 4 x 512 tokens: kernel path {fwd['cuda_mx']['ms']:.1f} ms, "
-          f"plain path {fwd['torch']['ms']:.1f} ms; launches {launches}")
+    print(f"    full forward 4 x 512 tokens: kernel path {fwd['cuda_mx']['ms']:.1f} ms "
+          f"(again, warm: {fwd['cuda_mx']['warm_ms']:.1f}), plain path "
+          f"{fwd['torch']['ms']:.1f} ms ({fwd['torch']['warm_ms']:.1f}); launches {launches}")
     print(f"    logits against the plain path: err {held['max_abs_err']:.3e} (tol "
           f"{held['tol']:.3e}) argmax equal {held['argmax_equal']}")
     if launches["ssd_scan"] != n_mamba or launches["mx_flash_attention"] != n_shared:
@@ -2834,6 +2929,11 @@ def main() -> int:
         raise AssertionError("the baseline kernel's output round trip was compiled away")
     if any(sass["mx_matmul_fused"]):
         raise AssertionError(f"the MX library round-trips its output: {sass}")
+    mma_sass = sass_prefill_counts()
+    bad_sass = {k: c for k, c in mma_sass.items() if not c["mma"]
+                or ("abft" not in k and c["ffma"] > PREFILL_MAX_FFMA)}
+    if len(mma_sass) < 4 or bad_sass:
+        raise AssertionError(f"prefill kernels off the tensor cores: {bad_sass or mma_sass}")
 
     print("[3] kernels against their plain versions")
     checks = phase_kernels(torch, dev)
@@ -2938,12 +3038,32 @@ def main() -> int:
             shape={k: c[k] for k in ("M", "T", "G", "K", "N", "B", "S", "H", "Hkv", "d",
                                      "Lq", "Lk") if k in c},
             dtype=c.get("pair", c["dtype"])))
+    # this slice: the tensor-core prefill tile, a prefill chunk's down
+    # projection, its launches those of the main serving run on the tile
+    for name, kernel, sel, n in (
+            ("mx_matmul_fused (prefill tile, f32)", "mx_matmul_fused",
+             dict(dtype="float32", M=64, K=8192, N=2048, epilogue=dict(residual=True)),
+             llama["serve"]["prefill_tile_launches"]["mx_matmul_fused"]),
+            ("baseline_matmul (prefill tile, f32)", "baseline_matmul",
+             dict(dtype="float32", M=64),
+             llama["serve_baseline"]["prefill_tile_launches"]["baseline_matmul"])):
+        c = next(c for c in checks if c["kernel"] == kernel
+                 and all(c.get(k) == v for k, v in sel.items()))
+        summary.append(dict(
+            name=name, route="cuda", source="src/repro_torch/csrc/prefill_tile.cuh",
+            replaces=TPU_KERNELS[kernel], launches=n, max_abs_err=c["max_abs_err"],
+            ms=c["ms"], plain_ms=c["plain_ms"], bound_ms=c["bound_ms"],
+            bound_by=c["bound_by"], library_ms=c["library_ms"],
+            shape={k: c[k] for k in ("M", "K", "N") if k in c}, dtype="float32"))
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(dict(
         device=smi, build_s=build_s, nvcc_cpu_s=_build.NVCC_CPU_SECONDS, ptxas=ptxas,
-        checks=checks, abft_checks=abft_checks_,
+        checks=checks, abft_checks=abft_checks_, prefill_sass=mma_sass,
         **llama, grok=grok, zamba2=zamba2, kernels=summary), indent=1, default=str))
+    print("prefill tile SASS (tensor-core / FFMA instructions per kernel): " + "; ".join(
+        f"{k.split(':')[0]} {k.split(':')[1][:40]} {c['mma']}/{c['ffma']}"
+        for k, c in mma_sass.items()))
     print(json.dumps({"kernels": summary}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -2969,6 +3089,36 @@ def sass_rmw_counts():
     return out
 
 
+def sass_prefill_counts():
+    """Per prefill-tile kernel (csrc/prefill_tile.cuh) of each GEMM library,
+    its tensor-core (HMMA / HGMMA) and f32 FMA (FFMA) instructions in the
+    SASS: the K loop's products run on the tensor cores; the FFMAs left are
+    the epilogue's (activations) and the ABFT checksums'."""
+    from repro_torch.kernels import _build
+
+    cuobjdump = Path(_build._nvcc()).with_name("cuobjdump")
+    out = {}
+    for lib in ("mx_matmul", "mx_matmul_sparse", "mx_matmul_abft", "baseline_matmul"):
+        text = subprocess.run([str(cuobjdump), "-sass", str(_build._target(lib))],
+                              capture_output=True, text=True, check=True).stdout
+        name = None
+        for line in text.splitlines():
+            if "Function : " in line:
+                name = line.split("Function : ")[1].strip()
+                if "prefill_kernel" in name:
+                    out[f"{lib}:{name}"] = dict(mma=0, ffma=0)
+                else:
+                    name = None
+            elif name is not None:
+                op = line.split("*/")[1].split() if "*/" in line else []
+                op = op[0] if op and not op[0].startswith("@") else (op[1] if len(op) > 1
+                                                                     else "")
+                c = out[f"{lib}:{name}"]
+                c["mma"] += op.startswith(("HMMA", "HGMMA"))
+                c["ffma"] += op.startswith("FFMA")
+    return out
+
+
 def _print_serve(r):
     print(f"    [{r['label']}] {r['requests']} requests x {r['gen']} new tokens through "
           f"{r['slots']} slots: {r['wall_s']:.2f} s, {r['generated_tok_per_s']:.1f} "
@@ -2982,7 +3132,8 @@ def _print_serve(r):
     print(f"      pool high water {p['high_water']}/{p['num_pages']} pages; prefix hits "
           f"{x['hits']}/{x['hits'] + x['misses']}, {x['tokens_saved']} tokens skipped, "
           f"{x['cow_copies']} COW copies, {x['evicted_pages']} evicted")
-    print(f"      launches {r['launches']} (decode tile {r.get('decode_launches')}); "
+    print(f"      launches {r['launches']} (decode tile {r.get('decode_launches')}; "
+          f"prefill tile {r.get('prefill_tile_launches')}); "
           f"finish {r['finish_reasons']}")
     if r["spec"]:
         sp = r["spec"]

@@ -82,7 +82,7 @@ from ..kernels.baseline_matmul import baseline_matmul
 from ..kernels.mx_grouped_matmul import mx_grouped_matmul
 from ..kernels.mx_grouped_matmul import abft_spec_for as grouped_abft_spec
 from ..kernels.mx_matmul import (Epilogue, abft_spec_for, apply_epilogue, dot_f32,
-                                 mx_matmul_fused)
+                                 fused_route, mx_matmul_fused, recompute_fused)
 from ..kernels.quant import quantize_operand
 from ..kernels.ref import grouped_matmul_ref
 from ..kernels.sparse import compress_24, expand_24, prune_24
@@ -260,8 +260,10 @@ def _abft_fused_gemm(x2, w, *, ep, bias, residual, w_gate, a_s, b_s, bg_s, out_d
     `_abft_fused_gemm`, eager): the kernel returns the (grid_m, grid_n)
     flag map; each flagged tile is recomputed ALONE, the same kernel on the
     tile's rows of x and columns of the weight (and of bias, residual and
-    scales), which gives the fault-free launch's bits; `cfg.max_retries`
-    attempts, then SDCError.  `cfg.fault` corrupts the first attempt only."""
+    scales) on the launch's own K loop (`fused_route`: a last row tile of
+    <= 16 rows of a tensor-core launch stays on the tensor cores), which
+    gives the fault-free launch's bits; `cfg.max_retries` attempts, then
+    SDCError.  `cfg.fault` corrupts the first attempt only."""
     M, K = x2.shape
     N = w.shape[-1]
     bm, bn, _ = _build.gemm_tile(M)
@@ -279,18 +281,19 @@ def _abft_fused_gemm(x2, w, *, ep, bias, residual, w_gate, a_s, b_s, bg_s, out_d
         return out
     abft_mod._bump("tiles_flagged", len(flagged))
     n_bad = len(flagged)
+    route = fused_route(M, N, K, x2.dtype, w.dtype, w_gate is not None, "abft")
     for _ in range(cfg.max_retries):
         still = []
         for ti, tj in flagged:
             r0, c0 = ti * bm, tj * bn
             r1, c1 = min(r0 + bm, M), min(c0 + bn, N)
             xs, ws = x2[r0:r1], _cols(w, c0, c1)
-            t_out, t_flags = mx_matmul_fused(
-                xs, ws, epilogue=ep, b_gate=_cols(w_gate, c0, c1), bias=_cols(bias, c0, c1),
+            t_out, t_flags = recompute_fused(
+                route, xs, ws, epilogue=ep, b_gate=_cols(w_gate, c0, c1),
+                bias=_cols(bias, c0, c1),
                 residual=None if residual is None else _cols(residual[r0:r1], c0, c1),
                 a_scale=None if a_s is None else a_s[r0:r1], b_scale=_cols(b_s, c0, c1),
-                bg_scale=_cols(bg_s, c0, c1), out_dtype=out_dtype,
-                abft=abft_spec_for(xs, ws))
+                bg_scale=_cols(bg_s, c0, c1), out_dtype=out_dtype, abft=spec)
             if _flagged(t_flags):
                 still.append((ti, tj))
                 continue
@@ -309,8 +312,10 @@ def _abft_grouped_gemm(x, w, group_sizes, *, activation, w_gate, a_s, b_s, bg_s,
     OVERLAPPING expert through the fused kernel on the tile's rows of x and
     that expert's weight columns, with the grouped kernel's epilogue order,
     and only that expert's rows are written back: the fault-free grouped
-    launch's bits.  A flagged tile whose rows no group owns needs no
-    recompute (its rows are zeros whatever the accumulator)."""
+    launch's bits (`recompute_fused` on the "simt" route: the grouped
+    kernel's serial K chain, at every M).  A flagged tile whose rows no
+    group owns needs no recompute (its rows are zeros whatever the
+    accumulator)."""
     T, K = x.shape
     G, _, N = w.shape
     bm, bn, _ = _build.grouped_tile(T, G)
@@ -345,8 +350,8 @@ def _abft_grouped_gemm(x, w, group_sizes, *, activation, w_gate, a_s, b_s, bg_s,
                 if g0 >= g1:
                     continue
                 ws = _cols(w[g], c0, c1)
-                t_out, t_flags = mx_matmul_fused(
-                    xs, ws, epilogue=ep,
+                t_out, t_flags = recompute_fused(
+                    "simt", xs, ws, epilogue=ep,
                     b_gate=None if w_gate is None else _cols(w_gate[g], c0, c1),
                     a_scale=None if a_s is None else a_s[r0:r1],
                     b_scale=None if b_s is None else _cols(b_s[g], c0, c1),

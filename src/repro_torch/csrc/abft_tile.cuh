@@ -16,11 +16,16 @@
 // arithmetic: JAX's int32 sums wrap, and signed overflow is undefined in
 // C++.  Every other pair compares |sum - checksum| > rtol * |.|-checksum +
 // atol, in f32.
+//
+// AbftHook serves gemm_tile.cuh's loop (the grouped GEMM, the decode rows
+// and int8 x int8, e4m3 x e4m3); AbftPrefillHook the tensor-core prefill
+// tile of prefill_tile.cuh (f32 or bf16 A, M > 16), whose CTA tile is
+// gemm_tile's.
 #pragma once
 
 #include <type_traits>
 
-#include "gemm_tile.cuh"
+#include "prefill_tile.cuh"  // and gemm_tile.cuh
 
 template <typename S>
 using CheckT = typename std::conditional<std::is_same<S, int>::value, unsigned, float>::type;
@@ -153,6 +158,103 @@ struct AbftHook {
         bad |= s != sm.crow[m];
       else
         bad |= fabsf(s - sm.crow[m]) > rtol * sm.arow[m] + atol;
+    }
+    return __syncthreads_or(bad);
+  }
+};
+
+// The same checksums over the prefill tile's staged operands (Cfg:
+// PrefillCfg): A's BM rows of BK and B's BK rows of BN as staged in A's
+// type T (a narrow weight already widened), to f32 as they are summed; the
+// finished
+// tile (after the fold of every K part) is Cs.  The CTA tile is gemm_tile's
+// (BM x BN) and the launch has split 1, so one CTA owns one flag.
+template <typename Cfg, typename T, int BM, int BN>
+struct AbftPrefillHook {
+  static constexpr int BK = Cfg::kBK, TH = Cfg::kThreads, CS = Cfg::kCStride;
+  struct Sm {
+    float ccol[BN], crow[BM], acol[BN], arow[BM];  // the checksums, |.|-checksums
+    float colA[BK], rowB[BK], colAa[BK], rowBa[BK];  // this step's colsum(A), rowsum(B)
+  };
+  Sm& sm;
+
+  __device__ __forceinline__ explicit AbftPrefillHook(Sm& s) : sm(s) {}
+
+  __device__ __forceinline__ static float at_a(const unsigned char* slot, int m, int k) {
+    return to_f32(*reinterpret_cast<const T*>(slot + m * Cfg::kAStride + k * Cfg::kE));
+  }
+  __device__ __forceinline__ static float at_b(const unsigned char* slot, int k, int n) {
+    return to_f32(
+        *reinterpret_cast<const T*>(slot + Cfg::b_off(0) + k * Cfg::kBStride + n * Cfg::kE));
+  }
+
+  // zero the checksums; the ring's first barrier orders this before use
+  __device__ __forceinline__ void reset() {
+    for (int i = threadIdx.x; i < BN; i += TH) sm.ccol[i] = sm.acol[i] = 0.0f;
+    for (int i = threadIdx.x; i < BM; i += TH) sm.crow[i] = sm.arow[i] = 0.0f;
+  }
+
+  // one staged K step: ccol += colsum(A) . B, crow += A . rowsum(B)
+  __device__ __forceinline__ void step(const unsigned char* slot) {
+    for (int k = threadIdx.x; k < BK; k += TH) {
+      float ca = 0.0f, caa = 0.0f, rb = 0.0f, rba = 0.0f;
+      for (int m = 0; m < BM; ++m) {
+        const float x = at_a(slot, m, k);
+        ca += x;
+        caa += fabsf(x);
+      }
+      for (int n = 0; n < BN; ++n) {
+        const float x = at_b(slot, k, n);
+        rb += x;
+        rba += fabsf(x);
+      }
+      sm.colA[k] = ca;
+      sm.colAa[k] = caa;
+      sm.rowB[k] = rb;
+      sm.rowBa[k] = rba;
+    }
+    __syncthreads();
+    for (int n = threadIdx.x; n < BN; n += TH) {
+      float s = sm.ccol[n], sa = 0.0f;
+      for (int k = 0; k < BK; ++k) {
+        const float x = at_b(slot, k, n);
+        s += sm.colA[k] * x;
+        sa += sm.colAa[k] * fabsf(x);
+      }
+      sm.ccol[n] = s;
+      sm.acol[n] += sa;
+    }
+    for (int m = threadIdx.x; m < BM; m += TH) {
+      float s = sm.crow[m], sa = 0.0f;
+      for (int k = 0; k < BK; ++k) {
+        const float x = at_a(slot, m, k);
+        s += x * sm.rowB[k];
+        sa += fabsf(x) * sm.rowBa[k];
+      }
+      sm.crow[m] = s;
+      sm.arow[m] += sa;
+    }
+  }
+
+  // The fault operand of this tile: delta added to element (row, col) of
+  // the finished tile.
+  __device__ __forceinline__ void inject(float* Cs, float delta, int row, int col) {
+    if (threadIdx.x == 0 && delta != 0.0f) Cs[row * CS + col] += delta;
+    __syncthreads();
+  }
+
+  // The tile's verdict (1 = corrupt), the same in every thread.
+  __device__ __forceinline__ int verify(const float* Cs, float rtol, float atol) {
+    int bad = 0;
+    for (int n = threadIdx.x; n < BN; n += TH) {
+      float s = 0.0f;
+      for (int m = 0; m < BM; ++m) s += Cs[m * CS + n];
+      bad |= fabsf(s - sm.ccol[n]) > rtol * sm.acol[n] + atol;
+    }
+    for (int m = threadIdx.x; m < BM; m += TH) {
+      float s = 0.0f;
+      for (int n = 0; n < BN; ++n) s += Cs[m * CS + n];
+      bad |= fabsf(s - sm.crow[m]) > rtol * sm.arow[m] + atol;
     }
     return __syncthreads_or(bad);
   }

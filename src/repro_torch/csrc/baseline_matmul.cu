@@ -16,15 +16,22 @@
 // Decode rows (M <= 16; baseline_matmul_decode_launch) run decode_tile.cuh's
 // weight-streaming loop with the MX kernel's tile (kernels/_build.decode_tile),
 // the partial zeroed at every bk-wide chunk (bk a multiple of 128, so each
-// chunk ends on one of the loop's 64-row MAC blocks); M > 16 runs
-// gemm_tile.cuh's tiles, picked by M as
-// kernels/_build.gemm_tile picks them.  So the A/B of the paper compares
-// two kernels that differ only in where the partial sums live.
+// chunk ends on one of the loop's 64-row MAC blocks).  M > 16 runs the MX
+// kernel's tensor-core loop (prefill_tile.cuh): its staging, ring and MMAs
+// (kernels/_build.prefill_tile, variant "baseline"), each bk-wide chunk's
+// partial starting from zero in the MMA accumulators and then added into
+// the output tile (bk a multiple of 128, which every staged K step
+// divides).  Where the MX kernel splits K across a cluster, the baseline
+// keeps one CTA per tile and walks all of K -- K-split partials added into
+// the output by several CTAs would race -- and takes the smaller tile that
+// fills the card instead; elsewhere it takes the MX kernel's tile.  So the
+// A/B of the paper compares kernels that differ in where the partial sums
+// live (and, on small grids, in how the card is filled).
 //
 // What bounds it: the same as the MX kernel (HBM bytes and the serial K
-// chain at decode, f32 FMAs at prefill) plus the output round trips, which
-// grow with K / bk.
-#include "decode_tile.cuh"
+// chain at decode, the weight's bytes and the tensor-core products at
+// prefill) plus the output round trips, which grow with K / bk.
+#include "prefill_tile.cuh"  // and decode_tile.cuh
 
 REPRO_EXPORT_ERROR_STRING
 
@@ -52,85 +59,68 @@ __device__ __forceinline__ void st_cg(void* p, int dt, int64_t i, float v) {
   asm volatile("st.global.cg.f32 [%0], %1;" ::"l"(q), "f"(v) : "memory");
 }
 
-template <typename T, int BM, int BN, int BK, int TM, int TN>
-__global__ void __launch_bounds__(TileCfg<BM, BN, BK, TM, TN>::kThreads)
-baseline_matmul_kernel(const T* __restrict__ A, const T* __restrict__ B, void* out,
-                       int out_dt, int M, int N, int K, int bk) {
-  using Cfg = TileCfg<BM, BN, BK, TM, TN>;
-  __shared__ float As[BK][BM + 1];
-  __shared__ float Bs[BK][BN];
-
-  const int tx = threadIdx.x % Cfg::kTX, ty = threadIdx.x / Cfg::kTX;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-
-  float part[TM][TN], unused[TM][TN];  // one chunk's partial sum only
+// The prefill tile: prefill_tile.cuh's ring and MMAs over all of K, the
+// partial flushed into the output after every bk-wide chunk of K, in K
+// order; each thread owns the same output elements in every chunk.
+template <typename T, int BM, int BN>
+__global__ void __launch_bounds__(PrefillCfg<T, BM, BN, false, false>::kThreads)
+baseline_prefill_kernel(const PrefillShape d, void* out, int out_dt, int bk) {
+  using Cfg = PrefillCfg<T, BM, BN, false, false>;
+  extern __shared__ __align__(128) unsigned char pf_smem[];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int wm0 = (warp / Cfg::kWarpsN) * Cfg::kWM, wn0 = (warp % Cfg::kWarpsN) * 32;
+  const int m0 = pf_tile_m() * BM, n0 = pf_tile_n() * BN;
+  const int steps = prefill_steps(d.K, Cfg::kBK), g = lane >> 2, c = lane & 3;
+  Acc<Cfg> part, unused;  // one chunk's partial sum only
+  pf_zero<Cfg>(part);
+  pf_ring<T, BM, BN, false, false, T>(d, pf_smem, m0, n0, 0, steps,
+                                   [&](const unsigned char* slot, int kt) {
+    pf_mma_stage<T, BM, BN, false, false>(part, unused, slot, wm0, wn0, lane);
+    const int k_end = (kt + 1) * Cfg::kBK;
+    if (k_end % bk != 0 && kt + 1 < steps) return;
+    const bool first = k_end <= bk;  // chunk done: read-modify-write the tile
 #pragma unroll
-  for (int i = 0; i < TM; ++i)
+    for (int mt = 0; mt < Cfg::kMT; ++mt)
 #pragma unroll
-    for (int j = 0; j < TN; ++j) part[i][j] = 0.0f;
-
-  float ra[Cfg::kAPer], rb[Cfg::kBPer];
-  const int nk = (K + BK - 1) / BK;
-  load_a<Cfg, BM, BK>(ra, A, M, K, m0, 0);
-  load_b<Cfg, BN, BK>(rb, B, N, K, n0, 0);
-  store_a<Cfg, BM, BK>(As, ra);
-  store_b<Cfg, BN, BK>(Bs, rb);
-  __syncthreads();
-
-  for (int kt = 0; kt < nk; ++kt) {
-    const bool more = kt + 1 < nk;
-    if (more) {
-      const int k0 = (kt + 1) * BK;
-      load_a<Cfg, BM, BK>(ra, A, M, K, m0, k0);
-      load_b<Cfg, BN, BK>(rb, B, N, K, n0, k0);
-    }
-    fma_tile<Cfg, BM, BN, BK, TM, TN, false>(part, unused, As, Bs, Bs, tx, ty);
-    const int k_end = (kt + 1) * BK;
-    if (k_end % bk == 0 || !more) {  // chunk done: read-modify-write the tile
-      const bool first = k_end <= bk;
+      for (int h = 0; h < 2; ++h) {  // one row of the thread's: its loads, then its stores
+        const int gm = m0 + wm0 + mt * 16 + g + 8 * h;
+        const int64_t row = static_cast<int64_t>(gm) * d.N;
+        float prev[Cfg::kNT][2];
 #pragma unroll
-      for (int i = 0; i < TM; ++i) {
-        const int gm = m0 + ty * TM + i;
+        for (int nt = 0; nt < Cfg::kNT; ++nt)
 #pragma unroll
-        for (int j = 0; j < TN; ++j) {
-          const int gn = n0 + tx + j * Cfg::kTX;
-          if (gm < M && gn < N) {
-            const int64_t o = (int64_t)gm * N + gn;
-            const float prev = first ? 0.0f : ld_cg(out, out_dt, o);
-            st_cg(out, out_dt, o, prev + part[i][j]);
+          for (int j = 0; j < 2; ++j) {
+            const int gn = n0 + wn0 + nt * 8 + 2 * c + j;
+            prev[nt][j] = first || gm >= d.M || gn >= d.N ? 0.0f : ld_cg(out, out_dt, row + gn);
           }
-          part[i][j] = 0.0f;
-        }
+#pragma unroll
+        for (int nt = 0; nt < Cfg::kNT; ++nt)
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            const int gn = n0 + wn0 + nt * 8 + 2 * c + j;
+            if (gm < d.M && gn < d.N)
+              st_cg(out, out_dt, row + gn, prev[nt][j] + part[mt][nt][2 * h + j]);
+            part[mt][nt][2 * h + j] = 0.0f;
+          }
       }
-    }
-    __syncthreads();
-    if (more) {
-      store_a<Cfg, BM, BK>(As, ra);
-      store_b<Cfg, BN, BK>(Bs, rb);
-      __syncthreads();
-    }
-  }
+  });
 }
 
-template <typename T, int BM, int BN, int BK, int TM, int TN>
-static void launch(const void* a, const void* b, void* out, int out_dt, int M, int N,
-                   int K, int bk, cudaStream_t stream) {
-  using Cfg = TileCfg<BM, BN, BK, TM, TN>;
-  dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-  baseline_matmul_kernel<T, BM, BN, BK, TM, TN><<<grid, Cfg::kThreads, 0, stream>>>(
-      static_cast<const T*>(a), static_cast<const T*>(b), out, out_dt, M, N, K, bk);
+template <typename T, int BM, int BN>
+static int prefill_tile_launch(const PrefillShape& d, void* out, int out_dt, int bk,
+                               cudaStream_t s) {
+  return prefill_launch<baseline_prefill_kernel<T, BM, BN>, PrefillCfg<T, BM, BN, false, false>,
+                        false>(d, s, false, d, out, out_dt, bk);
 }
 
+// The MX kernel's CTA tiles (kernels/_build.PREFILL_TILES).
 template <typename T>
-static int dispatch(const void* a, const void* b, void* out, int out_dt, int M, int N,
-                    int K, int bk, cudaStream_t s) {
-  if (M <= 16)  // the decode rows: baseline_matmul_decode_launch
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (M <= 64)  // the prefill tiles of csrc/mx_matmul.cu
-    launch<T, 32, 64, 16, 2, 4>(a, b, out, out_dt, M, N, K, bk, s);
-  else
-    launch<T, 64, 64, 16, 4, 4>(a, b, out, out_dt, M, N, K, bk, s);
-  return 0;
+static int prefill_dispatch(const PrefillShape& d, void* out, int out_dt, int bk, int bm,
+                            int bn, cudaStream_t s) {
+  if (bm == 32 && bn == 64) return prefill_tile_launch<T, 32, 64>(d, out, out_dt, bk, s);
+  if (bm == 64 && bn == 64) return prefill_tile_launch<T, 64, 64>(d, out, out_dt, bk, s);
+  if (bm == 64 && bn == 128) return prefill_tile_launch<T, 64, 128>(d, out, out_dt, bk, s);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // The decode tile: decode_tile.cuh's loop, the partial flushed into the
@@ -172,14 +162,19 @@ static int decode_dispatch(const DecodeShape& d, void* out, int out_dt, int bk, 
 }
 
 // a (M, K), b (K, N): dtype in_dt, row-major, contiguous; out (M, N) out_dt.
-// bk: the read-modify-write chunk, a multiple of 128 (every tile's K step
-// divides 128).  M > 16 (the decode rows take baseline_matmul_decode_launch).
+// bk: the read-modify-write chunk, a multiple of 128 (every staged K step
+// divides 128).  M > 16 (the decode rows take baseline_matmul_decode_launch),
+// with the tile of kernels/_build.prefill_tile (variant "baseline": one CTA
+// per (bm, bn) tile, `stages` ring slots) and the copy widths va / vb.
 extern "C" int baseline_matmul_launch(const void* a, const void* b, void* out, int out_dt,
-                                      int M, int N, int K, int in_dt, int bk, void* stream) {
+                                      int M, int N, int K, int in_dt, int bk, int bm, int bn,
+                                      int stages, int va, int vb, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (bk % 128) return static_cast<int>(cudaErrorInvalidValue);  // KERNEL_BK
+  const PrefillShape d{a, b, nullptr, nullptr, nullptr, M, N, K, stages, 1, 1, va, vb, 16};
   const int err = in_dt == kBF16
-                      ? dispatch<__nv_bfloat16>(a, b, out, out_dt, M, N, K, bk, s)
-                      : dispatch<float>(a, b, out, out_dt, M, N, K, bk, s);
+                      ? prefill_dispatch<__nv_bfloat16>(d, out, out_dt, bk, bm, bn, s)
+                      : prefill_dispatch<float>(d, out, out_dt, bk, bm, bn, s);
   if (err) return err;
   return static_cast<int>(cudaGetLastError());
 }

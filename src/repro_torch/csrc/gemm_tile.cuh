@@ -258,10 +258,11 @@ __device__ __forceinline__ void store_b24(S (*Bs)[BN],
 }
 
 // What runs beside each staged K step's MACs: nothing (NoHook), or the
-// ABFT checksums (abft_tile.cuh).
+// ABFT checksums (abft_tile.cuh).  Both K loops take it: gemm_tile.cuh's
+// passes the staged tiles, prefill_tile.cuh's the staged slot.
 struct NoHook {
-  template <typename SA, typename SB>
-  __device__ __forceinline__ void step(SA, SB) {}
+  template <typename... Staged>
+  __device__ __forceinline__ void step(Staged...) {}
 };
 
 // sweep_k for the 2:4 and ABFT variants (csrc/mx_matmul.cuh,

@@ -24,20 +24,32 @@
 // and per column of B (1, N), constant along K, so they apply once, at the
 // store, to the finished accumulator.
 //
-// Two tiles, both chosen in Python:
+// Three loops, each tile chosen in Python:
 //   * decode (M <= 16; mx_matmul_decode_launch, tile from
 //     kernels/_build.decode_tile): HBM-bytes bound weight streaming, the K
 //     loop of decode_tile.cuh -- a ring of 16-byte cp.async stages, one
 //     barrier per K step, no padding rows, narrow weights kept narrow in
 //     shared memory.  Its header says what bounds it and what it does
 //     about it.  Threads own (TM rows x 1 column) with TM in {1, 2, 4}.
-//   * prefill (M > 16; mx_matmul_fused_launch, tile from
-//     kernels/_build.gemm_tile): FLOP bound, the MACs on the CUDA cores (67
-//     TFLOP/s f32 outside the tensor cores) in 2 x 4 (M <= 64) or 4 x 4
-//     register tiles per thread over 32 x 64 or 64 x 64 CTA tiles, staged
-//     through gemm_tile.cuh's sweep_k.  Tensor cores (wgmma) and TMA are
-//     left to later work.
-#include "decode_tile.cuh"
+//   * prefill, f32, bf16 and (bf16, int8 / fp8) (M > 16;
+//     mx_matmul_prefill_launch, tile from kernels/_build.prefill_tile): the
+//     tensor-core loop of prefill_tile.cuh -- mma.sync (3xTF32 for f32, bf16
+//     with f32 sums; an int8 or e4m3 weight copied in its own width and
+//     widened to bf16 in shared memory, exactly), a ring of 16-byte
+//     cp.async stages, K split across a thread-block cluster (a small grid)
+//     or folded part by part in one CTA (a large one), the tile stored once
+//     from shared memory.  At M = 64 the weight's bytes and the operations
+//     are of one size (f32 K = 8192, N = 2048: 0.020 ms of bytes, 0.013 ms
+//     of 3xTF32 products at 495 TFLOP/s), from M = 256 on the products
+//     bound it.  Its header says what its design does about it; the times
+//     beside the bounds are in PERF.md section 6.
+//   * prefill, (int8, int8) and (fp8, fp8) (M > 16; mx_matmul_fused_launch,
+//     tile from kernels/_build.gemm_tile), and any pair when the caller asks for
+//     gemm_tile.cuh's serial K chain (the grouped GEMM's ABFT recovery):
+//     the MACs on the CUDA cores in 2 x 4 (M <= 64) or 4 x 4 register tiles
+//     per thread over 32 x 64 or 64 x 64 CTA tiles, staged through
+//     gemm_tile.cuh's sweep_k.
+#include "prefill_tile.cuh"  // and decode_tile.cuh, gemm_tile.cuh
 
 REPRO_EXPORT_ERROR_STRING
 
@@ -99,6 +111,35 @@ mx_matmul_decode_kernel(const DecodeShape d, const Args r) {
     mx_store<GATE>(r, static_cast<float>(acc[i]), static_cast<float>(accg[i]), r0 + i, n0 + c);
 }
 
+// The tensor-core prefill tile (csrc/prefill_tile.cuh): this CTA's K part(s),
+// then the single write-back from shared memory.
+template <typename T, typename TB, int BM, int BN, bool GATE>
+__global__ void __launch_bounds__(PrefillCfg<T, BM, BN, GATE, false, TB>::kThreads)
+mx_matmul_prefill_kernel(const PrefillShape d, const Args r) {
+  NoHook hook;
+  const float* Cs = prefill_sweep<T, BM, BN, GATE, false, TB>(d, hook);
+  prefill_store<PrefillCfg<T, BM, BN, GATE, false, TB>, BM, BN, GATE>(r, d, Cs);
+}
+
+template <typename T, typename TB, int BM, int BN>
+static int prefill_gate(const PrefillShape& d, const Args& r, cudaStream_t s) {
+  if (r.act == kSwiglu)
+    return prefill_launch<mx_matmul_prefill_kernel<T, TB, BM, BN, true>,
+                          PrefillCfg<T, BM, BN, true, false, TB>, false>(d, s, true, d, r);
+  return prefill_launch<mx_matmul_prefill_kernel<T, TB, BM, BN, false>,
+                        PrefillCfg<T, BM, BN, false, false, TB>, false>(d, s, true, d, r);
+}
+
+// The CTA tiles of kernels/_build.PREFILL_TILES.
+template <typename T, typename TB>
+static int prefill_dispatch(const PrefillShape& d, const Args& r, int bm, int bn,
+                            cudaStream_t s) {
+  if (bm == 32 && bn == 64) return prefill_gate<T, TB, 32, 64>(d, r, s);
+  if (bm == 64 && bn == 64) return prefill_gate<T, TB, 64, 64>(d, r, s);
+  if (bm == 64 && bn == 128) return prefill_gate<T, TB, 64, 128>(d, r, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 template <typename S, typename TA, typename TB, int BM, int BN, int BK, int TM, int TN>
 static void launch(const void* a, const void* b, const void* bg, const Args& r,
                    cudaStream_t stream) {
@@ -114,10 +155,11 @@ static void launch(const void* a, const void* b, const void* bg, const Args& r,
         <<<grid, Cfg::kThreads, 0, stream>>>(A, B, nullptr, r);
 }
 
-// The prefill tiles of kernels/_build.gemm_tile for M > 16 (the one tile
-// rule: the caller passes the tile, and no other is instantiated): a
-// prefill chunk (M <= 64: FMA-bound, half-height tiles), larger M.  The
-// decode rows go to mx_matmul_decode_launch.
+// gemm_tile.cuh's tiles of kernels/_build.gemm_tile for M > 16 (the one
+// tile rule: the caller passes the tile, and no other is instantiated): a
+// prefill chunk (M <= 64: half-height tiles), larger M.  The decode rows go
+// to mx_matmul_decode_launch, the prefill rows of f32 or bf16 A to
+// mx_matmul_prefill_launch unless the caller asks for this serial K chain.
 template <typename S, typename TA, typename TB>
 static int dispatch(const void* a, const void* b, const void* bg, const Args& r, int bm,
                     int bn, int bk, cudaStream_t s) {
@@ -208,6 +250,40 @@ extern "C" int mx_matmul_decode_launch(const void* a, const void* b, const void*
   const int err = with_pair(a_dt, b_dt, [&](auto s_, auto ta, auto tb) {
     return decode_dispatch<decltype(s_), decltype(ta), decltype(tb)>(d, r, tm, s);
   });
+  if (err) return err;
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The tensor-core prefill tile (f32 x f32, bf16 x bf16, and bf16 x int8 /
+// e4m3 with the weight widened to bf16 in shared memory): as
+// mx_matmul_fused_launch, with the tile of kernels/_build.prefill_tile --
+// (bm, bn) CTA tile, `stages` ring slots, K cut into `parts` parts, `split`
+// CTAs per cluster (1 or parts) -- and the copy widths va / vb (bytes) of
+// A's and B's rows (kernels/_build.copy_width).  A pair, tile or width that
+// prefill_check refuses returns cudaErrorInvalidValue.
+extern "C" int mx_matmul_prefill_launch(const void* a, const void* b, const void* b_gate,
+                                        const void* a_scale, const void* b_scale,
+                                        const void* bg_scale, const void* bias, int bias_dt,
+                                        const void* residual, int res_dt, void* out,
+                                        int out_dt, int M, int N, int K, int a_dt, int b_dt,
+                                        int act, int has_scale, float out_scale, int bm,
+                                        int bn, int stages, int split, int parts, int va,
+                                        int vb, int vm, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Args r{static_cast<const float*>(a_scale), static_cast<const float*>(b_scale),
+               static_cast<const float*>(bg_scale), bias, bias_dt, residual, res_dt, out,
+               out_dt, M, N, K, act, has_scale, out_scale};
+  const PrefillShape d{a, b, act == kSwiglu ? b_gate : nullptr, nullptr, nullptr, M, N, K,
+                       stages, split, parts, va, vb, vm};
+  int err = static_cast<int>(cudaErrorInvalidValue);
+  if (a_dt == kF32 && b_dt == kF32)
+    err = prefill_dispatch<float, float>(d, r, bm, bn, s);
+  else if (a_dt == kBF16 && b_dt == kBF16)
+    err = prefill_dispatch<__nv_bfloat16, __nv_bfloat16>(d, r, bm, bn, s);
+  else if (a_dt == kBF16 && b_dt == kI8)
+    err = prefill_dispatch<__nv_bfloat16, int8_t>(d, r, bm, bn, s);
+  else if (a_dt == kBF16 && b_dt == kF8)
+    err = prefill_dispatch<__nv_bfloat16, __nv_fp8_e4m3>(d, r, bm, bn, s);
   if (err) return err;
   return static_cast<int>(cudaGetLastError());
 }

@@ -2,16 +2,27 @@
 // its 2:4 sparse variant (mx_matmul_sparse.cu, stage 1c) and its ABFT
 // variant (mx_matmul_abft.cu, checksums and the per-tile flag map, stage
 // 1d), each source built by its own nvcc, all in parallel.  It is the
-// dense kernel of mx_matmul.cu (stages 1a / 1b) with the K loop of
-// gemm_tile.cuh's sweep_k_variant and, for ABFT, the verify at the store.
+// dense kernel of mx_matmul.cu (stages 1a / 1b) with, for ABFT, the verify
+// at the store, on one of two K loops:
+//   * f32 x f32, bf16 x bf16 and bf16 x int8 / e4m3 at M > 16 (the
+//     *_prefill_launch entries): the dense kernel's tensor-core loop,
+//     prefill_tile.cuh, the 2:4 payloads expanded (and a narrow weight
+//     widened) into the same staged B tile; the dense and 2:4
+//     kernels share the tile of kernels/_build.prefill_tile, the ABFT
+//     kernel runs gemm_tile's CTA tile with split 1 (one CTA per flag),
+//     folding the same K parts in the same order, so all three are bitwise
+//     equal;
+//   * every other launch (decode rows, int8 x int8 and e4m3 x e4m3, and any
+//     pair when the caller asks for the serial chain): gemm_tile.cuh's
+//     sweep_k_variant with the tile of kernels/_build.gemm_tile.
 //
 // What it computes and how (the inter-k register accumulator, one store
 // with the fused epilogue, the operand pairs and scales): see mx_matmul.cu.
 //
-// The tile is chosen in Python (kernels/_build.gemm_tile, by M) and passed
-// in: the same table gives the ABFT flag map's grid, the fault operands'
-// grid, abft_rtol and the plain version's tiling.  A tile outside the
-// instantiated set returns cudaErrorInvalidValue.
+// Both tiles are chosen in Python and passed in: gemm_tile gives the ABFT
+// flag map's grid, the fault operands' grid, abft_rtol and the plain
+// version's tiling.  A tile outside the instantiated set returns
+// cudaErrorInvalidValue.
 #pragma once
 
 #include "abft_tile.cuh"
@@ -121,3 +132,65 @@ static int dispatch(const GemmArgs& r, int bm, int bn, int bk, cudaStream_t s) {
 // it instantiates; any other returns cudaErrorInvalidValue).
 #define REPRO_GEMM_PAIR(MODE, ADT, BDT, S, TA, TB) \
   if (a_dt == ADT && b_dt == BDT) return dispatch<MODE, S, TA, TB>(r, bm, bn, bk, s);
+
+// The tensor-core prefill tile (bf16 or f32 A, M > 16): the 2:4 variant on the
+// dense kernel's tile and split, the ABFT variant on gemm_tile's CTA tile
+// with split 1 (its checksums over the staged tiles, the verify over the
+// finished tile in shared memory).
+template <int MODE, typename T, typename TB, int BM, int BN, bool GATE>
+__global__ void __launch_bounds__(PrefillCfg<T, BM, BN, GATE, MODE == kSparseB, TB>::kThreads)
+mx_matmul_prefill_kernel(const PrefillShape d, const GemmArgs r) {
+  constexpr bool kSparse = MODE == kSparseB;
+  using Cfg = PrefillCfg<T, BM, BN, GATE, kSparse, TB>;
+  float* Cs;
+  if constexpr (MODE == kAbftB) {
+    using Hook = AbftPrefillHook<Cfg, T, BM, BN>;
+    __shared__ typename Hook::Sm ck;
+    Hook hook(ck);
+    hook.reset();
+    Cs = prefill_sweep<T, BM, BN, GATE, false, TB>(d, hook);
+    const int tile = pf_tile_m() * gridDim.y + pf_tile_n();  // the (grid_m, grid_n) map
+    if (r.fault_delta != nullptr)
+      hook.inject(Cs, r.fault_delta[tile], r.fault_row[tile], r.fault_col[tile]);
+    const int bad = hook.verify(Cs, r.rtol, r.atol);
+    if (threadIdx.x == 0) r.flags[tile] = bad;
+  } else {
+    NoHook hook;
+    Cs = prefill_sweep<T, BM, BN, GATE, kSparse, TB>(d, hook);
+  }
+  prefill_store<Cfg, BM, BN, GATE>(r, d, Cs);
+}
+
+template <int MODE, typename T, typename TB, int BM, int BN>
+static int prefill_gate(const PrefillShape& d, const GemmArgs& r, cudaStream_t s) {
+  constexpr bool kSparse = MODE == kSparseB;
+  if (r.act == kSwiglu)
+    return prefill_launch<mx_matmul_prefill_kernel<MODE, T, TB, BM, BN, true>,
+                          PrefillCfg<T, BM, BN, true, kSparse, TB>, kSparse>(d, s, true, d, r);
+  return prefill_launch<mx_matmul_prefill_kernel<MODE, T, TB, BM, BN, false>,
+                        PrefillCfg<T, BM, BN, false, kSparse, TB>, kSparse>(d, s, true, d, r);
+}
+
+// The CTA tiles of kernels/_build.prefill_tile: the 2:4 kernel takes every
+// one of PREFILL_TILES, the ABFT kernel gemm_tile's (32 x 64, 64 x 64).
+// The pairs: f32, bf16, and bf16 with an int8 (2:4 and ABFT) or e4m3 (ABFT)
+// weight widened to bf16 in shared memory.
+template <int MODE>
+static int prefill_dispatch(const PrefillShape& d, const GemmArgs& r, int a_dt, int b_dt,
+                            int bm, int bn, cudaStream_t s) {
+  auto tiles = [&](auto t, auto tb) -> int {
+    using T = decltype(t);
+    using TB = decltype(tb);
+    if (bm == 32 && bn == 64) return prefill_gate<MODE, T, TB, 32, 64>(d, r, s);
+    if (bm == 64 && bn == 64) return prefill_gate<MODE, T, TB, 64, 64>(d, r, s);
+    if constexpr (MODE == kSparseB)
+      if (bm == 64 && bn == 128) return prefill_gate<MODE, T, TB, 64, 128>(d, r, s);
+    return static_cast<int>(cudaErrorInvalidValue);
+  };
+  if (a_dt == kF32 && b_dt == kF32) return tiles(float(), float());
+  if (a_dt == kBF16 && b_dt == kBF16) return tiles(__nv_bfloat16(), __nv_bfloat16());
+  if (a_dt == kBF16 && b_dt == kI8) return tiles(__nv_bfloat16(), int8_t());
+  if constexpr (MODE == kAbftB)
+    if (a_dt == kBF16 && b_dt == kF8) return tiles(__nv_bfloat16(), __nv_fp8_e4m3());
+  return static_cast<int>(cudaErrorInvalidValue);
+}

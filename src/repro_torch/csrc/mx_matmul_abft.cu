@@ -11,6 +11,13 @@
 // kernel's.  Pairs: every dense pair (2:4 weights are expanded before a
 // checksummed launch, as in JAX).
 //
+// At M > 16 the pairs with f32 or bf16 A take the dense kernel's
+// tensor-core loop (prefill_tile.cuh) on gemm_tile's CTA tile with split 1,
+// folding the same K parts in the same order as the dense kernel (so on is
+// bitwise off), the checksums over the staged tiles (in A's type: an int8 or
+// e4m3 weight widened) and the verify over the finished tile in shared
+// memory (mx_matmul_abft_prefill_launch).
+//
 // What it costs on the H100: per K step two reductions over the staged
 // tiles and (BM + BN) * BK extra MACs in shared memory, with two more
 // barriers; (1 / BM + 1 / BN) of the tile's MACs, doubled for the float
@@ -50,6 +57,31 @@ extern "C" int mx_matmul_abft_launch(const void* a, const void* b, const void* b
                    static_cast<int*>(flags), rtol, atol};
   const int err = dispatch_pair(r, a_dt, b_dt, bm, bn, bk,
                                         static_cast<cudaStream_t>(stream));
+  if (err) return err;
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The tensor-core prefill tile (f32 or bf16 A; M > 16): as mx_matmul_abft_launch,
+// with the tile of kernels/_build.prefill_tile (bm, bn: gemm_tile's; stages;
+// split 1; parts) and the copy widths va / vb.
+extern "C" int mx_matmul_abft_prefill_launch(
+    const void* a, const void* b, const void* b_gate, const void* a_scale, const void* b_scale,
+    const void* bg_scale, const void* bias, int bias_dt, const void* residual, int res_dt,
+    void* out, int out_dt, int M, int N, int K, int a_dt, int b_dt, int act, int has_scale,
+    float out_scale, int bm, int bn, int stages, int split, int parts, int va, int vb, int vm,
+    void* flags, const void* fault_delta, const void* fault_row, const void* fault_col,
+    float rtol, float atol, void* stream) {
+  const GemmArgs r{a, b, b_gate, nullptr, nullptr, static_cast<const float*>(a_scale),
+                   static_cast<const float*>(b_scale), static_cast<const float*>(bg_scale),
+                   bias, bias_dt, residual, res_dt, out, out_dt, M, N, K, act, has_scale,
+                   out_scale, static_cast<const float*>(fault_delta),
+                   static_cast<const int*>(fault_row), static_cast<const int*>(fault_col),
+                   static_cast<int*>(flags), rtol, atol};
+  if (split != 1) return static_cast<int>(cudaErrorInvalidValue);  // one CTA per flag
+  const PrefillShape d{a, b, act == kSwiglu ? b_gate : nullptr, nullptr, nullptr, M, N, K,
+                       stages, split, parts, va, vb, vm};
+  const int err = prefill_dispatch<kAbftB>(d, r, a_dt, b_dt, bm, bn,
+                                           static_cast<cudaStream_t>(stream));
   if (err) return err;
   return static_cast<int>(cudaGetLastError());
 }

@@ -12,6 +12,12 @@
 // produce: (f32, f32) and (bf16, bf16) for "sparse24", (bf16, int8) for
 // "sparse24_int8".
 //
+// At M > 16 every pair takes the dense kernel's tensor-core loop
+// (prefill_tile.cuh) on the same tile and split, the payload and metadata
+// copied raw into the ring by cp.async and expanded in shared memory (an
+// int8 payload widened to bf16) before the MMAs
+// (mx_matmul_sparse_prefill_launch).
+//
 // What bounds it on the H100: at decode the weight bytes, now
 // itemsize / 2 + 1/8 per dense element (0.53x of f32 dense, 0.16x with
 // int8); the expansion is a few compare-selects per staged element.
@@ -44,6 +50,31 @@ extern "C" int mx_matmul_sparse_launch(const void* a, const void* b, const void*
                    out_scale, nullptr, nullptr, nullptr, nullptr, 0.0f, 0.0f};
   const int err = dispatch_pair(r, a_dt, b_dt, bm, bn, bk,
                                           static_cast<cudaStream_t>(stream));
+  if (err) return err;
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The tensor-core prefill tile (M > 16): as
+// mx_matmul_sparse_launch, with the tile of kernels/_build.prefill_tile
+// (bm, bn, stages, split, parts) and the copy widths va / vb / vm of A's,
+// the payloads' and the metadata's rows.
+extern "C" int mx_matmul_sparse_prefill_launch(
+    const void* a, const void* b, const void* b_gate, const void* b_meta, const void* bg_meta,
+    const void* a_scale, const void* b_scale, const void* bg_scale, const void* bias,
+    int bias_dt, const void* residual, int res_dt, void* out, int out_dt, int M, int N, int K,
+    int a_dt, int b_dt, int act, int has_scale, float out_scale, int bm, int bn, int stages,
+    int split, int parts, int va, int vb, int vm, void* stream) {
+  const GemmArgs r{a, b, b_gate, static_cast<const uint8_t*>(b_meta),
+                   static_cast<const uint8_t*>(bg_meta), static_cast<const float*>(a_scale),
+                   static_cast<const float*>(b_scale), static_cast<const float*>(bg_scale),
+                   bias, bias_dt, residual, res_dt, out, out_dt, M, N, K, act, has_scale,
+                   out_scale, nullptr, nullptr, nullptr, nullptr, 0.0f, 0.0f};
+  const bool gated = act == kSwiglu;
+  const PrefillShape d{a, b, gated ? b_gate : nullptr, static_cast<const uint8_t*>(b_meta),
+                       gated ? static_cast<const uint8_t*>(bg_meta) : nullptr, M, N, K,
+                       stages, split, parts, va, vb, vm};
+  const int err = prefill_dispatch<kSparseB>(d, r, a_dt, b_dt, bm, bn,
+                                             static_cast<cudaStream_t>(stream));
   if (err) return err;
   return static_cast<int>(cudaGetLastError());
 }

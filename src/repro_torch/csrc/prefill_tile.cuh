@@ -1,0 +1,676 @@
+// The prefill tile (M > 16 rows) of the dense MX GEMM (csrc/mx_matmul.cu),
+// of its 2:4 and ABFT variants (csrc/mx_matmul.cuh) and of the baseline GEMM
+// (csrc/baseline_matmul.cu): one tensor-core K loop for Hopper (sm_90a).
+// Each replaces the M > 16 rows of its TPU kernel
+// (repro/kernels/mx_matmul.py::mx_matmul_fused, baseline_matmul.py).
+//
+// What bounds it on the H100: a prefill GEMM does 2 * M * N * K operations
+// on a weight it reads once, so at M = 64 the weight's bytes and the
+// operations are of one size (f32 K = 8192, N = 2048: 64 MB, 0.020 ms at
+// 3.35 TB/s; 2.1 GFLOP, 0.032 ms at the CUDA cores' 67 TFLOP/s, 0.013 ms as
+// three TF32 products at 495), and from M = 256 on the operations bound it.
+// The tile it replaces (gemm_tile.cuh's sweep_k) ran every MAC on the CUDA
+// cores, widened each operand element by element through registers, kept one
+// K step in flight and gave 64 CTAs at M = 64, N = 2048.  This loop instead:
+//   * multiplies on the tensor cores with mma.sync: bf16 x bf16 as
+//     m16n8k16 products into f32 accumulators (the products are exact, the
+//     sums f32), and so bf16 x int8 and bf16 x e4m3, the weight copied in
+//     its own width and widened to bf16 in shared memory (exactly: every
+//     int8 and e4m3 value is a bf16 value), the scales applied at the store;
+//     f32 x f32 as 3xTF32 -- each operand split into a TF32 high
+//     part and its TF32 remainder, three m16n8k8 products per step (lo*hi,
+//     hi*lo, hi*hi) into f32 accumulators, about f32's accuracy (one TF32
+//     product keeps three digits and would miss the 1e-4 * max|ref| gate);
+//   * fills a ring of `stages` shared-memory slots with 16-byte cp.async.cg
+//     copies (commit / wait groups, one barrier per K step), each operand in
+//     its own width: A as (BM x 128 bytes of K) rows, B as (BK x BN) rows in
+//     the JAX layout ((K, N) row-major, no transposed copy of any weight);
+//     fragments are read with ldmatrix (bf16; .trans for B) or 32-bit loads
+//     (f32), the staged rows padded by 16 or 32 bytes so a warp's reads fall
+//     on 32 different banks;
+//   * fills the card by splitting K: the K steps are cut into `parts` equal
+//     parts, a number that depends on K alone (kernels/_build.prefill_parts),
+//     each part's partial sum starting from zero.  A small grid runs one CTA
+//     per part in a thread-block cluster of `parts` CTAs (split == parts): the
+//     partials meet in distributed shared memory and are summed in rank order
+//     by the CTAs of the cluster, each finishing BM / split rows; a large
+//     grid runs one CTA per tile that walks all parts and folds each finished
+//     partial into a shared-memory total (split == 1).  Both sum
+//     ((p0 + p1) + p2) + ... in the same order, with no atomics, so an output
+//     element's bits depend on K and the operand pair only, not on the tile,
+//     the split or M: the dense, 2:4 and ABFT kernels (whose CTA tiles and
+//     splits differ) and a recomputed ABFT tile are bitwise equal;
+//   * stores through shared memory: the finished tile is summed into Cs and
+//     every element goes through gemm_tile.cuh's mx_store (the epilogue's
+//     roundings unchanged), neighbouring threads on neighbouring columns;
+//   * zero fills ragged and misaligned M / N / K edges in the copies
+//     themselves (kernels/_build.copy_width: 16, 8, 4 bytes by cp.async, 2,
+//     1 by plain loads), with no padded operand copies.
+// The tile (BM, BN, stages, split, parts) and the copy widths are chosen in
+// Python (kernels/_build.prefill_tile / copy_width) and checked by
+// prefill_check.  Three macros, never set by the package's build, cut parts
+// of the loop for timing only (tools/prefill_variants.py; wrong results):
+// PREFILL_TIMING_NO_PRODUCTS (the ring without the MMAs),
+// PREFILL_TIMING_NO_COPIES (no copies once the ring is primed) and
+// PREFILL_TIMING_ONE_TF32 (one TF32 product per f32 step, not three).
+//
+// The route, per pair: mma.sync for f32 (3xTF32), bf16 and the widened
+// pairs alike; int8 x int8 and e4m3 x e4m3 (s8 and e4m3 MMAs, whose B
+// fragments pack 4 K rows per register) stay on gemm_tile.cuh.  wgmma,
+// the route to the tensor cores' full rate, takes B from shared memory
+// K-major for TF32 (and 8-bit types), so the f32 weight would need a
+// transposing pass per stage; it is not built yet (ROADMAP, queue 2).
+// Measured on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md section 6;
+// tools/prefill_variants.py for the variants): f32 M = 64, K = 8192,
+// N = 2048 + residual 0.098 ms against addmm's 0.062, bf16 0.032 against
+// 0.023; f32 at M = 2048 about 1.3x matmul, bf16 about 5x.  What bounds it
+// now: in f32 the mma.sync TF32 rate (the products alone take 0.073 of
+// 0.095 ms at M = 64, one TF32 product instead of three 0.068); in bf16 the
+// copies (a loop of copies alone takes as long as the whole: 0.9-1.1 TB/s
+// from HBM at M = 64; at M = 2048, 3.4 TB/s of L2 traffic, about 26 GB/s
+// per SM, since each 64 x 128 tile re-reads its A rows and B columns).
+#pragma once
+
+#include <cooperative_groups.h>
+
+#include "decode_tile.cuh"  // copy_chunk, cp_async_*, is_pow2; gemm_tile.cuh's mx_store
+
+namespace cg = cooperative_groups;
+
+constexpr int kPrefillMaxSmem = 232448;  // 227 KB, the opt-in per-CTA maximum
+constexpr int kPrefillMaxStages = 8;
+constexpr int kPrefillMaxParts = 8;  // a portable cluster
+
+// Everything the loop needs: A (M, K); B, Bg (K, N) dense, or their 2:4
+// payloads (K/2, N) with uint8 metadata (K/8, N); the tile; the copy widths
+// in bytes of A's, B's and the metadata's rows.
+struct PrefillShape {
+  const void *a, *b, *bg;
+  const uint8_t *bmeta, *bgmeta;
+  int M, N, K;
+  int stages, split, parts, va, vb, vm;
+};
+
+template <typename T>
+struct MmaOf;
+template <>
+struct MmaOf<float> {  // 3xTF32, m16n8k8
+  static constexpr int kBK = 32;
+};
+template <>
+struct MmaOf<__nv_bfloat16> {  // m16n8k16
+  static constexpr int kBK = 64;
+};
+
+// The layout of one (BM x BN) tile: 2 x (BN / 32) warps of (BM / 2) x 32
+// outputs each (MT m16 tiles by 4 n8 tiles); one ring slot holds A's BM
+// rows, B's (and the gate's) BK rows in A's type T and, for 2:4 or a
+// narrower weight type TB (int8 or e4m3 beside bf16 A), the raw rows they
+// are expanded or widened from; Cs holds the finished f32 tile (and the
+// gate's).
+template <typename T, int BM, int BN, bool GATE, bool SPARSE, typename TB = T>
+struct PrefillCfg {
+  static constexpr int kBK = MmaOf<T>::kBK;  // 128 bytes of each A row per stage
+  static constexpr int kE = sizeof(T), kEB = sizeof(TB);
+  static constexpr bool kWiden = !std::is_same<T, TB>::value;
+  static constexpr int kWarpsN = BN / 32;
+  static constexpr int kThreads = 64 * kWarpsN;
+  static constexpr int kWM = BM / 2, kMT = kWM / 16, kNT = 4;
+  static constexpr int kAStride = kBK * kE + 16;  // bytes per staged A row (128 + 16)
+  static constexpr int kBStride = (BN + 8) * kE;  // bytes per staged B row
+  static constexpr int kABytes = BM * kAStride;
+  static constexpr int kBBytes = kBK * kBStride;
+  static constexpr int kPRow = BN * kEB;  // a raw weight or 2:4 payload row
+  static constexpr int kRawBytes = SPARSE  ? (kBK / 2) * kPRow + (kBK / 8) * BN
+                                   : kWiden ? kBK * kPRow
+                                            : 0;
+  static constexpr int kMats = GATE ? 2 : 1;
+  static constexpr int kSlot = kABytes + kMats * (kBBytes + kRawBytes);
+  static constexpr int kCStride = BN + 8;  // f32 words per Cs row
+  static constexpr int kCBytes = BM * kCStride * 4 * kMats;
+  static_assert(BM % 32 == 0 && BM <= 128 && (BN == 64 || BN == 128),
+                "a tile of csrc/prefill_tile.cuh");  // kernels/_build.PREFILL_TILES
+  static_assert(kABytes % 16 == 0 && kBBytes % 16 == 0 && kRawBytes % 16 == 0, "16-byte rows");
+
+  __host__ __device__ static constexpr int b_off(int mat) { return kABytes + mat * kBBytes; }
+  __host__ __device__ static constexpr int raw_off(int mat) {
+    return kABytes + kMats * kBBytes + mat * kRawBytes;
+  }
+};
+
+__host__ __device__ inline int prefill_steps(int K, int bk) { return (K + bk - 1) / bk; }
+
+// The grid walks M fastest: (tiles_m, tiles_n, split), so the CTAs resident
+// at once share a band of B's columns (kept in L2) instead of streaming all
+// of B once per row of tiles.
+__device__ __forceinline__ int pf_tile_m() { return blockIdx.x; }
+__device__ __forceinline__ int pf_tile_n() { return blockIdx.y; }
+
+// The first K step of part p of `parts` equal parts.
+__host__ __device__ inline int part_begin(int p, int steps, int parts) {
+  return static_cast<int>(static_cast<int64_t>(p) * steps / parts);
+}
+
+// Dynamic shared memory of a launch: the ring and Cs, which aliases the ring
+// unless a CTA folds several parts (split == 1 < parts) while the ring runs.
+template <typename Cfg>
+__host__ __device__ inline int prefill_smem(const PrefillShape& d, bool epilogue = true) {
+  const int ring = d.stages * Cfg::kSlot;
+  if (!epilogue) return ring;
+  if (d.split == 1 && d.parts > 1) return ring + Cfg::kCBytes;
+  return ring > Cfg::kCBytes ? ring : Cfg::kCBytes;
+}
+
+// The launcher's check of a tile chosen in Python: cudaErrorInvalidValue
+// (as an int) for anything the loop does not take, else 0.
+template <typename Cfg, bool SPARSE>
+static int prefill_check(const PrefillShape& d, int static_smem, bool epilogue = true) {
+  auto aligned = [](const void* p, int v) {
+    return p == nullptr || reinterpret_cast<uintptr_t>(p) % v == 0;
+  };
+  auto width_ok = [](int v, int64_t row_bytes) {
+    return is_pow2(v) && v <= 16 && row_bytes % v == 0;
+  };
+  const int steps = prefill_steps(d.K, Cfg::kBK);
+  const bool ok =
+      d.M >= 1 && d.N >= 1 && d.K >= 1 && d.stages >= 2 && d.stages <= kPrefillMaxStages &&
+      is_pow2(d.parts) && d.parts <= kPrefillMaxParts && steps % d.parts == 0 &&
+      (d.split == 1 || d.split == d.parts) && (d.split == 1 || epilogue) &&
+      width_ok(d.va, static_cast<int64_t>(d.K) * Cfg::kE) &&
+      width_ok(d.vb, static_cast<int64_t>(d.N) * Cfg::kEB) && aligned(d.a, d.va) &&
+      aligned(d.b, d.vb) && aligned(d.bg, d.vb) &&
+      (!SPARSE || (d.K % 8 == 0 && width_ok(d.vm, d.N) && aligned(d.bmeta, d.vm) &&
+                   aligned(d.bgmeta, d.vm))) &&
+      prefill_smem<Cfg>(d, epilogue) + static_smem <= kPrefillMaxSmem;
+  return ok ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+// ---------------------------------------------------------------------------
+// copies: global -> one ring slot
+// ---------------------------------------------------------------------------
+
+// ROWS rows of WIDTH bytes (a multiple of V) from a row-major operand of
+// rows_total rows of row_bytes, from row r0 and byte col0 on, into rows
+// `stride` bytes apart; chunks past rows_total or row_bytes are zero filled.
+template <int V, int ROWS, int WIDTH, int THREADS>
+__device__ __forceinline__ void pf_copy(unsigned char* dst, int stride, const void* src,
+                                        int64_t row_bytes, int r0, int rows_total,
+                                        int64_t col0) {
+  constexpr int kPer = WIDTH / V;
+  const unsigned char* S = static_cast<const unsigned char*>(src);
+  const int64_t cols_left = row_bytes - col0;
+#pragma unroll 4
+  for (int q = threadIdx.x; q < ROWS * kPer; q += THREADS) {
+    const int r = q / kPer, o = (q % kPer) * V;
+    const bool ok = r0 + r < rows_total && o < cols_left;
+    copy_chunk<V>(dst + r * stride + o, ok ? S + (r0 + r) * row_bytes + col0 + o : S, ok);
+  }
+}
+
+template <int ROWS, int WIDTH, int THREADS>
+__device__ __forceinline__ void pf_copy_v(int v, unsigned char* dst, int stride,
+                                          const void* src, int64_t row_bytes, int r0,
+                                          int rows_total, int64_t col0) {
+  switch (v) {
+    case 16: pf_copy<16, ROWS, WIDTH, THREADS>(dst, stride, src, row_bytes, r0, rows_total, col0); break;
+    case 8: pf_copy<8, ROWS, WIDTH, THREADS>(dst, stride, src, row_bytes, r0, rows_total, col0); break;
+    case 4: pf_copy<4, ROWS, WIDTH, THREADS>(dst, stride, src, row_bytes, r0, rows_total, col0); break;
+    case 2: pf_copy<2, ROWS, WIDTH, THREADS>(dst, stride, src, row_bytes, r0, rows_total, col0); break;
+    default: pf_copy<1, ROWS, WIDTH, THREADS>(dst, stride, src, row_bytes, r0, rows_total, col0);
+  }
+}
+
+// The copies of K step kt into one slot: A's BM rows, and B's (and the
+// gate's) BK rows, raw when their type is narrower than A's, or their
+// BK / 2 payload and BK / 8 metadata rows.
+template <typename T, int BM, int BN, bool GATE, bool SPARSE, typename TB = T>
+__device__ __forceinline__ void pf_issue(unsigned char* slot, const PrefillShape& d, int m0,
+                                         int n0, int kt) {
+  using Cfg = PrefillCfg<T, BM, BN, GATE, SPARSE, TB>;
+  constexpr int E = Cfg::kE, EB = Cfg::kEB, BK = Cfg::kBK, TH = Cfg::kThreads;
+  const int k0 = kt * BK;
+  pf_copy_v<BM, BK * E, TH>(d.va, slot, Cfg::kAStride, d.a, static_cast<int64_t>(d.K) * E, m0,
+                            d.M, static_cast<int64_t>(k0) * E);
+  const int64_t brow = static_cast<int64_t>(d.N) * EB, bcol = static_cast<int64_t>(n0) * EB;
+#pragma unroll
+  for (int mat = 0; mat < Cfg::kMats; ++mat) {
+    const void* B = mat ? d.bg : d.b;
+    if constexpr (SPARSE) {
+      unsigned char* raw = slot + Cfg::raw_off(mat);
+      pf_copy_v<BK / 2, BN * EB, TH>(d.vb, raw, Cfg::kPRow, B, brow, k0 / 2, d.K / 2, bcol);
+      pf_copy_v<BK / 8, BN, TH>(d.vm, raw + (BK / 2) * Cfg::kPRow, BN, mat ? d.bgmeta : d.bmeta,
+                                d.N, k0 / 8, d.K / 8, n0);
+    } else if constexpr (Cfg::kWiden) {
+      pf_copy_v<BK, BN * EB, TH>(d.vb, slot + Cfg::raw_off(mat), Cfg::kPRow, B, brow, k0, d.K,
+                                 bcol);
+    } else {
+      pf_copy_v<BK, BN * E, TH>(d.vb, slot + Cfg::b_off(mat), Cfg::kBStride, B, brow, k0, d.K,
+                                bcol);
+    }
+  }
+}
+
+// The 2:4 expansion of one staged step (stage 1c), in shared memory: each
+// (metadata byte b, column n) expands 4 payload values into dense rows
+// 8b .. 8b + 7 by kernels/sparse.expand_24's compare-select rule, dense row
+// 8b + 4h + j = (i0 == j ? p[4b + 2h] : 0) + (i1 == j ? p[4b + 2h + 1] : 0),
+// nibble h of the byte holding (i0, i1), widened to A's type as the dense
+// kernel widens (exactly).  The dense tile holds exactly the values the
+// dense kernel stages from expand_24's weight, so the MMAs that follow give
+// the dense kernel's bits.
+template <typename Cfg, typename T, typename TB, int BN>
+__device__ __forceinline__ void pf_expand(unsigned char* bdst, const unsigned char* raw) {
+  constexpr int BK = Cfg::kBK;
+  const TB* P = reinterpret_cast<const TB*>(raw);
+  const uint8_t* Mt = raw + (BK / 2) * Cfg::kPRow;
+  for (int e = threadIdx.x; e < (BK / 8) * BN; e += Cfg::kThreads) {
+    const int b = e / BN, n = e % BN;
+    const int mb = Mt[b * BN + n];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int nib = h ? mb >> 4 : mb & 0xF;
+      const int i0 = nib & 3, i1 = (nib >> 2) & 3;
+      const float p0 = to_f32(P[(4 * b + 2 * h) * BN + n]);
+      const float p1 = to_f32(P[(4 * b + 2 * h + 1) * BN + n]);
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        from_f32(reinterpret_cast<T*>(bdst + (8 * b + 4 * h + j) * Cfg::kBStride) + n,
+                 (i0 == j ? p0 : 0.0f) + (i1 == j ? p1 : 0.0f));
+    }
+  }
+}
+
+// A narrow weight's staged rows (int8, or e4m3) widened into A's type
+// (bf16), exactly: every int8 and every e4m3 value is a bf16 value.  Four
+// weights per item: one 32-bit shared-memory read, one 64-bit write.
+template <typename Cfg, typename T, typename TB, int BN>
+__device__ __forceinline__ void pf_widen(unsigned char* bdst, const unsigned char* raw) {
+  static_assert(sizeof(TB) == 1 && std::is_same<T, __nv_bfloat16>::value,
+                "a byte weight widened to bf16");
+  constexpr int kQuads = BN / 4;
+  for (int e = threadIdx.x; e < Cfg::kBK * kQuads; e += Cfg::kThreads) {
+    const int k = e / kQuads, n = (e % kQuads) * 4;
+    const uint32_t w = *reinterpret_cast<const uint32_t*>(raw + k * BN + n);
+    uint32_t h[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const uint8_t byte = static_cast<uint8_t>(w >> (8 * j));
+      h[j] = __bfloat16_as_ushort(__float2bfloat16(to_f32(*reinterpret_cast<const TB*>(&byte))));
+    }
+    *reinterpret_cast<uint2*>(bdst + k * Cfg::kBStride + n * 2) =
+        make_uint2(h[0] | (h[1] << 16), h[2] | (h[3] << 16));
+  }
+}
+
+// ---------------------------------------------------------------------------
+// tensor-core products of one staged step
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ unsigned to_tf32(float x) {
+  unsigned r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// x = hi + lo: hi its TF32 rounding, lo the TF32 rounding of the rest
+__device__ __forceinline__ void split_tf32(float x, unsigned& hi, unsigned& lo) {
+  hi = to_tf32(x);
+  lo = to_tf32(x - __uint_as_float(hi));
+}
+
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const unsigned (&a)[4],
+                                         const unsigned (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, "
+      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4],
+                                         const unsigned (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, "
+      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+__device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const void* p) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(s));
+}
+
+__device__ __forceinline__ void ldsm_x4_t(unsigned (&r)[4], const void* p) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(s));
+}
+
+// The accumulators of one warp: acc[mt][nt] is the m16 x n8 MMA tile at
+// rows wm0 + 16 mt, columns wn0 + 8 nt; lane (g, c) = (lane / 4, lane % 4)
+// holds its rows g and g + 8, columns 2c and 2c + 1.
+template <typename Cfg>
+using Acc = float[Cfg::kMT][Cfg::kNT][4];
+
+// One B operand's fragments for k sub-step kk (bf16: ldmatrix.trans of two
+// n8 tiles at a time).
+template <typename Cfg>
+__device__ __forceinline__ void b_frags_bf16(unsigned (&b)[Cfg::kNT][2],
+                                             const unsigned char* Bs, int kk, int wn0,
+                                             int lane) {
+#pragma unroll
+  for (int np = 0; np < Cfg::kNT / 2; ++np) {
+    unsigned r[4];
+    ldsm_x4_t(r, Bs + (kk + (lane & 7) + ((lane >> 3) & 1) * 8) * Cfg::kBStride +
+                     (wn0 + np * 16 + (lane >> 4) * 8) * 2);
+    b[2 * np][0] = r[0];
+    b[2 * np][1] = r[1];
+    b[2 * np + 1][0] = r[2];
+    b[2 * np + 1][1] = r[3];
+  }
+}
+
+// f32 B fragments for k sub-step kk, split into TF32 high and low parts.
+template <typename Cfg>
+__device__ __forceinline__ void b_frags_tf32(unsigned (&bh)[Cfg::kNT][2],
+                                             unsigned (&bl)[Cfg::kNT][2],
+                                             const unsigned char* Bs, int kk, int wn0,
+                                             int lane) {
+  const float* B = reinterpret_cast<const float*>(Bs);
+  constexpr int S = Cfg::kBStride / 4;
+  const int g = lane >> 2, c = lane & 3;
+#pragma unroll
+  for (int nt = 0; nt < Cfg::kNT; ++nt) {
+    const float* q = B + (kk + c) * S + wn0 + nt * 8 + g;
+    split_tf32(q[0], bh[nt][0], bl[nt][0]);
+    split_tf32(q[4 * S], bh[nt][1], bl[nt][1]);
+  }
+}
+
+// The MMAs of one staged K step into acc (and accg with GATE).  Every
+// output element takes the same sequence of products whatever its tile:
+// the k sub-steps in order, and for f32 lo*hi, hi*lo, hi*hi at each.
+template <typename T, int BM, int BN, bool GATE, bool SPARSE>
+__device__ __forceinline__ void pf_mma_stage(
+    Acc<PrefillCfg<T, BM, BN, GATE, SPARSE>>& acc,
+    Acc<PrefillCfg<T, BM, BN, GATE, SPARSE>>& accg, const unsigned char* slot, int wm0,
+    int wn0, int lane) {
+  using Cfg = PrefillCfg<T, BM, BN, GATE, SPARSE>;
+  constexpr int MT = Cfg::kMT, NT = Cfg::kNT;
+  const unsigned char* Bs = slot + Cfg::b_off(0);
+  const unsigned char* Bgs = slot + Cfg::b_off(GATE ? 1 : 0);
+  if constexpr (std::is_same<T, float>::value) {
+    const float* A = reinterpret_cast<const float*>(slot);
+    constexpr int S = Cfg::kAStride / 4;
+    const int g = lane >> 2, c = lane & 3;
+#pragma unroll
+    for (int kk = 0; kk < Cfg::kBK; kk += 8) {
+      unsigned ah[MT][4], al[MT][4];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        const float* p = A + (wm0 + mt * 16 + g) * S + kk + c;
+        split_tf32(p[0], ah[mt][0], al[mt][0]);
+        split_tf32(p[8 * S], ah[mt][1], al[mt][1]);
+        split_tf32(p[4], ah[mt][2], al[mt][2]);
+        split_tf32(p[8 * S + 4], ah[mt][3], al[mt][3]);
+      }
+      unsigned bh[NT][2], bl[NT][2];
+      b_frags_tf32<Cfg>(bh, bl, Bs, kk, wn0, lane);
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+#ifndef PREFILL_TIMING_ONE_TF32
+          mma_tf32(acc[mt][nt], al[mt], bh[nt]);
+          mma_tf32(acc[mt][nt], ah[mt], bl[nt]);
+#endif
+          mma_tf32(acc[mt][nt], ah[mt], bh[nt]);
+        }
+      if constexpr (GATE) {
+        b_frags_tf32<Cfg>(bh, bl, Bgs, kk, wn0, lane);
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt) {
+            mma_tf32(accg[mt][nt], al[mt], bh[nt]);
+            mma_tf32(accg[mt][nt], ah[mt], bl[nt]);
+            mma_tf32(accg[mt][nt], ah[mt], bh[nt]);
+          }
+      }
+    }
+  } else {
+#pragma unroll
+    for (int kk = 0; kk < Cfg::kBK; kk += 16) {
+      unsigned a[MT][4];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+        ldsm_x4(a[mt], slot + (wm0 + mt * 16 + (lane & 15)) * Cfg::kAStride +
+                           (kk + (lane >> 4) * 8) * 2);
+      unsigned b[NT][2];
+      b_frags_bf16<Cfg>(b, Bs, kk, wn0, lane);
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) mma_bf16(acc[mt][nt], a[mt], b[nt]);
+      if constexpr (GATE) {
+        b_frags_bf16<Cfg>(b, Bgs, kk, wn0, lane);
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt) mma_bf16(accg[mt][nt], a[mt], b[nt]);
+      }
+    }
+  }
+}
+
+template <typename Cfg>
+__device__ __forceinline__ void pf_zero(Acc<Cfg>& acc) {
+#pragma unroll
+  for (int mt = 0; mt < Cfg::kMT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < Cfg::kNT; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[mt][nt][i] = 0.0f;
+}
+
+// A warp's accumulators into the f32 tile C (row stride kCStride): copied
+// (first) or added to the total there (total + partial).  Each thread
+// touches only its own elements.
+template <typename Cfg>
+__device__ __forceinline__ void pf_to_tile(float* C, const Acc<Cfg>& acc, int wm0, int wn0,
+                                           int lane, bool first) {
+  const int g = lane >> 2, c = lane & 3;
+#pragma unroll
+  for (int mt = 0; mt < Cfg::kMT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < Cfg::kNT; ++nt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float2* p = reinterpret_cast<float2*>(
+            C + (wm0 + mt * 16 + g + 8 * h) * Cfg::kCStride + wn0 + nt * 8 + 2 * c);
+        float2 v = make_float2(acc[mt][nt][2 * h], acc[mt][nt][2 * h + 1]);
+        if (!first) {
+          const float2 t = *p;
+          v = make_float2(t.x + v.x, t.y + v.y);
+        }
+        *p = v;
+      }
+}
+
+// ---------------------------------------------------------------------------
+// the K loop
+// ---------------------------------------------------------------------------
+
+// The ring over K steps s0 .. s1 - 1 of one tile: primed with stages - 1
+// steps, then each step waits for its slot, passes ONE barrier (its slot
+// has landed for every thread, and every thread is done with the slot the
+// next copies overwrite), issues the copies of the step stages - 1 ahead,
+// expands a 2:4 slot or widens a narrow weight's (and passes a second
+// barrier) and runs body(slot, kt).
+// One group is committed per step, empty or not, so the wait count is
+// constant.  Ends after the last copies landed and a barrier, so the
+// caller may reuse the ring's shared memory.
+template <typename T, int BM, int BN, bool GATE, bool SPARSE, typename TB, typename Body>
+__device__ __forceinline__ void pf_ring(const PrefillShape& d, unsigned char* smem, int m0,
+                                        int n0, int s0, int s1, Body&& body) {
+  using Cfg = PrefillCfg<T, BM, BN, GATE, SPARSE, TB>;
+  for (int s = 0; s < d.stages - 1; ++s) {
+    if (s0 + s < s1)
+      pf_issue<T, BM, BN, GATE, SPARSE, TB>(smem + s * Cfg::kSlot, d, m0, n0, s0 + s);
+    cp_async_commit();
+  }
+  for (int kt = s0; kt < s1; ++kt) {
+    cp_async_wait(d.stages - 2);
+    __syncthreads();
+    const int nx = kt + d.stages - 1;
+#ifndef PREFILL_TIMING_NO_COPIES
+    if (nx < s1)
+      pf_issue<T, BM, BN, GATE, SPARSE, TB>(smem + ((nx - s0) % d.stages) * Cfg::kSlot, d, m0,
+                                            n0, nx);
+#endif
+    cp_async_commit();
+    unsigned char* slot = smem + ((kt - s0) % d.stages) * Cfg::kSlot;
+    if constexpr (SPARSE || Cfg::kWiden) {
+#pragma unroll
+      for (int mat = 0; mat < Cfg::kMats; ++mat) {
+        if constexpr (SPARSE)
+          pf_expand<Cfg, T, TB, BN>(slot + Cfg::b_off(mat), slot + Cfg::raw_off(mat));
+        else
+          pf_widen<Cfg, T, TB, BN>(slot + Cfg::b_off(mat), slot + Cfg::raw_off(mat));
+      }
+      __syncthreads();
+    }
+    body(slot, kt);
+  }
+  cp_async_wait(0);
+  __syncthreads();
+}
+
+// The whole K loop of an MX tile (dense, 2:4 or ABFT): this CTA's part
+// (split == parts, a cluster) or all parts, each finished part folded into
+// the total in Cs (split == 1).  `hook.step(slot)` sees every staged step
+// after its MMAs (all threads call it; NoHook, or abft_tile.cuh's
+// AbftPrefillHook).  Returns Cs, the finished f32 tile
+// (the gate's follows at Cs + BM * kCStride), complete for every thread of
+// the CTA.
+template <typename T, int BM, int BN, bool GATE, bool SPARSE, typename TB = T,
+          typename Hook>
+__device__ __forceinline__ float* prefill_sweep(const PrefillShape& d, Hook& hook) {
+  using Cfg = PrefillCfg<T, BM, BN, GATE, SPARSE, TB>;
+  extern __shared__ __align__(128) unsigned char pf_smem[];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int wm0 = (warp / Cfg::kWarpsN) * Cfg::kWM, wn0 = (warp % Cfg::kWarpsN) * 32;
+  const int m0 = pf_tile_m() * BM, n0 = pf_tile_n() * BN;
+  const int steps = prefill_steps(d.K, Cfg::kBK);
+  const int p0 = d.split > 1 ? static_cast<int>(blockIdx.z) : 0;
+  const int p1 = d.split > 1 ? p0 + 1 : d.parts;
+  const bool fold = p1 - p0 > 1;
+  float* Cs = reinterpret_cast<float*>(pf_smem + (fold ? d.stages * Cfg::kSlot : 0));
+  float* Cg = Cs + BM * Cfg::kCStride;
+  Acc<Cfg> acc, accg;  // the partial sums of the current part
+  pf_zero<Cfg>(acc);
+  pf_zero<Cfg>(accg);
+  int p = p0, pend = part_begin(p0 + 1, steps, d.parts);
+  pf_ring<T, BM, BN, GATE, SPARSE, TB>(
+      d, pf_smem, m0, n0, part_begin(p0, steps, d.parts), part_begin(p1, steps, d.parts),
+      [&](const unsigned char* slot, int kt) {
+#ifndef PREFILL_TIMING_NO_PRODUCTS
+        pf_mma_stage<T, BM, BN, GATE, SPARSE>(acc, accg, slot, wm0, wn0, lane);
+#endif
+        hook.step(slot);
+        if (fold && kt + 1 == pend) {  // a part is finished: total (+)= partial
+          pf_to_tile<Cfg>(Cs, acc, wm0, wn0, lane, p == p0);
+          pf_zero<Cfg>(acc);
+          if constexpr (GATE) {
+            pf_to_tile<Cfg>(Cg, accg, wm0, wn0, lane, p == p0);
+            pf_zero<Cfg>(accg);
+          }
+          ++p;
+          pend = part_begin(p + 1, steps, d.parts);
+        }
+      });
+  if (!fold) {  // the one part's partial (Cs over the drained ring)
+    pf_to_tile<Cfg>(Cs, acc, wm0, wn0, lane, true);
+    if constexpr (GATE) pf_to_tile<Cfg>(Cg, accg, wm0, wn0, lane, true);
+  }
+  __syncthreads();
+  return Cs;
+}
+
+// The single write-back of an MX tile through mx_store: one CTA stores its
+// tile from Cs (split == 1); in a cluster (split == parts) rank r sums rows
+// r * BM / split onward of every rank's partial, in rank order, through
+// distributed shared memory, and stores them.  Neighbouring threads store
+// neighbouring columns.
+template <typename Cfg, int BM, int BN, bool GATE, typename R>
+__device__ __forceinline__ void prefill_store(const R& r, const PrefillShape& d,
+                                              const float* Cs) {
+  const int m0 = pf_tile_m() * BM, n0 = pf_tile_n() * BN;
+  constexpr int CS = Cfg::kCStride, GOFF = BM * Cfg::kCStride;
+  if (d.split == 1) {
+    for (int e = threadIdx.x; e < BM * BN; e += Cfg::kThreads) {
+      const int m = e / BN, n = e % BN, gm = m0 + m, gn = n0 + n;
+      if (gm < d.M && gn < d.N)
+        mx_store<GATE>(r, Cs[m * CS + n], GATE ? Cs[GOFF + m * CS + n] : 0.0f, gm, gn);
+    }
+    return;
+  }
+  cg::cluster_group cl = cg::this_cluster();
+  cl.sync();  // every rank's partial is in its Cs
+  const float* src[kPrefillMaxParts];
+#pragma unroll
+  for (int q = 0; q < kPrefillMaxParts; ++q)
+    src[q] = q < d.split ? cl.map_shared_rank(Cs, q) : Cs;
+  const int rows = BM / d.split, r0 = static_cast<int>(cl.block_rank()) * rows;
+  for (int e = threadIdx.x; e < rows * BN; e += Cfg::kThreads) {
+    const int m = r0 + e / BN, n = e % BN, gm = m0 + m, gn = n0 + n;
+    if (gm >= d.M || gn >= d.N) continue;
+    const int o = m * CS + n;
+    float y = src[0][o], g = GATE ? src[0][GOFF + o] : 0.0f;
+#pragma unroll
+    for (int q = 1; q < kPrefillMaxParts; ++q)
+      if (q < d.split) {
+        y = y + src[q][o];
+        if constexpr (GATE) g = g + src[q][GOFF + o];
+      }
+    mx_store<GATE>(r, y, g, gm, gn);
+  }
+  cl.sync();  // no CTA leaves while its shared memory is read
+}
+
+// Launch one prefill kernel instantiation with the tile d (after
+// prefill_check): grid (M / BM, N / BN, split), clusters of (1, 1, split).
+// The opt-in to the full dynamic shared memory (less the kernel's static
+// shared memory) is set once per kernel.
+template <auto Kernel, typename Cfg, bool SPARSE, typename... KArgs>
+static int prefill_launch(const PrefillShape& d, cudaStream_t s, bool epilogue,
+                          KArgs... args) {
+  static int static_smem = -1;  // per kernel
+  if (static_smem < 0) {
+    cudaFuncAttributes fa;
+    cudaError_t e = cudaFuncGetAttributes(&fa, Kernel);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    e = cudaFuncSetAttribute(Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             kPrefillMaxSmem - static_cast<int>(fa.sharedSizeBytes));
+    if (e != cudaSuccess) return static_cast<int>(e);
+    static_smem = static_cast<int>(fa.sharedSizeBytes);
+  }
+  const int bad = prefill_check<Cfg, SPARSE>(d, static_smem, epilogue);
+  if (bad) return bad;
+  const int bm = 2 * Cfg::kWM, bn = 32 * Cfg::kWarpsN;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((d.M + bm - 1) / bm, (d.N + bn - 1) / bn, d.split);
+  cfg.blockDim = dim3(Cfg::kThreads);
+  cfg.dynamicSmemBytes = prefill_smem<Cfg>(d, epilogue);
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = d.split;
+  cfg.attrs = attr;
+  cfg.numAttrs = d.split > 1 ? 1 : 0;
+  return static_cast<int>(cudaLaunchKernelEx(&cfg, Kernel, args...));
+}

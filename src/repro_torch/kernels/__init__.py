@@ -5,9 +5,10 @@
 | mx_matmul.py::mx_matmul_fused       | mx_matmul.py + csrc/mx_matmul*.cu     |
 |   (dense f32/bf16, every epilogue; int8/fp8 payloads with scales;         |
 |    2:4 sparse weights: _sparse.cu; ABFT checksums + flags: _abft.cu;      |
-|    dense decode rows, M <= 16: csrc/decode_tile.cuh's streaming loop)     |
+|    dense decode rows, M <= 16: csrc/decode_tile.cuh's streaming loop;    |
+|    f32 / bf16 A at M > 16: csrc/prefill_tile.cuh's tensor-core loop)    |
 | baseline_matmul.py::baseline_matmul | baseline_matmul.py + csrc/baseline_matmul.cu |
-|   (decode rows on the same decode_tile.cuh loop, round trip every bk)     |
+|   (decode and prefill rows on the same loops, round trip every bk)       |
 | mx_flash_decode.py::mx_flash_decode | mx_flash_decode.py + csrc/mx_flash_decode.cu |
 |   (f32/bf16 pages, int8 / fp8 pages with k_scale / v_scale)                 |
 | mx_flash_decode.py::mx_flash_verify | mx_flash_decode.py + csrc/mx_flash_decode.cu |
@@ -69,10 +70,19 @@ def decode_launch_counts() -> Dict[str, int]:
             if hasattr(fn, "decode_launches")}
 
 
+def prefill_launch_counts() -> Dict[str, int]:
+    """The dense GEMMs' launches on the tensor-core prefill tile (f32 and
+    bf16, M > 16 and the ABFT tiles recomputed from such launches,
+    csrc/prefill_tile.cuh; every variant) since the last reset."""
+    return {name: fn.prefill_launches for name, fn in WRAPPERS.items()
+            if hasattr(fn, "prefill_launches")}
+
+
 def reset_launch_counts() -> None:
     for fn in WRAPPERS.values():
         fn.launches = 0
-        if hasattr(fn, "decode_launches"):
-            fn.decode_launches = 0
+        for tile in ("decode_launches", "prefill_launches"):
+            if hasattr(fn, tile):
+                setattr(fn, tile, 0)
         for v in getattr(fn, "variants", {}):
             fn.variants[v] = 0

@@ -183,18 +183,20 @@ def pair_codes(a: torch.Tensor, b: torch.Tensor, what: str, sparse: bool = False
 
 # The one tile rule of the GEMM kernels: every launch takes its tile from
 # this module (the launchers take these and refuse any other).  gemm_tile's
-# (BM, BN, BK) are the CTA tiles of the 2:4 and ABFT variants
-# (csrc/mx_matmul.cuh `dispatch`) at every M and of the dense kernels
-# (csrc/mx_matmul.cu, csrc/baseline_matmul.cu) at M > 16; the ABFT flag
-# map's grid, the fault operands' grid, abft_rtol and the plain versions'
-# ABFT tiling all read them, on the CPU too.  The dense kernels' decode rows
-# (M <= 16) launch decode_tile's.
+# (BM, BN, BK) are the CTA tiles of gemm_tile.cuh's loop: the 2:4 and ABFT
+# variants at M <= 16, and every variant of int8 x int8 and e4m3 x e4m3 at
+# M > 16; the ABFT flag map's grid, the fault operands' grid, abft_rtol and
+# the plain versions' ABFT tiling all read them, on the CPU too.  The dense
+# kernels' decode rows (M <= 16) launch decode_tile's; the MMA_PAIRS rows
+# at M > 16 of every variant launch prefill_tile's, whose CTA tile is a
+# whole multiple of gemm_tile's (the ABFT variant's is gemm_tile's).
 def gemm_tile(M: int):
     """The MX GEMM's (BM, BN, BK) for M rows: decode (M <= 16, bytes
     bound: narrow tiles for more CTAs), a prefill chunk (M <= 64), larger
-    M.  The tile the 2:4 and ABFT variants launch at every M, and the dense
-    kernels at M > 16; it gives every ABFT flag map its grid.  The dense
-    decode rows launch `decode_tile`'s loop instead."""
+    M.  The tile of gemm_tile.cuh's loop (the 2:4 and ABFT variants at
+    M <= 16, int8 x int8 and e4m3 x e4m3 at every M); it gives every ABFT
+    flag map its grid.  The dense decode rows launch `decode_tile`'s loop,
+    the MMA_PAIRS rows at M > 16 `prefill_tile`'s."""
     if M <= 16:
         return 16, 16, 128
     if M <= 64:
@@ -316,6 +318,151 @@ def copy_width(row_bytes: int, *addresses: int, vec: int = COPY_BYTES) -> int:
     while v > 1 and (row_bytes % v or any(p % v for p in addresses)):
         v //= 2
     return v
+
+
+# The tensor-core prefill tile (csrc/prefill_tile.cuh): the operand pairs
+# it takes (an int8 or e4m3 weight beside bf16 activations is widened to
+# bf16 in shared memory), its CTA tiles (bm, bn), largest first (2 x bn / 32
+# warps of (bm / 2) x 32 outputs), and its K parts.
+MMA_PAIRS = ((torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
+             (torch.bfloat16, torch.int8), (torch.bfloat16, torch.float8_e4m3fn))
+PREFILL_TILES = ((64, 128), (64, 64), (32, 64))
+PREFILL_VARIANTS = ("dense", "sparse", "abft", "baseline")
+PREFILL_STAGE_ROW = 128   # bytes of each A row per ring stage: BK = 32 f32, 64 bf16
+PREFILL_PART_ROWS = 512   # K rows per part at least
+PREFILL_MAX_PARTS = 8     # a portable cluster
+PREFILL_MAX_STAGES = 4
+PREFILL_SPLIT_BELOW = 1.5  # split K across a cluster below this many tiles per SM
+PREFILL_ABFT_STATIC = 2048  # the ABFT checksums' static shared memory (at most)
+
+
+class PrefillTile(NamedTuple):
+    """The M > 16 launch of the GEMMs: route "mma" (csrc/prefill_tile.cuh)
+    for MMA_PAIRS, "simt" (gemm_tile.cuh's loop, gemm_tile's tile) for
+    int8 x int8 and e4m3 x e4m3."""
+    route: str    # "mma" or "simt"
+    bm: int       # CTA tile rows (a multiple of gemm_tile(M)[0])
+    bn: int       # CTA tile columns (a multiple of gemm_tile(M)[1])
+    bk: int       # K rows per ring stage
+    stages: int   # ring slots (1: gemm_tile.cuh's register double buffer)
+    split: int    # CTAs per cluster: 1, or `parts` (one part each)
+    parts: int    # equal K parts, each summed from zero, folded in order
+    threads: int  # per CTA
+    smem: int     # dynamic shared memory per CTA, bytes
+    ctas: int     # CTAs of the grid (tiles x split)
+
+
+def prefill_parts(K: int, bk: int) -> int:
+    """The K parts of the prefill tile: the largest power of two up to
+    PREFILL_MAX_PARTS that leaves every part at least PREFILL_PART_ROWS
+    rows and divides the K steps.  A function of K and the pair's bk only,
+    so every launch at one K -- dense, 2:4, ABFT, any M, N or tile, a
+    recomputed ABFT tile -- sums the same parts in the same order and gets
+    the same bits."""
+    steps = -(-K // bk)
+    p = PREFILL_MAX_PARTS
+    while p > 1 and (p * PREFILL_PART_ROWS > K or steps % p):
+        p //= 2
+    return p
+
+
+def prefill_slot_bytes(bm: int, bn: int, bk: int, ea: int, eb: int, gated: bool,
+                       sparse: bool) -> int:
+    """One ring slot of csrc/prefill_tile.cuh (`PrefillCfg::kSlot`): A's bm
+    rows of bk elements (ea bytes each) padded by 16 bytes, B's (and the
+    gate's) bk rows of bn + 8 elements in A's type, and the raw rows they
+    come from when they are 2:4 payloads (with metadata) or narrower than A
+    (eb < ea)."""
+    if sparse:
+        raw = (bk // 2) * bn * eb + (bk // 8) * bn
+    else:
+        raw = bk * bn * eb if eb != ea else 0
+    return bm * (bk * ea + 16) + (2 if gated else 1) * (bk * (bn + 8) * ea + raw)
+
+
+def prefill_smem(bm: int, bn: int, bk: int, ea: int, eb: int, stages: int, split: int,
+                 parts: int, gated: bool, sparse: bool, epilogue: bool = True) -> int:
+    """A launch's dynamic shared memory (csrc/prefill_tile.cuh
+    `prefill_smem`): the ring, and the f32 tile Cs (and the gate's), which
+    has its own room only when one CTA folds several parts."""
+    ring = stages * prefill_slot_bytes(bm, bn, bk, ea, eb, gated, sparse)
+    if not epilogue:
+        return ring
+    cs = bm * (bn + 8) * 4 * (2 if gated else 1)
+    return ring + cs if split == 1 and parts > 1 else max(ring, cs)
+
+
+@functools.lru_cache(maxsize=None)  # a pure function of the launch's shape
+def prefill_tile(M: int, N: int, K: int, a_dtype: torch.dtype, b_dtype: torch.dtype,
+                 gated: bool = False, variant: str = "dense") -> PrefillTile:
+    """The GEMMs' tile for M > 16 rows.
+
+    int8 x int8 and e4m3 x e4m3 keep gemm_tile.cuh's loop on gemm_tile's
+    tile (route "simt").  MMA_PAIRS take the tensor-core loop:
+    - parts: `prefill_parts(K, bk)`, bk = 128 bytes of A row per stage;
+    - a small grid (fewer than PREFILL_SPLIT_BELOW * SMS tiles of 64 x 64,
+      or 32 x 64 for M <= 32): those tiles, each part its own CTA in a
+      cluster of `parts` (the dense and 2:4 variants; the baseline, which
+      cannot split, takes 32 x 64 tiles when 64 x 64 ones leave SMs idle);
+    - a large grid: 64 x 128 tiles (the small ones where 64 x 128 leaves
+      no room for a ring of 3), one CTA walking all parts;
+    - the ABFT variant: gemm_tile's own CTA tile, one CTA per flag, split 1;
+    - stages: up to PREFILL_MAX_STAGES, as many as fit two CTAs per SM
+      (at least 3) when the grid has more CTAs than SMs, else one.
+    Every CTA tile is a whole multiple of gemm_tile(M)'s (bm, bn).  The
+    thresholds are those that timed best on an H100 among the tiles of
+    PREFILL_TILES at llama3.2-1b's and zamba2-2.7b's shapes, M = 64 to 2048
+    (PERF.md section 6).
+    """
+    if M <= DECODE_MAX_M:
+        raise ValueError(f"the prefill tile takes M > {DECODE_MAX_M}, got {M}")
+    if variant not in PREFILL_VARIANTS:
+        raise ValueError(f"variant must be one of {PREFILL_VARIANTS}, got {variant!r}")
+    gm, gn, gk = gemm_tile(M)
+    if (a_dtype, b_dtype) not in MMA_PAIRS:
+        tm = 2 if M <= 64 else 4
+        return PrefillTile("simt", gm, gn, gk, 1, 1, 1, (gm // tm) * (gn // 4), 0,
+                           -(-M // gm) * -(-N // gn))
+    e, eb = a_dtype.itemsize, b_dtype.itemsize
+    bk = PREFILL_STAGE_ROW // e
+    baseline = variant == "baseline"  # no parts, no Cs: its partials go to the output
+    parts = 1 if baseline else prefill_parts(K, bk)
+    sparse = variant == "sparse"
+
+    def tiles(bm, bn):
+        return -(-M // bm) * -(-N // bn)
+
+    small = (32, 64) if M <= 32 else (64, 64)
+    if variant == "abft":
+        (bm, bn), split = (gm, gn), 1
+    elif tiles(*small) >= PREFILL_SPLIT_BELOW * SMS:
+        (bm, bn), split = (64, 128), 1
+    elif baseline:
+        (bm, bn), split = (small if tiles(*small) >= SMS else (gm, gn)), 1
+    else:
+        (bm, bn), split = small, parts
+    reserve = PREFILL_ABFT_STATIC if variant == "abft" else 0
+
+    def ring(bm, bn, split):  # the most stages that fit, two CTAs per SM first
+        for budget in ((SMEM_PER_SM // 2 - 1024 - reserve) if tiles(bm, bn) * split > SMS
+                       else 0, SMEM_PER_CTA - reserve):
+            stages = max((s for s in range(2, PREFILL_MAX_STAGES + 1)
+                          if prefill_smem(bm, bn, bk, e, eb, s, split, parts, gated,
+                                          sparse, not baseline) <= budget), default=0)
+            if stages >= 3:
+                break
+        return stages
+
+    stages = ring(bm, bn, split)
+    if stages < 3 and (bm, bn) == (64, 128):  # a gated 2:4 slot: the narrower tile
+        (bm, bn) = small
+        stages = ring(bm, bn, split)
+    ctas = tiles(bm, bn) * split
+    if stages < 2:
+        raise ValueError(f"no ring fits the prefill tile ({bm} x {bn}, {variant})")
+    return PrefillTile("mma", bm, bn, bk, stages, split, parts, 2 * bn,
+                       prefill_smem(bm, bn, bk, e, eb, stages, split, parts, gated,
+                                    sparse, not baseline), ctas)
 
 
 def grouped_tile(T: int, G: int):

@@ -5,7 +5,8 @@ No inter-k buffering: the partial sum of every bk-wide K chunk is added
 into the output tile in the output dtype, read back and written again on
 every chunk.  On a CUDA tensor `baseline_matmul` launches
 `csrc/baseline_matmul.cu` (the MX kernel's tiles and K loops: at M <= 16
-`_build.decode_tile`'s); on a CPU tensor it runs the plain version
+`_build.decode_tile`'s, above it `_build.prefill_tile`'s tensor-core loop
+with one CTA per tile); on a CPU tensor it runs the plain version
 (`kernels.ref.baseline_matmul_ref`, the same per-chunk rounding).
 """
 from __future__ import annotations
@@ -15,16 +16,17 @@ import ctypes
 import torch
 
 from . import _build
-from .mx_matmul import decode_launch_tile
+from .mx_matmul import decode_launch_tile, prefill_launch_tile
 from .ref import baseline_matmul_ref
 
 KERNEL_BK = 128  # the CUDA kernels' K step between round trips; bk must be a multiple
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_ARGTYPES = (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P)
-# the decode rows: as _ARGTYPES, then the decode tile (bn, bk, tm, stages,
-# threads, va, vb)
-_DECODE_ARGTYPES = _ARGTYPES[:-1] + (_I,) * 7 + (_P,)
+_HEAD = (_P, _P, _P, _I, _I, _I, _I, _I, _I)  # a, b, out, out_dt, M, N, K, in_dt, bk
+# the prefill rows: the prefill tile (bm, bn, stages, va, vb); the decode
+# rows: the decode tile (bn, bk, tm, stages, threads, va, vb)
+_ARGTYPES = _HEAD + (_I,) * 5 + (_P,)
+_DECODE_ARGTYPES = _HEAD + (_I,) * 7 + (_P,)
 
 
 def _launch(a, b, bk, out_dtype):
@@ -53,12 +55,15 @@ def _launch(a, b, bk, out_dtype):
         fn = _build.function("baseline_matmul", "baseline_matmul_decode_launch",
                              _DECODE_ARGTYPES)
         args += decode_launch_tile(a, b)
-    else:
+    else:  # the prefill tile's loop, one CTA per tile (no K split)
         fn = _build.function("baseline_matmul", "baseline_matmul_launch", _ARGTYPES)
+        bm, bn, stages, _, _, va, vb, _ = prefill_launch_tile(a, b, variant="baseline")
+        args += [bm, bn, stages, va, vb]
     err = fn(*args, _build.stream_ptr(a))
     _build.check(err, "baseline_matmul", "baseline_matmul")
     baseline_matmul.launches += 1
     baseline_matmul.decode_launches += decode
+    baseline_matmul.prefill_launches += not decode
     return out
 
 
@@ -79,3 +84,4 @@ def baseline_matmul(a: torch.Tensor, b: torch.Tensor, *, bk: int = 128,
 
 baseline_matmul.launches = 0  # kernel launches (CUDA tensors only)
 baseline_matmul.decode_launches = 0  # of them, those on the decode tile (M <= 16)
+baseline_matmul.prefill_launches = 0  # of them, those on the prefill tile (M > 16)

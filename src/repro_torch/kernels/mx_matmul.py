@@ -2,10 +2,12 @@
 `repro/kernels/mx_matmul.py`).
 
 `mx_matmul_fused` computes D = epilogue(A @ B): on a CUDA tensor it launches
-the Hopper kernel `csrc/mx_matmul.cu` (f32 accumulators held in registers
-for the whole K loop, epilogue applied in registers, one store; decode rows,
-M <= 16, stream the weight through `csrc/decode_tile.cuh`'s loop with
-`_build.decode_tile`'s tile, M > 16 run `_build.gemm_tile`'s); on a CPU
+the Hopper kernel `csrc/mx_matmul.cu` (f32 accumulators held for the whole
+K loop, the epilogue applied once, one store; decode rows, M <= 16, stream
+the weight through `csrc/decode_tile.cuh`'s loop with `_build.decode_tile`'s
+tile; the rows at M > 16 with f32 or bf16 activations run the tensor-core
+loop of `csrc/prefill_tile.cuh` with `_build.prefill_tile`'s tile, int8 x
+int8 and e4m3 x e4m3 `_build.gemm_tile`'s); on a CPU
 tensor it runs `mx_matmul_fused_plain`, the plain PyTorch version of the
 same function, which the tests hold against the JAX kernel and which
 `chip_smoke.py` holds the CUDA kernel against on the card.
@@ -241,11 +243,11 @@ def mx_matmul_fused_plain(a, b, *, epilogue: Epilogue = Epilogue(),
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # a, b, b_gate, [b_meta, bg_meta], a_scale, b_scale, bg_scale, bias, then
-# _EPI, then the tile: (bm, bn, bk), or the decode tile's (bn, bk, tm,
-# stages, threads, va, vb); then [flags, fault_delta, fault_row, fault_col,
-# rtol, atol], stream
+# _EPI, then the tile: (bm, bn, bk), the decode tile's (bn, bk, tm, stages,
+# threads, va, vb) or the prefill tile's (bm, bn, stages, split, parts, va,
+# vb, vm); then [flags, fault_delta, fault_row, fault_col, rtol, atol], stream
 _EPI = (_I, _P, _I, _P) + (_I,) * 8 + (_F,)  # bias_dt .. out_scale
-_TILE, _DECODE_TILE = (_I,) * 3, (_I,) * 7
+_TILE, _DECODE_TILE, _PREFILL_TILE = (_I,) * 3, (_I,) * 7, (_I,) * 8
 _LAUNCHERS = {  # variant -> (source, symbol, argtypes)
     "dense": ("mx_matmul", "mx_matmul_fused_launch", (_P,) * 7 + _EPI + _TILE + (_P,)),
     "decode": ("mx_matmul", "mx_matmul_decode_launch",
@@ -254,6 +256,12 @@ _LAUNCHERS = {  # variant -> (source, symbol, argtypes)
                (_P,) * 9 + _EPI + _TILE + (_P,)),
     "abft": ("mx_matmul_abft", "mx_matmul_abft_launch",
              (_P,) * 7 + _EPI + _TILE + (_P,) * 4 + (_F, _F, _P)),
+    "dense prefill": ("mx_matmul", "mx_matmul_prefill_launch",
+                      (_P,) * 7 + _EPI + _PREFILL_TILE + (_P,)),
+    "sparse prefill": ("mx_matmul_sparse", "mx_matmul_sparse_prefill_launch",
+                       (_P,) * 9 + _EPI + _PREFILL_TILE + (_P,)),
+    "abft prefill": ("mx_matmul_abft", "mx_matmul_abft_prefill_launch",
+                     (_P,) * 7 + _EPI + _PREFILL_TILE + (_P,) * 4 + (_F, _F, _P)),
 }
 
 
@@ -269,6 +277,28 @@ def decode_launch_tile(a: torch.Tensor, b: torch.Tensor, b_gate=None):
     vb = _build.copy_width(N * b.element_size(), b.data_ptr(),
                            *(() if b_gate is None else (b_gate.data_ptr(),)), vec=t.vec)
     return t.bn, t.bk, t.tm, t.stages, t.threads, va, vb
+
+
+def prefill_launch_tile(a: torch.Tensor, b: torch.Tensor, b_gate=None, b_meta=None,
+                        bg_meta=None, variant: str = "dense"):
+    """The tensor-core prefill launch's tile arguments (bm, bn, stages,
+    split, parts, va, vb, vm) for operands a (M > 16, K) and b / b_gate
+    (K, N), or their 2:4 payloads (K/2, N) with metadata (K/8, N):
+    `_build.prefill_tile`, and the copy widths of A's, B's and the
+    metadata's rows from their row bytes and base addresses
+    (`_build.copy_width`)."""
+    M, K = a.shape
+    N = b.shape[1]
+    # an ABFT tile of <= 16 rows recomputed on its parent launch's route
+    # (`recompute_fused`) takes the tile of M = 17, which covers its rows
+    t = _build.prefill_tile(max(M, _build.DECODE_MAX_M + 1), N, K, a.dtype, b.dtype,
+                            b_gate is not None, variant)
+    va = _build.copy_width(K * a.element_size(), a.data_ptr())
+    vb = _build.copy_width(N * b.element_size(), b.data_ptr(),
+                           *(() if b_gate is None else (b_gate.data_ptr(),)))
+    vm = (_build.copy_width(N, *(m.data_ptr() for m in (b_meta, bg_meta) if m is not None))
+          if b_meta is not None else _build.COPY_BYTES)
+    return t.bm, t.bn, t.stages, t.split, t.parts, va, vb, vm
 
 
 def _require_cuda_operand(t: torch.Tensor, what: str, device, shape=None):
@@ -302,10 +332,24 @@ def _fault_operands(fault, device):
                  for t, dt in zip(fault, (torch.float32, torch.int32, torch.int32)))
 
 
+def fused_route(M: int, N: int, K: int, a_dtype: torch.dtype, b_dtype: torch.dtype,
+                gated: bool = False, variant: str = "dense") -> str:
+    """The K loop a launch of `mx_matmul_fused` runs on the card: "decode"
+    (the dense rows at M <= 16, csrc/decode_tile.cuh), "mma" (the rows at
+    M > 16 of `_build.MMA_PAIRS`, csrc/prefill_tile.cuh) or "simt"
+    (gemm_tile.cuh's serial K chain).  `variant`: "dense", "sparse" or
+    "abft"."""
+    if M <= _build.DECODE_MAX_M:
+        return "decode" if variant == "dense" else "simt"
+    return _build.prefill_tile(M, N, K, a_dtype, b_dtype, gated, variant).route
+
+
 def _launch_fused(a, b, epilogue, b_gate, bias, residual, a_scale, b_scale, bg_scale,
-                  out_dtype, b_meta=None, bg_meta=None, abft=None, fault=(None,) * 3):
+                  out_dtype, b_meta=None, bg_meta=None, abft=None, fault=(None,) * 3,
+                  route=None):
     """Launch the dense, 2:4 sparse (b_meta given) or ABFT (abft given)
-    variant of the kernel on CUDA operands; returns out, or (out, flags)."""
+    variant of the kernel on CUDA operands, on `route` (`fused_route`'s,
+    by default); returns out, or (out, flags)."""
     M, K = a.shape
     N = b.shape[1]
     variant = "sparse" if b_meta is not None else "abft" if abft is not None else "dense"
@@ -327,16 +371,25 @@ def _launch_fused(a, b, epilogue, b_gate, bias, residual, a_scale, b_scale, bg_s
         _require_cuda_operand(residual, "residual", a.device, (M, N))
     scales = [_scale_vec(t, n, what, a.device) for t, n, what in (
         (a_scale, M, "a_scale"), (b_scale, N, "b_scale"), (bg_scale, N, "bg_scale"))]
-    bm, bn, bk = _build.gemm_tile(M)
     out = torch.empty((M, N), dtype=out_dtype, device=a.device)
+    if route is None:
+        route = (fused_route(M, N, K, a.dtype, b.dtype, b_gate is not None, variant)
+                 if M and N else "simt")
+    decode, prefill = route == "decode", route == "mma"
     flags = None
-    if abft is not None:
+    if abft is not None:  # gemm_tile's grid; <= 16 rows on "mma" take M = 17's CTA tile
+        bm, bn, _ = _build.gemm_tile(max(M, _build.DECODE_MAX_M + 1) if prefill else M)
         flags = torch.zeros((-(-M // bm), -(-N // bn)), dtype=torch.int32, device=a.device)
     if M == 0 or N == 0:
         return out if flags is None else (out, flags)
-    # the dense decode rows take the decode tile's loop (csrc/decode_tile.cuh)
-    decode = variant == "dense" and M <= _build.DECODE_MAX_M
-    source, symbol, argtypes = _LAUNCHERS["decode" if decode else variant]
+    if decode:
+        tile = decode_launch_tile(a, b, b_gate)
+    elif prefill:
+        tile = prefill_launch_tile(a, b, b_gate, b_meta, bg_meta, variant)
+    else:
+        tile = _build.gemm_tile(M)
+    source, symbol, argtypes = _LAUNCHERS[
+        "decode" if decode else f"{variant} prefill" if prefill else variant]
     fn = _build.function(source, symbol, argtypes)
     head = [a.data_ptr(), b.data_ptr(), _ptr(b_gate)]
     if variant == "sparse":
@@ -346,8 +399,7 @@ def _launch_fused(a, b, epilogue, b_gate, bias, residual, a_scale, b_scale, bg_s
             0 if residual is None else _build.dtype_code(residual.dtype, "residual"),
             out.data_ptr(), _build.dtype_code(out_dtype, "out_dtype"),
             M, N, K, a_dt, b_dt, ACT_CODES[epilogue.activation],
-            int(epilogue.out_scale is not None), float(epilogue.out_scale or 0.0),
-            *(decode_launch_tile(a, b, b_gate) if decode else (bm, bn, bk))]
+            int(epilogue.out_scale is not None), float(epilogue.out_scale or 0.0), *tile]
     if variant == "abft":
         fd, fr, fc = _fault_operands(fault, a.device)
         args += [flags.data_ptr(), _ptr(fd), _ptr(fr), _ptr(fc), abft.rtol, abft.atol]
@@ -356,6 +408,7 @@ def _launch_fused(a, b, epilogue, b_gate, bias, residual, a_scale, b_scale, bg_s
     mx_matmul_fused.launches += 1
     mx_matmul_fused.variants[variant] += 1
     mx_matmul_fused.decode_launches += decode
+    mx_matmul_fused.prefill_launches += prefill
     return out if flags is None else (out, flags)
 
 
@@ -427,7 +480,9 @@ def mx_matmul_fused(a: torch.Tensor, b: torch.Tensor, *,
     (bf16, bf16), (bf16, int8), (bf16, fp8), (int8, int8), (fp8, fp8)),
     `csrc/mx_matmul_sparse.cu` (2:4; (f32, f32), (bf16, bf16), (bf16,
     int8)) or `csrc/mx_matmul_abft.cu` (ABFT; the dense pairs); a TypeError
-    for any other pair.  A CPU `a` takes `mx_matmul_fused_plain`.
+    for any other pair.  The rows at M > 16 of `_build.MMA_PAIRS` run the
+    tensor-core loop (csrc/prefill_tile.cuh) in all three (`fused_route`).
+    A CPU `a` takes `mx_matmul_fused_plain`.
     """
     if a.dim() != 2 or b.dim() != 2:
         raise ValueError(f"mx_matmul expects 2-D operands, got {tuple(a.shape)}, "
@@ -475,6 +530,25 @@ def mx_matmul_fused(a: torch.Tensor, b: torch.Tensor, *,
 mx_matmul_fused.launches = 0  # kernel launches (CUDA tensors only), every variant
 mx_matmul_fused.variants = {"dense": 0, "sparse": 0, "abft": 0}  # by variant
 mx_matmul_fused.decode_launches = 0  # of the dense ones, those on the decode tile
+mx_matmul_fused.prefill_launches = 0  # of every variant, those on the tensor-core prefill tile
+
+
+def recompute_fused(route: str, a: torch.Tensor, b: torch.Tensor, *, epilogue: Epilogue,
+                    abft: AbftSpec, b_gate=None, bias=None, residual=None, a_scale=None,
+                    b_scale=None, bg_scale=None, out_dtype=None):
+    """An ABFT launch of `mx_matmul_fused` on a given K loop, for the tile
+    recoveries of core/ops.py (operands as the launch being recovered,
+    sliced to the flagged tile's rows and columns): a CUDA `a` runs `route`
+    ("mma" or "simt", `fused_route` of the launch it recovers) whatever its
+    own M, so the recomputed tile gets that launch's bits; a CPU `a` takes
+    `mx_matmul_fused_plain`.  Returns (out, flags)."""
+    out_dtype = out_dtype or a.dtype
+    if not a.is_cuda:
+        return mx_matmul_fused_plain(a, b, epilogue=epilogue, b_gate=b_gate, bias=bias,
+                                     residual=residual, a_scale=a_scale, b_scale=b_scale,
+                                     bg_scale=bg_scale, out_dtype=out_dtype, abft=abft)
+    return _launch_fused(a, b, epilogue, b_gate, bias, residual, a_scale, b_scale, bg_scale,
+                         out_dtype, abft=abft, route=route)
 
 
 def mx_matmul(a: torch.Tensor, b: torch.Tensor, c: Optional[torch.Tensor] = None,

@@ -16,7 +16,14 @@ llama3.2-1b's decode (M = 1, 8, 16) and chunk shapes, zamba2-2.7b's in_proj,
 the quantized operand pairs at the decode down projection, the baseline
 GEMM at the paper's A/B shape and grok-1's decode expert shapes, f32 and
 bf16; `torch.addmm` at the f32 down projection as the yardstick.  The
-ptxas lines (registers, spills) of the GEMM sources come with them.
+prefill rows (M = 40: a verify step, 64: a prefill chunk, 256, 2048:
+zamba2's forward), f32 and bf16: the MX GEMM at the down projection
+(K = 8192, N = 2048, + residual) beside `torch.addmm`, and the MX and
+baseline GEMMs at the paper's A/B shape (K = 2048, N = 8192) beside
+`torch.matmul`, each with its bound (`bounds_ms`: the larger of its bytes
+at 3.35 TB/s and its operations at the type's peak, 67 TFLOP/s f32 off the
+tensor cores, 989 bf16).  The ptxas lines (registers, spills) of the GEMM
+sources come with them.
 """
 from __future__ import annotations
 
@@ -129,6 +136,34 @@ def measure() -> dict:
             lambda: (torch.randn((8, 2048), generator=g, device=dev).to(dt),
                      (torch.randn((2048, 8192), generator=g, device=dev) / 45).to(dt)),
             lambda a, b: mx_matmul_fused(a, b))
+    bounds = {}
+    for dt in (torch.float32, torch.bfloat16):  # the prefill rows
+        name = str(dt).removeprefix("torch.")
+        e = dt.itemsize
+        for M in (40, 64, 256, 2048):
+            for label, K, N, res in (("prefill down", 8192, 2048, True),
+                                     ("prefill A/B", 2048, 8192, False)):
+                def make():
+                    return (torch.randn((M, K), generator=g, device=dev).to(dt),
+                            (torch.randn((K, N), generator=g, device=dev) / K ** 0.5).to(dt),
+                            torch.randn((M, N), generator=g, device=dev).to(dt)
+                            if res else None)
+
+                key = f"{label} M={M} K={K} N={N} {name}"
+                ep = Epilogue(residual=res)
+                ms[key] = cycled(make, lambda a, b, r: mx_matmul_fused(
+                    a, b, epilogue=ep, residual=r))
+                if res:
+                    ms[f"{key} torch.addmm"] = cycled(
+                        make, lambda a, b, r: torch.addmm(r, a, b))
+                else:
+                    ms[f"{key} baseline"] = cycled(
+                        make, lambda a, b, r: baseline_matmul(a, b, bk=128))
+                    ms[f"{key} torch.matmul"] = cycled(
+                        make, lambda a, b, r: torch.matmul(a, b))
+                nbytes = e * (M * K + K * N + M * N * (2 if res else 1))
+                peak = 67e12 if dt == torch.float32 else 989e12
+                bounds[key] = max(nbytes / 3.35e12, 2 * M * N * K / peak) * 1e3
     for pol in ("int8", "int8_all", "fp8"):  # the quantized pairs at the decode down
         P = NAMED_POLICIES[pol]
         e = Epilogue(residual=True, a_scale=P.a.quantized, b_scale=P.b.quantized)
@@ -150,7 +185,8 @@ def measure() -> dict:
                 entry = line.split("'")[1]
             elif "Used" in line or ("spill" in line and " 0 bytes spill stores" not in line):
                 ptxas.setdefault(source, []).append(f"{entry[:70]}: {line.strip()}")
-    return dict(build_s=build_s, ms=ms, ptxas=ptxas)
+    return dict(build_s=build_s, ms=ms, bounds_ms=bounds, ptxas=ptxas,
+                device=torch.cuda.get_device_name(0))
 
 
 def main(argv=None) -> int:

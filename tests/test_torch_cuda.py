@@ -18,7 +18,11 @@ bitwise the dense kernels on the expanded weight; the ABFT kernels are
 bitwise the kernels without ABFT, and their flag maps equal the plain
 versions'.  The dense decode tile (M <= 16, csrc/decode_tile.cuh) is held
 on every operand pair, epilogue and ragged or misaligned operand, and the
-baseline's at bk = 128 and 256.  `ssd_scan` and `mx_flash_attention` (f32
+baseline's at bk = 128 and 256.  The tensor-core prefill tile (f32, bf16,
+bf16 x int8 / fp8; M > 16, csrc/prefill_tile.cuh) at M = 17, 40, 64, 65,
+256 and 2048 with ragged and misaligned K / N, its 2:4 and ABFT variants
+bitwise the dense kernel, ABFT recovery bitwise, and the baseline on it.
+`ssd_scan` and `mx_flash_attention` (f32
 within 1e-4 * max|ref|, bf16 within 2e-2 * max|ref|) against
 `ssd_scan_plain` / the sequential oracle and `flash_attention_plain`.
 """
@@ -658,6 +662,194 @@ def test_baseline_decode_tile_matches_plain(cuda, dtype, out_dtype, M, bk, K, N)
     _close(got, ref, out_dtype)
 
 
+# ---------------------------------------------------------------------------
+# the tensor-core prefill tile (f32 / bf16 activations, M > 16, csrc/prefill_tile.cuh)
+# ---------------------------------------------------------------------------
+
+PREFILL_ROWS = [17, 40, 64, 65, 256, 2048]
+PREFILL_DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
+PREFILL_EPILOGUES = {"none": {}, "residual": dict(residual=True),
+                     "swiglu": dict(activation="swiglu", bias=True)}
+
+
+def _prefill_inputs(M, K, N, dt, ep, dev, seed=0):
+    e = mm.Epilogue(**ep)
+    a = _randn((M, K), dt, dev, seed)
+    b = (_randn((K, N), torch.float32, dev, seed + 1) / K ** 0.5).to(dt)
+    kw = dict(epilogue=e,
+              b_gate=(_randn((K, N), torch.float32, dev, seed + 2) / K ** 0.5).to(dt)
+              if e.has_gate else None,
+              bias=_randn((N,), dt, dev, seed + 3) if e.bias else None,
+              residual=_randn((M, N), dt, dev, seed + 4) if e.residual else None)
+    return a, b, kw
+
+
+@pytest.mark.parametrize("ep", sorted(PREFILL_EPILOGUES))
+@pytest.mark.parametrize("K,N", [(300, 77), (2048, 512), (8192, 200)])  # ragged, parts 1-8
+@pytest.mark.parametrize("dt", sorted(PREFILL_DTYPES))
+@pytest.mark.parametrize("M", PREFILL_ROWS)
+def test_prefill_tile_matches_plain(cuda, M, dt, K, N, ep):
+    """The dense kernel on the prefill tile (one launch, counted as such)
+    against its plain version, K and N off every tile."""
+    dtype = PREFILL_DTYPES[dt]
+    a, b, kw = _prefill_inputs(M, K, N, dtype, PREFILL_EPILOGUES[ep], cuda)
+    kernels.reset_launch_counts()
+    got = mm.mx_matmul_fused(a, b, **kw)
+    ref = mm.mx_matmul_fused_plain(a, b, **kw)
+    torch.cuda.synchronize()
+    assert kernels.prefill_launch_counts()["mx_matmul_fused"] == 1
+    assert kernels.launch_counts()["mx_matmul_fused"] == 1
+    assert got.dtype == dtype and got.shape == (M, N)
+    _close(got, ref, dtype)
+
+
+@pytest.mark.parametrize("which", ["a", "b", "b_gate"])
+@pytest.mark.parametrize("dt", sorted(PREFILL_DTYPES))
+@pytest.mark.parametrize("M", [17, 64, 256])
+def test_prefill_tile_takes_a_misaligned_operand(cuda, M, dt, which):
+    """One operand a contiguous view at a 4-byte offset: its rows take the
+    4-byte copies, in the same kernel."""
+    dtype = PREFILL_DTYPES[dt]
+    a, b, kw = _prefill_inputs(M, 296, 96, dtype, PREFILL_EPILOGUES["swiglu"], cuda)
+    if which == "a":
+        a = _offset_view(a)
+    elif which == "b":
+        b = _offset_view(b)
+    else:
+        kw["b_gate"] = _offset_view(kw["b_gate"])
+    va, vb = mm.prefill_launch_tile(a, b, kw["b_gate"])[5:7]
+    assert (va, vb) == ((4, 16) if which == "a" else (16, 4))
+    got = mm.mx_matmul_fused(a, b, **kw)
+    ref = mm.mx_matmul_fused_plain(a, b, **kw)
+    torch.cuda.synchronize()
+    _close(got, ref, dtype)
+
+
+@pytest.mark.parametrize("ep", [dict(), dict(activation="swiglu"),
+                                dict(activation="gelu", bias=True, residual=True)])
+@pytest.mark.parametrize("pol", ["int8", "fp8"])  # bf16 x int8 / e4m3, widened to bf16
+@pytest.mark.parametrize("M", PREFILL_ROWS)
+def test_prefill_tile_widened_pairs_match_plain(cuda, M, pol, ep):
+    """An int8 or e4m3 weight beside bf16 activations on the prefill tile:
+    copied in its own width, widened to bf16 in shared memory, the bf16
+    MMAs, the scales at the store; against the plain version in f32."""
+    K, N = 2056, 200  # K off the stage, N off the tile
+    x, w = _randn((M, K), torch.float32, cuda, 0), _randn((K, N), torch.float32, cuda, 1)
+    gated = ep.get("activation") == "swiglu"
+    wg = _randn((K, N), torch.float32, cuda, 2) if gated else None
+    qa, a_s, qb, b_s, qg, bg_s = _quantized(pol, x, w, wg)
+    e = mm.Epilogue(**ep, a_scale=a_s is not None, b_scale=True)
+    kw = dict(b_gate=qg, a_scale=a_s, b_scale=b_s, bg_scale=bg_s if gated else None,
+              bias=_randn((N,), torch.float32, cuda, 3) if e.bias else None,
+              residual=_randn((M, N), torch.float32, cuda, 4) if e.residual else None,
+              out_dtype=torch.float32)
+    kernels.reset_launch_counts()
+    got = mm.mx_matmul_fused(qa, qb, epilogue=e, **kw)
+    ref = mm.mx_matmul_fused_plain(qa, qb, epilogue=e, **kw)
+    torch.cuda.synchronize()
+    assert kernels.prefill_launch_counts()["mx_matmul_fused"] == 1
+    _close(got, ref, torch.float32)
+
+
+@pytest.mark.parametrize("act", ["none", "swiglu"])
+@pytest.mark.parametrize("K", [296, 4096])
+@pytest.mark.parametrize("pair", ["sparse24 bf16", "sparse24 f32", "sparse24_int8"])
+@pytest.mark.parametrize("M", PREFILL_ROWS)
+def test_prefill_sparse_bitwise_equals_dense_kernel(cuda, M, pair, K, act):
+    """The 2:4 kernel on the prefill tile (the payload expanded in shared
+    memory) is bitwise the dense kernel on the expanded weight, on the same
+    tile and split."""
+    from repro_torch.kernels.sparse import expand_24
+
+    N = 200
+    x, w, wg = (_randn(s, torch.float32, cuda, i) for i, s in
+                enumerate(((M, K), (K, N), (K, N))))
+    xa, pb, bs, mb = _sparse(pair, x, w)
+    _, pg, gs, mg = _sparse(pair, x, wg)
+    gated = act == "swiglu"
+    kw = dict(epilogue=mm.Epilogue(activation=act, residual=True, b_scale=bs is not None),
+              b_gate=pg if gated else None, b_scale=bs, bg_scale=gs if gated else None,
+              out_dtype=torch.float32, residual=_randn((M, N), torch.float32, cuda, 5))
+    kernels.reset_launch_counts()
+    got = mm.mx_matmul_fused(xa, pb, b_sparse=True, b_meta=mb, bg_meta=mg if gated else None,
+                             **kw)
+    dense = mm.mx_matmul_fused(xa, expand_24(pb, mb),
+                               **dict(kw, b_gate=expand_24(pg, mg) if gated else None))
+    ref = mm.mx_matmul_fused_plain(xa, pb, b_meta=mb, bg_meta=mg if gated else None, **kw)
+    torch.cuda.synchronize()
+    assert kernels.variant_launch_counts()["mx_matmul_fused sparse"] == 1
+    assert kernels.prefill_launch_counts()["mx_matmul_fused"] == 2
+    assert torch.equal(got, dense)
+    _close(got, ref, torch.float32)
+
+
+@pytest.mark.parametrize("K", [300, 2048])
+@pytest.mark.parametrize("dt", sorted(PREFILL_DTYPES))
+@pytest.mark.parametrize("M", PREFILL_ROWS)
+def test_prefill_abft_bitwise_flags_and_recovery(cuda, M, dt, K):
+    """ABFT on the prefill tile (gemm_tile's CTA tile, split 1, the same K
+    parts folded in the same order): on is bitwise off with no flag; a fault
+    flags exactly its tile, as the plain version's map does; the flagged
+    last row tile recomputed alone is bitwise the clean launch."""
+    from repro_torch.kernels import abft as ab
+
+    dtype = PREFILL_DTYPES[dt]
+    N = 200
+    a, b, kw = _prefill_inputs(M, K, N, dtype, dict(activation="swiglu"), cuda)
+    kw["out_dtype"] = torch.float32
+    spec = mm.abft_spec_for(a, b)
+    off = mm.mx_matmul_fused(a, b, **kw)
+    kernels.reset_launch_counts()
+    on, flags = mm.mx_matmul_fused(a, b, abft=spec, **kw)
+    torch.cuda.synchronize()
+    assert kernels.prefill_launch_counts()["mx_matmul_fused"] == 1
+    assert torch.equal(on, off) and not flags.any()
+    bm, bn, _ = _build.gemm_tile(M)
+    gm, gn = flags.shape
+    assert (gm, gn) == (-(-M // bm), -(-N // bn))
+    fault = ab.TileFault(gm - 1, gn - 1, 1, 5, 1e8)
+    fd, fr, fc = ab.build_fault_operands(fault, gm, gn, bm, bn, device=cuda)
+    fkw = dict(abft=spec.with_inject(True), fault_delta=fd, fault_row=fr, fault_col=fc)
+    _, kflags = mm.mx_matmul_fused(a, b, **fkw, **kw)
+    _, pflags = mm.mx_matmul_fused_plain(a, b, **fkw, **kw)
+    assert kflags.sum() == 1 and kflags[gm - 1, gn - 1] == 1
+    assert torch.equal(kflags, pflags)
+    ab.reset_abft_stats()
+    with ops.use_policy(ops.MXPolicy("cuda_mx")):
+        clean = ops.linear(a, b, activation="swiglu", w_gate=kw["b_gate"],
+                           out_dtype=torch.float32)
+        kernels.reset_launch_counts()
+        # the last row tile (8 rows at M = 40, 1 at M = 65) is recomputed on
+        # the launch's own tensor-core route, not on its few rows' route
+        got = ops.linear(a, b, activation="swiglu", w_gate=kw["b_gate"],
+                         out_dtype=torch.float32,
+                         abft=ab.AbftConfig(fault=ab.TileFault(gm - 1, gn - 1, 0, 7, 1e8)))
+    torch.cuda.synchronize()
+    assert torch.equal(got, clean)
+    assert ab.abft_stats()["tiles_recovered"] == 1
+    assert kernels.prefill_launch_counts()["mx_matmul_fused"] == 2
+
+
+@pytest.mark.parametrize("bk", [128, 256])
+@pytest.mark.parametrize("K,N", [(517, 96), (2048, 2048)])
+@pytest.mark.parametrize("dtype,out_dtype", [(torch.float32, torch.float32),
+                                             (torch.float32, torch.bfloat16),
+                                             (torch.bfloat16, torch.bfloat16)])
+@pytest.mark.parametrize("M", PREFILL_ROWS)
+def test_baseline_prefill_tile_matches_plain(cuda, M, dtype, out_dtype, K, N, bk):
+    """The baseline on the prefill tile: each bk-wide chunk's partial from
+    the MMAs, rounded into the output dtype, as baseline_matmul_ref does."""
+    a = _randn((M, K), dtype, cuda, 5)
+    b = (_randn((K, N), torch.float32, cuda, 6) / K ** 0.5).to(dtype)
+    kernels.reset_launch_counts()
+    got = baseline_matmul(a, b, bk=bk, out_dtype=out_dtype)
+    ref = baseline_matmul_ref(a, b, bk, out_dtype)
+    torch.cuda.synchronize()
+    assert kernels.prefill_launch_counts()["baseline_matmul"] == 1
+    assert got.dtype == out_dtype
+    _close(got, ref, out_dtype)
+
+
 def test_kernels_refuse_an_operand_pair_they_are_not_built_for(cuda):
     a = torch.zeros(4, 8, device=cuda)
     b = torch.zeros(8, 6, dtype=torch.int8, device=cuda)
@@ -925,8 +1117,10 @@ def test_abft_grouped_kernel_flag_maps_equal_plain(cuda, pol, case):
 
 
 def test_one_tile_rule_the_kernels_take_the_python_table_and_nothing_else(cuda):
-    """The tile of every launch comes from _build: gemm_tile for the dense
-    prefill tiles (M > 16), the 2:4 and ABFT variants and their flag maps;
+    """The tile of every launch comes from _build: prefill_tile for the f32
+    and bf16 rows at M > 16 (the tensor-core loop, every variant); gemm_tile
+    for gemm_tile.cuh's loop (the 2:4 and ABFT variants' decode rows, the
+    int8 / fp8 x int8 / fp8 and the serial chain at M > 16) and every ABFT flag map;
     decode_tile for the dense decode rows (M <= 16); grouped_tile for the
     grouped GEMM.  Each launcher takes its table's tiles and refuses any
     other (the old 16 x 16 x 128 tile included: the dense decode rows take
@@ -938,18 +1132,31 @@ def test_one_tile_rule_the_kernels_take_the_python_table_and_nothing_else(cuda):
     out = torch.empty((100, 48), device=cuda)
     fn = _build.function(*_LAUNCHERS["dense"])
     dfn = _build.function(*_LAUNCHERS["decode"])
+    pfn = _build.function(*_LAUNCHERS["dense prefill"])
 
-    def launch(M, tile, f=fn, a=x):
+    def launch(M, tile, f=fn, a=x, K=64):
         return f(a.data_ptr(), w.data_ptr(), None, None, None, None, None, 0, None, 0,
-                 out.data_ptr(), 0, M, 48, 64, 0, 0, 0, 0, 0.0, *tile,
+                 out.data_ptr(), 0, M, 48, K, 0, 0, 0, 0, 0.0, *tile,
                  _build.stream_ptr(x))
 
     tiles = {_build.gemm_tile(M) for M in (17, 64, 65, 100)}
     assert len(tiles) == 2
-    for tile in tiles:
+    for tile in tiles:  # gemm_tile.cuh's loop (the serial chain)
         assert launch(100, tile) == 0
     for tile in ((16, 16, 128), (16, 16, 16), (8, 128, 32)):
         assert launch(100, tile) != 0
+    for M in (17, 64, 65, 100):  # the prefill tile's
+        t = _build.prefill_tile(M, 48, 64, torch.float32, torch.float32)
+        assert launch(M, (t.bm, t.bn, t.stages, t.split, t.parts, 16, 16, 16), pfn) == 0
+    t = _build.prefill_tile(100, 48, 64, torch.float32, torch.float32)
+    good = (t.bm, t.bn, t.stages, t.split, t.parts, 16, 16, 16)
+    for bad in ((32, 32), (128, 128), (16, 16)):  # CTA tiles it does not build
+        assert launch(100, bad + good[2:], pfn) != 0
+    for i, v in ((2, 1), (2, 9), (3, 3), (4, 3), (4, 16), (5, 3)):  # stages, split, parts, va
+        tile = list(good)
+        tile[i] = v
+        assert launch(100, tuple(tile), pfn) != 0, (i, v)
+    assert launch(100, good[:4] + (4,) + good[5:], pfn, K=96) != 0  # 4 parts of 3 steps
     for M in (1, 8, 13, 16):
         t = _build.decode_tile(M, 48, torch.float32, torch.float32)
         assert launch(M, (t.bn, t.bk, t.tm, t.stages, t.threads, t.vec, t.vec), dfn) == 0

@@ -1,0 +1,166 @@
+"""Where the prefill tile's time goes: time variants of csrc/prefill_tile.cuh's
+K loop and its CTA tiles on the card (one JSON line):
+
+    PYTHONPATH=src python tools/prefill_variants.py
+
+A bring-up tool, not part of the package.  Each variant is the header as
+committed, compiled with one of its timing macros: "full" (none), "copies"
+(PREFILL_TIMING_NO_PRODUCTS: the ring without the tensor-core products),
+"products" (PREFILL_TIMING_NO_COPIES: the products without the copies
+after the ring is primed) and "one_tf32" (PREFILL_TIMING_ONE_TF32: f32 with
+one TF32 product per step instead of 3xTF32's three; wrong results, timing
+only).  Each compiles a small standalone timing program (one nvcc per
+variant, all started together, into `build/prefill_variants/<variant>/`)
+that launches the dense MX kernel's body (`prefill_sweep` + `prefill_store`,
+no epilogue operands) through `prefill_launch` at the given tile, and times
+5 windows of 20 launches with CUDA events (the best window's mean).  The
+operands are filled on the card; `SHAPES` lists (f32, M, N, K, bm, bn,
+stages, split, parts): llama3.2-1b's prefill-chunk projections and
+zamba2-2.7b's M = 2048 ones, at the tiles `kernels/_build.prefill_tile`
+chooses among, and the baseline A/B's shape (M = 40, 64; K = 2048, N =
+8192) at MX's tile (64 x 64 split 4) and at the baseline's (32 x 64, one
+CTA per tile, split 1).
+"""
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+CSRC = ROOT / "src" / "repro_torch" / "csrc"
+OUT = ROOT / "build" / "prefill_variants"
+
+VARIANTS = {"full": None, "copies": "PREFILL_TIMING_NO_PRODUCTS",
+            "products": "PREFILL_TIMING_NO_COPIES", "one_tf32": "PREFILL_TIMING_ONE_TF32"}
+
+HARNESS = r'''
+#include <cstdio>
+#include <cstdlib>
+#include "prefill_tile.cuh"
+struct Args {
+  const float *a_scale, *b_scale, *bg_scale;
+  const void* bias; int bias_dt; const void* res; int res_dt; void* out;
+  int out_dt, M, N, K, act, has_scale; float out_scale;
+};
+template <typename T, int BM, int BN>
+__global__ void __launch_bounds__(PrefillCfg<T, BM, BN, false, false>::kThreads)
+kern(const PrefillShape d, const Args r) {
+  NoHook hook;
+  const float* Cs = prefill_sweep<T, BM, BN, false, false>(d, hook);
+  prefill_store<PrefillCfg<T, BM, BN, false, false>, BM, BN, false>(r, d, Cs);
+}
+template <typename T> __global__ void fill(T* p, size_t n, unsigned seed) {
+  for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < n;
+       i += (size_t)gridDim.x * blockDim.x) {
+    unsigned h = (unsigned)i * 2654435761u ^ seed;
+    h ^= h >> 13; h *= 0x5bd1e995; h ^= h >> 15;
+    from_f32(p + i, ((h & 0xFFFF) / 65536.0f - 0.5f) * 0.05f);
+  }
+}
+template <typename T, int BM, int BN>
+float run(int M, int N, int K, int stages, int split, int parts) {
+  T *a, *b; float* out;
+  cudaMalloc(&a, (size_t)M * K * sizeof(T)); cudaMalloc(&b, (size_t)K * N * sizeof(T));
+  cudaMalloc(&out, (size_t)M * N * 4);
+  fill<<<1024, 256>>>(a, (size_t)M * K, 1); fill<<<1024, 256>>>(b, (size_t)K * N, 2);
+  PrefillShape d{a, b, nullptr, nullptr, nullptr, M, N, K, stages, split, parts, 16, 16, 16};
+  Args r{nullptr, nullptr, nullptr, nullptr, 0, nullptr, 0, out, 0, M, N, K, 0, 0, 0.f};
+  auto launch = [&]() {
+    return prefill_launch<kern<T, BM, BN>, PrefillCfg<T, BM, BN, false, false>, false>(
+        d, 0, true, d, r);
+  };
+  if (int e = launch()) { printf("launch error %d\n", e); return -1; }
+  cudaDeviceSynchronize();
+  cudaEvent_t s0, s1; cudaEventCreate(&s0); cudaEventCreate(&s1);
+  float best = 1e9;
+  for (int w = 0; w < 5; ++w) {
+    cudaEventRecord(s0);
+    for (int i = 0; i < 20; ++i) launch();
+    cudaEventRecord(s1); cudaEventSynchronize(s1);
+    float ms; cudaEventElapsedTime(&ms, s0, s1);
+    if (ms / 20 < best) best = ms / 20;
+  }
+  if (cudaGetLastError() != cudaSuccess) return -1;
+  cudaFree(a); cudaFree(b); cudaFree(out);
+  return best;
+}
+int main(int argc, char** argv) {  // f32 M N K bm bn stages split parts
+  int f32 = atoi(argv[1]), M = atoi(argv[2]), N = atoi(argv[3]), K = atoi(argv[4]);
+  int bm = atoi(argv[5]), bn = atoi(argv[6]), st = atoi(argv[7]), sp = atoi(argv[8]);
+  int pa = atoi(argv[9]);
+  float ms = -1;
+#define CASE(T, BM_, BN_) if (bm == BM_ && bn == BN_) ms = run<T, BM_, BN_>(M, N, K, st, sp, pa);
+  if (f32) { CASE(float, 64, 128) CASE(float, 64, 64) CASE(float, 32, 64) }
+  else { CASE(__nv_bfloat16, 64, 128) CASE(__nv_bfloat16, 64, 64) CASE(__nv_bfloat16, 32, 64) }
+  printf("%.5f\n", ms);
+  return 0;
+}
+'''
+
+SHAPES = []
+for _f32 in (1, 0):
+    SHAPES += [
+        (_f32, 64, 2048, 8192, 64, 128, 4, 8, 8), (_f32, 64, 2048, 8192, 64, 64, 4, 8, 8),
+        (_f32, 64, 2048, 8192, 64, 64, 4, 1, 8), (_f32, 64, 2048, 8192, 32, 64, 4, 8, 8),
+        (_f32, 64, 2048, 2048, 64, 64, 4, 4, 4), (_f32, 64, 2048, 2048, 32, 64, 4, 4, 4),
+        (_f32, 64, 8192, 2048, 64, 64, 4, 4, 4), (_f32, 64, 8192, 2048, 64, 64, 4, 1, 4),
+        (_f32, 256, 2048, 8192, 64, 64, 4, 8, 8), (_f32, 256, 2048, 8192, 64, 128, 3, 1, 8),
+        (_f32, 256, 8192, 2048, 64, 128, 3, 1, 4), (_f32, 256, 8192, 2048, 64, 64, 3, 1, 4),
+        (_f32, 2048, 10448, 2560, 64, 128, 3, 1, 4), (_f32, 2048, 10448, 2560, 64, 64, 3, 1, 4),
+        # the baseline A/B (K = 2048, N = 8192): MX's tile, then the baseline's
+        (_f32, 40, 8192, 2048, 64, 64, 4, 4, 4), (_f32, 40, 8192, 2048, 32, 64, 4, 1, 4),
+        (_f32, 64, 8192, 2048, 32, 64, 4, 1, 4),
+    ]
+
+
+def build(nvcc: str) -> None:
+    OUT.mkdir(parents=True, exist_ok=True)
+    src = OUT / "time.cu"
+    src.write_text(HARNESS)
+    jobs = {}
+    for v, macro in VARIANTS.items():
+        (OUT / v).mkdir(exist_ok=True)
+        cmd = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+               *(() if macro is None else (f"-D{macro}",)), "-I", str(CSRC),
+               "-o", str(OUT / v / "time"), str(src)]
+        jobs[v] = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                   text=True)
+    for v, p in jobs.items():
+        out, _ = p.communicate()
+        if p.returncode:
+            raise RuntimeError(f"nvcc failed for variant {v}:\n{out[-3000:]}")
+
+
+def main() -> int:
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+
+    from repro_torch.kernels import _build
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("prefill_variants times CUDA kernels: no GPU is visible")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         check=True).stdout.strip()
+    t0 = time.perf_counter()
+    build(_build._nvcc())
+    rows = []
+    for shape in SHAPES:
+        row = dict(f32=bool(shape[0]), M=shape[1], N=shape[2], K=shape[3], bm=shape[4],
+                   bn=shape[5], stages=shape[6], split=shape[7], parts=shape[8])
+        for v in VARIANTS:
+            if v == "one_tf32" and not shape[0]:
+                continue
+            out = subprocess.run([str(OUT / v / "time"), *map(str, shape)],
+                                 capture_output=True, text=True, check=True).stdout
+            row[f"{v}_ms"] = float(out.strip().splitlines()[-1])
+        rows.append(row)
+    print(json.dumps(dict(device=smi, seconds=time.perf_counter() - t0, rows=rows)))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
