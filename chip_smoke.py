@@ -12,7 +12,8 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      output round trip (ld/st.global.cg) and the MX library's none, and
      every prefill-tile kernel (csrc/prefill_tile.cuh) to hold tensor-core
      instructions (HMMA) and, outside ABFT, at most PREFILL_MAX_FFMA FFMAs
-     (printed on a line before the last);
+     (printed on a line before the last), and every mx_flash_attention
+     kernel to hold HMMA;
   3. holds each kernel against its plain PyTorch version at the shapes of
      the main path (llama3.2-1b, plus qwen2-0.5b's ragged widths and
      zamba2-2.7b's Mamba2 projections, N = 10448 off every tile), in f32
@@ -24,7 +25,8 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      library time, and the A/B there); flash
      decode with f32/bf16 and with int8 pages
      and scales; flash verify at S = 5 and 9, G = 7, poisoned stale pages
-     and S = 1 (also against the decode kernel), with the same page types.
+     and S = 1 (bitwise the decode kernel), with the same page types, each
+     with its grid (one CTA per slot, kv head and window row).
      Max error against 1e-4 * max|ref| (f32) / 2e-2 * max|ref| (bf16),
      kernel / plain / library time from CUDA events (the median of 5
      windows of 20 calls, taken in turns; every window's time goes to the
@@ -138,7 +140,10 @@ The dense cache, Mamba2 and the zamba2 hybrid (ssd_scan, mx_flash_attention):
       (8 x 32 heads, d = 80, L = 512, causal; f32 and bf16), the llama draft
       forward (32 / 8 heads, d = 64, L = 256) and the cross shape (Lq = 33,
       Lk = 70, non-causal), against the plain versions at phase 3's
-      tolerances; the attention's yardstick is
+      tolerances, each attention check with its CTAs and, in f32, the 3xTF32
+      route's bound; a bf16 case where a probability rounded to bf16 would
+      show (k = [[0, 0], [1, 0]], v = I, q = [[0.0648, 0]]) equal to the
+      plain version exactly; the attention's yardstick is
       torch.nn.functional.scaled_dot_product_attention, the scan has none;
   8.  (before phase 4: no profiler session has run yet) zamba2-2.7b at full
       width (54 Mamba2 layers, d_model 2560, the shared block every 6;
@@ -152,7 +157,8 @@ The dense cache, Mamba2 and the zamba2 hybrid (ssd_scan, mx_flash_attention):
       kernel and the plain path, equal full-width streams counted; dense
       smoke streams equal across backends (zamba2, and llama dense = paged);
       the static launcher once in its own process; and, last of the run, one
-      decode step profiled;
+      decode step and one full forward profiled (the attention kernels'
+      device time printed, as for phase 5's verify step);
   9.  (before phase 5) llama3.2-1b on the dense cache: a short trace through
       ContinuousBatcher(paged=False) and (paged=True), streams equal (a
       divergence passes only at a near tie); the static launcher with
@@ -184,6 +190,7 @@ TF32_FLOPS = 495e12  # the tensor cores in TF32: the f32 prefill tile's 3xTF32 r
 # activations): fewer than one K step of gemm_tile.cuh's prefill loop, whose
 # smallest tile unrolls 128 (2 x 4 outputs per thread, 16 K rows)
 PREFILL_MAX_FFMA = 127
+PREFILL_LIBS = ("mx_matmul", "mx_matmul_sparse", "mx_matmul_abft", "baseline_matmul")
 REL_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 QUANT_POLICIES = ("int8", "fp8", "int8_all", "fp8_all")  # the quantized operand pairs
 L2_BYTES = 50 * 2**20
@@ -529,7 +536,7 @@ def check_decode(torch, dev, B, H, Hkv, d, ps, lengths, dtype_name, seed, poison
 def check_verify(torch, dev, B, H, Hkv, d, ps, S, lengths, dtype_name, seed, poison=False,
                  pages="same"):
     """mx_flash_verify against paged_verify_ref; at S = 1 also against the
-    decode kernel on the same inputs (within 1e-6 * max|decode|)."""
+    decode kernel on the same inputs, bitwise."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.mx_flash_decode import mx_flash_decode, mx_flash_verify
@@ -568,10 +575,12 @@ def check_verify(torch, dev, B, H, Hkv, d, ps, S, lengths, dtype_name, seed, poi
             q_, k_, v_, attn_mask=mask), [(q_.transpose(1, 2), *_dense_kv(
                 torch, table, k_, v_, H // Hkv)) for q_, k_, v_, _ in sets])
     bound, by = _bound_ms(nbytes, flops, dtype_name)
+    # one CTA per (slot, kv head, window row), one warp per query row (<= 16)
+    grid = dict(ctas=B * Hkv * S, threads=32 * min(H // Hkv, 16))
     return dict(kernel="mx_flash_verify", B=B, S=S, H=H, Hkv=Hkv, d=d, ps=ps,
                 lengths=list(lengths), poison=poison, pages=pages, dtype=dtype_name,
                 max_abs_err=err, tol=tol, **out, **_time_ms(torch, fns),
-                library=library, bound_ms=bound, bound_by=by)
+                library=library, bound_ms=bound, bound_by=by, grid=grid)
 
 
 def _expert_stack(torch, dev, G, K, N, dt, gen):
@@ -1226,7 +1235,7 @@ def phase_kernels(torch, dev):
                      f"Hkv={c['Hkv']} {c['pages'] + ' ' if c['pages'] != 'same' else ''}"
                      f"{'poisoned' if c['poison'] else ''}")
         ok = c["max_abs_err"] <= c["tol"] and c.get("zero_rows_exact", True) \
-            and c.get("finite", True) and c.get("decode_err", 0) <= c.get("decode_tol", 0) \
+            and c.get("finite", True) and c.get("decode_bitwise", True) \
             and c.get("bitwise", True) and c.get("bitwise_vs_dense", True)
         c["ok"] = ok
         lib = "none" if c["library_ms"] is None else f"{c['library_ms']:.4f}"
@@ -1244,6 +1253,8 @@ def phase_kernels(torch, dev):
             extra += f" lib refused: {c['library_error'][:80]}"
         if c.get("offset"):
             extra += f" ({c['offset']} 4 bytes off)"
+        if c.get("grid"):
+            extra += f" [grid {c['grid']['ctas']} CTAs x {c['grid']['threads']} threads]"
         if c.get("prefill_tile"):
             t = c["prefill_tile"]
             extra += (f" [prefill tile {t['bm']}x{t['bn']} bk {t['bk']} stages {t['stages']}"
@@ -1518,8 +1529,15 @@ def _profile(torch, fn):
     device_ms = sum(r[1] for r in rows)
     if device_ms == 0:
         return dict(measured=False, window_ms=wall_ms)
+    attention = {}  # the attention kernels' device time, wherever they rank
+    for k, ms, n in rows:
+        for kern in ("flash_attention_kernel", "flash_verify_kernel", "flash_decode_kernel"):
+            if kern in k:
+                a = attention.setdefault(kern, dict(ms=0.0, calls=0))
+                a["ms"] += ms
+                a["calls"] += n
     return dict(measured=True, window_ms=wall_ms, device_ms=device_ms,
-                busy_share=device_ms / wall_ms,
+                busy_share=device_ms / wall_ms, attention=attention,
                 top=[dict(name=k[:90], ms=ms, calls=n) for k, ms, n in rows[:12]])
 
 
@@ -2264,6 +2282,9 @@ def _print_profile(what, p):
               f"{p['device_ms']:.2f} ms ({100 * p['busy_share']:.1f}%)")
         for r in p["top"]:
             print(f"      {r['ms']:9.3f} ms  x{r['calls']:<5d} {r['name']}")
+        for k, a in p["attention"].items():
+            print(f"      attention: {k} {a['ms']:.3f} ms over {a['calls']} calls "
+                  f"({100 * a['ms'] / p['device_ms']:.1f}% of device time)")
     else:
         print(f"    profile ({what}): device time not measured "
               f"(window {p['window_ms']:.2f} ms)")
@@ -2523,7 +2544,7 @@ def check_flash(torch, dev, label, B, Lq, Lk, H, Hkv, d, causal, dtype_name, see
     4 B H Lq Lk d, halved by the causal mask."""
     import torch.nn.functional as F
 
-    from repro_torch.kernels.mx_flash_attention import mx_flash_attention
+    from repro_torch.kernels.mx_flash_attention import TILES, mx_flash_attention
     from repro_torch.kernels.ref import flash_attention_plain
 
     dt = getattr(torch, dtype_name)
@@ -2558,8 +2579,31 @@ def check_flash(torch, dev, label, B, Lq, Lk, H, Hkv, d, causal, dtype_name, see
     sets = [args] + [inputs() for _ in range(_copies(nbytes) - 1)]
     out.update(_time_ms(torch, {k: (fn, sets) for k, (fn, _) in fns.items()}))
     out["bound_ms"], out["bound_by"] = _bound_ms(nbytes, flops, dtype_name)
+    if dtype_name == "float32":  # the tensor-core route: three TF32 products
+        out["route_bound_ms"] = max(nbytes / HBM_BYTES_PER_S, 3 * flops / TF32_FLOPS) * 1e3
+    warps, stages = TILES[dt]
+    out["tile"] = dict(warps=warps, stages=stages, ctas=B * H * -(-Lq // (16 * warps)))
     out.update(bytes=nbytes, flops=flops)
     return out
+
+
+def check_flash_crafted(torch, dev):
+    """The bf16 case where a probability rounded to bf16 before the PV
+    product shows (k = [[0, 0], [1, 0]], v = I, q = [[0.0648, 0]]): JAX and
+    the plain version give 0.48828125, a rounded probability 0.49023438; the
+    kernel must equal the plain version exactly."""
+    from repro_torch.kernels.mx_flash_attention import mx_flash_attention
+    from repro_torch.kernels.ref import flash_attention_plain
+
+    q = torch.tensor([[0.0648, 0.0]], device=dev).bfloat16()
+    k = torch.tensor([[0.0, 0.0], [1.0, 0.0]], device=dev).bfloat16()
+    v = torch.eye(2, device=dev).bfloat16()
+    got = mx_flash_attention(q, k, v, causal=False)
+    want = flash_attention_plain(q[None, :, None], k[None, :, None], v[None, :, None],
+                                 causal=False)[0, :, 0]
+    torch.cuda.synchronize()
+    return dict(got=got.float().tolist(), plain=want.float().tolist(),
+                exact=bool(torch.equal(got, want)))
 
 
 def ssd_flash_checks(torch, dev):
@@ -2592,12 +2636,24 @@ def ssd_flash_checks(torch, dev):
         extra = f" lib err {c['library_err']:.2e}" if "library_err" in c else ""
         if c.get("library_error"):
             extra += f" lib refused: {c['library_error'][:80]}"
+        if "tile" in c:
+            t = c["tile"]
+            extra += f" [{t['warps']} warps x 16 rows, {t['stages']} stages, {t['ctas']} CTAs]"
+        if "route_bound_ms" in c:
+            extra += f" 3xTF32 bound {c['route_bound_ms']:.4f}"
         print(f"  {c['kernel']:18s} {c['dtype']:8s} {c['label']:24s} {shape:44s} err "
               f"{c['max_abs_err']:.3e} (tol {c['tol']:.3e}){extra} "
               f"{'ok' if c['ok'] else 'FAIL'}  ms {c['ms']:.4f} (spread "
               f"{100 * _spread(c):.0f}%) plain {c['plain_ms']:.4f} lib {lib} bound "
               f"{c['bound_ms']:.4f} ({c['bound_by']})")
-    bad = [c for c in checks if not c["ok"]]
+    crafted = check_flash_crafted(torch, dev)
+    print(f"  mx_flash_attention bf16 crafted (p kept in f32): kernel {crafted['got']} plain "
+          f"{crafted['plain']} exact {crafted['exact']}")
+    if not crafted["exact"]:
+        raise AssertionError(f"the bf16 flash attention differs from the plain version on "
+                             f"the crafted case: {crafted}")
+    checks.append(dict(kernel="mx_flash_attention crafted", dtype="bfloat16", **crafted))
+    bad = [c for c in checks if not c.get("ok", True)]
     if bad:
         raise AssertionError(f"{len(bad)} ssd_scan / flash attention check(s) disagree "
                              f"with the plain version: {bad}")
@@ -2871,10 +2927,11 @@ def zamba2_phase(torch, dev):
 
 
 def zamba2_profile(torch, dev, model, params):
-    """One zamba2-2.7b decode step at 8 slots on the kernel path, profiled
-    (last: a profiler session slows later launches of the process), with
-    phase 8's weights."""
+    """One zamba2-2.7b decode step at 8 slots and one full forward (4 x 512
+    tokens) on the kernel path, profiled (last: a profiler session slows
+    later launches of the process), with phase 8's weights."""
     from repro_torch.core import ops
+    from repro_torch.launch.steps import make_prefill_step
 
     cfg = model.cfg
     params = _moved(params, dev)
@@ -2885,10 +2942,18 @@ def zamba2_profile(torch, dev, model, params):
     with ops.use_policy(ops.MXPolicy("cuda_mx")), torch.no_grad():
         prof = _profile(torch, lambda: model.decode_step(params, tok, cache, index))
     _print_profile("1 zamba2 decode step, 8 dense slots", prof)
-    del params, model, cache
+    del cache
+    # the full forward of phase 8 (4 x 512 tokens): its 9 flash attention calls
+    toks = torch.randint(0, cfg.vocab, (4, 512), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(0))
+    prefill = make_prefill_step(model, cfg)
+    with ops.use_policy(ops.MXPolicy("cuda_mx")), torch.no_grad():
+        fwd = _profile(torch, lambda: prefill(params, {"tokens": toks}))
+    _print_profile("1 zamba2 full forward, 4 x 512 tokens", fwd)
+    del params, model
     gc.collect()
     torch.cuda.empty_cache()
-    return prof
+    return prof, fwd
 
 
 def main() -> int:
@@ -2929,11 +2994,16 @@ def main() -> int:
         raise AssertionError("the baseline kernel's output round trip was compiled away")
     if any(sass["mx_matmul_fused"]):
         raise AssertionError(f"the MX library round-trips its output: {sass}")
-    mma_sass = sass_prefill_counts()
+    mma_sass = sass_mma_counts(PREFILL_LIBS, "prefill_kernel")
     bad_sass = {k: c for k, c in mma_sass.items() if not c["mma"]
                 or ("abft" not in k and c["ffma"] > PREFILL_MAX_FFMA)}
     if len(mma_sass) < 4 or bad_sass:
         raise AssertionError(f"prefill kernels off the tensor cores: {bad_sass or mma_sass}")
+    attn_sass = sass_mma_counts(("mx_flash_attention",), "flash_attention_kernel")
+    print(f"    mx_flash_attention SASS: {len(attn_sass)} kernels, tensor-core instructions "
+          f"{min(c['mma'] for c in attn_sass.values()) if attn_sass else 0} or more each")
+    if len(attn_sass) < 32 or not all(c["mma"] for c in attn_sass.values()):
+        raise AssertionError(f"flash attention kernels off the tensor cores: {attn_sass}")
 
     print("[3] kernels against their plain versions")
     checks = phase_kernels(torch, dev)
@@ -2950,8 +3020,9 @@ def main() -> int:
     grok = grok_phases(torch, dev)
     launches["mx_grouped_matmul"] = grok["serve"]["launches"]["mx_grouped_matmul"]
     launches.update(zamba2["launches"])
-    print("[8p] zamba2-2.7b decode step profiled")
-    zamba2["profile_decode"] = zamba2_profile(torch, dev, zmodel, zparams)
+    print("[8p] zamba2-2.7b decode step and full forward profiled")
+    zamba2["profile_decode"], zamba2["profile_forward"] = zamba2_profile(torch, dev, zmodel,
+                                                                          zparams)
     del zmodel, zparams
 
     headline = {  # a decode-step call of each kernel on the main path, f32
@@ -3060,6 +3131,7 @@ def main() -> int:
     (out_dir / "chip_smoke.json").write_text(json.dumps(dict(
         device=smi, build_s=build_s, nvcc_cpu_s=_build.NVCC_CPU_SECONDS, ptxas=ptxas,
         checks=checks, abft_checks=abft_checks_, prefill_sass=mma_sass,
+        attention_sass=attn_sass,
         **llama, grok=grok, zamba2=zamba2, kernels=summary), indent=1, default=str))
     print("prefill tile SASS (tensor-core / FFMA instructions per kernel): " + "; ".join(
         f"{k.split(':')[0]} {k.split(':')[1][:40]} {c['mma']}/{c['ffma']}"
@@ -3089,23 +3161,25 @@ def sass_rmw_counts():
     return out
 
 
-def sass_prefill_counts():
-    """Per prefill-tile kernel (csrc/prefill_tile.cuh) of each GEMM library,
-    its tensor-core (HMMA / HGMMA) and f32 FMA (FFMA) instructions in the
-    SASS: the K loop's products run on the tensor cores; the FFMAs left are
-    the epilogue's (activations) and the ABFT checksums'."""
+def sass_mma_counts(libs, marker):
+    """Per kernel whose mangled name holds `marker` in each of `libs`, its
+    tensor-core (HMMA / HGMMA) and f32 FMA (FFMA) instructions in the SASS.
+    The prefill tiles (csrc/prefill_tile.cuh): the K loop's products run on
+    the tensor cores, the FFMAs left are the epilogue's (activations) and
+    the ABFT checksums'.  The flash attention: both products on the tensor
+    cores."""
     from repro_torch.kernels import _build
 
     cuobjdump = Path(_build._nvcc()).with_name("cuobjdump")
     out = {}
-    for lib in ("mx_matmul", "mx_matmul_sparse", "mx_matmul_abft", "baseline_matmul"):
+    for lib in libs:
         text = subprocess.run([str(cuobjdump), "-sass", str(_build._target(lib))],
                               capture_output=True, text=True, check=True).stdout
         name = None
         for line in text.splitlines():
             if "Function : " in line:
                 name = line.split("Function : ")[1].strip()
-                if "prefill_kernel" in name:
+                if marker in name:
                     out[f"{lib}:{name}"] = dict(mma=0, ffma=0)
                 else:
                     name = None

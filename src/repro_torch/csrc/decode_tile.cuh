@@ -46,6 +46,7 @@
 #include <type_traits>
 
 #include "gemm_tile.cuh"  // common.cuh, and mac: the MAC of fma_tile's chain
+#include "mma.cuh"        // copy_chunk, cp_async_*
 
 constexpr int kDecodeMaxM = 16;
 constexpr int kDecodeMaxThreads = 512;
@@ -159,46 +160,6 @@ __device__ __forceinline__ S widen_raw(RawOf<T> x) {
     return s8_to_f32(x);
   } else {
     return e4m3_to_f32(x);
-  }
-}
-
-// ---------------------------------------------------------------------------
-// copies: global -> shared, v bytes (zero filled when !ok)
-// ---------------------------------------------------------------------------
-
-template <int V>
-__device__ __forceinline__ void copy_chunk(unsigned char* dst, const unsigned char* src,
-                                           bool ok) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  const int n = ok ? V : 0;  // bytes read; the rest of the V is zero filled
-  if constexpr (V == 16) {
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src), "r"(n)
-                 : "memory");
-  } else if constexpr (V == 8 || V == 4) {
-    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(d), "l"(src), "n"(V),
-                 "r"(n)
-                 : "memory");
-  } else if constexpr (V == 2) {  // below cp.async's 4 bytes: a plain load and store
-    *reinterpret_cast<uint16_t*>(dst) = ok ? *reinterpret_cast<const uint16_t*>(src) : 0;
-  } else {
-    *dst = ok ? *src : 0;
-  }
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// Wait until at most `pending` of this thread's committed groups are in flight.
-__device__ __forceinline__ void cp_async_wait(int pending) {
-  switch (pending) {
-    case 0: asm volatile("cp.async.wait_group 0;\n" ::: "memory"); break;
-    case 1: asm volatile("cp.async.wait_group 1;\n" ::: "memory"); break;
-    case 2: asm volatile("cp.async.wait_group 2;\n" ::: "memory"); break;
-    case 3: asm volatile("cp.async.wait_group 3;\n" ::: "memory"); break;
-    case 4: asm volatile("cp.async.wait_group 4;\n" ::: "memory"); break;
-    case 5: asm volatile("cp.async.wait_group 5;\n" ::: "memory"); break;
-    default: asm volatile("cp.async.wait_group 6;\n" ::: "memory"); break;
   }
 }
 

@@ -2,12 +2,16 @@
 mx_flash_attention`).
 
 On a CUDA tensor the wrapper launches `csrc/mx_flash_attention.cu`: one
-grid over (q tile, head, batch) of the model's (B, S, H, d) tensors, query
-head h reading kv head h // (H / Hkv), the online-softmax statistics and
-the output tile in f32 registers across the KV walk, one store per output
-row; under the causal mask KV tiles wholly above the diagonal are not
-read.  On a CPU tensor it runs the plain version
-(`kernels.ref.flash_attention_plain`, `_flash_kernel`'s online softmax).
+grid over (head, batch, q tile) of the model's (B, S, H, d) tensors, query
+head h reading kv head h // (H / Hkv), both products on the tensor cores
+(bf16 m16n8k16; f32 as 3xTF32), K and V tiles through a ring of 16-byte
+async copies, the online-softmax statistics and the output tile in f32
+registers across the KV walk, one store per output row; under the causal
+mask KV tiles wholly above the diagonal are not read.  The probabilities
+enter the PV product in f32 precision whatever the dtype, as in JAX (whose
+kernel widens v to f32): bf16 as a pair of bf16 products (hi + lo).  On a
+CPU tensor it runs the plain version (`kernels.ref.flash_attention_plain`,
+`_flash_kernel`'s online softmax).
 
 q (B, Lq, H, d), k and v (B, Lk, Hkv, d) -- or one head as JAX's kernel
 takes it: q (Lq, d), k and v (Lk, d).  The causal mask is top-left
@@ -24,7 +28,10 @@ from . import _build
 from .ref import flash_attention_plain
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_ARGTYPES = (_P,) * 4 + (_I,) * 8 + (_F, _P)
+_ARGTYPES = (_P,) * 4 + (_I,) * 8 + (_F, _I, _I, _P)
+# the CTA per dtype: warps of 16 query rows each, and the depth of the KV
+# copy ring (tools/attention_variants.py times the others)
+TILES = {torch.float32: (4, 2), torch.bfloat16: (8, 3)}
 
 
 def mx_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -62,7 +69,7 @@ def mx_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return out[0, :, 0] if single else out
     fn = _build.function("mx_flash_attention", "mx_flash_attention_launch", _ARGTYPES)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Lq, Lk, H, Hkv,
-             d, int(causal), dt, 1.0 / math.sqrt(d), _build.stream_ptr(q))
+             d, int(causal), dt, 1.0 / math.sqrt(d), *TILES[q.dtype], _build.stream_ptr(q))
     _build.check(err, "mx_flash_attention", f"mx_flash_attention at d={d}, Lk={Lk} (the "
                  "kernel takes a head dim of at most 128 and at least one key)")
     mx_flash_attention.launches += 1

@@ -2,9 +2,11 @@
 `repro/kernels/mx_flash_decode.py`, `mx_flash_decode` and `mx_flash_verify`).
 
 On a CUDA tensor each wrapper launches its kernel in
-`csrc/mx_flash_decode.cu`: one CTA per (slot, kv head) walks the slot's page
-table, masks positions past each query row's last visible position before
-the running max, keeps (m, l, acc) in f32 and stores each output row once.
+`csrc/mx_flash_decode.cu`: a CTA per (slot, kv head) for decode, per (slot,
+kv head, window row) for verify, walks the slot's page table, masks
+positions past each query row's last visible position before the running
+max, keeps (m, l, acc) in f32 and stores each output row once; verify runs
+decode's arithmetic per row, so at S = 1 the two are bitwise equal.
 On a CPU tensor it runs the plain version (`kernels.ref.paged_decode_ref` /
 `paged_verify_ref`).
 
@@ -139,9 +141,9 @@ def mx_flash_verify(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tenso
     `mx_flash_decode`; lengths: (B,) live token counts INCLUDING the window
     (query row r sits at position lengths[i] - S + r and attends positions
     <= its own).  lengths 0 marks a free slot, whose rows are all zeros.
-    q and the (S*G, d) accumulator live in shared memory: a shape that
-    needs more than a block can use raises.  Returns (B, S, H, d) in q's
-    dtype."""
+    Each CTA keeps a ring of the slot's pages in shared memory: a page size
+    whose two pages need more than a block can use raises, as do G past 32
+    and d past 256.  Returns (B, S, H, d) in q's dtype."""
     if q.dim() != 4:
         raise ValueError(f"q must be (B, S, H, d), got {tuple(q.shape)}")
     _check("mx_flash_verify", q, k_pages, v_pages, page_table, lengths, k_scale, v_scale)
@@ -150,12 +152,18 @@ def mx_flash_verify(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tenso
                                 k_scale=k_scale, v_scale=v_scale)
     B, S, H, d = q.shape
     _, ps, Hkv, _ = k_pages.shape
-    smem = _limit("mx_flash_verify_smem_bytes", S, H // Hkv, d, ps)
+    G, W = H // Hkv, page_table.shape[1]
+    if G > _limit("mx_flash_verify_max_group") or d > _limit("mx_flash_verify_max_dim"):
+        raise ValueError(f"mx_flash_verify: G={G}, d={d} past the kernel's "
+                         f"{_limit('mx_flash_verify_max_group')} query rows per kv head "
+                         f"or head dim of {_limit('mx_flash_verify_max_dim')}")
+    dp = _build.dtype_code(k_pages.dtype, "mx_flash_verify pages", _PAGE_DTYPES)
+    smem = _limit("mx_flash_verify_smem_bytes", G, d, ps, dp, int(k_scale is not None), W)
     limit = _limit("mx_flash_max_smem_bytes")
     if smem > limit:
         raise ValueError(
-            f"mx_flash_verify: S={S}, G={H // Hkv}, d={d}, page_size={ps} needs "
-            f"{smem} bytes of shared memory, past the {limit} a block can use")
+            f"mx_flash_verify: G={G}, d={d}, page_size={ps} needs {smem} bytes of shared "
+            f"memory for two pages, past the {limit} a block can use")
     return _launch(mx_flash_verify, "mx_flash_verify_launch", _VERIFY_ARGTYPES,
                    q, k_pages, v_pages, page_table, lengths, k_scale, v_scale,
                    (B, S, H, Hkv, d, ps, page_table.shape[1]))

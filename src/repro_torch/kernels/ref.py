@@ -134,15 +134,16 @@ def flash_attention_plain(q, k, v, *, causal: bool = True, bk: int = 128):
 
     q: (B, Lq, H, d); k, v: (B, Lk, Hkv, d), query head h reading kv head
     h // (H / Hkv).  Scores at scale 1/sqrt(d) in f32, the causal mask
-    top-left (qpos >= kpos, no offset); (m, l, acc) in f32, the
-    probabilities rounded to v's dtype for the PV product; a row masked
-    throughout gives 0.  Returns (B, Lq, H, d) in q's dtype."""
+    top-left (qpos >= kpos, no offset); (m, l, acc) in f32, and the
+    probabilities enter the PV product in f32 whatever v's dtype (the TPU
+    kernel widens v to f32, so its `p.astype(v.dtype)` keeps p in f32); a
+    row masked throughout gives 0.  Returns (B, Lq, H, d) in q's dtype."""
     B, Lq, H, d = q.shape
     Lk, Hkv = k.shape[1], k.shape[2]
     heads = torch.arange(H, device=q.device) // (H // Hkv)
     qf = q.float().transpose(1, 2)                      # (B, H, Lq, d)
     kf = k.float()[:, :, heads].transpose(1, 2)         # (B, H, Lk, d)
-    vf = v[:, :, heads].transpose(1, 2)
+    vf = v.float()[:, :, heads].transpose(1, 2)
     scale = 1.0 / math.sqrt(d)
     qpos = torch.arange(Lq, device=q.device)[:, None]
     m = torch.full((B, H, Lq), float("-inf"), device=q.device)
@@ -159,7 +160,7 @@ def flash_attention_plain(q, k, v, *, causal: bool = True, bk: int = 128):
         p = torch.exp(s - m_safe[..., None])  # masked: exp(-inf) == 0
         l = l * alpha + p.sum(dim=-1)
         acc = acc * alpha[..., None] + torch.einsum(
-            "bhqk,bhkd->bhqd", p.to(v.dtype).float(), vf[:, :, k0:k0 + bk].float())
+            "bhqk,bhkd->bhqd", p, vf[:, :, k0:k0 + bk])
         m = m_new
     out = acc / torch.clamp(l[..., None], min=1e-30)
     return out.transpose(1, 2).to(q.dtype)

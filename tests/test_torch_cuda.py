@@ -24,7 +24,11 @@ bf16 x int8 / fp8; M > 16, csrc/prefill_tile.cuh) at M = 17, 40, 64, 65,
 bitwise the dense kernel, ABFT recovery bitwise, and the baseline on it.
 `ssd_scan` and `mx_flash_attention` (f32
 within 1e-4 * max|ref|, bf16 within 2e-2 * max|ref|) against
-`ssd_scan_plain` / the sequential oracle and `flash_attention_plain`.
+`ssd_scan_plain` / the sequential oracle and `flash_attention_plain`; the
+tensor-core attention at d = 5, 8, 16 (zero padded to the MMA's K step) and
+one row past a 64-row tile, and bitwise on a bf16 case where a probability
+rounded to bf16 would show.  Verify at S = 1 is bitwise decode, also when
+the window is longer than its copy ring.
 """
 import numpy as np
 import pytest
@@ -239,17 +243,66 @@ def test_flash_verify_one_row_equals_decode_kernel(cuda, pages):
 
 
 def test_flash_verify_refuses_a_window_past_shared_memory(cuda):
-    q = torch.zeros(1, 64, 32, 128, device=cuda)
-    kp = torch.zeros(2, 16, 2, 128, device=cuda)
+    """A verify CTA holds a ring of at least two of its slot's pages: 512-row
+    pages of 16 query rows at d = 128 need more than a block can use."""
+    q = torch.zeros(1, 2, 32, 128, device=cuda)
+    kp = torch.zeros(2, 512, 2, 128, device=cuda)
     with pytest.raises(ValueError, match="232448"):
         mx_flash_verify(q, kp, kp, torch.zeros(1, 1, dtype=torch.int32, device=cuda),
                         torch.ones(1, dtype=torch.int32, device=cuda))
 
 
+@pytest.mark.parametrize("pages", ["f32", "int8"])
+def test_flash_verify_runs_the_window_the_old_kernel_refused(cuda, pages):
+    """S = 64, G = 16, d = 128 (the window the shared-memory accumulator of
+    the port's earlier verify kernel refused) against paged_verify_ref."""
+    lengths = (100, 0, 80)
+    q, kp, vp, table, lns = _pages(3, 32, 2, 128, 16, 7, lengths, torch.float32, cuda,
+                                   poison=True, S=64)
+    kw = {}
+    if pages == "int8":
+        kp, vp, ks, vs = _int8(kp, vp)
+        kw = dict(k_scale=ks, v_scale=vs)
+    got = mx_flash_verify(q, kp, vp, table, lns, **kw)
+    want = paged_verify_ref(q, kp, vp, table, lns, **kw)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all() and torch.all(got[1] == 0)
+    _close(got, want, torch.float32)
+
+
+@pytest.mark.parametrize("pages", ["f32", "int8", "bf16"])
+def test_flash_verify_window_past_the_copy_ring(cuda, pages):
+    """Windows of 75 and 40 four-row pages, past the ring's 32 slots: the
+    page walk runs in chunks of half the ring, and at S = 1 still equals
+    decode bitwise."""
+    from repro_torch.kernels.mx_flash_decode import _limit
+
+    dt = torch.bfloat16 if pages == "bf16" else torch.float32
+    lengths = (300, 160, 0, 7)
+    code = {"f32": 0, "int8": 2, "bf16": 1}[pages]
+    ring = [_limit("mx_flash_verify_smem_bytes", 2, 16, 4, code, int(pages == "int8"), W)
+            for W in (32, 75)]
+    assert ring[0] == ring[1]  # the ring stops at 32 pages, short of the 75-page window
+    for S in (5, 1):
+        q, kp, vp, table, lns = _pages(4, 4, 2, 16, 4, 75, lengths, dt, cuda, poison=True,
+                                       S=S)
+        kw = {}
+        if pages == "int8":
+            kp, vp, ks, vs = _int8(kp, vp)
+            kw = dict(k_scale=ks, v_scale=vs)
+        got = mx_flash_verify(q, kp, vp, table, lns, **kw)
+        _close(got, paged_verify_ref(q, kp, vp, table, lns, **kw), dt)
+        if S == 1:
+            dec = mx_flash_decode(q[:, 0].contiguous(), kp, vp, table, lns, **kw)
+            torch.cuda.synchronize()
+            assert torch.equal(got[:, 0], dec)
+
+
 def test_verify_shared_memory_covers_every_paged_config_to_k8(cuda):
-    """The verify CTA keeps q and the accumulator in shared memory: every
-    paged config of the repo fits at k = 8 with 16-token pages (sizes read
-    from the library the kernel is launched from)."""
+    """The verify CTA keeps a ring of its slot's pages in shared memory:
+    every paged config of the repo fits, with 16-token pages of every page
+    type, at k = 8 and any table width (sizes read from the library the
+    kernel is launched from; the window row count does not enter)."""
     from repro_torch.configs import ARCH_IDS
     from repro_torch.kernels.mx_flash_decode import _limit
 
@@ -260,7 +313,12 @@ def test_verify_shared_memory_covers_every_paged_config_to_k8(cuda):
         if cfg.n_kv_heads and not cfg.shared_attn_every and not cfg.frontend_dim \
                 and all(kind in ("dense", "moe") for kind, _ in cfg.blocks):
             G = cfg.n_heads // cfg.n_kv_heads
-            assert _limit("mx_flash_verify_smem_bytes", 9, G, cfg.hd, 16) <= limit, name
+            assert G <= _limit("mx_flash_verify_max_group"), name
+            assert cfg.hd <= _limit("mx_flash_verify_max_dim"), name
+            for code, scaled in ((0, 0), (1, 0), (2, 1), (3, 1)):
+                for W in (1, 16, 512):
+                    assert _limit("mx_flash_verify_smem_bytes", G, cfg.hd, 16, code,
+                                  scaled, W) <= limit, (name, code, W)
 
 
 @pytest.mark.parametrize("kernel", ["mx_flash_decode", "mx_flash_verify"])
@@ -1342,6 +1400,39 @@ def test_flash_attention_kernel_matches_plain(cuda, dtype, B, Lq, Lk, H, Hkv, d,
     torch.cuda.synchronize()
     assert mx_flash_attention.launches == before + 1
     _close(got, flash_attention_plain(q, k, v, causal=causal), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Lq,Lk,H,Hkv,d,causal", [
+    (2, 70, 70, 4, 2, 16, True),       # d = 16: one MMA K step
+    (2, 70, 90, 4, 4, 8, False),       # d = 8, padded with zeros to 16
+    (1, 65, 65, 4, 1, 64, True),       # one row past a 64-row tile
+    (2, 129, 129, 8, 2, 80, True),     # one row past two tiles, d = 80
+    (1, 200, 200, 2, 2, 5, True),      # d = 5: 2- and 4-byte copies
+])
+def test_flash_attention_kernel_tile_edges(cuda, dtype, B, Lq, Lk, H, Hkv, d, causal):
+    q = _randn((B, Lq, H, d), dtype, cuda, 3 * Lq + d)
+    k = _randn((B, Lk, Hkv, d), dtype, cuda, 3 * Lk + d + 1)
+    v = _randn((B, Lk, Hkv, d), dtype, cuda, 3 * Lk + d + 2)
+    got = mx_flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    _close(got, flash_attention_plain(q, k, v, causal=causal), dtype)
+
+
+def test_flash_attention_bf16_keeps_probabilities_in_f32(cuda):
+    """k = [[0, 0], [1, 0]], v = I, q = [[0.0648, 0]] in bf16: the output is
+    the softmax itself; JAX and the plain version give 0.48828125, a
+    probability rounded to bf16 gave 0.49023438.  The kernel equals the plain
+    version exactly."""
+    q = torch.tensor([[0.0648, 0.0]], device=cuda).bfloat16()
+    k = torch.tensor([[0.0, 0.0], [1.0, 0.0]], device=cuda).bfloat16()
+    v = torch.eye(2, device=cuda).bfloat16()
+    got = mx_flash_attention(q, k, v, causal=False)
+    want = flash_attention_plain(q[None, :, None], k[None, :, None], v[None, :, None],
+                                 causal=False)[0, :, 0]
+    torch.cuda.synchronize()
+    assert got[0, 0].item() == 0.48828125
+    assert torch.equal(got, want)
 
 
 def test_flash_attention_refuses_what_it_does_not_take(cuda):

@@ -4,9 +4,11 @@ Pallas kernel (interpret mode) and oracle on the same numpy inputs, and
 `Attention.__call__` under "cuda_mx" (which routes through the kernel
 wrapper) against JAX's `Attention.__call__`.
 
-Tolerance: rtol = atol = 2e-4 in f32 and 3e-2 in bf16, as in
-tests/test_kernels_flash.py; the module-level calls at 1e-5 (the online
-softmax against JAX's one-shot softmax, both in f32)."""
+Tolerance: rtol = atol = 2e-4 in f32, as in tests/test_kernels_flash.py;
+bf16 bitwise against the Pallas kernel (both keep the probabilities in f32
+for the PV product: JAX's kernel widens v to f32 first); the module-level
+calls at 1e-5 (the online softmax against JAX's one-shot softmax, both in
+f32)."""
 import numpy as np
 import pytest
 
@@ -52,14 +54,39 @@ def test_flash_matches_jax_kernel(lq, lk, d, bq, bk, causal):
                                                       causal=causal)), **TOL)
 
 
-def test_flash_bf16():
-    q, k, v = (torch.from_numpy(a).bfloat16() for a in _qkv(0, 64, 64, 32))
-    got = mx_flash_attention(q, k, v)
+def _bf16_pair(q, k, v, causal, **tiles):
+    """The port's bf16 output and the Pallas kernel's on the same bf16
+    values, both as f32 numpy arrays."""
+    tq, tk, tv = (torch.from_numpy(a).bfloat16() for a in (q, k, v))
+    got = mx_flash_attention(tq, tk, tv, causal=causal)
     assert got.dtype == torch.bfloat16
-    jq, jk, jv = (jnp.asarray(t.float().numpy()).astype(jnp.bfloat16) for t in (q, k, v))
-    want = j_flash(jq, jk, jv, bq=32, bk=32, interpret=True)
-    np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32),
-                               rtol=3e-2, atol=3e-2)
+    jq, jk, jv = (jnp.asarray(t.float().numpy()).astype(jnp.bfloat16) for t in (tq, tk, tv))
+    want = j_flash(jq, jk, jv, causal=causal, interpret=True, **tiles)
+    return got.float().numpy(), np.asarray(want, np.float32)
+
+
+def test_flash_bf16():
+    """bf16 at JAX's tiles (32 x 32): bitwise the Pallas kernel."""
+    got, want = _bf16_pair(*_qkv(0, 64, 64, 32), True, bq=32, bk=32)
+    np.testing.assert_array_equal(got, want)
+
+
+def test_flash_bf16_full_is_bitwise_jax():
+    got, want = _bf16_pair(*_qkv(0, 64, 64, 32), False, bq=32, bk=32)
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("qs", [[0.0648], list(np.linspace(0.05, 3.0, 400))],
+                         ids=["crafted", "sweep"])
+def test_flash_bf16_probabilities_stay_f32(qs):
+    """Two keys, k = [[0, 0], [1, 0]], v = I: the output is the softmax
+    itself, so a probability rounded to bf16 before the PV product shows.
+    q = 0.0648 gives 0.48828125 in JAX and gave 0.49023438 (one bf16 ulp
+    off) while the port rounded p; over the sweep 103 of 400 rows did."""
+    q = np.stack([np.asarray(qs, np.float32), np.zeros(len(qs), np.float32)], 1)
+    k = np.array([[0, 0], [1, 0]], np.float32)
+    got, want = _bf16_pair(q, k, np.eye(2, dtype=np.float32), False)
+    np.testing.assert_array_equal(got, want)
 
 
 @pytest.mark.parametrize("causal", [True, False])
