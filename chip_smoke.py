@@ -12,8 +12,11 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      output round trip (ld/st.global.cg) and the MX library's none, and
      every prefill-tile kernel (csrc/prefill_tile.cuh) to hold tensor-core
      instructions (HMMA) and, outside ABFT, at most PREFILL_MAX_FFMA FFMAs
-     (printed on a line before the last), and every mx_flash_attention
-     kernel to hold HMMA;
+     (printed on a line before the last), every mx_flash_attention
+     kernel to hold HMMA, and every instantiation of the grouped GEMM's
+     "mma" route (csrc/grouped_mma.cuh; dense, 2:4 and ABFT libraries) to
+     hold HMMA and, outside ABFT, at most PREFILL_MAX_FFMA FFMAs; it also
+     builds the grouped GEMM's copies-only timing variant (GROUPED_COPIES);
   3. holds each kernel against its plain PyTorch version at the shapes of
      the main path (llama3.2-1b, plus qwen2-0.5b's ragged widths and
      zamba2-2.7b's Mamba2 projections, N = 10448 off every tile), in f32
@@ -72,7 +75,13 @@ Phase 3 also holds `mx_grouped_matmul` against `grouped_matmul_ref`: grok's
 decode (T = 64, 8 rows per expert) and expert-major prefill (8 x 128 rows)
 projections, ragged sizes with empty groups, tiles straddling four groups,
 sum < T (tail rows exactly zero) and sum > T, T/K/N off the tiles, and
-kimi-k2's 384 experts in bf16 (an 11.3 GB stack, offsets past 2^31).
+kimi-k2's 384 experts in bf16 (an 11.3 GB stack, offsets past 2^31); each
+line prints the launch's route, tile, stages, split, parts, CTAs and TB/s,
+the down projections `torch.bmm`'s time, and grok's decode down projection
+the copies-only variant's time and TB/s (the weight stream's own rate).
+Phase 3a adds the grouped ABFT case at grok's decode height (8 x 8 rows,
+16-row tiles) in f32 and bf16, and phases 7 / 7q print the grouped
+kernels' device time in each profiled decode step.
 
 The quantized path (stages 1b and 5b of the GEMMs, fp8 KV pages):
   3q. every quantized operand pair -- (bf16, int8) "int8", (bf16, fp8)
@@ -191,6 +200,12 @@ TF32_FLOPS = 495e12  # the tensor cores in TF32: the f32 prefill tile's 3xTF32 r
 # smallest tile unrolls 128 (2 x 4 outputs per thread, 16 K rows)
 PREFILL_MAX_FFMA = 127
 PREFILL_LIBS = ("mx_matmul", "mx_matmul_sparse", "mx_matmul_abft", "baseline_matmul")
+# the grouped GEMM's libraries: their "mma" route (csrc/grouped_mma.cuh) is
+# held to the prefill kernels' SASS rule
+GROUPED_LIBS = ("mx_grouped_matmul", "mx_grouped_matmul_sparse", "mx_grouped_matmul_abft")
+# the grouped GEMM's loop with copies only (no MMAs; wrong results, timing
+# only): the weight stream's own rate at grok's decode down projection
+GROUPED_COPIES = ("mx_grouped_matmul", ("PREFILL_TIMING_NO_PRODUCTS",))
 REL_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 QUANT_POLICIES = ("int8", "fp8", "int8_all", "fp8_all")  # the quantized operand pairs
 L2_BYTES = 50 * 2**20
@@ -592,6 +607,40 @@ def _expert_stack(torch, dev, G, K, N, dt, gen):
     return w
 
 
+def _grouped_tile(x, w, w_gate=None, variant="dense"):
+    """The grouped launch's route and tile (`_build.grouped_tile`), printed
+    beside its time."""
+    from repro_torch.kernels import _build
+
+    T, K = x.shape
+    G, _, N = w.shape
+    return _build.grouped_tile(T, N, K, G, x.dtype, w.dtype, w_gate is not None,
+                               variant)._asdict()
+
+
+def _grouped_copies(torch, x, w, gs, out):
+    """A launch of the grouped GEMM's copies-only variant (GROUPED_COPIES)
+    at the tile the package launches: the ring's copies and the group walk
+    without the MMAs (wrong results, timing only)."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.mx_grouped_matmul import _LAUNCHERS, launch_tile
+
+    T, K = x.shape
+    G, _, N = w.shape
+    route, tile = launch_tile(x, w)
+    src, sym, argtypes = _LAUNCHERS["dense", route]
+    fn = _build.function(src, sym, argtypes, defines=GROUPED_COPIES[1])
+    dt = _build.FLOATS + _build.QUANTIZED
+    args = (x.data_ptr(), w.data_ptr(), None, None, None, None, gs.data_ptr(),
+            out.data_ptr(), _build.dtype_code(out.dtype, "out"), T, N, K, G,
+            _build.dtype_code(x.dtype, "x", dt), _build.dtype_code(w.dtype, "w", dt), 0,
+            *tile, _build.stream_ptr(x))
+
+    def run():
+        _build.check(fn(*args), src, "the grouped copies-only variant")
+    return run
+
+
 def check_grouped(torch, dev, label, T, sizes, K, N, dtype_name, act, seed, w=None):
     """mx_grouped_matmul against grouped_matmul_ref; rows no group owns must
     be exact zeros.  The bound counts x's owned rows, the weights of the
@@ -628,12 +677,21 @@ def check_grouped(torch, dev, label, T, sizes, K, N, dtype_name, act, seed, w=No
         library = "torch.bmm over (E, C, K) x (E, K, N)"
         xe = x.view(G, T // G, K)
         fns["library_ms"] = (lambda: torch.bmm(xe, w), [()])
+    copies = label == "grok decode down"
+    if copies:  # the weight stream's rate without the MMAs
+        fns["copies_ms"] = (_grouped_copies(torch, x, w, gs, torch.empty_like(got)), [()])
     bound, by = _bound_ms(nbytes, 2 * rows * K * N * nmat, dtype_name)
+    times = _time_ms(torch, fns, iters=5)
+    extra = {}
+    if copies:
+        extra["copies_ms"] = statistics.median(times["windows_ms"]["copies_ms"])
+        extra["copies_tb_s"] = nbytes / extra["copies_ms"] / 1e9
     return dict(kernel="mx_grouped_matmul", label=label, T=T, G=G, K=K, N=N, act=act,
                 dtype=dtype_name, live_groups=live, rows=rows, max_abs_err=err, tol=tol,
                 zero_rows_exact=bool(torch.all(got[rows:] == 0)),
-                finite=bool(torch.isfinite(got).all()), **_time_ms(torch, fns, iters=5),
-                library=library, bound_ms=bound, bound_by=by)
+                finite=bool(torch.isfinite(got).all()), **times, **extra,
+                library=library, bound_ms=bound, bound_by=by, tb_s=nbytes / times["ms"] / 1e9,
+                grouped_tile=_grouped_tile(x, w, wg))
 
 
 def grouped_checks(torch, dev):
@@ -801,10 +859,12 @@ def check_quant_grouped(torch, dev, pol, label, T, C, K, N, act, seed):
     fns = dict(ms=(lambda: mx_grouped_matmul(qx, w, gs, **kw), [()]),
                plain_ms=(lambda: grouped_matmul_ref(qx, w, gs, **kw), [()]))
     bound, by = _bound_ms(nbytes, 2 * T * K * N * nmat, _peak_type(qx, w))
+    times = _time_ms(torch, fns, iters=5)
     return dict(kernel="mx_grouped_matmul", label=label, T=T, G=G, K=K, N=N, act=act,
                 dtype=pol, pair=f"{qx.dtype} x {w.dtype}", max_abs_err=err, tol=tol,
-                zero_rows_exact=True, **out, **_time_ms(torch, fns, iters=5),
-                library=None, bound_ms=bound, bound_by=by)
+                zero_rows_exact=True, **out, **times, library=None, bound_ms=bound,
+                bound_by=by, tb_s=nbytes / times["ms"] / 1e9,
+                grouped_tile=_grouped_tile(qx, w, wg))
 
 
 def quant_checks(torch, dev):
@@ -946,8 +1006,8 @@ def check_sparse_grouped(torch, dev, pol, label, T, sizes, K, N, act, seed):
     kw = dict(w_gate=wg, activation=act, b_scale=bs, bg_scale=gs, out_dtype=out_dtype)
     got = mx_grouped_matmul(x, w, sz, b_sparse=True, w_meta=wm, wg_meta=gm_, **kw)
     ref = grouped_matmul_ref(x, w, sz, w_meta=wm, wg_meta=gm_, **kw)
-    dense = mx_grouped_matmul(x, expand_24(w, wm), sz,
-                              **dict(kw, w_gate=expand_24(wg, gm_) if gated else None))
+    wd, wgd = expand_24(w, wm), expand_24(wg, gm_) if gated else None
+    dense = mx_grouped_matmul(x, wd, sz, **dict(kw, w_gate=wgd))
     torch.cuda.synchronize()
     err, tol = _err(torch, got, ref, "float32" if out_dtype == torch.float32 else "bfloat16")
     owned, start = [], 0
@@ -963,14 +1023,19 @@ def check_sparse_grouped(torch, dev, pol, label, T, sizes, K, N, act, seed):
     fns = dict(ms=(lambda: mx_grouped_matmul(x, w, sz, b_sparse=True, w_meta=wm,
                                              wg_meta=gm_, **kw), [()]),
                plain_ms=(lambda: grouped_matmul_ref(x, w, sz, w_meta=wm, wg_meta=gm_, **kw),
-                         [()]))
+                         [()]),
+               dense_ms=(lambda: mx_grouped_matmul(x, wd, sz, **dict(kw, w_gate=wgd)), [()]))
     bound, by = _bound_ms(nbytes, 2 * rows * K * N * nmat, _peak_type(x, w))
+    times = _time_ms(torch, fns, windows=3, iters=5)
+    times["dense_kernel_ms"] = statistics.median(times["windows_ms"]["dense_ms"])
     return dict(kernel="mx_grouped_matmul", variant="sparse", label=label, T=T, G=G, K=K,
                 N=N, act=act, dtype=pol, pair=f"{x.dtype} x {w.dtype}", max_abs_err=err,
                 tol=tol, bitwise_vs_dense=bool(torch.equal(got, dense)),
                 zero_rows_exact=bool(torch.all(got[rows:] == 0)),
-                finite=bool(torch.isfinite(got).all()), **_time_ms(torch, fns, windows=3, iters=5),
-                library=None, bound_ms=bound, bound_by=by, weight_bytes=wbytes)
+                finite=bool(torch.isfinite(got).all()), **times,
+                library=None, bound_ms=bound, bound_by=by, weight_bytes=wbytes,
+                tb_s=nbytes / times["ms"] / 1e9,
+                grouped_tile=_grouped_tile(x, w, wg if gated else None, "sparse"))
 
 
 def sparse_checks(torch, dev):
@@ -1029,12 +1094,14 @@ ABFT_PAIRS = ("f32", "bf16", "int8", "fp8", "int8_all", "fp8_all", *SPARSE_POLIC
 
 
 def check_abft(torch, dev, pol, grouped, seed, fused_shape=(8, 2048, 8192),
-               grouped_shape=(70, 6144, 4096)):
+               grouped_shape=(70, 6144, 4096), sizes=(0, 13, 0, 0, 40, 3, 0, 7),
+               fault_tile=(1, 5), fault_row=3):
     """Stage 1d / 5d on one pair: ABFT on bitwise equal to off with no
     tile flagged; an injected fault flags exactly its tile and the flag map
     equals the plain version's; recovery (ops) bitwise; max_retries = 0
     raises SDCError naming the tile; for int8 x int8 a delta of 1 is
-    caught.  Times ABFT on against off."""
+    caught.  Times ABFT on against off.  The grouped case: `sizes`, and the
+    fault at `fault_tile`, row `fault_row` of the tile."""
     from repro_torch.core import ops
     from repro_torch.kernels import _build
     from repro_torch.kernels import abft as ab
@@ -1045,14 +1112,14 @@ def check_abft(torch, dev, pol, grouped, seed, fused_shape=(8, 2048, 8192),
 
     gen = torch.Generator(device=dev).manual_seed(seed)
     if grouped:
-        (T, K, N), sizes, G = grouped_shape, [0, 13, 0, 0, 40, 3, 0, 7], 8
+        (T, K, N), G = grouped_shape, len(sizes)
         x, a_s, (w, bs), (wg, gs) = _dense_pair(torch, dev, pol, T, K, N, True, gen, G)
         sz = torch.tensor(sizes, dtype=torch.int32, device=dev)
         out_dtype = torch.float32
         kw = dict(w_gate=wg, activation="swiglu", a_scale=a_s, b_scale=bs, bg_scale=gs,
                   out_dtype=out_dtype)
         spec = grouped_spec(x, w)
-        bm, bn, _ = _build.grouped_tile(T, G)
+        bm, bn = _build.grouped_flag_tile(T, G, x.dtype, w.dtype)
 
         def run(**k):
             return mx_grouped_matmul(x, w, sz, **kw, **k)
@@ -1063,7 +1130,6 @@ def check_abft(torch, dev, pol, grouped, seed, fused_shape=(8, 2048, 8192),
         def recover(cfg):
             return ops._abft_grouped_gemm(x, w, sz, activation="swiglu", w_gate=wg, a_s=a_s,
                                           b_s=bs, bg_s=gs, out_dtype=out_dtype, cfg=cfg)
-        fault_tile, fault_row = (1, 5), 3  # rows 8-15: groups 1 and 4 straddle it
         M = T
     else:
         M, K, N = fused_shape
@@ -1133,22 +1199,37 @@ def check_abft(torch, dev, pol, grouped, seed, fused_shape=(8, 2048, 8192),
     out["ok"] = (out["clean_bitwise"] and not out["clean_flags"] and out["fault_flags_exact"]
                  and out["flags_equal_plain"] and out["recovery_bitwise"]
                  and out["sdc_raised"] is True and err <= tol)
+    if grouped:
+        out["grouped_tile"] = _grouped_tile(x, w, wg, "abft")
     return dict(kernel="mx_grouped_matmul" if grouped else "mx_matmul_fused", variant="abft",
                 dtype=pol, pair=f"{x.dtype} x {w.dtype}", M=M, K=K, N=N, exact=spec.exact,
                 delta=delta, **out)
+
+
+def _tile_note(c) -> str:
+    t = c.get("grouped_tile")
+    return (f" [{t['route']} tile {t['bm']}x{t['bn']} stages {t['stages']} parts "
+            f"{t['parts']} ctas {t['ctas']}]" if t else "")
 
 
 def abft_checks(torch, dev):
     """Phase 3a: both GEMMs on the six dense pairs and the three sparse
     policies (expanded first)."""
     checks, seed = [], 700
-    for grouped, shape in ((False, (8, 2048, 8192)), (False, (40, 2048, 8192)),
-                           (False, (65, 2048, 8192)), (True, None)):
+    # grok's decode height (8 experts x 8 rows, 16-row tiles over two groups)
+    # at its up+gate widths cut to K = 4096: a fault in the second tile of
+    # rows, column tile 5, row 11 (expert 3's)
+    grok = dict(grouped_shape=(64, 4096, 6144), sizes=(8,) * 8, fault_tile=(1, 5),
+                fault_row=11)
+    for grouped, shape, pols in (
+            (False, dict(fused_shape=(8, 2048, 8192)), ABFT_PAIRS),
+            (False, dict(fused_shape=(40, 2048, 8192)), ABFT_PAIRS),
+            (False, dict(fused_shape=(65, 2048, 8192)), ABFT_PAIRS),
+            (True, {}, ABFT_PAIRS), (True, grok, ("f32", "bf16"))):
         # decode; a verify step and one row past a 64-token chunk (the prefill tile)
-        for pol in ABFT_PAIRS:
+        for pol in pols:
             seed += 1
-            c = check_abft(torch, dev, pol, grouped, seed,
-                           **({} if shape is None else dict(fused_shape=shape)))
+            c = check_abft(torch, dev, pol, grouped, seed, **shape)
             checks.append(c)
             print(f"  {c['kernel']:17s} abft M={c['M']:<3d} {pol:14s} {c['pair']:32s} "
                   f"clean bitwise "
@@ -1157,7 +1238,7 @@ def abft_checks(torch, dev):
                   f"recovery bitwise {c['recovery_bitwise']}; SDCError {c['sdc_raised']}; "
                   f"err vs plain {c['max_abs_err']:.2e} (tol {c['tol']:.2e}); ms on "
                   f"{c['abft_ms']:.4f} off {c['off_ms']:.4f} plain {c['plain_ms']:.4f} bound "
-                  f"{c['bound_ms']:.4f} {'ok' if c['ok'] else 'FAIL'}")
+                  f"{c['bound_ms']:.4f}{_tile_note(c)} {'ok' if c['ok'] else 'FAIL'}")
             gc.collect()
             torch.cuda.empty_cache()
     bad = [c for c in checks if not c["ok"]]
@@ -1262,6 +1343,13 @@ def phase_kernels(torch, dev):
                       f"{t['ctas']}]")
             if "route_bound_ms" in c:
                 extra += f" 3xTF32 bound {c['route_bound_ms']:.4f}"
+        if c.get("grouped_tile"):
+            t = c["grouped_tile"]
+            extra += (f" [{t['route']} tile {t['bm']}x{t['bn']} stages {t['stages']} split "
+                      f"{t['split']} parts {t['parts']} ctas {t['ctas']}] {c['tb_s']:.2f} TB/s")
+            if "copies_ms" in c:
+                extra += (f"; copies only {c['copies_ms']:.4f} ms, "
+                          f"{c['copies_tb_s']:.2f} TB/s")
         if c.get("tile"):
             t = c["tile"]
             extra += (f" [decode tile bn {t['bn']} bk {t['bk']} tm {t['tm']} stages "
@@ -1530,14 +1618,18 @@ def _profile(torch, fn):
     if device_ms == 0:
         return dict(measured=False, window_ms=wall_ms)
     attention = {}  # the attention kernels' device time, wherever they rank
+    grouped = dict(ms=0.0, calls=0)  # the grouped GEMM's kernels (both routes)
     for k, ms, n in rows:
         for kern in ("flash_attention_kernel", "flash_verify_kernel", "flash_decode_kernel"):
             if kern in k:
                 a = attention.setdefault(kern, dict(ms=0.0, calls=0))
                 a["ms"] += ms
                 a["calls"] += n
+        if "grouped_kernel" in k or "grouped_mma_kernel" in k:
+            grouped["ms"] += ms
+            grouped["calls"] += n
     return dict(measured=True, window_ms=wall_ms, device_ms=device_ms,
-                busy_share=device_ms / wall_ms, attention=attention,
+                busy_share=device_ms / wall_ms, attention=attention, grouped=grouped,
                 top=[dict(name=k[:90], ms=ms, calls=n) for k, ms, n in rows[:12]])
 
 
@@ -2285,6 +2377,10 @@ def _print_profile(what, p):
         for k, a in p["attention"].items():
             print(f"      attention: {k} {a['ms']:.3f} ms over {a['calls']} calls "
                   f"({100 * a['ms'] / p['device_ms']:.1f}% of device time)")
+        if p["grouped"]["calls"]:
+            g = p["grouped"]
+            print(f"      grouped GEMM: {g['ms']:.3f} ms over {g['calls']} launches "
+                  f"({100 * g['ms'] / p['device_ms']:.1f}% of device time)")
     else:
         print(f"    profile ({what}): device time not measured "
               f"(window {p['window_ms']:.2f} ms)")
@@ -2975,7 +3071,7 @@ def main() -> int:
     print(smi)
     print(f"[1] device: {smi} | torch {torch.__version__} cuda {torch.version.cuda}")
 
-    build_s = _build.build_all()
+    build_s = _build.build_all(variants=[GROUPED_COPIES])
     print(f"[2] built {len(_build.SOURCES)} CUDA sources for sm_90a in {build_s:.1f} s; "
           f"nvcc CPU s per source {_build.NVCC_CPU_SECONDS}")
     ptxas = []
@@ -2999,6 +3095,19 @@ def main() -> int:
                 or ("abft" not in k and c["ffma"] > PREFILL_MAX_FFMA)}
     if len(mma_sass) < 4 or bad_sass:
         raise AssertionError(f"prefill kernels off the tensor cores: {bad_sass or mma_sass}")
+    # the grouped GEMM's "mma" route: every instantiation (dense, 2:4, ABFT)
+    # holds tensor-core instructions, and outside ABFT no more FFMAs than
+    # the prefill kernels
+    grouped_sass = sass_mma_counts(GROUPED_LIBS, "grouped_mma_kernel")
+    bad_sass = {k: c for k, c in grouped_sass.items() if not c["mma"]
+                or ("abft" not in k and c["ffma"] > PREFILL_MAX_FFMA)}
+    print(f"    grouped mma SASS: {len(grouped_sass)} kernels, tensor-core instructions "
+          f"{min(c['mma'] for c in grouped_sass.values()) if grouped_sass else 0} or more "
+          f"each, FFMAs at most "
+          f"{max((c['ffma'] for k, c in grouped_sass.items() if 'abft' not in k), default=0)}"
+          f" outside ABFT")
+    if len(grouped_sass) < 3 or bad_sass:
+        raise AssertionError(f"grouped kernels off the tensor cores: {bad_sass or grouped_sass}")
     attn_sass = sass_mma_counts(("mx_flash_attention",), "flash_attention_kernel")
     print(f"    mx_flash_attention SASS: {len(attn_sass)} kernels, tensor-core instructions "
           f"{min(c['mma'] for c in attn_sass.values()) if attn_sass else 0} or more each")
@@ -3131,6 +3240,7 @@ def main() -> int:
     (out_dir / "chip_smoke.json").write_text(json.dumps(dict(
         device=smi, build_s=build_s, nvcc_cpu_s=_build.NVCC_CPU_SECONDS, ptxas=ptxas,
         checks=checks, abft_checks=abft_checks_, prefill_sass=mma_sass,
+        grouped_sass=grouped_sass,
         attention_sass=attn_sass,
         **llama, grok=grok, zamba2=zamba2, kernels=summary), indent=1, default=str))
     print("prefill tile SASS (tensor-core / FFMA instructions per kernel): " + "; ".join(

@@ -82,7 +82,8 @@ from ..kernels.baseline_matmul import baseline_matmul
 from ..kernels.mx_grouped_matmul import mx_grouped_matmul
 from ..kernels.mx_grouped_matmul import abft_spec_for as grouped_abft_spec
 from ..kernels.mx_matmul import (Epilogue, abft_spec_for, apply_epilogue, dot_f32,
-                                 fused_route, mx_matmul_fused, recompute_fused)
+                                 fused_route, grouped_route, mx_matmul_fused,
+                                 recompute_fused)
 from ..kernels.quant import quantize_operand
 from ..kernels.ref import grouped_matmul_ref
 from ..kernels.sparse import compress_24, expand_24, prune_24
@@ -312,13 +313,15 @@ def _abft_grouped_gemm(x, w, group_sizes, *, activation, w_gate, a_s, b_s, bg_s,
     OVERLAPPING expert through the fused kernel on the tile's rows of x and
     that expert's weight columns, with the grouped kernel's epilogue order,
     and only that expert's rows are written back: the fault-free grouped
-    launch's bits (`recompute_fused` on the "simt" route: the grouped
-    kernel's serial K chain, at every M).  A flagged tile whose rows no
-    group owns needs no recompute (its rows are zeros whatever the
-    accumulator)."""
+    launch's bits (`recompute_fused` on the grouped launch's route,
+    `grouped_route`: "mma" sums the same K parts in the same order as the
+    grouped launch at any row count, "simt" runs the same serial K chain).
+    A flagged tile whose rows no group owns needs no recompute (its rows are
+    zeros whatever the accumulator)."""
     T, K = x.shape
     G, _, N = w.shape
-    bm, bn, _ = _build.grouped_tile(T, G)
+    bm, bn = _build.grouped_flag_tile(T, G, x.dtype, w.dtype)
+    route = grouped_route(T, N, K, G, x.dtype, w.dtype, w_gate is not None, "abft")
     gm, gn = -(-T // bm), -(-N // bn)
     spec = grouped_abft_spec(x, w)
     base = dict(w_gate=w_gate, activation=activation, a_scale=a_s, b_scale=b_s,
@@ -351,7 +354,7 @@ def _abft_grouped_gemm(x, w, group_sizes, *, activation, w_gate, a_s, b_s, bg_s,
                     continue
                 ws = _cols(w[g], c0, c1)
                 t_out, t_flags = recompute_fused(
-                    "simt", xs, ws, epilogue=ep,
+                    route, xs, ws, epilogue=ep,
                     b_gate=None if w_gate is None else _cols(w_gate[g], c0, c1),
                     a_scale=None if a_s is None else a_s[r0:r1],
                     b_scale=None if b_s is None else _cols(b_s[g], c0, c1),

@@ -165,7 +165,8 @@ struct AbftHook {
 
 // The same checksums over the prefill tile's staged operands (Cfg:
 // PrefillCfg): A's BM rows of BK and B's BK rows of BN as staged in A's
-// type T (a narrow weight already widened), to f32 as they are summed; the
+// type T (a narrow weight already widened, or its raw rows under
+// kRegWiden), to f32 as they are summed; the
 // finished
 // tile (after the fold of every K part) is Cs.  The CTA tile is gemm_tile's
 // (BM x BN) and the launch has split 1, so one CTA owns one flag.
@@ -184,6 +185,9 @@ struct AbftPrefillHook {
     return to_f32(*reinterpret_cast<const T*>(slot + m * Cfg::kAStride + k * Cfg::kE));
   }
   __device__ __forceinline__ static float at_b(const unsigned char* slot, int k, int n) {
+    if constexpr (Cfg::kRegWiden)  // the raw narrow weight: the same value, unwidened
+      return to_f32(*reinterpret_cast<const typename Cfg::WeightT*>(
+          slot + Cfg::raw_off(0) + k * Cfg::kPRow + n));
     return to_f32(
         *reinterpret_cast<const T*>(slot + Cfg::b_off(0) + k * Cfg::kBStride + n * Cfg::kE));
   }

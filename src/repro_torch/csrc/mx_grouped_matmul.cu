@@ -24,27 +24,49 @@
 // them gives each group's rows (clamped to T, as make_group_metadata clamps
 // to the padded rows, so oversubscribed sizes drop rows that do not exist;
 // a negative size counts as 0).  For every non-empty group that overlaps its
-// rows the CTA runs the whole K loop over that expert's weights with f32
-// accumulators in registers (the paper's inter-k buffer, zeroed per group),
-// applies the epilogue in registers and stores only the rows the group
-// owns; rows past the last group are stored as zeros.  Each output row is
-// written once, by one CTA: the TPU kernel's first-writer merge has nothing
-// left to do.  Empty groups cost one step of the scan and no weight bytes.
+// rows the CTA runs the whole K loop over that expert's weights (the
+// paper's inter-k buffer, zeroed per group), applies the epilogue and
+// stores only the rows the group owns; rows past the last group are stored
+// as zeros.  Each output row is written once, by one CTA: the TPU kernel's
+// first-writer merge has nothing left to do.  Empty groups cost one step of
+// the scan and no weight bytes.  Weight offsets are int64: kimi-k2's (384,
+// 7168, 2048) expert stack holds 5.64 G elements, past int32.
 //
-// Weight offsets are int64: kimi-k2's (384, 7168, 2048) expert stack holds
-// 5.64 G elements, past int32.
+// Two K loops, one per operand pair (kernels/_build.grouped_tile's route,
+// read by the launcher and by core/ops.py's ABFT recovery):
+//   * "mma" -- f32, bf16, bf16 x int8 / e4m3 (mx_grouped_matmul_mma_launch,
+//     csrc/grouped_mma.cuh): the fused GEMM's tensor-core prefill loop
+//     (csrc/prefill_tile.cuh) per group visit;
+//   * "simt" -- int8 x int8 in an exact int32 MAC and e4m3 x e4m3
+//     (mx_grouped_matmul_launch, below): gemm_tile.cuh's sweep_k with one
+//     thread per column over 8 rows (8 x 128 CTA tiles) at decode, 2 x 4 or
+//     4 x 4 register tiles above.
 //
-// What bounds it on the H100: at decode (8 rows per expert) every expert's
-// weights are streamed for a handful of rows -- HBM bytes bound (3.35 TB/s).
-// That tile keeps one thread per output column over all 8 rows (8 FMAs per
-// staged weight element, so shared memory is not the limit) and 128-column
-// CTAs, 2048 of them for grok's up projection.  An int8 / fp8 expert stack
-// moves a quarter of the f32 bytes, still one byte per thread per load, far
-// from that bound.  At an expert-major prefill
-// chunk (128 rows per expert) it is f32 FLOP bound on the CUDA cores (67
-// TFLOP/s), on the MX GEMM's 4 x 4 register tiles.  Tensor cores (wgmma),
-// TMA and a persistent group-aware schedule are left to later work.
-#include "gemm_tile.cuh"
+// What bounds it on the H100: at grok-1's widths every regime is bytes
+// bound.  Its decode step streams each expert's weight for 8 rows (an MoE's
+// capacity floor): the down projection, K = 32768, N = 6144, is 6.44 GB in
+// f32 (1.93 ms at 3.35 TB/s) for 3.2 GFLOP; even an expert-major prefill
+// chunk of 128 rows per expert in bf16 is 412 GFLOP (0.42 ms at 989 TFLOP/s)
+// on 3.22 GB of weight (0.96 ms).  The kernel is a weight stream with
+// arithmetic inside.  The "simt" loop it replaces for the float pairs kept
+// one K step in flight per CTA, widened bf16 element by element and moved
+// an int8 or e4m3 weight one byte per thread per load: 2.0 TB/s in f32 at
+// decode, 0.38 in bf16, and (bf16, int8) slower than f32.  The "mma" route
+// instead streams the weight in its own width through a ring of 16-byte
+// cp.async.cg copies (a copies-only loop moves 2.45-2.98 TB/s at grok's decode
+// down projection, so TMA was not built), multiplies on the tensor cores
+// (mma.sync: bf16 m16n8k16, f32 as 3xTF32, an int8 or e4m3 weight widened to
+// bf16 exactly, in registers on the 16-row tile), and fills the card at
+// decode height with 16-row tiles over two groups (each expert streamed
+// once) and K split across a cluster of CTAs where the grid is small.
+// Measured on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md section 6;
+// tools/grouped_variants.py): grok's decode down projection f32 2.42 ms
+// against bmm's 3.02 (was 3.17), bf16 1.17 against 1.07 (was 8.57), (bf16,
+// int8) 0.75 (was 8.58); its prefill down projection f32 11.0 ms against
+// bmm's 9.7 (was 21.9), bf16 2.43 against 1.08 (was 37.3).  What bounds it
+// now: the bytes at decode height (2.7-3.0 TB/s in f32 and bf16), the
+// 3xTF32 products in an f32 prefill chunk, the copies in a bf16 one.
+#include "grouped_mma.cuh"  // the "mma" route; gemm_tile.cuh
 
 REPRO_EXPORT_ERROR_STRING
 
@@ -161,11 +183,11 @@ static int dispatch(const void* x, const void* w, const void* wg, const Args& r,
   return 0;
 }
 
-// x (T, K) of dtype x_dt; w / w_gate (G, K, N) of dtype w_dt, one of the
-// pairs above; row-major, contiguous.  a_scale (T,), b_scale / bg_scale
-// (G, N) f32 or null; sizes (G,) int32 on the device; out (T, N) in
-// `out_dt`.  w_gate is null unless act == kSwiglu.  (bm, bn, bk): the tile.
-// An unsupported pair or tile returns cudaErrorInvalidValue.
+// The "simt" route (int8 x int8, e4m3 x e4m3).  x (T, K) of dtype x_dt;
+// w / w_gate (G, K, N) of dtype w_dt; row-major, contiguous.  a_scale (T,),
+// b_scale / bg_scale (G, N) f32 or null; sizes (G,) int32 on the device;
+// out (T, N) in `out_dt`.  w_gate is null unless act == kSwiglu.  (bm, bn,
+// bk): the tile.  Any other pair or tile returns cudaErrorInvalidValue.
 extern "C" int mx_grouped_matmul_launch(const void* x, const void* w, const void* w_gate,
                                         const void* a_scale, const void* b_scale,
                                         const void* bg_scale, const void* sizes, void* out,
@@ -177,18 +199,31 @@ extern "C" int mx_grouped_matmul_launch(const void* x, const void* w, const void
                static_cast<const float*>(bg_scale), static_cast<const int*>(sizes), out,
                out_dt, T_, N, K, G, act};
   int err = static_cast<int>(cudaErrorInvalidValue);
-  if (x_dt == kF32 && w_dt == kF32)
-    err = dispatch<float, float, float>(x, w, w_gate, r, bm, bn, bk, s);
-  else if (x_dt == kBF16 && w_dt == kBF16)
-    err = dispatch<float, __nv_bfloat16, __nv_bfloat16>(x, w, w_gate, r, bm, bn, bk, s);
-  else if (x_dt == kBF16 && w_dt == kI8)
-    err = dispatch<float, __nv_bfloat16, int8_t>(x, w, w_gate, r, bm, bn, bk, s);
-  else if (x_dt == kBF16 && w_dt == kF8)
-    err = dispatch<float, __nv_bfloat16, __nv_fp8_e4m3>(x, w, w_gate, r, bm, bn, bk, s);
-  else if (x_dt == kI8 && w_dt == kI8)
+  if (x_dt == kI8 && w_dt == kI8)
     err = dispatch<int, int8_t, int8_t>(x, w, w_gate, r, bm, bn, bk, s);
   else if (x_dt == kF8 && w_dt == kF8)
     err = dispatch<float, __nv_fp8_e4m3, __nv_fp8_e4m3>(x, w, w_gate, r, bm, bn, bk, s);
   if (err) return err;
   return static_cast<int>(cudaGetLastError());
+}
+
+// The "mma" route (f32, bf16, bf16 x int8 / e4m3; csrc/grouped_mma.cuh): as
+// mx_grouped_matmul_launch, with the tile of kernels/_build.grouped_tile --
+// (bm, bn) CTA tile, `stages` ring slots, K cut into `parts` parts, `split`
+// CTAs per cluster -- and the copy widths va / vb (bytes) of x's and the
+// weights' rows.  A pair, tile or width the loop refuses returns
+// cudaErrorInvalidValue.
+extern "C" int mx_grouped_matmul_mma_launch(const void* x, const void* w, const void* w_gate,
+                                            const void* a_scale, const void* b_scale,
+                                            const void* bg_scale, const void* sizes, void* out,
+                                            int out_dt, int T_, int N, int K, int G, int x_dt,
+                                            int w_dt, int act, int bm, int bn, int stages,
+                                            int split, int parts, int va, int vb, int vm,
+                                            void* stream) {
+  const GroupedArgs r{x, w, w_gate, nullptr, nullptr, static_cast<const float*>(a_scale),
+                      static_cast<const float*>(b_scale), static_cast<const float*>(bg_scale),
+                      static_cast<const int*>(sizes), out, out_dt, T_, N, K, G, act,
+                      nullptr, nullptr, nullptr, nullptr, 0.0f, 0.0f};
+  return grouped_mma_run<kGroupedDense>(r, x_dt, w_dt, bm, bn, stages, split, parts, va, vb,
+                                        vm, stream);
 }

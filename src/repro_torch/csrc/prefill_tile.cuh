@@ -49,10 +49,13 @@
 // The tile (BM, BN, stages, split, parts) and the copy widths are chosen in
 // Python (kernels/_build.prefill_tile / copy_width) and checked by
 // prefill_check.  Three macros, never set by the package's build, cut parts
-// of the loop for timing only (tools/prefill_variants.py; wrong results):
-// PREFILL_TIMING_NO_PRODUCTS (the ring without the MMAs),
-// PREFILL_TIMING_NO_COPIES (no copies once the ring is primed) and
-// PREFILL_TIMING_ONE_TF32 (one TF32 product per f32 step, not three).
+// of the loop for timing only (tools/prefill_variants.py,
+// tools/grouped_variants.py; wrong results): PREFILL_TIMING_NO_PRODUCTS
+// (the ring without the MMAs), PREFILL_TIMING_NO_COPIES (no copies once the
+// ring is primed) and PREFILL_TIMING_ONE_TF32 (one TF32 product per f32
+// step, not three); a fourth, PREFILL_TIMING_B_IN_SMEM, widens a 16-row
+// tile's narrow weight in the shared-memory pass (right results; the A/B
+// against widening in registers).
 //
 // The route, per pair: mma.sync for f32 (3xTF32), bf16 and the widened
 // pairs alike; int8 x int8 and e4m3 x e4m3 (s8 and e4m3 MMAs, whose B
@@ -104,38 +107,55 @@ struct MmaOf<__nv_bfloat16> {  // m16n8k16
 };
 
 // The layout of one (BM x BN) tile: 2 x (BN / 32) warps of (BM / 2) x 32
-// outputs each (MT m16 tiles by 4 n8 tiles); one ring slot holds A's BM
+// outputs each (MT m16 tiles by 4 n8 tiles), or for BM = 16 (the grouped
+// GEMM's decode-height tile, csrc/grouped_mma.cuh) one row of BN / 32 warps
+// of 16 x 32; one ring slot holds A's BM
 // rows, B's (and the gate's) BK rows in A's type T and, for 2:4 or a
 // narrower weight type TB (int8 or e4m3 beside bf16 A), the raw rows they
 // are expanded or widened from; Cs holds the finished f32 tile (and the
 // gate's).
 template <typename T, int BM, int BN, bool GATE, bool SPARSE, typename TB = T>
 struct PrefillCfg {
+  using WeightT = TB;
   static constexpr int kBK = MmaOf<T>::kBK;  // 128 bytes of each A row per stage
   static constexpr int kE = sizeof(T), kEB = sizeof(TB);
   static constexpr bool kWiden = !std::is_same<T, TB>::value;
+  // On the one-warp-row tile (BM = 16) a narrow dense weight is widened in
+  // registers as its B fragments are built (b_frags_widen): no widened copy
+  // in shared memory, no widening pass and barrier per step.  Its raw rows
+  // are padded by 16 bytes, so a warp's four-row reads fall on 32 banks.
+  // The wider tiles widen in a shared-memory pass (pf_widen), which each of
+  // their two warp rows then reads; 2:4 weights expand in that pass
+  // (pf_expand) on every tile.
+#ifdef PREFILL_TIMING_B_IN_SMEM
+  static constexpr bool kRegWiden = false;
+#else
+  static constexpr bool kRegWiden = kWiden && !SPARSE && BM == 16;
+#endif
   static constexpr int kWarpsN = BN / 32;
-  static constexpr int kThreads = 64 * kWarpsN;
-  static constexpr int kWM = BM / 2, kMT = kWM / 16, kNT = 4;
+  static constexpr int kWarpsM = BM == 16 ? 1 : 2;
+  static constexpr int kThreads = 32 * kWarpsM * kWarpsN;
+  static constexpr int kWM = BM / kWarpsM, kMT = kWM / 16, kNT = 4;
   static constexpr int kAStride = kBK * kE + 16;  // bytes per staged A row (128 + 16)
   static constexpr int kBStride = (BN + 8) * kE;  // bytes per staged B row
   static constexpr int kABytes = BM * kAStride;
   static constexpr int kBBytes = kBK * kBStride;
-  static constexpr int kPRow = BN * kEB;  // a raw weight or 2:4 payload row
+  static constexpr int kPRow = BN * kEB + (kRegWiden ? 16 : 0);  // a raw weight or 2:4 payload row
   static constexpr int kRawBytes = SPARSE  ? (kBK / 2) * kPRow + (kBK / 8) * BN
                                    : kWiden ? kBK * kPRow
                                             : 0;
   static constexpr int kMats = GATE ? 2 : 1;
-  static constexpr int kSlot = kABytes + kMats * (kBBytes + kRawBytes);
+  static constexpr int kBSlot = kRegWiden ? 0 : kBBytes;  // the staged B tile in A's type
+  static constexpr int kSlot = kABytes + kMats * (kBSlot + kRawBytes);
   static constexpr int kCStride = BN + 8;  // f32 words per Cs row
   static constexpr int kCBytes = BM * kCStride * 4 * kMats;
-  static_assert(BM % 32 == 0 && BM <= 128 && (BN == 64 || BN == 128),
-                "a tile of csrc/prefill_tile.cuh");  // kernels/_build.PREFILL_TILES
+  static_assert((BM == 16 || BM % 32 == 0) && BM <= 128 && (BN == 64 || BN == 128),
+                "a tile of csrc/prefill_tile.cuh");  // kernels/_build.PREFILL_TILES, GROUPED_TILES
   static_assert(kABytes % 16 == 0 && kBBytes % 16 == 0 && kRawBytes % 16 == 0, "16-byte rows");
 
-  __host__ __device__ static constexpr int b_off(int mat) { return kABytes + mat * kBBytes; }
+  __host__ __device__ static constexpr int b_off(int mat) { return kABytes + mat * kBSlot; }
   __host__ __device__ static constexpr int raw_off(int mat) {
-    return kABytes + kMats * kBBytes + mat * kRawBytes;
+    return kABytes + kMats * kBSlot + mat * kRawBytes;
   }
 };
 
@@ -261,45 +281,92 @@ __device__ __forceinline__ void pf_issue(unsigned char* slot, const PrefillShape
 // the dense kernel's bits.
 template <typename Cfg, typename T, typename TB, int BN>
 __device__ __forceinline__ void pf_expand(unsigned char* bdst, const unsigned char* raw) {
-  constexpr int BK = Cfg::kBK;
+  constexpr int BK = Cfg::kBK, kItems = (BK / 8) * BN / Cfg::kThreads;
+  static_assert((BK / 8) * BN % Cfg::kThreads == 0, "whole items per thread");
   const TB* P = reinterpret_cast<const TB*>(raw);
   const uint8_t* Mt = raw + (BK / 2) * Cfg::kPRow;
-  for (int e = threadIdx.x; e < (BK / 8) * BN; e += Cfg::kThreads) {
-    const int b = e / BN, n = e % BN;
-    const int mb = Mt[b * BN + n];
+  int mb[kItems];  // every item's reads first, so their latencies overlap
+  float p[kItems][4];
+#pragma unroll
+  for (int i = 0; i < kItems; ++i) {
+    const int e = threadIdx.x + i * Cfg::kThreads, b = e / BN, n = e % BN;
+    mb[i] = Mt[b * BN + n];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) p[i][q] = to_f32(P[(4 * b + q) * BN + n]);
+  }
+#pragma unroll
+  for (int i = 0; i < kItems; ++i) {
+    const int e = threadIdx.x + i * Cfg::kThreads, b = e / BN, n = e % BN;
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      const int nib = h ? mb >> 4 : mb & 0xF;
+      const int nib = h ? mb[i] >> 4 : mb[i] & 0xF;
       const int i0 = nib & 3, i1 = (nib >> 2) & 3;
-      const float p0 = to_f32(P[(4 * b + 2 * h) * BN + n]);
-      const float p1 = to_f32(P[(4 * b + 2 * h + 1) * BN + n]);
 #pragma unroll
       for (int j = 0; j < 4; ++j)
         from_f32(reinterpret_cast<T*>(bdst + (8 * b + 4 * h + j) * Cfg::kBStride) + n,
-                 (i0 == j ? p0 : 0.0f) + (i1 == j ? p1 : 0.0f));
+                 (i0 == j ? p[i][2 * h] : 0.0f) + (i1 == j ? p[i][2 * h + 1] : 0.0f));
     }
   }
 }
 
+// Four narrow weights (the bytes of w, byte j the j-th) as the bits of four
+// f32 values, exactly: every int8 and every finite e4m3 value is a bf16
+// value whose f32 form has its low 16 bits zero, so the bf16 is the f32's
+// high half (pack_bf16x2).  Integer and bit operations only, no conversion
+// instructions (which issue at a quarter of the ALU rate):
+//   int8: byte j, offset to u = x + 128, is placed under the exponent of
+//     2^23 (0x4B0000uu is 2^23 + u), and 2^23 + 128 is subtracted;
+//   e4m3: sign to bit 31, exponent and mantissa to bits 20..26 (an f32 of
+//     exponent e - 127, or an f32 subnormal for e4m3's), times 2^120.
+__device__ __forceinline__ void widen4_f32(uint32_t w, int8_t, uint32_t (&f)[4]) {
+  const uint32_t u = w ^ 0x80808080u;
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    f[j] = __float_as_uint(__uint_as_float(__byte_perm(u, 0x4B000000u, 0x7650 + j)) -
+                           8388736.0f);
+}
+
+__device__ __forceinline__ void widen4_f32(uint32_t w, __nv_fp8_e4m3, uint32_t (&f)[4]) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const uint32_t t = __byte_perm(w, 0u, 0x0444 + (j << 12));  // byte j on top
+    f[j] = __float_as_uint(
+        __uint_as_float((t & 0x80000000u) | ((t & 0x7F000000u) >> 4)) * 0x1p120f);
+  }
+}
+
+// The high halves of two f32 values, a's low: two bf16 in one word.
+__device__ __forceinline__ uint32_t pack_bf16x2(uint32_t a, uint32_t b) {
+  return __byte_perm(a, b, 0x7632);
+}
+
+template <typename TB>
+__device__ __forceinline__ uint2 widen4_bf16(uint32_t w) {
+  uint32_t f[4];
+  widen4_f32(w, TB(), f);
+  return make_uint2(pack_bf16x2(f[0], f[1]), pack_bf16x2(f[2], f[3]));
+}
+
 // A narrow weight's staged rows (int8, or e4m3) widened into A's type
-// (bf16), exactly: every int8 and every e4m3 value is a bf16 value.  Four
-// weights per item: one 32-bit shared-memory read, one 64-bit write.
+// (bf16), exactly (widen4_bf16).  Four weights per item: one 32-bit
+// shared-memory read, one 64-bit write; every thread reads all its items
+// first (the loop is unrolled), so their latencies overlap.
 template <typename Cfg, typename T, typename TB, int BN>
 __device__ __forceinline__ void pf_widen(unsigned char* bdst, const unsigned char* raw) {
   static_assert(sizeof(TB) == 1 && std::is_same<T, __nv_bfloat16>::value,
                 "a byte weight widened to bf16");
-  constexpr int kQuads = BN / 4;
-  for (int e = threadIdx.x; e < Cfg::kBK * kQuads; e += Cfg::kThreads) {
-    const int k = e / kQuads, n = (e % kQuads) * 4;
-    const uint32_t w = *reinterpret_cast<const uint32_t*>(raw + k * BN + n);
-    uint32_t h[4];
+  constexpr int kQuads = BN / 4, kItems = Cfg::kBK * kQuads / Cfg::kThreads;
+  static_assert(Cfg::kBK * kQuads % Cfg::kThreads == 0, "whole items per thread");
+  uint32_t w[kItems];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const uint8_t byte = static_cast<uint8_t>(w >> (8 * j));
-      h[j] = __bfloat16_as_ushort(__float2bfloat16(to_f32(*reinterpret_cast<const TB*>(&byte))));
-    }
-    *reinterpret_cast<uint2*>(bdst + k * Cfg::kBStride + n * 2) =
-        make_uint2(h[0] | (h[1] << 16), h[2] | (h[3] << 16));
+  for (int i = 0; i < kItems; ++i) {
+    const int e = threadIdx.x + i * Cfg::kThreads, k = e / kQuads, n = (e % kQuads) * 4;
+    w[i] = *reinterpret_cast<const uint32_t*>(raw + k * BN + n);
+  }
+#pragma unroll
+  for (int i = 0; i < kItems; ++i) {
+    const int e = threadIdx.x + i * Cfg::kThreads, k = e / kQuads, n = (e % kQuads) * 4;
+    *reinterpret_cast<uint2*>(bdst + k * Cfg::kBStride + n * 2) = widen4_bf16<TB>(w[i]);
   }
 }
 
@@ -348,15 +415,41 @@ __device__ __forceinline__ void b_frags_tf32(unsigned (&bh)[Cfg::kNT][2],
   }
 }
 
+// A narrow weight's B fragments for k sub-step kk, widened to bf16 in
+// registers (PrefillCfg::kRegWiden).  The warp's four n8 tiles interleave
+// its 32 columns: tile nt's column j is the warp's column 4j + nt, so lane
+// (g, c) reads one 32-bit word (columns 4g .. 4g + 3, one per tile) from
+// each of its four K rows 2c, 2c + 1, 2c + 8, 2c + 9 (pf_to_tile stores by
+// the same map).  The products are those of the widened shared-memory
+// tile's, element by element.
+template <typename Cfg>
+__device__ __forceinline__ void b_frags_widen(unsigned (&b)[Cfg::kNT][2],
+                                              const unsigned char* raw, int kk, int wn0,
+                                              int lane) {
+  using TB = typename Cfg::WeightT;
+  const int g = lane >> 2, c = lane & 3;
+  const unsigned char* p = raw + (kk + 2 * c) * Cfg::kPRow + wn0 + 4 * g;
+  uint32_t f[4][4];  // [k row 2c, 2c + 1, 2c + 8, 2c + 9][tile]: widened bits
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+    widen4_f32(*reinterpret_cast<const uint32_t*>(p + ((r & 1) + 8 * (r >> 1)) * Cfg::kPRow),
+               TB(), f[r]);
+#pragma unroll
+  for (int nt = 0; nt < Cfg::kNT; ++nt) {
+    b[nt][0] = pack_bf16x2(f[0][nt], f[1][nt]);
+    b[nt][1] = pack_bf16x2(f[2][nt], f[3][nt]);
+  }
+}
+
 // The MMAs of one staged K step into acc (and accg with GATE).  Every
 // output element takes the same sequence of products whatever its tile:
 // the k sub-steps in order, and for f32 lo*hi, hi*lo, hi*hi at each.
-template <typename T, int BM, int BN, bool GATE, bool SPARSE>
+template <typename T, int BM, int BN, bool GATE, bool SPARSE, typename TB = T>
 __device__ __forceinline__ void pf_mma_stage(
-    Acc<PrefillCfg<T, BM, BN, GATE, SPARSE>>& acc,
-    Acc<PrefillCfg<T, BM, BN, GATE, SPARSE>>& accg, const unsigned char* slot, int wm0,
+    Acc<PrefillCfg<T, BM, BN, GATE, SPARSE, TB>>& acc,
+    Acc<PrefillCfg<T, BM, BN, GATE, SPARSE, TB>>& accg, const unsigned char* slot, int wm0,
     int wn0, int lane) {
-  using Cfg = PrefillCfg<T, BM, BN, GATE, SPARSE>;
+  using Cfg = PrefillCfg<T, BM, BN, GATE, SPARSE, TB>;
   constexpr int MT = Cfg::kMT, NT = Cfg::kNT;
   const unsigned char* Bs = slot + Cfg::b_off(0);
   const unsigned char* Bgs = slot + Cfg::b_off(GATE ? 1 : 0);
@@ -408,13 +501,19 @@ __device__ __forceinline__ void pf_mma_stage(
         ldsm_x4(a[mt], slot + (wm0 + mt * 16 + (lane & 15)) * Cfg::kAStride +
                            (kk + (lane >> 4) * 8) * 2);
       unsigned b[NT][2];
-      b_frags_bf16<Cfg>(b, Bs, kk, wn0, lane);
+      if constexpr (Cfg::kRegWiden)
+        b_frags_widen<Cfg>(b, slot + Cfg::raw_off(0), kk, wn0, lane);
+      else
+        b_frags_bf16<Cfg>(b, Bs, kk, wn0, lane);
 #pragma unroll
       for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
         for (int nt = 0; nt < NT; ++nt) mma_bf16(acc[mt][nt], a[mt], b[nt]);
       if constexpr (GATE) {
-        b_frags_bf16<Cfg>(b, Bgs, kk, wn0, lane);
+        if constexpr (Cfg::kRegWiden)
+          b_frags_widen<Cfg>(b, slot + Cfg::raw_off(1), kk, wn0, lane);
+        else
+          b_frags_bf16<Cfg>(b, Bgs, kk, wn0, lane);
 #pragma unroll
         for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
@@ -436,11 +535,25 @@ __device__ __forceinline__ void pf_zero(Acc<Cfg>& acc) {
 
 // A warp's accumulators into the f32 tile C (row stride kCStride): copied
 // (first) or added to the total there (total + partial).  Each thread
-// touches only its own elements.
+// touches only its own elements (tile nt's column j is the warp's column
+// 8 nt + j, or 4 j + nt under kRegWiden).
 template <typename Cfg>
 __device__ __forceinline__ void pf_to_tile(float* C, const Acc<Cfg>& acc, int wm0, int wn0,
                                            int lane, bool first) {
   const int g = lane >> 2, c = lane & 3;
+  if constexpr (Cfg::kRegWiden) {
+#pragma unroll
+    for (int mt = 0; mt < Cfg::kMT; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < Cfg::kNT; ++nt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          float* p = C + (wm0 + mt * 16 + g + 8 * (i >> 1)) * Cfg::kCStride + wn0 +
+                     4 * (2 * c + (i & 1)) + nt;
+          *p = first ? acc[mt][nt][i] : *p + acc[mt][nt][i];
+        }
+    return;
+  }
 #pragma unroll
   for (int mt = 0; mt < Cfg::kMT; ++mt)
 #pragma unroll
@@ -491,7 +604,7 @@ __device__ __forceinline__ void pf_ring(const PrefillShape& d, unsigned char* sm
 #endif
     cp_async_commit();
     unsigned char* slot = smem + ((kt - s0) % d.stages) * Cfg::kSlot;
-    if constexpr (SPARSE || Cfg::kWiden) {
+    if constexpr (SPARSE || (Cfg::kWiden && !Cfg::kRegWiden)) {
 #pragma unroll
       for (int mat = 0; mat < Cfg::kMats; ++mat) {
         if constexpr (SPARSE)
@@ -536,7 +649,7 @@ __device__ __forceinline__ float* prefill_sweep(const PrefillShape& d, Hook& hoo
       d, pf_smem, m0, n0, part_begin(p0, steps, d.parts), part_begin(p1, steps, d.parts),
       [&](const unsigned char* slot, int kt) {
 #ifndef PREFILL_TIMING_NO_PRODUCTS
-        pf_mma_stage<T, BM, BN, GATE, SPARSE>(acc, accg, slot, wm0, wn0, lane);
+        pf_mma_stage<T, BM, BN, GATE, SPARSE, TB>(acc, accg, slot, wm0, wn0, lane);
 #endif
         hook.step(slot);
         if (fold && kt + 1 == pend) {  // a part is finished: total (+)= partial
@@ -562,16 +675,17 @@ __device__ __forceinline__ float* prefill_sweep(const PrefillShape& d, Hook& hoo
 // tile from Cs (split == 1); in a cluster (split == parts) rank r sums rows
 // r * BM / split onward of every rank's partial, in rank order, through
 // distributed shared memory, and stores them.  Neighbouring threads store
-// neighbouring columns.
+// neighbouring columns.  Only rows row0 .. d.M - 1 are stored (the grouped
+// GEMM stores one group's rows per visit).
 template <typename Cfg, int BM, int BN, bool GATE, typename R>
 __device__ __forceinline__ void prefill_store(const R& r, const PrefillShape& d,
-                                              const float* Cs) {
+                                              const float* Cs, int row0 = 0) {
   const int m0 = pf_tile_m() * BM, n0 = pf_tile_n() * BN;
   constexpr int CS = Cfg::kCStride, GOFF = BM * Cfg::kCStride;
   if (d.split == 1) {
     for (int e = threadIdx.x; e < BM * BN; e += Cfg::kThreads) {
       const int m = e / BN, n = e % BN, gm = m0 + m, gn = n0 + n;
-      if (gm < d.M && gn < d.N)
+      if (gm >= row0 && gm < d.M && gn < d.N)
         mx_store<GATE>(r, Cs[m * CS + n], GATE ? Cs[GOFF + m * CS + n] : 0.0f, gm, gn);
     }
     return;
@@ -585,7 +699,7 @@ __device__ __forceinline__ void prefill_store(const R& r, const PrefillShape& d,
   const int rows = BM / d.split, r0 = static_cast<int>(cl.block_rank()) * rows;
   for (int e = threadIdx.x; e < rows * BN; e += Cfg::kThreads) {
     const int m = r0 + e / BN, n = e % BN, gm = m0 + m, gn = n0 + n;
-    if (gm >= d.M || gn >= d.N) continue;
+    if (gm < row0 || gm >= d.M || gn >= d.N) continue;
     const int o = m * CS + n;
     float y = src[0][o], g = GATE ? src[0][GOFF + o] : 0.0f;
 #pragma unroll
@@ -618,7 +732,7 @@ static int prefill_launch(const PrefillShape& d, cudaStream_t s, bool epilogue,
   }
   const int bad = prefill_check<Cfg, SPARSE>(d, static_smem, epilogue);
   if (bad) return bad;
-  const int bm = 2 * Cfg::kWM, bn = 32 * Cfg::kWarpsN;
+  const int bm = Cfg::kWarpsM * Cfg::kWM, bn = 32 * Cfg::kWarpsN;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((d.M + bm - 1) / bm, (d.N + bn - 1) / bn, d.split);
   cfg.blockDim = dim3(Cfg::kThreads);

@@ -38,7 +38,7 @@ FLOATS = (torch.float32, torch.bfloat16)
 QUANTIZED = (torch.int8, torch.float8_e4m3fn)  # payloads that carry f32 scales
 
 _lock = threading.Lock()
-_libs: Dict[str, ctypes.CDLL] = {}
+_libs: Dict[tuple, ctypes.CDLL] = {}
 NVCC_CPU_SECONDS: Dict[str, float] = {}  # per source built in this process
 
 
@@ -53,25 +53,29 @@ def _nvcc() -> str:
                        ": the CUDA kernels are built from csrc/ at first use")
 
 
-def _target(name: str) -> Path:
+def _target(name: str, defines: tuple = ()) -> Path:
+    """The library of csrc/<name>.cu, or of a timing variant of it compiled
+    with `defines` (macros such as PREFILL_TIMING_NO_PRODUCTS, never set by
+    the package's own launches)."""
     h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
     for header in sorted(CSRC.glob("*.cuh")):
         h.update(header.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+    h.update(" ".join(NVCC_FLAGS + tuple(defines)).encode())
+    tag = "".join(f"+{d}" for d in defines)
+    return BUILD_DIR / f"{name}{tag}-{h.hexdigest()[:16]}.so"
 
 
-def _start(name: str):
+def _start(name: str, defines: tuple = ()):
     """Start one nvcc for `name`; returns (target, tmp, log, Popen) or None
     when the library is already built."""
-    out = _target(name)
+    out = _target(name, defines)
     if out.exists():
         return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     log = out.with_suffix(".log")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
-           str(CSRC / f"{name}.cu")]
+    cmd = [_nvcc(), *NVCC_FLAGS, *(f"-D{d}" for d in defines), "-I", str(CSRC), "-o",
+           str(tmp), str(CSRC / f"{name}.cu")]
     with open(log, "w") as fh:
         proc = subprocess.Popen(cmd, stdout=fh, stderr=subprocess.STDOUT)
     return out, tmp, log, proc
@@ -88,15 +92,17 @@ def _finish(name: str, job) -> None:
     os.replace(tmp, out)
 
 
-def build_all(names: Iterable[str] = SOURCES) -> float:
-    """Build every named source in parallel (one nvcc each, all started
-    together); returns the wall seconds spent."""
+def build_all(names: Iterable[str] = SOURCES, variants: Iterable = ()) -> float:
+    """Build every named source, and every (name, defines) timing variant,
+    in parallel (one nvcc each, all started together); returns the wall
+    seconds spent."""
     t0 = time.perf_counter()
     with _lock:
-        jobs = {n: _start(n) for n in names}
-        for n, job in jobs.items():
+        jobs = {(n, ()): _start(n) for n in names}
+        jobs.update({(n, tuple(d)): _start(n, tuple(d)) for n, d in variants})
+        for (n, d), job in jobs.items():
             if job is not None:
-                _finish(n, job)
+                _finish(n + "".join(f"+{m}" for m in d), job)
     return time.perf_counter() - t0
 
 
@@ -107,27 +113,31 @@ def ptxas_report(name: str) -> str:
     return log.read_text() if log.exists() else ""
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded shared library for csrc/<name>.cu, built if needed."""
-    lib = _libs.get(name)
+def load(name: str, defines: tuple = ()) -> ctypes.CDLL:
+    """The loaded shared library for csrc/<name>.cu (or its timing variant
+    with `defines`), built if needed."""
+    key = (name, tuple(defines))
+    lib = _libs.get(key)
     if lib is not None:
         return lib
-    build_all([name])
+    build_all([] if defines else [name], [key] if defines else [])
     with _lock:
-        lib = _libs.get(name)
+        lib = _libs.get(key)
         if lib is None:
-            lib = ctypes.CDLL(str(_target(name)))
+            lib = ctypes.CDLL(str(_target(name, tuple(defines))))
             lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
             lib.repro_cuda_error_string.restype = ctypes.c_char_p
-            _libs[name] = lib
+            _libs[key] = lib
     return lib
 
 
-def function(name: str, symbol: str, argtypes, restype=ctypes.c_int) -> Callable:
-    """C function `symbol` of csrc/<name>.cu with its argument types set
-    (c_void_p for every pointer and the stream, so none is cut to 32 bits);
-    a launcher's result is its cudaError_t (int)."""
-    fn = getattr(load(name), symbol)
+def function(name: str, symbol: str, argtypes, restype=ctypes.c_int,
+             defines: tuple = ()) -> Callable:
+    """C function `symbol` of csrc/<name>.cu (or of its timing variant with
+    `defines`) with its argument types set (c_void_p for every pointer and
+    the stream, so none is cut to 32 bits); a launcher's result is its
+    cudaError_t (int)."""
+    fn = getattr(load(name, defines), symbol)
     if fn.argtypes is None:
         fn.argtypes = list(argtypes)
         fn.restype = restype
@@ -372,12 +382,17 @@ def prefill_slot_bytes(bm: int, bn: int, bk: int, ea: int, eb: int, gated: bool,
     rows of bk elements (ea bytes each) padded by 16 bytes, B's (and the
     gate's) bk rows of bn + 8 elements in A's type, and the raw rows they
     come from when they are 2:4 payloads (with metadata) or narrower than A
-    (eb < ea)."""
+    (eb < ea).  A narrow dense weight on a 16-row tile is widened in
+    registers (`kRegWiden`): its raw rows alone, padded by 16 bytes."""
+    mats = 2 if gated else 1
+    a = bm * (bk * ea + 16)
     if sparse:
         raw = (bk // 2) * bn * eb + (bk // 8) * bn
+    elif eb != ea and bm == 16:
+        return a + mats * bk * (bn * eb + 16)
     else:
         raw = bk * bn * eb if eb != ea else 0
-    return bm * (bk * ea + 16) + (2 if gated else 1) * (bk * (bn + 8) * ea + raw)
+    return a + mats * (bk * (bn + 8) * ea + raw)
 
 
 def prefill_smem(bm: int, bn: int, bk: int, ea: int, eb: int, stages: int, split: int,
@@ -465,16 +480,156 @@ def prefill_tile(M: int, N: int, K: int, a_dtype: torch.dtype, b_dtype: torch.dt
                                     sparse, not baseline), ctas)
 
 
-def grouped_tile(T: int, G: int):
-    """The grouped GEMM's tile, by the mean rows per group T / G (the rows
-    one expert's weights are streamed for), as the JAX dispatch plans for
-    max(T // G, 1)."""
+# The grouped GEMM (csrc/mx_grouped_matmul*.cu).  Route "mma"
+# (csrc/grouped_mma.cuh) for MMA_PAIRS: prefill_tile.cuh's K loop run once
+# per group that owns rows of a CTA tile, on the tiles GROUPED_TILES (the
+# ABFT launch on GROUPED_ABFT_TILES, the flag map's); route "simt"
+# (gemm_tile.cuh's loop, csrc/mx_grouped_matmul.cuh) for int8 x int8 and
+# e4m3 x e4m3, on GROUPED_SIMT_TILES.  Both pick the tile height by the mean
+# rows per group T / G (the rows one expert's weights are streamed for), as
+# the JAX dispatch plans for max(T // G, 1): decode height (<= 8, an MoE's
+# capacity floor), up to 64, an expert-major prefill chunk.
+GROUPED_MEANS = (8, 64)            # mean rows per group: the regimes' upper edges
+GROUPED_ROWS = (16, 32, 64)        # "mma" CTA tile rows per regime
+GROUPED_SIMT_TILES = ((8, 128, 32), (32, 64, 16), (64, 64, 16))  # (bm, bn, bk) per regime
+GROUPED_TILES = ((16, 128), (32, 64), (64, 128), (64, 64))
+GROUPED_ABFT_TILES = ((16, 64), (32, 64), (64, 64))
+GROUPED_STAGES = (2, 3, 3)  # ring slots per regime (fewer where they do not fit)
+GROUPED_DEEP_STAGES = 6     # ring slots of a grid of at most one CTA per SM
+GROUPED_MAX_RESIDENT = 4    # CTAs an SM is counted to hold at most
+GROUPED_WARPS = 16          # resident warps per SM counted at most
+GROUPED_SPLIT_GAIN = 1.25   # a cluster split must score this much above one CTA per tile
+
+
+class GroupedTile(NamedTuple):
+    """The launch of the grouped GEMM: route "mma" (csrc/grouped_mma.cuh)
+    for MMA_PAIRS, "simt" (gemm_tile.cuh's loop) for int8 x int8 and
+    e4m3 x e4m3."""
+    route: str    # "mma" or "simt"
+    bm: int       # CTA tile rows
+    bn: int       # CTA tile columns
+    bk: int       # K rows per ring stage ("mma") or staged K step ("simt")
+    stages: int   # ring slots (1: gemm_tile.cuh's register double buffer)
+    split: int    # CTAs per cluster: 1, or `parts` (one part each)
+    parts: int    # equal K parts, each summed from zero, folded in order
+    threads: int  # per CTA
+    smem: int     # dynamic shared memory per CTA, bytes
+    ctas: int     # CTAs of the grid (tiles x split)
+
+
+def _grouped_regime(T: int, G: int) -> int:
     mean = T // max(G, 1)
-    if mean <= 8:
-        return 8, 128, 32
-    if mean <= 64:
-        return 32, 64, 16
-    return 64, 64, 16
+    return sum(mean > m for m in GROUPED_MEANS)
+
+
+def grouped_flag_tile(T: int, G: int, a_dtype: torch.dtype, b_dtype: torch.dtype):
+    """(bm, bn) of the grouped GEMM's ABFT flag map: the CTA tile of its ABFT
+    launch (one CTA per flag), by the mean rows per group and the route.
+    abft_rtol, the fault operands' grid and the plain version's flag map
+    (kernels/ref._grouped_flags) read it."""
+    r = _grouped_regime(T, G)
+    if (a_dtype, b_dtype) in MMA_PAIRS:
+        return GROUPED_ABFT_TILES[r]
+    return GROUPED_SIMT_TILES[r][:2]
+
+
+def _mma_threads(bm: int, bn: int) -> int:
+    """Threads of a prefill_tile.cuh CTA: (1 if bm == 16 else 2) x bn / 32 warps."""
+    return 32 * (1 if bm == 16 else 2) * (bn // 32)
+
+
+def _resident(smem: int, threads: int) -> int:
+    """CTAs of this shared memory and width an SM is counted to hold."""
+    return max(1, min(GROUPED_MAX_RESIDENT, SMEM_PER_SM // (smem + 1024),
+                      2048 // threads))
+
+
+@functools.lru_cache(maxsize=None)  # a pure function of the launch's shape
+def grouped_tile(T: int, N: int, K: int, G: int, a_dtype: torch.dtype,
+                 b_dtype: torch.dtype, gated: bool = False,
+                 variant: str = "dense") -> GroupedTile:
+    """The grouped GEMM's tile for x (T, K), w (G, K, N).
+
+    int8 x int8 and e4m3 x e4m3 keep gemm_tile.cuh's loop on
+    GROUPED_SIMT_TILES (route "simt").  MMA_PAIRS take the tensor-core
+    loop, one visit per group that owns rows of a tile (route "mma"):
+    - bm: 16, 32 or 64 rows by the mean rows per group (<= 8, <= 64, more):
+      at an MoE's decode height (8 rows per expert) a 16-row tile covers two
+      groups, and each expert's weight is streamed once;
+    - parts: `prefill_parts(K, bk)`, bk = 128 bytes of x row per stage, the
+      fused prefill tile's, so a grouped launch and a fused launch on one
+      expert's rows sum the same parts in the same order;
+    - stages: up to GROUPED_STAGES per regime, as many as fit two CTAs per
+      SM (else one): 2 at decode height, where more resident CTAs stream
+      more bytes than a deeper ring (grok's f32 up+gate projection 4.40 ms
+      at 2 against 5.05 at 3), up to 3 above (grok's (bf16, int8) prefill
+      down projection: 2.79 ms at 2 stages, two CTAs per SM, against 4.35
+      at 3, one); a grid of at most one CTA per SM (K in one part, as at
+      K = 6100 in f32) up to GROUPED_DEEP_STAGES, each CTA's ring then its
+      only copies in flight;
+    - bn: 128 (a CTA of 4 warps at bm = 16, 8 at bm = 64), but 64 at
+      bm = 32 and for f32 without a gate at bm = 64 (grok's f32 prefill down
+      projection: 10.8 ms at 64 against 12.6 at 128);
+    - split: at decode height, `parts` (a cluster per tile) where the
+      resident warps per SM (CTAs by shared memory, at most
+      GROUPED_MAX_RESIDENT; their warps at most GROUPED_WARPS) times the
+      share of the waves' CTA slots the grid fills scores GROUPED_SPLIT_GAIN
+      above one CTA per tile (grok's 192- and 1024-tile grids split, kimi's
+      3072 tiles do not); 1 above decode height;
+    - the ABFT variant: the flag map's tile (GROUPED_ABFT_TILES), split 1.
+    The choices are those that timed best on an H100 with
+    tools/grouped_variants.py at grok-1's and kimi-k2's expert shapes
+    (PERF.md section 6).
+    """
+    if variant not in ("dense", "sparse", "abft"):
+        raise ValueError(f"variant must be dense, sparse or abft, got {variant!r}")
+    r = _grouped_regime(T, G)
+    if (a_dtype, b_dtype) not in MMA_PAIRS:
+        bm, bn, bk = GROUPED_SIMT_TILES[r]
+        tm, tn = ((8, 1), (2, 4), (4, 4))[r]
+        return GroupedTile("simt", bm, bn, bk, 1, 1, 1, (bm // tm) * (bn // tn), 0,
+                           -(-T // bm) * -(-N // bn))
+    e, eb = a_dtype.itemsize, b_dtype.itemsize
+    bk = PREFILL_STAGE_ROW // e
+    parts = prefill_parts(K, bk)
+    sparse = variant == "sparse"
+    bm = GROUPED_ROWS[r]
+    reserve = PREFILL_ABFT_STATIC if variant == "abft" else 0
+    if variant == "abft":
+        bn = GROUPED_ABFT_TILES[r][1]
+    elif bm == 32 or (bm == 64 and a_dtype == torch.float32 and not gated):
+        bn = 64
+    else:
+        bn = 128
+    threads = _mma_threads(bm, bn)
+
+    def launch(split):  # (score, stages, smem, ctas) of one split
+        ctas = -(-T // bm) * -(-N // bn) * split
+        deep = ctas <= SMS  # one CTA per SM: a deep ring hides the copies' latency
+        stages = 0
+        for budget in ((SMEM_PER_CTA,) if deep else (SMEM_PER_SM // 2 - 1024, SMEM_PER_CTA)):
+            cap = GROUPED_DEEP_STAGES if deep else GROUPED_STAGES[r]
+            stages = max((s for s in range(2, cap + 1)
+                          if prefill_smem(bm, bn, bk, e, eb, s, split, parts, gated, sparse)
+                          + reserve <= budget), default=0)
+            if stages:
+                break
+        smem = prefill_smem(bm, bn, bk, e, eb, stages, split, parts, gated, sparse)
+        resident = _resident(smem + reserve, threads)
+        slots = SMS * resident
+        fill = ctas / (-(-ctas // slots) * slots)
+        return min(resident * threads // 32, GROUPED_WARPS) * fill, stages, smem, ctas
+
+    one = (1, *launch(1))
+    pick = one
+    if bm == 16 and variant != "abft" and parts > 1:
+        cluster = (parts, *launch(parts))
+        if cluster[1] > GROUPED_SPLIT_GAIN * one[1]:
+            pick = cluster
+    split, _, stages, smem, ctas = pick
+    if stages < 2:
+        raise ValueError(f"no ring fits the grouped tile ({bm} x {bn}, {variant})")
+    return GroupedTile("mma", bm, bn, bk, stages, split, parts, threads, smem, ctas)
 
 
 def stream_ptr(t: torch.Tensor) -> int:

@@ -20,7 +20,7 @@ flip would land.  With no fault operands the main accumulator's datapath is
 untouched, so ABFT on is bitwise equal to ABFT off.
 
 In the port the tile (bm, bn) is the one the CUDA kernel launches
-(`kernels/_build.gemm_tile` / `grouped_tile`), on the CPU too, so a flag map
+(`kernels/_build.gemm_tile` / `grouped_flag_tile`), on the CPU too, so a flag map
 and a fault land on the same tile on both devices.
 """
 from __future__ import annotations

@@ -4,9 +4,15 @@
 `mx_grouped_matmul` computes out[t] = act(x[t] @ w[g(t)]) for rows sorted
 by group.  On a CUDA tensor it launches `csrc/mx_grouped_matmul.cu`: one
 CTA per output tile reads the group sizes from the device itself (no host
-sync), runs a whole K loop per overlapping non-empty group with f32
-register accumulators and stores only that group's rows, so every output
-row is written once.  On a CPU tensor it runs the plain version,
+sync), runs a whole K loop per overlapping non-empty group and stores only
+that group's rows, so every output row is written once.  The K loop is
+`_build.grouped_tile`'s route (`mx_matmul.grouped_route`): "mma" for f32,
+bf16 and bf16 x int8 / e4m3 (`csrc/grouped_mma.cuh`: the fused GEMM's
+tensor-core prefill loop per group, the weight streamed through a ring of
+16-byte copies, K cut into parts by K alone, so every variant -- and the
+fused GEMM on one expert's rows -- gets the same bits); "simt" for
+int8 x int8 and e4m3 x e4m3 (`csrc/mx_grouped_matmul.cuh`, gemm_tile.cuh's
+serial K chain).  On a CPU tensor it runs the plain version,
 `kernels.ref.grouped_matmul_ref`.
 
 Quantized experts (stage 5b): x and w carry int8 / fp8 payloads (or bf16
@@ -17,8 +23,8 @@ rows; the operand pairs are those of `mx_matmul_fused`.
 2:4 sparse experts (stage 5c): w / w_gate carry per-expert payloads
 (G, K/2, N) with uint8 metadata (G, K/8, N), expanded in shared memory by
 `csrc/mx_grouped_matmul_sparse.cu`.  Per-expert ABFT (stage 5d): with
-``abft`` the call returns (out, flags) over `_build.grouped_tile`'s tiles,
-each group visit verified and the verdicts of a straddled tile OR-ed
+``abft`` the call returns (out, flags) over `_build.grouped_flag_tile`'s
+tiles, each group visit verified and the verdicts of a straddled tile OR-ed
 (`csrc/mx_grouped_matmul_abft.cu`).
 """
 from __future__ import annotations
@@ -36,23 +42,48 @@ from .ref import grouped_matmul_ref
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # x, w, w_gate, [w_meta, wg_meta], a_scale, b_scale, bg_scale, sizes, out,
-# then _TAIL (out_dt, T, N, K, G, x_dt, w_dt, act, bm, bn, bk), then [flags,
-# fault_delta, fault_row, fault_col, rtol, atol], stream
-_TAIL = (_I,) * 11
-_LAUNCHERS = {
-    "dense": ("mx_grouped_matmul", "mx_grouped_matmul_launch", (_P,) * 8 + _TAIL + (_P,)),
-    "sparse": ("mx_grouped_matmul_sparse", "mx_grouped_matmul_sparse_launch",
-               (_P,) * 10 + _TAIL + (_P,)),
-    "abft": ("mx_grouped_matmul_abft", "mx_grouped_matmul_abft_launch",
-             (_P,) * 8 + _TAIL + (_P,) * 4 + (_F, _F, _P)),
+# then _TAIL (out_dt, T, N, K, G, x_dt, w_dt, act), then the tile: "simt"'s
+# (bm, bn, bk) or "mma"'s (bm, bn, stages, split, parts, va, vb, vm); then
+# [flags, fault_delta, fault_row, fault_col, rtol, atol], stream
+_TAIL, _SIMT, _MMA = (_I,) * 8, (_I,) * 3, (_I,) * 8
+_LAUNCHERS = {  # (variant, route) -> (source, symbol, argtypes)
+    ("dense", "simt"): ("mx_grouped_matmul", "mx_grouped_matmul_launch",
+                        (_P,) * 8 + _TAIL + _SIMT + (_P,)),
+    ("dense", "mma"): ("mx_grouped_matmul", "mx_grouped_matmul_mma_launch",
+                       (_P,) * 8 + _TAIL + _MMA + (_P,)),
+    ("sparse", "mma"): ("mx_grouped_matmul_sparse", "mx_grouped_matmul_sparse_mma_launch",
+                        (_P,) * 10 + _TAIL + _MMA + (_P,)),
+    ("abft", "simt"): ("mx_grouped_matmul_abft", "mx_grouped_matmul_abft_launch",
+                       (_P,) * 8 + _TAIL + _SIMT + (_P,) * 4 + (_F, _F, _P)),
+    ("abft", "mma"): ("mx_grouped_matmul_abft", "mx_grouped_matmul_abft_mma_launch",
+                      (_P,) * 8 + _TAIL + _MMA + (_P,) * 4 + (_F, _F, _P)),
 }
 
 
 def abft_spec_for(x: torch.Tensor, w: torch.Tensor, *, inject: bool = False) -> AbftSpec:
     """The AbftSpec of a grouped launch on x (T, K) and w (G, K, N), its
-    rtol from the tile the kernel launches."""
-    bm, bn, _ = _build.grouped_tile(x.shape[0], w.shape[0])
+    rtol from the tile the kernel launches (`_build.grouped_flag_tile`)."""
+    bm, bn = _build.grouped_flag_tile(x.shape[0], w.shape[0], x.dtype, w.dtype)
     return make_abft_spec(x.dtype, w.dtype, x.shape[1], bm, bn, inject=inject)
+
+
+def launch_tile(x, w, w_gate=None, w_meta=None, wg_meta=None, variant: str = "dense"):
+    """(route, tile arguments) of a launch on x (T, K), w (G, K, N) or its
+    2:4 payload (G, K/2, N): `_build.grouped_tile`, and for "mma" the copy
+    widths of x's, the weights' and the metadata's rows from their row bytes
+    and base addresses (`_build.copy_width`; an expert's offset keeps its
+    stack's alignment)."""
+    T, K = x.shape
+    G, _, N = w.shape
+    t = _build.grouped_tile(T, N, K, G, x.dtype, w.dtype, w_gate is not None, variant)
+    if t.route == "simt":
+        return t.route, (t.bm, t.bn, t.bk)
+    va = _build.copy_width(K * x.element_size(), x.data_ptr())
+    vb = _build.copy_width(N * w.element_size(), w.data_ptr(),
+                           *(() if w_gate is None else (w_gate.data_ptr(),)))
+    vm = (_build.copy_width(N, *(m.data_ptr() for m in (w_meta, wg_meta) if m is not None))
+          if w_meta is not None else _build.COPY_BYTES)
+    return t.route, (t.bm, t.bn, t.stages, t.split, t.parts, va, vb, vm)
 
 
 def _launch(x, w, w_gate, group_sizes, activation, a_scale, b_scale, bg_scale,
@@ -78,21 +109,22 @@ def _launch(x, w, w_gate, group_sizes, activation, a_scale, b_scale, bg_scale,
     scales = [_scale_vec(t, n, what, x.device) for t, n, what in (
         (a_scale, T, "a_scale"), (b_scale, G * N, "b_scale"), (bg_scale, G * N, "bg_scale"))]
     sizes = group_sizes.to(torch.int32).contiguous()
-    bm, bn, bk = _build.grouped_tile(T, G)
     out = torch.empty((T, N), dtype=out_dtype, device=x.device)
     flags = None
     if abft is not None:
+        bm, bn = _build.grouped_flag_tile(T, G, x.dtype, w.dtype)
         flags = torch.zeros((-(-T // bm), -(-N // bn)), dtype=torch.int32, device=x.device)
     if T == 0 or N == 0:
         return out if flags is None else (out, flags)
-    source, symbol, argtypes = _LAUNCHERS[variant]
+    route, tile = launch_tile(x, w, w_gate, w_meta, wg_meta, variant)
+    source, symbol, argtypes = _LAUNCHERS[variant, route]
     fn = _build.function(source, symbol, argtypes)
     head = [x.data_ptr(), w.data_ptr(), _ptr(w_gate)]
     if variant == "sparse":
         head += [w_meta.data_ptr(), _ptr(wg_meta)]
     args = [*head, *(_ptr(t) for t in scales), sizes.data_ptr(), out.data_ptr(),
             _build.dtype_code(out_dtype, "out_dtype"), T, N, K, G, x_dt, w_dt,
-            ACT_CODES[activation], bm, bn, bk]
+            ACT_CODES[activation], *tile]
     if variant == "abft":
         fd, fr, fc = _fault_operands(fault, x.device)
         args += [flags.data_ptr(), _ptr(fd), _ptr(fr), _ptr(fc), abft.rtol, abft.atol]
@@ -122,11 +154,12 @@ def mx_grouped_matmul(x: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tenso
     ``w_meta`` / ``wg_meta`` their uint8 metadata (G, K/8, N); K % 8 == 0;
     not with ``abft``.  ``abft`` (`AbftSpec`, see `abft_spec_for`): returns
     (out, flags), flags (row_tiles, col_tiles) int32 over
-    `_build.grouped_tile`'s tiles; ``fault_*`` of that shape iff
+    `_build.grouped_flag_tile`'s tiles; ``fault_*`` of that shape iff
     ``abft.inject``.
 
     A CUDA `x` launches the dense, sparse or ABFT variant of the kernel (the
-    operand pairs of `mx_matmul_fused`); a CPU `x` takes `grouped_matmul_ref`."""
+    operand pairs of `mx_matmul_fused`) on `mx_matmul.grouped_route`'s K
+    loop; a CPU `x` takes `grouped_matmul_ref`."""
     if x.dim() != 2 or w.dim() != 3:
         raise ValueError(f"expected x (T, K), w (G, K, N); got {tuple(x.shape)}, "
                          f"{tuple(w.shape)}")
@@ -151,7 +184,7 @@ def mx_grouped_matmul(x: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tenso
         if t is not None and tuple(t.shape) != shape:
             raise ValueError(f"{what} must be {shape}, got {tuple(t.shape)}")
     if fault_delta is not None:
-        bm, bn, _ = _build.grouped_tile(T, G)
+        bm, bn = _build.grouped_flag_tile(T, G, x.dtype, w.dtype)
         grid = (-(-T // bm), -(-N // bn))
         for t in fault:
             if tuple(t.shape) != grid:

@@ -344,6 +344,17 @@ def fused_route(M: int, N: int, K: int, a_dtype: torch.dtype, b_dtype: torch.dty
     return _build.prefill_tile(M, N, K, a_dtype, b_dtype, gated, variant).route
 
 
+def grouped_route(T: int, N: int, K: int, G: int, a_dtype: torch.dtype,
+                  b_dtype: torch.dtype, gated: bool = False, variant: str = "dense") -> str:
+    """The K loop a launch of `mx_grouped_matmul` on x (T, K), w (G, K, N)
+    runs on the card: "mma" (`_build.MMA_PAIRS`: prefill_tile.cuh's loop
+    per group, csrc/grouped_mma.cuh) or "simt" (int8 x int8 and e4m3 x
+    e4m3: gemm_tile.cuh's serial K chain), `_build.grouped_tile`'s.  The
+    grouped GEMM's ABFT recovery recomputes a flagged tile on it through
+    `recompute_fused`, which gives the grouped launch's bits."""
+    return _build.grouped_tile(T, N, K, G, a_dtype, b_dtype, gated, variant).route
+
+
 def _launch_fused(a, b, epilogue, b_gate, bias, residual, a_scale, b_scale, bg_scale,
                   out_dtype, b_meta=None, bg_meta=None, abft=None, fault=(None,) * 3,
                   route=None):
@@ -539,7 +550,8 @@ def recompute_fused(route: str, a: torch.Tensor, b: torch.Tensor, *, epilogue: E
     """An ABFT launch of `mx_matmul_fused` on a given K loop, for the tile
     recoveries of core/ops.py (operands as the launch being recovered,
     sliced to the flagged tile's rows and columns): a CUDA `a` runs `route`
-    ("mma" or "simt", `fused_route` of the launch it recovers) whatever its
+    ("mma" or "simt": `fused_route` or `grouped_route` of the launch it
+    recovers) whatever its
     own M, so the recomputed tile gets that launch's bits; a CPU `a` takes
     `mx_matmul_fused_plain`.  Returns (out, flags)."""
     out_dtype = out_dtype or a.dtype

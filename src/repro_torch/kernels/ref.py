@@ -11,7 +11,7 @@ import math
 
 import torch
 
-from ._build import grouped_tile
+from ._build import grouped_flag_tile
 from .mx_matmul import abft_plain, apply_activation, dot_f32
 from .sparse import expand_24
 
@@ -283,14 +283,14 @@ def _group_spans(group_sizes, T):
 
 def _grouped_flags(x, w, wd, spans, spec, faults):
     """JAX's per-expert checksums over the grouped kernel's tiles
-    (`_build.grouped_tile`): every visit of a row tile by an overlapping
+    (`_build.grouped_flag_tile`): every visit of a row tile by an overlapping
     group verifies that group's accumulator (the tile's rows of x past the
     group's end are zero, as the kernel reads them), the verdicts OR-ed into
     the tile's flag; a tile no group covers keeps flag 0.  `wd(g)` is
     expert g's dense weight, `faults` (tile -> (row, col, delta))."""
     T, K = x.shape
     G, N = w.shape[0], w.shape[-1]
-    bm, bn, _ = grouped_tile(T, G)
+    bm, bn = grouped_flag_tile(T, G, x.dtype, w.dtype)
     gm, gn = -(-T // bm), -(-N // bn)
     flags = torch.zeros((gm, gn), dtype=torch.int32, device=x.device)
     for g, s, e in spans:
@@ -349,7 +349,7 @@ def grouped_matmul_ref(x: torch.Tensor, w: torch.Tensor, group_sizes, *,
 
     faults = {}
     if fault_delta is not None:
-        bm, bn, _ = grouped_tile(T, w.shape[0])
+        bm, bn = grouped_flag_tile(T, w.shape[0], x.dtype, w.dtype)
         for ti, tj in torch.nonzero(fault_delta != 0).tolist():
             faults[(ti, tj)] = (int(fault_row[ti, tj]), int(fault_col[ti, tj]),
                                 float(fault_delta[ti, tj]))

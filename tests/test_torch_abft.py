@@ -7,7 +7,7 @@ JAX package as the reference for every output.
 - The kernel wrappers (`mx_matmul_fused`, `mx_grouped_matmul` with
   ``abft=``; on CPU tensors their plain versions, which take JAX's checksum
   arithmetic over the CUDA kernels' tiles, `_build.gemm_tile` /
-  `grouped_tile`): clean runs bitwise equal to ABFT off with no flag, an
+  `grouped_flag_tile`): clean runs bitwise equal to ABFT off with no flag, an
   injected fault flags exactly its tile.
 - The dispatch (`core/ops.py` on "cuda_mx"): detection and bitwise recovery,
   the typed SDCError, int8 x int8 exact (a unit delta), every precision
@@ -156,7 +156,7 @@ def test_grouped_kernel_ors_the_visits_and_leaves_uncovered_tiles_clean():
     T, K, N, G = 40, 32, 24, 3
     x, w = _t(_rand(0, (T, K))), _t(_rand(1, (G, K, N)))
     sizes = torch.tensor([15, 0, 20])  # tile 0 straddles experts 0 and 2; rows 35+ no group
-    bm, bn, _ = _build.grouped_tile(T, G)
+    bm, bn = _build.grouped_flag_tile(T, G, x.dtype, w.dtype)
     assert (bm, bn) == (32, 64)
     plain = mx_grouped_matmul(x, w, sizes)
     out, flags = mx_grouped_matmul(x, w, sizes, abft=grouped_spec(x, w))

@@ -943,6 +943,125 @@ def test_quantized_grouped_kernel_matches_plain(cuda, pol, case, act):
         assert torch.equal(got, ref)
 
 
+# group heights at the MMA's edges (1, 15, 16, 17 and 129 rows), a 16-row
+# tile straddling five groups, empty first and last groups; T and G put each
+# case in one regime of _build.grouped_tile (mean rows per group <= 8: 16-row
+# tiles; <= 64: 32; more: 64)
+GROUPED_EDGES = {
+    "edges_decode": (190, [0, 1, 15, 16, 17, 129] + [0] * 18 + [2, 0]),  # mean 7
+    "edges_mid": (190, [0, 1, 15, 16, 17, 129, 2, 0]),                     # mean 23
+    "edges_prefill": (600, [0, 1, 15, 16, 17, 129, 400, 0]),               # mean 75
+    "straddle5": (48, [3, 2, 4, 1, 5, 6, 9, 8, 0]),                         # rows 0-15: 6 groups
+    "empty_ends": (48, [0, 8, 8, 8, 8, 8, 8, 0]),
+}
+
+
+@pytest.mark.parametrize("act", ["none", "swiglu"])
+@pytest.mark.parametrize("pol", ["f32", "bf16", "int8", "fp8"])  # every "mma" pair
+@pytest.mark.parametrize("case", sorted(GROUPED_EDGES))
+def test_grouped_kernel_at_mma_edges(cuda, case, pol, act):
+    """The tensor-core route at group heights around the MMA's 16 rows:
+    within tolerance of the plain version, tail rows exact zeros, and every
+    group's rows bitwise the fused GEMM's tensor-core tile on that group's
+    rows and expert (`recompute_fused` on "mma", the ABFT recovery's
+    loop): an output element's bits depend on K and the pair only."""
+    T, sizes = GROUPED_EDGES[case]
+    K, N, G = 1100, 72, len(sizes)  # K: 2 parts of 550 rows in f32, 1 in bf16 (18 steps)
+    x = _randn((T, K), torch.float32, cuda, 0)
+    w = _randn((G, K, N), torch.float32, cuda, 1) / K ** 0.5
+    wg = _randn((G, K, N), torch.float32, cuda, 2) / K ** 0.5 if act == "swiglu" else None
+    if pol == "f32":
+        qa, a_s, qb, b_s, qg, bg_s = x, None, w, None, wg, None
+    else:
+        qa, a_s, qb, b_s, qg, bg_s = _quantized(pol, x, w, wg)
+    gated = act == "swiglu"
+    sz = torch.tensor(sizes, dtype=torch.int32, device=cuda)
+    out_dtype = torch.float32
+    kw = dict(w_gate=qg, activation=act, a_scale=a_s, b_scale=b_s,
+              bg_scale=bg_s if gated and b_s is not None else None, out_dtype=out_dtype)
+    assert mm.grouped_route(T, N, K, G, qa.dtype, qb.dtype, gated) == "mma"
+    got = mx_grouped_matmul(qa, qb, sz, **kw)
+    ref = grouped_matmul_ref(qa, qb, sz, **kw)
+    torch.cuda.synchronize()
+    _close(got, ref, torch.float32 if pol == "f32" else torch.bfloat16)
+    assert torch.all(got[min(sum(sizes), T):] == 0)
+    ep = mm.Epilogue(activation=act, a_scale=a_s is not None, b_scale=b_s is not None)
+    start = 0
+    for g, n in enumerate(sizes):
+        s, e = start, min(start + n, T)
+        start = e
+        if e <= s:
+            continue
+        xs, ws = qa[s:e], qb[g]
+        one, _ = mm.recompute_fused(
+            "mma", xs, ws, epilogue=ep, b_gate=None if qg is None else qg[g],
+            a_scale=None if a_s is None else a_s[s:e],
+            b_scale=None if b_s is None else b_s[g],
+            bg_scale=None if bg_s is None or not gated else bg_s[g], out_dtype=out_dtype,
+            abft=mm.abft_spec_for(xs, ws))
+        assert torch.equal(one, got[s:e]), (g, s, e)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_abft_grouped_recovery_at_decode_height_is_bitwise(cuda, dtype):
+    """grok's decode height (8 experts x 8 rows: 16-row tiles over two
+    groups) with K in 8 parts: a fault in each row tile is flagged and
+    recovered through `_abft_grouped_gemm` on the tensor-core route, bitwise
+    the clean launch."""
+    from repro_torch.kernels import abft as ab
+
+    T, K, N, G = 64, 4096, 200, 8
+    x = _randn((T, K), dtype, cuda, 0)
+    w = (_randn((G, K, N), torch.float32, cuda, 1) / K ** 0.5).to(dtype)
+    wg = (_randn((G, K, N), torch.float32, cuda, 2) / K ** 0.5).to(dtype)
+    sz = torch.full((G,), 8, dtype=torch.int32, device=cuda)
+    assert mm.grouped_route(T, N, K, G, dtype, dtype, True, "abft") == "mma"
+    assert _build.grouped_flag_tile(T, G, dtype, dtype) == (16, 64)
+    ab.reset_abft_stats()
+    kw = dict(activation="swiglu", w_gate=wg, a_s=None, b_s=None, bg_s=None,
+              out_dtype=dtype)
+    clean = ops._abft_grouped_gemm(x, w, sz, cfg=ab.AbftConfig(), **kw)
+    assert torch.equal(clean, mx_grouped_matmul(x, w, sz, w_gate=wg, activation="swiglu"))
+    for ti in range(T // 16):
+        fault = ab.TileFault(ti, 2, 9 if ti % 2 else 3, 7, 1e8)
+        got = ops._abft_grouped_gemm(x, w, sz, cfg=ab.AbftConfig(fault=fault), **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(got, clean), ti
+    s = ab.abft_stats()
+    assert s["tiles_flagged"] == T // 16 and s["tiles_recovered"] == T // 16
+
+
+@pytest.mark.parametrize("pol", ["f32", "bf16", "int8", "fp8", "int8_all", "fp8_all"])
+def test_grouped_route_launches_its_loop(cuda, monkeypatch, pol):
+    """grouped_route is "mma" for every MMA_PAIRS pair and "simt" for
+    int8 x int8 and e4m3 x e4m3, and each launch enters its route's C
+    entry (the dense, 2:4 and ABFT variants alike)."""
+    from repro_torch.kernels.mx_grouped_matmul import abft_spec_for
+
+    T, K, N, G = 64, 256, 128, 8
+    x = _randn((T, K), torch.float32, cuda, 0)
+    w = _randn((G, K, N), torch.float32, cuda, 1) / K ** 0.5
+    qa, a_s, qb, b_s, _, _ = (x, None, w, None, None, None) if pol == "f32" \
+        else _quantized(pol, x, w)
+    want = "mma" if (qa.dtype, qb.dtype) in _build.MMA_PAIRS else "simt"
+    assert mm.grouped_route(T, N, K, G, qa.dtype, qb.dtype) == want
+    symbols = []
+    real = _build.function
+
+    def spy(source, symbol, argtypes, *a, **k):
+        symbols.append(symbol)
+        return real(source, symbol, argtypes, *a, **k)
+
+    monkeypatch.setattr(_build, "function", spy)
+    sz = torch.full((G,), 8, dtype=torch.int32, device=cuda)
+    kw = dict(a_scale=a_s, b_scale=b_s, out_dtype=torch.float32)
+    mx_grouped_matmul(qa, qb, sz, **kw)
+    mx_grouped_matmul(qa, qb, sz, abft=abft_spec_for(qa, qb), **kw)
+    torch.cuda.synchronize()
+    assert symbols == [f"mx_grouped_matmul{v}{'_mma' if want == 'mma' else ''}_launch"
+                       for v in ("", "_abft")]
+
+
 def _fp8(kp, vp):
     (qk, ks), (qv, vs) = (quantize(t, QuantSpec("fp8_e4m3"), axis=-1) for t in (kp, vp))
     return qk, qv, ks[..., 0].contiguous(), vs[..., 0].contiguous()
@@ -1162,8 +1281,9 @@ def test_abft_grouped_kernel_flag_maps_equal_plain(cuda, pol, case):
     off = mx_grouped_matmul(qa, qb, sz, **kw)
     on, flags = mx_grouped_matmul(qa, qb, sz, abft=spec, **kw)
     assert torch.equal(on, off) and not flags.any()
-    bm, bn, _ = _build.grouped_tile(T, G)
+    bm, bn = _build.grouped_flag_tile(T, G, qa.dtype, qb.dtype)
     gm, gn = flags.shape
+    assert (gm, gn) == (-(-T // bm), -(-N // bn))
     for ti in range(gm):  # every row tile: straddled, single-group, uncovered
         fault = ab.TileFault(ti, 1, 1, 5, 1.0 if spec.exact else 1e8)
         fd, fr, fc = ab.build_fault_operands(fault, gm, gn, bm, bn, device=cuda)
@@ -1229,8 +1349,50 @@ def test_one_tile_rule_the_kernels_take_the_python_table_and_nothing_else(cuda):
     tile = (t.bn, t.bk, t.tm, t.stages, t.threads)
     assert launch(8, (*tile, 16, 16), dfn, shifted) != 0
     assert launch(8, (*tile, 4, 16), dfn, shifted) == 0
-    gtiles = {_build.grouped_tile(T, G) for T, G in ((64, 8), (70, 8), (512, 8), (1024, 8))}
-    assert len(gtiles) == 3
+    # the grouped GEMM: "mma" launches take grouped_tile's tile and refuse a
+    # CTA tile, ring, split or parts outside the table; "simt" its 3 tiles
+    xg, wg_ = _randn((520, 64), torch.float32, cuda, 3), _randn((8, 64, 48), torch.float32,
+                                                                cuda, 2)
+    gout = torch.empty((520, 48), device=cuda)
+    sz = torch.full((8,), 8, dtype=torch.int32, device=cuda)
+    qdt = _build.FLOATS + _build.QUANTIZED
+    from repro_torch.kernels.mx_grouped_matmul import _LAUNCHERS as GL
+
+    def glaunch(tile, route="mma", variant="dense", T=64, a=xg, b=wg_):
+        f = _build.function(*GL[variant, route])
+        args = [a.data_ptr(), b.data_ptr(), None, None, None, None, sz.data_ptr(),
+                gout.data_ptr(), 0, T, 48, 64, 8, _build.dtype_code(a.dtype, "x", qdt),
+                _build.dtype_code(b.dtype, "w", qdt), 0, *tile]
+        if variant == "abft":
+            flags = torch.zeros(64, dtype=torch.int32, device=cuda)
+            args += [flags.data_ptr(), None, None, None, 1e-3, 1e-3]
+        return f(*args, _build.stream_ptr(x))
+
+    assert {_build.grouped_tile(T, 48, 64, 8, torch.float32, torch.float32).bm
+            for T in (64, 70, 512, 1024)} == {16, 32, 64}
+    for T in (64, 72, 520):
+        t = _build.grouped_tile(T, 48, 64, 8, torch.float32, torch.float32)
+        good = (t.bm, t.bn, t.stages, t.split, t.parts, 16, 16, 16)
+        assert glaunch(good, T=T) == 0
+    t = _build.grouped_tile(64, 48, 64, 8, torch.float32, torch.float32)
+    good = (t.bm, t.bn, t.stages, t.split, t.parts, 16, 16, 16)
+    for bad in ((32, 128), (8, 128), (128, 64), (16, 32), (16, 64)):  # tiles it does not build
+        assert glaunch(bad + good[2:]) != 0, bad
+    for i, v in ((2, 1), (2, 9), (3, 3), (4, 3), (5, 3)):  # stages, split, parts, va
+        tile = list(good)
+        tile[i] = v
+        assert glaunch(tuple(tile)) != 0, (i, v)
+    ta = _build.grouped_tile(64, 48, 64, 8, torch.float32, torch.float32, variant="abft")
+    agood = (ta.bm, ta.bn, ta.stages, ta.split, ta.parts, 16, 16, 16)
+    assert (ta.bm, ta.bn) == _build.grouped_flag_tile(64, 8, torch.float32, torch.float32)
+    assert glaunch(agood, variant="abft") == 0
+    assert glaunch((16, 128) + agood[2:], variant="abft") != 0  # not a flag map's tile
+    q = torch.zeros((64, 64), dtype=torch.int8, device=cuda)
+    qw = torch.zeros((8, 64, 48), dtype=torch.int8, device=cuda)
+    for tile in _build.GROUPED_SIMT_TILES:
+        assert glaunch(tile, "simt", a=q, b=qw) == 0
+    for tile in ((16, 16, 128), (16, 64, 32)):
+        assert glaunch(tile, "simt", a=q, b=qw) != 0
     for M in (5, 40, 100):
         _, flags = mm.mx_matmul_fused(x[:M], w, abft=mm.abft_spec_for(x[:M], w))
         bm, bn, _ = _build.gemm_tile(M)
