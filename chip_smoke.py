@@ -13,7 +13,8 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      every prefill-tile kernel (csrc/prefill_tile.cuh) to hold tensor-core
      instructions (HMMA) and, outside ABFT, at most PREFILL_MAX_FFMA FFMAs
      (printed on a line before the last), every mx_flash_attention
-     kernel to hold HMMA, and every instantiation of the grouped GEMM's
+     kernel and both ssd_scan kernels to hold HMMA, and every
+     instantiation of the grouped GEMM's
      "mma" route (csrc/grouped_mma.cuh; dense, 2:4 and ABFT libraries) to
      hold HMMA and, outside ABFT, at most PREFILL_MAX_FFMA FFMAs; it also
      builds the grouped GEMM's copies-only timing variant (GROUPED_COPIES);
@@ -27,9 +28,11 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      prefill tile, each with its tile, its 3xTF32 route bound and the
      library time, and the A/B there); flash
      decode with f32/bf16 and with int8 pages
-     and scales; flash verify at S = 5 and 9, G = 7, poisoned stale pages
-     and S = 1 (bitwise the decode kernel), with the same page types, each
-     with its grid (one CTA per slot, kv head and window row).
+     and scales, and at long context (8 slots of 2048 positions, f32 and
+     bf16, with its TB/s); flash verify at S = 5 and 9, G = 7, poisoned
+     stale pages and S = 1 (bitwise the decode kernel), with the same page
+     types; each decode and verify row with its split (pages per span, span
+     ring, cluster size, grid: kernels/_build.decode_split).
      Max error against 1e-4 * max|ref| (f32) / 2e-2 * max|ref| (bf16),
      kernel / plain / library time from CUDA events (the median of 5
      windows of 20 calls, taken in turns; every window's time goes to the
@@ -154,6 +157,8 @@ The dense cache, Mamba2 and the zamba2 hybrid (ssd_scan, mx_flash_attention):
       show (k = [[0, 0], [1, 0]], v = I, q = [[0.0648, 0]]) equal to the
       plain version exactly; the attention's yardstick is
       torch.nn.functional.scaled_dot_product_attention, the scan has none;
+      the scan's rows print its chunk slots and the bound of its TF32 route
+      (three TF32 products per product in f32);
   8.  (before phase 4: no profiler session has run yet) zamba2-2.7b at full
       width (54 Mamba2 layers, d_model 2560, the shared block every 6;
       nothing cut), f32 weights from seed 0: the full forward of
@@ -512,8 +517,18 @@ def _dense_kv(torch, table, k_, v_, G):
     return k.repeat_interleave(G, 1).contiguous(), v.repeat_interleave(G, 1).contiguous()
 
 
+def _split(torch, B, S, H, Hkv, d, ps, W, q_dtype, pages):
+    """The paged attention's launch (kernels/_build.decode_split) as printed
+    and recorded beside each decode and verify row."""
+    from repro_torch.kernels import _build
+
+    pdt = {"int8": torch.int8, "fp8": torch.float8_e4m3fn}.get(pages, q_dtype)
+    sp = _build.decode_split(B, S, Hkv, H // Hkv, d, ps, W, pdt, pages != "same")
+    return dict(sp._asdict(), span_positions=sp.span_pages * ps)
+
+
 def check_decode(torch, dev, B, H, Hkv, d, ps, lengths, dtype_name, seed, poison=False,
-                 pages="same"):
+                 pages="same", label=None):
     import torch.nn.functional as F
 
     from repro_torch.kernels.mx_flash_decode import mx_flash_decode
@@ -542,10 +557,12 @@ def check_decode(torch, dev, B, H, Hkv, d, ps, lengths, dtype_name, seed, poison
             q_, k_, v_, attn_mask=mask), [(q_[:, :, None, :], *_dense_kv(
                 torch, table, k_, v_, H // Hkv)) for q_, k_, v_, _ in sets])
     bound, by = _bound_ms(nbytes, flops, dtype_name)
-    return dict(kernel="mx_flash_decode", B=B, H=H, Hkv=Hkv, d=d, ps=ps,
+    split = _split(torch, B, 1, H, Hkv, d, ps, W, getattr(torch, dtype_name), pages)
+    return dict(kernel="mx_flash_decode", label=label, B=B, H=H, Hkv=Hkv, d=d, ps=ps,
                 lengths=list(lengths), poison=poison, pages=pages, dtype=dtype_name,
                 max_abs_err=err, tol=tol, zero_rows_exact=zero_rows, finite=finite,
-                **_time_ms(torch, fns), library=library, bound_ms=bound, bound_by=by)
+                **_time_ms(torch, fns), library=library, bound_ms=bound, bound_by=by,
+                split=split, bytes=nbytes)
 
 
 def check_verify(torch, dev, B, H, Hkv, d, ps, S, lengths, dtype_name, seed, poison=False,
@@ -590,12 +607,11 @@ def check_verify(torch, dev, B, H, Hkv, d, ps, S, lengths, dtype_name, seed, poi
             q_, k_, v_, attn_mask=mask), [(q_.transpose(1, 2), *_dense_kv(
                 torch, table, k_, v_, H // Hkv)) for q_, k_, v_, _ in sets])
     bound, by = _bound_ms(nbytes, flops, dtype_name)
-    # one CTA per (slot, kv head, window row), one warp per query row (<= 16)
-    grid = dict(ctas=B * Hkv * S, threads=32 * min(H // Hkv, 16))
+    split = _split(torch, B, S, H, Hkv, d, ps, W, getattr(torch, dtype_name), pages)
     return dict(kernel="mx_flash_verify", B=B, S=S, H=H, Hkv=Hkv, d=d, ps=ps,
                 lengths=list(lengths), poison=poison, pages=pages, dtype=dtype_name,
                 max_abs_err=err, tol=tol, **out, **_time_ms(torch, fns),
-                library=library, bound_ms=bound, bound_by=by, grid=grid)
+                library=library, bound_ms=bound, bound_by=by, split=split, bytes=nbytes)
 
 
 def _expert_stack(torch, dev, G, K, N, dt, gen):
@@ -1293,6 +1309,9 @@ def phase_kernels(torch, dev):
             if pages == "same":
                 checks.append(check_decode(torch, dev, 8, 32, 8, 64, 16, lengths,
                                            dtype_name, 102, poison=True))
+                # long context: 2048 positions per slot, llama3.2-1b's heads
+                checks.append(check_decode(torch, dev, 8, 32, 8, 64, 16, (2048,) * 8,
+                                           dtype_name, 110, label="long context"))
             # verify windows as the batcher passes them: every active length >= S
             for S, shape, lns, poison in (
                     (5, (8, 32, 8), lengths, False), (5, (4, 14, 2), qwen, False),
@@ -1334,8 +1353,13 @@ def phase_kernels(torch, dev):
             extra += f" lib refused: {c['library_error'][:80]}"
         if c.get("offset"):
             extra += f" ({c['offset']} 4 bytes off)"
-        if c.get("grid"):
-            extra += f" [grid {c['grid']['ctas']} CTAs x {c['grid']['threads']} threads]"
+        if c.get("split"):
+            t = c["split"]
+            extra += (f" [span {t['span_pages']} pages = {t['span_positions']} positions, "
+                      f"ring {t['ring']}, cluster {t['cluster']}, grid {t['ctas']} CTAs x "
+                      f"{t['threads']} threads]")
+            if c.get("label"):
+                extra += f" {c['label']} {c['bytes'] / c['ms'] / 1e9:.2f} TB/s"
         if c.get("prefill_tile"):
             t = c["prefill_tile"]
             extra += (f" [prefill tile {t['bm']}x{t['bn']} bk {t['bk']} stages {t['stages']}"
@@ -1617,20 +1641,25 @@ def _profile(torch, fn):
     device_ms = sum(r[1] for r in rows)
     if device_ms == 0:
         return dict(measured=False, window_ms=wall_ms)
-    attention = {}  # the attention kernels' device time, wherever they rank
+    # the attention kernels' device time, wherever they rank (flash_split_kernel:
+    # the paged decode and verify)
+    attention = {}
     grouped = dict(ms=0.0, calls=0)  # the grouped GEMM's kernels (both routes)
+    scan = dict(ms=0.0, calls=0)  # ssd_scan
     for k, ms, n in rows:
-        for kern in ("flash_attention_kernel", "flash_verify_kernel", "flash_decode_kernel"):
+        for kern in ("flash_attention_kernel", "flash_split_kernel"):
             if kern in k:
                 a = attention.setdefault(kern, dict(ms=0.0, calls=0))
                 a["ms"] += ms
                 a["calls"] += n
-        if "grouped_kernel" in k or "grouped_mma_kernel" in k:
-            grouped["ms"] += ms
-            grouped["calls"] += n
+        for name, tally in (("grouped_kernel", grouped), ("grouped_mma_kernel", grouped),
+                            ("ssd_scan_kernel", scan)):
+            if name in k:
+                tally["ms"] += ms
+                tally["calls"] += n
     return dict(measured=True, window_ms=wall_ms, device_ms=device_ms,
                 busy_share=device_ms / wall_ms, attention=attention, grouped=grouped,
-                top=[dict(name=k[:90], ms=ms, calls=n) for k, ms, n in rows[:12]])
+                scan=scan, top=[dict(name=k[:90], ms=ms, calls=n) for k, ms, n in rows[:12]])
 
 
 def profile_steps(torch, dev, model, params, cfg, cache, num_pages, n_decode=4):
@@ -2377,10 +2406,10 @@ def _print_profile(what, p):
         for k, a in p["attention"].items():
             print(f"      attention: {k} {a['ms']:.3f} ms over {a['calls']} calls "
                   f"({100 * a['ms'] / p['device_ms']:.1f}% of device time)")
-        if p["grouped"]["calls"]:
-            g = p["grouped"]
-            print(f"      grouped GEMM: {g['ms']:.3f} ms over {g['calls']} launches "
-                  f"({100 * g['ms'] / p['device_ms']:.1f}% of device time)")
+        for what_, g in (("grouped GEMM", p["grouped"]), ("ssd_scan", p["scan"])):
+            if g["calls"]:
+                print(f"      {what_}: {g['ms']:.3f} ms over {g['calls']} launches "
+                      f"({100 * g['ms'] / p['device_ms']:.1f}% of device time)")
     else:
         print(f"    profile ({what}): device time not measured "
               f"(window {p['window_ms']:.2f} ms)")
@@ -2600,6 +2629,7 @@ def check_ssd(torch, dev, label, B, L, H, G, P, S, chunk, dtype_name, seed, rese
     C B^T and of the masked product times X (the decay mask zeroes the
     rest) plus 4 q S P for C h and the state update; no single PyTorch call
     computes the scan (library "none")."""
+    from repro_torch.kernels import _build
     from repro_torch.kernels.ref import ssd_scan_plain
     from repro_torch.kernels.ssd_scan import ssd_scan
 
@@ -2621,16 +2651,25 @@ def check_ssd(torch, dev, label, B, L, H, G, P, S, chunk, dtype_name, seed, rese
     torch.cuda.synchronize()
     err, tol = _err(torch, got, ref, dtype_name)
     nbytes = sum(t.numel() * t.element_size() for t in (*args, got))
-    flops = B * H * sum(q * (q + 1) * (S + P) + 4 * q * S * P
-                        for q in (min(chunk, L - t) for t in range(0, L, chunk)))
+    qs = [min(chunk, L - t) for t in range(0, L, chunk)]
+    flops = B * H * sum(q * (q + 1) * (S + P) + 4 * q * S * P for q in qs)
+    # the tensor-core route: every product as TF32 MMAs, three per product in
+    # f32 (3xTF32); in bf16 one for C B^T (exact operands) and two for the rest
+    mmas = (3, 3) if dtype_name == "float32" else (1, 2)
+    route_flops = B * H * sum(mmas[0] * q * (q + 1) * S + mmas[1] * (q * (q + 1) * P
+                                                                     + 4 * q * S * P)
+                              for q in qs)
     sets = [args] + [inputs() for _ in range(_copies(nbytes) - 1)]
     t = _time_ms(torch, {"ms": (lambda *a: ssd_scan(*a, chunk=chunk), sets),
                          "plain_ms": (lambda *a: ssd_scan_plain(*a, chunk), sets)})
     bound, by = _bound_ms(nbytes, flops, dtype_name)
+    tile = _build.ssd_tile(chunk, P, S, dt)
     return dict(kernel="ssd_scan", label=label, dtype=dtype_name, B=B, L=L, H=H, G=G, P=P,
                 S=S, chunk=chunk, reset=reset, max_abs_err=err, tol=tol,
                 finite=bool(torch.isfinite(got).all()), bytes=nbytes, flops=flops,
-                bound_ms=bound, bound_by=by, **t)
+                bound_ms=bound, bound_by=by,
+                route_bound_ms=max(nbytes / HBM_BYTES_PER_S, route_flops / TF32_FLOPS) * 1e3,
+                tile=dict(tile._asdict(), ctas=B * H), **t)
 
 
 def check_flash(torch, dev, label, B, Lq, Lk, H, Hkv, d, causal, dtype_name, seed):
@@ -2732,11 +2771,15 @@ def ssd_flash_checks(torch, dev):
         extra = f" lib err {c['library_err']:.2e}" if "library_err" in c else ""
         if c.get("library_error"):
             extra += f" lib refused: {c['library_error'][:80]}"
-        if "tile" in c:
+        if "tile" in c and c["kernel"] == "ssd_scan":
+            t = c["tile"]
+            extra += (f" [{t['threads'] // 32} warps, {t['stages']} chunk slots, smem "
+                      f"{t['smem']}, {t['ctas']} CTAs]")
+        elif "tile" in c:
             t = c["tile"]
             extra += f" [{t['warps']} warps x 16 rows, {t['stages']} stages, {t['ctas']} CTAs]"
         if "route_bound_ms" in c:
-            extra += f" 3xTF32 bound {c['route_bound_ms']:.4f}"
+            extra += f" TF32-route bound {c['route_bound_ms']:.4f}"
         print(f"  {c['kernel']:18s} {c['dtype']:8s} {c['label']:24s} {shape:44s} err "
               f"{c['max_abs_err']:.3e} (tol {c['tol']:.3e}){extra} "
               f"{'ok' if c['ok'] else 'FAIL'}  ms {c['ms']:.4f} (spread "
@@ -3114,6 +3157,12 @@ def main() -> int:
     if len(attn_sass) < 32 or not all(c["mma"] for c in attn_sass.values()):
         raise AssertionError(f"flash attention kernels off the tensor cores: {attn_sass}")
 
+    ssd_sass = sass_mma_counts(("ssd_scan",), "ssd_scan_kernel")
+    print(f"    ssd_scan SASS: {len(ssd_sass)} kernels, tensor-core instructions "
+          f"{min(c['mma'] for c in ssd_sass.values()) if ssd_sass else 0} or more each")
+    if len(ssd_sass) < 2 or not all(c["mma"] for c in ssd_sass.values()):
+        raise AssertionError(f"ssd_scan kernels off the tensor cores: {ssd_sass}")
+
     print("[3] kernels against their plain versions")
     checks = phase_kernels(torch, dev)
     checks += ssd_flash_checks(torch, dev)
@@ -3138,7 +3187,7 @@ def main() -> int:
         # the down projection: one library call (addmm) computes the same function
         "mx_matmul_fused": dict(M=8, K=8192, N=2048, epilogue=dict(residual=True)),
         "baseline_matmul": dict(M=8, K=2048, N=8192),
-        "mx_flash_decode": dict(B=8, H=32, poison=False, pages="same"),
+        "mx_flash_decode": dict(B=8, H=32, poison=False, pages="same", label=None),
         # the llama decode window (k = 4): f32 q and pages
         "mx_flash_verify": dict(B=8, H=32, S=5, poison=False, pages="same"),
         # grok's decode down projection: one library call (bmm) computes it
@@ -3174,7 +3223,7 @@ def main() -> int:
          dict(dtype="fp8", M=8, K=8192, N=2048),
          qruns["(f) fp8 + fp8 pages"]["launches"]["mx_matmul_fused"]),
         ("mx_flash_decode (fp8 pages)", "mx_flash_decode",
-         dict(dtype="float32", B=8, H=32, poison=False, pages="fp8"),
+         dict(dtype="float32", B=8, H=32, poison=False, pages="fp8", label=None),
          qruns["(f) fp8 + fp8 pages"]["launches"]["mx_flash_decode"]),
         ("mx_flash_verify (fp8 pages)", "mx_flash_verify",
          dict(dtype="float32", B=8, H=32, S=5, poison=False, pages="fp8"),
@@ -3241,7 +3290,7 @@ def main() -> int:
         device=smi, build_s=build_s, nvcc_cpu_s=_build.NVCC_CPU_SECONDS, ptxas=ptxas,
         checks=checks, abft_checks=abft_checks_, prefill_sass=mma_sass,
         grouped_sass=grouped_sass,
-        attention_sass=attn_sass,
+        attention_sass=attn_sass, ssd_sass=ssd_sass,
         **llama, grok=grok, zamba2=zamba2, kernels=summary), indent=1, default=str))
     print("prefill tile SASS (tensor-core / FFMA instructions per kernel): " + "; ".join(
         f"{k.split(':')[0]} {k.split(':')[1][:40]} {c['mma']}/{c['ffma']}"

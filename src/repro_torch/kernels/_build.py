@@ -632,6 +632,178 @@ def grouped_tile(T: int, N: int, K: int, G: int, a_dtype: torch.dtype,
     return GroupedTile("mma", bm, bn, bk, stages, split, parts, threads, smem, ctas)
 
 
+# The paged attention's split (csrc/mx_flash_decode.cu, decode and verify):
+# a slot's positions are cut into spans of whole pages, one cluster of CTAs
+# per (slot, kv head, window row) computes them, rank r the spans r, r + C,
+# ..., and rank 0 folds their partials in span order.
+SPAN_BYTES = 16384      # K and V bytes per span, at least one page
+SPAN_MAX_POSITIONS = 128  # positions per span at most (a warp's score pass)
+SPLIT_MAX_CLUSTER = 8   # a portable cluster
+SPLIT_RING_SPANS = 2    # spans of K/V a CTA's ring holds (the kernel takes 4 slots)
+SPLIT_MAX_GROUP_SPANS = 2  # consecutive spans a lone CTA computes per round
+SPLIT_FILL_CTAS = 2 * SMS  # CTAs a launch aims for before it stops widening clusters
+SPLIT_MAX_WARPS = 16    # one warp per query row, two rows per warp past 16
+SPLIT_MAX_GROUP = 32
+SPLIT_MAX_DIM = 256
+
+
+class DecodeSplit(NamedTuple):
+    """The launch of csrc/mx_flash_decode.cu's one kernel (decode is S = 1)."""
+    span_pages: int  # pages per span (decode_span: ps, d and page dtype alone)
+    group: int       # consecutive spans a CTA computes per round
+    ring: int        # ring slots (of `group` spans) per CTA
+    cluster: int     # CTAs per (slot, kv head, window row)
+    threads: int     # per CTA: a warp per query row, at most 16
+    smem: int        # dynamic shared memory per CTA, bytes
+    ctas: int        # cluster * B * Hkv * S
+
+
+def _split_row_bytes(d: int, elt: int) -> int:
+    """csrc/mx_flash_decode.cu `split_row_bytes`: a K or V row's d elements
+    rounded up to an odd number of 16-byte chunks."""
+    return 16 * (-(-(d * elt) // 16) | 1)
+
+
+def decode_split_smem(G: int, d: int, ps: int, elt: int, scaled: bool, span_pages: int,
+                      group: int, ring: int, cluster: int, W: int) -> int:
+    """A CTA's dynamic shared memory (csrc/mx_flash_decode.cu `split_layout`):
+    G query rows of d (f32, d rounded up to 16), `ring` slots of `group`
+    spans of `span_pages` pages (K rows, V rows and, with scales, their scale
+    rows), a score row of a span's positions per query row, two buffers of
+    the cluster's partial rows (m, l, acc) per span of a round and query
+    row, rank 0's running row per query row, the CTA's own partial rows of a
+    round, and the page ids of a CTA's spans of a table of W pages."""
+    row = _split_row_bytes(d, elt)
+    page = -(-(2 * ps * row + (8 * ps if scaled else 0)) // 16) * 16
+    q = G * (-(-d // 16) * 16) * 4
+    ids = -(-(-(-W // span_pages)) // (cluster * group)) * group * span_pages
+    return (q + ring * group * span_pages * page + G * span_pages * ps * 4
+            + (2 * cluster * group + 1 + group) * G * (d + 2) * 4 + -(-ids * 4 // 16) * 16)
+
+
+@functools.lru_cache(maxsize=None)
+def decode_span(ps: int, d: int, page_dtype: torch.dtype) -> int:
+    """Pages per span of the paged attention: SPAN_BYTES of K and V rows
+    (at least one page), at most SPAN_MAX_POSITIONS positions.  A function
+    of the page size, the head dim and the page dtype alone: a span's
+    partial, and so every output's bits, never depend on the batch, the
+    table width, the grid or the cluster size."""
+    page = 2 * ps * d * page_dtype.itemsize
+    return max(1, min(SPAN_BYTES // page, SPAN_MAX_POSITIONS // ps))
+
+
+@functools.lru_cache(maxsize=None)  # a pure function of the launch's shape
+def decode_split(B: int, S: int, Hkv: int, G: int, d: int, ps: int, W: int,
+                 page_dtype: torch.dtype, scaled: bool) -> DecodeSplit:
+    """The paged attention's launch for B slots of S window rows (decode:
+    S = 1), Hkv kv heads of G query rows of d, pages of ps rows and a table
+    of W pages:
+    - span_pages: `decode_span(ps, d, page_dtype)`;
+    - cluster: the fewest CTAs per (slot, kv head, window row) that give the
+      grid SPLIT_FILL_CTAS, at most one per span of a full table and at
+      most SPLIT_MAX_CLUSTER;
+    - group: the consecutive spans a CTA computes per round: up to
+      SPLIT_MAX_GROUP_SPANS for a cluster of one CTA (a large grid, as a
+      verify window), one in a cluster (one cluster barrier per span);
+    - ring: slots of a group for SPLIT_RING_SPANS spans in flight, no more
+      than the rounds a CTA walks (more slots cost CTAs per SM);
+    where shared memory runs out, fewer slots, then a smaller group, then a
+    smaller cluster (a span that does not fit one CTA alone raises).  The
+    choices are those that timed best on an H100 with
+    tools/split_variants.py at llama3.2-1b's decode, verify and long-context
+    shapes (PERF.md section 6).
+    """
+    if not 1 <= G <= SPLIT_MAX_GROUP or not 1 <= d <= SPLIT_MAX_DIM:
+        raise ValueError(f"the paged attention takes G <= {SPLIT_MAX_GROUP} query rows per "
+                         f"kv head and d <= {SPLIT_MAX_DIM}, got G={G}, d={d}")
+    span = decode_span(ps, d, page_dtype)
+    spans = -(-W // span)  # spans of a full table
+    pairs = B * S * Hkv
+    cluster = max(1, min(SPLIT_MAX_CLUSTER, spans, -(-SPLIT_FILL_CTAS // max(pairs, 1))))
+    elt = page_dtype.itemsize
+    per_cta = -(-spans // cluster)  # spans a CTA walks in a full table
+    group = min(SPLIT_MAX_GROUP_SPANS, per_cta) if cluster == 1 else 1
+
+    def fit(cluster, group):  # (ring, smem) of a cluster size and group
+        ring = max(1, min(SPLIT_RING_SPANS // group, -(-per_cta // group)))
+        while ring > 1 and decode_split_smem(G, d, ps, elt, scaled, span, group, ring, cluster,
+                                             W) > SMEM_PER_CTA:
+            ring -= 1
+        return ring, decode_split_smem(G, d, ps, elt, scaled, span, group, ring, cluster, W)
+
+    ring, smem = fit(cluster, group)
+    while smem > SMEM_PER_CTA and (group > 1 or cluster > 1):
+        if group > 1:
+            group -= 1
+        else:
+            cluster -= 1
+        ring, smem = fit(cluster, group)
+    if smem > SMEM_PER_CTA:
+        raise ValueError(f"the paged attention: G={G}, d={d}, page_size={ps} needs {smem} "
+                         f"bytes of shared memory for one page, past the {SMEM_PER_CTA} a "
+                         f"block can use")
+    return DecodeSplit(span, group, ring, cluster, 32 * min(G, SPLIT_MAX_WARPS), smem,
+                       cluster * pairs)
+
+
+# The chunked SSD scan (csrc/ssd_scan.cu): one CTA of 8 warps per (sequence,
+# head), each warp 16 rows of a chunk, its four products on the tensor cores.
+SSD_WARPS = 8
+SSD_MAX_DIM = 128  # chunk, P and S at most
+
+
+class SsdTile(NamedTuple):
+    """The launch of csrc/ssd_scan.cu."""
+    stages: int   # chunk slots: 2 (the next chunk in flight) where two fit, else 1
+    threads: int  # per CTA
+    smem: int     # dynamic shared memory per CTA, bytes
+
+
+def ssd_p_tiles(P: int) -> int:
+    """P's n8 tiles as csrc/ssd_scan.cu instantiates its kernel
+    (`ssd_p_tiles`): ceil(P / 8) rounded up to a power of two."""
+    n = 1
+    while n * 8 < P:
+        n *= 2
+    return n
+
+
+def _ssd_row_bytes(cols: int, elt: int) -> int:
+    """csrc/ssd_scan.cu `ssd_row_bytes`: `cols` columns rounded up to 16
+    bytes past a multiple of 128."""
+    return (cols * elt + 111) // 128 * 128 + 16
+
+
+def ssd_smem(Q: int, P: int, S: int, elt: int, stages: int) -> int:
+    """A CTA's dynamic shared memory (csrc/ssd_scan.cu `ssd_layout`):
+    `stages` chunk slots of x rows (P padded to its n8 tiles), b and c rows
+    (S padded to 8) and a_log (Q padded to 16 rows), the f32 state (S
+    padded to 16 rows of P's tiles, 8 floats past a multiple of 32 apart)
+    and three f32 rows of Q."""
+    pc = 8 * ssd_p_tiles(P)
+    q16 = -(-Q // 16) * 16
+    stage = q16 * (_ssd_row_bytes(pc, elt) + 2 * _ssd_row_bytes(-(-S // 8) * 8, elt)) + 4 * q16
+    hrow = (pc + 23) // 32 * 32 + 8
+    return stages * stage + -(-S // 16) * 16 * hrow * 4 + 3 * q16 * 4
+
+
+@functools.lru_cache(maxsize=None)
+def ssd_tile(Q: int, P: int, S: int, dtype: torch.dtype) -> SsdTile:
+    """The SSD scan's launch for chunk Q, head dim P and state S: two chunk
+    slots where they fit a CTA's shared memory (the next chunk's copies run
+    under this chunk's products), else one; ValueError past SSD_MAX_DIM or
+    when one slot does not fit."""
+    if not (1 <= Q <= SSD_MAX_DIM and 1 <= P <= SSD_MAX_DIM and 1 <= S <= SSD_MAX_DIM):
+        raise ValueError(f"ssd_scan takes chunk, P and S of at most {SSD_MAX_DIM}, got "
+                         f"chunk={Q}, P={P}, S={S}")
+    for stages in (2, 1):
+        smem = ssd_smem(Q, P, S, dtype.itemsize, stages)
+        if smem <= SMEM_PER_CTA:
+            return SsdTile(stages, 32 * SSD_WARPS, smem)
+    raise ValueError(f"ssd_scan: chunk={Q}, P={P}, S={S} needs {smem} bytes of shared memory "
+                     f"for one chunk, past the {SMEM_PER_CTA} a block can use")
+
+
 def stream_ptr(t: torch.Tensor) -> int:
     """PyTorch's current stream on t's device, as the raw cudaStream_t."""
     return torch.cuda.current_stream(t.device).cuda_stream

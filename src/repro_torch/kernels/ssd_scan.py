@@ -1,11 +1,13 @@
 """Chunked Mamba-2 SSD scan (port of `repro/kernels/ssd_scan.py::ssd_scan`).
 
 On a CUDA tensor the wrapper launches `csrc/ssd_scan.cu`: one CTA per
-(sequence, head) loops over the chunks inside the kernel and keeps the
-(S, P) f32 state in shared memory across the loop, never storing it; b and
-c are read per group.  On a CPU tensor it runs the plain version
-(`kernels.ref.ssd_scan_plain`, the chunked einsum form of
-`repro/models/ssm.py::ssd_chunked`).
+(sequence, head) loops over the chunks inside the kernel, runs each
+chunk's four products on the tensor cores (3xTF32 in f32; the lower
+triangles of the Q x Q products only) with the next chunk's copies in
+flight (`_build.ssd_tile`), and keeps the (S, P) f32 state in shared
+memory across the loop, never storing it; b and c are read per group.  On
+a CPU tensor it runs the plain version (`kernels.ref.ssd_scan_plain`, the
+chunked einsum form of `repro/models/ssm.py::ssd_chunked`).
 
 It takes the batched layout `ssd_chunked` uses -- x (B, L, H, P), a_log
 (B, L, H), b and c (B, L, G, S) with G dividing H -- or one head as JAX's
@@ -21,7 +23,7 @@ from . import _build
 from .ref import ssd_scan_plain
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_ARGTYPES = (_P,) * 5 + (_I,) * 8 + (_P,)
+_ARGTYPES = (_P,) * 5 + (_I,) * 9 + (_P,)
 
 
 def _check(x, a_log, b, c):
@@ -67,11 +69,11 @@ def ssd_scan(x: torch.Tensor, a_log: torch.Tensor, b: torch.Tensor, c: torch.Ten
     y = torch.empty_like(x)
     if B * L * H == 0:
         return y[0, :, 0] if single else y
+    tile = _build.ssd_tile(chunk, P, S, x.dtype)
     fn = _build.function("ssd_scan", "ssd_scan_launch", _ARGTYPES)
     err = fn(x.data_ptr(), a_log.data_ptr(), b.data_ptr(), c.data_ptr(), y.data_ptr(),
-             B, L, H, G, P, S, chunk, dt, _build.stream_ptr(x))
-    _build.check(err, "ssd_scan", f"ssd_scan at chunk={chunk}, P={P}, S={S} (the kernel "
-                 "takes each at most 128, its buffers within a block's shared memory)")
+             B, L, H, G, P, S, chunk, dt, tile.stages, _build.stream_ptr(x))
+    _build.check(err, "ssd_scan", f"ssd_scan at chunk={chunk}, P={P}, S={S} ({tile})")
     ssd_scan.launches += 1
     return y[0, :, 0] if single else y
 

@@ -27,9 +27,15 @@ within 1e-4 * max|ref|, bf16 within 2e-2 * max|ref|) against
 `ssd_scan_plain` / the sequential oracle and `flash_attention_plain`; the
 tensor-core attention at d = 5, 8, 16 (zero padded to the MMA's K step) and
 one row past a 64-row tile, and bitwise on a bf16 case where a probability
-rounded to bf16 would show.  Verify at S = 1 is bitwise decode, also when
-the window is longer than its copy ring.
+rounded to bf16 would show.  Verify at S = 1 is bitwise decode for every
+page type, also when the window is longer than its copy ring; the paged
+attention's bits do not depend on the batch, the table width, the cluster,
+the ring or the spans per round, and hold at 2048 positions.  `ssd_scan`
+holds at the edges of its MMA shapes (P = 128, S = 4, chunk 16 and 20),
+with HMMA in its SASS.
 """
+import ctypes
+
 import numpy as np
 import pytest
 
@@ -272,17 +278,14 @@ def test_flash_verify_runs_the_window_the_old_kernel_refused(cuda, pages):
 
 @pytest.mark.parametrize("pages", ["f32", "int8", "bf16"])
 def test_flash_verify_window_past_the_copy_ring(cuda, pages):
-    """Windows of 75 and 40 four-row pages, past the ring's 32 slots: the
-    page walk runs in chunks of half the ring, and at S = 1 still equals
-    decode bitwise."""
-    from repro_torch.kernels.mx_flash_decode import _limit
-
+    """Windows of 75 and 40 four-row pages: a CTA's span ring holds fewer
+    pages than the window (its spans run in rounds past the ring), and at
+    S = 1 verify still equals decode bitwise."""
     dt = torch.bfloat16 if pages == "bf16" else torch.float32
+    pdt = torch.int8 if pages == "int8" else dt
     lengths = (300, 160, 0, 7)
-    code = {"f32": 0, "int8": 2, "bf16": 1}[pages]
-    ring = [_limit("mx_flash_verify_smem_bytes", 2, 16, 4, code, int(pages == "int8"), W)
-            for W in (32, 75)]
-    assert ring[0] == ring[1]  # the ring stops at 32 pages, short of the 75-page window
+    sp = _build.decode_split(4, 5, 2, 2, 16, 4, 75, pdt, pages == "int8")
+    assert sp.ring * sp.span_pages < 75 and sp.smem <= _build.SMEM_PER_CTA
     for S in (5, 1):
         q, kp, vp, table, lns = _pages(4, 4, 2, 16, 4, 75, lengths, dt, cuda, poison=True,
                                        S=S)
@@ -299,15 +302,16 @@ def test_flash_verify_window_past_the_copy_ring(cuda, pages):
 
 
 def test_verify_shared_memory_covers_every_paged_config_to_k8(cuda):
-    """The verify CTA keeps a ring of its slot's pages in shared memory:
-    every paged config of the repo fits, with 16-token pages of every page
-    type, at k = 8 and any table width (sizes read from the library the
-    kernel is launched from; the window row count does not enter)."""
+    """A CTA of the paged attention keeps its query rows, a ring of spans
+    and its partials in shared memory: every paged config of the repo fits,
+    with 16-token pages of every page type, at k = 8 and any table width
+    (the layout read from the library the kernel is launched from equals
+    `_build.decode_split_smem`, which the launch table uses)."""
     from repro_torch.configs import ARCH_IDS
     from repro_torch.kernels.mx_flash_decode import _limit
 
     limit = _limit("mx_flash_max_smem_bytes")
-    assert limit == 232448
+    assert limit == 232448 == _build.SMEM_PER_CTA
     for name in ARCH_IDS:
         cfg = get_config(name)
         if cfg.n_kv_heads and not cfg.shared_attn_every and not cfg.frontend_dim \
@@ -315,10 +319,16 @@ def test_verify_shared_memory_covers_every_paged_config_to_k8(cuda):
             G = cfg.n_heads // cfg.n_kv_heads
             assert G <= _limit("mx_flash_verify_max_group"), name
             assert cfg.hd <= _limit("mx_flash_verify_max_dim"), name
-            for code, scaled in ((0, 0), (1, 0), (2, 1), (3, 1)):
+            for code, dt in enumerate((torch.float32, torch.bfloat16, torch.int8,
+                                       torch.float8_e4m3fn)):
+                scaled = dt in _build.QUANTIZED
                 for W in (1, 16, 512):
-                    assert _limit("mx_flash_verify_smem_bytes", G, cfg.hd, 16, code,
-                                  scaled, W) <= limit, (name, code, W)
+                    sp = _build.decode_split(8, 9, cfg.n_kv_heads, G, cfg.hd, 16, W, dt,
+                                             scaled)
+                    c_smem = _limit("mx_flash_split_smem_bytes", G, cfg.hd, 16, code,
+                                    int(scaled), sp.span_pages, sp.group, sp.ring,
+                                    sp.cluster, W)
+                    assert c_smem == sp.smem <= limit, (name, code, W)
 
 
 @pytest.mark.parametrize("kernel", ["mx_flash_decode", "mx_flash_verify"])
@@ -340,6 +350,92 @@ def test_attention_counts_only_launches(cuda, kernel):
     call(2)
     torch.cuda.synchronize()
     assert kernels.launch_counts()[kernel] == 1
+
+
+def _quantized_pages(kp, vp, pages):
+    """The pages as the cache stores them for `pages` ("f32", "bf16",
+    "int8", "fp8"): (k, v, {k_scale, v_scale} or {})."""
+    if pages in ("f32", "bf16"):
+        dt = torch.float32 if pages == "f32" else torch.bfloat16
+        return kp.to(dt), vp.to(dt), {}
+    spec = QuantSpec({"int8": "int8", "fp8": "fp8_e4m3"}[pages])
+    (qk, ks), (qv, vs) = (quantize(t, spec, axis=-1) for t in (kp, vp))
+    return qk, qv, dict(k_scale=ks[..., 0].contiguous(), v_scale=vs[..., 0].contiguous())
+
+
+@pytest.mark.parametrize("S", [1, 5])
+@pytest.mark.parametrize("pages", ["f32", "bf16", "int8", "fp8"])
+def test_paged_attention_bits_independent_of_batch_table_and_cluster(cuda, pages, S):
+    """The split's output bits depend on the positions, the page size and
+    the page dtype alone: every cluster size (1-8), ring depth and group of
+    spans per round gives the launch table's bits, and each slot decoded
+    alone, over a table cut to its own pages, equals its row in the full
+    batch."""
+    from repro_torch.kernels.mx_flash_decode import _launch
+
+    lengths = tuple(n + S - 1 if n else 0 for n in (1, 17, 0, 160, 33, 64, 250, 5))
+    q, kp, vp, table, lns = _pages(8, 32, 8, 64, 16, 16, lengths, torch.float32, cuda,
+                                   poison=True, S=S)
+    kp, vp, kw = _quantized_pages(kp, vp, pages)
+    fn = mx_flash_decode if S == 1 else mx_flash_verify
+    qq = q[:, 0].contiguous() if S == 1 else q
+    want = fn(qq, kp, vp, table, lns, **kw)
+    base = _build.decode_split(8, S, 8, 4, 64, 16, 16, kp.dtype, bool(kw))
+    for cluster in range(1, 9):
+        for ring, group in ((1, 1), (2, 2), (3, 1), (1, 3)):
+            split = base._replace(cluster=cluster, ring=ring, group=group)
+            got = _launch(fn, q, kp, vp, table, lns, kw.get("k_scale"), kw.get("v_scale"),
+                          split)
+            torch.cuda.synchronize()
+            assert torch.equal(got[:, 0] if S == 1 else got, want), (cluster, ring, group)
+    for i, ln in enumerate(lengths):
+        if ln == 0:
+            assert torch.all(want[i] == 0)
+            continue
+        w = -(-ln // 16)
+        alone = fn(qq[i:i + 1].contiguous(), kp, vp, table[i:i + 1, :w].contiguous(),
+                   lns[i:i + 1].contiguous(), **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(alone[0], want[i]), i
+    _close(want, (paged_decode_ref(qq, kp, vp, table, lns, **kw) if S == 1 else
+                  paged_verify_ref(q, kp, vp, table, lns, **kw)), torch.float32)
+
+
+@pytest.mark.parametrize("pages", ["f32", "bf16", "int8", "fp8"])
+def test_paged_attention_long_context_matches_plain(cuda, pages):
+    """2048 positions per slot (llama3.2-1b's heads): decode and a k = 4
+    verify window against the plain versions, lengths on and off span
+    boundaries, one free slot (every active length at least the window)."""
+    lengths = (2048, 2047, 0, 5, 1024, 2000, 32, 1537)
+    q, kp, vp, table, lns = _pages(8, 32, 8, 64, 16, 128, lengths, torch.float32, cuda,
+                                   poison=True)
+    kp, vp, kw = _quantized_pages(kp, vp, pages)
+    dt = torch.bfloat16 if pages == "bf16" else torch.float32
+    q = q.to(dt)
+    got = mx_flash_decode(q, kp, vp, table, lns, **kw)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all() and torch.all(got[2] == 0)
+    _close(got, paged_decode_ref(q, kp, vp, table, lns, **kw), dt)
+    qv = _randn((8, 5, 32, 64), dt, cuda, 11)
+    got = mx_flash_verify(qv, kp, vp, table, lns, **kw)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all() and torch.all(got[2] == 0)
+    _close(got, paged_verify_ref(qv, kp, vp, table, lns, **kw), dt)
+
+
+@pytest.mark.parametrize("pages", ["f32", "bf16", "int8", "fp8"])
+def test_flash_verify_one_row_equals_decode_every_page_type(cuda, pages):
+    """Verify at S = 1 is decode's launch: bitwise equal for every page type,
+    with f32 and bf16 queries."""
+    lengths = (1, 17, 0, 160, 33, 64, 250, 5)
+    q, kp, vp, table, lns = _pages(8, 32, 8, 64, 16, 16, lengths, torch.float32, cuda)
+    kp, vp, kw = _quantized_pages(kp, vp, pages)
+    for dt in (torch.float32, torch.bfloat16):
+        qd = q.to(dt)
+        ver = mx_flash_verify(qd[:, None].contiguous(), kp, vp, table, lns, **kw)[:, 0]
+        dec = mx_flash_decode(qd, kp, vp, table, lns, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(ver, dec), dt
 
 
 def test_model_steps_kernel_path_matches_plain_path(cuda):
@@ -1537,10 +1633,64 @@ def test_ssd_scan_kernel_against_the_sequential_scan_and_a_hard_reset(cuda):
 
 def test_ssd_scan_refuses_what_it_does_not_take(cuda):
     x, a, b, c = _ssd_inputs(cuda, 1, 16, 2, 1, 8, 4, torch.float32, 0)
-    with pytest.raises(RuntimeError, match="at most 128"):
+    with pytest.raises(ValueError, match="at most 128"):
         ssd_scan(x, a, b, c, chunk=256)
     with pytest.raises(TypeError):
         ssd_scan(x, a, b.bfloat16(), c, chunk=16)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,L,H,G,P,S,chunk,reset", [
+    (2, 64, 4, 1, 128, 4, 16, False),   # P at the limit, S and chunk at the MMA's edge
+    (1, 45, 3, 1, 128, 4, 16, True),    # a ragged last chunk and a hard reset
+    (2, 100, 4, 2, 24, 12, 20, False),  # chunk, P and S off the MMA shapes
+    (1, 300, 2, 1, 64, 64, 128, True),  # zamba2's head, a hard reset mid-chunk
+    (1, 77, 2, 1, 40, 128, 64, False),  # S at the limit
+])
+def test_ssd_scan_tensor_core_edges(cuda, dtype, B, L, H, G, P, S, chunk, reset):
+    """The tensor-core scan at the padded edges of its MMAs (P = 128, S = 4,
+    chunk 16, sizes off 8 and 16) and a hard reset (a_log = -50: the decay is
+    masked before the exp), against the plain version; the library's SASS
+    holds tensor-core instructions, and its shared memory layout is the
+    launch table's."""
+    x, a, b, c = _ssd_inputs(cuda, B, L, H, G, P, S, dtype, 3 * L + S)
+    if reset:
+        a = a.clone()
+        a[:, L // 2] = -50.0
+    got = ssd_scan(x, a, b, c, chunk=chunk)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    _close(got, ssd_scan_plain(x, a, b, c, chunk), dtype)
+    tile = _build.ssd_tile(chunk, P, S, dtype)
+    smem = _build.function("ssd_scan", "ssd_scan_smem_bytes", [ctypes.c_int] * 5,
+                           restype=ctypes.c_size_t)
+    assert smem(chunk, P, S, _build.dtype_code(dtype, "x"), tile.stages) == tile.smem
+    sass = _sass_ops("ssd_scan", "ssd_scan_kernel")
+    assert len(sass) >= 2 and all(ops_["mma"] > 0 for ops_ in sass.values()), sass
+
+
+def _sass_ops(lib, marker):
+    """Per kernel of csrc/<lib>.cu's library whose name holds `marker`: its
+    tensor-core (HMMA) and FFMA instruction counts, from cuobjdump."""
+    import subprocess
+    from pathlib import Path
+
+    cuobjdump = Path(_build._nvcc()).with_name("cuobjdump")
+    text = subprocess.run([str(cuobjdump), "-sass", str(_build._target(lib))],
+                          capture_output=True, text=True, check=True).stdout
+    out, name = {}, None
+    for line in text.splitlines():
+        if "Function : " in line:
+            name = line.split("Function : ")[1].strip()
+            name = name if marker in name else None
+            if name:
+                out[name] = dict(mma=0, ffma=0)
+        elif name is not None and "*/" in line:
+            op = line.split("*/")[1].split()
+            op = op[0] if op and not op[0].startswith("@") else (op[1] if len(op) > 1 else "")
+            out[name]["mma"] += op.startswith(("HMMA", "HGMMA"))
+            out[name]["ffma"] += op.startswith("FFMA")
+    return out
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

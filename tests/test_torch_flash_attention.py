@@ -153,6 +153,35 @@ def test_attention_call_under_cuda_mx_matches_jax(H, Hkv, hd, bias, S):
     np.testing.assert_allclose(plain, want, rtol=1e-5, atol=1e-5)
 
 
+@pytest.mark.parametrize("H,Hkv,hd,S", [
+    (4, 2, 16, 24),    # llama-smoke GQA
+    (32, 32, 80, 64),  # zamba2-2.7b's shared block head shape
+])
+def test_attention_call_bf16_under_cuda_mx_within_the_bf16_gate(H, Hkv, hd, S):
+    """`Attention.__call__` in bf16 under MXPolicy("cuda_mx") (the flash
+    kernel's plain version, which keeps the probabilities in f32 for the PV
+    product, as JAX's kernel does) against JAX's `Attention.__call__`, whose
+    full_attention rounds them to bf16: a deliberate difference, within the
+    bf16 gate of 2e-2 * max|ref|; the "torch" backend follows JAX's model."""
+    d_model = 64
+    jatt = JAttention(d_model, H, Hkv, hd)
+    jp = {k: v.astype(jnp.bfloat16) for k, v in jatt.init(jax.random.PRNGKey(0)).items()}
+    x = np.random.default_rng(0).standard_normal((2, S, d_model)).astype(np.float32)
+    xj = jnp.asarray(x).astype(jnp.bfloat16)
+    want = np.asarray(jatt(jp, xj).astype(jnp.float32))
+    att = Attention(d_model, H, Hkv, hd)
+    tp = {k: torch.from_numpy(np.array(v.astype(jnp.float32))).bfloat16()
+          for k, v in jp.items()}
+    xt = torch.from_numpy(np.array(xj.astype(jnp.float32))).bfloat16()
+    gate = 2e-2 * np.abs(want).max()
+    for backend in ("cuda_mx", "torch"):
+        with ops.use_policy(ops.MXPolicy(backend)):
+            got = att(tp, xt)
+        assert got.dtype == torch.bfloat16
+        err = np.abs(got.float().numpy() - want).max()
+        assert err <= gate, (backend, err, gate)
+
+
 def test_flash_wrapper_checks_shapes():
     q = torch.zeros((1, 4, 3, 8))
     with pytest.raises(ValueError, match="multiple"):

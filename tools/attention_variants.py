@@ -9,8 +9,7 @@ compiled three ways (one nvcc each, all started together, into
 `build/attention_variants/`): "full" (as committed), "copies"
 (FLASH_TIMING_NO_PRODUCTS: the copy ring and the softmax without the
 MMAs) and "products" (FLASH_TIMING_NO_COPIES: no copies once the ring is
-primed); wrong results, timing only; csrc/mx_flash_decode.cu at each
-verify ring budget of RINGS_KB (VERIFY_RING_KB).  With `--parent`, that checkout's
+primed); wrong results, timing only.  With `--parent`, that checkout's
 csrc/mx_flash_attention.cu and csrc/mx_flash_decode.cu are compiled too and
 their kernels timed on the same inputs.  Each library is loaded with
 ctypes and called through its C launcher.  "full" is first held against
@@ -19,9 +18,10 @@ tile.  Shapes: zamba2-2.7b's shared block (B = 8, H = 32, d = 80, L = 512,
 causal; f32 and bf16) and the llama draft forward (B = 4, H = 32 / 8,
 d = 64, L = 256, f32), at (warps, stages) in TILES; verify at llama's
 window (B = 8, S = 5, H = 32 / 8, d = 64, lengths to 160 + 5) over f32 and
-fp8 pages.  Times: CUDA events, the median of 5 windows of 20 calls,
-each window behind a spin kernel that outlasts its enqueue, the versions
-taking turns window by window; SDPA on (B, H, L, d) views as the yardstick.
+fp8 pages (the split's cluster sizes and groups: tools/split_variants.py).
+Times: CUDA events, the median of 5 windows of 20 calls, each window
+behind a spin kernel that outlasts its enqueue, the versions taking turns
+window by window; SDPA on (B, H, L, d) views as the yardstick.
 """
 from __future__ import annotations
 
@@ -41,7 +41,6 @@ FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shar
          "-Xcompiler", "-fPIC")
 VARIANTS = {"full": None, "copies": "FLASH_TIMING_NO_PRODUCTS",
             "products": "FLASH_TIMING_NO_COPIES"}
-RINGS_KB = (36, 48, 72, 100)  # verify's ring budget (VERIFY_RING_KB)
 TILES = ((4, 2), (4, 3), (8, 2), (8, 3))
 P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
@@ -51,8 +50,6 @@ def build(nvcc: str, parent: Path | None) -> dict:
     OUT.mkdir(parents=True, exist_ok=True)
     jobs = {}
     srcs = {v: (CSRC / "mx_flash_attention.cu", CSRC, m) for v, m in VARIANTS.items()}
-    for kb in RINGS_KB:
-        srcs[f"ring {kb}"] = (CSRC / "mx_flash_decode.cu", CSRC, f"VERIFY_RING_KB={kb}")
     if parent is not None:
         pc = parent / "src" / "repro_torch" / "csrc"
         srcs["parent attention"] = (pc / "mx_flash_attention.cu", pc, None)
@@ -170,7 +167,7 @@ def verify(torch, libs, pages):
     ks = kw["k_scale"].data_ptr() if kw else None
     vs = kw["v_scale"].data_ptr() if kw else None
     stream = torch.cuda.current_stream().cuda_stream
-    for name in [f"ring {kb}" for kb in RINGS_KB] + ["parent decode"]:
+    for name in ["parent decode"]:
         if name not in libs:
             continue
         fn = libs[name].mx_flash_verify_launch
