@@ -178,6 +178,39 @@ The dense cache, Mamba2 and the zamba2 hybrid (ssd_scan, mx_flash_attention):
       divergence passes only at a near tie); the static launcher with
       --prefill-chunk 64.  The draft-model run of phase 4 must launch
       mx_flash_attention (its full forwards).
+The xLSTM, encoder-decoder and prefix-embedding families:
+  3.  (with phase 3) mx_flash_attention at seamless-m4t-medium's encoder
+      (4 x 16 heads, d = 64, L = 512, non-causal) and cross-attention (Lq =
+      64 and Lq = 1 against Lk = 512; f32 and bf16 at Lq = 1) and at
+      internvl2-26b's forward (2 x 48 / 8 heads, d = 128, L = 1088 =
+      1024 prefix + 64 text, causal; f32 and bf16); the GEMMs at
+      xlstm-125m's decode projections (M = 8: K = N = 1536, and 768 x 3072)
+      and its forward's (f32, M = 2048: 768 x 3072, 1536 x 1536, 1536 x 768,
+      768 x 768), each of these also no more than twice as far from the f64
+      product as the plain version;
+  10. (after grok is freed; each model freed before the next; every phase's
+      seconds printed) xlstm-125m at full width, nothing cut (9 mLSTM + 3
+      sLSTM blocks, d_model 768, 4 heads, vocab 50304, tied): the forward on
+      4 x 512 tokens, kernel path against plain path at 1e-3 * max|ref|
+      and no more than twice as far from the plain path in f64 as the plain
+      path (51 mx_matmul_fused launches, all on the prefill tile), 16 decode
+      steps against the forward's logits (exactly 51 mx_matmul_fused
+      launches a step, all on the decode tile), the dense batcher on JAX's
+      non-prefix trace (16 requests, prompts of 2-128 tokens, 16 new, 8
+      slots) on both paths, and the static launcher (8 x 64 prompt tokens,
+      16 new) in its own process; seamless-m4t-medium at full width, nothing
+      cut (12 + 12 layers, d_model 1024, 16 heads of 64, gelu d_ff 4096,
+      vocab 256206): the forward on 4 x 512 frames + 4 x 512 tokens against
+      the plain path (36 mx_flash_attention launches: 12 encoder, 12 causal
+      decoder, 12 cross), 16 decode steps against the encoder output (12
+      cross-attention launches a step) against the forward, the static
+      launcher; internvl2-26b at full width, its depth cut from 48 to 8
+      layers (48 are 79.5 GB in f32): the prefill step on 2 x (1024 prefix
+      embeddings of width 3200 + 64 tokens) against the plain path on the
+      text positions (8 attention launches), then text only as JAX serves
+      it: the static launcher's path in this process (the launcher's
+      command line builds all 48 layers) and the dense batcher on both
+      paths; and smoke-size streams equal across backends for the three.
 The line before the last is the kernel summary JSON; the last line is
 {"ok": true, "device": {...}}.  Details go to chiprun_out/chip_smoke.json.
 """
@@ -354,10 +387,11 @@ def _prefill_tile(a, b, b_gate=None, variant="dense"):
                 threads=t.threads, smem=t.smem, ctas=t.ctas)
 
 
-def check_gemm(torch, dev, M, K, N, dtype_name, ep_kw, seed, offset=None):
+def check_gemm(torch, dev, M, K, N, dtype_name, ep_kw, seed, offset=None, f64=False):
     """mx_matmul_fused against its plain version; `offset` ("a" or "b")
     makes that operand a contiguous view 4 bytes past a 16-byte boundary
-    (the decode tile's narrow copies)."""
+    (the decode tile's narrow copies); `f64` (no epilogue) also reads the
+    kernel's and the plain version's distance to the f64 product."""
     from repro_torch.kernels import mx_matmul as mm
 
     dt = getattr(torch, dtype_name)
@@ -412,6 +446,10 @@ def check_gemm(torch, dev, M, K, N, dtype_name, ep_kw, seed, offset=None):
         out["route_bound_ms"] = max(nbytes / HBM_BYTES_PER_S, 3 * flops / TF32_FLOPS) * 1e3
     if offset:
         out["offset"] = offset
+    if f64:
+        exact = torch.matmul(a.double(), b.double())
+        out["f64_err"] = (got.double() - exact).abs().max().item()
+        out["plain_f64_err"] = (ref.double() - exact).abs().max().item()
     return out
 
 
@@ -1299,6 +1337,15 @@ def phase_kernels(torch, dev):
             seed += 1
             checks.append(check_gemm(torch, dev, 8, 2048, 2048, dtype_name,
                                      dict(residual=True), seed, offset=offset))
+        # xlstm-125m's decode projections at 8 slots: mLSTM q / k / v and up
+        for K, N in ((1536, 1536), (768, 3072)):
+            seed += 1
+            checks.append(check_gemm(torch, dev, 8, K, N, dtype_name, {}, seed))
+        # and its forward's (4 x 512 tokens, f32): up / w_in, q / k / v, down, out
+        forward = ((768, 3072), (1536, 1536), (1536, 768), (768, 768))
+        for K, N in forward if dtype_name == "float32" else ():
+            seed += 1
+            checks.append(check_gemm(torch, dev, 2048, K, N, dtype_name, {}, seed, f64=True))
         lengths = (128, 160, 0, 97, 143, 1, 129, 150)  # ragged, one free slot
         qwen = (33, 0, 160, 7)
         for pages in ("same", "int8", "fp8"):
@@ -1336,7 +1383,8 @@ def phase_kernels(torch, dev):
                      f"{'poisoned' if c['poison'] else ''}")
         ok = c["max_abs_err"] <= c["tol"] and c.get("zero_rows_exact", True) \
             and c.get("finite", True) and c.get("decode_bitwise", True) \
-            and c.get("bitwise", True) and c.get("bitwise_vs_dense", True)
+            and c.get("bitwise", True) and c.get("bitwise_vs_dense", True) \
+            and c.get("f64_err", 0) <= 2 * c.get("plain_f64_err", 0)
         c["ok"] = ok
         lib = "none" if c["library_ms"] is None else f"{c['library_ms']:.4f}"
         extra = (f" vs decode {c['decode_err']:.1e} bitwise {c['decode_bitwise']}"
@@ -1353,6 +1401,8 @@ def phase_kernels(torch, dev):
             extra += f" lib refused: {c['library_error'][:80]}"
         if c.get("offset"):
             extra += f" ({c['offset']} 4 bytes off)"
+        if "f64_err" in c:
+            extra += f" to f64: kernel {c['f64_err']:.3e} plain {c['plain_f64_err']:.3e}"
         if c.get("split"):
             t = c["split"]
             extra += (f" [span {t['span_pages']} pages = {t['span_positions']} positions, "
@@ -2759,6 +2809,21 @@ def ssd_flash_checks(torch, dev):
         check_flash(torch, dev, "cross", 1, 33, 70, 1, 1, 8, False, "float32", 7),
         check_flash(torch, dev, "zamba2 shared block bf16", 8, 512, 512, 32, 32, 80, True,
                     "bfloat16", 8),
+        # phase 10's shapes: seamless-m4t-medium's encoder (non-causal, Lq = Lk)
+        # and cross-attention (Lq < Lk; Lq = 1 at decode), internvl2-26b's
+        # forward (d = 128, 48 / 8 heads, 1024 prefix + 64 text positions)
+        check_flash(torch, dev, "seamless encoder", 4, 512, 512, 16, 16, 64, False,
+                    "float32", 9),
+        check_flash(torch, dev, "seamless cross", 4, 64, 512, 16, 16, 64, False, "float32",
+                    10),
+        check_flash(torch, dev, "seamless cross decode", 4, 1, 512, 16, 16, 64, False,
+                    "float32", 11),
+        check_flash(torch, dev, "seamless cross decode bf16", 4, 1, 512, 16, 16, 64, False,
+                    "bfloat16", 12),
+        check_flash(torch, dev, "internvl2 forward", 2, 1088, 1088, 48, 8, 128, True,
+                    "float32", 13),
+        check_flash(torch, dev, "internvl2 forward bf16", 2, 1088, 1088, 48, 8, 128, True,
+                    "bfloat16", 14),
     ]
     for c in checks:
         c["ok"] = c["max_abs_err"] <= c["tol"] and c.get("finite", True)
@@ -2882,34 +2947,49 @@ def launcher(args, timeout=300):
     return lines
 
 
-def dense_smoke_streams(torch, dev):
-    """Smoke size, the dense batcher: zamba2's and llama's streams equal
-    across "cuda_mx" / "torch", and llama's dense streams equal its paged
-    ones on each backend."""
+def dense_smoke_streams(torch, dev, names):
+    """Smoke size, kernel path ("cuda_mx") against plain path ("torch"):
+    each model of `names` through the dense batcher (llama also through the
+    paged one), an encoder-decoder through the static launcher's greedy
+    decode.  Returns, per name, whether every run's streams are equal, and
+    the streams."""
+    import argparse
+    import io
+
     from repro_torch.configs import get_config
     from repro_torch.core import ops
-    from repro_torch.launch.serve import make_trace
+    from repro_torch.launch import serve as serve_mod
     from repro_torch.models import build_model
     from repro_torch.runtime.batcher import ContinuousBatcher
 
     out = {}
-    for name in ("zamba2-2.7b-smoke", "llama3.2-1b-smoke"):
+    for name in names:
         cfg = get_config(name)
         model = build_model(cfg)
         params = model.init(0, device=dev)
-        modes = (("dense", {"paged": False}),) if "zamba" in name else (
-            ("dense", {"paged": False}), ("paged", {"paged": True, "page_size": 4}))
+        modes = (("dense", {"paged": False}),)
+        if "llama" in name:
+            modes += (("paged", {"paged": True, "page_size": 4}),)
         for backend in ("cuda_mx", "torch"):
-            for mode, kw in modes:
-                with ops.use_policy(ops.MXPolicy(backend)):
+            with ops.use_policy(ops.MXPolicy(backend)), torch.no_grad():
+                if cfg.model_kind == "encdec":
+                    buf = io.StringIO()
+                    args = argparse.Namespace(batch=3, prompt_len=12, gen=12, max_len=None,
+                                              prefill_chunk=0)
+                    with contextlib.redirect_stdout(buf):
+                        serve_mod._run_static(model, cfg, params, args)
+                    out[f"{name} {backend} static"] = [
+                        ln for ln in buf.getvalue().splitlines() if ln.startswith("sample:")]
+                    continue
+                for mode, kw in modes:
                     b = ContinuousBatcher(model, params, batch_slots=3, max_len=32, **kw)
-                    for r in make_trace(cfg, 7, 24, 8, prefix_cache=False):
+                    for r in serve_mod.make_trace(cfg, 7, 24, 8, prefix_cache=False):
                         b.submit(r)
                     fin = b.run_to_completion()
-                out[f"{name} {backend} {mode}"] = {r: fin[r].output for r in sorted(fin)}
+                    out[f"{name} {backend} {mode}"] = {r: fin[r].output for r in sorted(fin)}
     same = {}
-    for name in ("zamba2-2.7b-smoke", "llama3.2-1b-smoke"):
-        runs = [v for k, v in out.items() if k.startswith(name)]
+    for name in names:
+        runs = [v for k, v in out.items() if k.rsplit(" ", 2)[0] == name]
         same[name] = all(v == runs[0] for v in runs)
     return same, out
 
@@ -2951,83 +3031,134 @@ def _moved(tree, dev):
     return {k: _moved(v, dev) if isinstance(v, dict) else v.to(dev) for k, v in tree.items()}
 
 
+def _init_family(torch, dev, cfg):
+    """The model of `cfg` and its f32 weights from seed 0 on the card, with
+    the init time and the weights' size printed."""
+    from repro_torch.models import build_model
+    from repro_torch.models.modules import param_count
+
+    model = build_model(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init(0, device=dev)
+    torch.cuda.synchronize()
+    out = dict(init_s=time.perf_counter() - t0, params_b=param_count(params) / 1e9,
+               weights_gib=torch.cuda.memory_allocated() / 2**30)
+    print(f"    init {out['init_s']:.1f} s, {out['params_b']:.3f} B params, weights "
+          f"{out['weights_gib']:.2f} GiB")
+    return model, params, out
+
+
+def _forward_pair(torch, step, params, batch, warm):
+    """`step(params, batch)` (a `launch.steps` builder's closure) on the
+    kernel path, then the plain path, each after one warm-up call on
+    `warm`: host ms of the call (ending in a synchronize), its launches
+    (counts set to 0 just before it), and the logits held at 1e-3 *
+    max|ref|.  The plain path must launch nothing."""
+    from repro_torch import kernels
+    from repro_torch.core import ops
+
+    fwd = {}
+    for backend in ("cuda_mx", "torch"):
+        with ops.use_policy(ops.MXPolicy(backend)), torch.no_grad():
+            step(params, warm)
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            logits = step(params, batch)
+            torch.cuda.synchronize()
+            fwd[backend] = dict(ms=(time.perf_counter() - t0) * 1e3, logits=logits,
+                                launches=kernels.launch_counts(),
+                                decode_launches=kernels.decode_launch_counts(),
+                                prefill_tile_launches=kernels.prefill_launch_counts())
+    held = _hold_logits(torch, fwd["cuda_mx"]["logits"], fwd["torch"]["logits"], None, 1e-3)
+    if any(fwd["torch"]["launches"].values()):
+        raise AssertionError(f"the plain path launched kernels: {fwd['torch']['launches']}")
+    return fwd, held
+
+
+def _decode_held(torch, step_fn, n, ref, want_fused=None, want_attn=None):
+    """n decode steps (`step_fn(t)` -> logits (B, 1, V)) on the kernel path
+    against `ref` (B, >= n, V), the forward's logits, at 1e-3 * max|ref|;
+    per step the launches (counts set to 0 just before it), required at
+    `want_fused` mx_matmul_fused launches, all on the decode tile, and
+    `want_attn` mx_flash_attention launches where given."""
+    from repro_torch import kernels
+    from repro_torch.core import ops
+
+    steps, per_step = [], []
+    with ops.use_policy(ops.MXPolicy("cuda_mx")), torch.no_grad():
+        for t in range(n):
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            steps.append(step_fn(t))
+            torch.cuda.synchronize()
+            per_step.append(dict(launches=kernels.launch_counts(),
+                                 decode=kernels.decode_launch_counts()))
+    held = _hold_logits(torch, torch.cat(steps, dim=1), ref[:, :n], None, 1e-3)
+    fused = {s["launches"]["mx_matmul_fused"] for s in per_step}
+    decode = {s["decode"]["mx_matmul_fused"] for s in per_step}
+    attn = {s["launches"]["mx_flash_attention"] for s in per_step}
+    print(f"    {n} decode steps against the forward's logits: err {held['max_abs_err']:.3e} "
+          f"(tol {held['tol']:.3e}) argmax equal {held['argmax_equal']}; per step "
+          f"mx_matmul_fused {sorted(fused)} (decode tile {sorted(decode)}), "
+          f"mx_flash_attention {sorted(attn)}")
+    if not held["ok"]:
+        raise AssertionError(f"decode disagrees with the forward: {held}")
+    if want_fused is not None and (fused != {want_fused} or decode != {want_fused}):
+        raise AssertionError(f"want {want_fused} mx_matmul_fused launches per decode step, "
+                             f"all on the decode tile: {per_step}")
+    if want_attn is not None and attn != {want_attn}:
+        raise AssertionError(f"want {want_attn} mx_flash_attention launches per decode "
+                             f"step: {per_step}")
+    total = {k: sum(s["launches"][k] for s in per_step) for k in per_step[0]["launches"]}
+    return dict(hold=held, per_step=per_step[0], launches=total)
+
+
+def _print_forward(what, fwd, held):
+    print(f"    {what}: kernel path {fwd['cuda_mx']['ms']:.1f} ms, plain path "
+          f"{fwd['torch']['ms']:.1f} ms (host clock, one call each after a warm-up); "
+          f"launches {fwd['cuda_mx']['launches']} (prefill tile "
+          f"{fwd['cuda_mx']['prefill_tile_launches']})")
+    print(f"    logits against the plain path: err {held['max_abs_err']:.3e} (tol "
+          f"{held['tol']:.3e}) argmax equal {held['argmax_equal']}")
+    if not held["ok"]:
+        raise AssertionError(f"{what}: the kernel path disagrees with the plain path: {held}")
+
+
 def zamba2_phase(torch, dev):
     """Phase 8: zamba2-2.7b at full width (54 Mamba2 layers, d_model 2560,
     the shared block after every 6; nothing cut), f32 weights from seed 0.
     Returns the results, the model and its weights parked in host memory
     for the profile that ends the run (off the card while llama and grok
     run, so their peak memory is theirs alone)."""
-    from repro_torch import kernels
     from repro_torch.configs import get_config
-    from repro_torch.core import ops
     from repro_torch.launch.steps import make_prefill_step
-    from repro_torch.models import build_model
-    from repro_torch.models.modules import param_count
 
     cfg = get_config("zamba2-2.7b")
     n_mamba = sum(n for kind, n in cfg.blocks if kind == "mamba2")
     n_shared = n_mamba // cfg.shared_attn_every
     print(f"[8] zamba2-2.7b (f32, full width: {n_mamba} Mamba2 layers, shared block every "
           f"{cfg.shared_attn_every}, d_model {cfg.d_model}; nothing cut)")
-    model = build_model(cfg)
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    params = model.init(0, device=dev)
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
-    weights_gib = torch.cuda.memory_allocated() / 2**30
-    print(f"    init {init_s:.1f} s, {param_count(params) / 1e9:.3f} B params, weights "
-          f"{weights_gib:.2f} GiB")
+    model, params, init = _init_family(torch, dev, cfg)
     # the cacheless prefill step: the full forward on 4 x 512 tokens
     toks = torch.randint(0, cfg.vocab, (4, 512), device=dev,
                          generator=torch.Generator(device=dev).manual_seed(0))
-    prefill = make_prefill_step(model, cfg)
-    fwd = {}
-    for backend in ("cuda_mx", "torch"):
-        with ops.use_policy(ops.MXPolicy(backend)), torch.no_grad():
-            prefill(params, {"tokens": toks[:1, :64]})  # warm
-            torch.cuda.synchronize()
-            kernels.reset_launch_counts()
-            t0 = time.perf_counter()
-            logits = prefill(params, {"tokens": toks})
-            torch.cuda.synchronize()
-            fwd[backend] = dict(ms=(time.perf_counter() - t0) * 1e3,
-                                launches=kernels.launch_counts(), logits=logits)
-            # again, warm: the first call at this shape also pays its kernels'
-            # first launches and the allocator's growth
-            t0 = time.perf_counter()
-            prefill(params, {"tokens": toks})
-            torch.cuda.synchronize()
-            fwd[backend]["warm_ms"] = (time.perf_counter() - t0) * 1e3
+    fwd, held = _forward_pair(torch, make_prefill_step(model, cfg), params, {"tokens": toks},
+                              {"tokens": toks[:1, :64]})
+    _print_forward("full forward 4 x 512 tokens", fwd, held)
     launches = fwd["cuda_mx"]["launches"]
-    held = _hold_logits(torch, fwd["cuda_mx"]["logits"], fwd["torch"]["logits"], None, 1e-3)
-    print(f"    full forward 4 x 512 tokens: kernel path {fwd['cuda_mx']['ms']:.1f} ms "
-          f"(again, warm: {fwd['cuda_mx']['warm_ms']:.1f}), plain path "
-          f"{fwd['torch']['ms']:.1f} ms ({fwd['torch']['warm_ms']:.1f}); launches {launches}")
-    print(f"    logits against the plain path: err {held['max_abs_err']:.3e} (tol "
-          f"{held['tol']:.3e}) argmax equal {held['argmax_equal']}")
     if launches["ssd_scan"] != n_mamba or launches["mx_flash_attention"] != n_shared:
         raise AssertionError(f"zamba2 forward: want {n_mamba} ssd_scan and {n_shared} "
                              f"mx_flash_attention launches, got {launches}")
-    if fwd["torch"]["launches"]["ssd_scan"] or fwd["torch"]["launches"]["mx_flash_attention"]:
-        raise AssertionError(f"the plain path launched kernels: {fwd['torch']['launches']}")
-    if not held["ok"]:
-        raise AssertionError(f"zamba2 forward: the kernel path disagrees: {held}")
     # 16 tokens stepped through decode_step from an empty dense cache
-    ref16 = fwd["cuda_mx"]["logits"][:, :16]
-    del fwd["cuda_mx"]["logits"], fwd["torch"]["logits"], logits
-    with ops.use_policy(ops.MXPolicy("cuda_mx")), torch.no_grad():
-        cache = model.make_cache(4, 16, dtype=torch.float32, device=dev)
-        steps = []
-        for t in range(16):
-            lg, cache = model.decode_step(params, toks[:, t:t + 1], cache, t)
-            steps.append(lg)
-    dec = _hold_logits(torch, torch.cat(steps, dim=1), ref16, None, 1e-3)
-    print(f"    16 decode steps against the forward's logits: err {dec['max_abs_err']:.3e} "
-          f"(tol {dec['tol']:.3e}) argmax equal {dec['argmax_equal']}")
-    if not dec["ok"]:
-        raise AssertionError(f"zamba2 decode disagrees with the forward: {dec}")
-    del cache, steps, ref16
+    ref = fwd["cuda_mx"]["logits"]
+    cache = model.make_cache(4, 16, dtype=torch.float32, device=dev)
+    dec = _decode_held(torch, lambda t: model.decode_step(params, toks[:, t:t + 1], cache,
+                                                          t)[0], 16, ref)
+    del cache, ref
+    for fw in fwd.values():
+        fw.pop("logits")
     gc.collect()
     torch.cuda.empty_cache()
     # JAX's non-prefix trace through the dense batcher, kernel then plain path
@@ -3048,18 +3179,15 @@ def zamba2_phase(torch, dev):
     params = _moved(params, "cpu")
     gc.collect()
     torch.cuda.empty_cache()
-    same, streams = dense_smoke_streams(torch, dev)
+    same, streams = dense_smoke_streams(torch, dev, ("zamba2-2.7b-smoke", "llama3.2-1b-smoke"))
     print(f"    smoke-size dense streams equal across backends (and llama dense = paged): "
           f"{same}")
     if not all(same.values()):
         raise AssertionError(f"dense smoke streams differ: {streams}")
     lines = launcher(["--arch", "zamba2-2.7b", "--batch", "8", "--prompt-len", "64",
                       "--gen", "16"])
-    for fw in fwd.values():
-        fw.pop("logits", None)
-    return dict(init_s=init_s, weights_gib=weights_gib, peak_memory_gib=peak,
-                forward=fwd, hold_forward=held, hold_decode=dec, serve=runs,
-                streams_equal=equal, smoke_streams=streams, launcher=lines,
+    return dict(init, peak_memory_gib=peak, forward=fwd, hold_forward=held, decode=dec,
+                serve=runs, streams_equal=equal, smoke_streams=streams, launcher=lines,
                 launches=dict(ssd_scan=launches["ssd_scan"],
                               mx_flash_attention=launches["mx_flash_attention"])), \
         model, params
@@ -3093,6 +3221,239 @@ def zamba2_profile(torch, dev, model, params):
     gc.collect()
     torch.cuda.empty_cache()
     return prof, fwd
+
+
+# ---------------------------------------------------------------------------
+# phase 10: the xLSTM, encoder-decoder and prefix-embedding families
+# ---------------------------------------------------------------------------
+
+
+def _plain_f64(torch, step, params, batch):
+    """`step(params, batch)` on the plain path in float64 (weights, states
+    and GEMMs; tools/accumulation_witness.plain_f64): the witness both f32
+    paths are measured against."""
+    from tools.accumulation_witness import plain_f64, widened
+
+    with plain_f64(torch):
+        out = step(widened(params), batch)
+    if out.dtype != torch.float64:
+        raise AssertionError(f"the f64 witness ran in {out.dtype}")
+    return out
+
+
+def _static_in_process(torch, model, cfg, params, batch, prompt_len, gen):
+    """The launcher's static path (`serve._run_static`) in this process, on
+    a model built here (a depth-cut config, which the launcher's command
+    line cannot build); its printed lines."""
+    import argparse
+    import io
+
+    from repro_torch.launch import serve as serve_mod
+
+    args = argparse.Namespace(batch=batch, prompt_len=prompt_len, gen=gen, max_len=None,
+                              prefill_chunk=0)
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf), torch.no_grad():
+        serve_mod._run_static(model, cfg, params, args)
+    lines = buf.getvalue().strip().splitlines()
+    print(f"    launch.serve._run_static(batch {batch}, prompt {prompt_len}, gen {gen}) in this "
+          f"process ({time.perf_counter() - t0:.1f} s)")
+    for ln in lines:
+        print(f"      {ln}")
+    return lines
+
+
+def xlstm_phase(torch, dev):
+    """Phase 10, xlstm-125m at full width (nothing cut): the forward on 4 x
+    512 tokens, kernel path against plain path, both against the plain path
+    in f64; 16 decode steps against it (51 mx_matmul_fused launches a step,
+    all on the decode tile), the dense batcher on JAX's non-prefix trace on
+    both paths, and the static launcher in its own process."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import make_prefill_step
+
+    cfg = get_config("xlstm-125m")
+    kinds = [k for k, n in cfg.blocks for _ in range(n)]
+    n_m, n_s = kinds.count("mlstm"), kinds.count("slstm")
+    print(f"[10] xlstm-125m (f32, full width: {n_m} mLSTM + {n_s} sLSTM blocks, d_model "
+          f"{cfg.d_model}, {cfg.n_heads} heads, vocab {cfg.vocab}, tied; nothing cut)")
+    t_phase = time.perf_counter()
+    model, params, init = _init_family(torch, dev, cfg)
+    g = torch.Generator(device=dev).manual_seed(0)
+    toks = torch.randint(0, cfg.vocab, (4, 512), device=dev, generator=g)
+    step = make_prefill_step(model, cfg)
+    fwd, held = _forward_pair(torch, step, params, {"tokens": toks}, {"tokens": toks[:1, :64]})
+    _print_forward("full forward 4 x 512 tokens", fwd, held)
+    # the witness: both f32 paths against the plain path in f64; the kernel
+    # path may stand no more than twice as far from it as the plain path
+    exact = _plain_f64(torch, step, params, {"tokens": toks})
+    held["f64_err"] = (fwd["cuda_mx"]["logits"].double() - exact).abs().max().item()
+    held["plain_f64_err"] = (fwd["torch"]["logits"].double() - exact).abs().max().item()
+    del exact
+    print(f"    logits against the plain path in f64: kernel path {held['f64_err']:.3e}, plain "
+          f"path {held['plain_f64_err']:.3e} (the kernel path within 2x the plain path's)")
+    if held["f64_err"] > 2 * held["plain_f64_err"]:
+        raise AssertionError(f"xlstm forward: the kernel path is {held['f64_err']:.3e} from the "
+                             f"f64 forward, the plain path {held['plain_f64_err']:.3e}")
+    want = 5 * n_m + 2 * n_s
+    if (fwd["cuda_mx"]["launches"]["mx_matmul_fused"] != want
+            or fwd["cuda_mx"]["prefill_tile_launches"]["mx_matmul_fused"] != want):
+        raise AssertionError(f"xlstm forward: want {want} mx_matmul_fused launches on the "
+                             f"prefill tile, got {fwd['cuda_mx']}")
+    ref = fwd["cuda_mx"]["logits"]
+    cache = model.make_cache(4, 16, dtype=torch.float32, device=dev)
+    dec = _decode_held(torch, lambda t: model.decode_step(params, toks[:, t:t + 1], cache,
+                                                          t)[0],
+                       16, ref, want_fused=want, want_attn=0)
+    del cache, ref
+    for fw in fwd.values():
+        fw.pop("logits")
+    gc.collect()
+    torch.cuda.empty_cache()
+    runs = {}
+    for backend in ("cuda_mx", "torch"):
+        runs[backend] = serve_dense(torch, model, params, cfg, backend, n_req=16, gen=16,
+                                    prompt_len=128, slots=8, label=f"xlstm dense {backend}")
+        _print_dense(runs[backend])
+    equal = sum(runs["cuda_mx"]["streams"][r] == runs["torch"]["streams"][r]
+                for r in runs["torch"]["streams"])
+    if runs["cuda_mx"]["decode_launches"]["mx_matmul_fused"] <= 0:
+        raise AssertionError(f"xlstm dense batcher: no decode tile launch {runs['cuda_mx']}")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"    full-width streams equal across cuda_mx / torch: {equal}/16 (recorded); "
+          f"peak device memory {peak:.2f} GiB")
+    del params, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    lines = launcher(["--arch", "xlstm-125m", "--batch", "8", "--prompt-len", "64",
+                      "--gen", "16"])
+    seconds = time.perf_counter() - t_phase
+    print(f"    phase 10 xlstm-125m: {seconds:.1f} s")
+    return dict(init, forward=fwd, hold_forward=held, decode=dec, serve=runs,
+                streams_equal=equal, peak_memory_gib=peak, launcher=lines, seconds=seconds,
+                launches=fwd["cuda_mx"]["launches"])
+
+
+def seamless_phase(torch, dev):
+    """Phase 10, seamless-m4t-medium at full width (nothing cut): the
+    forward on 4 x 512 frames + 4 x 512 tokens (36 mx_flash_attention
+    launches: 12 encoder, 12 causal decoder, 12 cross), 16 decode steps
+    against the encoder output (12 cross-attention launches a step), and
+    the static launcher in its own process."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+
+    cfg = get_config("seamless-m4t-medium")
+    print(f"[10] seamless-m4t-medium (f32, full width: {cfg.enc_layers} encoder + "
+          f"{cfg.n_layers} decoder layers, d_model {cfg.d_model}, {cfg.n_heads} heads of "
+          f"{cfg.head_dim}, {cfg.activation} d_ff {cfg.d_ff}, vocab {cfg.vocab}, tied; "
+          f"nothing cut)")
+    t_phase = time.perf_counter()
+    model, params, init = _init_family(torch, dev, cfg)
+    g = torch.Generator(device=dev).manual_seed(0)
+    frames = torch.randn((4, 512, cfg.frontend_dim), device=dev, generator=g) * 0.1
+    toks = torch.randint(0, cfg.vocab, (4, 512), device=dev, generator=g)
+    fwd, held = _forward_pair(torch, make_prefill_step(model, cfg), params,
+                              {"frames": frames, "tokens": toks},
+                              {"frames": frames[:1, :64], "tokens": toks[:1, :64]})
+    _print_forward("full forward 4 x (512 frames + 512 tokens)", fwd, held)
+    want = cfg.enc_layers + 2 * cfg.n_layers
+    if fwd["cuda_mx"]["launches"]["mx_flash_attention"] != want:
+        raise AssertionError(f"seamless forward: want {want} mx_flash_attention launches, "
+                             f"got {fwd['cuda_mx']['launches']}")
+    ref = fwd["cuda_mx"]["logits"]
+    with torch.no_grad():
+        enc_out = model.encode(params, frames)
+    step = make_serve_step(model, cfg)
+    cache = model.make_cache(4, 16, dtype=torch.float32, device=dev)
+    dec = _decode_held(torch, lambda t: step(params, cache, toks[:, t:t + 1], t, enc_out)[0],
+                       16, ref, want_attn=cfg.n_layers)
+    del cache, ref, enc_out
+    for fw in fwd.values():
+        fw.pop("logits")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"    peak device memory {peak:.2f} GiB")
+    del params, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    lines = launcher(["--arch", "seamless-m4t-medium", "--batch", "8", "--prompt-len", "64",
+                      "--gen", "16"])
+    seconds = time.perf_counter() - t_phase
+    print(f"    phase 10 seamless-m4t-medium: {seconds:.1f} s")
+    return dict(init, forward=fwd, hold_forward=held, decode=dec, peak_memory_gib=peak,
+                launcher=lines, seconds=seconds, launches=fwd["cuda_mx"]["launches"])
+
+
+def internvl2_phase(torch, dev):
+    """Phase 10, internvl2-26b at full width, its depth cut from 48 to 8
+    layers (48 are 79.5 GB in f32): the prefill step on 2 x (1024 prefix
+    embeddings + 64 tokens) held on the text positions, then text only as
+    JAX serves it: the static launcher's path in this process and the
+    dense batcher on both paths."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import make_prefill_step
+
+    full = get_config("internvl2-26b")
+    cfg = dataclasses.replace(full, n_layers=8, blocks=(("dense", 8),))
+    print(f"[10] internvl2-26b (f32, full width: d_model {cfg.d_model}, {cfg.n_heads} / "
+          f"{cfg.n_kv_heads} heads of {cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab}, "
+          f"untied, frontend {cfg.frontend_dim} x {cfg.frontend_tokens} tokens); depth cut: "
+          f"n_layers {full.n_layers} -> {cfg.n_layers} ({full.n_params() * 4 / 1e9:.1f} GB "
+          f"of f32 weights at full depth)")
+    t_phase = time.perf_counter()
+    model, params, init = _init_family(torch, dev, cfg)
+    g = torch.Generator(device=dev).manual_seed(0)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (2, 64), device=dev, generator=g),
+             "pixel_embeds": torch.randn((2, cfg.frontend_tokens, cfg.frontend_dim),
+                                         device=dev, generator=g)}
+    warm = {"tokens": batch["tokens"][:1, :8], "pixel_embeds": batch["pixel_embeds"][:1]}
+    fwd, held = _forward_pair(torch, make_prefill_step(model, cfg), params, batch, warm)
+    _print_forward(f"prefill step 2 x ({cfg.frontend_tokens} prefix + 64 tokens), the text "
+                   f"positions", fwd, held)
+    if fwd["cuda_mx"]["launches"]["mx_flash_attention"] != cfg.n_layers:
+        raise AssertionError(f"internvl2 prefill: want {cfg.n_layers} mx_flash_attention "
+                             f"launches, got {fwd['cuda_mx']['launches']}")
+    for fw in fwd.values():
+        fw.pop("logits")
+    gc.collect()
+    torch.cuda.empty_cache()
+    lines = _static_in_process(torch, model, cfg, params, 8, 64, 16)
+    runs = {}
+    for backend in ("cuda_mx", "torch"):
+        runs[backend] = serve_dense(torch, model, params, cfg, backend, n_req=16, gen=16,
+                                    prompt_len=128, slots=8, label=f"internvl2 dense {backend}")
+        _print_dense(runs[backend])
+    equal = sum(runs["cuda_mx"]["streams"][r] == runs["torch"]["streams"][r]
+                for r in runs["torch"]["streams"])
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"    full-width streams equal across cuda_mx / torch: {equal}/16 (recorded); "
+          f"peak device memory {peak:.2f} GiB")
+    del params, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    seconds = time.perf_counter() - t_phase
+    print(f"    phase 10 internvl2-26b: {seconds:.1f} s")
+    return dict(init, config=dict(n_layers=cfg.n_layers, cut_from=full.n_layers),
+                forward=fwd, hold_forward=held, launcher=lines, serve=runs,
+                streams_equal=equal, peak_memory_gib=peak, seconds=seconds,
+                launches=fwd["cuda_mx"]["launches"])
+
+
+def family_phases(torch, dev):
+    """Phase 10: each family at full width, each model freed before the
+    next, then the smoke streams across backends."""
+    out = dict(xlstm=xlstm_phase(torch, dev), seamless=seamless_phase(torch, dev),
+               internvl2=internvl2_phase(torch, dev))
+    t0 = time.perf_counter()
+    same, streams = dense_smoke_streams(
+        torch, dev, ("xlstm-125m-smoke", "internvl2-26b-smoke", "seamless-m4t-medium-smoke"))
+    print(f"    smoke-size streams equal across backends: {same} "
+          f"({time.perf_counter() - t0:.1f} s)")
+    if not all(same.values()):
+        raise AssertionError(f"family smoke streams differ: {streams}")
+    out["smoke_streams"] = streams
+    return out
 
 
 def main() -> int:
@@ -3178,6 +3539,8 @@ def main() -> int:
     grok = grok_phases(torch, dev)
     launches["mx_grouped_matmul"] = grok["serve"]["launches"]["mx_grouped_matmul"]
     launches.update(zamba2["launches"])
+    # grok is freed: the three families, one model at a time
+    families = family_phases(torch, dev)
     print("[8p] zamba2-2.7b decode step and full forward profiled")
     zamba2["profile_decode"], zamba2["profile_forward"] = zamba2_profile(torch, dev, zmodel,
                                                                           zparams)
@@ -3284,6 +3647,32 @@ def main() -> int:
             ms=c["ms"], plain_ms=c["plain_ms"], bound_ms=c["bound_ms"],
             bound_by=c["bound_by"], library_ms=c["library_ms"],
             shape={k: c[k] for k in ("M", "K", "N") if k in c}, dtype="float32"))
+    # phase 10: the new shapes of the kernels on the three families' paths,
+    # their launches those of the phase's runs
+    fam = families
+    for name, kernel, sel, n in (
+            ("mx_matmul_fused (xlstm decode q/k/v)", "mx_matmul_fused",
+             dict(dtype="float32", M=8, K=1536, N=1536, epilogue={}),
+             fam["xlstm"]["serve"]["cuda_mx"]["decode_launches"]["mx_matmul_fused"]),
+            ("mx_flash_attention (seamless encoder, non-causal)", "mx_flash_attention",
+             dict(dtype="float32", label="seamless encoder"),
+             fam["seamless"]["launches"]["mx_flash_attention"]),
+            ("mx_flash_attention (seamless cross at decode, Lq=1)", "mx_flash_attention",
+             dict(dtype="float32", label="seamless cross decode"),
+             fam["seamless"]["decode"]["launches"]["mx_flash_attention"]),
+            ("mx_flash_attention (internvl2, d=128, 48/8 heads)", "mx_flash_attention",
+             dict(dtype="float32", label="internvl2 forward"),
+             fam["internvl2"]["launches"]["mx_flash_attention"])):
+        if n <= 0:
+            raise AssertionError(f"{name} was not launched on its path")
+        c = next(c for c in checks if c["kernel"] == kernel
+                 and all(c.get(k) == v for k, v in sel.items()))
+        summary.append(dict(
+            name=name, route="cuda", source=SOURCES[kernel], replaces=TPU_KERNELS[kernel],
+            launches=n, max_abs_err=c["max_abs_err"], ms=c["ms"], plain_ms=c["plain_ms"],
+            bound_ms=c["bound_ms"], bound_by=c["bound_by"], library_ms=c["library_ms"],
+            shape={k: c[k] for k in ("M", "K", "N", "B", "H", "Hkv", "d", "Lq", "Lk")
+                   if k in c}, dtype="float32"))
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(dict(
@@ -3291,7 +3680,8 @@ def main() -> int:
         checks=checks, abft_checks=abft_checks_, prefill_sass=mma_sass,
         grouped_sass=grouped_sass,
         attention_sass=attn_sass, ssd_sass=ssd_sass,
-        **llama, grok=grok, zamba2=zamba2, kernels=summary), indent=1, default=str))
+        **llama, grok=grok, zamba2=zamba2, families=families, kernels=summary), indent=1,
+        default=str))
     print("prefill tile SASS (tensor-core / FFMA instructions per kernel): " + "; ".join(
         f"{k.split(':')[0]} {k.split(':')[1][:40]} {c['mma']}/{c['ffma']}"
         for k, c in mma_sass.items()))

@@ -63,8 +63,8 @@ __device__ __forceinline__ void st_cg(void* p, int dt, int64_t i, float v) {
 // partial flushed into the output after every bk-wide chunk of K, in K
 // order; each thread owns the same output elements in every chunk.
 template <typename T, int BM, int BN>
-__global__ void __launch_bounds__(PrefillCfg<T, BM, BN, false, false>::kThreads)
-baseline_prefill_kernel(const PrefillShape d, void* out, int out_dt, int bk) {
+__device__ __forceinline__ void baseline_prefill_body(const PrefillShape& d, void* out,
+                                                      int out_dt, int bk) {
   using Cfg = PrefillCfg<T, BM, BN, false, false>;
   extern __shared__ __align__(128) unsigned char pf_smem[];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -107,10 +107,28 @@ baseline_prefill_kernel(const PrefillShape d, void* out, int out_dt, int bk) {
 }
 
 template <typename T, int BM, int BN>
+__global__ void __launch_bounds__(PrefillCfg<T, BM, BN, false, false>::kThreads)
+baseline_prefill_kernel(const PrefillShape d, void* out, int out_dt, int bk) {
+  baseline_prefill_body<T, BM, BN>(d, out, out_dt, bk);
+}
+
+// The same, two CTAs per SM (PrefillCfg::kTwoPerSm), as the MX kernel's.
+template <typename T, int BM, int BN>
+__global__ void __launch_bounds__(PrefillCfg<T, BM, BN, false, false>::kThreads, 2)
+baseline_prefill_kernel_2(const PrefillShape d, void* out, int out_dt, int bk) {
+  baseline_prefill_body<T, BM, BN>(d, out, out_dt, bk);
+}
+
+template <typename T, int BM, int BN>
 static int prefill_tile_launch(const PrefillShape& d, void* out, int out_dt, int bk,
                                cudaStream_t s) {
-  return prefill_launch<baseline_prefill_kernel<T, BM, BN>, PrefillCfg<T, BM, BN, false, false>,
-                        false>(d, s, false, d, out, out_dt, bk);
+  using Cfg = PrefillCfg<T, BM, BN, false, false>;
+  if constexpr (Cfg::kTwoPerSm)
+    return prefill_launch<baseline_prefill_kernel_2<T, BM, BN>, Cfg, false>(d, s, false, d,
+                                                                             out, out_dt, bk);
+  else
+    return prefill_launch<baseline_prefill_kernel<T, BM, BN>, Cfg, false>(d, s, false, d, out,
+                                                                           out_dt, bk);
 }
 
 // The MX kernel's CTA tiles (kernels/_build.PREFILL_TILES).

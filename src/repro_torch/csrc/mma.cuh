@@ -3,8 +3,9 @@
 // memory with their commit / wait groups, ldmatrix fragment loads, and the
 // mma.sync products -- m16n8k16 bf16 and m16n8k8 TF32 into f32, with the
 // split of an f32 value into a TF32 high part and its TF32 remainder for
-// 3xTF32 (hi*hi + hi*lo + lo*hi, about f32's accuracy).  Included by the
-// decode tile (csrc/decode_tile.cuh), the prefill tile
+// 3xTF32 (hi*hi + hi*lo + lo*hi, about f32's accuracy when the products
+// are added to a long sum with rounding: csrc/prefill_tile.cuh pf_3xtf32).
+// Included by the decode tile (csrc/decode_tile.cuh), the prefill tile
 // (csrc/prefill_tile.cuh), the flash attention (csrc/mx_flash_attention.cu)
 // and the paged decode / verify (csrc/mx_flash_decode.cu).
 #pragma once
@@ -126,6 +127,15 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const unsigned (&a)[4],
       "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// d = a b, from a zero accumulator (no register to clear)
+__device__ __forceinline__ void mma_tf32_zero(float (&d)[4], const unsigned (&a)[4],
+                                              const unsigned (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, "
+      "{%4,%5,%6,%7}, {%8,%9}, {%10,%10,%10,%10};\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]), "f"(0.0f));
 }
 
 __device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4],

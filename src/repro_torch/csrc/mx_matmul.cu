@@ -114,20 +114,37 @@ mx_matmul_decode_kernel(const DecodeShape d, const Args r) {
 // The tensor-core prefill tile (csrc/prefill_tile.cuh): this CTA's K part(s),
 // then the single write-back from shared memory.
 template <typename T, typename TB, int BM, int BN, bool GATE>
-__global__ void __launch_bounds__(PrefillCfg<T, BM, BN, GATE, false, TB>::kThreads)
-mx_matmul_prefill_kernel(const PrefillShape d, const Args r) {
+__device__ __forceinline__ void prefill_body(const PrefillShape& d, const Args& r) {
   NoHook hook;
   const float* Cs = prefill_sweep<T, BM, BN, GATE, false, TB>(d, hook);
   prefill_store<PrefillCfg<T, BM, BN, GATE, false, TB>, BM, BN, GATE>(r, d, Cs);
 }
 
+template <typename T, typename TB, int BM, int BN, bool GATE>
+__global__ void __launch_bounds__(PrefillCfg<T, BM, BN, GATE, false, TB>::kThreads)
+mx_matmul_prefill_kernel(const PrefillShape d, const Args r) {
+  prefill_body<T, TB, BM, BN, GATE>(d, r);
+}
+
+// The same, two CTAs per SM (PrefillCfg::kTwoPerSm).
+template <typename T, typename TB, int BM, int BN, bool GATE>
+__global__ void __launch_bounds__(PrefillCfg<T, BM, BN, GATE, false, TB>::kThreads, 2)
+mx_matmul_prefill_kernel_2(const PrefillShape d, const Args r) {
+  prefill_body<T, TB, BM, BN, GATE>(d, r);
+}
+
 template <typename T, typename TB, int BM, int BN>
 static int prefill_gate(const PrefillShape& d, const Args& r, cudaStream_t s) {
+  using Cfg = PrefillCfg<T, BM, BN, false, false, TB>;
   if (r.act == kSwiglu)
     return prefill_launch<mx_matmul_prefill_kernel<T, TB, BM, BN, true>,
                           PrefillCfg<T, BM, BN, true, false, TB>, false>(d, s, true, d, r);
-  return prefill_launch<mx_matmul_prefill_kernel<T, TB, BM, BN, false>,
-                        PrefillCfg<T, BM, BN, false, false, TB>, false>(d, s, true, d, r);
+  if constexpr (Cfg::kTwoPerSm)
+    return prefill_launch<mx_matmul_prefill_kernel_2<T, TB, BM, BN, false>, Cfg, false>(
+        d, s, true, d, r);
+  else
+    return prefill_launch<mx_matmul_prefill_kernel<T, TB, BM, BN, false>, Cfg, false>(
+        d, s, true, d, r);
 }
 
 // The CTA tiles of kernels/_build.PREFILL_TILES.

@@ -48,12 +48,13 @@
 //     1 by plain loads), with no padded operand copies.
 // The tile (BM, BN, stages, split, parts) and the copy widths are chosen in
 // Python (kernels/_build.prefill_tile / copy_width) and checked by
-// prefill_check.  Three macros, never set by the package's build, cut parts
-// of the loop for timing only (tools/prefill_variants.py,
-// tools/grouped_variants.py; wrong results): PREFILL_TIMING_NO_PRODUCTS
+// prefill_check.  Four macros, never set by the package's build, change
+// the loop for timing only (tools/prefill_variants.py,
+// tools/grouped_variants.py; other results): PREFILL_TIMING_NO_PRODUCTS
 // (the ring without the MMAs), PREFILL_TIMING_NO_COPIES (no copies once the
-// ring is primed) and PREFILL_TIMING_ONE_TF32 (one TF32 product per f32
-// step, not three); a fourth, PREFILL_TIMING_B_IN_SMEM, widens a 16-row
+// ring is primed), PREFILL_TIMING_ONE_TF32 (one TF32 product per f32
+// step, not three) and PREFILL_TIMING_MMA_ACC (f32 accumulated in the MMAs,
+// truncating, as before pf_3xtf32); PREFILL_TIMING_B_IN_SMEM widens a 16-row
 // tile's narrow weight in the shared-memory pass (right results; the A/B
 // against widening in registers).
 //
@@ -135,6 +136,12 @@ struct PrefillCfg {
   static constexpr int kWarpsN = BN / 32;
   static constexpr int kWarpsM = BM == 16 ? 1 : 2;
   static constexpr int kThreads = 32 * kWarpsM * kWarpsN;
+  // The ungated f32 64 x 128 tile: two CTAs fit an SM's shared memory, and
+  // the dense MX and baseline kernels ask __launch_bounds__ for two, which
+  // holds their registers to 128 (pf_3xtf32's fresh fragments take them to
+  // 138-140).
+  static constexpr bool kTwoPerSm =
+      std::is_same<T, float>::value && !GATE && !SPARSE && BM == 64 && BN == 128;
   static constexpr int kWM = BM / kWarpsM, kMT = kWM / 16, kNT = 4;
   static constexpr int kAStride = kBK * kE + 16;  // bytes per staged A row (128 + 16)
   static constexpr int kBStride = (BN + 8) * kE;  // bytes per staged B row
@@ -441,9 +448,38 @@ __device__ __forceinline__ void b_frags_widen(unsigned (&b)[Cfg::kNT][2],
   }
 }
 
+// acc += a b in 3xTF32 for one k8 step: lo*hi, hi*lo, hi*hi summed by the
+// tensor cores into a fresh fragment, then added to acc with rounding
+// FADDs.  The tensor cores' f32 accumulation truncates: a K loop that kept
+// acc in the MMAs lost bits at every step (tools/accumulation_witness.py,
+// M = 2048, K = 768-1536: 5.4e-6 relative RMS from the f64 product, against
+// 3.5-7.0e-7 for cuBLAS f32 and 8e-8 for the three products summed
+// exactly).
+__device__ __forceinline__ void pf_3xtf32(float (&acc)[4], const unsigned (&ah)[4],
+                                          const unsigned (&al)[4], const unsigned (&bh)[2],
+                                          const unsigned (&bl)[2]) {
+#if defined(PREFILL_TIMING_MMA_ACC)
+  mma_tf32(acc, al, bh);
+  mma_tf32(acc, ah, bl);
+  mma_tf32(acc, ah, bh);
+#else
+  float t[4];
+#ifdef PREFILL_TIMING_ONE_TF32
+  mma_tf32_zero(t, ah, bh);
+#else
+  mma_tf32_zero(t, al, bh);
+  mma_tf32(t, ah, bl);
+  mma_tf32(t, ah, bh);
+#endif
+#pragma unroll
+  for (int i = 0; i < 4; ++i) acc[i] += t[i];
+#endif
+}
+
 // The MMAs of one staged K step into acc (and accg with GATE).  Every
 // output element takes the same sequence of products whatever its tile:
-// the k sub-steps in order, and for f32 lo*hi, hi*lo, hi*hi at each.
+// the k sub-steps in order, and for f32 lo*hi, hi*lo, hi*hi at each,
+// summed apart and then added to acc (pf_3xtf32).
 template <typename T, int BM, int BN, bool GATE, bool SPARSE, typename TB = T>
 __device__ __forceinline__ void pf_mma_stage(
     Acc<PrefillCfg<T, BM, BN, GATE, SPARSE, TB>>& acc,
@@ -473,23 +509,14 @@ __device__ __forceinline__ void pf_mma_stage(
 #pragma unroll
       for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-        for (int nt = 0; nt < NT; ++nt) {
-#ifndef PREFILL_TIMING_ONE_TF32
-          mma_tf32(acc[mt][nt], al[mt], bh[nt]);
-          mma_tf32(acc[mt][nt], ah[mt], bl[nt]);
-#endif
-          mma_tf32(acc[mt][nt], ah[mt], bh[nt]);
-        }
+        for (int nt = 0; nt < NT; ++nt) pf_3xtf32(acc[mt][nt], ah[mt], al[mt], bh[nt], bl[nt]);
       if constexpr (GATE) {
         b_frags_tf32<Cfg>(bh, bl, Bgs, kk, wn0, lane);
 #pragma unroll
         for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-          for (int nt = 0; nt < NT; ++nt) {
-            mma_tf32(accg[mt][nt], al[mt], bh[nt]);
-            mma_tf32(accg[mt][nt], ah[mt], bl[nt]);
-            mma_tf32(accg[mt][nt], ah[mt], bh[nt]);
-          }
+          for (int nt = 0; nt < NT; ++nt)
+            pf_3xtf32(accg[mt][nt], ah[mt], al[mt], bh[nt], bl[nt]);
       }
     }
   } else {

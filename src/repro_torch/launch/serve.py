@@ -13,6 +13,10 @@ CPU smoke (the plain PyTorch path, no GPU needed):
       --device cpu                        # Mamba2 hybrid, token-stepped prompt
   PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b --smoke \\
       --continuous --device cpu           # the dense continuous batcher
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm-125m --smoke \\
+      --continuous --device cpu           # xLSTM (also internvl2-26b, text only)
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch seamless-m4t-medium \\
+      --smoke --device cpu                # encoder-decoder, always static
   PYTHONPATH=src python -m repro_torch.launch.serve --smoke --prefix-cache \\
       --prefill-chunk 4 --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --arch grok-1-314b --smoke \\
@@ -24,7 +28,11 @@ CPU smoke (the plain PyTorch path, no GPU needed):
 As in JAX: without --continuous / --paged (or a flag that implies one) the
 launcher generates statically -- a (batch, max_len) bf16 dense cache, the
 prompt through chunked prefill where the model supports it
-(--prefill-chunk), token stepping otherwise, then greedy decode.
+(--prefill-chunk), token stepping otherwise, then greedy decode.  An
+encoder-decoder always generates statically, against the encoder output of
+32 random frames (x 0.1) per sequence, drawn after the prompt from the same
+numpy generator and encoded once.  A prefix-embedding model (internvl2)
+serves text only, as JAX's launcher does.
 --continuous streams 2x requests through --batch slots of the dense
 batcher, --paged through the paged one; --prefix-cache and --speculate
 imply --paged, --abft implies --continuous.  --speculate K drafts K tokens
@@ -54,7 +62,7 @@ from .steps import make_chunked_prefill_step, make_serve_step
 
 UNPORTED_FLAGS = ("--chaos", "--chaos-seed", "--fault-rate", "--disagg",
                   "--disagg-migrate")
-PORTED_BLOCKS = ("dense", "moe", "mamba2")
+ENC_FRAMES = 32  # encoder frames per sequence of the static encoder-decoder run
 
 
 def make_trace(cfg, n_req: int, prompt_len: int, gen: int, prefix_cache: bool):
@@ -108,7 +116,10 @@ def _run_static(model, cfg, params, args) -> int:
     """JAX's static generation: --batch prompts of --prompt-len random tokens
     (numpy seed 0) into a (batch, max_len) dense cache of JAX's default
     bf16, prefilled in --prefill-chunk blocks where the model supports it
-    and token by token otherwise, then --gen greedy tokens."""
+    and token by token otherwise, then --gen greedy tokens.  An
+    encoder-decoder decodes against `model.encode` of ENC_FRAMES frames per
+    sequence (standard normals x 0.1 in f32 from the same generator, after
+    the prompt), computed once."""
     B = args.batch
     max_len = args.max_len or (args.prompt_len + args.gen)
     device = param_device(params)
@@ -117,8 +128,17 @@ def _run_static(model, cfg, params, args) -> int:
     prompt = torch.as_tensor(prompt, device=device).long()
     cache = model.make_cache(B, max_len, device=device)
     step = make_serve_step(model, cfg)
+    encdec = cfg.model_kind == "encdec"
+    if encdec:
+        frames = rng.standard_normal((B, ENC_FRAMES, cfg.frontend_dim)).astype(np.float32)
+        enc_out = model.encode(params, torch.as_tensor(frames, device=device) * 0.1)
+        serve = step
+
+        def step(p, c, t, i):
+            return serve(p, c, t, i, enc_out)
+
     chunk = args.prefill_chunk
-    can_chunk = chunk > 1 and model.supports_chunked_prefill()
+    can_chunk = chunk > 1 and not encdec and model.supports_chunked_prefill()
     if chunk > 1 and not can_chunk:
         print(f"chunked prefill unsupported for {cfg.name}; "
               "falling back to token stepping")
@@ -294,16 +314,14 @@ def main(argv=None) -> int:
     device = resolve_device(args.device)
 
     cfg = get_config(args.arch + ("-smoke" if args.smoke else ""))
-    if (cfg.model_kind == "encdec" or cfg.frontend_dim
-            or any(kind not in PORTED_BLOCKS for kind, _ in cfg.blocks)):
-        raise SystemExit(f"{cfg.name}: the xLSTM, encoder-decoder and prefix-embedding "
-                         "models are not ported yet (see ROADMAP.md); dense, MoE and "
-                         "Mamba2 / zamba2 hybrid decoders are")
+    if cfg.model_kind == "encdec":
+        print("enc-dec serving: decoder decode against a fixed encoder memory")
     model = build_model(cfg)
     if args.speculate and args.draft != "ngram":
         _draft_config(cfg, args)  # refuse a mismatched draft before any weights
     params = model.init(0, device=device)
-    if args.continuous or args.paged:
+    # the encoder-decoder never goes to the batcher, whatever the flags (JAX)
+    if (args.continuous or args.paged) and cfg.model_kind != "encdec":
         return _run_continuous(model, cfg, params, args)
     return _run_static(model, cfg, params, args)
 

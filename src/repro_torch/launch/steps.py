@@ -11,11 +11,16 @@ from typing import Callable
 
 
 def forward(model, cfg, params, batch):
-    """(logits, aux) of the full forward.  Decoder LMs only: the
-    encoder-decoder and prefix-embedding inputs are not ported yet."""
-    if cfg.model_kind == "encdec" or cfg.frontend_dim:
-        raise NotImplementedError(f"{cfg.name}: encoder-decoder and prefix-embedding "
-                                  "forwards are not ported yet (ROADMAP queue 1)")
+    """(logits, aux) of the full forward, the logits at the label positions
+    only (JAX's three input conventions): an encoder-decoder takes
+    batch["frames"] and batch["tokens"]; a prefix-embedding model (VLM)
+    batch["tokens"] after batch["pixel_embeds"], its logits cut to the
+    text positions; a decoder LM batch["tokens"]."""
+    if cfg.model_kind == "encdec":
+        return model(params, batch["frames"], batch["tokens"])
+    if cfg.frontend_dim:
+        logits, aux = model(params, batch["tokens"], prefix_embeds=batch["pixel_embeds"])
+        return logits[:, cfg.frontend_tokens:, :], aux
     return model(params, batch["tokens"])
 
 
@@ -44,11 +49,15 @@ def make_chunked_prefill_step(model, cfg) -> Callable:
 
 
 def make_serve_step(model, cfg) -> Callable:
-    """(params, cache, token, index) -> (logits, cache): one token against
-    the dense cache / recurrent state of a decoder LM."""
+    """One token against the dense cache / recurrent state.
+      decoder LM:      (params, cache, token, index) -> (logits, cache)
+      encoder-decoder: (params, cache, token, index, enc_out) -> (logits, cache)"""
     if cfg.model_kind == "encdec":
-        raise NotImplementedError("encoder-decoder serving is not ported yet "
-                                  "(ROADMAP queue 1 item 5)")
+
+        def serve_step(params, cache, token, index, enc_out):
+            return model.decode_step(params, token, cache, index, enc_out=enc_out)
+
+        return serve_step
 
     def serve_step(params, cache, token, index):
         return model.decode_step(params, token, cache, index)

@@ -1,7 +1,7 @@
-"""Model stacks and layers (dense decoder-only subset)."""
-from . import layers, modules, transformer
+"""Model stacks and layers."""
+from . import layers, modules, transformer, xlstm
 from .convert import from_jax_params
-from .transformer import DecoderLM, build_model
+from .transformer import DecoderLM, EncDecLM, build_model
 
-__all__ = ["layers", "modules", "transformer", "DecoderLM", "build_model",
-           "from_jax_params"]
+__all__ = ["layers", "modules", "transformer", "xlstm", "DecoderLM", "EncDecLM",
+           "build_model", "from_jax_params"]

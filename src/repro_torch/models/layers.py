@@ -1,6 +1,6 @@
-"""Transformer building blocks (port of `repro/models/layers.py`, the
-dense and paged-serving subset): norms, RoPE, linear, embedding, GQA
-attention (full, chunked, and over a paged KV cache), MLP.
+"""Transformer building blocks (port of `repro/models/layers.py`): norms,
+RoPE, linear, embedding, GQA attention (full, chunked, cross-attention
+over given K/V, and over a dense or paged KV cache), MLP.
 
 All weight-times-activation contractions route through `core.ops.linear`
 (the MX dispatch); paged decode attention through `mx_flash_decode`, the
@@ -201,48 +201,53 @@ class Attention(Module):
             p["bv"] = mk.param("bv", (self.n_kv_heads * hd,), init="zeros")
         return p
 
-    def _qkv(self, p, x, positions):
+    def _proj(self, p, x, name, heads, positions):
+        """One of the q / k / v projections, (B, S, heads, hd), rotated by
+        RoPE at `positions` for q and k."""
         b, s, _ = x.shape
-        hd = self.hd
-        bq = p["bq"] if self.qkv_bias else None
-        bk = p["bk"] if self.qkv_bias else None
-        bv = p["bv"] if self.qkv_bias else None
-        q = ops.linear(x, p["wq"], bq, out_dtype=x.dtype, tp_mode="allgather",
-                       precision=self.precision)
-        k = ops.linear(x, p["wk"], bk, out_dtype=x.dtype, tp_mode="allgather",
-                       precision=self.precision)
-        v = ops.linear(x, p["wv"], bv, out_dtype=x.dtype, tp_mode="allgather",
-                       precision=self.precision)
-        q = q.reshape(b, s, self.n_heads, hd)
-        k = k.reshape(b, s, self.n_kv_heads, hd)
-        v = v.reshape(b, s, self.n_kv_heads, hd)
-        if self.use_rope:
-            q = apply_rope(q, positions, self.rope_theta)
-            k = apply_rope(k, positions, self.rope_theta)
-        return q, k, v
+        bias = p["b" + name] if self.qkv_bias else None
+        t = ops.linear(x, p["w" + name], bias, out_dtype=x.dtype, tp_mode="allgather",
+                       precision=self.precision).reshape(b, s, heads, self.hd)
+        if self.use_rope and name != "v":
+            t = apply_rope(t, positions, self.rope_theta)
+        return t
 
-    def __call__(self, p, x, *, positions=None, residual=None):
+    def _qkv(self, p, x, positions):
+        return (self._proj(p, x, "q", self.n_heads, positions),
+                self._proj(p, x, "k", self.n_kv_heads, positions),
+                self._proj(p, x, "v", self.n_kv_heads, positions))
+
+    def __call__(self, p, x, *, positions=None, kv=None, residual=None):
         """Self-attention over x: (B, S, D) at `positions` (B, S), 0..S-1 by
         default; `residual` fuses into the output projection's write-back.
+        With kv=(k, v), each (B, Sk, Hkv or H, hd), x attends over those
+        instead, with no causal mask (cross-attention; JAX still computes
+        x's own k and v there and drops them, the port projects q alone).
         On the CUDA backends both of JAX's branches (full attention, and
         the chunked online softmax past `chunked_threshold` keys) are one
         `mx_flash_attention` launch over every head, reading each kv head
-        in place; the "torch" backend runs JAX's two plain forms.  (JAX's
-        cross-attention `kv=` comes with the encoder-decoder model.)"""
+        in place (Sk may differ from S, down to S = 1 at decode); the
+        "torch" backend runs JAX's two plain forms."""
         b, s, _ = x.shape
         if positions is None:
             positions = torch.arange(s, device=x.device).expand(b, s)
-        q, k, v = self._qkv(p, x, positions)
+        if kv is None:
+            q, k, v = self._qkv(p, x, positions)
+            causal = self.causal
+        else:
+            q, (k, v) = self._proj(p, x, "q", self.n_heads, positions), kv
+            causal = False
         if ops.current_policy().resolve(x) == "torch":
             groups = self.n_heads // self.n_kv_heads
-            k, v = _repeat_kv(k, groups), _repeat_kv(v, groups)
+            if k.shape[2] != self.n_heads:
+                k, v = _repeat_kv(k, groups), _repeat_kv(v, groups)
             if k.shape[1] > self.chunked_threshold:
-                o = chunked_attention(q, k, v, causal=self.causal)
+                o = chunked_attention(q, k, v, causal=causal)
             else:
-                o = full_attention(q, k, v, causal=self.causal)
+                o = full_attention(q, k, v, causal=causal)
         else:
             o = mx_flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
-                                   causal=self.causal)
+                                   causal=causal)
         o = o.reshape(b, s, self.n_heads * self.hd)
         return ops.linear(o, p["wo"], residual=residual, out_dtype=x.dtype,
                           tp_mode="reduce_scatter", precision=self.precision)

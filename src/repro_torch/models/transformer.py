@@ -1,24 +1,27 @@
-"""Decoder-only LM over homogeneous segments (port of
-`repro/models/transformer.py`, the decoder subset: "dense", "moe" and
-"mamba2" blocks, with zamba2's weight-tied shared block).
+"""Model stacks (port of `repro/models/transformer.py`): the decoder LM
+over homogeneous segments of "dense", "moe", "mamba2", "mlstm" and
+"slstm" blocks (with zamba2's weight-tied shared block and internvl2's
+modality prefix), and the encoder-decoder (seamless).
 
 Layers of a segment keep their parameters stacked on a leading layer axis
 (the JAX layout, which `jax.lax.scan` consumes); the port walks the layers
 in a Python loop over views of the stacks.  Caches are stacked the same
 way -- the paged KV cache (n_layers, P, ps, Hkv, hd) per operand, the
-dense cache (n_layers, B, max_len, Hkv, hd), the Mamba2 state (n_layers, B,
-...) -- and every step writes them in place.
+dense cache (n_layers, B, max_len, Hkv, hd), a state block's recurrent
+state (n_layers, B, ...) -- and every step writes them in place.
 
 `DecoderLM.__call__` is the full forward (the cacheless prefill and the
 draft model of speculative decoding), returning the MoE blocks' summed
-auxiliary loss beside the logits.  With `shared_attn_every` (zamba2) the
-shared transformer block runs after every group of that many layers of a
-segment, with the same weights each time, and has a dense KV cache of its
-own per application (`shared{i}`).  `decode_step` / `prefill_step` run the
-dense cache; `decode_step_paged` / `prefill_step_paged` /
-`verify_step_paged` the paged one (attention-only models).
-
-Not ported yet: the xLSTM, encoder-decoder and prefix-embedding variants.
+auxiliary loss beside the logits; `prefix_embeds` (B, P, frontend_dim)
+enter through `frontend_proj` ahead of the token embeddings.  With
+`shared_attn_every` (zamba2) the shared transformer block runs after every
+group of that many layers of a segment, with the same weights each time,
+and has a dense KV cache of its own per application (`shared{i}`).
+`decode_step` / `prefill_step` run the dense cache; `decode_step_paged` /
+`prefill_step_paged` / `verify_step_paged` the paged one (attention-only
+models).  `EncDecLM` encodes precomputed frame embeddings once and decodes
+against them, its cross-attention K/V recomputed from the encoder output
+at every layer of every step, as in JAX.
 """
 from __future__ import annotations
 
@@ -27,15 +30,30 @@ from typing import Any, Optional, Tuple
 
 import torch
 
-from .layers import MLP, Attention, Embedding, rms_norm
+from ..core import ops
+from .layers import MLP, Attention, Embedding, Linear, rms_norm
 from .modules import Builder, Module, layer_slice
 from .moe import MoE
 from .ssm import Mamba2Block
+from .xlstm import MLSTMBlock, SLSTMBlock
+
+# the recurrent-state block kinds: block(p, x) -> x, block.decode(p, x,
+# state), block.init_state(batch); every other kind is an attention block
+STATE_KINDS = ("mamba2", "mlstm", "slstm")
+
+
+def _stacked(one, n: int):
+    """A layer's cache or state, stacked n times on a leading layer axis
+    (its own storage, written in place)."""
+    return {k: v.expand(n, *v.shape).clone() for k, v in one.items()}
 
 
 @dataclasses.dataclass(frozen=True)
 class TransformerBlock(Module):
-    """Pre-norm attention + MLP or MoE block."""
+    """Pre-norm attention + MLP or MoE block (an encoder block with
+    causal=False; with cross_attention, seamless's decoder block: self-
+    attention, then cross-attention over the encoder's K/V under its own
+    norm `ln_x`, then the MLP)."""
 
     d_model: int
     n_heads: int
@@ -52,12 +70,20 @@ class TransformerBlock(Module):
     precision: Optional[str] = None
     moe_groups: int = 1
     moe_capacity_factor: float = 1.25
+    causal: bool = True
+    cross_attention: bool = False
 
     def _attn(self) -> Attention:
         return Attention(self.d_model, self.n_heads, self.n_kv_heads, self.head_dim,
                          qkv_bias=self.qkv_bias, rope_theta=self.rope_theta,
-                         chunked_threshold=self.chunk_threshold,
+                         causal=self.causal, chunked_threshold=self.chunk_threshold,
                          precision=self.precision)
+
+    def _xattn(self) -> Attention:
+        """The cross-attention (JAX builds it without the block's precision,
+        bias, rope theta or chunk threshold)."""
+        return Attention(self.d_model, self.n_heads, self.n_kv_heads, self.head_dim,
+                         causal=False, use_rope=False)
 
     def _ffn(self):
         if self.use_moe:
@@ -69,12 +95,16 @@ class TransformerBlock(Module):
                    precision=self.precision)
 
     def build(self, mk: Builder):
-        return {
+        p = {
             "ln1": mk.param("ln1", (self.d_model,), init="ones"),
             "attn": mk.child("attn", self._attn()),
             "ln2": mk.param("ln2", (self.d_model,), init="ones"),
             "ffn": mk.child("ffn", self._ffn()),
         }
+        if self.cross_attention:
+            p["ln_x"] = mk.param("ln_x", (self.d_model,), init="ones")
+            p["xattn"] = mk.child("xattn", self._xattn())
+        return p
 
     def init_cache(self, batch, max_len, *, dtype=torch.bfloat16, device="cuda"):
         return self._attn().init_cache(batch, max_len, dtype=dtype, device=device)
@@ -94,17 +124,25 @@ class TransformerBlock(Module):
             return x + y, aux
         return self._ffn()(p["ffn"], h, residual=x), None
 
-    def __call__(self, p, x):
+    def _cross(self, p, x, enc_kv):
+        """x + cross-attention of rms_norm(x, ln_x) over enc_kv = (k, v)."""
+        if not self.cross_attention:
+            return x
+        if enc_kv is None:
+            raise ValueError("a cross-attention block needs the encoder's K/V (enc_kv=)")
+        return self._xattn()(p["xattn"], rms_norm(x, p["ln_x"]), kv=enc_kv, residual=x)
+
+    def __call__(self, p, x, *, enc_kv=None):
         """The full-sequence block: (x, aux), aux 0 for a dense MLP."""
         x = self._attn()(p["attn"], rms_norm(x, p["ln1"]), residual=x)
-        x, aux = self._ffn_residual(p, x)
+        x, aux = self._ffn_residual(p, self._cross(p, x, enc_kv))
         return x, torch.zeros((), device=x.device) if aux is None else aux
 
-    def decode(self, p, x, cache, index):
+    def decode(self, p, x, cache, index, *, enc_kv=None):
         """One token against the dense cache (index scalar or (B,))."""
         x, cache = self._attn().decode(p["attn"], rms_norm(x, p["ln1"]), cache, index,
                                        residual=x)
-        return self._ffn_residual(p, x)[0], cache
+        return self._ffn_residual(p, self._cross(p, x, enc_kv))[0], cache
 
     def prefill(self, p, x, cache, index):
         """Multi-token dense-cache-writing step (chunked prefill)."""
@@ -138,27 +176,35 @@ class Segment:
 
 
 def make_block(kind: str, cfg) -> Module:
-    """cfg is an ArchConfig (configs/base.py).  "dense", "moe" and "mamba2"
-    are ported."""
+    """cfg is an ArchConfig (configs/base.py)."""
+    prec = getattr(cfg, "precision", None)
+    if kind in ("dense", "moe"):
+        return TransformerBlock(
+            cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_ff, head_dim=cfg.head_dim,
+            qkv_bias=cfg.qkv_bias, rope_theta=cfg.rope_theta, use_moe=(kind == "moe"),
+            n_experts=cfg.n_experts, top_k=cfg.top_k, activation=cfg.activation,
+            chunk_threshold=cfg.attn_chunk_threshold, precision=prec,
+            moe_groups=cfg.moe_groups, moe_capacity_factor=cfg.moe_capacity_factor)
+    if kind == "encdec":
+        return TransformerBlock(
+            cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_ff, head_dim=cfg.head_dim,
+            rope_theta=cfg.rope_theta, activation=cfg.activation, cross_attention=True,
+            chunk_threshold=cfg.attn_chunk_threshold, precision=prec)
     if kind == "mamba2":
         return Mamba2Block(cfg.d_model, d_state=cfg.ssm_state, chunk=cfg.ssm_chunk)
-    if kind not in ("dense", "moe"):
-        raise NotImplementedError(
-            f"block kind {kind!r} is not ported yet (ROADMAP queue 1 items 3-5)")
-    prec = getattr(cfg, "precision", None)
-    return TransformerBlock(
-        cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_ff, head_dim=cfg.head_dim,
-        qkv_bias=cfg.qkv_bias, rope_theta=cfg.rope_theta, use_moe=(kind == "moe"),
-        n_experts=cfg.n_experts, top_k=cfg.top_k, activation=cfg.activation,
-        chunk_threshold=cfg.attn_chunk_threshold, precision=prec,
-        moe_groups=cfg.moe_groups, moe_capacity_factor=cfg.moe_capacity_factor)
+    if kind == "mlstm":
+        return MLSTMBlock(cfg.d_model, cfg.n_heads)
+    if kind == "slstm":
+        return SLSTMBlock(cfg.d_model, cfg.n_heads)
+    raise ValueError(f"unknown block kind {kind!r}")
 
 
 @dataclasses.dataclass(frozen=True)
 class DecoderLM(Module):
-    """Decoder LM over segments of stacked dense, MoE or Mamba2 blocks, with
-    an optional Zamba-style weight-tied shared block; tied or untied
-    head."""
+    """Decoder LM over segments of stacked dense, MoE, Mamba2, mLSTM or
+    sLSTM blocks, with an optional Zamba-style weight-tied shared block and
+    an optional modality-frontend projector (prefix embeddings); tied or
+    untied head."""
 
     cfg: Any  # ArchConfig
 
@@ -180,6 +226,8 @@ class DecoderLM(Module):
             p[f"seg{i}"] = mk.stacked(f"seg{i}", make_block(seg.kind, cfg), seg.n)
         if cfg.shared_attn_every:
             p["shared"] = mk.child("shared", self._shared_block())
+        if cfg.frontend_dim:
+            p["frontend_proj"] = mk.child("frontend_proj", self._frontend())
         p["ln_f"] = mk.param("ln_f", (cfg.d_model,), init="ones")
         if not cfg.tie_embeddings:
             p["lm_head"] = mk.param("lm_head", (cfg.d_model, cfg.vocab))
@@ -203,14 +251,23 @@ class DecoderLM(Module):
                 yield "layer", layer
             yield "shared", g
 
-    def _embed_inputs(self, p, tokens):
-        return Embedding(self.cfg.vocab, self.cfg.d_model)(p["embed"], tokens)
+    def _frontend(self) -> Linear:
+        """The modality projector: frontend_dim -> d_model, on the MX
+        dispatch (JAX: a `Linear`)."""
+        return Linear(self.cfg.frontend_dim, self.cfg.d_model)
+
+    def _embed_inputs(self, p, tokens, prefix_embeds=None):
+        """Token embeddings (B, S, D), after the projected prefix embeddings
+        (B, P, frontend_dim) when given: (B, P + S, D)."""
+        x = Embedding(self.cfg.vocab, self.cfg.d_model)(p["embed"], tokens)
+        if prefix_embeds is None:
+            return x
+        pre = self._frontend()(p["frontend_proj"], prefix_embeds.to(x.dtype))
+        return torch.cat([pre, x], dim=1)
 
     def _head(self, p, x):
         """Final norm + LM head -> f32 logits.  The tied head is the plain
         `x @ table.T`; an untied head rides the MX dispatch."""
-        from ..core import ops
-
         cfg = self.cfg
         x = rms_norm(x, p["ln_f"])
         if cfg.tie_embeddings:
@@ -218,18 +275,18 @@ class DecoderLM(Module):
         return ops.linear(x, p["lm_head"], out_dtype=torch.float32,
                           tp_mode="allgather")
 
-    def __call__(self, p, tokens):
-        """tokens: (B, S) -> (logits (B, S, vocab) f32, aux loss): the sum of
-        the MoE blocks' load-balancing losses (0 for dense, Mamba2 and
-        shared blocks' MLPs)."""
-        x = self._embed_inputs(p, tokens)
+    def __call__(self, p, tokens, *, prefix_embeds=None):
+        """tokens: (B, S) -> (logits (B, P + S, vocab) f32, aux loss): the
+        sum of the MoE blocks' load-balancing losses (0 for dense, state and
+        shared blocks).  P is prefix_embeds' length (0 without)."""
+        x = self._embed_inputs(p, tokens, prefix_embeds)
         aux = torch.zeros((), device=x.device)
         for i, seg in enumerate(self.segments()):
             block = make_block(seg.kind, self.cfg)
             for what, j in self._walk(seg):
                 if what == "shared":
                     x, a = self._shared_block()(p["shared"], x)  # tied weights
-                elif seg.kind == "mamba2":
+                elif seg.kind in STATE_KINDS:
                     x, a = block(layer_slice(p[f"seg{i}"], j), x), 0.0
                 else:
                     x, a = block(layer_slice(p[f"seg{i}"], j), x)
@@ -242,24 +299,22 @@ class DecoderLM(Module):
                    device="cuda"):
         """{"seg{i}": the segment's layer-stacked cache -- a (n, batch,
         max_len, Hkv, hd) K/V rectangle of `dtype` for attention blocks,
-        the f32 conv window and SSM state for Mamba2 blocks --,
-        "shared{i}": the shared block's K/V per application (after each
-        group of a Mamba2 segment)}, all zeroed."""
+        a state block's f32 recurrent state (init_state: zeros, and the
+        xLSTM maxima at -1e30) --, "shared{i}": the shared block's K/V per
+        application (after each group of a segment)}."""
         cfg = self.cfg
         cache = {}
         for i, seg in enumerate(self.segments()):
             block = make_block(seg.kind, cfg)
-            if seg.kind == "mamba2":
+            if seg.kind in STATE_KINDS:
                 one = block.init_state(batch, device=device)
             else:
                 one = block.init_cache(batch, max_len, dtype=dtype, device=device)
-            cache[f"seg{i}"] = {k: v.expand(seg.n, *v.shape).clone() for k, v in one.items()}
-            if cfg.shared_attn_every and seg.kind == "mamba2":
-                napp = seg.n // cfg.shared_attn_every
+            cache[f"seg{i}"] = _stacked(one, seg.n)
+            if cfg.shared_attn_every:
                 one = self._shared_block().init_cache(batch, max_len, dtype=dtype,
                                                       device=device)
-                cache[f"shared{i}"] = {k: v.expand(napp, *v.shape).clone()
-                                       for k, v in one.items()}
+                cache[f"shared{i}"] = _stacked(one, seg.n // cfg.shared_attn_every)
         return cache
 
     def supports_chunked_prefill(self) -> bool:
@@ -268,10 +323,18 @@ class DecoderLM(Module):
         as in JAX)."""
         return self.supports_paged()
 
-    def decode_step(self, p, token, cache, index):
+    def decode_step(self, p, token, cache, index, *, prefix_embeds=None):
         """One token for the whole stack against the dense cache.  token:
         (B, 1); index: a scalar position or (B,) per-slot positions.
-        Returns (logits (B, 1, V) f32, cache), the cache updated in place."""
+        Returns (logits (B, 1, V) f32, cache), the cache updated in place.
+        A prefix is refused: JAX's decode_step(prefix_embeds=) raises a
+        TypeError (Attention.decode reshapes P + 1 rows as one token), and
+        JAX runs a prefix through the full forward only."""
+        if prefix_embeds is not None:
+            raise ValueError(
+                f"{self.cfg.name}: decode_step takes no prefix_embeds (JAX's raises a "
+                "TypeError there); run the prefix through the full forward, "
+                "__call__(prefix_embeds=) / launch.steps.make_prefill_step")
         x = self._embed_inputs(p, token)
         for i, seg in enumerate(self.segments()):
             block = make_block(seg.kind, self.cfg)
@@ -279,7 +342,7 @@ class DecoderLM(Module):
                 if what == "shared":
                     x, _ = self._shared_block().decode(
                         p["shared"], x, layer_slice(cache[f"shared{i}"], j), index)
-                elif seg.kind == "mamba2":
+                elif seg.kind in STATE_KINDS:
                     x, _ = block.decode(layer_slice(p[f"seg{i}"], j), x,
                                         layer_slice(cache[f"seg{i}"], j))
                 else:
@@ -321,8 +384,7 @@ class DecoderLM(Module):
         for i, seg in enumerate(self.segments()):
             one = make_block(seg.kind, self.cfg).init_paged_cache(
                 num_pages, page_size, dtype=dtype, device=device, kv_quant=kv_quant)
-            cache[f"seg{i}"] = {k: v.expand(seg.n, *v.shape).clone()
-                                for k, v in one.items()}
+            cache[f"seg{i}"] = _stacked(one, seg.n)
         return cache
 
     def _run_layers(self, p, x, cache, step):
@@ -372,9 +434,100 @@ class DecoderLM(Module):
         return self._head(p, x), cache
 
 
-def build_model(cfg) -> DecoderLM:
-    """ArchConfig -> model module (decoder-only LMs)."""
+@dataclasses.dataclass(frozen=True)
+class EncDecLM(Module):
+    """Encoder-decoder (seamless-m4t's backbone; the speech frontend is a
+    stub that hands over precomputed frame embeddings).  The encoder is
+    `enc_layers` non-causal blocks over frontend_proj(frames); the decoder
+    `n_layers` "encdec" blocks, each cross-attending over its own K/V of
+    the encoder output; tied head."""
+
+    cfg: Any
+
+    def _enc_block(self) -> TransformerBlock:
+        """JAX builds it without the config's precision, rope theta or
+        chunk threshold."""
+        cfg = self.cfg
+        return TransformerBlock(cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_ff,
+                                head_dim=cfg.head_dim, causal=False, activation=cfg.activation)
+
+    def build(self, mk: Builder):
+        cfg = self.cfg
+        return {
+            "frontend_proj": mk.child("frontend_proj", Linear(cfg.frontend_dim, cfg.d_model)),
+            "embed": mk.child("embed", Embedding(cfg.vocab, cfg.d_model)),
+            "enc": mk.stacked("enc", self._enc_block(), cfg.enc_layers),
+            "enc_ln": mk.param("enc_ln", (cfg.d_model,), init="ones"),
+            "dec": mk.stacked("dec", make_block("encdec", cfg), cfg.n_layers),
+            "ln_f": mk.param("ln_f", (cfg.d_model,), init="ones"),
+        }
+
+    def encode(self, p, frames):
+        """frames: (B, S_enc, frontend_dim) precomputed modality embeddings
+        -> the normed encoder output (B, S_enc, D)."""
+        cfg = self.cfg
+        x = Linear(cfg.frontend_dim, cfg.d_model)(p["frontend_proj"], frames)
+        block = self._enc_block()
+        for layer in range(cfg.enc_layers):
+            x, _ = block(layer_slice(p["enc"], layer), x)
+        return rms_norm(x, p["enc_ln"])
+
+    @staticmethod
+    def _enc_kv(p_layer, enc_out, block):
+        """A decoder layer's cross K and V (B, S_enc, Hkv, hd) of the
+        encoder output, two MX GEMMs (`ops.matmul`, as in JAX).  JAX repeats
+        them to H heads here; the attention reads kv head h // (H / Hkv)
+        itself."""
+        b, s, _ = enc_out.shape
+        hd = block.head_dim or block.d_model // block.n_heads
+        att = p_layer["xattn"]
+        k = ops.matmul(enc_out, att["wk"], out_dtype=enc_out.dtype)
+        v = ops.matmul(enc_out, att["wv"], out_dtype=enc_out.dtype)
+        return (k.reshape(b, s, block.n_kv_heads, hd), v.reshape(b, s, block.n_kv_heads, hd))
+
+    def _head(self, p, x):
+        return Embedding(self.cfg.vocab, self.cfg.d_model).attend(p["embed"],
+                                                                  rms_norm(x, p["ln_f"]))
+
+    def __call__(self, p, frames, tokens):
+        """(frames (B, S_enc, frontend_dim), tokens (B, S)) -> (decoder
+        logits (B, S, vocab) f32, aux 0)."""
+        cfg = self.cfg
+        enc_out = self.encode(p, frames)
+        x = Embedding(cfg.vocab, cfg.d_model)(p["embed"], tokens)
+        block = make_block("encdec", cfg)
+        aux = torch.zeros((), device=x.device)
+        for layer in range(cfg.n_layers):
+            lp = layer_slice(p["dec"], layer)
+            x, a = block(lp, x, enc_kv=self._enc_kv(lp, enc_out, block))
+            aux = aux + a
+        return self._head(p, x), aux
+
+    def make_cache(self, batch: int, max_len: int, *, dtype=torch.bfloat16,
+                   device="cuda"):
+        """{"dec": the decoder's self-attention K/V, (n_layers, batch,
+        max_len, Hkv, hd) of `dtype`, zeroed}; the cross K/V is no cache."""
+        one = make_block("encdec", self.cfg).init_cache(batch, max_len, dtype=dtype,
+                                                        device=device)
+        return {"dec": _stacked(one, self.cfg.n_layers)}
+
+    def decode_step(self, p, token, cache, index, *, enc_out):
+        """One decoder token against the dense cache and the encoder output
+        (B, S_enc, D).  Returns (logits (B, 1, V) f32, cache), the cache
+        updated in place."""
+        cfg = self.cfg
+        x = Embedding(cfg.vocab, cfg.d_model)(p["embed"], token)
+        block = make_block("encdec", cfg)
+        for layer in range(cfg.n_layers):
+            lp = layer_slice(p["dec"], layer)
+            x, _ = block.decode(lp, x, layer_slice(cache["dec"], layer), index,
+                                enc_kv=self._enc_kv(lp, enc_out, block))
+        return self._head(p, x), cache
+
+
+def build_model(cfg):
+    """ArchConfig -> model module: `EncDecLM` for an encoder-decoder,
+    `DecoderLM` otherwise (as `repro.models.build_model`)."""
     if cfg.model_kind == "encdec":
-        raise NotImplementedError(
-            "encoder-decoder models are not ported yet (ROADMAP queue 1 item 14)")
+        return EncDecLM(cfg)
     return DecoderLM(cfg)

@@ -15,15 +15,17 @@ position.  Two cache backends:
     (or ``QuantSpec("fp8_e4m3")``) stores the pages as int8 (fp8) with
     per-row f32 scale pages.
   - dense (``paged=False``, JAX's default): the (slots, max_len) rectangle
-    of `model.make_cache` (`cache_dtype`), and Mamba2 blocks' recurrent
-    state beside it -- the backend of state-block and shared-block models
-    (zamba2).  The device step is `model.decode_step` with a (B,) index; a
-    free slot still steps, with token 0 at index 0, as in JAX.  Admission
-    is immediate, each prompt is stepped token by token, and finishing or
-    preempting a slot zeroes its rows of every cache leaf (JAX resets a
-    slot there, not at admission).  The prefix cache, chunked prefill,
-    speculation and `kv_quant` need the pages and raise ValueError
-    without them, as in JAX.
+    of `model.make_cache` (`cache_dtype`), and state blocks' recurrent
+    state beside it (Mamba2, mLSTM, sLSTM) -- the backend of state-block,
+    shared-block and prefix-embedding models (zamba2, xlstm, internvl2
+    served text only).  The device step is `model.decode_step` with a (B,)
+    index; a free slot still steps, with token 0 at index 0, as in JAX.
+    Admission is immediate, each prompt is stepped token by token, and
+    finishing or preempting a slot zeroes its rows of every cache leaf
+    (JAX resets a slot there, not at admission; an xLSTM slot's maxima
+    become 0, not their initial -1e30, as in JAX).  The prefix cache,
+    chunked prefill, speculation and `kv_quant` need the pages and raise
+    ValueError without them, as in JAX.
 
   - ``prefix_cache=True``: a content index over the page pool
     (runtime/prefix_cache) maps each request's longest already-prefilled

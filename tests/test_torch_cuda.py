@@ -21,7 +21,9 @@ on every operand pair, epilogue and ragged or misaligned operand, and the
 baseline's at bk = 128 and 256.  The tensor-core prefill tile (f32, bf16,
 bf16 x int8 / fp8; M > 16, csrc/prefill_tile.cuh) at M = 17, 40, 64, 65,
 256 and 2048 with ragged and misaligned K / N, its 2:4 and ABFT variants
-bitwise the dense kernel, ABFT recovery bitwise, and the baseline on it.
+bitwise the dense kernel, ABFT recovery bitwise, and the baseline on it; in
+f32 at xlstm-125m's M = 2048 projections also no more than twice as far
+from the f64 product as cuBLAS f32.
 `ssd_scan` and `mx_flash_attention` (f32
 within 1e-4 * max|ref|, bf16 within 2e-2 * max|ref|) against
 `ssd_scan_plain` / the sequential oracle and `flash_attention_plain`; the
@@ -32,7 +34,11 @@ page type, also when the window is longer than its copy ring; the paged
 attention's bits do not depend on the batch, the table width, the cluster,
 the ring or the spans per round, and hold at 2048 positions.  `ssd_scan`
 holds at the edges of its MMA shapes (P = 128, S = 4, chunk 16 and 20),
-with HMMA in its SASS.
+with HMMA in its SASS.  For the xLSTM, encoder-decoder and prefix models: the
+attention kernel at seamless's encoder and cross-attention shapes (Lq = 1
+included) and internvl2's (d = 128, 48 / 8 heads, 1088 positions), the
+xlstm-125m decode step's 51 decode-tile GEMMs, and the seamless and
+internvl2 smoke forwards against the plain path.
 """
 import ctypes
 
@@ -855,6 +861,29 @@ def test_prefill_tile_matches_plain(cuda, M, dt, K, N, ep):
     assert kernels.launch_counts()["mx_matmul_fused"] == 1
     assert got.dtype == dtype and got.shape == (M, N)
     _close(got, ref, dtype)
+
+
+@pytest.mark.parametrize("K,N", [(768, 3072), (1536, 1536), (1536, 768), (768, 768)])
+@pytest.mark.parametrize("gated", [False, True])
+def test_prefill_tile_f32_as_close_to_f64_as_cublas(cuda, K, N, gated):
+    """The f32 prefill tile (3xTF32) at xlstm-125m's forward projections
+    (M = 2048; gated: swiglu, through both accumulators): its max error to
+    the product in f64 within twice the plain version's (cuBLAS f32).
+    Accumulated in the MMAs, which truncate, the tile stood 3.5-8.5x as far
+    (tools/accumulation_witness.py)."""
+    a = _randn((2048, K), torch.float32, cuda, K + N)
+    b = _randn((K, N), torch.float32, cuda, K + N + 1) / K ** 0.5
+    bg = _randn((K, N), torch.float32, cuda, K + N + 2) / K ** 0.5 if gated else None
+    ep = mm.Epilogue(activation="swiglu") if gated else mm.Epilogue()
+    got = mm.mx_matmul_fused(a, b, epilogue=ep, b_gate=bg)
+    plain = mm.mx_matmul_fused_plain(a, b, epilogue=ep, b_gate=bg)
+    exact = torch.matmul(a.double(), b.double())
+    if gated:
+        exact = torch.nn.functional.silu(torch.matmul(a.double(), bg.double())) * exact
+    torch.cuda.synchronize()
+    err = (got.double() - exact).abs().max().item()
+    ref = (plain.double() - exact).abs().max().item()
+    assert err <= 2 * ref, (err, ref)
 
 
 @pytest.mark.parametrize("which", ["a", "b", "b_gate"])
@@ -1788,3 +1817,86 @@ def test_zamba2_forward_and_dense_streams_across_backends(cuda):
     err = (out["cuda_mx"][0] - ref).abs().max().item()
     assert err <= 1e-3 * ref.abs().max().item()
     assert out["cuda_mx"][2] == out["torch"][2]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Lq,Lk,H,Hkv,d,causal", [
+    (4, 512, 512, 16, 16, 64, False),   # seamless-m4t-medium's encoder: non-causal, Lq = Lk
+    (4, 64, 512, 16, 16, 64, False),    # its cross-attention, Lq < Lk
+    (4, 1, 512, 16, 16, 64, False),     # its cross-attention at decode, Lq = 1
+    (3, 1, 32, 16, 16, 64, False),      # the static launcher's 32 encoder frames
+    (1, 1088, 1088, 48, 8, 128, True),  # internvl2-26b: 1024 prefix + 64 text, d = 128
+])
+def test_flash_attention_model_family_shapes(cuda, dtype, B, Lq, Lk, H, Hkv, d, causal):
+    """The shapes the encoder-decoder and the prefix model give the kernel,
+    one launch each, against the plain version."""
+    q = _randn((B, Lq, H, d), dtype, cuda, 7 * Lq + d)
+    k = _randn((B, Lk, Hkv, d), dtype, cuda, 7 * Lk + d + 1)
+    v = _randn((B, Lk, Hkv, d), dtype, cuda, 7 * Lk + d + 2)
+    before = mx_flash_attention.launches
+    got = mx_flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert mx_flash_attention.launches == before + 1
+    _close(got, flash_attention_plain(q, k, v, causal=causal), dtype)
+
+
+def test_xlstm_decode_step_launches_51_decode_tile_gemms(cuda):
+    """xlstm-125m at full width (9 mLSTM + 3 sLSTM blocks): one decode step
+    at 4 slots launches mx_matmul_fused 5 times per mLSTM block and twice
+    per sLSTM block, 51 in all, every one on the decode tile, and nothing
+    else; its logits within 1e-3 * max|ref| of the plain path."""
+    cfg = get_config("xlstm-125m")
+    model = build_model(cfg)
+    params = model.init(0, device=cuda)
+    tok = torch.randint(0, cfg.vocab, (4, 1), device=cuda,
+                        generator=torch.Generator(device=cuda).manual_seed(2))
+    out = {}
+    for backend in ("cuda_mx", "torch"):
+        cache = model.make_cache(4, 8, dtype=torch.float32, device=cuda)
+        with ops.use_policy(ops.MXPolicy(backend)):
+            model.decode_step(params, tok, cache, 0)
+            kernels.reset_launch_counts()
+            logits, _ = model.decode_step(params, tok, cache, 1)
+            torch.cuda.synchronize()
+        out[backend] = (logits, kernels.launch_counts(), kernels.decode_launch_counts())
+    logits, counts, decode = out["cuda_mx"]
+    assert counts["mx_matmul_fused"] == decode["mx_matmul_fused"] == 51
+    assert sum(counts.values()) == 51
+    assert not any(out["torch"][1].values())
+    ref = out["torch"][0]
+    assert (logits - ref).abs().max().item() <= 1e-3 * ref.abs().max().item()
+
+
+@pytest.mark.parametrize("name", ["seamless-m4t-medium-smoke", "internvl2-26b-smoke"])
+def test_encdec_and_prefix_forwards_across_backends(cuda, name):
+    """The smoke models' forwards on the card: seamless launches the
+    attention kernel once per encoder layer and twice per decoder layer
+    (causal self-attention, cross-attention), internvl2 once per layer over
+    prefix and text; logits within 1e-3 * max|ref| of the plain path."""
+    from repro_torch.launch.steps import make_prefill_step
+
+    cfg = get_config(name)
+    model = build_model(cfg)
+    params = model.init(0, device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(4)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (2, 40), device=cuda, generator=g)}
+    if cfg.model_kind == "encdec":
+        batch["frames"] = torch.randn((2, 70, cfg.frontend_dim), device=cuda, generator=g)
+        want = cfg.enc_layers + 2 * cfg.n_layers
+    else:
+        batch["pixel_embeds"] = torch.randn((2, cfg.frontend_tokens, cfg.frontend_dim),
+                                            device=cuda, generator=g)
+        want = cfg.n_layers
+    step = make_prefill_step(model, cfg)
+    out = {}
+    for backend in ("cuda_mx", "torch"):
+        with ops.use_policy(ops.MXPolicy(backend)):
+            kernels.reset_launch_counts()
+            logits = step(params, batch)
+            torch.cuda.synchronize()
+        out[backend] = (logits, kernels.launch_counts())
+    assert out["cuda_mx"][1]["mx_flash_attention"] == want
+    assert not any(out["torch"][1].values())
+    ref = out["torch"][0]
+    assert out["cuda_mx"][0].shape == (2, 40, cfg.vocab)
+    assert (out["cuda_mx"][0] - ref).abs().max().item() <= 1e-3 * ref.abs().max().item()

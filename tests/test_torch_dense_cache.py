@@ -46,6 +46,8 @@ from repro_torch.runtime.lifecycle import Request  # noqa: E402
 TOL = dict(rtol=1e-5, atol=1e-5)
 ZAMBA = "zamba2-2.7b-smoke"
 LLAMA = "llama3.2-1b-smoke"
+XLSTM = "xlstm-125m-smoke"
+INTERNVL = "internvl2-26b-smoke"
 
 
 def _np_tree(tree):
@@ -143,7 +145,8 @@ def test_dense_attention_decode_and_prefill_match_jax(cache_dtype):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("name", [LLAMA, "qwen2-0.5b-smoke", "grok-1-314b-smoke", ZAMBA])
+@pytest.mark.parametrize("name", [LLAMA, "qwen2-0.5b-smoke", "grok-1-314b-smoke", ZAMBA,
+                                  INTERNVL])
 def test_decoder_cache_steps_match_jax(models, name):
     """make_cache / prefill_step (attention-only models: a 5-token chunk) /
     decode_step at a scalar, then per-slot, index; every step's logits and
@@ -252,7 +255,7 @@ def _dense_pair(models, name, script=_script):
     return jb, jfin, tb, tfin
 
 
-@pytest.mark.parametrize("name", [LLAMA, ZAMBA])
+@pytest.mark.parametrize("name", [LLAMA, ZAMBA, XLSTM, INTERNVL])
 def test_dense_batcher_matches_jax(models, name):
     jb, jfin, tb, tfin = _dense_pair(models, name)
     assert sorted(tfin) == sorted(jfin) == list(range(6))
@@ -290,14 +293,40 @@ def test_late_admission_into_a_free_slot(models):
     """Pinned as JAX does it (test_dense_batcher_matches_jax holds the
     streams equal): a free slot steps token 0 at index 0 and is reset at
     finish / preempt, not at admission.  An attention cache hides what the
-    free steps wrote (the next request overwrites position 0 first); a
-    Mamba2 slot's recurrent state drifts while it is free, so zamba2's
-    late request decodes from a state that is not zero and its stream
-    differs from the same request served alone."""
-    late, alone = _alone(models, LLAMA, 5)
-    assert late == alone
-    late, alone = _alone(models, ZAMBA, 5)
-    assert late != alone
+    free steps wrote (the next request overwrites position 0 first: llama,
+    and internvl2 served text only); a recurrent state drifts while its
+    slot is free (Mamba2's conv window and SSM state, xLSTM's C, n, h, c
+    and maxima, the maxima reset to 0 rather than -1e30), so zamba2's and
+    xlstm's late requests decode from a state that is not their initial
+    one and their streams differ from the same request served alone."""
+    for name in (LLAMA, INTERNVL):
+        late, alone = _alone(models, name, 5)
+        assert late == alone, name
+    for name in (ZAMBA, XLSTM):
+        late, alone = _alone(models, name, 5)
+        assert late != alone, name
+
+
+def test_slot_reset_zeroes_the_xlstm_maxima_as_jax_does(models):
+    """A finished dense slot has every cache leaf zeroed, xLSTM's running
+    maxima m included: 0, not the initial -1e30, in both packages (JAX's
+    _reset_slot_cache zeroes every leaf).  The other slot, free throughout,
+    has stepped token 0 from -1e30 and drifted (not compared here)."""
+    jm, jp, tm, tp = models(XLSTM)
+    prompt = np.arange(1, 5, dtype=np.int32)
+    caches = []
+    for cls, req, kw in ((JBatcher, JRequest, dict(cache_dtype=jnp.float32)),
+                         (ContinuousBatcher, Request, dict(paged=False))):
+        b = cls(*((jm, jp) if cls is JBatcher else (tm, tp)), batch_slots=2, max_len=8, **kw)
+        b.submit(req(rid=0, prompt=prompt, max_new=2))
+        fin = b.run_to_completion()
+        assert fin[0].finish_reason == "max_new"
+        caches.append(b.cache)
+    jc, tc = caches
+    assert {key for seg in tc.values() for key in seg} == {"C", "n", "m", "h", "c"}
+    for seg in tc:
+        for key, t in tc[seg].items():
+            assert not t[:, 0].any() and not np.asarray(jc[seg][key])[:, 0].any(), (seg, key)
 
 
 def test_dense_and_paged_llama_streams_are_equal(models):
@@ -358,11 +387,13 @@ def test_dense_batcher_with_abft_streams_equal(models):
 
 
 @pytest.mark.parametrize("arch,extra", [("llama3.2-1b", ["--prefill-chunk", "8"]),
-                                        ("zamba2-2.7b", [])])
+                                        ("zamba2-2.7b", []), ("xlstm-125m", []),
+                                        ("internvl2-26b", []), ("seamless-m4t-medium", [])])
 def test_static_launcher_matches_jax(models, arch, extra):
     """JAX `serve.main`'s static path (bf16 dense cache, chunked prefill for
-    llama, token stepping for zamba2) and the port's on JAX's weights: the
-    printed sample tokens are equal."""
+    llama, token stepping for the others; seamless decodes against the
+    encoder output of 32 frames drawn after the prompt) and the port's on
+    JAX's weights: the printed sample tokens are equal."""
     argv = ["--arch", arch, "--smoke", "--batch", "2", "--prompt-len", "12", "--gen", "6",
             *extra]
     buf = io.StringIO()

@@ -62,9 +62,29 @@ def test_serve_moe_smoke_on_cpu(capsys, arch):
     assert "continuous batching [paged+prefix cache]: 8 requests" in capsys.readouterr().out
 
 
-def test_serve_names_the_unported_model_families():
-    with pytest.raises(SystemExit, match="not ported yet"):
-        serve.main(["--arch", "xlstm-125m", "--smoke", "--device", "cpu"])
+@pytest.mark.parametrize("arch,flags,line", [
+    ("xlstm-125m", [], "generated (4, 16) tokens"),  # static, token-stepped prompt
+    ("xlstm-125m", ["--continuous"], "continuous batching [dense cache]: 8 requests"),
+    ("internvl2-26b", ["--continuous"], "continuous batching [dense cache]: 8 requests"),
+    ("internvl2-26b", ["--prefill-chunk", "4"],
+     "chunked prefill unsupported for internvl2-26b-smoke"),
+    ("seamless-m4t-medium", [], "enc-dec serving: decoder decode against a fixed encoder"),
+    # the encoder-decoder never goes to the batcher, as in JAX
+    ("seamless-m4t-medium", ["--continuous"], "generated (4, 16) tokens"),
+])
+def test_serve_model_families_on_cpu(capsys, arch, flags, line):
+    """The xLSTM, prefix-embedding (text only) and encoder-decoder models
+    through the launcher on the CPU."""
+    assert serve.main(["--arch", arch, "--smoke", "--device", "cpu", *flags]) == 0
+    out = capsys.readouterr().out
+    assert line in out
+    assert ("sample:" in out) != ("req 0:" in out)  # static xor batched
+
+
+@pytest.mark.parametrize("arch", ["xlstm-125m", "internvl2-26b"])
+def test_serve_paged_refuses_the_state_and_prefix_models(arch):
+    with pytest.raises(ValueError, match="paged"):
+        serve.main(["--arch", arch, "--smoke", "--paged", "--device", "cpu"])
 
 
 @pytest.mark.parametrize("flags,line", [

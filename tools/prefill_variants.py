@@ -7,17 +7,19 @@ A bring-up tool, not part of the package.  Each variant is the header as
 committed, compiled with one of its timing macros: "full" (none), "copies"
 (PREFILL_TIMING_NO_PRODUCTS: the ring without the tensor-core products),
 "products" (PREFILL_TIMING_NO_COPIES: the products without the copies
-after the ring is primed) and "one_tf32" (PREFILL_TIMING_ONE_TF32: f32 with
+after the ring is primed), "one_tf32" (PREFILL_TIMING_ONE_TF32: f32 with
 one TF32 product per step instead of 3xTF32's three; wrong results, timing
-only).  Each compiles a small standalone timing program (one nvcc per
+only) and "mma_acc" (PREFILL_TIMING_MMA_ACC: f32 accumulated in the MMAs,
+truncating, as before the rounding FADD of each k8 step's three
+products).  Each compiles a small standalone timing program (one nvcc per
 variant, all started together, into `build/prefill_variants/<variant>/`)
 that launches the dense MX kernel's body (`prefill_sweep` + `prefill_store`,
 no epilogue operands) through `prefill_launch` at the given tile, and times
 5 windows of 20 launches with CUDA events (the best window's mean).  The
 operands are filled on the card; `SHAPES` lists (f32, M, N, K, bm, bn,
 stages, split, parts): llama3.2-1b's prefill-chunk projections and
-zamba2-2.7b's M = 2048 ones, at the tiles `kernels/_build.prefill_tile`
-chooses among, and the baseline A/B's shape (M = 40, 64; K = 2048, N =
+zamba2-2.7b's and xlstm-125m's M = 2048 ones, at the tiles
+`kernels/_build.prefill_tile` chooses among, and the baseline A/B's shape (M = 40, 64; K = 2048, N =
 8192) at MX's tile (64 x 64 split 4) and at the baseline's (32 x 64, one
 CTA per tile, split 1).
 """
@@ -34,7 +36,9 @@ CSRC = ROOT / "src" / "repro_torch" / "csrc"
 OUT = ROOT / "build" / "prefill_variants"
 
 VARIANTS = {"full": None, "copies": "PREFILL_TIMING_NO_PRODUCTS",
-            "products": "PREFILL_TIMING_NO_COPIES", "one_tf32": "PREFILL_TIMING_ONE_TF32"}
+            "products": "PREFILL_TIMING_NO_COPIES", "one_tf32": "PREFILL_TIMING_ONE_TF32",
+            "mma_acc": "PREFILL_TIMING_MMA_ACC"}
+F32_ONLY = ("one_tf32", "mma_acc")
 
 HARNESS = r'''
 #include <cstdio>
@@ -46,12 +50,17 @@ struct Args {
   int out_dt, M, N, K, act, has_scale; float out_scale;
 };
 template <typename T, int BM, int BN>
-__global__ void __launch_bounds__(PrefillCfg<T, BM, BN, false, false>::kThreads)
-kern(const PrefillShape d, const Args r) {
+__device__ __forceinline__ void body(const PrefillShape& d, const Args& r) {
   NoHook hook;
   const float* Cs = prefill_sweep<T, BM, BN, false, false>(d, hook);
   prefill_store<PrefillCfg<T, BM, BN, false, false>, BM, BN, false>(r, d, Cs);
 }
+template <typename T, int BM, int BN>
+__global__ void __launch_bounds__(PrefillCfg<T, BM, BN, false, false>::kThreads)
+kern(const PrefillShape d, const Args r) { body<T, BM, BN>(d, r); }
+template <typename T, int BM, int BN>  // as csrc/mx_matmul.cu: PrefillCfg::kTwoPerSm
+__global__ void __launch_bounds__(PrefillCfg<T, BM, BN, false, false>::kThreads, 2)
+kern2(const PrefillShape d, const Args r) { body<T, BM, BN>(d, r); }
 template <typename T> __global__ void fill(T* p, size_t n, unsigned seed) {
   for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < n;
        i += (size_t)gridDim.x * blockDim.x) {
@@ -69,8 +78,11 @@ float run(int M, int N, int K, int stages, int split, int parts) {
   PrefillShape d{a, b, nullptr, nullptr, nullptr, M, N, K, stages, split, parts, 16, 16, 16};
   Args r{nullptr, nullptr, nullptr, nullptr, 0, nullptr, 0, out, 0, M, N, K, 0, 0, 0.f};
   auto launch = [&]() {
-    return prefill_launch<kern<T, BM, BN>, PrefillCfg<T, BM, BN, false, false>, false>(
-        d, 0, true, d, r);
+    using Cfg = PrefillCfg<T, BM, BN, false, false>;
+    if constexpr (Cfg::kTwoPerSm)
+      return prefill_launch<kern2<T, BM, BN>, Cfg, false>(d, 0, true, d, r);
+    else
+      return prefill_launch<kern<T, BM, BN>, Cfg, false>(d, 0, true, d, r);
   };
   if (int e = launch()) { printf("launch error %d\n", e); return -1; }
   cudaDeviceSynchronize();
@@ -114,6 +126,10 @@ for _f32 in (1, 0):
         (_f32, 40, 8192, 2048, 64, 64, 4, 4, 4), (_f32, 40, 8192, 2048, 32, 64, 4, 1, 4),
         (_f32, 64, 8192, 2048, 32, 64, 4, 1, 4),
     ]
+SHAPES += [  # xlstm-125m's forward projections (4 x 512 tokens, f32)
+    (1, 2048, 3072, 768, 64, 128, 4, 1, 1), (1, 2048, 1536, 1536, 64, 128, 3, 1, 2),
+    (1, 2048, 768, 1536, 64, 128, 3, 1, 2), (1, 2048, 768, 768, 64, 128, 4, 1, 1),
+]
 
 
 def build(nvcc: str) -> None:
@@ -152,7 +168,7 @@ def main() -> int:
         row = dict(f32=bool(shape[0]), M=shape[1], N=shape[2], K=shape[3], bm=shape[4],
                    bn=shape[5], stages=shape[6], split=shape[7], parts=shape[8])
         for v in VARIANTS:
-            if v == "one_tf32" and not shape[0]:
+            if v in F32_ONLY and not shape[0]:
                 continue
             out = subprocess.run([str(OUT / v / "time"), *map(str, shape)],
                                  capture_output=True, text=True, check=True).stdout
