@@ -211,6 +211,33 @@ The xLSTM, encoder-decoder and prefix-embedding families:
       it: the static launcher's path in this process (the launcher's
       command line builds all 48 layers) and the dense batcher on both
       paths; and smoke-size streams equal across backends for the three.
+Disaggregated serving, chaos and the non-finite quarantine:
+  3.  (with phase 3) the decode tile at M = 4 and the paged decode at 4
+      slots (phase 11's decode steps);
+  11. (after phase 10, before the zamba2 profile) llama3.2-1b at full width
+      again (f32, seed 0, nothing cut), every run on "cuda_mx" with its
+      launches counted from 0 and required: 11a the disaggregated engine
+      (2 prefill workers, 4 decode slots, page size 16, prefill chunk 64) on
+      the launcher's --disagg trace at --prompt-len 128 --gen 16 (16
+      requests, half sharing a 96-token system prompt) against a plain paged
+      batcher run of the same requests, handoffs and pages published
+      printed; 11b the same with shared_pool=False, the prefill cache's
+      bytes printed first, migrated pages counted as (len(prompt) - 1) // 16
+      per request through a worker and each migration bitwise its source
+      pages; 11c 11a under the launcher's disagg fault mix at --fault-rate
+      0.2 plus a kill, a hang and a drop window forcing a reroute, every
+      summary counter printed; 11d the paged batcher on phase 4's trace
+      (priorities and deadlines staggered, as the launcher does under
+      --chaos) fault-free, with the non-finite guard alone (its cost on the
+      median step printed) and with abft=True under the launcher's fault mix
+      at --fault-rate 0.1 with bit flips: every flip detected and corrected,
+      the quarantined requests exactly the poisoned ones; 11e k = 4 n-gram
+      speculation (8 requests, 16 new) fault-free and under the same chaos.
+      Token streams: a stream no fault touched equals the fault-free run's;
+      a stream that differs (11a / 11b against the plain batcher, a touched
+      one under chaos) is printed with its first differing step and the
+      reference's top-2 logit gap there, which must be below 1e-3 *
+      max|logit| (phase 5's tolerance).
 The line before the last is the kernel summary JSON; the last line is
 {"ok": true, "device": {...}}.  Details go to chiprun_out/chip_smoke.json.
 """
@@ -1325,8 +1352,9 @@ def phase_kernels(torch, dev):
                 checks.append(check_gemm(torch, dev, M, K, N, dtype_name, ep, seed))
             seed += 1
             checks.append(check_baseline(torch, dev, M, 2048, 8192, dtype_name, seed))
-        # the decode tile at its other row counts, and misaligned operands
-        for M in (1, 16):
+        # the decode tile at its other row counts (4: phase 11's decode
+        # slots), and misaligned operands
+        for M in (1, 4, 16):
             for K, N, ep in ((8192, 2048, dict(residual=True)),
                              (2048, 8192, dict(activation="swiglu")), (2560, 10448, dict())):
                 seed += 1
@@ -1359,6 +1387,9 @@ def phase_kernels(torch, dev):
                 # long context: 2048 positions per slot, llama3.2-1b's heads
                 checks.append(check_decode(torch, dev, 8, 32, 8, 64, 16, (2048,) * 8,
                                            dtype_name, 110, label="long context"))
+                # phase 11's 4 decode slots
+                checks.append(check_decode(torch, dev, 4, 32, 8, 64, 16, (128, 143, 97, 1),
+                                           dtype_name, 111, label="4 slots"))
             # verify windows as the batcher passes them: every active length >= S
             for S, shape, lns, poison in (
                     (5, (8, 32, 8), lengths, False), (5, (4, 14, 2), qwen, False),
@@ -2034,18 +2065,22 @@ def _plain_logits(torch, model, params, ctx, kv_quant, chunk=64, ps=16):
 
 def divergences(torch, model, params, plain, other, kv_quant=None):
     """For each stream of `other` that leaves the plain greedy stream: the
-    first divergent token and the plain path's top-2 logit gap there, over
-    prompt + the shared prefix on pages of the run's type."""
+    first divergent token, the plain path's top-2 logit gap there and phase
+    5's tolerance on those logits (1e-3 * max|logit|), over prompt + the
+    shared prefix on pages of the run's type.  A stream that stops early
+    (a quarantined request) but agrees as far as it goes does not leave."""
     out = []
     for rid, toks in other["streams"].items():
         ref = plain["streams"][rid]
-        if toks == ref:
+        t = next((i for i, (a, b) in enumerate(zip(toks, ref)) if a != b), None)
+        if t is None:
             continue
-        t = next(i for i, (a, b) in enumerate(zip(toks, ref)) if a != b)
         ctx = list(other["prompts"][rid]) + ref[:t]
-        top2 = _plain_logits(torch, model, params, ctx, kv_quant).topk(2).values
+        logits = _plain_logits(torch, model, params, ctx, kv_quant)
+        top2 = logits.topk(2).values
         out.append(dict(rid=rid, token=t, plain=ref[t], got=toks[t],
-                        top2_gap=(top2[0] - top2[1]).item()))
+                        top2_gap=(top2[0] - top2[1]).item(),
+                        tol=1e-3 * logits.abs().max().item()))
     return out
 
 
@@ -3456,6 +3491,321 @@ def family_phases(torch, dev):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 11: disaggregated serving, chaos and the non-finite quarantine
+# ---------------------------------------------------------------------------
+
+# event kinds that mark a request a fault touched: its rows may have been
+# recomputed in chunks of another height (the other dense tile, other bits)
+TOUCHED = ("chaos_", "worker_lost", "handoff_reroute", "handoff_fallback_decode",
+           "degraded_forward", "quarantined", "preempted", "resumed")
+# phase 11c's deterministic worker faults on top of the launcher's mix: a kill,
+# a hang and a window of dropped handoffs long enough for a reroute (a handoff
+# staged at s drops at s, s + 1, s + 3, s + 7)
+DISAGG_SCHEDULE = dict(kill_worker_at=((12, 0),), hang_worker_at=((3, 1, 4),),
+                       drop_handoff_at=tuple(range(5, 13)))
+
+
+def serve11(torch, target, reqs, label):
+    """Submit `reqs` to `target` (a ContinuousBatcher or a DisaggEngine) and
+    run it to completion; the launch counts (and the ABFT counters) are set
+    to 0 just before the run and read just after it."""
+    from repro_torch import kernels
+    from repro_torch.kernels import abft as abft_mod
+
+    batcher = getattr(target, "batcher", target)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    abft_mod.reset_abft_stats()
+    t0 = time.perf_counter()
+    for r in reqs:
+        target.submit(r)
+    fin = target.run_to_completion()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    admit = {at for r in fin.values() for kind, at in r.events if kind in ("admitted", "resumed")}
+    spikes = {}
+    if batcher.chaos is not None:  # synthetic watchdog seconds, not step time
+        spikes = {e.step: batcher.chaos.cfg.latency_spike_s
+                  for e in batcher.chaos.events if e.kind == "latency_spike"}
+    steps = [1e3 * (h.dt_s - spikes.get(h.step, 0.0)) for h in batcher.health
+             if h.active and h.step not in admit]
+    generated = sum(len(r.output) for r in fin.values())
+    return dict(
+        label=label, requests=len(fin), wall_s=wall, steps=batcher.steps_run,
+        generated_tok_per_s=generated / wall,
+        step_ms_median=statistics.median(steps) if steps else None, steps_timed=len(steps),
+        launches=kernels.launch_counts(), variants=kernels.variant_launch_counts(),
+        decode=kernels.decode_launch_counts(), prefill_tile=kernels.prefill_launch_counts(),
+        abft_stats=abft_mod.abft_stats(), health=batcher.health_summary(),
+        streams={r: fin[r].output for r in sorted(fin)},
+        prompts={r: fin[r].prompt.tolist() for r in sorted(fin)},
+        reasons={r: fin[r].finish_reason for r in sorted(fin)},
+        touched=sorted(r for r in fin if any(k.startswith(TOUCHED) for k, _ in fin[r].events)),
+        poisoned=sorted(rid for h in batcher.health for rid in h.poisoned),
+        chaos=batcher.chaos.summary() if batcher.chaos else None,
+        summary=target.summary() if hasattr(target, "summary") else None)
+
+
+def hold11(torch, model, params, ref, run, strict):
+    """`run`'s streams against `ref`'s: a differing stream is reported with
+    its first differing step and the reference's top-2 logit gap there, and
+    passes only below phase 5's tolerance (1e-3 * max|logit|); with
+    `strict`, a stream no fault touched must equal its reference."""
+    div = divergences(torch, model, params, ref, run)
+    for d in div:
+        d["touched"] = d["rid"] in run["touched"]
+    run["divergences"] = div
+    run["streams_equal"] = sum(run["streams"][r] == ref["streams"][r] for r in run["streams"])
+    print(f"      streams equal to [{ref['label']}]: {run['streams_equal']}/"
+          f"{len(run['streams'])}; touched by faults {run['touched']}; divergences {div}")
+    bad = [d for d in div if d["top2_gap"] >= d["tol"] or (strict and not d["touched"])]
+    if bad:
+        raise AssertionError(f"{run['label']}: streams leave [{ref['label']}] away from a "
+                             f"near tie, or untouched by the faults: {bad}")
+    short = [r for r, reason in run["reasons"].items()
+             if reason != "failed" and len(run["streams"][r]) != len(ref["streams"][r])]
+    if short:
+        raise AssertionError(f"{run['label']}: requests {short} ended early: {run['reasons']}")
+
+
+def print11(r):
+    print(f"    [{r['label']}] {r['requests']} requests: {r['wall_s']:.2f} s, "
+          f"{r['generated_tok_per_s']:.1f} generated tok/s, {r['steps']} batcher steps, median "
+          f"step without admission {r['step_ms_median'] or float('nan'):.2f} ms "
+          f"({r['steps_timed']} steps); finish {r['health']['finish_reasons']}")
+    print(f"      launches {r['launches']} (decode tile {r['decode']}; prefill tile "
+          f"{r['prefill_tile']}; variants {r['variants']})")
+    if r["summary"]:
+        s = {k: v for k, v in r["summary"].items() if k not in ("workers", "batcher")}
+        print(f"      engine {s}; workers " + ", ".join(
+            f"w{w['wid']}={w['state']}{'(suspected)' if w['suspected'] else ''} x{w['launches']}"
+            for w in r["summary"]["workers"]))
+    h = r["health"]
+    if r["chaos"]:
+        print(f"      chaos {r['chaos']}; retries {h['retries']}, preemptions "
+              f"{h['preemptions']} / resumes {h['resumes']}, quarantined {h['quarantined']} "
+              f"(poisoned rids {r['poisoned']}), abft {h['abft']}")
+
+
+def _check11(label, run, decode=True, verify=False, abft=False):
+    """The kernels phase 11's `run` must launch: the MX GEMM on the prefill
+    tile (chunks of more than 16 rows) and, for the decode steps and the
+    shorter chunks, on the decode tile, or its ABFT variant under
+    abft=True (which checksums decode and verify steps, not prefill
+    chunks); the paged decode (or verify) attention; no baseline, grouped
+    or other attention kernel."""
+    n, ok = run["launches"], run["prefill_tile"]["mx_matmul_fused"] > 0
+    ok &= run["decode"]["mx_matmul_fused"] > 0 or abft
+    ok &= (n["mx_flash_decode"] > 0) == decode and (n["mx_flash_verify"] > 0) == verify
+    ok &= (run["variants"]["mx_matmul_fused abft"] > 0) == abft
+    ok &= not (n["baseline_matmul"] or n["mx_grouped_matmul"] or n["ssd_scan"]
+               or n["mx_flash_attention"])
+    if not ok:
+        raise AssertionError(f"{label}: unexpected kernel launches {n}, {run['variants']}, "
+                             f"decode tile {run['decode']}, prefill tile {run['prefill_tile']}")
+
+
+def guard_parts(torch, dev, shape, calls=20):
+    """The non-finite guard's two parts on (B, vocab) f32 logits on the
+    card, each the median of `calls` host-timed calls: the device-to-host
+    copy (`ContinuousBatcher._to_host`) and the host's finite flags."""
+    from repro_torch.runtime.batcher import ContinuousBatcher
+
+    x = torch.randn(shape, device=dev)
+    host = ContinuousBatcher._to_host(x)
+    out = {}
+    for name, fn in (("copy_ms", lambda: ContinuousBatcher._to_host(x)),
+                     ("isfinite_ms", lambda: torch.isfinite(host).all(dim=-1).numpy())):
+        times = []
+        for _ in range(calls):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t0))
+        out[name] = statistics.median(times)
+    return out
+
+
+def _bytes(tree):
+    return sum(t.numel() * t.element_size() for seg in tree.values() for t in seg.values())
+
+
+def phase11(torch, dev):
+    """Phase 11: llama3.2-1b at full width (f32, seed 0, nothing cut) through
+    the disaggregated engine (shared pool, migration, under chaos) and the
+    paged batcher under chaos with ABFT, plain and speculative."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import ops
+    from repro_torch.launch.serve import (
+        batcher_faults, disagg_faults, make_disagg_trace, make_trace, stagger,
+    )
+    from repro_torch.models import build_model
+    from repro_torch.models.modules import param_count
+    from repro_torch.runtime.batcher import ContinuousBatcher
+    from repro_torch.runtime.disagg import DisaggEngine
+    from repro_torch.runtime.lifecycle import ChaosConfig, ChaosInjector, RetryPolicy
+    from repro_torch.runtime.speculative import NGramDrafter
+
+    t_phase = time.perf_counter()
+    cfg = get_config("llama3.2-1b")
+    model = build_model(cfg)
+    params = model.init(0, device=dev)
+    weights = 4 * param_count(params)
+    out = {}
+    prompt_len, gen, ps, chunk = 128, 16, 16, 64
+    max_len = prompt_len + gen
+    retry = RetryPolicy(max_retries=3, backoff_s=0.0)
+    with ops.use_policy(ops.MXPolicy("cuda_mx")), torch.no_grad():
+        print("[11a] disaggregated serving, shared pool: 2 prefill workers -> 4 decode slots, "
+              "the launcher's trace at --prompt-len 128 --gen 16")
+        plain = ContinuousBatcher(model, params, batch_slots=4, max_len=max_len, page_size=ps,
+                                  prefill_chunk=chunk)
+        ref = serve11(torch, plain, make_disagg_trace(cfg, 16, prompt_len, gen),
+                      "plain paged batcher")
+        print11(ref)
+        del plain
+
+        def engine(**kw):
+            return DisaggEngine(model, params, prefill_workers=2, batch_slots=4,
+                                max_len=max_len, page_size=ps, prefill_chunk=chunk,
+                                retry=retry, **kw)
+
+        reqs = make_disagg_trace(cfg, 16, prompt_len, gen)
+        full = {r.rid: (len(r.prompt) - 1) // ps for r in reqs}
+        eng = engine()
+        shared = serve11(torch, eng, reqs, "disagg shared pool")
+        shared["pages_published"] = sum(full.values())
+        shared["index"] = eng.index_p.stats()
+        print11(shared)
+        print(f"      pages published by the handoffs {shared['pages_published']} (index "
+              f"{shared['index']['entries']} pages pinned after dedup)")
+        hold11(torch, model, params, ref, shared, strict=False)
+        _check11("11a", shared)
+        if shared["summary"]["handoffs_completed"] != 16 or shared["summary"]["migrated_pages"]:
+            raise AssertionError(f"11a: {shared['summary']}")
+        out["11a"], out["11a_ref"] = shared, ref
+        del eng
+
+        print("[11b] the same with shared_pool=False: pages migrate into the decode pool")
+        eng = engine(shared_pool=False)
+        held = []
+        migrate = eng._migrate_pages
+
+        def checked(dst, src):
+            migrate(dst, src)
+            held.append(all(torch.equal(t[:, dst], eng.cache_p[name][leaf][:, src])
+                            for name, seg in eng.batcher.cache.items()
+                            for leaf, t in seg.items()))
+
+        eng._migrate_pages = checked
+        print(f"      prefill cache {_bytes(eng.cache_p) / 1e9:.3f} GB ("
+              f"{eng.pool_p.total_pages} pages), decode cache "
+              f"{_bytes(eng.batcher.cache) / 1e9:.3f} GB, beside {weights / 1e9:.3f} GB of f32 "
+              f"weights; {torch.cuda.mem_get_info()[0] / 1e9:.1f} GB free on the card")
+        mig = serve11(torch, eng, make_disagg_trace(cfg, 16, prompt_len, gen),
+                      "disagg page migration")
+        # the rule of tests/test_disagg.py: every full page of each prompt but
+        # its last token, over the requests that went through a worker
+        want = sum(n for r, n in full.items()
+                   if any(k == "handoff" for k, _ in eng.finished[r].events))
+        mig["migrations_bitwise"] = held
+        print11(mig)
+        print(f"      migrated pages {mig['summary']['migrated_pages']} (want {want}); "
+              f"{len(held)} migrations, each bitwise its source pages: {all(held)}")
+        hold11(torch, model, params, ref, mig, strict=False)
+        _check11("11b", mig)
+        if mig["summary"]["migrated_pages"] != want or not held or not all(held):
+            raise AssertionError(f"11b: migrated {mig['summary']['migrated_pages']} of {want}, "
+                                 f"bitwise {held}")
+        out["11b"] = mig
+        del eng
+
+        print("[11c] 11a under chaos: the launcher's disagg fault mix at --fault-rate 0.2 "
+              f"and {DISAGG_SCHEDULE}")
+        chaos = ChaosInjector(ChaosConfig(seed=0, **disagg_faults(0.2), **DISAGG_SCHEDULE))
+        eng = engine(chaos=chaos)
+        hurt = serve11(torch, eng, make_disagg_trace(cfg, 16, prompt_len, gen), "disagg chaos")
+        print11(hurt)
+        hold11(torch, model, params, shared, hurt, strict=True)
+        _check11("11c", hurt)
+        s, c = hurt["summary"], hurt["chaos"]
+        if not (c["worker_kills_injected"] and s["recoveries"] and c["worker_hangs_injected"]
+                and s["handoff_drops"] and s["reroutes"]) \
+                or set(hurt["reasons"].values()) != {"max_new"}:
+            raise AssertionError(f"11c: the schedule missed a fault, or a request failed: {s}")
+        out["11c"] = hurt
+        del eng
+
+        print("[11d] the paged batcher on phase 4's trace with chaos and abft=True: the "
+              "launcher's fault mix at --fault-rate 0.1, bit flips on")
+
+        def trace4(n_req=16, new=32):
+            reqs = make_trace(cfg, n_req, prompt_len, new, prefix_cache=True)
+            stagger(reqs, prompt_len, new)  # as the launcher does under --chaos
+            return reqs
+
+        def batcher(slots=8, new=32, **kw):
+            ml = prompt_len + new
+            return ContinuousBatcher(model, params, batch_slots=slots, max_len=ml,
+                                     page_size=ps, num_pages=(slots + 2) * -(-ml // ps),
+                                     prefix_cache=True, prefill_chunk=chunk, retry=retry, **kw)
+
+        base = serve11(torch, batcher(), trace4(), "batcher fault-free")
+        guard = serve11(torch, batcher(nonfinite_guard=True), trace4(), "batcher guard only")
+        print11(base)
+        print11(guard)
+        cost = guard["step_ms_median"] - base["step_ms_median"]
+        parts = guard_parts(torch, dev, (8, cfg.vocab))
+        out["guard_ms_per_step"], out["guard_parts_ms"] = cost, parts
+        print(f"      the non-finite guard (a {8 * cfg.vocab * 4 / 1e6:.2f} MB device-to-host "
+              f"copy of the last logits a step): {cost:+.2f} ms on the median step; alone, "
+              f"the copy {parts['copy_ms']:.3f} ms, the host isfinite {parts['isfinite_ms']:.3f}"
+              f" ms (medians of 20 calls)")
+        hold11(torch, model, params, base, guard, strict=True)
+        chaos = ChaosInjector(ChaosConfig(seed=0, **batcher_faults(0.1, paged=True, abft=True)))
+        hurt = serve11(torch, batcher(chaos=chaos, abft=True), trace4(), "batcher chaos + abft")
+        print11(hurt)
+        hold11(torch, model, params, base, hurt, strict=True)
+        _check11("11d", hurt, abft=True)
+        h, failed = hurt["health"], sorted(r for r, x in hurt["reasons"].items() if x == "failed")
+        flips = hurt["chaos"]["bitflips_injected"]
+        print(f"      bit flips injected {flips}, SDC detected {h['abft']['sdc_detected']}, "
+              f"corrected {h['abft']['sdc_corrected']}; quarantined {failed}, poisoned "
+              f"{hurt['poisoned']} ({hurt['chaos']['poisons_injected']} poisons)")
+        if not (0 < flips == h["abft"]["sdc_detected"] == h["abft"]["sdc_corrected"]) \
+                or hurt["abft_stats"]["tiles_flagged"] \
+                or failed != hurt["poisoned"] or len(failed) != hurt["chaos"]["poisons_injected"]:
+            raise AssertionError(f"11d: flips {flips}, abft {h['abft']}, "
+                                 f"{hurt['abft_stats']}, failed {failed}, poisoned "
+                                 f"{hurt['poisoned']}")
+        out["11d"], out["11d_ref"], out["11d_guard"] = hurt, base, guard
+
+        print("[11e] k = 4 n-gram speculation under the same chaos, abft=True")
+        spec = dict(speculate=4, drafter=NGramDrafter())
+        base = serve11(torch, batcher(new=16, **spec), trace4(8, 16), "spec4 fault-free")
+        print11(base)
+        spec["drafter"] = NGramDrafter()
+        chaos = ChaosInjector(ChaosConfig(seed=0, **batcher_faults(0.1, paged=True, abft=True)))
+        hurt = serve11(torch, batcher(new=16, chaos=chaos, abft=True, **spec), trace4(8, 16),
+                       "spec4 chaos + abft")
+        print11(hurt)
+        hold11(torch, model, params, base, hurt, strict=True)
+        _check11("11e", hurt, decode=False, verify=True, abft=True)
+        h, failed = hurt["health"], sorted(r for r, x in hurt["reasons"].items() if x == "failed")
+        if not (hurt["chaos"]["bitflips_injected"] == h["abft"]["sdc_detected"]
+                == h["abft"]["sdc_corrected"]) or failed != hurt["poisoned"]:
+            raise AssertionError(f"11e: {h}, failed {failed}, poisoned {hurt['poisoned']}")
+        out["11e"], out["11e_ref"] = hurt, base
+    del model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"    phase 11: {out['seconds']:.1f} s")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -3541,6 +3891,8 @@ def main() -> int:
     launches.update(zamba2["launches"])
     # grok is freed: the three families, one model at a time
     families = family_phases(torch, dev)
+    # llama again, its serving under faults: before the zamba2 profile below
+    p11 = phase11(torch, dev)
     print("[8p] zamba2-2.7b decode step and full forward profiled")
     zamba2["profile_decode"], zamba2["profile_forward"] = zamba2_profile(torch, dev, zmodel,
                                                                           zparams)
@@ -3673,6 +4025,37 @@ def main() -> int:
             bound_ms=c["bound_ms"], bound_by=c["bound_by"], library_ms=c["library_ms"],
             shape={k: c[k] for k in ("M", "K", "N", "B", "H", "Hkv", "d", "Lq", "Lk")
                    if k in c}, dtype="float32"))
+    # phase 11: the kernels of the disaggregated and chaos paths, at the
+    # shapes they run there (4 decode slots, a worker's 64-row chunk), their
+    # launches those of the phase's runs
+    for name, kernel, sel, n in (
+            ("mx_matmul_fused (disagg decode, 4 slots)", "mx_matmul_fused",
+             dict(dtype="float32", M=4, K=8192, N=2048, epilogue=dict(residual=True)),
+             p11["11a"]["decode"]["mx_matmul_fused"]),
+            ("mx_matmul_fused (disagg worker chunk, prefill tile)", "mx_matmul_fused",
+             dict(dtype="float32", M=64, K=8192, N=2048, epilogue=dict(residual=True)),
+             p11["11a"]["prefill_tile"]["mx_matmul_fused"]),
+            ("mx_flash_decode (disagg, 4 slots)", "mx_flash_decode",
+             dict(dtype="float32", B=4, label="4 slots"),
+             p11["11a"]["launches"]["mx_flash_decode"]),
+            ("mx_matmul_fused (ABFT under chaos)", "mx_matmul_fused",
+             dict(variant="abft", dtype="f32"), p11["11d"]["variants"]["mx_matmul_fused abft"]),
+            ("mx_flash_verify (spec4 under chaos)", "mx_flash_verify",
+             dict(dtype="float32", B=8, H=32, S=5, poison=False, pages="same"),
+             p11["11e"]["launches"]["mx_flash_verify"])):
+        if n <= 0:
+            raise AssertionError(f"{name} was not launched on its path")
+        c = next(c for c in checks + abft_checks_ if c["kernel"] == kernel
+                 and all(c.get(k) == v for k, v in sel.items()))
+        variant = sel.get("variant")
+        summary.append(dict(
+            name=name, route="cuda",
+            source=SOURCES[kernel if variant is None else f"{kernel} {variant}"],
+            replaces=TPU_KERNELS[kernel], launches=n, max_abs_err=c["max_abs_err"], ms=c["ms"],
+            plain_ms=c["plain_ms"], bound_ms=c["bound_ms"], bound_by=c["bound_by"],
+            library_ms=c["library_ms"],
+            shape={k: c[k] for k in ("M", "K", "N", "B", "S", "H", "Hkv", "d") if k in c},
+            dtype=c.get("pair", c["dtype"])))
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(dict(
@@ -3680,7 +4063,8 @@ def main() -> int:
         checks=checks, abft_checks=abft_checks_, prefill_sass=mma_sass,
         grouped_sass=grouped_sass,
         attention_sass=attn_sass, ssd_sass=ssd_sass,
-        **llama, grok=grok, zamba2=zamba2, families=families, kernels=summary), indent=1,
+        **llama, grok=grok, zamba2=zamba2, families=families, phase11=p11, kernels=summary),
+        indent=1,
         default=str))
     print("prefill tile SASS (tensor-core / FFMA instructions per kernel): " + "; ".join(
         f"{k.split(':')[0]} {k.split(':')[1][:40]} {c['mma']}/{c['ffma']}"

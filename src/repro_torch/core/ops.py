@@ -420,7 +420,7 @@ def _check_tp_mode(tp_mode: Optional[str]) -> None:
         raise NotImplementedError(
             f"tp_mode={tp_mode!r} under a {dist.get_world_size()}-rank process "
             "group: the ring collective GEMM is not ported yet (ROADMAP queue 1 "
-            "item 15)")
+            "item 7)")
 
 
 def linear(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None, *,

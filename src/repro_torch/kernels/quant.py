@@ -18,7 +18,7 @@ cast (an e4m3 overflow would be NaN).
 
 `quantize_int8_tensor`, `quantize_int8_stochastic` and
 `executed_gemm_bytes` (gradient compression and analytics) come with the
-training and analytics items (ROADMAP queue 1 items 16-17).
+training and analytics items (ROADMAP queue 1 items 8-9).
 """
 from __future__ import annotations
 

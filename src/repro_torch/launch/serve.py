@@ -25,6 +25,10 @@ CPU smoke (the plain PyTorch path, no GPU needed):
       --draft ngram --prefill-chunk 4 --device cpu   # add --kv-cache int8
   PYTHONPATH=src python -m repro_torch.launch.serve --smoke --abft --paged \\
       --prefill-chunk 4 --device cpu   # checksummed serving
+  PYTHONPATH=src python -m repro_torch.launch.serve --smoke --prefix-cache \\
+      --chaos --fault-rate 0.1 --chaos-seed 0 --device cpu   # fault-injected
+  PYTHONPATH=src python -m repro_torch.launch.serve --smoke --disagg 2 \\
+      --prefill-chunk 4 --device cpu   # add --disagg-migrate, --chaos
 As in JAX: without --continuous / --paged (or a flag that implies one) the
 launcher generates statically -- a (batch, max_len) bf16 dense cache, the
 prompt through chunked prefill where the model supports it
@@ -34,16 +38,23 @@ encoder-decoder always generates statically, against the encoder output of
 numpy generator and encoded once.  A prefix-embedding model (internvl2)
 serves text only, as JAX's launcher does.
 --continuous streams 2x requests through --batch slots of the dense
-batcher, --paged through the paged one; --prefix-cache and --speculate
-imply --paged, --abft implies --continuous.  --speculate K drafts K tokens
-per slot and verifies all K+1 in one pass (greedy-exact); --draft is
+batcher, --paged through the paged one; --prefix-cache, --speculate and
+--disagg imply --paged, --abft and --chaos imply --continuous.
+--speculate K drafts K tokens per slot and verifies all K+1 in one pass
+(greedy-exact); --draft is
 `ngram` or an arch id for a draft model that shares the target's
 vocabulary; --kv-cache int8 (with --paged) stores the pages as int8 with
 per-row scales; --abft checksums every MX GEMM of the step (on the card:
-the ABFT kernels with tile recovery) and the host logits copy.
-
-Flags of the JAX launcher that are not ported yet (--chaos, --disagg, ...)
-are rejected.
+the ABFT kernels with tile recovery) and the host logits copy.  --chaos
+(implies --continuous) threads a seeded `ChaosInjector` through every step
+(step failures, one-slot logit poisoning, pool pressure with --paged,
+latency spikes, and with --abft bit flips in the audited host copy) with
+priorities and deadlines staggered over the trace, and reports the health
+record.  --disagg N (implies --paged) serves 4x --batch requests, half of
+them sharing a system prompt, through N prefill workers that hand finished
+prompts to the decode batcher over one shared page pool, or by page
+migration between two pools with --disagg-migrate; with --chaos, worker
+kills, hangs and handoff drops too.
 """
 from __future__ import annotations
 
@@ -60,8 +71,6 @@ from ..models import build_model
 from ..models.modules import param_device
 from .steps import make_chunked_prefill_step, make_serve_step
 
-UNPORTED_FLAGS = ("--chaos", "--chaos-seed", "--fault-rate", "--disagg",
-                  "--disagg-migrate")
 ENC_FRAMES = 32  # encoder frames per sequence of the static encoder-decoder run
 
 
@@ -83,6 +92,58 @@ def make_trace(cfg, n_req: int, prompt_len: int, gen: int, prefix_cache: bool):
             prompt = rng.integers(0, cfg.vocab, plen).astype(np.int32)
         reqs.append(Request(rid=i, prompt=prompt, max_new=gen))
     return reqs
+
+
+def make_disagg_trace(cfg, n_req: int, prompt_len: int, gen: int):
+    """The JAX launcher's disaggregated trace: even requests share a system
+    prompt of 75% of prompt_len plus a tail, odd ones are prompts of random
+    length in [2, prompt_len]."""
+    from ..runtime.lifecycle import Request
+
+    rng = np.random.default_rng(0)
+    sys_prompt = rng.integers(0, cfg.vocab, max(1, (3 * prompt_len) // 4))
+    reqs = []
+    for i in range(n_req):
+        if i % 2 == 0:
+            tail = rng.integers(0, cfg.vocab, max(1, prompt_len - len(sys_prompt)))
+            prompt = np.concatenate([sys_prompt, tail]).astype(np.int32)
+        else:
+            plen = int(rng.integers(2, prompt_len + 1))
+            prompt = rng.integers(0, cfg.vocab, plen).astype(np.int32)
+        reqs.append(Request(rid=i, prompt=prompt, max_new=gen))
+    return reqs
+
+
+def batcher_faults(rate: float, paged: bool, abft: bool) -> dict:
+    """The ChaosConfig fault mix of --chaos --fault-rate `rate` over the
+    batcher, as JAX's launcher builds it."""
+    return dict(step_failure_rate=rate, poison_rate=rate / 4, latency_spike_rate=rate,
+                pool_pressure_rate=rate / 2 if paged else 0.0, pool_pressure_pages=2,
+                # SDC bit flips only land where the ABFT guard can catch them
+                bitflip_rate=rate if abft else 0.0)
+
+
+def disagg_faults(rate: float) -> dict:
+    """The ChaosConfig fault mix of --disagg --chaos --fault-rate `rate`."""
+    return dict(step_failure_rate=rate / 4, worker_kill_rate=rate / 8,
+                worker_hang_rate=rate / 4, handoff_drop_rate=rate)
+
+
+def stagger(reqs, prompt_len: int, gen: int) -> None:
+    """Under --chaos: priorities alternate and every request gets a generous
+    step deadline, so the expiry and preemption paths are visible end to
+    end."""
+    for i, r in enumerate(reqs):
+        r.priority = i % 2
+        r.deadline_steps = 8 * (prompt_len + gen)
+
+
+def _kv_quant(args):
+    if args.kv_cache != "int8":
+        return None
+    from ..core.precision import QuantSpec
+
+    return QuantSpec("int8", "tile")
 
 
 def _draft_config(cfg, args):
@@ -182,25 +243,28 @@ def _run_continuous(model, cfg, params, args) -> int:
     or the paged one with --paged; --prefix-cache shares a common system
     prompt across them."""
     from ..runtime.batcher import ContinuousBatcher
+    from ..runtime.lifecycle import ChaosConfig, ChaosInjector, RetryPolicy
 
     drafter = make_drafter(cfg, args, param_device(params)) if args.speculate else None
-    kv_quant = None
-    if args.kv_cache == "int8":
-        from ..core.precision import QuantSpec
-
-        kv_quant = QuantSpec("int8", "tile")
+    kv_quant = _kv_quant(args)
     B = args.batch
     max_len = args.max_len or (args.prompt_len + args.gen)
     # the prefix cache keeps pinned pages resident across requests: size the
     # pool above the dense rectangle so pins don't starve admissions
     num_pages = (B + 2) * -(-max_len // args.page_size) if args.prefix_cache else None
+    chaos = ChaosInjector(ChaosConfig(
+        seed=args.chaos_seed, **batcher_faults(args.fault_rate, args.paged, args.abft))) \
+        if args.chaos else None
     batcher = ContinuousBatcher(
         model, params, batch_slots=B, max_len=max_len, paged=args.paged,
         page_size=args.page_size, num_pages=num_pages, kv_quant=kv_quant,
         prefix_cache=args.prefix_cache,
         prefill_chunk=args.prefill_chunk if args.paged else 0,
+        chaos=chaos, retry=RetryPolicy(max_retries=3, backoff_s=0.0),
         speculate=args.speculate, drafter=drafter, abft=args.abft)
     reqs = make_trace(cfg, 2 * B, args.prompt_len, args.gen, args.prefix_cache)
+    if args.chaos:
+        stagger(reqs, args.prompt_len, args.gen)
     t0 = time.perf_counter()
     for r in reqs:
         batcher.submit(r)
@@ -214,6 +278,8 @@ def _run_continuous(model, cfg, params, args) -> int:
         mode += "+prefix"
     if args.kv_cache == "int8":
         mode += "+int8"
+    if args.chaos:
+        mode += "+chaos"
     if args.speculate:
         mode += f"+spec{args.speculate}"
     if args.abft:
@@ -241,10 +307,86 @@ def _run_continuous(model, cfg, params, args) -> int:
               f"(peak shared {ps['shared_high_water']}), "
               f"{ps['cow_copies']} COW copies, "
               f"{ps['evicted_pages']} pages evicted")
+    hs = batcher.health_summary()
     if args.abft:
-        hs = batcher.health_summary()
+        flips = hs["chaos"]["bitflips_injected"] if args.chaos else 0
         print(f"  abft: {hs['abft']['sdc_detected']} SDC detected / "
-              f"{hs['abft']['sdc_corrected']} corrected (0 bit flips injected)")
+              f"{hs['abft']['sdc_corrected']} corrected ({flips} bit flips injected)")
+    if args.chaos:
+        print(f"  chaos [seed {args.chaos_seed}]: "
+              f"{hs['chaos']['failures_injected']} step failures "
+              f"({hs['retries']} retries), "
+              f"{hs['chaos']['poisons_injected']} poisons "
+              f"({hs['quarantined']} quarantined), "
+              f"{hs['preemptions']} preemptions / {hs['resumes']} resumes "
+              f"(mean resume latency "
+              f"{hs['resume_latency_steps_mean']:.1f} steps), "
+              f"{hs['stragglers']} straggler steps")
+        print("  finish reasons: " + ", ".join(
+            f"{k}={v}" for k, v in sorted(hs["finish_reasons"].items())))
+        slow = max(batcher.health, key=lambda h: h.dt_s)
+        print(f"  health: {hs['steps']} steps recorded; slowest step "
+              f"{slow.step} at {slow.dt_s * 1e3:.1f}ms "
+              f"(active {slow.active}, queued {slow.queued})")
+    for rid in sorted(finished)[:2]:
+        print(f"  req {rid}: {finished[rid].output[:8]}")
+    return 0
+
+
+def _run_disagg(model, cfg, params, args) -> int:
+    """Disaggregated serving (runtime/disagg.py): --disagg N prefill workers
+    fill KV pages and hand finished requests to the decode batcher by
+    shipping the page table (shared pool: incref-publish-mount, zero
+    copies; --disagg-migrate: disjoint pools with page migration).  --chaos
+    adds worker kills, hangs and handoff drops on top of step failures; the
+    engine heals by heartbeat detection, page-republish recovery, rerouting
+    and degraded-mode decode-side prefill."""
+    from ..runtime.disagg import DisaggEngine
+    from ..runtime.lifecycle import ChaosConfig, ChaosInjector, RetryPolicy
+
+    B = args.batch
+    max_len = args.max_len or (args.prompt_len + args.gen)
+    chaos = ChaosInjector(ChaosConfig(seed=args.chaos_seed, **disagg_faults(args.fault_rate))) \
+        if args.chaos else None
+    eng = DisaggEngine(
+        model, params, prefill_workers=args.disagg, batch_slots=B,
+        max_len=max_len, page_size=args.page_size,
+        prefill_chunk=args.prefill_chunk or 8,
+        shared_pool=not args.disagg_migrate, kv_quant=_kv_quant(args),
+        chaos=chaos, retry=RetryPolicy(max_retries=3, backoff_s=0.0))
+    reqs = make_disagg_trace(cfg, 4 * B, args.prompt_len, args.gen)
+    t0 = time.perf_counter()
+    for r in reqs:
+        eng.submit(r)
+    finished = eng.run_to_completion()
+    if eng.batcher.device.type == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    total = sum(len(r.prompt) + len(r.output) for r in finished.values())
+    s = eng.summary()
+    mode = "shared-pool" if eng.shared_pool else "page-migration"
+    if args.chaos:
+        mode += "+chaos"
+    print(f"disagg serving [{mode}]: {len(finished)} requests, "
+          f"{args.disagg} prefill workers -> {B} decode slots; "
+          f"{total / wall:.1f} tok/s ({_where(eng.batcher.device)})")
+    print(f"  handoffs: {s['handoffs_completed']} completed "
+          f"({s['migrated_pages']} pages migrated, "
+          f"{s['handoff_drops']} drops, {s['reroutes']} reroutes), "
+          f"{s['recoveries']} worker recoveries, "
+          f"{s['degraded_forwards']} degraded-mode forwards")
+    print("  workers: " + ", ".join(
+        f"w{w['wid']}={w['state']}{'(suspected)' if w['suspected'] else ''}"
+        f" x{w['launches']}" for w in s["workers"]))
+    print("  finish reasons: " + ", ".join(
+        f"{k}={v}" for k, v in sorted(s["batcher"]["finish_reasons"].items())))
+    if chaos is not None:
+        cs = chaos.summary()
+        print(f"  chaos [seed {args.chaos_seed}]: "
+              f"{cs['worker_kills_injected']} worker kills, "
+              f"{cs['worker_hangs_injected']} hangs, "
+              f"{cs['handoff_drops_injected']} handoff drops, "
+              f"{cs['failures_injected']} step failures")
     for rid in sorted(finished)[:2]:
         print(f"  req {rid}: {finished[rid].output[:8]}")
     return 0
@@ -291,23 +433,46 @@ def main(argv=None) -> int:
                     help="drafter under --speculate: 'ngram' (prompt lookup, "
                          "no extra model) or an arch id for a draft model "
                          "sharing the target's vocabulary")
+    ap.add_argument("--chaos", action="store_true",
+                    help="fault-injected serving (implies --continuous): "
+                         "seeded step failures, logit poisoning, pool "
+                         "pressure, latency spikes; reports typed finish "
+                         "reasons + per-step health (runtime/lifecycle)")
+    ap.add_argument("--chaos-seed", type=int, default=0,
+                    help="chaos schedule seed (same seed => same faults)")
+    ap.add_argument("--fault-rate", type=float, default=0.1,
+                    help="per-step fault probability under --chaos")
+    ap.add_argument("--disagg", type=int, default=0, metavar="N",
+                    help="disaggregated serving: N prefill workers hand "
+                         "finished requests to the decode batcher by "
+                         "shipping the page table (runtime/disagg.py)")
+    ap.add_argument("--disagg-migrate", action="store_true",
+                    help="disjoint prefill/decode pools: handoff migrates "
+                         "pages (copy + re-mount) instead of the shared-"
+                         "pool metadata handoff")
     ap.add_argument("--device", default="cuda",
                     help="'cuda' (default; raises without a GPU) or 'cpu'")
-    args, unknown = ap.parse_known_args(argv)
-    unported = [a for a in unknown if a.split("=")[0] in UNPORTED_FLAGS]
-    if unported:
-        ap.error(f"not ported yet: {' '.join(unported)} "
-                 "(see ROADMAP.md, queue 1)")
-    if unknown:
-        ap.error(f"unrecognized arguments: {' '.join(unknown)}")
+    args = ap.parse_args(argv)
     if args.speculate < 0:
         ap.error(f"--speculate must be >= 0, got {args.speculate}")
+    if args.disagg_migrate and not args.disagg:
+        ap.error("--disagg-migrate requires --disagg N")
+    if args.chaos:
+        args.continuous = True  # chaos lives in the batcher's step loop
     if args.abft:
         args.continuous = True  # the ABFT guard lives in the batcher's step
+        if args.disagg:
+            ap.error("--abft rides the continuous batcher's step loop; "
+                     "combine with --continuous/--paged, not --disagg")
     if args.prefix_cache:
         args.paged = True  # the prefix index lives on the page pool
+    if args.disagg:
+        args.paged = True  # workers prefill into the page pool
     if args.speculate:
         args.paged = True  # drafts land in (and roll back over) KV pages
+        if args.disagg:
+            ap.error("--speculate is a decode-loop feature; combine with "
+                     "--continuous/--paged, not --disagg")
     if args.kv_cache != "f32" and not args.paged:
         ap.error("--kv-cache int8 requires --paged (the quantized cache "
                  "lives in the page pool)")
@@ -321,6 +486,8 @@ def main(argv=None) -> int:
         _draft_config(cfg, args)  # refuse a mismatched draft before any weights
     params = model.init(0, device=device)
     # the encoder-decoder never goes to the batcher, whatever the flags (JAX)
+    if args.disagg and cfg.model_kind != "encdec":
+        return _run_disagg(model, cfg, params, args)
     if (args.continuous or args.paged) and cfg.model_kind != "encdec":
         return _run_continuous(model, cfg, params, args)
     return _run_static(model, cfg, params, args)

@@ -60,10 +60,21 @@ into the prefix index, so re-admission recomputes only the unshared tail).
     advance.  With no corruption the streams are bitwise those of
     ``abft=False``.
 
-Not ported yet: chaos injection (with the non-finite-logit quarantine it
-drives, and the host-copy bit flips it would feed the ABFT audit), which
-raises NotImplementedError, and the external pool / prefix index that
-disaggregated serving shares.
+  - ``chaos`` (a lifecycle.ChaosInjector) threaded through `step()` and the
+    speculative step: an injected transient failure is raised before the
+    device call, so the retried step writes the pages exactly once, with
+    the values an unfailed step writes; non-finite logits quarantine ONLY
+    the poisoned slot ("failed"; the argmax is taken from the device
+    logits before the guard's host copy is poisoned, and other slots'
+    outputs are untouched); pool pressure (pages seized under slot -99,
+    which `page_table` / `lengths` never render) drives the preemption
+    path; latency spikes feed the `StragglerDetector` watchdog; bit flips
+    corrupt the ABFT audit's host copy.  The non-finite guard is on
+    whenever chaos is (``nonfinite_guard=True`` forces it on): a
+    device-to-host copy of the last logits every step.
+  - ``pool`` / ``prefix_index``: an external `PagePool` (and a
+    `PrefixIndex` over it) shared with the disaggregated engine's prefill
+    workers (runtime/disagg), so a handoff is pure metadata.
 """
 from __future__ import annotations
 
@@ -78,7 +89,9 @@ from ..kernels.abft import use_abft
 from ..models.modules import param_device
 from .fault import DeviceFailure, StragglerDetector
 from .kv_pages import PagePool
-from .lifecycle import FinishReason, Request, RequestState, RetryPolicy, StepHealth
+from .lifecycle import (
+    ChaosInjector, FinishReason, Request, RequestState, RetryPolicy, StepHealth,
+)
 from .prefix_cache import PrefixIndex
 from .speculative import DraftProposer, NGramDrafter, SpecStats, accept_greedy
 
@@ -107,30 +120,39 @@ class ContinuousBatcher:
     device); B slots; max_len tokens per slot.  ``paged`` picks the cache
     backend; ``page_size`` tokens per page, ``num_pages`` allocatable pages
     (default: every slot at max_len).  ``cache_dtype`` is the K/V dtype of
-    either backend.  ``kv_quant``, ``prefix_cache``, ``prefill_chunk``,
-    ``speculate`` and ``drafter`` (paged only) as in the module
-    docstring."""
+    either backend.  ``kv_quant``, ``prefix_cache`` (``prefix_max_pinned``
+    caps the pages its index may pin), ``prefill_chunk``, ``speculate``,
+    ``drafter``, ``pool`` and ``prefix_index`` (paged only), ``chaos``,
+    ``nonfinite_guard`` and ``abft`` as in the module docstring."""
 
     def __init__(self, model, params, batch_slots: int, max_len: int,
                  cache_dtype=torch.float32, *, paged: bool = True,
                  page_size: int = 16, num_pages: Optional[int] = None,
                  kv_quant=None, prefix_cache: bool = False,
                  prefill_chunk: int = 0,
-                 chaos=None, retry: Optional[RetryPolicy] = None,
+                 prefix_max_pinned: Optional[int] = None,
+                 pool: Optional[PagePool] = None,
+                 prefix_index: Optional[PrefixIndex] = None,
+                 chaos: Optional[ChaosInjector] = None,
+                 retry: Optional[RetryPolicy] = None,
+                 nonfinite_guard: Optional[bool] = None,
                  straggler: Optional[StragglerDetector] = None,
                  speculate: int = 0, drafter: Optional[DraftProposer] = None,
                  abft: bool = False):
-        if chaos is not None:
-            raise NotImplementedError(
-                "chaos injection is not ported yet (ROADMAP queue 1 item 6)")
         if (prefix_cache or prefill_chunk) and not paged:
             raise ValueError("prefix_cache / prefill_chunk require "
                              "paged=True (they operate on the page pool)")
+        if (pool is not None or prefix_index is not None) and not paged:
+            raise ValueError("an external pool / prefix_index requires "
+                             "paged=True")
         if speculate and not paged:
             raise ValueError("speculate requires paged=True (the verify "
                              "window writes through the page tables)")
         if speculate < 0:
             raise ValueError(f"speculate must be >= 0, got {speculate}")
+        if prefix_index is not None and (pool is None or prefix_index.pool is not pool):
+            raise ValueError("prefix_index must be built over the "
+                             "external pool it is passed with")
         if kv_quant is not None and not paged:
             raise ValueError("kv_quant requires paged=True (the dense "
                              "cache dtype is `cache_dtype`)")
@@ -152,7 +174,10 @@ class ContinuousBatcher:
         self.prefill_launches = 0  # chunked prefill launches issued
 
         # lifecycle / fault state
+        self.chaos = chaos
         self.retry = retry or RetryPolicy()
+        self.guard = bool(nonfinite_guard) if nonfinite_guard is not None \
+            else chaos is not None
         self.watchdog = straggler or StragglerDetector()
         self.steps_run = 0
         self.health: Deque[StepHealth] = deque(maxlen=4096)
@@ -177,16 +202,20 @@ class ContinuousBatcher:
             self.cache = model.make_cache(batch_slots, max_len, dtype=cache_dtype,
                                           device=self.device)
             return
-        self.page_size = page_size
-        self._table_width = -(-max_len // page_size)
-        self.pool = PagePool(
+        # an external pool (disagg: prefill workers and the decode batcher
+        # share one allocator) dictates page_size and capacity
+        self.page_size = pool.page_size if pool is not None else page_size
+        self._table_width = -(-max_len // self.page_size)
+        self.pool = pool if pool is not None else PagePool(
             num_pages if num_pages is not None else batch_slots * self._table_width,
-            page_size)
+            self.page_size)
         self.cache = model.make_paged_cache(
             self.pool.total_pages, self.page_size, dtype=cache_dtype,
             device=self.device, kv_quant=kv_quant)
-        if prefix_cache:
-            self.prefix = PrefixIndex(self.pool)
+        if prefix_index is not None:
+            self.prefix = prefix_index
+        elif prefix_cache:
+            self.prefix = PrefixIndex(self.pool, max_pinned_pages=prefix_max_pinned)
 
     def _dev(self, arr: np.ndarray) -> torch.Tensor:
         return torch.as_tensor(arr, device=self.device)
@@ -540,6 +569,7 @@ class ContinuousBatcher:
                                    if r.finish_reason == FinishReason.DEADLINE),
             "stragglers": len(self.watchdog.flagged),
             "finish_reasons": dict(reasons),
+            "chaos": self.chaos.summary() if self.chaos else None,
             "abft": ({"sdc_detected": self.sdc_detected,
                       "sdc_corrected": self.sdc_corrected} if self.abft else None),
         }
@@ -554,15 +584,20 @@ class ContinuousBatcher:
     # the step
     # ------------------------------------------------------------------
 
-    def _device_step(self, args, fn=None):
+    def _device_step(self, args, fail_first: bool, fn=None):
         """One device step (`fn`, the decode step unless given) under the
         retry policy: a DeviceFailure is transient and the step is retried
-        from unchanged inputs."""
+        from unchanged inputs.  The step writes the pages in place, so an
+        injected failure (``fail_first``) is raised BEFORE the device call,
+        as in JAX: the failed attempt writes nothing, and the retry leaves
+        the pages bitwise those of an unfailed step."""
         if fn is None:
             fn = self.model.decode_step_paged if self.paged else self.model.decode_step
         attempts = 0
         while True:
             try:
+                if fail_first and attempts == 0:
+                    raise self.chaos.make_failure(self.steps_run)
                 if self.abft:  # every "cuda_mx" GEMM of the step checksummed
                     with use_abft():
                         return fn(*args), attempts
@@ -591,10 +626,15 @@ class ContinuousBatcher:
 
     def _abft_host_logits(self, device_logits: torch.Tensor) -> torch.Tensor:
         """The host copy of the logits, verified against the device array by
-        an exact checksum; on a mismatch it is fetched again (recovery is a
-        re-transfer, bitwise the fault-free copy) and the SDC counters
-        advance."""
+        an exact checksum.  The chaos bit-flip stream corrupts the copy in
+        flight (the host-side SDC surrogate); on a mismatch it is fetched
+        again (recovery is a re-transfer, bitwise the fault-free copy) and
+        the SDC counters advance."""
         host = self._to_host(device_logits)
+        if self.chaos is not None:
+            flip = self.chaos.bitflip(self.steps_run, tuple(host.shape))
+            if flip is not None:
+                host[flip[0]] += flip[1]
         want = self._logit_checksum(device_logits).cpu()
         bad = self._logit_checksum(host) != want
         if bool(bad.any()):
@@ -605,6 +645,28 @@ class ContinuousBatcher:
                 self.sdc_corrected += n
         return host
 
+    def _guard_finite(self, device_logits: torch.Tensor) -> Optional[np.ndarray]:
+        """The non-finite guard (None when off): a host copy of the logits,
+        with the chaos victim's row poisoned (the fault the guard must
+        catch), reduced to one finite flag per row."""
+        if not self.guard:
+            return None
+        host = self._to_host(device_logits)  # a copy: poisoning writes into it
+        if self.chaos is not None:
+            victim = self.chaos.poison_slot(
+                self.steps_run, [i for i, s in enumerate(self.slots) if not s.free])
+            if victim is not None:
+                host[victim] = float("nan")
+        return torch.isfinite(host).all(dim=-1).numpy()
+
+    def _quarantine(self, i: int, health: StepHealth) -> None:
+        """Only slot i fails: its pages are released and nothing it produced
+        this step is kept or published."""
+        req = self.slots[i].req
+        health.poisoned.append(req.rid)
+        req.log_event("quarantined", health.step)
+        self._finish_slot(i, FinishReason.FAILED)
+
     def step(self) -> int:
         """One batched decode step across all slots; returns #active slots."""
         if self.speculate:
@@ -612,6 +674,8 @@ class ContinuousBatcher:
         now = self.steps_run
         health = StepHealth(step=now)
         t0 = time.perf_counter()
+        if self.chaos is not None:
+            self.chaos.begin_step(now, self.pool)
         self._expire_running(health)
         self._admit(health)
         health.active = self.active
@@ -632,6 +696,7 @@ class ContinuousBatcher:
             else:  # decode phase: feed the last generated token
                 tokens[i, 0] = req.output[-1]
             index[i] = s.pos
+        fail = self.chaos.wants_failure(now) if self.chaos else False
         if self.paged:
             for i, s in enumerate(self.slots):
                 if not s.free:
@@ -642,16 +707,20 @@ class ContinuousBatcher:
                     table, lengths)
         else:  # free slots step token 0 at index 0, as in JAX
             args = (self.params, self._dev(tokens), self.cache, self._dev(index))
-        (logits, self.cache), health.retries = self._device_step(args)
+        (logits, self.cache), health.retries = self._device_step(args, fail)
         # torch.argmax, like jnp.argmax, takes the first maximal index; with
         # ABFT it reads the verified host copy
         last = self._abft_host_logits(logits[:, -1]) if self.abft else logits[:, -1]
         next_tok = last.argmax(dim=-1).cpu().numpy().astype(np.int32)
+        finite = self._guard_finite(logits[:, -1])
         for i, s in enumerate(self.slots):
             if s.free:
                 continue
             req = s.req
             s.pos += 1
+            if finite is not None and not finite[i]:
+                self._quarantine(i, health)
+                continue
             # a slot that exhausted its page reservation (an over-long
             # prompt) is truncated and evicted; the dense rectangle's cap is
             # max_len, below
@@ -700,12 +769,14 @@ class ContinuousBatcher:
 
         Acceptance publishes by advancing s.pos and the pool length over
         rows whose fed token is committed; a rejected draft's K/V rows are
-        never published.  Every finish path and the prefix-cache publish
-        point mirror the plain step, so the emitted argmax stream equals
-        speculate=0."""
+        never published.  Every finish path, the prefix-cache publish point,
+        the non-finite quarantine and the retry policy mirror the plain step,
+        so the emitted argmax stream equals speculate=0."""
         now = self.steps_run
         health = StepHealth(step=now)
         t0 = time.perf_counter()
+        if self.chaos is not None:
+            self.chaos.begin_step(now, self.pool)
         self._expire_running(health)
         self._admit(health)
         health.active = self.active
@@ -755,6 +826,7 @@ class ContinuousBatcher:
             # row r attend exactly through its own position
             lengths[i] = s.pos + S
             meta[i] = (take, kd, drafts, completes, was_prefill, cap)
+        fail = self.chaos.wants_failure(now) if self.chaos else False
         deepest = max(s.pos for s in self.slots if not s.free)
         # window rows reach position pos+S-1, so the table covers one window
         # past the deepest slot, NOT capped at max_len's width like the
@@ -764,15 +836,19 @@ class ContinuousBatcher:
         table = self._dev(self.pool.page_table(self.B, w))
         (logits, self.cache), health.retries = self._device_step(
             (self.params, self._dev(tokens), self.cache, self._dev(index), table,
-             self._dev(lengths)), fn=self.model.verify_step_paged)
+             self._dev(lengths)), fail, fn=self.model.verify_step_paged)
         self.spec.launches += 1
         win = self._abft_host_logits(logits) if self.abft else logits
         rows = win.argmax(dim=-1).cpu().numpy().astype(np.int32)  # (B, S)
+        finite = self._guard_finite(logits)  # (B, S)
         for i, s in enumerate(self.slots):
             if s.free:
                 continue
             req = s.req
             take, kd, drafts, completes, was_prefill, cap = meta[i]
+            if finite is not None and not finite[i, :take + kd].all():
+                self._quarantine(i, health)
+                continue
             pos0 = s.pos
             emitted: List[int] = []
             a = 0  # drafts the model agreed with (before EOS truncation)
@@ -824,6 +900,8 @@ class ContinuousBatcher:
 
     def _flush_health(self, health: StepHealth, t0: float, ran_device_step: bool):
         health.dt_s = time.perf_counter() - t0
+        if self.chaos is not None:
+            health.dt_s += self.chaos.latency_spike(health.step)
         if ran_device_step:
             health.straggler = self.watchdog.observe(health.step, health.dt_s)
         self.health.append(health)
@@ -847,4 +925,6 @@ class ContinuousBatcher:
                     req,
                     FinishReason.PREEMPTED_REQUEUED if req.preemptions
                     else FinishReason.DEADLINE)
+        if self.chaos is not None:
+            self.chaos.end(self.pool)
         return self.finished

@@ -3,7 +3,7 @@
 retry policy absorbs, and the `StragglerDetector` watchdog over step times.
 
 Not ported yet: `TrainLoop`, `FaultInjector` and `NanLossError`, which
-belong to training and checkpointing (ROADMAP queue 1 item 16).
+belong to training and checkpointing (ROADMAP queue 1 item 8).
 """
 from __future__ import annotations
 

@@ -174,17 +174,34 @@ def test_lifecycle_trace_matches_jax():
 
 
 def test_unported_options_raise():
-    """Chaos injection still raises.  The dense cache (paged=False), which
-    raised until it was ported, serves a short trace with the JAX dense
-    batcher's streams and finish reasons; abft=True (which raised until
-    ABFT was ported) builds a batcher with the audit armed (its streams:
-    tests/test_torch_abft.py)."""
+    """The options that raised until they were ported now serve.  Chaos
+    injection: a `ChaosInjector` run (step failures and a poisoned slot
+    under the non-finite guard) gives JAX's streams, finish reasons and
+    chaos counters (the full parity: tests/test_torch_chaos.py).  The dense
+    cache (paged=False) serves a short trace with the JAX dense batcher's
+    streams and finish reasons; abft=True builds a batcher with the audit
+    armed (its streams: tests/test_torch_abft.py)."""
+    from repro.runtime.lifecycle import ChaosConfig as JChaosConfig
+    from repro.runtime.lifecycle import ChaosInjector as JChaosInjector
+    from repro_torch.runtime.lifecycle import ChaosConfig, ChaosInjector
+
     jm = j_build(j_get_config(NAME))
     jp = jm.init(jax.random.PRNGKey(0))
     tm = build_model(get_config(NAME))
     tp = from_jax_params(jax.tree.map(np.asarray, jp), get_config(NAME), device="cpu")
-    with pytest.raises(NotImplementedError):
-        ContinuousBatcher(tm, tp, batch_slots=1, max_len=8, chaos=object())
+    faults = dict(seed=1, fail_at_steps=(1, 4), poison_at_steps=(5,))
+    chaos_trace = [(rid, p[:5], m) for rid, p, m in _trace(get_config(NAME).vocab)[:3]]
+    jb = JBatcher(jm, jp, batch_slots=2, max_len=12, chaos=JChaosInjector(JChaosConfig(**faults)))
+    tb = ContinuousBatcher(tm, tp, batch_slots=2, max_len=12, paged=False,
+                           chaos=ChaosInjector(ChaosConfig(**faults)))
+    for b, make in ((jb, JRequest), (tb, Request)):
+        for rid, prompt, max_new in chaos_trace:
+            b.submit(make(rid=rid, prompt=prompt, max_new=max_new))
+    jfin, tfin = jb.run_to_completion(), tb.run_to_completion()
+    assert {r: (v.output, v.finish_reason) for r, v in tfin.items()} == \
+        {r: (v.output, v.finish_reason) for r, v in jfin.items()}
+    assert tb.chaos.summary() == jb.chaos.summary()
+    assert tb.retries_total == 2 and "failed" in tb.health_summary()["finish_reasons"]
     trace = [(rid, p[:6], m) for rid, p, m in _trace(get_config(NAME).vocab)[:4]]
     jb = JBatcher(jm, jp, batch_slots=2, max_len=12)
     for rid, prompt, max_new in trace:

@@ -38,7 +38,11 @@ with HMMA in its SASS.  For the xLSTM, encoder-decoder and prefix models: the
 attention kernel at seamless's encoder and cross-attention shapes (Lq = 1
 included) and internvl2's (d = 128, 48 / 8 heads, 1088 positions), the
 xlstm-125m decode step's 51 decode-tile GEMMs, and the seamless and
-internvl2 smoke forwards against the plain path.
+internvl2 smoke forwards against the plain path.  Chaos and disaggregated
+serving on the kernels: a retried step leaves the pages (f32 and int8)
+bitwise those of an unfailed step, every injected host-copy bit flip under
+abft=True is detected and corrected, migrated pages are bitwise their
+sources, and the disaggregated engine emits the paged batcher's streams.
 """
 import ctypes
 
@@ -1900,3 +1904,120 @@ def test_encdec_and_prefix_forwards_across_backends(cuda, name):
     ref = out["torch"][0]
     assert out["cuda_mx"][0].shape == (2, 40, cfg.vocab)
     assert (out["cuda_mx"][0] - ref).abs().max().item() <= 1e-3 * ref.abs().max().item()
+
+
+# ---------------------------------------------------------------------------
+# chaos and disaggregated serving on the kernels
+# ---------------------------------------------------------------------------
+
+
+def _llama_smoke(dev):
+    model = build_model(get_config("llama3.2-1b-smoke"))
+    return model, model.init(0, device=dev)
+
+
+def _smoke_prompts(n=5, seed=4):
+    rng = np.random.default_rng(seed)
+    vocab = get_config("llama3.2-1b-smoke").vocab
+    return [rng.integers(0, vocab, (9, 14, 6, 17, 11)[i % 5]).astype(np.int32)
+            for i in range(n)]
+
+
+@pytest.mark.parametrize("kv", [None, "int8"])
+def test_retried_step_leaves_the_pages_bitwise_unfailed_on_the_card(cuda, kv):
+    """The injected failure comes before the kernels run: after every step
+    the pages of a run with failures equal those of a run without, bit for
+    bit, and so do the streams; the kernels ran."""
+    from repro_torch.runtime.lifecycle import ChaosConfig, ChaosInjector, RetryPolicy
+
+    model, params = _llama_smoke(cuda)
+    runs = []
+    with ops.use_policy(ops.MXPolicy("cuda_mx")):
+        for chaos in (None, ChaosInjector(ChaosConfig(fail_at_steps=(0, 1, 3, 6, 10)))):
+            b = ContinuousBatcher(model, params, batch_slots=3, max_len=32, page_size=4,
+                                  prefill_chunk=4, prefix_cache=True, chaos=chaos,
+                                  kv_quant=QuantSpec(kv) if kv else None,
+                                  retry=RetryPolicy(max_retries=1))
+            for i, p in enumerate(_smoke_prompts()):
+                b.submit(Request(rid=i, prompt=p, max_new=6))
+            runs.append(b)
+        kernels.reset_launch_counts()
+        while any(b.queue or b.active for b in runs):
+            for b in runs:
+                b.step()
+            leaves = [[t for seg in b.cache.values() for t in seg.values()] for b in runs]
+            assert all(torch.equal(x, y) for x, y in zip(*leaves))
+    n = kernels.launch_counts()
+    assert n["mx_matmul_fused"] > 0 and n["mx_flash_decode"] > 0
+    assert runs[1].retries_total == 5
+    assert {r: v.output for r, v in runs[0].finished.items()} == \
+        {r: v.output for r, v in runs[1].finished.items()}
+
+
+@pytest.mark.parametrize("speculate", [0, 3])
+def test_bitflips_under_abft_detected_and_corrected_on_the_card(cuda, speculate):
+    """abft=True with the chaos bit-flip stream: every flip of the audited
+    host copy is detected and corrected, the ABFT kernels flag no tile, and
+    the streams are those of the run without flips."""
+    from repro_torch.kernels import abft as ab
+    from repro_torch.runtime.lifecycle import ChaosConfig, ChaosInjector
+
+    model, params = _llama_smoke(cuda)
+    out = []
+    with ops.use_policy(ops.MXPolicy("cuda_mx")):
+        for chaos in (None, ChaosInjector(ChaosConfig(seed=2, bitflip_rate=0.5))):
+            kernels.reset_launch_counts()
+            ab.reset_abft_stats()
+            b = ContinuousBatcher(model, params, batch_slots=3, max_len=32, page_size=4,
+                                  prefill_chunk=4, abft=True, chaos=chaos, speculate=speculate,
+                                  drafter=NGramDrafter() if speculate else None)
+            for i, p in enumerate(_smoke_prompts()):
+                b.submit(Request(rid=i, prompt=p, max_new=6))
+            fin = b.run_to_completion()
+            out.append(({r: fin[r].output for r in fin}, b, kernels.variant_launch_counts(),
+                        ab.abft_stats()))
+    (base, _, _, _), (flipped, b, v, stats) = out
+    assert flipped == base
+    assert b.sdc_detected == b.sdc_corrected == b.chaos.bitflips_injected > 0
+    assert v["mx_matmul_fused abft"] > 0 and stats["tiles_flagged"] == 0
+    assert kernels.launch_counts()["mx_flash_verify" if speculate else "mx_flash_decode"] > 0
+
+
+@pytest.mark.parametrize("shared_pool,kv", [(True, None), (False, None), (False, "int8")])
+def test_disagg_streams_equal_the_paged_batcher_on_the_card(cuda, shared_pool, kv):
+    """The disaggregated engine on "cuda_mx" (2 workers, batch-1 chunks of
+    4 rows on the decode tile) emits the paged batcher's streams; migrated
+    pages (int8 payloads and scale pages too) are bitwise their sources."""
+    from repro_torch.runtime.disagg import DisaggEngine
+
+    model, params = _llama_smoke(cuda)
+    kvq = QuantSpec(kv) if kv else None
+    with ops.use_policy(ops.MXPolicy("cuda_mx")):
+        ref = ContinuousBatcher(model, params, batch_slots=2, max_len=32, page_size=4,
+                                kv_quant=kvq)
+        for i, p in enumerate(_smoke_prompts(6)):
+            ref.submit(Request(rid=i, prompt=p, max_new=5))
+        want = {r: v.output for r, v in ref.run_to_completion().items()}
+        eng = DisaggEngine(model, params, prefill_workers=2, batch_slots=2, max_len=32,
+                           page_size=4, prefill_chunk=4, shared_pool=shared_pool, kv_quant=kvq)
+        held = []
+        if not shared_pool:
+            migrate = eng._migrate_pages
+
+            def checked(dst, src):
+                migrate(dst, src)
+                for name, seg in eng.batcher.cache.items():
+                    for leaf, t in seg.items():
+                        held.append(torch.equal(t[:, dst], eng.cache_p[name][leaf][:, src]))
+
+            eng._migrate_pages = checked
+        kernels.reset_launch_counts()
+        for i, p in enumerate(_smoke_prompts(6)):
+            eng.submit(Request(rid=i, prompt=p, max_new=5))
+        fin = eng.run_to_completion()
+    n = kernels.decode_launch_counts()
+    assert {r: v.output for r, v in fin.items()} == want
+    assert eng.summary()["handoffs_completed"] == 6 and eng.prefill_launches > 0
+    assert n["mx_matmul_fused"] > 0 and kernels.launch_counts()["mx_flash_decode"] > 0
+    if not shared_pool:
+        assert eng.migrated_pages > 0 and held and all(held)

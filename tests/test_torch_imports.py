@@ -113,10 +113,50 @@ def test_serve_paged_needs_an_attention_only_model():
         serve.main(["--arch", "zamba2-2.7b", "--smoke", "--paged", "--device", "cpu"])
 
 
-@pytest.mark.parametrize("flag", ["--chaos", "--disagg=2"])
-def test_serve_rejects_unported_flags(flag):
+@pytest.mark.parametrize("flag", ["--chaos", "--disagg=2", "--disagg-migrate"])
+def test_serve_rejects_unported_flags(capsys, flag):
+    """The flags the launcher refused until chaos and disaggregated serving
+    were ported: each now serves on the CPU and prints JAX's lines (the
+    "+chaos" mode with its health record; the `disagg serving [...]`
+    summary with handoffs and workers)."""
+    flags = ["--disagg", "2", "--prompt-len", "40", "--prefill-chunk", "8", flag] \
+        if flag == "--disagg-migrate" else [flag]
+    assert serve.main(["--smoke", "--device", "cpu", *flags]) == 0
+    out = capsys.readouterr().out
+    if flag == "--chaos":
+        assert "continuous batching [dense+chaos cache]: 8 requests" in out
+        assert "chaos [seed 0]:" in out and "finish reasons:" in out
+    else:
+        mode = "page-migration" if flag == "--disagg-migrate" else "shared-pool"
+        assert f"disagg serving [{mode}]: 16 requests, 2 prefill workers -> 4 decode" in out
+        assert "handoffs: 16 completed" in out and "workers: w0=healthy" in out
+        migrated = int(out.split(" pages migrated")[0].rsplit("(", 1)[1])
+        assert (migrated > 0) == (flag == "--disagg-migrate"), out
+
+
+@pytest.mark.parametrize("flags,lines", [
+    (["--prefix-cache", "--prefill-chunk", "4", "--chaos", "--fault-rate", "0.3"],
+     ["continuous batching [paged+prefix+chaos cache]", "health:"]),
+    (["--paged", "--abft", "--chaos", "--fault-rate", "0.3", "--prefill-chunk", "4"],
+     ["[paged+chaos+abft cache]", "abft: 10 SDC detected / 10 corrected (10 bit flips"]),
+    (["--disagg", "2", "--chaos", "--fault-rate", "0.3", "--prefill-chunk", "4"],
+     ["disagg serving [shared-pool+chaos]", "chaos [seed 0]: 2 worker kills"]),
+])
+def test_serve_chaos_on_cpu_as_jax_prints_it(capsys, flags, lines):
+    """--chaos over the paged batcher, with ABFT (every injected bit flip
+    caught), and over the disaggregated engine (worker kills); the counters
+    are pure in the seed, so they are JAX's launcher's."""
+    assert serve.main(["--smoke", "--device", "cpu", *flags]) == 0
+    out = capsys.readouterr().out
+    for line in lines:
+        assert line in out
+
+
+@pytest.mark.parametrize("flags", [["--disagg-migrate"], ["--disagg", "2", "--abft"],
+                                   ["--disagg", "2", "--speculate", "2"]])
+def test_serve_refuses_what_jax_refuses(flags):
     with pytest.raises(SystemExit):
-        serve.main(["--smoke", "--device", "cpu", flag])
+        serve.main(["--smoke", "--device", "cpu", *flags])
 
 
 @pytest.mark.parametrize("flags,mode", [
@@ -139,7 +179,7 @@ def test_serve_speculative_and_int8_on_cpu(capsys, flags, mode):
 ])
 def test_serve_abft_on_cpu(capsys, flags, mode):
     """--abft as JAX's launcher prints it: the mode's +abft and the audit
-    line (no flip is injected: --chaos stays unported)."""
+    line (without --chaos no flip is injected)."""
     assert serve.main(["--smoke", "--prefill-chunk", "4", "--device", "cpu", *flags]) == 0
     out = capsys.readouterr().out
     assert f"continuous batching [{mode} cache]: 8 requests" in out
