@@ -238,6 +238,29 @@ Disaggregated serving, chaos and the non-finite quarantine:
       one under chaos) is printed with its first differing step and the
       reference's top-2 logit gap there, which must be below 1e-3 *
       max|logit| (phase 5's tolerance).
+Tensor parallelism, the ring collective GEMMs on one card:
+  12. (after phase 11, on its llama3.2-1b weights, before the zamba2 profile)
+      every rank of an 8-rank LocalRing on the card, every chunk GEMM kernel
+      1: 12a the rings at llama's projections (q / k / v and up+gate on the
+      all-gather ring, out and down on the reduce-scatter ring with the
+      residual fused; M = 64 and 8, each direction; bf16, and "int8" and
+      "int8_all" (its per-row scales riding the ring) all-gathers) against
+      their serialized references and one kernel-1 launch on the whole GEMM
+      (f32 and quantized 1e-4, bf16 2e-2 * max|ref|), the all-gather chunk
+      rows bitwise kernel 1 on the same rows and shard, each timed beside
+      its serialized reference, kernel 1 on the whole GEMM and the library
+      call, with the whole GEMM's bound and the bytes the hops copy; 12b a
+      ring fault per mode under abft: flagged, recovered bitwise the
+      fault-free ring, one host read of the flag total per clean ring
+      linear; 12c (i) the prefill step on 2 x 256 tokens under
+      collective_policy against the step without it (1e-3 * max|ref|), (ii)
+      the paged batcher on phase 4's trace cut to 8 requests x 8 new tokens
+      under the policy against the same run without it (phase 5's near-tie
+      rule), the chunk launches per ring mode and the fallbacks printed; 12d
+      the MoE's collective branch at grok-1-smoke's widths against its
+      grouped launch, GPipe over 4 stages of one full-width llama layer
+      against the layers in sequence.  The multi-GPU ring (NCCL) is not
+      measured.
 The line before the last is the kernel summary JSON; the last line is
 {"ok": true, "device": {...}}.  Details go to chiprun_out/chip_smoke.json.
 """
@@ -246,6 +269,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import gc
+import itertools
 import json
 import math
 import os
@@ -3632,10 +3656,12 @@ def _bytes(tree):
     return sum(t.numel() * t.element_size() for seg in tree.values() for t in seg.values())
 
 
-def phase11(torch, dev):
+def phase11(torch, dev, then=None):
     """Phase 11: llama3.2-1b at full width (f32, seed 0, nothing cut) through
     the disaggregated engine (shared pool, migration, under chaos) and the
-    paged batcher under chaos with ABFT, plain and speculative."""
+    paged batcher under chaos with ABFT, plain and speculative; then
+    `then(model, params, cfg)` on the same weights (phase 12).  Returns
+    (phase 11's record, then's)."""
     from repro_torch.configs import get_config
     from repro_torch.core import ops
     from repro_torch.launch.serve import (
@@ -3798,12 +3824,437 @@ def phase11(torch, dev):
                 == h["abft"]["sdc_corrected"]) or failed != hurt["poisoned"]:
             raise AssertionError(f"11e: {h}, failed {failed}, poisoned {hurt['poisoned']}")
         out["11e"], out["11e_ref"] = hurt, base
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"    phase 11: {out['seconds']:.1f} s")
+    after = then(model, params, cfg) if then is not None else None
     del model, params
     gc.collect()
     torch.cuda.empty_cache()
-    out["seconds"] = time.perf_counter() - t_phase
-    print(f"    phase 11: {out['seconds']:.1f} s")
+    return out, after
+
+
+# ---------------------------------------------------------------------------
+# phase 12: tensor parallelism on one card, the ring collective GEMMs
+# ---------------------------------------------------------------------------
+
+RING_P = 8  # LocalRing(8): every rank of the model-axis ring on the one card
+DIRS = ("fwd", "bwd", "bidir")
+# 12a: (label, mode, M, K, N, dtype or named policy, epilogue, directions) at
+# llama3.2-1b's projections: q / k / v (k and v share a shape) and up+gate
+# on the all-gather ring, out and down (with the residual fused) on the
+# reduce-scatter ring; M = 64 a prefill chunk (m_loc = 8), M = 8 a decode
+# step at 8 slots (m_loc = 1: bidir runs "fwd")
+RING_SHAPES = (
+    *[(f"{w} M={M}", "allgather", M, 2048, N, "float32", {}, DIRS)
+      for w, N in (("q", 2048), ("k / v", 512)) for M in (64, 8)],
+    ("up+gate swiglu M=64", "allgather", 64, 2048, 8192, "float32",
+     dict(activation="swiglu"), ("bidir",)),
+    *[(f"{w} M={M}", "reduce_scatter", M, K, 2048, "float32", dict(residual=True), DIRS)
+      for w, K in (("out", 2048), ("down", 8192)) for M in (64, 8)],
+    ("q M=64 bf16", "allgather", 64, 2048, 2048, "bfloat16", {}, ("bidir",)),
+    ("down M=64 bf16", "reduce_scatter", 64, 8192, 2048, "bfloat16", dict(residual=True),
+     ("bidir",)),
+    ("q M=64 int8", "allgather", 64, 2048, 2048, "int8", {}, ("bidir",)),
+    ("q M=64 int8_all (a_scale sidecar)", "allgather", 64, 2048, 2048, "int8_all", {},
+     ("bidir",)),
+)
+# the kernels line's two rows: a decode step's q (all-gather) and down
+# (reduce-scatter) projections, the rings 12c (ii) runs most
+RING_ROWS = {"allgather": ("q M=8", "fwd"), "reduce_scatter": ("down M=8", "fwd")}
+
+
+def _ring_operands(torch, dev, M, K, N, dt, ep_kw, seed):
+    """Whole operands of one GEMM: f32 / bf16, or the payloads and scales of
+    a named policy (f32 output)."""
+    from repro_torch.core.precision import NAMED_POLICIES
+    from repro_torch.kernels.quant import quantize_operand
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((M, K), generator=g, device=dev)
+    w = torch.randn((K, N), generator=g, device=dev) / math.sqrt(K)
+    wg = (torch.randn((K, N), generator=g, device=dev) / math.sqrt(K)
+          if ep_kw.get("activation") == "swiglu" else None)
+    res = torch.randn((M, N), generator=g, device=dev) if ep_kw.get("residual") else None
+    op = dict(w_gate=wg, residual=res, a_scale=None, b_scale=None, bg_scale=None)
+    if dt in REL_TOL:
+        t = getattr(torch, dt)
+        op.update(x=x.to(t), w=w.to(t), out_dtype=t,
+                  w_gate=None if wg is None else wg.to(t), residual=None if res is None
+                  else res.to(t))
+        return op
+    pol = NAMED_POLICIES[dt]
+    qa, a_s = quantize_operand(x, pol.a, "a")
+    qb, b_s = quantize_operand(w, pol.b, "b")
+    op.update(x=qa.contiguous(), w=qb, a_scale=a_s, b_scale=b_s, out_dtype=torch.float32)
+    return op
+
+
+def _ring_shards(op, mode, P):
+    """The per-rank arguments of the ring bodies: the all-gather ring's x
+    rows (and their scales) and contiguous weight / residual / scale
+    columns; the reduce-scatter ring's x and weight K-slices, residual rows
+    and whole scales."""
+    x, w = op["x"], op["w"]
+    (M, K), N = x.shape, w.shape[1]
+    if mode == "allgather":
+        m, n = M // P, N // P
+
+        def cols(t):
+            return None if t is None else [t[..., r * n:(r + 1) * n].contiguous()
+                                           for r in range(P)]
+        return ([x[r * m:(r + 1) * m] for r in range(P)], cols(w), dict(
+            b_gate=cols(op["w_gate"]), residual=cols(op["residual"]),
+            a_scale=None if op["a_scale"] is None else
+            [op["a_scale"][r * m:(r + 1) * m] for r in range(P)],
+            b_scale=cols(op["b_scale"]), bg_scale=cols(op["bg_scale"])))
+    k, m = K // P, M // P
+    return ([x[:, r * k:(r + 1) * k].contiguous() for r in range(P)],
+            [w[r * k:(r + 1) * k] for r in range(P)], dict(
+                residual=None if op["residual"] is None else
+                [op["residual"][r * m:(r + 1) * m] for r in range(P)],
+                a_scale=None if op["a_scale"] is None else [op["a_scale"]] * P,
+                b_scale=None if op["b_scale"] is None else [op["b_scale"]] * P))
+
+
+def _whole_kw(op, ep_kw):
+    """Kernel 1's arguments for the whole GEMM."""
+    from repro_torch.kernels import mx_matmul as mm
+
+    ep = mm.Epilogue(**ep_kw, a_scale=op["a_scale"] is not None,
+                     b_scale=op["b_scale"] is not None)
+    return dict(epilogue=ep, b_gate=op["w_gate"], residual=op["residual"],
+                a_scale=op["a_scale"], b_scale=op["b_scale"], bg_scale=op["bg_scale"],
+                out_dtype=op["out_dtype"])
+
+
+def _chunk_rows(direction, i, step, m, P):
+    """The x rows rank i multiplies at `step` of an all-gather ring."""
+    if direction == "bidir" and m % 2 == 0:
+        f, b = (i - step) % P, (i + step) % P
+        return [*range(f * m, f * m + m // 2), *range(b * m + m // 2, (b + 1) * m)]
+    src = ((i + step) if direction == "bwd" else (i - step)) % P
+    return list(range(src * m, (src + 1) * m))
+
+
+def check_ring(torch, dev, ring, label, mode, M, K, N, dt, ep_kw, direction, seed):
+    """One ring GEMM over `ring` (chunk GEMMs on kernel 1) against its
+    serialized reference and one kernel-1 launch on the whole GEMM (f32 and
+    quantized within 1e-4 * max|ref|, bf16 2e-2); on the all-gather ring
+    each step's output rows bitwise kernel 1 on the same rows and shard.
+    Times: the ring (`_ring_ms`: median of 7 windows of one call), the
+    serialized reference, kernel 1 on the whole GEMM, the library call on
+    the whole GEMM (median of 3 windows of 10 calls); the whole GEMM's
+    bound; the bytes the ring's hops copy."""
+    from repro_torch.kernels import mx_collective_matmul as cm
+    from repro_torch.kernels import mx_matmul as mm
+
+    P = ring.size
+    ring_fn = cm.ring_allgather_matmul if mode == "allgather" else cm.ring_matmul_reduce_scatter
+    ser_fn = (cm.serialized_allgather_matmul if mode == "allgather"
+              else cm.serialized_matmul_psum)
+    cc, ep, dim = cm.ChunkCompute("cuda_mx"), mm.Epilogue(**ep_kw), int(mode == "allgather")
+    tol_dt = dt if dt in REL_TOL else "float32"
+
+    def make(s):
+        op = _ring_operands(torch, dev, M, K, N, dt, ep_kw, s)
+        return op, *_ring_shards(op, mode, P)
+
+    op, xs, ws, kw = make(seed)
+    el_a, el_b = op["x"].element_size(), op["w"].element_size()
+    nmat = 2 if op["w_gate"] is not None else 1
+    el_out = torch.empty((), dtype=op["out_dtype"]).element_size()
+    nbytes = (el_a * M * K + nmat * el_b * K * N + el_out * M * N
+              + (el_out * M * N if ep_kw.get("residual") else 0)
+              + (4 * M if op["a_scale"] is not None else 0)
+              + (4 * nmat * N if op["b_scale"] is not None else 0))
+    sets = [(op, xs, ws, kw)] + [make(seed + 1 + c) for c in range(_copies(nbytes) - 1)]
+
+    def run_ring(op_, xs_, ws_, kw_):
+        return ring_fn(ring, xs_, ws_, compute=cc, epilogue=ep, direction=direction,
+                       out_dtype=op_["out_dtype"], **kw_)
+
+    def run_ser(op_, xs_, ws_, kw_):
+        return ser_fn(ring, xs_, ws_, compute=cc, epilogue=ep, out_dtype=op_["out_dtype"],
+                      **kw_)
+
+    def run_whole(op_, *_):
+        return mm.mx_matmul_fused(op_["x"], op_["w"], **_whole_kw(op_, ep_kw))
+
+    moved0 = ring.bytes_moved
+    outs = run_ring(op, xs, ws, kw)
+    ring_bytes = ring.bytes_moved - moved0
+    got = torch.cat(outs, dim)
+    ser = torch.cat(run_ser(op, xs, ws, kw), dim)
+    whole = run_whole(op)
+    err, tol = _err(torch, got, ser, tol_dt)
+    err_whole, tol_whole = _err(torch, got, whole, tol_dt)
+    bitwise = None
+    if mode == "allgather":
+        m = M // P
+        bitwise = True
+        for i in range(P):
+            for step in range(P):
+                rows = torch.tensor(_chunk_rows(direction, i, step, m, P), device=dev)
+                kw1 = _whole_kw(op, ep_kw)
+                kw1.update(b_gate=_at(kw["b_gate"], i), bg_scale=_at(kw["bg_scale"], i),
+                           b_scale=_at(kw["b_scale"], i),
+                           residual=None if kw["residual"] is None
+                           else kw["residual"][i][rows].contiguous(),
+                           a_scale=None if op["a_scale"] is None else op["a_scale"][rows])
+                want = mm.mx_matmul_fused(op["x"][rows].contiguous(), ws[i], **kw1)
+                bitwise &= torch.equal(outs[i][rows], want)
+    fns = dict(plain_ms=(run_ser, sets), kernel_ms=(run_whole, sets))
+    library = None
+    if dt in REL_TOL and not ep_kw:
+        library = "torch.matmul"
+        fns["library_ms"] = (lambda op_, *_: torch.matmul(op_["x"], op_["w"]), sets)
+    elif dt in REL_TOL and set(ep_kw) == {"residual"}:
+        library = "torch.addmm"
+        fns["library_ms"] = (lambda op_, *_: torch.addmm(op_["residual"], op_["x"], op_["w"]),
+                             sets)
+    t = _time_ms(torch, fns, windows=3, iters=10, warmup=1)
+    t["kernel_ms"] = statistics.median(t["windows_ms"]["kernel_ms"])
+    cycle = itertools.cycle(sets)
+    t["ms"], t["windows_ms"]["ms"] = _ring_ms(torch, lambda: run_ring(*next(cycle)))
+    bound, by = _bound_ms(nbytes, 2 * M * N * K * nmat, _peak_type(op["x"], op["w"]))
+    out = dict(label=label, mode=mode, direction=direction, M=M, K=K, N=N, dtype=dt,
+               epilogue=ep_kw, max_abs_err=err, tol=tol, err_whole=err_whole,
+               tol_whole=tol_whole, chunk_bitwise=bitwise, ring_bytes=ring_bytes, **t,
+               library=library, bound_ms=bound, bound_by=by)
+    print(f"    [12a] {mode} {label} {direction} {dt}: ring {t['ms']:.4f} ms / serialized "
+          f"{t['plain_ms']:.4f} / kernel 1 whole {t['kernel_ms']:.4f} / "
+          f"{library or 'no library call'} "
+          f"{t['library_ms'] if t['library_ms'] is None else round(t['library_ms'], 4)} / "
+          f"bound {bound:.4f} ({by}); hops copy {ring_bytes / 1e6:.3f} MB; err "
+          f"{err:.3g} (tol {tol:.3g}) vs serialized, {err_whole:.3g} vs whole"
+          + ("" if bitwise is None else f"; chunk rows bitwise kernel 1: {bitwise}"))
+    if not (err <= tol and err_whole <= tol_whole and bitwise is not False):
+        raise AssertionError(f"12a {mode} {label} {direction}: {out}")
     return out
+
+
+def _at(values, i):
+    return None if values is None else values[i]
+
+
+def _ring_ms(torch, call, windows=7, spin_s=0.05):
+    """A ring call's device time: the median of `windows` windows of one
+    call, each behind a spin kernel of `spin_s` seconds, the garbage
+    collector held off.  A ring call enqueues 130-350 kernels and copies,
+    and its host time is several times its device time
+    (tools/ring_timing.py): a window of several calls outruns the launch
+    queue that `_time_ms`'s spin keeps ahead of the host, and a host pause
+    longer than the spin times the host.
+    Returns (median ms, every window's ms)."""
+    call()
+    torch.cuda.synchronize()
+    per = []
+    gc.disable()
+    try:
+        for _ in range(windows):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            torch.cuda._sleep(int(spin_s * SPIN_CYCLES_PER_S))
+            start.record()
+            call()
+            end.record()
+            end.synchronize()
+            per.append(start.elapsed_time(end))
+    finally:
+        gc.enable()
+    return statistics.median(per), per
+
+
+def phase12(torch, dev, model, params, cfg, phase4_step_ms):
+    """Phase 12: llama3.2-1b at full width (f32, the weights of phase 11),
+    tensor parallelism on one card: the ring GEMMs over LocalRing(8), their
+    chunk GEMMs on kernel 1 ("cuda_mx"), against the serialized references,
+    kernel 1 on the whole GEMM and the library call (12a); ABFT on the ring
+    (12b); the prefill step and the paged batcher under collective_policy
+    against the same runs without it (12c); the MoE's collective branch
+    and GPipe (12d)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import ops
+    from repro_torch.kernels import abft as abft_mod
+    from repro_torch.kernels import mx_collective_matmul as cm
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.serve import make_trace
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models.modules import layer_slice
+    from repro_torch.models.moe import MoE
+    from repro_torch.models.transformer import make_block
+    from repro_torch.parallel.pipeline import gpipe_apply
+    from repro_torch.parallel.sharding import collective_policy
+    from repro_torch.runtime.batcher import ContinuousBatcher
+
+    t_phase = time.perf_counter()
+    out = {}
+    mesh = make_mesh((1, RING_P), ("data", "model"))
+    ring = mesh.ring("model")
+    print(f"[12a] the ring GEMMs at llama3.2-1b's shapes over LocalRing({RING_P}) on one card: "
+          "every chunk GEMM kernel 1; the multi-GPU ring (NCCL) is not measured here")
+    with torch.no_grad():
+        out["12a"] = [check_ring(torch, dev, ring, label, mode, M, K, N, dt, ep_kw, d,
+                                 1200 + 10 * n)
+                      for n, (label, mode, M, K, N, dt, ep_kw, dirs) in enumerate(RING_SHAPES)
+                      for d in dirs]
+        print(f"    12a: {time.perf_counter() - t_phase:.1f} s")
+
+        print("[12b] ABFT on the ring: one ring fault per mode, flagged and recovered")
+        out["12b"] = {}
+        for mode, (M, K, N, ep_kw) in (("allgather", (64, 2048, 2048, {})),
+                                       ("reduce_scatter", (64, 8192, 2048,
+                                                           dict(residual=True)))):
+            op = _ring_operands(torch, dev, M, K, N, "float32", ep_kw, 1300)
+            with ops.use_policy(ops.MXPolicy("cuda_mx")), collective_policy(mesh):
+                cm.reset_ring_stats()
+                clean = ops.linear(op["x"], op["w"], residual=op["residual"], tp_mode=mode,
+                                   abft=True)
+                reads_clean = cm.ring_stats()["flag_reads"]
+                abft_mod.reset_abft_stats()
+                fault = abft_mod.AbftConfig(fault=abft_mod.TileFault(3, 0, 1, 2, 5.0))
+                got = ops.linear(op["x"], op["w"], residual=op["residual"], tp_mode=mode,
+                                 abft=fault)
+                stats, s = abft_mod.abft_stats(), cm.ring_stats()
+                off = ops.linear(op["x"], op["w"], residual=op["residual"], tp_mode=mode,
+                                 abft=False)
+            r = dict(stats=stats, bitwise_fault_free=torch.equal(got, clean),
+                     flag_reads_clean=reads_clean,
+                     flag_reads_faulted=s["flag_reads"] - reads_clean,
+                     err_abft_off=_err(torch, got, off, "float32"))
+            print(f"    [12b] {mode}: {stats}; recovery bitwise the fault-free ring "
+                  f"{r['bitwise_fault_free']}; host reads of the flag total: "
+                  f"{reads_clean} for the clean ring linear, {r['flag_reads_faulted']} for "
+                  f"the faulted one (its rerun included); against ABFT off "
+                  f"{r['err_abft_off'][0]:.3g} (tol {r['err_abft_off'][1]:.3g})")
+            if not (r["bitwise_fault_free"] and reads_clean == 1
+                    and r["flag_reads_faulted"] == 2
+                    and stats == dict(gemms_verified=1, tiles_flagged=1, tiles_recovered=1,
+                                      sdc_errors=0)
+                    and r["err_abft_off"][0] <= r["err_abft_off"][1]):
+                raise AssertionError(f"12b {mode}: {r}")
+            out["12b"][mode] = r
+
+        print("[12c] (i) the prefill step (2 x 256 tokens) under collective_policy against "
+              "the same step without it")
+        step = make_prefill_step(model, cfg)
+        g = torch.Generator(device=dev).manual_seed(1400)
+        batch = {"tokens": torch.randint(0, cfg.vocab, (2, 256), generator=g, device=dev)}
+        with ops.use_policy(ops.MXPolicy("cuda_mx")):
+            ref = step(params, batch)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ref = step(params, batch)
+            torch.cuda.synchronize()
+            plain_ms = 1e3 * (time.perf_counter() - t0)
+            ops.clear_shard_cache()
+            with collective_policy(mesh):
+                got = step(params, batch)  # builds the weight shards
+                cm.reset_ring_stats()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                got = step(params, batch)
+                torch.cuda.synchronize()
+                ring_ms = 1e3 * (time.perf_counter() - t0)
+                s = cm.ring_stats()
+        err, tol = _err(torch, got, ref, "float32")
+        tol = 10 * tol  # 1e-3 * max|ref|, phase 5's tolerance on logits
+        shard_gb = ops.shard_cache_bytes() / 1e9
+        out["12c_forward"] = dict(max_abs_err=err, tol=tol, ms=ring_ms, plain_ms=plain_ms,
+                                  ring=s, shard_cache_gb=shard_gb)
+        print(f"    logits err {err:.4g} (tol {tol:.4g}); {ring_ms:.1f} ms under the ring, "
+              f"{plain_ms:.1f} ms without (one host-timed call each); ring linears {s}; the "
+              f"kept weight shards {shard_gb:.3f} GB (the all-gather projections' weights)")
+        if not (err <= tol and s["allgather"] == 4 * cfg.n_layers
+                and s["reduce_scatter"] == 2 * cfg.n_layers and not s["fallbacks"]):
+            raise AssertionError(f"12c (i): {out['12c_forward']}")
+        del ref, got
+
+        print("[12c] (ii) the paged batcher on phase 4's trace cut to 8 requests x 8 new "
+              "tokens, under collective_policy and without it")
+        prompt_len, gen, ps = 128, 8, 16
+
+        def batcher():
+            ml = prompt_len + gen
+            return ContinuousBatcher(model, params, batch_slots=8, max_len=ml, page_size=ps,
+                                     num_pages=10 * -(-ml // ps), prefix_cache=True,
+                                     prefill_chunk=64)
+
+        with ops.use_policy(ops.MXPolicy("cuda_mx")):
+            plain = serve11(torch, batcher(), make_trace(cfg, 8, prompt_len, gen,
+                                                         prefix_cache=True), "no policy")
+            with collective_policy(mesh):
+                b, reqs = batcher(), make_trace(cfg, 8, prompt_len, gen, prefix_cache=True)
+                cm.reset_ring_stats()
+                moved0 = ring.bytes_moved
+                run = serve11(torch, b, reqs, "collective_policy, LocalRing(8)")
+                run["ring"], run["ring_bytes"] = cm.ring_stats(), ring.bytes_moved - moved0
+        print11(plain)
+        print11(run)
+        s = run["ring"]
+        print(f"      ring chunk GEMMs on kernel 1: all-gather {s['allgather_chunks']} "
+              f"({s['allgather']} ring linears), reduce-scatter {s['reduce_scatter_chunks']} "
+              f"({s['reduce_scatter']}); fallbacks {s['fallbacks']} "
+              f"{s['fallback_reasons']}; mx_matmul_fused launches "
+              f"{run['launches']['mx_matmul_fused']}, mx_flash_decode "
+              f"{run['launches']['mx_flash_decode']}; the hops copied "
+              f"{run['ring_bytes'] / 1e9:.3f} GB; median step "
+              f"{run['step_ms_median']:.2f} ms against {plain['step_ms_median']:.2f} ms "
+              f"without the policy and phase 4's {phase4_step_ms:.2f} ms")
+        hold11(torch, model, params, plain, run, strict=False)
+        if not (s["allgather_chunks"] and s["reduce_scatter_chunks"]
+                and run["launches"]["mx_flash_decode"]
+                and s["allgather_chunks"] + s["reduce_scatter_chunks"]
+                <= run["launches"]["mx_matmul_fused"]):
+            raise AssertionError(f"12c (ii): a ring mode did not launch: {s}, "
+                                 f"{run['launches']}")
+        out["12c_serve"], out["12c_serve_ref"] = run, plain
+        ops.clear_shard_cache()
+
+        print("[12d] the MoE's collective branch at grok-1-smoke's widths, and GPipe over "
+              "4 stages of one full-width llama layer")
+        scfg = get_config("grok-1-314b-smoke")
+        moe = MoE(scfg.d_model, scfg.d_ff, scfg.n_experts, scfg.top_k)
+        mp = moe.init(1500, device=dev)
+        x = torch.randn((2, 64, scfg.d_model), generator=g, device=dev)
+        with ops.use_policy(ops.MXPolicy("cuda_mx")):
+            ref, aux = moe(mp, x)
+            cm.reset_ring_stats()
+            with collective_policy(mesh):
+                got, aux2 = moe(mp, x)
+            s = cm.ring_stats()
+        err, tol = _err(torch, got, ref, "float32")
+        out["12d_moe"] = dict(max_abs_err=err, tol=tol, ring=s, aux=(float(aux), float(aux2)))
+        print(f"    MoE (d_model {scfg.d_model}, d_ff {scfg.d_ff}, {scfg.n_experts} experts, "
+              f"top-{scfg.top_k}): err {err:.3g} (tol {tol:.3g}) against the grouped launch; "
+              f"aux {float(aux2):.6g} / {float(aux):.6g}; ring {s}")
+        if not (err <= tol and s["allgather_chunks"] and s["reduce_scatter_chunks"]):
+            raise AssertionError(f"12d MoE: {out['12d_moe']}")
+        block = make_block("dense", cfg)
+        stages = _slice_tree(params["seg0"], 4)
+        xs = torch.randn((4, 1, 64, cfg.d_model), generator=g, device=dev)
+        with ops.use_policy(ops.MXPolicy("cuda_mx")):
+            got = gpipe_apply(lambda p, h: block(p, h)[0], stages, xs,
+                              mesh=make_mesh((4,), ("pod",)))
+            want = xs
+            for j in range(4):
+                want = torch.stack([block(layer_slice(params["seg0"], j), h)[0] for h in want])
+        err, tol = _err(torch, got, want, "float32")
+        out["12d_gpipe"] = dict(max_abs_err=err, tol=tol)
+        print(f"    GPipe, 4 stages x 4 microbatches of 1 x 64 tokens: err {err:.3g} "
+              f"(tol {tol:.3g}) against the layers in sequence")
+        if not err <= tol:
+            raise AssertionError(f"12d GPipe: {out['12d_gpipe']}")
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"    phase 12: {out['seconds']:.1f} s")
+    return out
+
+
+def _slice_tree(tree, n):
+    """The first n layers of a layer-stacked tree."""
+    if isinstance(tree, dict):
+        return {k: _slice_tree(v, n) for k, v in tree.items()}
+    return tree[:n]
 
 
 def main() -> int:
@@ -3891,8 +4342,10 @@ def main() -> int:
     launches.update(zamba2["launches"])
     # grok is freed: the three families, one model at a time
     families = family_phases(torch, dev)
-    # llama again, its serving under faults: before the zamba2 profile below
-    p11 = phase11(torch, dev)
+    # llama again, its serving under faults, then tensor parallelism on the
+    # same weights: before the zamba2 profile below
+    p11, p12 = phase11(torch, dev, then=lambda model, params, cfg: phase12(
+        torch, dev, model, params, cfg, llama["serve"]["step_ms_median"]))
     print("[8p] zamba2-2.7b decode step and full forward profiled")
     zamba2["profile_decode"], zamba2["profile_forward"] = zamba2_profile(torch, dev, zmodel,
                                                                           zparams)
@@ -4056,6 +4509,25 @@ def main() -> int:
             library_ms=c["library_ms"],
             shape={k: c[k] for k in ("M", "K", "N", "B", "S", "H", "Hkv", "d") if k in c},
             dtype=c.get("pair", c["dtype"])))
+    # phase 12: kernel 1 as the ring GEMMs' chunk GEMMs, each row at a decode
+    # step's projection (the rings 12c (ii) runs most), its launches those
+    # of 12c (ii) in that mode
+    for mode, name, line in (
+            ("allgather", "mx_matmul_fused (ring all-gather chunk)", 196),
+            ("reduce_scatter", "mx_matmul_fused (ring reduce-scatter chunk)", 380)):
+        n = p12["12c_serve"]["ring"][f"{mode}_chunks"]
+        if n <= 0:
+            raise AssertionError(f"{name} was not launched on its path")
+        label, direction = RING_ROWS[mode]
+        c = next(c for c in p12["12a"] if c["mode"] == mode and c["label"] == label
+                 and c["direction"] == direction)
+        summary.append(dict(
+            name=name, route="cuda", source=SOURCES["mx_matmul_fused"],
+            replaces=f"src/repro/kernels/mx_collective_matmul.py:{line}", launches=n,
+            max_abs_err=c["max_abs_err"], ms=c["ms"], plain_ms=c["plain_ms"],
+            bound_ms=c["bound_ms"], bound_by=c["bound_by"], library_ms=c["library_ms"],
+            shape={k: c[k] for k in ("M", "K", "N")}, dtype="float32",
+            ring=f"LocalRing({RING_P}) {direction}", kernel_whole_ms=c["kernel_ms"]))
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(dict(
@@ -4063,7 +4535,8 @@ def main() -> int:
         checks=checks, abft_checks=abft_checks_, prefill_sass=mma_sass,
         grouped_sass=grouped_sass,
         attention_sass=attn_sass, ssd_sass=ssd_sass,
-        **llama, grok=grok, zamba2=zamba2, families=families, phase11=p11, kernels=summary),
+        **llama, grok=grok, zamba2=zamba2, families=families, phase11=p11, phase12=p12,
+        kernels=summary),
         indent=1,
         default=str))
     print("prefill tile SASS (tensor-core / FFMA instructions per kernel): " + "; ".join(

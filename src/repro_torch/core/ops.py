@@ -63,22 +63,32 @@ one sequential MAC chain over K whatever the tile -- with `max_retries`
 attempts before a typed `SDCError` (`abft_stats()` counts).  A sparse
 weight under ABFT is expanded first (recovery slices dense panels), as in
 JAX.
+
+Tensor parallelism: `linear(..., tp_mode=...)` under an active
+`parallel.sharding.collective_policy` runs the projection as a ring
+collective GEMM over the policy's ring (`_collective_linear`,
+`kernels/mx_collective_matmul.py`): "allgather" (x sharded on rows, w on
+columns: q / k / v, up) or "reduce_scatter" (x and w sharded on the
+contraction: out, down); without a policy the declaration is inert, as in
+JAX.
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import threading
 import weakref
 from typing import Dict, Optional, Sequence
 
 import torch
-import torch.distributed as dist
 
 from ..kernels import _build
 from ..kernels import abft as abft_mod
 from ..kernels.abft import AbftConfig, SDCError
 from ..kernels.baseline_matmul import baseline_matmul
+from ..kernels.mx_collective_matmul import (RING_STATS, ChunkCompute, ring_allgather_matmul,
+                                            ring_matmul_reduce_scatter)
 from ..kernels.mx_grouped_matmul import mx_grouped_matmul
 from ..kernels.mx_grouped_matmul import abft_spec_for as grouped_abft_spec
 from ..kernels.mx_matmul import (Epilogue, abft_spec_for, apply_epilogue, dot_f32,
@@ -87,6 +97,7 @@ from ..kernels.mx_matmul import (Epilogue, abft_spec_for, apply_epilogue, dot_f3
 from ..kernels.quant import quantize_operand
 from ..kernels.ref import grouped_matmul_ref
 from ..kernels.sparse import compress_24, expand_24, prune_24
+from ..parallel.sharding import current_collectives
 from .precision import (PrecisionPolicy, QuantSpec, SparsitySpec, current_precision,
                         resolve_precision)
 
@@ -184,29 +195,35 @@ def _sparse_operand(w: torch.Tensor, spec: QuantSpec):
     return payload, scale, meta
 
 
-def _weight_operand(w: torch.Tensor, spec: QuantSpec,
-                    sparse: Optional[SparsitySpec] = None):
-    """(payload, scale, metadata) of weight `w` under `spec` (and 2:4
-    `sparse`), made once per parameter version: reused while the same
+def _kept(cache: Dict[tuple, tuple], w: torch.Tensor, extra: tuple, make):
+    """make(), kept in `cache` per parameter version: reused while the same
     tensor (a view of the same base, e.g. a layer of a stacked leaf) is
     unchanged in place.  The entry goes when the base tensor does."""
-    if sparse is None and not spec.transforms(w.dtype):
-        return w, None, None
     base = w if w._base is None else w._base
-    key = (w.data_ptr(), tuple(w.shape), w.stride(), w.dtype, w.device, spec, sparse)
-    hit = _weights.get(key)
+    key = (w.data_ptr(), tuple(w.shape), w.stride(), w.dtype, w.device, *extra)
+    hit = cache.get(key)
     if hit is not None and hit[0]() is base and hit[1] == w._version:
         return hit[2]
 
     def drop(ref, key=key):
-        entry = _weights.get(key)
+        entry = cache.get(key)
         if entry is not None and entry[0] is ref:
-            del _weights[key]
+            del cache[key]
 
-    made = (_sparse_operand(w, spec) if sparse is not None
-            else (*quantize_operand(w, spec, "b"), None))
-    _weights[key] = (weakref.ref(base, drop), w._version, made)
+    made = make()
+    cache[key] = (weakref.ref(base, drop), w._version, made)
     return made
+
+
+def _weight_operand(w: torch.Tensor, spec: QuantSpec,
+                    sparse: Optional[SparsitySpec] = None):
+    """(payload, scale, metadata) of weight `w` under `spec` (and 2:4
+    `sparse`), made once per parameter version (`_kept`)."""
+    if sparse is None and not spec.transforms(w.dtype):
+        return w, None, None
+    return _kept(_weights, w, (spec, sparse), lambda: (
+        _sparse_operand(w, spec) if sparse is not None
+        else (*quantize_operand(w, spec, "b"), None)))
 
 
 def clear_weight_cache() -> None:
@@ -408,19 +425,160 @@ def matmul(a: torch.Tensor, b: torch.Tensor, *, policy: Optional[MXPolicy] = Non
     return out
 
 
-def _check_tp_mode(tp_mode: Optional[str]) -> None:
-    """A tp_mode declaration is inert without a collective context, as in
-    JAX; with an initialised multi-rank process group it would have to run
-    the ring collective GEMM, which is not ported yet."""
-    if tp_mode is None:
-        return
-    if tp_mode not in TP_MODES:
-        raise ValueError(f"unknown tp_mode {tp_mode!r}; one of {TP_MODES}")
-    if dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1:
-        raise NotImplementedError(
-            f"tp_mode={tp_mode!r} under a {dist.get_world_size()}-rank process "
-            "group: the ring collective GEMM is not ported yet (ROADMAP queue 1 "
-            "item 7)")
+# (data_ptr, shape, strides, dtype, device, ring size, ranks) -> (weakref to
+# the weight's base tensor, its version, the contiguous column shards)
+_shards: Dict[tuple, tuple] = {}
+
+
+def _column_shards(w: torch.Tensor, P: int, ranks: Sequence[int]):
+    """Contiguous column shards w[:, r*N/P:(r+1)*N/P] of a (K, N) weight for
+    the ring ranks this process holds: kernel 1 takes contiguous operands,
+    and a strided shard copied at every call would read the weight P times
+    per linear.  Kept per parameter version (`_kept`);
+    `shard_cache_bytes()` says what they hold."""
+    n = w.shape[-1] // P
+    return _kept(_shards, w, (P, tuple(ranks)),
+                 lambda: [w[:, r * n:(r + 1) * n].contiguous() for r in ranks])
+
+
+def shard_cache_bytes() -> int:
+    """Bytes of the kept weight shards of the all-gather rings."""
+    return sum(t.numel() * t.element_size() for e in _shards.values() for t in e[2])
+
+
+def clear_shard_cache() -> None:
+    _shards.clear()
+
+
+def _fallback(reason: str) -> None:
+    """A ring linear that does not fit the ring runs the single-device
+    dispatch, as in JAX; counted, so a run that never rings shows."""
+    RING_STATS["fallbacks"] += 1
+    RING_STATS["fallback_reasons"][reason] = RING_STATS["fallback_reasons"].get(reason, 0) + 1
+
+
+def _read_flags(nflags: torch.Tensor) -> int:
+    """A ring's ABFT flag total, read on the host (a sync), counted."""
+    RING_STATS["flag_reads"] += 1
+    return int(nflags)
+
+
+def _collective_linear(x, w, b, *, activation, w_gate, residual, out_scale, backend,
+                       out_dtype, tp_mode, coll, prec=None,
+                       abft_cfg: Optional[AbftConfig] = None):
+    """One linear through the ring collective GEMM over `coll`'s ring (JAX
+    `_collective_linear`).  Returns None when it does not fit the ring
+    (ring size 1, a 2:4 policy, M or N (all-gather) or K (reduce-scatter)
+    not dividing, a gated reduce-scatter); the caller then runs the
+    single-device dispatch.  Bidir with odd chunk rows runs "fwd".
+
+    Quantization happens ONCE, globally, before sharding: per-row and
+    per-column scales are constant along K, so sharding the payload is
+    exact on both rings; on the all-gather ring the per-row scale sidecar
+    travels with its x chunk, on the reduce-scatter ring the scales stay
+    local and partials travel dequantized.
+
+    ABFT (on "cuda_mx"): checksummed chunk GEMMs plus the rings' sidecars;
+    the ring-wide flag total is summed on the device and read once per
+    ring linear; a flagged ring reruns clean (bitwise the fault-free ring)
+    up to `max_retries` times, then SDCError.  A `TileFault` becomes a
+    `RingFault` as in JAX.
+
+    Global in, global out: a `LocalRing` concatenates its ranks' output
+    shards, a `DistRing` all-gathers them -- one collective more than JAX's
+    sharded output, so that `linear` keeps its contract.  The chunk GEMMs
+    run kernel 1 on "cuda_mx" and the plain reference on every other
+    backend, as JAX's run its "xla" reference for every backend but
+    "pallas_mx"."""
+    ring = coll.ring
+    P_ = coll.axis_size
+    if P_ <= 1:
+        return None
+    if prec is not None and prec.b_sparse is not None:
+        # compressed payloads and their metadata do not shard over the ring
+        return _fallback("sparse")
+    x2, lead = _flatten_leading(x)
+    M, K = x2.shape
+    N = w.shape[-1]
+    ep = Epilogue(activation=activation, bias=b is not None,
+                  residual=residual is not None, out_scale=out_scale)
+    if tp_mode == "allgather" and (M % P_ or N % P_):
+        return _fallback(f"allgather M={M} N={N}")
+    if tp_mode == "reduce_scatter" and ep.has_gate:
+        return _fallback("reduce_scatter gate")
+    if tp_mode == "reduce_scatter" and (M % P_ or K % P_):
+        return _fallback(f"reduce_scatter M={M} K={K}")
+    m_loc = M // P_
+    direction = coll.direction
+    if direction == "bidir" and m_loc % 2:
+        direction = "fwd"  # odd chunk rows cannot split into two half-rings
+
+    a_s = b_s = bg_s = None
+    if prec is not None:
+        x2, a_s, w, b_s, w_gate, bg_s, _, _ = _prepare_quantized(x2, w, w_gate, prec)
+    x2 = x2.contiguous()
+    fault_t = None
+    if abft_cfg is not None and abft_cfg.fault is not None:
+        f = abft_cfg.fault
+        # the reduce-scatter ring receives from step 1 on, the all-gather
+        # ring verifies every step
+        step = (f.tile_i % P_ if tp_mode == "allgather" else 1 + f.tile_i % max(P_ - 1, 1))
+        fault_t = (step, int(f.row), int(f.col), float(f.delta))
+    cc = ChunkCompute(backend="cuda_mx" if backend == "cuda_mx" else "torch",
+                      abft=abft_cfg is not None)
+    res2 = None
+    if residual is not None:
+        res2 = torch.broadcast_to(residual, (*lead, x.shape[-2], N) if lead else (M, N)
+                                  ).reshape(M, N)
+    L = ring.ranks
+    if tp_mode == "allgather":
+        n_loc = N // P_
+
+        def cols(t):
+            return None if t is None else [t[..., r * n_loc:(r + 1) * n_loc] for r in L]
+
+        ring_fn, dim = ring_allgather_matmul, 1
+        xs, ws = [x2[r * m_loc:(r + 1) * m_loc] for r in L], _column_shards(w, P_, L)
+        kw = dict(
+            bias=cols(b), b_gate=None if w_gate is None else _column_shards(w_gate, P_, L),
+            residual=None if res2 is None else [c.contiguous() for c in cols(res2)],
+            a_scale=None if a_s is None else [a_s[r * m_loc:(r + 1) * m_loc] for r in L],
+            b_scale=cols(b_s), bg_scale=cols(bg_s))
+    else:
+        k_loc = K // P_
+        ring_fn, dim = ring_matmul_reduce_scatter, 0
+        xs = [x2[:, r * k_loc:(r + 1) * k_loc].contiguous() for r in L]
+        ws = [w[r * k_loc:(r + 1) * k_loc].contiguous() for r in L]
+        kw = dict(
+            bias=None if b is None else [b] * len(L),
+            residual=None if res2 is None else [res2[r * m_loc:(r + 1) * m_loc] for r in L],
+            a_scale=None if a_s is None else [a_s] * len(L),
+            b_scale=None if b_s is None else [b_s] * len(L))
+    run = functools.partial(ring_fn, ring, xs, ws, compute=cc, epilogue=ep,
+                            out_dtype=out_dtype, direction=direction, **kw)
+    if abft_cfg is None:
+        outs = run()
+    else:
+        outs, nflags = run(fault=fault_t)
+        abft_mod._bump("gemms_verified")
+        n = _read_flags(nflags)  # the one host read of a clean ring linear
+        if n:
+            abft_mod._bump("tiles_flagged", n)
+            for _ in range(abft_cfg.max_retries):
+                outs2, nf2 = run()  # faults are transient: the rerun is clean
+                if _read_flags(nf2) == 0:
+                    abft_mod._bump("tiles_recovered", n)
+                    outs = outs2
+                    break
+            else:
+                abft_mod._bump("sdc_errors")
+                raise SDCError(f"SDC persisted in {tp_mode} ring collective after "
+                               f"{abft_cfg.max_retries} rerun attempt(s)",
+                               flagged=(("ring", n),), attempts=abft_cfg.max_retries)
+    out = ring.gather(outs, dim)
+    if x.dim() > 2:
+        out = out.reshape(*lead, x.shape[-2], N)
+    return out
 
 
 def linear(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None, *,
@@ -440,11 +598,14 @@ def linear(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None, *
     weight); ``abft`` (config, True / False, or None for the ambient
     use_abft() context) checksums it, with recovery.  The other backends
     compute the same math unfused, and take no ABFT, as JAX's xla and
-    pallas_baseline take none."""
+    pallas_baseline take none.  ``tp_mode`` ("allgather" /
+    "reduce_scatter") runs the ring collective GEMM under an active
+    collective policy when the shapes divide over its ring."""
     policy = policy or current_policy()
     out_dtype = out_dtype or x.dtype
     prec = _effective_precision(_ambient_precision(precision), x.dtype, w.dtype)
-    _check_tp_mode(tp_mode)
+    if tp_mode is not None and tp_mode not in TP_MODES:
+        raise ValueError(f"unknown tp_mode {tp_mode!r}; one of {TP_MODES}")
     if prec is not None and prec.out is not None:
         out_dtype = prec.out_torch_dtype
     if (activation == "swiglu") != (w_gate is not None):
@@ -453,6 +614,15 @@ def linear(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None, *
             f"(got activation={activation!r}, "
             f"w_gate={'set' if w_gate is not None else None})")
     backend = policy.resolve(x)
+    coll = current_collectives() if tp_mode is not None else None
+    if coll is not None:
+        out = _collective_linear(
+            x, w, b, activation=activation, w_gate=w_gate, residual=residual,
+            out_scale=out_scale, backend=backend, out_dtype=out_dtype, tp_mode=tp_mode,
+            coll=coll, prec=prec,
+            abft_cfg=_resolve_abft(abft) if backend == "cuda_mx" else None)
+        if out is not None:
+            return out
     if backend == "cuda_mx":
         x2, lead = _flatten_leading(x)
         M, N = x2.shape[0], w.shape[-1]

@@ -31,9 +31,11 @@ weighted by the renormalized gates and summed over the k choices in choice
 order, in f32 (JAX's scatter-add sums them in expert order; for top-2 the
 two orders agree to the bit).
 
-The collective (tensor-parallel) branch is not ported: it is inert without
-a process group and raises under a multi-rank one, as `ops.linear`'s
-tp_mode does.
+Under an active `parallel.sharding.collective_policy` whose ring divides
+the expert rows (R = G*C) and d_ff, the collective branch takes precedence
+over the grouped launch, as in JAX: per-expert `ops.linear` calls, the
+up (and gate) projection a ring all-gather x matmul with d_ff sharded over
+the ring, the down projection a ring matmul x reduce-scatter.
 """
 from __future__ import annotations
 
@@ -45,6 +47,7 @@ import torch.nn.functional as F
 
 from ..core import ops
 from ..kernels.mx_matmul import dot_f32
+from ..parallel.sharding import current_collectives
 from .modules import Builder, Module
 
 
@@ -88,12 +91,29 @@ class MoE(Module):
         """Every expert GEMM over the expert-major buffer xe: (E, R, D),
         R = n_groups * C rows per expert (routing group g's rows at
         [g*C, (g+1)*C) of each expert)."""
-        ops._check_tp_mode("allgather")
         E, R, D = xe.shape
         policy = ops.current_policy()
         prec = ops._ambient_precision(self.precision)
         wi, wo = p["wi"].to(xe.dtype), p["wo"].to(xe.dtype)
         wg = p["wg"].to(xe.dtype) if self.gated else None
+        coll = current_collectives()
+        if coll is not None and coll.axis_size > 1 and R % coll.axis_size == 0 \
+                and self.d_ff % coll.axis_size == 0:
+            # JAX's collective branch: one ring pair per expert (only when
+            # the chunks divide; otherwise every expert would fall back to a
+            # single-device linear, worse than the grouped launch below)
+            outs = []
+            for e in range(E):
+                if self.gated:
+                    h = ops.linear(xe[e], wi[e], w_gate=wg[e], activation="swiglu",
+                                   policy=policy, tp_mode="allgather",
+                                   precision=self.precision)
+                else:
+                    h = ops.linear(xe[e], wi[e], activation="gelu", policy=policy,
+                                   tp_mode="allgather", precision=self.precision)
+                outs.append(ops.linear(h, wo[e], policy=policy, tp_mode="reduce_scatter",
+                                       precision=self.precision))
+            return torch.stack(outs)
         if policy.resolve(xe) == "torch" and prec is None:
             h = dot_f32(xe, wi).to(xe.dtype)
             if self.gated:

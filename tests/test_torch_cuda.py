@@ -2021,3 +2021,219 @@ def test_disagg_streams_equal_the_paged_batcher_on_the_card(cuda, shared_pool, k
     assert n["mx_matmul_fused"] > 0 and kernels.launch_counts()["mx_flash_decode"] > 0
     if not shared_pool:
         assert eng.migrated_pages > 0 and held and all(held)
+
+
+# ---------------------------------------------------------------------------
+# tensor parallelism on one card: the ring collective GEMMs over LocalRing
+# ---------------------------------------------------------------------------
+
+
+def _ring_operands(dev, mode, M, K, N, dtype, P, seed=0, gelu=False):
+    """Per-rank shards of one ring GEMM and the whole operands: the
+    all-gather ring's x rows and contiguous w / bias / residual columns,
+    or the reduce-scatter ring's x and w K-slices and residual rows."""
+    from repro_torch.kernels.mx_matmul import Epilogue
+
+    x = _randn((M, K), dtype, dev, seed)
+    w = (_randn((K, N), torch.float32, dev, seed + 1) / K ** 0.5).to(dtype)
+    b = _randn((N,), dtype, dev, seed + 2)
+    res = _randn((M, N), dtype, dev, seed + 3)
+    if mode == "allgather":
+        m, n = M // P, N // P
+        cols = [slice(r * n, (r + 1) * n) for r in range(P)]
+        shards = ([x[r * m:(r + 1) * m] for r in range(P)], [w[:, c].contiguous() for c in cols],
+                  dict(bias=[b[c] for c in cols], residual=[res[:, c].contiguous() for c in cols]))
+        ep = Epilogue(activation="gelu" if gelu else "none", bias=True, residual=True)
+    else:
+        k, m = K // P, M // P
+        shards = ([x[:, r * k:(r + 1) * k].contiguous() for r in range(P)],
+                  [w[r * k:(r + 1) * k] for r in range(P)],
+                  dict(bias=[b] * P, residual=[res[r * m:(r + 1) * m] for r in range(P)]))
+        ep = Epilogue(bias=True, residual=True)
+    return (x, w, b, res), shards, ep
+
+
+def _run_ring(mode, ring, shards, ep, direction):
+    from repro_torch.kernels import mx_collective_matmul as cm
+
+    xs, ws, kw = shards
+    fn = cm.ring_allgather_matmul if mode == "allgather" else cm.ring_matmul_reduce_scatter
+    return fn(ring, xs, ws, compute=cm.ChunkCompute("cuda_mx"), epilogue=ep,
+              direction=direction, **kw)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("M", [8, 64])
+@pytest.mark.parametrize("direction", ["fwd", "bwd", "bidir"])
+@pytest.mark.parametrize("mode", ["allgather", "reduce_scatter"])
+def test_rings_match_the_serialized_references_on_the_card(cuda, mode, direction, M, dtype):
+    """Every chunk GEMM on kernel 1 (P^2 launches over LocalRing(8)); the
+    ring within the dtype's tolerance of its serialized reference and of
+    one kernel-1 launch on the whole GEMM."""
+    from repro_torch.kernels import mx_collective_matmul as cm
+    from repro_torch.parallel.ring import LocalRing
+
+    P = 8
+    (x, w, b, res), shards, ep = _ring_operands(cuda, mode, M, 512, 384, dtype, P, gelu=True)
+    ring = LocalRing(P)
+    kernels.reset_launch_counts()
+    outs = _run_ring(mode, ring, shards, ep, direction)
+    assert kernels.launch_counts()["mx_matmul_fused"] == P * P
+    ser_fn = cm.serialized_allgather_matmul if mode == "allgather" else cm.serialized_matmul_psum
+    ser = ser_fn(ring, shards[0], shards[1], compute=cm.ChunkCompute("cuda_mx"), epilogue=ep,
+                 **shards[2])
+    dim = 1 if mode == "allgather" else 0
+    got = torch.cat(outs, dim)
+    whole = mm.mx_matmul_fused(x, w, epilogue=ep, bias=b, residual=res)
+    _close(got, torch.cat(ser, dim), dtype)
+    _close(got, whole, dtype)
+    assert ring.bytes_moved > 0
+
+
+@pytest.mark.parametrize("M", [8, 16, 64])
+@pytest.mark.parametrize("direction", ["fwd", "bwd", "bidir"])
+def test_allgather_chunk_rows_are_bitwise_kernel_1(cuda, direction, M):
+    """Each all-gather step's output rows are bitwise kernel 1 on the same
+    rows (the two half-chunks of a bidir step concatenated) and shard."""
+    from repro_torch.parallel.ring import LocalRing
+
+    P = 8
+    (x, _, _, _), shards, ep = _ring_operands(cuda, "allgather", M, 512, 384, torch.float32,
+                                              P, gelu=True)
+    outs = _run_ring("allgather", LocalRing(P), shards, ep, direction)
+    m = M // P
+    bidir = direction == "bidir" and m % 2 == 0
+    for i in range(P):
+        for step in range(P):
+            if bidir:
+                f, bk = (i - step) % P, (i + step) % P
+                rows = torch.cat([torch.arange(f * m, f * m + m // 2),
+                                  torch.arange(bk * m + m // 2, (bk + 1) * m)])
+            else:
+                src = ((i + step) if direction == "bwd" else (i - step)) % P
+                rows = torch.arange(src * m, (src + 1) * m)
+            rows = rows.to(cuda)
+            want = mm.mx_matmul_fused(x[rows].contiguous(), shards[1][i], epilogue=ep,
+                                      bias=shards[2]["bias"][i],
+                                      residual=shards[2]["residual"][i][rows].contiguous())
+            assert torch.equal(outs[i][rows], want), (i, step)
+
+
+@pytest.mark.parametrize("mode", ["allgather", "reduce_scatter"])
+def test_ring_abft_recovery_on_the_card(cuda, mode):
+    """ABFT on the ring: the chunk GEMMs on kernel 1's checksummed variant,
+    a ring fault flagged, the rerun bitwise the fault-free ring, the
+    counters advanced, one host read of the flag total per clean ring
+    linear (and one per rerun)."""
+    from repro_torch.kernels import abft as A
+    from repro_torch.kernels import mx_collective_matmul as cm
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.parallel.sharding import collective_policy
+
+    (x, w, b, res), _, _ = _ring_operands(cuda, mode, 64, 512, 384, torch.float32, 8)
+    with ops.use_policy(ops.MXPolicy("cuda_mx")), collective_policy(
+            make_mesh((1, 8), ("data", "model"))):
+        cm.reset_ring_stats()
+        clean = ops.linear(x, w, b, residual=res, tp_mode=mode, abft=True)
+        assert cm.ring_stats()["flag_reads"] == 1
+        A.reset_abft_stats()
+        kernels.reset_launch_counts()
+        got = ops.linear(x, w, b, residual=res, tp_mode=mode,
+                         abft=A.AbftConfig(fault=A.TileFault(3, 0, 1, 2, 5.0)))
+        assert torch.equal(got, clean)
+        assert A.abft_stats() == dict(gemms_verified=1, tiles_flagged=1, tiles_recovered=1,
+                                      sdc_errors=0)
+        assert kernels.variant_launch_counts()["mx_matmul_fused abft"] == 2 * 64
+        assert cm.ring_stats()["flag_reads"] == 3
+        _close(got, ops.linear(x, w, b, residual=res, tp_mode=mode), torch.float32)
+
+
+@pytest.mark.parametrize("mode", ["allgather", "reduce_scatter"])
+@pytest.mark.parametrize("busy", ["side", "current"])
+def test_local_ring_stream_ordering(cuda, mode, busy):
+    """A ring whose hops copy on the side stream gives the bits of one that
+    copies on the current stream, with a long spin kernel queued first on
+    either stream (a copy that ran early, or a buffer the allocator reused,
+    would change them)."""
+    from repro_torch.parallel.ring import LocalRing
+
+    _, shards, ep = _ring_operands(cuda, mode, 64, 2048, 1024, torch.float32, 8, gelu=True)
+    want = torch.cat(_run_ring(mode, LocalRing(8, sync=True), shards, ep, "bidir"), 0)
+    ring = LocalRing(8)
+    stream = ring.side_stream(cuda) if busy == "side" else torch.cuda.current_stream()
+    with torch.cuda.stream(stream):
+        torch.cuda._sleep(50_000_000)  # 5e7 cycles: milliseconds at the SM clock
+    got = torch.cat(_run_ring(mode, ring, shards, ep, "bidir"), 0)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+def test_llama_smoke_under_the_ring_on_the_card(cuda):
+    """llama3.2-1b-smoke's forward and the paged batcher under the policy
+    over LocalRing(4): logits within 1e-3 * max|ref| of the plain forward,
+    the streams the batcher's without the policy, both rings on kernel 1."""
+    import contextlib
+
+    from repro_torch.kernels import mx_collective_matmul as cm
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.parallel.sharding import collective_policy
+
+    model, params = _llama_smoke(cuda)
+    toks = torch.as_tensor(np.random.default_rng(2).integers(0, 256, (2, 16)), device=cuda)
+    with ops.use_policy(ops.MXPolicy("cuda_mx")):
+        ref, _ = model(params, toks)
+        cm.reset_ring_stats()
+        with collective_policy(make_mesh((1, 4), ("data", "model"))):
+            got, _ = model(params, toks)
+        s = cm.ring_stats()
+        assert s["allgather_chunks"] > 0 and s["reduce_scatter_chunks"] > 0
+        assert (got - ref).abs().max().item() <= 1e-3 * ref.abs().max().item()
+
+        def streams(ctx):
+            with ctx:
+                b = ContinuousBatcher(model, params, batch_slots=4, max_len=32, page_size=4,
+                                      prefill_chunk=4)
+                for i, p in enumerate(_smoke_prompts(6)):
+                    b.submit(Request(rid=i, prompt=p, max_new=5))
+                return {r: v.output for r, v in b.run_to_completion().items()}
+        want = streams(contextlib.nullcontext())
+        cm.reset_ring_stats()
+        assert streams(collective_policy(make_mesh((1, 4), ("data", "model")))) == want
+        s = cm.ring_stats()
+        assert s["allgather_chunks"] > 0 and s["reduce_scatter_chunks"] > 0
+
+
+def test_moe_collective_branch_and_gpipe_on_the_card(cuda):
+    """The MoE's collective branch against its grouped launch, and GPipe
+    over 4 stages of smoke-width blocks against the blocks in sequence
+    (f32, 1e-4 * max|ref|)."""
+    from repro_torch.kernels import mx_collective_matmul as cm
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.moe import MoE
+    from repro_torch.models.transformer import TransformerBlock
+    from repro_torch.parallel.pipeline import gpipe_apply
+    from repro_torch.parallel.sharding import collective_policy
+
+    moe = MoE(d_model=64, d_ff=128, n_experts=8, top_k=2)
+    mp = moe.init(0, device=cuda)
+    x = _randn((2, 64, 64), torch.float32, cuda, 5)
+    with ops.use_policy(ops.MXPolicy("cuda_mx")):
+        ref, aux = moe(mp, x)
+        cm.reset_ring_stats()
+        with collective_policy(make_mesh((1, 8), ("data", "model"))):
+            got, aux2 = moe(mp, x)
+        assert cm.ring_stats()["allgather_chunks"] == 8 * 64
+        _close(got, ref, torch.float32)
+        assert float(aux) == float(aux2)
+        blk = TransformerBlock(d_model=64, n_heads=4, n_kv_heads=2, d_ff=128)
+        layers = [blk.init(s, device=cuda) for s in range(4)]
+        stacked = {k: (torch.stack([lp[k] for lp in layers]) if torch.is_tensor(v) else
+                       {kk: torch.stack([lp[k][kk] for lp in layers]) for kk in v})
+                   for k, v in layers[0].items()}
+        xs = _randn((4, 1, 16, 64), torch.float32, cuda, 6)
+        got = gpipe_apply(lambda p, h: blk(p, h)[0], stacked, xs,
+                          mesh=make_mesh((4,), ("pod",)))
+        want = xs
+        for lp in layers:
+            want = torch.stack([blk(lp, h)[0] for h in want])
+        _close(got, want, torch.float32)

@@ -25,7 +25,10 @@ def test_port_imports_no_jax_and_no_reference_package():
             "repro_torch.core.precision", "repro_torch.kernels.quant",
             "repro_torch.kernels.sparse", "repro_torch.kernels.abft",
             "repro_torch.models.ssm", "repro_torch.kernels.ssd_scan",
-            "repro_torch.kernels.mx_flash_attention", "repro_torch.launch.steps"} <= set(mods)
+            "repro_torch.kernels.mx_flash_attention", "repro_torch.launch.steps",
+            "repro_torch.kernels.mx_collective_matmul", "repro_torch.core.transfer_model",
+            "repro_torch.parallel.ring", "repro_torch.parallel.sharding",
+            "repro_torch.parallel.pipeline", "repro_torch.launch.mesh"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"sys.path[:0] = [{str(ROOT / 'src')!r}, {str(ROOT)!r}]\n"

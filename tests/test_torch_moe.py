@@ -114,18 +114,23 @@ def test_expert_major_launch_matches_the_per_group_loop():
 
 
 def test_unported_moe_options_raise(monkeypatch):
-    """2:4 sparse experts raised until ported: now they match JAX's MoE (the
-    full parity is tests/test_torch_sparse.py); the collective branch still
-    raises under a multi-rank process group."""
+    """2:4 sparse experts and the collective branch raised until ported.
+    The sparse experts now match JAX's MoE (the full parity is
+    tests/test_torch_sparse.py); the collective branch runs under a
+    collective policy (tests/test_torch_tp_model.py), and a multi-rank
+    process group without one leaves the layer as it is, as in JAX."""
+    import torch.distributed as dist
+
     jm, jp, tm, tp, x = _setup("g1")
     with jops.use_policy(JAX_POLICIES["xla"]):
         jy, _ = dataclasses.replace(jm, precision="sparse24")(jp, jnp.asarray(x))
     ty, _ = dataclasses.replace(tm, precision="sparse24")(tp, torch.from_numpy(x))
     np.testing.assert_allclose(ty.numpy(), np.asarray(jy), **TOL)
-    monkeypatch.setattr(tops.dist, "is_initialized", lambda: True)
-    monkeypatch.setattr(tops.dist, "get_world_size", lambda: 2)
-    with pytest.raises(NotImplementedError, match="process group"):
-        tm(tp, torch.from_numpy(x))
+    ref, _ = tm(tp, torch.from_numpy(x))
+    monkeypatch.setattr(dist, "is_initialized", lambda: True)
+    monkeypatch.setattr(dist, "get_world_size", lambda: 2)
+    got, _ = tm(tp, torch.from_numpy(x))
+    assert torch.equal(got, ref)
 
 
 PRECISIONS = ["int8", "int8_all", "int8_tensor", "fp8"]
