@@ -261,6 +261,29 @@ Tensor parallelism, the ring collective GEMMs on one card:
       grouped launch, GPipe over 4 stages of one full-width llama layer
       against the layers in sequence.  The multi-GPU ring (NCCL) is not
       measured.
+Training, the plain path under autograd (no kernel: JAX trains on "xla"):
+  13. (after phase 12, before the zamba2 profile; 13d and 13e in processes
+      of their own beside 13a-13c) 13a a "cuda_mx" linear and
+      mx_flash_attention refuse an operand that requires grad, nothing
+      launched, and under no_grad give the bits of an operand that does
+      not; 13b one train step of every smoke config on the card against the
+      same step on the CPU (TRAIN_STEP_TOL), no kernel launched, every leaf
+      on the card; GPipe's gradient over LocalRing(4) on the card (4
+      full-width llama layers) against the layers in sequence (1e-5 *
+      max|ref|); 13c llama3.2-1b at full width (f32, seed 0, SyntheticLM
+      seed 0, batch 8 x 128): the step-1 gradient against the same in f64
+      (loss 1e-5, grad_norm 1e-4, every leaf 1e-3 * max|g64|), microbatch 2
+      against 1 (MICROBATCH_TOL), 8 in-place AdamW steps at a constant 3e-4
+      without weight decay on the one batch (the loss falls by at least
+      0.05), the median step against its bound (6 N T FLOPs at 67 TFLOP/s
+      plus AdamW's 7 x 4 N bytes at 3.35 TB/s), tokens/s and the training's
+      peak memory; 13d (LOOP_CHILD, deterministic) a TrainLoop with a
+      failure at step 6 of 10 bitwise the uninterrupted run, a NaN loss
+      raising NanLossError, the last checkpoint restored onto the CPU with
+      the card's bits; 13e `python -m repro_torch.launch.train --smoke
+      --steps 20 --inject-failure 7` on the card, one restart.  Every
+      sub-phase prints its numbers; the phase fails at its end if any
+      check failed.
 The line before the last is the kernel summary JSON; the last line is
 {"ok": true, "device": {...}}.  Details go to chiprun_out/chip_smoke.json.
 """
@@ -1751,7 +1774,11 @@ def _profile(torch, fn):
     attention = {}
     grouped = dict(ms=0.0, calls=0)  # the grouped GEMM's kernels (both routes)
     scan = dict(ms=0.0, calls=0)  # ssd_scan
+    library_gemm = dict(ms=0.0, calls=0)  # cuBLAS / CUTLASS GEMMs (the plain path's)
     for k, ms, n in rows:
+        if "gemm" in k.lower():
+            library_gemm["ms"] += ms
+            library_gemm["calls"] += n
         for kern in ("flash_attention_kernel", "flash_split_kernel"):
             if kern in k:
                 a = attention.setdefault(kern, dict(ms=0.0, calls=0))
@@ -1764,7 +1791,8 @@ def _profile(torch, fn):
                 tally["calls"] += n
     return dict(measured=True, window_ms=wall_ms, device_ms=device_ms,
                 busy_share=device_ms / wall_ms, attention=attention, grouped=grouped,
-                scan=scan, top=[dict(name=k[:90], ms=ms, calls=n) for k, ms, n in rows[:12]])
+                scan=scan, library_gemm=library_gemm,
+                top=[dict(name=k[:90], ms=ms, calls=n) for k, ms, n in rows[:12]])
 
 
 def profile_steps(torch, dev, model, params, cfg, cache, num_pages, n_decode=4):
@@ -4250,6 +4278,408 @@ def phase12(torch, dev, model, params, cfg, phase4_step_ms):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 13: training
+# ---------------------------------------------------------------------------
+
+# one train step held against another (13b: the card against the CPU): the
+# worst leaf's m within this * max|ref| (v twice it), 1e-5 for the others.
+# The SSM and xLSTM recurrences amplify f32 rounding: on the CPU, at smoke
+# size, the step-1 gradients of JAX and of the port stand 7.3e-6 and 6.5e-6
+# (zamba2) and 2.2e-5 and 4.1e-5 (xlstm) * max from the f64 gradient
+TRAIN_STEP_TOL = {"zamba2-2.7b": 5e-5, "xlstm-125m": 1e-4}
+# microbatch 2 against 1 at full width: the halves' gradients summed in f32
+# (the embedding's backward adds rows with atomics, in no fixed order)
+MICROBATCH_TOL = 5e-5
+
+# training's pieces at smoke size in a process of their own on the card,
+# deterministic (the embedding's backward sums with atomics otherwise):
+# a TrainLoop with a failure at step 6 of 10 against an uninterrupted run,
+# a non-finite loss, and the last checkpoint restored onto the CPU
+LOOP_CHILD = r"""
+import json, sys, tempfile
+from pathlib import Path
+import torch
+torch.use_deterministic_algorithms(True)
+torch.backends.cuda.matmul.allow_tf32 = False
+from repro_torch.checkpoint.manager import CheckpointManager
+from repro_torch.configs import get_config
+from repro_torch.core import tree as T
+from repro_torch.data.pipeline import SyntheticLM
+from repro_torch.kernels import launch_counts
+from repro_torch.launch.steps import make_train_step
+from repro_torch.models import build_model
+from repro_torch.optim.adamw import AdamW
+from repro_torch.runtime.fault import FaultInjector, NanLossError, TrainLoop
+
+dev = torch.device("cuda")
+cfg = get_config("llama3.2-1b-smoke")
+model = build_model(cfg)
+opt = AdamW(lr=1e-3)
+step = make_train_step(model, cfg, opt, inplace=True)
+tmp = Path(tempfile.mkdtemp())
+runs = {}
+for name, fail in (("plain", ()), ("failed", (6,))):
+    params = model.init(0, device=dev)
+    loop = TrainLoop(train_step=step, ckpt=CheckpointManager(tmp / name), checkpoint_every=4,
+                     fault_injector=FaultInjector(fail_at_steps=fail))
+    runs[name] = loop.run(params, opt.init(params), SyntheticLM(cfg, seq_len=32,
+                                                                 global_batch=4),
+                          total_steps=10)
+(p0, o0, h0), (p1, o1, h1) = runs["plain"], runs["failed"]
+leaves0, leaves1 = T.leaves((p0, o0)), T.leaves((p1, o1))
+nan = False
+try:
+    TrainLoop(train_step=lambda p, o, b: (p, o, {"loss": torch.tensor(float("nan"), device=dev)}),
+              ckpt=CheckpointManager(tmp / "nan")).run(p0, o0, SyntheticLM(cfg, 32, 4), 3)
+except NanLossError:
+    nan = True
+ck = CheckpointManager(tmp / "failed")
+state = ck.restore({"params": p1, "opt": o1, "step": 0}, device=torch.device("cpu"))
+cpu = T.leaves((state["params"], state["opt"]))
+json.dump(dict(
+    restarts=[h0["restarts"], h1["restarts"]], steps_run=[h0["steps_run"], h1["steps_run"]],
+    leaves=len(leaves0), on_cuda=all(t.is_cuda for t in leaves0 + leaves1),
+    bitwise=all(torch.equal(a, b) for a, b in zip(leaves0, leaves1)),
+    nan_raised=nan, restored_step=int(state["step"]), latest=ck.latest_step(),
+    cpu_bits=all(c.device.type == "cpu" and torch.equal(c, g.cpu())
+                 for c, g in zip(cpu, leaves1)),
+    launches=launch_counts()), open(sys.argv[1], "w"))
+"""
+
+
+def _leaf_paths(tree, prefix=""):
+    """The "/"-joined key path of each leaf of a nested dict, in JAX's leaf
+    order (`core/tree.py`)."""
+    if isinstance(tree, dict):
+        return [p for k in sorted(tree) for p in _leaf_paths(tree[k], f"{prefix}{k}/")]
+    return [prefix.rstrip("/")]
+
+
+def _hold_step(torch, ref, got, tol, lr, weight_decay, eps=1e-8, b1=0.9):
+    """One train step against another from the same parameters and zero
+    moments (the CPU tests' `hold_step`): the worst ratios of the metrics
+    (relative), m and v (to max|ref| per leaf) and the parameters where the
+    step's gradient is at least 1e3 * eps (to max|ref|); elsewhere the first
+    Adam step's g / (|g| + eps) turns rounding noise into an update of up to
+    lr, and the parameters are held to 2 * lr * (1 + weight_decay * |p|).
+    Returns (record, ok)."""
+    from repro_torch.core import tree as T
+
+    (rp, rs, rm), (gp, gs, gm) = ref, got
+    rec = {k: abs(float(gm[k]) - float(rm[k])) / max(abs(float(rm[k])), 1e-30)
+           for k in ("loss", "grad_norm", "lr")}
+    worst = dict(m=0.0, v=0.0, params=0.0, loose=0, loose_bounded=True, m_leaf=None)
+    paths = _leaf_paths(rp)
+    for path, p, m, v, p0, m0, v0 in zip(paths, *(T.leaves(t) for t in (gp, gs.m, gs.v, rp,
+                                                                         rs.m, rs.v))):
+        dv = p.device  # the step's device (the other may be the CPU's)
+        p, m, v, p0, m0, v0 = (t.detach().float().to(dv) for t in (p, m, v, p0, m0, v0))
+        for a, b, k in ((m, m0, "m"), (v, v0, "v")):
+            r = (a - b).abs().max().item() / max(b.abs().max().item(), 1e-30)
+            if k == "m" and r > worst["m"]:
+                worst["m_leaf"] = path
+            worst[k] = max(worst[k], r)
+        sharp = (m0 / (1 - b1)).abs() >= 1e3 * eps
+        d = (p - p0).abs()
+        if sharp.any():
+            worst["params"] = max(worst["params"],
+                                  d[sharp].max().item() / max(p0.abs().max().item(), 1e-30))
+        worst["loose"] += int((~sharp).sum())
+        worst["loose_bounded"] &= bool((d <= 2 * lr * (1 + weight_decay * p0.abs())).all())
+    rec.update(worst)
+    ok = (max(rec["loss"], rec["grad_norm"], rec["lr"], rec["m"], rec["params"]) <= tol
+          and rec["v"] <= 2 * tol and rec["loose_bounded"])
+    return rec, ok
+
+
+def phase13(torch, dev):
+    """Phase 13, training (the plain path under autograd, "torch" backend,
+    as JAX trains on "xla"): 13a the kernels' refusal under grad; 13b one
+    train step of every smoke config on the card against the CPU; 13c
+    llama3.2-1b at full width (the f32 gradient against f64, 8 steps on one
+    batch, microbatch 2 against 1, the step against its bound, tokens/s,
+    peak memory); 13d the fault-tolerant loop at smoke size in a
+    deterministic process (LOOP_CHILD); 13e the launcher with a failure;
+    GPipe's gradient over LocalRing(4) on the card."""
+    import tempfile
+
+    from repro_torch import kernels
+    from repro_torch.configs import ARCH_IDS, get_config
+    from repro_torch.core import ops
+    from repro_torch.core import tree as T
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.kernels.mx_flash_attention import mx_flash_attention
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import build_model
+    from repro_torch.models.modules import param_count
+    from repro_torch.models.transformer import make_block
+    from repro_torch.optim.adamw import AdamW, global_norm
+    from repro_torch.optim.schedules import constant
+    from repro_torch.parallel.pipeline import gpipe_apply
+    from tools.accumulation_witness import plain_f64, widened
+
+    t_phase = time.perf_counter()
+    held = torch.cuda.memory_allocated()  # what earlier phases hold (zamba2's weights)
+    out = {}
+    failed = []  # every sub-phase runs and prints; the phase fails at its end
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_train_"))
+    # 13d and 13e run in processes of their own, beside 13a, 13b and the
+    # f64 witness; they end before 13c's steps are timed
+    child = subprocess.Popen([sys.executable, "-c", LOOP_CHILD, str(tmp / "loop.json")],
+                             cwd=ROOT, env=dict(env, CUBLAS_WORKSPACE_CONFIG=":4096:8"),
+                             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    launch_args = ["--arch", "llama3.2-1b", "--smoke", "--steps", "20", "--inject-failure",
+                   "7", "--ckpt-dir", str(tmp / "launcher")]
+    t_launch = time.perf_counter()
+    launch = subprocess.Popen([sys.executable, "-m", "repro_torch.launch.train", *launch_args],
+                              cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True)
+
+    print("[13a] the kernels refuse an operand that requires grad; under no_grad the bits "
+          "of phase 3's calls")
+    g = torch.Generator(device=dev).manual_seed(1300)
+    x = torch.randn((8, 8192), generator=g, device=dev)
+    w = torch.randn((8192, 2048), generator=g, device=dev) / 8192 ** 0.5
+    res = torch.randn((8, 2048), generator=g, device=dev)
+    q, k, v = (torch.randn((4, 256, h, 64), generator=g, device=dev) for h in (32, 8, 8))
+    mx = ops.MXPolicy("cuda_mx")
+    calls = {
+        "linear (cuda_mx, M=8 K=8192 N=2048 +residual)":
+            lambda wt: ops.linear(x, wt, residual=res, policy=mx),
+        "mx_flash_attention (B=4 L=256 H=32/8 d=64)":
+            lambda qt: mx_flash_attention(qt, k, v, causal=True),
+    }
+    guard = {}
+    for (name, call), operand in zip(calls.items(), (w, q)):
+        plain = call(operand)
+        before = kernels.launch_counts()
+        try:
+            call(operand.clone().requires_grad_())
+            refused = False
+        except RuntimeError as e:
+            refused = "requires grad" in str(e)
+        moved = kernels.launch_counts() != before
+        with torch.no_grad():
+            again = call(operand.clone().requires_grad_())
+        torch.cuda.synchronize()
+        guard[name] = dict(refused=refused, launched_when_refused=moved,
+                           no_grad_bitwise=torch.equal(again, plain))
+        print(f"    {name}: refused {refused}, launched {moved}; under no_grad bitwise "
+              f"{guard[name]['no_grad_bitwise']}")
+        if not refused or moved or not guard[name]["no_grad_bitwise"]:
+            failed.append(f"13a {name}: {guard[name]}")
+    out["13a"] = guard
+
+    print("[13b] one train step of every smoke config on the card against the CPU "
+          "(AdamW lr 1e-3; the kernels' launch counters must not move)")
+    fams = {}
+    kernels.reset_launch_counts()
+    for arch in ARCH_IDS:
+        cfg = get_config(arch + "-smoke")
+        model = build_model(cfg)
+        opt = AdamW(lr=1e-3)
+        batch = SyntheticLM(cfg, seq_len=32, global_batch=2).next_batch()
+        p_cpu = model.init(0, device="cpu")
+        p_dev = T.map(lambda t: t.to(dev), p_cpu)
+        step = steps.make_train_step(model, cfg, opt)
+        ref = step(p_cpu, opt.init(p_cpu), batch)
+        got = step(p_dev, opt.init(p_dev), batch)
+        on_cuda = all(t.is_cuda for t in T.leaves(got[:2]))
+        tol = TRAIN_STEP_TOL.get(arch, 1e-5)
+        rec, ok = _hold_step(torch, ref, got, tol, 1e-3, 0.1)
+        rec.update(on_cuda=on_cuda, tol=tol, loss_value=float(got[2]["loss"]))
+        fams[arch] = rec
+        print(f"    {arch}: loss {float(got[2]['loss']):.6f} / cpu {float(ref[2]['loss']):.6f};"
+              f" worst rel: loss {rec['loss']:.2e} grad_norm {rec['grad_norm']:.2e} m "
+              f"{rec['m']:.2e} ({rec['m_leaf']}) v {rec['v']:.2e} params {rec['params']:.2e} "
+              f"({rec['loose']} near-eps elements bounded {rec['loose_bounded']}); tol {tol:g};"
+              f" on cuda {on_cuda}")
+        if not (ok and on_cuda):
+            failed.append(f"13b {arch}: {rec}")
+    out["13b"] = fams
+    out["13b_launches"] = kernels.launch_counts()
+    if any(out["13b_launches"].values()):
+        failed.append(f"13b launched a kernel: {out['13b_launches']}")
+
+    print("[13d/13e run beside] GPipe's gradient over LocalRing(4) on the card (the hops "
+          "copy on a side stream) against the stages in sequence")
+    cfg = get_config("llama3.2-1b")
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(0, device=dev)
+    torch.cuda.synchronize()
+    n_params = param_count(params)
+    print(f"    llama3.2-1b: init {time.perf_counter() - t0:.1f} s, {n_params / 1e9:.4f} B "
+          f"params")
+    block = make_block("dense", cfg)
+    xs = torch.randn((4, 1, 64, cfg.d_model), generator=g, device=dev)
+    ct = torch.randn((4, 1, 64, cfg.d_model), generator=g, device=dev)
+    stages0 = _slice_tree(params["seg0"], 4)
+    with ops.use_policy(ops.MXPolicy("torch")):
+        st = T.map(lambda t: t.detach().clone().requires_grad_(), stages0)
+        xg = xs.clone().requires_grad_()
+        got = gpipe_apply(lambda p, h: block(p, h)[0], st, xg, mesh=make_mesh((4,), ("pod",)))
+        gg = torch.autograd.grad((got * ct).sum(), [xg, *T.leaves(st)])
+        sq = T.map(lambda t: t.detach().clone().requires_grad_(), stages0)
+        xq = xs.clone().requires_grad_()
+        want = xq
+        for j in range(4):
+            want = torch.stack([block(T.map(lambda t, j=j: t[j], sq), h)[0] for h in want])
+        gw = torch.autograd.grad((want * ct).sum(), [xq, *T.leaves(sq)])
+    gerr = max((a - b).abs().max().item() / max(b.abs().max().item(), 1e-30)
+               for a, b in zip(gg, gw))
+    out["13_gpipe"] = dict(worst_rel=gerr, leaves=len(gw), forward_bitwise=torch.equal(got, want))
+    print(f"    GPipe, 4 full-width llama layers x 4 microbatches of 1 x 64 tokens: gradient "
+          f"worst {gerr:.3g} * max|ref| over {len(gw)} leaves (tol 1e-5); forward bitwise "
+          f"{out['13_gpipe']['forward_bitwise']}")
+    if not gerr <= 1e-5:
+        failed.append(f"13 GPipe: {out['13_gpipe']}")
+    del st, xg, got, gg, sq, xq, want, gw
+
+    print("[13c] llama3.2-1b at full width (16 layers, d_model 2048, vocab 128256, tied, f32, "
+          "seed 0), SyntheticLM seed 0, batch 8 x 128")
+    batch = steps.batch_to(SyntheticLM(cfg, seq_len=128, global_batch=8, seed=0).next_batch(),
+                           dev)
+    T_tok = batch["tokens"].numel()
+    t0 = time.perf_counter()
+    _, m32, g32 = steps.value_and_grad(model, cfg, params, batch)
+    torch.cuda.synchronize()
+    t32 = time.perf_counter() - t0
+    n32 = float(global_norm(g32))
+    t0 = time.perf_counter()
+    with plain_f64(torch):
+        _, m64, g64 = steps.value_and_grad(model, cfg, widened(params), batch)
+    torch.cuda.synchronize()
+    t64 = time.perf_counter() - t0
+    if m64["loss"].dtype != torch.float64:
+        raise AssertionError(f"the f64 witness ran in {m64['loss'].dtype}")
+    n64 = math.sqrt(sum(float((t.double() ** 2).sum()) for t in T.leaves(g64)))
+    leaf_worst = max((a.double() - b).abs().max().item() / max(b.abs().max().item(), 1e-300)
+                     for a, b in zip(T.leaves(g32), T.leaves(g64)))
+    wit = dict(loss32=float(m32["loss"]), loss64=float(m64["loss"]), grad_norm32=n32,
+               grad_norm64=n64, loss_rel=abs(float(m32["loss"]) - float(m64["loss"]))
+               / abs(float(m64["loss"])), grad_norm_rel=abs(n32 - n64) / n64,
+               leaf_worst=leaf_worst, s32=t32, s64=t64)
+    out["13c_witness"] = wit
+    print(f"    step-1 gradient, f32 against f64 on the card: loss {wit['loss32']:.7f} / "
+          f"{wit['loss64']:.7f} (rel {wit['loss_rel']:.2e}, tol 1e-5); grad_norm "
+          f"{n32:.6f} / {n64:.6f} (rel {wit['grad_norm_rel']:.2e}, tol 1e-4); worst leaf "
+          f"{leaf_worst:.2e} * max|g64| (tol 1e-3); {t32:.2f} s f32, {t64:.2f} s f64 "
+          f"(first calls)")
+    if not (wit["loss_rel"] <= 1e-5 and wit["grad_norm_rel"] <= 1e-4 and leaf_worst <= 1e-3):
+        failed.append(f"13c f64 witness: {wit}")
+    del g32, g64, m32, m64
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    for proc, what in ((child, "13d"), (launch, "13e")):
+        so, se = proc.communicate(timeout=600)
+        if proc.returncode != 0:
+            raise AssertionError(f"{what} exited {proc.returncode}:\n{so[-2000:]}\n{se[-4000:]}")
+        if what == "13e":
+            launch_out = so
+    loop = json.loads((tmp / "loop.json").read_text())
+    out["13d"] = loop
+    print("[13d] the fault-tolerant loop at llama3.2-1b-smoke size on the card, deterministic "
+          f"(CUBLAS_WORKSPACE_CONFIG=:4096:8): restarts {loop['restarts']}, steps run "
+          f"{loop['steps_run']}, final params and moments bitwise the uninterrupted run's "
+          f"{loop['bitwise']} ({loop['leaves']} leaves, all on cuda {loop['on_cuda']}); NaN "
+          f"loss raised NanLossError {loop['nan_raised']}; checkpoint step "
+          f"{loop['restored_step']} restored onto the CPU with the card's bits "
+          f"{loop['cpu_bits']}; kernel launches {sum(loop['launches'].values())}")
+    if not (loop["restarts"] == [0, 1] and loop["steps_run"] == [10, 12] and loop["bitwise"]
+            and loop["on_cuda"] and loop["nan_raised"] and loop["restored_step"] == 10
+            and loop["cpu_bits"] and not any(loop["launches"].values())):
+        failed.append(f"13d: {loop}")
+    lines = launch_out.strip().splitlines()
+    out["13e"] = dict(lines=lines, joined_s=time.perf_counter() - t_launch)
+    print(f"[13e] $ python -m repro_torch.launch.train {' '.join(launch_args[:-2])} (on the "
+          f"card, beside 13a-13c; joined {out['13e']['joined_s']:.1f} s after its start)")
+    for ln in lines:
+        print(f"      {ln}")
+    if not any("done: " in ln and "(1 restarts" in ln for ln in lines):
+        failed.append(f"13e: no recovery in the launcher's output: {lines}")
+
+    print("[13c] microbatch 2 against 1, then 8 steps on one batch (AdamW at a constant 3e-4, "
+          "weight decay 0, updated in place)")
+    opt = AdamW(lr=constant(3e-4), weight_decay=0.0)
+    kernels.reset_launch_counts()
+    runs = []
+    for mb in (1, 2):
+        p = T.map(torch.clone, params)
+        runs.append(steps.make_train_step(model, cfg, opt, microbatch=mb, inplace=True)(
+            p, opt.init(p), batch))
+    rec, ok = _hold_step(torch, runs[0], runs[1], MICROBATCH_TOL, 3e-4, 0.0)
+    out["13c_microbatch"] = rec
+    print(f"    microbatch 2 against 1: worst rel loss {rec['loss']:.2e} grad_norm "
+          f"{rec['grad_norm']:.2e} m {rec['m']:.2e} ({rec['m_leaf']}) v {rec['v']:.2e} params "
+          f"{rec['params']:.2e} ({rec['loose']} near-eps elements, bounded "
+          f"{rec['loose_bounded']}); tol {MICROBATCH_TOL:g}")
+    if not ok:
+        failed.append(f"13c microbatch: {rec}")
+    del runs, p
+    gc.collect()
+    torch.cuda.empty_cache()
+    step = steps.make_train_step(model, cfg, opt, inplace=True)
+    opt_state = opt.init(params)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_ms = [], []
+    for _ in range(8):
+        t0 = time.perf_counter()
+        params, opt_state, metrics = step(params, opt_state, batch)
+        losses.append(float(metrics["loss"]))  # a host read: the step has ended
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated()
+    flops = 6 * n_params * T_tok
+    bound_ms = (flops / PEAK_FLOPS["float32"] + 7 * 4 * n_params / HBM_BYTES_PER_S) * 1e3
+    med = statistics.median(step_ms)
+    run = dict(losses=losses, drop=losses[0] - losses[-1], step_ms=step_ms, median_ms=med,
+               bound_ms=bound_ms, flops=flops, tokens_per_s=T_tok / (med / 1e3),
+               peak_gib=(peak - held) / 2**30, held_gib=held / 2**30,
+               params=n_params, launches=kernels.launch_counts())
+    out["13c_train"] = run
+    print(f"    losses {' '.join(f'{v:.4f}' for v in losses)}: drop {run['drop']:.4f} (at least "
+          f"0.05)")
+    print(f"    step ms {' '.join(f'{v:.1f}' for v in step_ms)}; median {med:.2f} ms against a "
+          f"bound of {bound_ms:.2f} ms (6 N T = {flops / 1e12:.3f} TFLOP at 67 TFLOP/s plus "
+          f"AdamW's 7 x 4 N bytes at 3.35 TB/s; {bound_ms / med:.1%} of it); "
+          f"{run['tokens_per_s']:.0f} tokens/s; peak memory of the training {run['peak_gib']:.2f}"
+          f" GiB (parameters, gradients, moments, activations; beside the "
+          f"{run['held_gib']:.2f} GiB earlier phases hold); kernel launches "
+          f"{sum(run['launches'].values())}")
+    if not (run["drop"] >= 0.05 and all(math.isfinite(v) for v in losses)
+            and not any(run["launches"].values())):
+        failed.append(f"13c training: {run}")
+    state = [params, opt_state]  # two more steps: a warm one and the profiled one
+
+    def one_step():
+        state[0], state[1], m = step(state[0], state[1], batch)
+        float(m["loss"])
+
+    prof = _profile(torch, one_step)
+    out["13c_profile"] = prof
+    _print_profile("a llama3.2-1b train step, batch 8 x 128", prof)
+    if prof["measured"]:
+        g_ = prof["library_gemm"]
+        print(f"      cuBLAS GEMMs: {g_['ms']:.2f} ms over {g_['calls']} calls "
+              f"({100 * g_['ms'] / prof['device_ms']:.1f}% of device time); "
+              f"{flops / (g_['ms'] / 1e3) / 1e12:.1f} TFLOP/s on them")
+    params, opt_state = state
+    del params, opt_state
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"    phase 13: {out['seconds']:.1f} s")
+    if failed:
+        raise AssertionError("phase 13: " + "; ".join(failed))
+    return out
+
+
 def _slice_tree(tree, n):
     """The first n layers of a layer-stacked tree."""
     if isinstance(tree, dict):
@@ -4346,6 +4776,9 @@ def main() -> int:
     # same weights: before the zamba2 profile below
     p11, p12 = phase11(torch, dev, then=lambda model, params, cfg: phase12(
         torch, dev, model, params, cfg, llama["serve"]["step_ms_median"]))
+    gc.collect()
+    torch.cuda.empty_cache()
+    p13 = phase13(torch, dev)
     print("[8p] zamba2-2.7b decode step and full forward profiled")
     zamba2["profile_decode"], zamba2["profile_forward"] = zamba2_profile(torch, dev, zmodel,
                                                                           zparams)
@@ -4536,6 +4969,7 @@ def main() -> int:
         grouped_sass=grouped_sass,
         attention_sass=attn_sass, ssd_sass=ssd_sass,
         **llama, grok=grok, zamba2=zamba2, families=families, phase11=p11, phase12=p12,
+        phase13=p13,
         kernels=summary),
         indent=1,
         default=str))

@@ -71,6 +71,13 @@ collective GEMM over the policy's ring (`_collective_linear`,
 columns: q / k / v, up) or "reduce_scatter" (x and w sharded on the
 contraction: out, down); without a policy the declaration is inert, as in
 JAX.
+
+Training differentiates "torch" (`launch/steps.make_train_step` sets it),
+as JAX trains on "xla": the CUDA kernels have no backward, so every kernel
+entry and every payload kept per parameter version (`_kept`: the quantized
+and 2:4 weights, the ring's column shards) refuses a grad-enabled operand
+that requires grad (`kernels/_build.refuse_grad`) rather than return an
+output without a gradient.
 """
 from __future__ import annotations
 
@@ -198,7 +205,11 @@ def _sparse_operand(w: torch.Tensor, spec: QuantSpec):
 def _kept(cache: Dict[tuple, tuple], w: torch.Tensor, extra: tuple, make):
     """make(), kept in `cache` per parameter version: reused while the same
     tensor (a view of the same base, e.g. a layer of a stacked leaf) is
-    unchanged in place.  The entry goes when the base tensor does."""
+    unchanged in place.  The entry goes when the base tensor does.  What it
+    keeps is made once and reused, so it holds no autograd graph: a weight
+    that requires grad in a grad-enabled region raises (its gradient would
+    be lost), as the kernels do (`_build.refuse_grad`)."""
+    _build.refuse_grad("a kept weight operand (quantized, 2:4 or ring shard)", w)
     base = w if w._base is None else w._base
     key = (w.data_ptr(), tuple(w.shape), w.stride(), w.dtype, w.device, *extra)
     hit = cache.get(key)

@@ -151,6 +151,22 @@ def check(err: int, name: str, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA launch failed: {msg} ({err})")
 
 
+def refuse_grad(entry: str, *operands) -> None:
+    """Raise when autograd would need a kernel's gradient: a kernel writes
+    its output through raw pointers, so the output has no `grad_fn`, and a
+    backward pass would give every operand behind it no gradient, silently.
+    The kernels have no backward (JAX's Pallas kernels cannot be
+    differentiated either); training runs the "torch" backend.  Checked
+    before the device, so the plain versions on CPU tensors refuse alike."""
+    if torch.is_grad_enabled() and any(isinstance(t, torch.Tensor) and t.requires_grad
+                                       for t in operands):
+        raise RuntimeError(
+            f"{entry}: an operand requires grad in a grad-enabled region, and the kernel "
+            "has no backward; differentiate through the \"torch\" backend "
+            "(core.ops.MXPolicy(\"torch\"), as launch.steps.make_train_step does), or "
+            "run under torch.no_grad()")
+
+
 def dtype_code(dtype: torch.dtype, what: str, allowed=FLOATS) -> int:
     """The kernels' dtype code (csrc/common.cuh ReproDType) of an operand
     that may be any of `allowed` (int8 / fp8 only as payloads with scales)."""

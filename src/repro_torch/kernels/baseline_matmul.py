@@ -76,6 +76,7 @@ def baseline_matmul(a: torch.Tensor, b: torch.Tensor, *, bk: int = 128,
                          f"{tuple(a.shape)}, {tuple(b.shape)}")
     if a.shape[1] != b.shape[0]:
         raise ValueError(f"contraction mismatch: {tuple(a.shape)} @ {tuple(b.shape)}")
+    _build.refuse_grad("baseline_matmul", a, b)
     out_dtype = out_dtype or a.dtype
     if a.is_cuda:
         return _launch(a, b, bk, out_dtype)

@@ -52,6 +52,7 @@ def mx_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     Lk, Hkv = k.shape[1], k.shape[2]
     if H % Hkv:
         raise ValueError(f"H={H} not a multiple of Hkv={Hkv}")
+    _build.refuse_grad("mx_flash_attention", q, k, v)
     if not q.is_cuda:
         out = flash_attention_plain(q, k, v, causal=causal)
         return out[0, :, 0] if single else out

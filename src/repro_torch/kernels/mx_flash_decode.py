@@ -130,6 +130,7 @@ def mx_flash_decode(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tenso
     32, d past 256 or a page too large for a block's shared memory raises.
     Returns (B, H, d) in q's dtype."""
     _check("mx_flash_decode", q, k_pages, v_pages, page_table, lengths, k_scale, v_scale)
+    _build.refuse_grad("mx_flash_decode", q, k_pages, v_pages, k_scale, v_scale)
     if not q.is_cuda:
         return paged_decode_ref(q, k_pages, v_pages, page_table, lengths,
                                 k_scale=k_scale, v_scale=v_scale)
@@ -154,6 +155,7 @@ def mx_flash_verify(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tenso
     if q.dim() != 4:
         raise ValueError(f"q must be (B, S, H, d), got {tuple(q.shape)}")
     _check("mx_flash_verify", q, k_pages, v_pages, page_table, lengths, k_scale, v_scale)
+    _build.refuse_grad("mx_flash_verify", q, k_pages, v_pages, k_scale, v_scale)
     if not q.is_cuda:
         return paged_verify_ref(q, k_pages, v_pages, page_table, lengths,
                                 k_scale=k_scale, v_scale=v_scale)

@@ -190,6 +190,7 @@ def mx_grouped_matmul(x: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tenso
             if tuple(t.shape) != grid:
                 raise ValueError(f"fault operand shape {tuple(t.shape)} != tile grid "
                                  f"{grid}")
+    _build.refuse_grad("mx_grouped_matmul", x, w, w_gate, a_scale, b_scale, bg_scale)
     out_dtype = out_dtype or x.dtype
     kw = dict(w_gate=w_gate, activation=activation, a_scale=a_scale, b_scale=b_scale,
               bg_scale=bg_scale)

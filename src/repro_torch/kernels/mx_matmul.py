@@ -526,6 +526,8 @@ def mx_matmul_fused(a: torch.Tensor, b: torch.Tensor, *,
         for t in fault:
             if tuple(t.shape) != grid:
                 raise ValueError(f"fault operand shape {tuple(t.shape)} != grid {grid}")
+    _build.refuse_grad("mx_matmul_fused", a, b, b_gate, bias, residual, a_scale, b_scale,
+                        bg_scale)
     out_dtype = out_dtype or a.dtype
     if a.is_cuda:
         return _launch_fused(a, b, epilogue, b_gate, bias, residual, a_scale, b_scale,
@@ -554,6 +556,8 @@ def recompute_fused(route: str, a: torch.Tensor, b: torch.Tensor, *, epilogue: E
     recovers) whatever its
     own M, so the recomputed tile gets that launch's bits; a CPU `a` takes
     `mx_matmul_fused_plain`.  Returns (out, flags)."""
+    _build.refuse_grad("mx_matmul_fused", a, b, b_gate, bias, residual, a_scale, b_scale,
+                        bg_scale)
     out_dtype = out_dtype or a.dtype
     if not a.is_cuda:
         return mx_matmul_fused_plain(a, b, epilogue=epilogue, b_gate=b_gate, bias=bias,

@@ -16,9 +16,12 @@ multiply by the reciprocal), int8 rounds half to even (`torch.round`, like
 `jnp.round`) before clipping to +-127, and fp8 clips to +-448 before the
 cast (an e4m3 overflow would be NaN).
 
-`quantize_int8_tensor`, `quantize_int8_stochastic` and
-`executed_gemm_bytes` (gradient compression and analytics) come with the
-training and analytics items (ROADMAP queue 1 items 8-9).
+`quantize_int8_tensor` is the int8 wire format of the gradient
+compression (`optim/compression.py`), bitwise JAX's;
+`quantize_int8_stochastic` rounds stochastically with a `torch.Generator`
+(JAX's draws come from its threefry key, which torch does not reproduce:
+the payloads are unbiased and pure in the generator's seed, not JAX's).
+`executed_gemm_bytes` (analytics) comes with ROADMAP queue 1 item 9.
 """
 from __future__ import annotations
 
@@ -131,3 +134,31 @@ def _quantize_stack(w: torch.Tensor, spec: QuantSpec):
     for g in range(G):
         q[g] = payload(w[g], spec, s)
     return q, torch.broadcast_to(s.reshape(1, 1, 1), (G, 1, N))
+
+
+# ---------------------------------------------------------------------------
+# per-tensor int8 wire format (gradient compression)
+# ---------------------------------------------------------------------------
+
+
+def quantize_int8_tensor(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric per-tensor int8: (int8 payload, scalar f32 scale), the wire
+    format of the compressed gradient all-reduce."""
+    scale = compute_scale(x, 127.0, axis=None)
+    q = torch.clamp(torch.round(x.float() / scale), -127, 127).to(torch.int8)
+    return q, scale
+
+
+def quantize_int8_stochastic(x: torch.Tensor, generator: torch.Generator, *, axis=None
+                             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Stochastically rounded symmetric int8: (payload, f32 scale).
+
+    floor(x / scale + u), u ~ U[0, 1) drawn from `generator`, rounds up with
+    probability equal to the fractional part, so E[dequantize(q)] == x
+    elementwise (where |x| / scale stays inside +-127).  The same generator
+    state and operand give the same payload; `generator` lives on x's
+    device.  `axis` selects the amax granularity as in `quantize`."""
+    scale = compute_scale(x, 127.0, axis=axis)
+    noise = torch.rand(x.shape, generator=generator, dtype=torch.float32, device=x.device)
+    q = torch.clamp(torch.floor(x.float() / scale + noise), -127, 127).to(torch.int8)
+    return q, scale

@@ -50,6 +50,7 @@ def ssd_scan(x: torch.Tensor, a_log: torch.Tensor, b: torch.Tensor, c: torch.Ten
     if single:
         x, a_log, b, c = x[None, :, None], a_log[None, :, None], b[None, :, None], c[None, :, None]
     _check(x, a_log, b, c)
+    _build.refuse_grad("ssd_scan", x, a_log, b, c)
     if not x.is_cuda:
         y = ssd_scan_plain(x, a_log, b, c, chunk)
         return y[0, :, 0] if single else y

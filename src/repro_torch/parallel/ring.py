@@ -28,7 +28,20 @@ hops are `batch_isend_irecv` pairs, tagged by call order (every rank issues
 the same sequence, and a two-rank ring's two directions share one peer);
 `psum` and `gather` all-gather the ranks' values and combine them in rank
 order, so the results are bitwise `LocalRing`'s.  gloo on the CPU, NCCL on
-several cards.  Hops are not autograd-aware.
+several cards.
+
+Autograd (JAX differentiates `ppermute` and `psum` inside `shard_map`):
+when grad is enabled and a value requires grad, `permute` and `psum` run
+through a `torch.autograd.Function` over the per-rank lists, one for both
+transports.  permute's backward is the inverse permute of the output
+gradients (on the card, the same side-stream copies, ordered by the same
+events); psum's is a psum of the output gradients: every process holds
+the sum once, so each rank's input gradient is the sum over processes of
+their output gradients (on a `LocalRing`, the one output gradient).  On a
+`DistRing` each process runs its own backward, and a hop's backward is an
+exchange with the neighbours: every process must take the autograd path
+for the same hops and run their backward in the same order, which the
+ring body arranges (`parallel/pipeline.gpipe_apply`).
 """
 from __future__ import annotations
 
@@ -60,7 +73,55 @@ def _nbytes(t: torch.Tensor) -> int:
     return t.numel() * t.element_size()
 
 
-class LocalRing:
+class _Permute(torch.autograd.Function):
+    """One hop of the ring over the per-rank lists, differentiable."""
+
+    @staticmethod
+    def forward(ctx, ring, perm, *values):
+        ctx.ring, ctx.inverse = ring, [(dst, src) for src, dst in perm]
+        return tuple(ring._permute(values, perm).wait())
+
+    @staticmethod
+    def backward(ctx, *grads):
+        return (None, None, *ctx.ring._permute(grads, ctx.inverse).wait())
+
+
+class _Psum(torch.autograd.Function):
+    """The sum over every rank of the ring, differentiable."""
+
+    @staticmethod
+    def forward(ctx, ring, *values):
+        ctx.ring, ctx.n = ring, len(values)
+        return ring._psum(values)
+
+    @staticmethod
+    def backward(ctx, g):
+        # this process's output gradient on its first rank: the sum over
+        # processes of their output gradients (LocalRing: g itself)
+        total = ctx.ring._psum([g] + [torch.zeros_like(g)] * (ctx.n - 1))
+        return (None, *([total] * ctx.n))
+
+
+def _differentiable(values) -> bool:
+    return torch.is_grad_enabled() and any(v.requires_grad for v in values)
+
+
+class _Ring:
+    """The differentiable front of a transport (`_permute`, `_psum`)."""
+
+    def permute(self, values: Sequence[torch.Tensor], perm) -> Pending:
+        if _differentiable(values):
+            outs = list(_Permute.apply(self, list(perm), *values))
+            return Pending(lambda: outs)
+        return self._permute(values, perm)
+
+    def psum(self, values: Sequence[torch.Tensor]) -> torch.Tensor:
+        if _differentiable(values):
+            return _Psum.apply(self, *values)
+        return self._psum(values)
+
+
+class LocalRing(_Ring):
     """All `size` ranks of the ring in this process."""
 
     def __init__(self, size: int, *, sync: bool = False):
@@ -79,7 +140,7 @@ class LocalRing:
             self._streams[key] = torch.cuda.Stream(device=device)
         return self._streams[key]
 
-    def permute(self, values: Sequence[torch.Tensor], perm) -> Pending:
+    def _permute(self, values: Sequence[torch.Tensor], perm) -> Pending:
         srcs = _sources(perm, self.ranks)
         moved = [values[s] for s in srcs]
         self.bytes_moved += sum(_nbytes(t) for t in moved)
@@ -107,7 +168,7 @@ class LocalRing:
 
         return Pending(wait)
 
-    def psum(self, values: Sequence[torch.Tensor]) -> torch.Tensor:
+    def _psum(self, values: Sequence[torch.Tensor]) -> torch.Tensor:
         total = values[0]
         for v in values[1:]:
             total = total + v
@@ -117,7 +178,7 @@ class LocalRing:
         return torch.cat(list(values), dim=dim)
 
 
-class DistRing:
+class DistRing(_Ring):
     """One rank of the ring per process, over a `torch.distributed` group
     (None: the default group)."""
 
@@ -132,7 +193,7 @@ class DistRing:
     def _peer(self, r: int) -> int:
         return r if self.group is None else dist.get_global_rank(self.group, r)
 
-    def permute(self, values: Sequence[torch.Tensor], perm) -> Pending:
+    def _permute(self, values: Sequence[torch.Tensor], perm) -> Pending:
         (v,) = values
         dst = dict(perm)[self.rank]
         (src,) = _sources(perm, self.ranks)
@@ -159,7 +220,7 @@ class DistRing:
         dist.all_gather(parts, v, group=self.group)
         return parts
 
-    def psum(self, values: Sequence[torch.Tensor]) -> torch.Tensor:
+    def _psum(self, values: Sequence[torch.Tensor]) -> torch.Tensor:
         (v,) = values
         parts = self._all(v)
         total = parts[0]

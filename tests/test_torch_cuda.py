@@ -43,6 +43,10 @@ serving on the kernels: a retried step leaves the pages (f32 and int8)
 bitwise those of an unfailed step, every injected host-copy bit flip under
 abft=True is detected and corrected, migrated pages are bitwise their
 sources, and the disaggregated engine emits the paged batcher's streams.
+Training (chip_smoke.py phase 13): the kernels refuse an operand that
+requires grad, a smoke train step on the card against the CPU's, GPipe's
+gradient over LocalRing(4) on CUDA tensors, the deterministic recovery
+child and the train launcher.
 """
 import ctypes
 
@@ -2237,3 +2241,133 @@ def test_moe_collective_branch_and_gpipe_on_the_card(cuda):
         for lp in layers:
             want = torch.stack([blk(lp, h)[0] for h in want])
         _close(got, want, torch.float32)
+
+
+# ---------------------------------------------------------------------------
+# training (chip_smoke.py phase 13): the plain path under autograd on the card
+# ---------------------------------------------------------------------------
+
+
+def _chip_smoke():
+    import importlib
+    import sys
+    from pathlib import Path
+
+    root = str(Path(__file__).resolve().parents[1])
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    return importlib.import_module("chip_smoke")
+
+
+def test_kernels_refuse_grad_on_the_card(cuda):
+    """A "cuda_mx" linear and the flash attention refuse an operand that
+    requires grad (nothing launches); under no_grad they give the bits of
+    an operand that does not."""
+    x, w = _randn((8, 512), torch.float32, cuda, 0), _randn((512, 256), torch.float32, cuda, 1)
+    q, k, v = (_randn((2, 64, h, 64), torch.float32, cuda, 2 + h) for h in (8, 2, 2))
+    for call, operand in ((lambda t: ops.linear(x, t, policy=ops.MXPolicy("cuda_mx")), w),
+                          (lambda t: mx_flash_attention(t, k, v), q)):
+        plain = call(operand)
+        before = kernels.launch_counts()
+        with pytest.raises(RuntimeError, match="requires grad"):
+            call(operand.clone().requires_grad_())
+        assert kernels.launch_counts() == before
+        with torch.no_grad():
+            assert torch.equal(call(operand.clone().requires_grad_()), plain)
+
+
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "qwen2-0.5b", "grok-1-314b", "zamba2-2.7b",
+                                  "xlstm-125m", "seamless-m4t-medium", "internvl2-26b"])
+def test_train_step_on_the_card_matches_the_cpu(cuda, arch):
+    """One train step of a smoke config on the card against the same step
+    on the CPU (chip_smoke's `_hold_step` at its `TRAIN_STEP_TOL`); no kernel
+    launches, every leaf on the card."""
+    from repro_torch.core import tree as T
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.optim.adamw import AdamW
+
+    cs = _chip_smoke()
+    cfg = get_config(arch + "-smoke")
+    model, opt = build_model(cfg), AdamW(lr=1e-3)
+    batch = SyntheticLM(cfg, seq_len=32, global_batch=2).next_batch()
+    p_cpu = model.init(0, device="cpu")
+    p_dev = T.map(lambda t: t.to(cuda), p_cpu)
+    step = make_train_step(model, cfg, opt)
+    ref = step(p_cpu, opt.init(p_cpu), batch)
+    kernels.reset_launch_counts()
+    got = step(p_dev, opt.init(p_dev), batch)
+    assert not any(kernels.launch_counts().values())
+    assert all(t.is_cuda for t in T.leaves(got[:2]))
+    rec, ok = cs._hold_step(torch, ref, got, cs.TRAIN_STEP_TOL.get(arch, 1e-5), 1e-3, 0.1)
+    assert ok, rec
+
+
+def test_gpipe_gradient_on_the_card(cuda):
+    """GPipe over LocalRing(4) on CUDA tensors (the hops copy on a side
+    stream, forward and backward) against the blocks in sequence: the
+    gradients of every stage weight and of the input within 1e-5 *
+    max|ref|."""
+    from repro_torch.core import tree as T
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.transformer import TransformerBlock
+    from repro_torch.parallel.pipeline import gpipe_apply
+
+    blk = TransformerBlock(d_model=64, n_heads=4, n_kv_heads=2, d_ff=128)
+    layers = [blk.init(s, device=cuda) for s in range(4)]
+    stacked = {k: (torch.stack([lp[k] for lp in layers]) if torch.is_tensor(v) else
+                   {kk: torch.stack([lp[k][kk] for lp in layers]) for kk in v})
+               for k, v in layers[0].items()}
+    xs, ct = _randn((4, 1, 16, 64), torch.float32, cuda, 6), _randn((4, 1, 16, 64),
+                                                                    torch.float32, cuda, 7)
+    with ops.use_policy(ops.MXPolicy("torch")):
+        st = T.map(lambda t: t.clone().requires_grad_(), stacked)
+        xg = xs.clone().requires_grad_()
+        with torch.cuda.stream(torch.cuda.current_stream()):
+            torch.cuda._sleep(20_000_000)  # a copy that ran early would read stale values
+            got = gpipe_apply(lambda p, h: blk(p, h)[0], st, xg, mesh=make_mesh((4,), ("pod",)))
+            gg = torch.autograd.grad((got * ct).sum(), [xg, *T.leaves(st)])
+        sq = T.map(lambda t: t.clone().requires_grad_(), stacked)
+        xq = xs.clone().requires_grad_()
+        want = xq
+        for j in range(4):
+            want = torch.stack([blk(T.map(lambda t, j=j: t[j], sq), h)[0] for h in want])
+        gw = torch.autograd.grad((want * ct).sum(), [xq, *T.leaves(sq)])
+    for a, b in zip(gg, gw):
+        assert (a - b).abs().max().item() <= 1e-5 * b.abs().max().item()
+
+
+def test_train_loop_recovers_bitwise_on_the_card(cuda, tmp_path):
+    """chip_smoke's deterministic child (phase 13d): a failure at step 6 of
+    10 ends bitwise the uninterrupted run, a NaN loss raises, the last
+    checkpoint restores onto the CPU with the card's bits."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    cs = _chip_smoke()
+    out = tmp_path / "loop.json"
+    r = subprocess.run([sys.executable, "-c", cs.LOOP_CHILD, str(out)], capture_output=True,
+                       text=True, timeout=600, cwd=cs.ROOT,
+                       env=dict(os.environ, PYTHONPATH=str(cs.ROOT / "src"),
+                                CUBLAS_WORKSPACE_CONFIG=":4096:8"))
+    assert r.returncode == 0, r.stderr[-4000:]
+    res = json.loads(out.read_text())
+    assert res["restarts"] == [0, 1] and res["steps_run"] == [10, 12]
+    assert res["bitwise"] and res["on_cuda"] and res["nan_raised"] and res["cpu_bits"]
+    assert res["restored_step"] == 10 and not any(res["launches"].values())
+
+
+def test_train_launcher_recovers_on_the_card(cuda, tmp_path):
+    import os
+    import subprocess
+    import sys
+
+    cs = _chip_smoke()
+    r = subprocess.run([sys.executable, "-m", "repro_torch.launch.train", "--smoke", "--steps",
+                        "20", "--inject-failure", "7", "--ckpt-dir", str(tmp_path / "ck")],
+                       capture_output=True, text=True, timeout=600, cwd=cs.ROOT,
+                       env=dict(os.environ, PYTHONPATH=str(cs.ROOT / "src")))
+    assert r.returncode == 0, r.stderr[-4000:]
+    assert "1 restarts" in r.stdout and "done: " in r.stdout

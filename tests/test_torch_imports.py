@@ -28,14 +28,19 @@ def test_port_imports_no_jax_and_no_reference_package():
             "repro_torch.kernels.mx_flash_attention", "repro_torch.launch.steps",
             "repro_torch.kernels.mx_collective_matmul", "repro_torch.core.transfer_model",
             "repro_torch.parallel.ring", "repro_torch.parallel.sharding",
-            "repro_torch.parallel.pipeline", "repro_torch.launch.mesh"} <= set(mods)
+            "repro_torch.parallel.pipeline", "repro_torch.launch.mesh",
+            "repro_torch.optim.adamw", "repro_torch.optim.schedules",
+            "repro_torch.optim.compression", "repro_torch.data.pipeline",
+            "repro_torch.checkpoint.manager", "repro_torch.runtime.fault",
+            "repro_torch.runtime.elastic", "repro_torch.launch.train",
+            "repro_torch.core.tree"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"sys.path[:0] = [{str(ROOT / 'src')!r}, {str(ROOT)!r}]\n"
         f"for m in {mods!r} + ['chip_smoke']:\n"
         "    importlib.import_module(m)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
-        "             or m == 'repro' or m.startswith('repro.'))\n"
+        "             or m == 'repro' or m.startswith('repro.') or m == 'ml_dtypes')\n"
         "assert not bad, bad\n"
         "print('ok', len(sys.modules))\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
