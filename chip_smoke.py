@@ -158,7 +158,11 @@ The dense cache, Mamba2 and the zamba2 hybrid (ssd_scan, mx_flash_attention):
       plain version exactly; the attention's yardstick is
       torch.nn.functional.scaled_dot_product_attention, the scan has none;
       the scan's rows print its chunk slots and the bound of its TF32 route
-      (three TF32 products per product in f32);
+      (three TF32 products per product in f32); the f32 attention at
+      zamba2's shared block and internvl2's forward (B=2 H=48 Hkv=8 d=128
+      L=1088) within twice the plain version's max distance to the softmax
+      in f64 (its products once summed in the truncating MMAs stood 3.3x as
+      far);
   8.  (before phase 4: no profiler session has run yet) zamba2-2.7b at full
       width (54 Mamba2 layers, d_model 2560, the shared block every 6;
       nothing cut), f32 weights from seed 0: the full forward of
@@ -277,13 +281,37 @@ Training, the plain path under autograd (no kernel: JAX trains on "xla"):
       without weight decay on the one batch (the loss falls by at least
       0.05), the median step against its bound (6 N T FLOPs at 67 TFLOP/s
       plus AdamW's 7 x 4 N bytes at 3.35 TB/s), tokens/s and the training's
-      peak memory; 13d (LOOP_CHILD, deterministic) a TrainLoop with a
+      peak memory (the bound from core/roofline.train_step_bound_s); 13d
+      (LOOP_CHILD, deterministic) a TrainLoop with a
       failure at step 6 of 10 bitwise the uninterrupted run, a NaN loss
       raising NanLossError, the last checkpoint restored onto the CPU with
       the card's bits; 13e `python -m repro_torch.launch.train --smoke
       --steps 20 --inject-failure 7` on the card, one restart.  Every
       sub-phase prints its numbers; the phase fails at its end if any
       check failed.
+The paper's analytics against kernels 1 and 2 (run after phase 3a, before
+any model is served, so its times come before every profiler session):
+  14. llama3.2-1b's projections of a paged step (q, k/v, o+residual,
+      up+gate swiglu, down+residual) at M = 8 (the decode tile) and M = 64
+      (a prefill chunk), f32 and bf16: 14a for each launch of kernel 1 (with
+      the step's epilogue) the tile pricer's plan (core/tiling: tile,
+      stages, split, parts, shared memory, register accumulator), its
+      executed bytes (kernels/quant.launch_gemm_bytes), its FLOPs, its
+      device time (operand sets past L2) and the share of its roofline
+      bound (core/roofline.bound_ms: each input read once, the output
+      written once) it reaches, and the same for kernel 2 on the bare GEMM;
+      fails if a plan's shared memory passes SMEM_PER_CTA, a share reads
+      above SHARE_LIMIT or a launch's output leaves its plain version's
+      tolerance; 14b the paper's A/B: the transfer model's HBM bytes at
+      kernel 1's launched tile with and without inter-k buffering (kernel 2
+      round-trips every 128 rows of K) beside the measured time of kernel 2
+      over kernel 1 on the bare GEMM (fails only if the model's MX bytes are
+      not below the baseline's); 14c mx_flash_decode at phase 3's shape
+      against PagedKVDecode.paged_step_bytes through kv_decode_memory_s,
+      beside phase 3's bound and the bytes between them (fails if the
+      kernel's share of the model's bound reads above SHARE_LIMIT).
+Every bound comes from core/roofline.py (`_bound_ms`, the TF32 route's
+`_route_bound_ms`).
 The line before the last is the kernel summary JSON; the last line is
 {"ok": true, "device": {...}}.  Details go to chiprun_out/chip_smoke.json.
 """
@@ -303,10 +331,6 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM (NVIDIA data sheet)
-PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12,  # dense; f32 off the tensor cores
-              "int8": 1979e12, "float8_e4m3fn": 1979e12}
-TF32_FLOPS = 495e12  # the tensor cores in TF32: the f32 prefill tile's 3xTF32 route
 # FFMAs a prefill kernel may hold outside the ABFT checksums (its epilogue's
 # activations): fewer than one K step of gemm_tile.cuh's prefill loop, whose
 # smallest tile unrolls 128 (2 x 4 outputs per thread, 16 K rows)
@@ -347,9 +371,18 @@ SOURCES = {
 
 
 def _bound_ms(nbytes: float, flops: float, dtype: str):
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    """(ms, "bytes" or "operations"): `core/roofline.bound_ms`, the larger
+    of the bytes at the card's HBM rate and the operations at the type's
+    peak (H100 SXM data sheet)."""
+    from repro_torch.core.roofline import bound_ms
+
+    return bound_ms(nbytes, flops, dtype)
+
+
+def _route_bound_ms(nbytes: float, route_flops: float) -> float:
+    """The bound of the tensor cores' TF32 route (the f32 kernels' 3xTF32
+    products: `route_flops` counts each of the three)"""
+    return _bound_ms(nbytes, route_flops, "tf32")[0]
 
 
 def _host_s(torch, fn, arg_sets, calls=5):
@@ -517,7 +550,7 @@ def check_gemm(torch, dev, M, K, N, dtype_name, ep_kw, seed, offset=None, f64=Fa
                prefill_tile=_prefill_tile(a, b, kw["b_gate"]))
     if out["prefill_tile"] and dtype_name == "float32":
         # the route's own bound: three TF32 products per f32 product
-        out["route_bound_ms"] = max(nbytes / HBM_BYTES_PER_S, 3 * flops / TF32_FLOPS) * 1e3
+        out["route_bound_ms"] = _route_bound_ms(nbytes, 3 * flops)
     if offset:
         out["offset"] = offset
     if f64:
@@ -553,8 +586,7 @@ def check_baseline(torch, dev, M, K, N, dtype_name, seed, bk=128):
                bound_ms=bound, bound_by=by, tile=_decode_tile(a, b),
                prefill_tile=_prefill_tile(a, b, variant="baseline"))
     if out["prefill_tile"] and dtype_name == "float32":
-        out["route_bound_ms"] = max(nbytes / HBM_BYTES_PER_S,
-                                    3 * 2 * M * N * K / TF32_FLOPS) * 1e3
+        out["route_bound_ms"] = _route_bound_ms(nbytes, 3 * 2 * M * N * K)
     return out
 
 
@@ -2805,15 +2837,18 @@ def check_ssd(torch, dev, label, B, L, H, G, P, S, chunk, dtype_name, seed, rese
                 S=S, chunk=chunk, reset=reset, max_abs_err=err, tol=tol,
                 finite=bool(torch.isfinite(got).all()), bytes=nbytes, flops=flops,
                 bound_ms=bound, bound_by=by,
-                route_bound_ms=max(nbytes / HBM_BYTES_PER_S, route_flops / TF32_FLOPS) * 1e3,
+                route_bound_ms=_route_bound_ms(nbytes, route_flops),
                 tile=dict(tile._asdict(), ctas=B * H), **t)
 
 
-def check_flash(torch, dev, label, B, Lq, Lk, H, Hkv, d, causal, dtype_name, seed):
+def check_flash(torch, dev, label, B, Lq, Lk, H, Hkv, d, causal, dtype_name, seed,
+                f64=False):
     """`mx_flash_attention` against `flash_attention_plain`; the library
     yardstick is one `scaled_dot_product_attention` call on (B, H, L, d)
     views of the same tensors (never on the port's path).  Operations:
-    4 B H Lq Lk d, halved by the causal mask."""
+    4 B H Lq Lk d, halved by the causal mask.  `f64` (causal, Lq = Lk) also
+    reads the kernel's and the plain version's max distance to the softmax
+    in f64 (`tools/accumulation_witness.attention_f64`)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.mx_flash_attention import TILES, mx_flash_attention
@@ -2839,6 +2874,13 @@ def check_flash(torch, dev, label, B, Lq, Lk, H, Hkv, d, causal, dtype_name, see
     err, tol = _err(torch, got, ref, dtype_name)
     out = dict(kernel="mx_flash_attention", label=label, dtype=dtype_name, B=B, Lq=Lq,
                Lk=Lk, H=H, Hkv=Hkv, d=d, causal=causal, max_abs_err=err, tol=tol)
+    if f64:
+        from tools.accumulation_witness import attention_f64
+
+        exact = attention_f64(torch, *args)
+        out["f64_err"] = (got.double() - exact).abs().max().item()
+        out["plain_f64_err"] = (ref.double() - exact).abs().max().item()
+        del exact
     fns = {"ms": (lambda *a: mx_flash_attention(*a, causal=causal), None),
            "plain_ms": (lambda *a: flash_attention_plain(*a, causal=causal), None)}
     try:
@@ -2852,7 +2894,7 @@ def check_flash(torch, dev, label, B, Lq, Lk, H, Hkv, d, causal, dtype_name, see
     out.update(_time_ms(torch, {k: (fn, sets) for k, (fn, _) in fns.items()}))
     out["bound_ms"], out["bound_by"] = _bound_ms(nbytes, flops, dtype_name)
     if dtype_name == "float32":  # the tensor-core route: three TF32 products
-        out["route_bound_ms"] = max(nbytes / HBM_BYTES_PER_S, 3 * flops / TF32_FLOPS) * 1e3
+        out["route_bound_ms"] = _route_bound_ms(nbytes, 3 * flops)
     warps, stages = TILES[dt]
     out["tile"] = dict(warps=warps, stages=stages, ctas=B * H * -(-Lq // (16 * warps)))
     out.update(bytes=nbytes, flops=flops)
@@ -2891,7 +2933,7 @@ def ssd_flash_checks(torch, dev):
                   reset=True),
         check_ssd(torch, dev, "zamba2 L=512 bf16", 8, 512, 80, 1, 64, 64, 128, "bfloat16", 4),
         check_flash(torch, dev, "zamba2 shared block", 8, 512, 512, 32, 32, 80, True,
-                    "float32", 5),
+                    "float32", 5, f64=True),
         check_flash(torch, dev, "llama draft", 4, 256, 256, 32, 8, 64, True, "float32", 6),
         check_flash(torch, dev, "cross", 1, 33, 70, 1, 1, 8, False, "float32", 7),
         check_flash(torch, dev, "zamba2 shared block bf16", 8, 512, 512, 32, 32, 80, True,
@@ -2908,12 +2950,15 @@ def ssd_flash_checks(torch, dev):
         check_flash(torch, dev, "seamless cross decode bf16", 4, 1, 512, 16, 16, 64, False,
                     "bfloat16", 12),
         check_flash(torch, dev, "internvl2 forward", 2, 1088, 1088, 48, 8, 128, True,
-                    "float32", 13),
+                    "float32", 13, f64=True),
         check_flash(torch, dev, "internvl2 forward bf16", 2, 1088, 1088, 48, 8, 128, True,
                     "bfloat16", 14),
     ]
     for c in checks:
-        c["ok"] = c["max_abs_err"] <= c["tol"] and c.get("finite", True)
+        # the f32 attention's sums: as close to f64 as the plain version's,
+        # within 2x (each k8 step's 3xTF32 products added with rounding FADDs)
+        c["ok"] = (c["max_abs_err"] <= c["tol"] and c.get("finite", True)
+                   and c.get("f64_err", 0.0) <= 2 * c.get("plain_f64_err", 0.0))
         if c["kernel"] == "ssd_scan":
             shape = f"B={c['B']} L={c['L']} H={c['H']} P={c['P']} S={c['S']} Q={c['chunk']}"
         else:
@@ -2932,6 +2977,9 @@ def ssd_flash_checks(torch, dev):
             extra += f" [{t['warps']} warps x 16 rows, {t['stages']} stages, {t['ctas']} CTAs]"
         if "route_bound_ms" in c:
             extra += f" TF32-route bound {c['route_bound_ms']:.4f}"
+        if "f64_err" in c:
+            extra += (f" to f64 {c['f64_err']:.3e} (plain {c['plain_f64_err']:.3e}, at most "
+                      f"2x)")
         print(f"  {c['kernel']:18s} {c['dtype']:8s} {c['label']:24s} {shape:44s} err "
               f"{c['max_abs_err']:.3e} (tol {c['tol']:.3e}){extra} "
               f"{'ok' if c['ok'] else 'FAIL'}  ms {c['ms']:.4f} (spread "
@@ -4408,6 +4456,7 @@ def phase13(torch, dev):
     from repro_torch.configs import ARCH_IDS, get_config
     from repro_torch.core import ops
     from repro_torch.core import tree as T
+    from repro_torch.core.roofline import train_step_bound_s
     from repro_torch.data.pipeline import SyntheticLM
     from repro_torch.kernels.mx_flash_attention import mx_flash_attention
     from repro_torch.launch import steps
@@ -4636,7 +4685,7 @@ def phase13(torch, dev):
         step_ms.append((time.perf_counter() - t0) * 1e3)
     peak = torch.cuda.max_memory_allocated()
     flops = 6 * n_params * T_tok
-    bound_ms = (flops / PEAK_FLOPS["float32"] + 7 * 4 * n_params / HBM_BYTES_PER_S) * 1e3
+    bound_ms = train_step_bound_s(n_params, T_tok) * 1e3
     med = statistics.median(step_ms)
     run = dict(losses=losses, drop=losses[0] - losses[-1], step_ms=step_ms, median_ms=med,
                bound_ms=bound_ms, flops=flops, tokens_per_s=T_tok / (med / 1e3),
@@ -4685,6 +4734,190 @@ def _slice_tree(tree, n):
     if isinstance(tree, dict):
         return {k: _slice_tree(v, n) for k, v in tree.items()}
     return tree[:n]
+
+
+# ---------------------------------------------------------------------------
+# phase 14: the paper's analytics read against kernels 1 and 2
+# ---------------------------------------------------------------------------
+
+# llama3.2-1b's projections of a paged step: (name, K, N, kernel 1's epilogue)
+LLAMA_PROJECTIONS = (("q", 2048, 2048, {}), ("k/v", 2048, 512, {}),
+                     ("o+residual", 2048, 2048, dict(residual=True)),
+                     ("up+gate swiglu", 2048, 8192, dict(activation="swiglu")),
+                     ("down+residual", 8192, 2048, dict(residual=True)))
+SHARE_LIMIT = 1.05  # a roofline share above it means a wrong count of bytes or FLOPs
+
+
+def _medians(per: dict) -> dict:
+    return {k: statistics.median(v) for k, v in per.items()}
+
+
+def phase14_gemm(torch, dev, name, M, K, N, ep_kw, dtype_name, seed):
+    """One projection on kernel 1 (with its epilogue) and kernel 2 (the bare
+    GEMM, as the baseline serving path runs it): the priced plans, executed
+    bytes, times, shares of the roofline bound and the paper's A/B."""
+    from repro_torch.core import tiling
+    from repro_torch.core.transfer_model import HopperGemmTiling
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import mx_matmul as mm
+    from repro_torch.kernels.baseline_matmul import baseline_matmul
+    from repro_torch.kernels.quant import launch_gemm_bytes
+    from repro_torch.kernels.ref import baseline_matmul_ref
+
+    dt = getattr(torch, dtype_name)
+    ep = mm.Epilogue(**ep_kw)
+    gated = ep.has_gate
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def make():
+        a = torch.randn((M, K), generator=g, device=dev).to(dt)
+        b = (torch.randn((K, N), generator=g, device=dev) / math.sqrt(K)).to(dt)
+        bg = (torch.randn((K, N), generator=g, device=dev) / math.sqrt(K)).to(dt) if gated else None
+        r = torch.randn((M, N), generator=g, device=dev).to(dt) if ep.residual else None
+        return a, b, bg, r
+
+    el = dt.itemsize
+    mats = 2 if gated else 1
+    path_bytes = el * (M * K + mats * K * N + M * N * (2 if ep.residual else 1))
+    path_flops = 2 * M * N * K * mats
+    bare_bytes, bare_flops = el * (M * K + K * N + M * N), 2 * M * N * K
+    sets = [make() for _ in range(_copies(path_bytes))]
+    a, b, bg, r = sets[0]
+    path = lambda a_, b_, bg_, r_: mm.mx_matmul_fused(a_, b_, epilogue=ep, b_gate=bg_,  # noqa: E731
+                                                      residual=r_)
+    bare = lambda a_, b_, bg_, r_: mm.mx_matmul_fused(a_, b_)  # noqa: E731
+    base = lambda a_, b_, bg_, r_: baseline_matmul(a_, b_)  # noqa: E731
+    errs = {
+        "kernel 1": _err(torch, path(a, b, bg, r),
+                         mm.mx_matmul_fused_plain(a, b, epilogue=ep, b_gate=bg, residual=r),
+                         dtype_name),
+        "kernel 2": _err(torch, base(a, b, bg, r),
+                         baseline_matmul_ref(a, b, tiling.BASELINE_BK, dt), dtype_name)}
+    fns = {"kernel 1": (path, sets), "kernel 2": (base, sets)}
+    if ep_kw:
+        fns["kernel 1 bare"] = (bare, sets)
+    ms = _medians(_time_ms(torch, fns)["windows_ms"])
+    ms.setdefault("kernel 1 bare", ms["kernel 1"])
+    ops_ = int(ep.residual) + int(ep.activation != "none")
+    plan1 = tiling.plan_matmul_tiles(M, N, K, dt, dt, gated=gated, fused_epilogue_ops=ops_)
+    bare1 = tiling.plan_matmul_tiles(M, N, K, dt, dt)
+    plan2 = tiling.plan_matmul_tiles(M, N, K, dt, dt, "baseline")
+    t = bare1.tiling  # the paper's A/B at kernel 1's launched tile, bk = 128 round trips
+    unbuffered = HopperGemmTiling(t.bm, t.bn, tiling.BASELINE_BK,
+                                  accumulate_in_registers=False, route=t.route,
+                                  stages=t.stages, ring_bk=t.bk).hbm_bytes(bare1.problem)
+    b1, by1 = _bound_ms(path_bytes, path_flops, dtype_name)
+    b2, by2 = _bound_ms(bare_bytes, bare_flops, dtype_name)
+    rec = dict(
+        name=name, M=M, K=K, N=N, dtype=dtype_name, epilogue=ep_kw,
+        plan_kernel1={k: getattr(plan1, k) for k in (
+            "route", "bm", "bn", "bk", "stages", "split", "parts", "ctas", "smem_bytes",
+            "acc_bytes", "hbm_bytes", "epilogue_saved_bytes")},
+        plan_kernel2={k: getattr(plan2, k) for k in (
+            "route", "bm", "bn", "bk", "stages", "split", "parts", "ctas", "smem_bytes",
+            "acc_bytes", "hbm_bytes")},
+        executed_bytes_kernel1=launch_gemm_bytes(a, b, b_gate=bg),
+        executed_bytes_kernel2=launch_gemm_bytes(a, b, variant="baseline"),
+        flops_kernel1=path_flops, flops_kernel2=bare_flops,
+        bytes_kernel1=path_bytes, bytes_kernel2=bare_bytes, ms=ms,
+        bound_ms_kernel1=b1, bound_by_kernel1=by1, bound_ms_kernel2=b2, bound_by_kernel2=by2,
+        share_kernel1=b1 / ms["kernel 1"], share_kernel2=b2 / ms["kernel 2"],
+        model_mx_bytes=bare1.hbm_bytes, model_baseline_bytes=unbuffered,
+        model_ratio=unbuffered / bare1.hbm_bytes,
+        time_ratio=ms["kernel 2"] / ms["kernel 1 bare"],
+        err={k: dict(err=e, tol=tol) for k, (e, tol) in errs.items()})
+    rec["ok"] = (max(plan1.smem_bytes, plan2.smem_bytes) <= _build.SMEM_PER_CTA
+                 and max(rec["share_kernel1"], rec["share_kernel2"]) <= SHARE_LIMIT
+                 and rec["model_mx_bytes"] < rec["model_baseline_bytes"]
+                 and all(e <= tol for e, tol in errs.values()))
+    return rec
+
+
+def phase14_decode(torch, dev):
+    """14c: mx_flash_decode at phase 3's shape against the transfer model's
+    paged step (`PagedKVDecode.paged_step_bytes` through
+    `kv_decode_memory_s`), beside phase 3's own bound."""
+    from repro_torch.core.roofline import kv_decode_memory_s
+    from repro_torch.core.transfer_model import PagedKVDecode
+    from repro_torch.kernels.mx_flash_decode import mx_flash_decode
+
+    B, H, Hkv, d, ps = 8, 32, 8, 64, 16
+    lengths = (128, 160, 0, 97, 143, 1, 129, 150)  # phase 3's
+    sets, table, lns, W, nbytes = _attn_inputs(torch, dev, B, H, Hkv, d, ps, lengths,
+                                                "float32", 100, False, "same")
+    ms = _time_ms(torch, {"ms": (lambda q_, k_, v_, kw_: mx_flash_decode(
+        q_, k_, v_, table, lns, **kw_), sets)})["ms"]
+    model = PagedKVDecode(batch_slots=B, max_len=W * ps, page_size=ps, n_kv_heads=Hkv,
+                          head_dim=d, kv_bytes=4)
+    step_bytes = model.paged_step_bytes(lengths)
+    model_ms = kv_decode_memory_s(step_bytes) * 1e3
+    phase3_ms, by = _bound_ms(nbytes, 4 * sum(lengths) * H * d, "float32")
+    live = sum(lengths)
+    resident = sum(-(-ln // ps) * ps for ln in lengths if ln)
+    active = sum(1 for ln in lengths if ln)
+    q_out = 2 * 4 * B * H * d
+    rec = dict(B=B, H=H, Hkv=Hkv, d=d, page_size=ps, lengths=list(lengths), ms=ms,
+               model_bytes=step_bytes, model_bound_ms=model_ms, phase3_bytes=nbytes,
+               phase3_bound_ms=phase3_ms, phase3_bound_by=by,
+               bytes_difference=step_bytes - nbytes,
+               whole_page_rows=(resident - live) * model.row_bytes,
+               new_row_writes=active * model.row_bytes, q_and_output=q_out,
+               table_and_lengths=nbytes - q_out - 2 * 4 * live * Hkv * d,
+               share=model_ms / ms)
+    rec["ok"] = rec["share"] <= SHARE_LIMIT and (
+        rec["bytes_difference"] == rec["whole_page_rows"] + rec["new_row_writes"]
+        - rec["q_and_output"] - rec["table_and_lengths"])
+    return rec
+
+
+def phase14(torch, dev):
+    """The paper's analytics at llama3.2-1b's full width, read against
+    kernels 1 and 2 and the paged attention (see the module docstring)."""
+    from repro_torch import kernels
+
+    t0 = time.perf_counter()
+    kernels.reset_launch_counts()
+    rows, seed = [], 1400
+    for dtype_name in ("float32", "bfloat16"):
+        for M in (8, 64):
+            for name, K, N, ep_kw in LLAMA_PROJECTIONS:
+                seed += 1
+                rows.append(phase14_gemm(torch, dev, name, M, K, N, ep_kw, dtype_name, seed))
+    print("    14a/14b  proj            M  dtype     kernel-1 plan (route bm x bn x bk, "
+          "stages, split, parts, smem, acc)   exec bytes   GFLOP    ms      share | kernel 2 "
+          "ms  share | model bytes MX / no inter-k buffering = ratio | time k2 / k1")
+    for c in rows:
+        p1 = c["plan_kernel1"]
+        print(f"    {c['name']:16s} {c['M']:3d} {c['dtype']:9s} {p1['route']:6s} "
+              f"{p1['bm']} x {p1['bn']} x {p1['bk']}, {p1['stages']}, {p1['split']}, "
+              f"{p1['parts']}, {p1['smem_bytes']}, {p1['acc_bytes']}  "
+              f"{c['executed_bytes_kernel1']:11d} {c['flops_kernel1'] / 1e9:7.3f} "
+              f"{c['ms']['kernel 1']:.4f} {c['share_kernel1']:.3f} ({c['bound_by_kernel1'][0]}) | "
+              f"{c['ms']['kernel 2']:.4f} {c['share_kernel2']:.3f} | {c['model_mx_bytes']} / "
+              f"{c['model_baseline_bytes']} = {c['model_ratio']:.3f} | {c['time_ratio']:.3f}"
+              f"{'' if c['ok'] else '  FAIL'}")
+    dec = phase14_decode(torch, dev)
+    launches = kernels.launch_counts()
+    tiles = dict(decode=kernels.decode_launch_counts(), prefill=kernels.prefill_launch_counts())
+    print(f"    14c mx_flash_decode B=8 H=32 Hkv=8 d=64, lengths to 160, f32 pages: "
+          f"{dec['ms']:.4f} ms; PagedKVDecode.paged_step_bytes {dec['model_bytes']} B -> "
+          f"kv_decode_memory_s {dec['model_bound_ms']:.5f} ms (share {dec['share']:.3f}); "
+          f"phase 3's bound {dec['phase3_bound_ms']:.5f} ms ({dec['phase3_bytes']} B); the "
+          f"model {dec['bytes_difference']:+d} B: whole pages +{dec['whole_page_rows']}, the "
+          f"new rows' writes +{dec['new_row_writes']}, no q / output -{dec['q_and_output']}, "
+          f"no table / lengths -{dec['table_and_lengths']}{'' if dec['ok'] else '  FAIL'}")
+    seconds = time.perf_counter() - t0
+    print(f"    phase 14: {len(rows)} projections, launches kernel 1 "
+          f"{launches['mx_matmul_fused']} (decode tile {tiles['decode']['mx_matmul_fused']}, "
+          f"prefill tile {tiles['prefill']['mx_matmul_fused']}), kernel 2 "
+          f"{launches['baseline_matmul']}, mx_flash_decode {launches['mx_flash_decode']}; "
+          f"{seconds:.1f} s")
+    bad = [c for c in rows if not c["ok"]] + ([dec] if not dec["ok"] else [])
+    if bad or not all(launches[k] for k in ("mx_matmul_fused", "baseline_matmul",
+                                            "mx_flash_decode")):
+        raise AssertionError(f"phase 14 failed: {bad or launches}")
+    return dict(gemms=rows, decode=dec, launches=launches, tile_launches=tiles,
+                seconds=seconds)
 
 
 def main() -> int:
@@ -4761,6 +4994,9 @@ def main() -> int:
     print("[3a] the ABFT kernels: clean bitwise, faults flagged, flag maps = plain, "
           "recovery bitwise")
     abft_checks_ = abft_checks(torch, dev)
+    print("[14] the paper's analytics read against kernels 1 and 2, llama3.2-1b's projections "
+          "(core/tiling, core/transfer_model, core/roofline, kernels/quant)")
+    p14 = phase14(torch, dev)
 
     # zamba2 serves first: its times come before any profiler session
     zamba2, zmodel, zparams = zamba2_phase(torch, dev)
@@ -4969,7 +5205,7 @@ def main() -> int:
         grouped_sass=grouped_sass,
         attention_sass=attn_sass, ssd_sass=ssd_sass,
         **llama, grok=grok, zamba2=zamba2, families=families, phase11=p11, phase12=p12,
-        phase13=p13,
+        phase13=p13, phase14=p14,
         kernels=summary),
         indent=1,
         default=str))

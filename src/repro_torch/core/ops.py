@@ -19,10 +19,13 @@ wrappers themselves run their plain versions on CPU tensors, so
 "cuda_mx" / "cuda_baseline" on the CPU exercise this dispatch without a
 card.
 
-The TPU tile planner (`repro/core/tiling.py`, VMEM and MXU constants) is
-not ported: the CUDA kernels use fixed Hopper tiles chosen by M (by the
-mean rows per group for the grouped GEMM), and the baseline runs at its
-default read-modify-write chunk (bk = 128, the JAX default).
+The CUDA kernels take their tiles from `kernels/_build.py`, the one tile
+rule (by M; by the mean rows per group for the grouped GEMM), and the
+baseline runs at its default read-modify-write chunk (bk = 128, the JAX
+default).  JAX's tile planner (`repro/core/tiling.py`, a search under its
+VMEM budget) becomes the pricer `core/tiling.plan_matmul_tiles`, which
+re-derives no choice: it prices the tile a launch takes (shared memory,
+register accumulator, HBM bytes).
 
 `grouped_matmul` (the MoE expert GEMMs) runs the plain
 `grouped_matmul_ref` on "torch" and the MX grouped kernel on both CUDA

@@ -138,6 +138,22 @@ __device__ __forceinline__ void mma_tf32_zero(float (&d)[4], const unsigned (&a)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]), "f"(0.0f));
 }
 
+// d += a b in 3xTF32 for one k8 step (a = ah + al, b = bh + bl): lo*hi,
+// hi*lo and hi*hi summed by the tensor cores from zero, then added to d with
+// rounding FADDs.  The MMAs' own f32 accumulation truncates, so a running
+// sum kept in it loses bits at every step (csrc/prefill_tile.cuh
+// pf_3xtf32, tools/accumulation_witness.py).
+__device__ __forceinline__ void mma_3xtf32(float (&d)[4], const unsigned (&ah)[4],
+                                           const unsigned (&al)[4], const unsigned (&bh)[2],
+                                           const unsigned (&bl)[2]) {
+  float t[4];
+  mma_tf32_zero(t, al, bh);
+  mma_tf32(t, ah, bl);
+  mma_tf32(t, ah, bh);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) d[i] += t[i];
+}
+
 __device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4],
                                          const unsigned (&b)[2]) {
   asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, "

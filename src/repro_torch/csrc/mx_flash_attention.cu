@@ -26,7 +26,9 @@
 //     are exact in f32, so S is JAX's f32 score up to summation order);
 //     f32 as 3xTF32 (each operand split into a TF32 high part and its TF32
 //     remainder, lo*hi + hi*lo + hi*hi), about f32's accuracy, the route the
-//     prefill tile proved (csrc/prefill_tile.cuh);
+//     prefill tile proved (csrc/prefill_tile.cuh); each k8 step's three
+//     products are summed from zero and added to S or the output tile with
+//     rounding FADDs (mma_3xtf32): the MMAs' own accumulation truncates;
 //   * CTA: NW warps own 16 query rows each (64 or 128 rows); Q is copied
 //     once (bf16: loaded once into A fragments, f32: split per KV tile from
 //     shared memory); K and V tiles of 64 rows come through a ring of
@@ -239,9 +241,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
             unsigned bh[2], bl[2];
             split_tf32(K[8 * jt * SW + kk], bh[0], bl[0]);
             split_tf32(K[8 * jt * SW + kk + 4], bh[1], bl[1]);
-            mma_tf32(s[jt], al, bh);
-            mma_tf32(s[jt], ah, bl);
-            mma_tf32(s[jt], ah, bh);
+            mma_3xtf32(s[jt], ah, al, bh, bl);
           }
         }
       } else {
@@ -329,9 +329,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
             unsigned bh[2], bl[2];
             split_tf32(V[8 * t * SW + 8 * nt], bh[0], bl[0]);
             split_tf32(V[(8 * t + 1) * SW + 8 * nt], bh[1], bl[1]);
-            mma_tf32(acc[nt], al, bh);
-            mma_tf32(acc[nt], ah, bl);
-            mma_tf32(acc[nt], ah, bh);
+            mma_3xtf32(acc[nt], ah, al, bh, bl);
           }
         }
       } else {

@@ -21,7 +21,11 @@ compression (`optim/compression.py`), bitwise JAX's;
 `quantize_int8_stochastic` rounds stochastically with a `torch.Generator`
 (JAX's draws come from its threefry key, which torch does not reproduce:
 the payloads are unbiased and pure in the generator's seed, not JAX's).
-`executed_gemm_bytes` (analytics) comes with ROADMAP queue 1 item 9.
+`executed_gemm_bytes` derives the as-executed HBM bytes of one GEMM launch
+from its concrete operands and tile (padded shapes, real itemsizes, scale
+sidecars, 2:4 metadata), as JAX's does; `launch_gemm_bytes` applies it at
+the tile `core.tiling.plan_matmul_tiles` prices for the launch, so kernel
+1's and kernel 2's launches each get their own bytes.
 """
 from __future__ import annotations
 
@@ -162,3 +166,91 @@ def quantize_int8_stochastic(x: torch.Tensor, generator: torch.Generator, *, axi
     noise = torch.rand(x.shape, generator=generator, dtype=torch.float32, device=x.device)
     q = torch.clamp(torch.floor(x.float() / scale + noise), -127, 127).to(torch.int8)
     return q, scale
+
+
+# ---------------------------------------------------------------------------
+# as-executed traffic accounting
+# ---------------------------------------------------------------------------
+
+
+def _ceil_div(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _grid(M: int, N: int, K: int, bm: int, bn: int, bk: int):
+    """(nm, nn, Mp, Np, Kp): the tile counts along M and N and the padded
+    extents of a launch (a tile larger than its dimension shrinks to it)."""
+    bm_, bn_, bk_ = min(bm, M), min(bn, N), min(bk, K)
+    nm, nn, nk = _ceil_div(M, bm_), _ceil_div(N, bn_), _ceil_div(K, bk_)
+    return nm, nn, nm * bm_, nn * bn_, nk * bk_
+
+
+def _b_panel(b: torch.Tensor, b_meta: Optional[torch.Tensor], nm: int, Kp: int, Np: int) -> int:
+    """A weight panel's bytes, one pass per M-tile: the dense (Kp, Np) rows,
+    or the 2:4 payload (Kp/2, Np) with its packed metadata (Kp/8, Np)."""
+    if b_meta is None:
+        return nm * Kp * Np * b.dtype.itemsize
+    return nm * (Kp // 2) * Np * b.dtype.itemsize + nm * (Kp // 8) * Np * b_meta.dtype.itemsize
+
+
+def executed_gemm_bytes(a: torch.Tensor, b: torch.Tensor, *, bm: int, bn: int, bk: int,
+                        out_itemsize: int, scales: Tuple[Optional[torch.Tensor], ...] = (),
+                        b_meta: Optional[torch.Tensor] = None) -> int:
+    """HBM bytes one GEMM launch moves, derived from the CONCRETE operands
+    and tile (JAX's function on torch tensors): padded shapes, real payload
+    itemsizes, one A-panel pass per N-tile and one B-panel pass per M-tile,
+    a single M*N write-back, plus the scale sidecars (each scale panel
+    rides with its tile once per revisit).
+
+    With ``b_meta`` (2:4 sparse) ``b`` is the compressed (K/2, N) payload
+    and the metadata panel (K/8, N uint8) streams with the same per-M-tile
+    revisits.  Against `transfer_model.HopperGemmTiling.hbm_bytes`
+    (unpadded problem, payloads only) it differs by the padding and the
+    scale traffic alone."""
+    M, K = a.shape[-2], a.shape[-1]
+    nm, nn, Mp, Np, Kp = _grid(M, b.shape[-1], K, bm, bn, bk)
+    total = (
+        nn * Mp * Kp * a.dtype.itemsize    # A panel re-read per N-tile
+        + _b_panel(b, b_meta, nm, Kp, Np)  # B panel re-read per M-tile
+        + Mp * Np * out_itemsize           # the single write-back
+    )
+    for s in scales:
+        if s is None:
+            continue
+        # a scale panel is (M, 1) or (1, N): revisited once per opposite tile
+        revisits = nn if s.shape[-1] == 1 else nm
+        total += revisits * s.numel() * s.dtype.itemsize
+    return int(total)
+
+
+def launch_gemm_bytes(a: torch.Tensor, b: torch.Tensor, *, variant: str = "dense",
+                      b_gate: Optional[torch.Tensor] = None,
+                      scales: Tuple[Optional[torch.Tensor], ...] = (),
+                      b_meta: Optional[torch.Tensor] = None,
+                      bg_meta: Optional[torch.Tensor] = None,
+                      out_dtype: Optional[torch.dtype] = None) -> int:
+    """`executed_gemm_bytes` of one launch of kernel 1 (`mx_matmul_fused`,
+    variant "dense", "sparse" or "abft") or kernel 2 (`baseline_matmul`,
+    "baseline") on a (M, K) and b (K, N), at the tile
+    `core.tiling.plan_matmul_tiles` prices for it; plus the gate's weight
+    panel (and metadata) of a swiglu launch, and for kernel 2 its output
+    round trips: one read and one write per further `tiling.BASELINE_BK`
+    rows of K.  ``scales``: every f32 scale operand of the launch (a_scale,
+    b_scale, bg_scale); ``out_dtype`` defaults to the launch's (a's, f32
+    for int8 / e4m3 activations)."""
+    from ..core import tiling
+
+    M, K = a.shape
+    N = b.shape[1]
+    if out_dtype is None:
+        out_dtype = a.dtype if a.dtype in (torch.float32, torch.bfloat16) else torch.float32
+    plan = tiling.plan_matmul_tiles(M, N, K, a.dtype, b.dtype, variant,
+                                    gated=b_gate is not None, out_dtype=out_dtype)
+    total = executed_gemm_bytes(a, b, bm=plan.bm, bn=plan.bn, bk=plan.bk,
+                                out_itemsize=out_dtype.itemsize, scales=scales, b_meta=b_meta)
+    nm, _, Mp, Np, Kp = _grid(M, N, K, plan.bm, plan.bn, plan.bk)
+    if b_gate is not None:
+        total += _b_panel(b_gate, bg_meta, nm, Kp, Np)
+    if variant == "baseline":
+        total += 2 * (_ceil_div(K, tiling.BASELINE_BK) - 1) * Mp * Np * out_dtype.itemsize
+    return int(total)

@@ -20,14 +20,17 @@ prefill rows (M = 40: a verify step, 64: a prefill chunk, 256, 2048:
 zamba2's forward), f32 and bf16: the MX GEMM at the down projection
 (K = 8192, N = 2048, + residual) beside `torch.addmm`, and the MX and
 baseline GEMMs at the paper's A/B shape (K = 2048, N = 8192) beside
-`torch.matmul`, each with its bound (`bounds_ms`: the larger of its bytes
-at 3.35 TB/s and its operations at the type's peak, 67 TFLOP/s f32 off the
-tensor cores, 989 bf16).  The ptxas lines (registers, spills) of the GEMM
+`torch.matmul`, each with its bound (`bounds_ms`: `core/roofline.bound_ms`,
+the larger of its bytes at 3.35 TB/s and its operations at the type's
+peak, 67 TFLOP/s f32 off the tensor cores, 989 bf16; read from this file's
+own tree, since under --src the other checkout may predate it).  The
+ptxas lines (registers, spills) of the GEMM
 sources come with them.
 """
 from __future__ import annotations
 
 import argparse
+import importlib.util
 import json
 import os
 import statistics
@@ -62,12 +65,25 @@ def _timeit(torch, fn, windows=5, iters=10):
     return statistics.median(per)
 
 
+def _bound_ms():
+    """`bound_ms` of this file's own `core/roofline.py` (a module of the
+    standard library alone), loaded by path."""
+    path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "core",
+                        "roofline.py")
+    spec = importlib.util.spec_from_file_location("_gemm_times_roofline", path)
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = mod  # its dataclasses look their module up
+    spec.loader.exec_module(mod)
+    return mod.bound_ms
+
+
 def measure() -> dict:
     """The times of the dense kernels of the `repro_torch` on sys.path
     (absolute imports: under --src, the other checkout's)."""
     import torch
 
     from repro_torch.core.precision import NAMED_POLICIES
+    bound_ms = _bound_ms()
     from repro_torch.kernels import _build
     from repro_torch.kernels.baseline_matmul import baseline_matmul
     from repro_torch.kernels.mx_grouped_matmul import mx_grouped_matmul
@@ -162,8 +178,7 @@ def measure() -> dict:
                     ms[f"{key} torch.matmul"] = cycled(
                         make, lambda a, b, r: torch.matmul(a, b))
                 nbytes = e * (M * K + K * N + M * N * (2 if res else 1))
-                peak = 67e12 if dt == torch.float32 else 989e12
-                bounds[key] = max(nbytes / 3.35e12, 2 * M * N * K / peak) * 1e3
+                bounds[key] = bound_ms(nbytes, 2 * M * N * K, str(dt).removeprefix("torch."))[0]
     for pol in ("int8", "int8_all", "fp8"):  # the quantized pairs at the decode down
         P = NAMED_POLICIES[pol]
         e = Epilogue(residual=True, a_scale=P.a.quantized, b_scale=P.b.quantized)

@@ -23,7 +23,9 @@ bf16 x int8 / fp8; M > 16, csrc/prefill_tile.cuh) at M = 17, 40, 64, 65,
 256 and 2048 with ragged and misaligned K / N, its 2:4 and ABFT variants
 bitwise the dense kernel, ABFT recovery bitwise, and the baseline on it; in
 f32 at xlstm-125m's M = 2048 projections also no more than twice as far
-from the f64 product as cuBLAS f32.
+from the f64 product as cuBLAS f32, and the f32 attention at zamba2's and
+internvl2's shapes no more than twice as far from the softmax in f64 as
+its plain version.
 `ssd_scan` and `mx_flash_attention` (f32
 within 1e-4 * max|ref|, bf16 within 2e-2 * max|ref|) against
 `ssd_scan_plain` / the sequential oracle and `flash_attention_plain`; the
@@ -888,6 +890,31 @@ def test_prefill_tile_f32_as_close_to_f64_as_cublas(cuda, K, N, gated):
     exact = torch.matmul(a.double(), b.double())
     if gated:
         exact = torch.nn.functional.silu(torch.matmul(a.double(), bg.double())) * exact
+    torch.cuda.synchronize()
+    err = (got.double() - exact).abs().max().item()
+    ref = (plain.double() - exact).abs().max().item()
+    assert err <= 2 * ref, (err, ref)
+
+
+@pytest.mark.parametrize("B,L,H,Hkv,d", [(8, 512, 32, 32, 80),  # zamba2's shared block
+                                         (2, 1088, 48, 8, 128)])  # internvl2's forward
+def test_flash_attention_f32_as_close_to_f64_as_plain(cuda, B, L, H, Hkv, d):
+    """The f32 attention (3xTF32, each k8 step's products added to S and the
+    output tile with rounding FADDs): its max error to the causal softmax
+    in f64 within twice the plain version's.  Summed in the truncating
+    MMAs it stood 3.3x as far at both shapes
+    (tools/accumulation_witness.py --attention-scan)."""
+    q = _randn((B, L, H, d), torch.float32, cuda, L + d)
+    k = _randn((B, L, Hkv, d), torch.float32, cuda, L + d + 1)
+    v = _randn((B, L, Hkv, d), torch.float32, cuda, L + d + 2)
+    got = mx_flash_attention(q, k, v, causal=True)
+    plain = flash_attention_plain(q, k, v, causal=True)
+    heads = torch.arange(H, device=cuda) // (H // Hkv)
+    kd, vd = (t.double()[:, :, heads].transpose(1, 2) for t in (k, v))
+    s = torch.matmul(q.double().transpose(1, 2), kd.transpose(-1, -2)) / d ** 0.5
+    mask = torch.ones((L, L), dtype=torch.bool, device=cuda).tril()
+    exact = torch.matmul(torch.softmax(s.masked_fill(~mask, float("-inf")), dim=-1),
+                         vd).transpose(1, 2)
     torch.cuda.synchronize()
     err = (got.double() - exact).abs().max().item()
     ref = (plain.double() - exact).abs().max().item()

@@ -33,7 +33,9 @@ def test_port_imports_no_jax_and_no_reference_package():
             "repro_torch.optim.compression", "repro_torch.data.pipeline",
             "repro_torch.checkpoint.manager", "repro_torch.runtime.fault",
             "repro_torch.runtime.elastic", "repro_torch.launch.train",
-            "repro_torch.core.tree"} <= set(mods)
+            "repro_torch.core.tree", "repro_torch.core.paper_data",
+            "repro_torch.core.energy", "repro_torch.core.roofline",
+            "repro_torch.core.tiling"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"sys.path[:0] = [{str(ROOT / 'src')!r}, {str(ROOT)!r}]\n"
@@ -47,6 +49,24 @@ def test_port_imports_no_jax_and_no_reference_package():
                          timeout=120, cwd=ROOT)
     assert out.returncode == 0, out.stderr
     assert out.stdout.startswith("ok")
+
+
+def test_xla_specific_analytics_are_deliberately_absent():
+    """JAX's HLO census, dry run and cell specs read XLA's HLO text and
+    ShapeDtypeStruct specs, `parse_collective_bytes` reads HLO text and
+    `tpu_step_energy_j` prices a TPU step: none has a counterpart, and the
+    docstrings say so."""
+    from repro_torch import core
+    from repro_torch.core import energy, roofline
+
+    for name in ("hlo_census", "dryrun", "specs"):
+        assert not any(m.name.endswith(f".{name}") for m in pkgutil.walk_packages(
+            repro_torch.__path__, "repro_torch."))
+        assert name in core.__doc__
+    assert not hasattr(roofline, "parse_collective_bytes")
+    assert "parse_collective_bytes" in roofline.__doc__
+    assert not hasattr(energy, "tpu_step_energy_j")
+    assert "tpu_step_energy_j" in energy.__doc__
 
 
 def test_serve_refuses_to_fall_back_to_the_cpu(monkeypatch):

@@ -16,10 +16,23 @@ accumulation.  Then xlstm-125m at full width (weights from seed 0) on 4 x
 GEMMs in f64) for the kernel path, the plain path, the plain path with
 each GEMM's K summed in two halves, and the plain path with emul3 GEMMs.
 `--cpu` runs the xLSTM part at smoke size on the host (no kernel).
+
+    PYTHONPATH=src python tools/accumulation_witness.py --attention-scan [--parent <checkout>]
+
+runs instead the f32 `mx_flash_attention` (zamba2-2.7b's shared block, B=8
+H=32 d=80 L=512 causal; internvl2-26b's B=2 H=48 Hkv=8 d=128 L=1088 causal)
+and `ssd_scan` (zamba2's 8 x 80 heads, P = S = 64, L = 512, chunk 128) on
+inputs drawn as `chip_smoke.py` phase 3 draws them, each against an f64
+reference (the softmax over whole rows; the scan's recurrence one position
+at a time): the kernel's, the plain version's and, with `--parent`, the
+parent checkout's kernel's distance, and their times (`chip_smoke._time_ms`:
+CUDA events behind a spin, operand sets past L2).
 """
 from __future__ import annotations
 
 import contextlib
+import ctypes
+import json
 import math
 import subprocess
 import sys
@@ -137,6 +150,153 @@ def forward(torch, dev, name, B, L):
               f"{(v - out['plain']).abs().max().item():.3e}", flush=True)
 
 
+ATTENTION_SHAPES = (("zamba2 shared block", 8, 512, 32, 32, 80),
+                    ("internvl2 forward", 2, 1088, 48, 8, 128))  # (B, L, H, Hkv, d), causal
+SCAN_SHAPE = ("zamba2 L=512", 8, 512, 80, 1, 64, 64, 128)  # (B, L, H, G, P, S, chunk)
+
+
+def attention_f64(torch, q, k, v):
+    """Causal softmax attention in f64 over whole rows: q (B, L, H, d), k
+    and v (B, L, Hkv, d), query head h reading kv head h // (H / Hkv)."""
+    B, L, H, d = q.shape
+    heads = torch.arange(H, device=q.device) // (H // k.shape[2])
+    qd = q.double().transpose(1, 2)
+    kd, vd = (t.double()[:, :, heads].transpose(1, 2) for t in (k, v))
+    s = torch.matmul(qd, kd.transpose(-1, -2)) / math.sqrt(d)
+    mask = torch.ones((L, L), dtype=torch.bool, device=q.device).tril()
+    p = torch.softmax(s.masked_fill(~mask, float("-inf")), dim=-1)
+    return torch.matmul(p, vd).transpose(1, 2)
+
+
+def ssd_f64(torch, x, a_log, b, c):
+    """The SSD recurrence in f64, one position at a time: h_t = exp(a_t)
+    h_{t-1} + b_t^T x_t, y_t = c_t h_t (head h reads group h // (H / G))."""
+    B, L, H, P = x.shape
+    heads = torch.arange(H, device=x.device) // (H // b.shape[2])
+    xd, ad = x.double(), a_log.double()
+    bd, cd = (t.double()[:, :, heads] for t in (b, c))
+    h = torch.zeros((B, H, bd.shape[-1], P), dtype=torch.float64, device=x.device)
+    y = torch.empty(x.shape, dtype=torch.float64, device=x.device)
+    for t in range(L):
+        h = torch.exp(ad[:, t])[..., None, None] * h + bd[:, t, :, :, None] * xd[:, t, :, None]
+        y[:, t] = torch.einsum("bhs,bhsp->bhp", cd[:, t], h)
+    return y
+
+
+def _parent_launchers(parent: Path) -> dict:
+    """The parent checkout's attention and scan launchers, both nvcc started
+    together with the package's own flags."""
+    import importlib
+
+    from repro_torch.kernels import _build
+
+    out = ROOT / "build" / "witness_parent"
+    out.mkdir(parents=True, exist_ok=True)
+    pc = parent / "src" / "repro_torch" / "csrc"
+    procs = {name: subprocess.Popen(
+        [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(pc), "-o", str(out / f"{name}.so"),
+         str(pc / f"{name}.cu")], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for name in ("mx_flash_attention", "ssd_scan")}
+    fns = {}
+    for name, proc in procs.items():
+        argtypes = importlib.import_module(f"repro_torch.kernels.{name}")._ARGTYPES
+        text = proc.communicate()[0]
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed for the parent's {name}:\n{text[-3000:]}")
+        fn = getattr(ctypes.CDLL(str(out / f"{name}.so")), f"{name}_launch")
+        fn.argtypes, fn.restype = list(argtypes), ctypes.c_int
+        fns[name] = fn
+    return fns
+
+
+def _dist(torch, got, ref):
+    d = got.double() - ref
+    return dict(max=d.abs().max().item(),
+                relrms=(d.pow(2).mean().sqrt() / ref.pow(2).mean().sqrt()).item())
+
+
+def _witness(torch, cs, what, fns, inputs, exact):
+    """Distances to `exact` of each function of `fns` on one input set and
+    their times over copies past L2 ("library_ms" is the parent's kernel);
+    one JSON line and one plain line."""
+    args = inputs()
+    ref = exact(*args)
+    names = {"ms": "kernel", "plain_ms": "plain", "library_ms": "parent kernel"}
+    dist = {names[k]: _dist(torch, fn(*args), ref) for k, fn in fns.items()}
+    torch.cuda.synchronize()
+    del ref
+    nbytes = sum(t.numel() * t.element_size() for t in args) * 2
+    sets = [args] + [inputs() for _ in range(cs._copies(nbytes) - 1)]
+    t = cs._time_ms(torch, {k: (fn, sets) for k, fn in fns.items()})
+    times = {names[k]: t[k] for k in fns}
+    ratio = dist["kernel"]["max"] / dist["plain"]["max"]
+    print(json.dumps(dict(what=what, distance_to_f64=dist, kernel_over_plain=ratio, ms=times,
+                          windows_ms={names[k]: t["windows_ms"][k] for k in fns})), flush=True)
+    print(f"{what}: to f64 max " + ", ".join(f"{n} {v['max']:.3e} (relrms {v['relrms']:.2e})"
+                                             for n, v in dist.items())
+          + f"; kernel / plain {ratio:.2f}; ms "
+          + ", ".join(f"{n} {v:.4f}" for n, v in times.items()), flush=True)
+
+
+def attention_scan(torch, dev, parent):
+    """The f32 attention's and scan's distances to f64 beside the plain
+    versions' (and the parent checkout's kernels'), with their times."""
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke as cs
+    import importlib
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.ref import flash_attention_plain, ssd_scan_plain
+    fa = importlib.import_module("repro_torch.kernels.mx_flash_attention")
+    from repro_torch.kernels.ssd_scan import ssd_scan
+
+    old = _parent_launchers(parent) if parent is not None else {}
+    for label, B, L, H, Hkv, d in ATTENTION_SHAPES:
+        g = torch.Generator(device=dev).manual_seed(L + d)
+
+        def inputs():
+            return tuple(torch.randn((B, L, h, d), generator=g, device=dev)
+                         for h in (H, Hkv, Hkv))
+
+        def parent_attention(q, k, v):
+            out = torch.empty_like(q)
+            _build.check(old["mx_flash_attention"](
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, L, L, H, Hkv, d,
+                1, 0, 1.0 / math.sqrt(d), *fa.TILES[torch.float32], _build.stream_ptr(q)),
+                "mx_flash_attention", "the parent's attention")
+            return out
+
+        fns = {"ms": lambda q, k, v: fa.mx_flash_attention(q, k, v, causal=True),
+               "plain_ms": lambda q, k, v: flash_attention_plain(q, k, v, causal=True)}
+        if old:
+            fns["library_ms"] = parent_attention
+        _witness(torch, cs, f"mx_flash_attention {label} B={B} L={L} H={H} Hkv={Hkv} d={d}",
+                 fns, inputs, lambda q, k, v: attention_f64(torch, q, k, v))
+    label, B, L, H, G, P, S, chunk = SCAN_SHAPE
+    g = torch.Generator(device=dev).manual_seed(1)
+
+    def scan_inputs():
+        return (torch.randn((B, L, H, P), generator=g, device=dev),
+                -torch.rand((B, L, H), generator=g, device=dev) * 0.3,
+                torch.randn((B, L, G, S), generator=g, device=dev) * 0.3,
+                torch.randn((B, L, G, S), generator=g, device=dev) * 0.3)
+
+    def parent_scan(x, a, b, c):
+        y = torch.empty_like(x)
+        _build.check(old["ssd_scan"](
+            x.data_ptr(), a.data_ptr(), b.data_ptr(), c.data_ptr(), y.data_ptr(), B, L, H, G,
+            P, S, chunk, 0, _build.ssd_tile(chunk, P, S, torch.float32).stages,
+            _build.stream_ptr(x)), "ssd_scan", "the parent's scan")
+        return y
+
+    fns = {"ms": lambda *a: ssd_scan(*a, chunk=chunk),
+           "plain_ms": lambda *a: ssd_scan_plain(*a, chunk)}
+    if old:
+        fns["library_ms"] = parent_scan
+    _witness(torch, cs, f"ssd_scan {label} B={B} H={H} P={P} S={S} chunk={chunk}", fns,
+             scan_inputs, lambda *a: ssd_f64(torch, *a))
+
+
 def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     import torch
@@ -151,8 +311,15 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip())
-    _build.build_all(names=("mx_matmul",))
     dev = torch.device("cuda")
+    if "--attention-scan" in sys.argv:
+        parent = Path(sys.argv[sys.argv.index("--parent") + 1]) if "--parent" in sys.argv else None
+        _build.build_all(names=("mx_flash_attention", "ssd_scan"))
+        for name in ("mx_flash_attention", "ssd_scan"):
+            print(_build.ptxas_report(name)[-2000:], flush=True)
+        attention_scan(torch, dev, parent)
+        return 0
+    _build.build_all(names=("mx_matmul",))
     gemms(torch, dev)
     forward(torch, dev, "xlstm-125m", 4, 512)
     return 0

@@ -134,7 +134,7 @@ def paged(torch, chip_smoke, parent, label, lengths, dtype_name, S=None):
         fns["parent"] = (old, sets)
     ms = medians(torch, chip_smoke, fns)
     return dict(label=label, S=S, dtype=dtype_name, lengths=list(lengths), W=W,
-                bytes=nbytes, bound_ms=nbytes / chip_smoke.HBM_BYTES_PER_S * 1e3,
+                bytes=nbytes, bound_ms=chip_smoke._bound_ms(nbytes, 0, dtype_name)[0],
                 table=base._asdict(), err=err, ms=ms)
 
 
