@@ -11,8 +11,11 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      registers and spills; requires the baseline library's SASS to hold its
      output round trip (ld/st.global.cg) and the MX library's none, and
      every prefill-tile kernel (csrc/prefill_tile.cuh) to hold tensor-core
-     instructions (HMMA) and, outside ABFT, at most PREFILL_MAX_FFMA FFMAs
-     (printed on a line before the last), every mx_flash_attention
+     instructions (HMMA, IMMA, QMMA and their wgmma forms) and, outside
+     ABFT, at most PREFILL_MAX_FFMA FFMAs (printed on a line before the
+     last), every instantiation on int8 x int8 an 8-bit tensor-core
+     product (IMMA; e4m3 x e4m3 runs f16 HMMAs of its exactly widened
+     operands, sm_90 having no e4m3 mma.sync), every mx_flash_attention
      kernel and both ssd_scan kernels to hold HMMA, and every
      instantiation of the grouped GEMM's
      "mma" route (csrc/grouped_mma.cuh; dense, 2:4 and ABFT libraries) to
@@ -91,15 +94,20 @@ The quantized path (stages 1b and 5b of the GEMMs, fp8 KV pages):
       "fp8", (int8, int8) "int8_all", (fp8, fp8) "fp8_all" -- through both
       GEMMs at llama's decode and 64-row chunk widths and grok's expert
       widths, with the policies' own scales, against the plain versions
-      within 1e-4 * max|ref| ("int8_all" with scales only bitwise); flash
-      decode and verify over fp8 pages as over int8 pages.  The bound
-      counts payloads at their own bytes plus f32 scales; the library
-      yardstick is torch._int_mm (int8 x int8) or torch._scaled_mm with
-      row-wise scales (fp8 x fp8), where their shape rules allow;
+      within 1e-4 * max|ref| ("int8_all" with scales only bitwise; "fp8_all"
+      with scales only also no more than twice as far from the f64 product
+      as the plain version), each row at M > 16 printed with its route,
+      tile and split; flash decode and verify over fp8 pages as over int8
+      pages.  The bound counts payloads at their own bytes plus f32 scales;
+      the library yardstick is torch._int_mm (int8 x int8) or
+      torch._scaled_mm with row-wise scales (fp8 x fp8), and for grok's bare
+      fp8 expert GEMMs torch._scaled_grouped_mm (its refusal printed where
+      the card's torch refuses), where their shape rules allow;
   4q. (after phase 4, before any profiler session) llama3.2-1b on the same
       weights under Config.precision "int8" (the phase 4 trace),
       "int8_all" (a shorter pass) and "fp8" with fp8 pages (plain and
-      k = 4 n-gram);
+      k = 4 n-gram), each run's kernel-1 launches printed by route (its
+      prefill chunks on the tensor cores, none on gemm_tile.cuh's chain);
   5q. (after phase 5) each held against the plain path on one cache
       state: every GEMM call of a prefill chunk and a decode step against
       its plain version at 1e-3 * max|ref|, and the logits at half the
@@ -324,6 +332,7 @@ import itertools
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -482,16 +491,16 @@ def _decode_tile(a, b, b_gate=None):
 
 
 def _prefill_tile(a, b, b_gate=None, variant="dense"):
-    """The tensor-core prefill tile a launch on these operands takes (f32
-    and bf16, M > 16), as a dict, else None."""
+    """The tensor-core prefill tile a launch on these operands takes (every
+    pair, M > 16), as a dict with its route, else None."""
     from repro_torch.kernels import _build
 
-    if a.shape[0] <= _build.DECODE_MAX_M or (a.dtype, b.dtype) not in _build.MMA_PAIRS:
+    if a.shape[0] <= _build.DECODE_MAX_M:
         return None
     t = _build.prefill_tile(a.shape[0], b.shape[1], a.shape[1], a.dtype, b.dtype,
                             b_gate is not None, variant)
-    return dict(bm=t.bm, bn=t.bn, bk=t.bk, stages=t.stages, split=t.split, parts=t.parts,
-                threads=t.threads, smem=t.smem, ctas=t.ctas)
+    return dict(route=t.route, bm=t.bm, bn=t.bn, bk=t.bk, stages=t.stages, split=t.split,
+                parts=t.parts, threads=t.threads, smem=t.smem, ctas=t.ctas)
 
 
 def check_gemm(torch, dev, M, K, N, dtype_name, ep_kw, seed, offset=None, f64=False):
@@ -832,17 +841,28 @@ def check_grouped(torch, dev, label, T, sizes, K, N, dtype_name, act, seed, w=No
     fns = dict(ms=(lambda: mx_grouped_matmul(x, w, gs, w_gate=wg, activation=act), [()]),
                plain_ms=(lambda: grouped_matmul_ref(x, w, gs, w_gate=wg, activation=act),
                          [()]))
-    library = None
+    library, extra = None, {}
     if act == "none" and len(set(sizes)) == 1 and rows == T:
         library = "torch.bmm over (E, C, K) x (E, K, N)"
         xe = x.view(G, T // G, K)
         fns["library_ms"] = (lambda: torch.bmm(xe, w), [()])
+    elif dt == torch.bfloat16 and len(set(sizes)) > 1:  # ragged: one grouped call
+        library = "torch._grouped_mm over the groups' row offsets (x @ w[g] only)"
+        offs = torch.tensor(list(itertools.accumulate(owned)), dtype=torch.int32, device=dev)
+
+        def lib():
+            return torch._grouped_mm(x, w, offs=offs, out_dtype=torch.bfloat16)
+        try:
+            extra["library_err"] = (lib()[:rows].float() - ref[:rows].float()).abs().max().item()
+            fns["library_ms"] = (lib, [()])
+        except Exception as e:  # the card's torch refuses it
+            library = None
+            extra["library_error"] = f"{type(e).__name__}: {str(e)[:160]}"
     copies = label == "grok decode down"
     if copies:  # the weight stream's rate without the MMAs
         fns["copies_ms"] = (_grouped_copies(torch, x, w, gs, torch.empty_like(got)), [()])
     bound, by = _bound_ms(nbytes, 2 * rows * K * N * nmat, dtype_name)
     times = _time_ms(torch, fns, iters=5)
-    extra = {}
     if copies:
         extra["copies_ms"] = statistics.median(times["windows_ms"]["copies_ms"])
         extra["copies_tb_s"] = nbytes / extra["copies_ms"] / 1e9
@@ -901,7 +921,11 @@ def check_quant_gemm(torch, dev, pol, M, K, N, ep_kw, seed):
     bound counts the payloads at their own bytes plus the f32 scales.  The
     library yardstick, where one call's shape rules allow it: torch._int_mm
     (the int32 product, scales left out) for int8 x int8, torch._scaled_mm
-    with row-wise scales (bf16 output) for fp8 x fp8, with its error."""
+    with row-wise scales (bf16 output) for fp8 x fp8, with its error.  An
+    fp8 x fp8 launch of more than 16 rows with scales only also reads its
+    distance, and the plain
+    version's, to the f64 product of the same payloads and scales (relative
+    RMS; the kernel's may be at most twice the plain version's)."""
     from repro_torch.core.precision import NAMED_POLICIES
     from repro_torch.kernels import mx_matmul as mm
     from repro_torch.kernels.quant import quantize_operand
@@ -940,6 +964,13 @@ def check_quant_gemm(torch, dev, pol, M, K, N, ep_kw, seed):
     out = dict(finite=bool(torch.isfinite(got).all()))
     if pol == "int8_all" and not ep_kw:
         out["bitwise"] = bool(torch.equal(got, ref))
+    if pol == "fp8_all" and not ep_kw and M > 16:  # the 8-bit tensor-core tile
+        r64 = (a0.double() * kw0["a_scale"].double()) @ (b0.double() * kw0["b_scale"].double())
+
+        def rel_rms(y):
+            return ((y.double() - r64).pow(2).mean() / r64.pow(2).mean()).sqrt().item()
+        out["f64_err"], out["plain_f64_err"] = rel_rms(got), rel_rms(ref)
+        del r64
     fns = dict(
         ms=(lambda a_, b_, kw_: mm.mx_matmul_fused(a_, b_, epilogue=ep, **kw_), sets),
         plain_ms=(lambda a_, b_, kw_: mm.mx_matmul_fused_plain(a_, b_, epilogue=ep, **kw_),
@@ -973,7 +1004,8 @@ def check_quant_gemm(torch, dev, pol, M, K, N, ep_kw, seed):
     return dict(kernel="mx_matmul_fused", M=M, K=K, N=N, dtype=pol,
                 pair=f"{a0.dtype} x {b0.dtype}", epilogue=ep_kw, max_abs_err=err, tol=tol,
                 **out, **_time_ms(torch, fns), library=library, bound_ms=bound, bound_by=by,
-                tile=_decode_tile(a0, b0, kw0["b_gate"]))
+                tile=_decode_tile(a0, b0, kw0["b_gate"]),
+                prefill_tile=_prefill_tile(a0, b0, kw0["b_gate"]))
 
 
 def check_quant_grouped(torch, dev, pol, label, T, C, K, N, act, seed):
@@ -1018,11 +1050,27 @@ def check_quant_grouped(torch, dev, pol, label, T, C, K, N, act, seed):
               + (4 * T if a_s is not None else 0) + 4 * nmat * G * N)
     fns = dict(ms=(lambda: mx_grouped_matmul(qx, w, gs, **kw), [()]),
                plain_ms=(lambda: grouped_matmul_ref(qx, w, gs, **kw), [()]))
+    library = None
+    if pol == "fp8_all" and act == "none":  # the fp8 grouped GEMM, row-wise scales
+        library = "torch._scaled_grouped_mm, row-wise scales, bf16 output"
+        wt = w.transpose(-2, -1).contiguous().transpose(-2, -1)  # column-major experts
+        offs = torch.cumsum(gs, 0).to(torch.int32)
+        sa, sb = a_s.reshape(-1).contiguous(), b_s.reshape(G, N).contiguous()
+
+        def lib():
+            return torch._scaled_grouped_mm(qx, wt, sa, sb, offs=offs,
+                                            out_dtype=torch.bfloat16)
+        try:
+            out["library_err"] = (lib().float() - ref).abs().max().item()
+            fns["library_ms"] = (lib, [()])
+        except Exception as e:  # the card's torch refuses it
+            library = None
+            out["library_error"] = f"{type(e).__name__}: {str(e)[:160]}"
     bound, by = _bound_ms(nbytes, 2 * T * K * N * nmat, _peak_type(qx, w))
     times = _time_ms(torch, fns, iters=5)
     return dict(kernel="mx_grouped_matmul", label=label, T=T, G=G, K=K, N=N, act=act,
                 dtype=pol, pair=f"{qx.dtype} x {w.dtype}", max_abs_err=err, tol=tol,
-                zero_rows_exact=True, **out, **times, library=None, bound_ms=bound,
+                zero_rows_exact=True, **out, **times, library=library, bound_ms=bound,
                 bound_by=by, tb_s=nbytes / times["ms"] / 1e9,
                 grouped_tile=_grouped_tile(qx, w, wg))
 
@@ -1522,7 +1570,8 @@ def phase_kernels(torch, dev):
                 extra += f" {c['label']} {c['bytes'] / c['ms'] / 1e9:.2f} TB/s"
         if c.get("prefill_tile"):
             t = c["prefill_tile"]
-            extra += (f" [prefill tile {t['bm']}x{t['bn']} bk {t['bk']} stages {t['stages']}"
+            extra += (f" [{t['route']} prefill tile {t['bm']}x{t['bn']} bk {t['bk']} stages "
+                      f"{t['stages']}"
                       f" split {t['split']} parts {t['parts']} smem {t['smem']} ctas "
                       f"{t['ctas']}]")
             if "route_bound_ms" in c:
@@ -2069,6 +2118,13 @@ def llama_quant_serve(torch, dev, cfg, params):
                                 gen=gen, label=label, **kw)
         _print_serve(run)
         _check_launches(label, run)
+        n, dec = run["launches"]["mx_matmul_fused"], run["decode_launches"]["mx_matmul_fused"]
+        mma = run["prefill_tile_launches"]["mx_matmul_fused"]
+        run["fused_by_route"] = dict(decode=dec, mma=mma, simt=n - dec - mma)
+        print(f"      kernel 1 launches by route: {run['fused_by_route']}")
+        if not mma or n - dec - mma:  # prefill chunks on the tensor cores, none on the chain
+            raise AssertionError(f"{label}: kernel 1 off the tensor-core prefill route: "
+                                 f"{run['fused_by_route']}")
         runs[label] = (run, model, batcher)
     return runs
 
@@ -4960,15 +5016,19 @@ def main() -> int:
         raise AssertionError(f"the MX library round-trips its output: {sass}")
     mma_sass = sass_mma_counts(PREFILL_LIBS, "prefill_kernel")
     bad_sass = {k: c for k, c in mma_sass.items() if not c["mma"]
-                or ("abft" not in k and c["ffma"] > PREFILL_MAX_FFMA)}
+                or ("abft" not in k and c["ffma"] > PREFILL_MAX_FFMA)
+                or (byte_pair(k) == "int8" and not c["mma8"])}
     if len(mma_sass) < 4 or bad_sass:
         raise AssertionError(f"prefill kernels off the tensor cores: {bad_sass or mma_sass}")
+    _print_byte_sass("prefill", mma_sass)
     # the grouped GEMM's "mma" route: every instantiation (dense, 2:4, ABFT)
     # holds tensor-core instructions, and outside ABFT no more FFMAs than
     # the prefill kernels
     grouped_sass = sass_mma_counts(GROUPED_LIBS, "grouped_mma_kernel")
     bad_sass = {k: c for k, c in grouped_sass.items() if not c["mma"]
-                or ("abft" not in k and c["ffma"] > PREFILL_MAX_FFMA)}
+                or ("abft" not in k and c["ffma"] > PREFILL_MAX_FFMA)
+                or (byte_pair(k) == "int8" and not c["mma8"])}
+    _print_byte_sass("grouped", grouped_sass)
     print(f"    grouped mma SASS: {len(grouped_sass)} kernels, tensor-core instructions "
           f"{min(c['mma'] for c in grouped_sass.values()) if grouped_sass else 0} or more "
           f"each, FFMAs at most "
@@ -5053,9 +5113,11 @@ def main() -> int:
         ("mx_matmul_fused (bf16 x int8)", "mx_matmul_fused",
          dict(dtype="int8", M=8, K=8192, N=2048, epilogue={}),
          qruns["(d) int8"]["launches"]["mx_matmul_fused"]),
+        # run (e)'s launches split by tile: the decode tile's here, the
+        # prefill tile's under the entry of that tile below
         ("mx_matmul_fused (int8 x int8)", "mx_matmul_fused",
          dict(dtype="int8_all", M=8, K=8192, N=2048),
-         qruns["(e) int8_all"]["launches"]["mx_matmul_fused"]),
+         qruns["(e) int8_all"]["decode_launches"]["mx_matmul_fused"]),
         ("mx_matmul_fused (bf16 x fp8)", "mx_matmul_fused",
          dict(dtype="fp8", M=8, K=8192, N=2048),
          qruns["(f) fp8 + fp8 pages"]["launches"]["mx_matmul_fused"]),
@@ -5088,7 +5150,17 @@ def main() -> int:
         # (its launches in the phase 4 draft-model run)
         ("mx_flash_attention (llama draft)", "mx_flash_attention",
          dict(label="llama draft", dtype="float32"),
-         llama["serve_spec"]["draft-model spec4"]["launches"]["mx_flash_attention"]))
+         llama["serve_spec"]["draft-model spec4"]["launches"]["mx_flash_attention"]),
+        # the 8-bit tensor-core prefill tile: a 64-row chunk's down projection
+        # under "int8_all", its launches those of run (e) on the prefill tile
+        ("mx_matmul_fused (int8 x int8, prefill tile)", "mx_matmul_fused",
+         dict(dtype="int8_all", M=64, K=8192, N=2048, epilogue=dict(residual=True)),
+         qruns["(e) int8_all"]["prefill_tile_launches"]["mx_matmul_fused"]))
+    e = qruns["(e) int8_all"]
+    if (e["decode_launches"]["mx_matmul_fused"] + e["prefill_tile_launches"]["mx_matmul_fused"]
+            != e["launches"]["mx_matmul_fused"]):
+        raise AssertionError(f"run (e)'s kernel 1 launches are not its decode and prefill "
+                             f"tiles' alone: {e['fused_by_route']}")
     for name, kernel, sel, n in variants:
         if n <= 0:
             raise AssertionError(f"{name} was not launched on its serving path")
@@ -5237,12 +5309,29 @@ def sass_rmw_counts():
     return out
 
 
+TENSOR_CORE_OPS = ("HMMA", "HGMMA", "IMMA", "IGMMA", "QMMA", "QGMMA")
+BYTE_MMA_OPS = ("IMMA", "IGMMA", "QMMA", "QGMMA")  # the 8-bit tensor-core products
+
+
+def byte_pair(kernel: str):
+    """"int8" or "fp8" for a prefill or grouped kernel instantiated on the
+    8-bit pairs (int8_t x int8_t, __nv_fp8_e4m3 x __nv_fp8_e4m3, read from
+    the mangled template arguments), else None."""
+    if re.search(r"[IE]aaL", kernel):
+        return "int8"
+    if re.search(r"13__nv_fp8_e4m3S\d*_", kernel):
+        return "fp8"
+    return None
+
+
 def sass_mma_counts(libs, marker):
     """Per kernel whose mangled name holds `marker` in each of `libs`, its
-    tensor-core (HMMA / HGMMA) and f32 FMA (FFMA) instructions in the SASS.
-    The prefill tiles (csrc/prefill_tile.cuh): the K loop's products run on
-    the tensor cores, the FFMAs left are the epilogue's (activations) and
-    the ABFT checksums'.  The flash attention: both products on the tensor
+    tensor-core (HMMA / HGMMA / IMMA / IGMMA / QMMA / QGMMA: "mma"; of
+    those the 8-bit ones: "mma8"), f32 FMA (FFMA) and conversion (F2FP)
+    instructions in the SASS, and each of HMMA, IMMA, QMMA on its own.  The
+    prefill tiles (csrc/prefill_tile.cuh): the K loop's products run on the
+    tensor cores, the FFMAs left are the epilogue's (activations) and the
+    ABFT checksums'.  The flash attention: both products on the tensor
     cores."""
     from repro_torch.kernels import _build
 
@@ -5256,7 +5345,8 @@ def sass_mma_counts(libs, marker):
             if "Function : " in line:
                 name = line.split("Function : ")[1].strip()
                 if marker in name:
-                    out[f"{lib}:{name}"] = dict(mma=0, ffma=0)
+                    out[f"{lib}:{name}"] = dict(mma=0, mma8=0, ffma=0, f2fp=0, HMMA=0,
+                                                IMMA=0, QMMA=0)
                 else:
                     name = None
             elif name is not None:
@@ -5264,9 +5354,31 @@ def sass_mma_counts(libs, marker):
                 op = op[0] if op and not op[0].startswith("@") else (op[1] if len(op) > 1
                                                                      else "")
                 c = out[f"{lib}:{name}"]
-                c["mma"] += op.startswith(("HMMA", "HGMMA"))
+                c["mma"] += op.startswith(TENSOR_CORE_OPS)
+                c["mma8"] += op.startswith(BYTE_MMA_OPS)
                 c["ffma"] += op.startswith("FFMA")
+                c["f2fp"] += op.startswith("F2FP")
+                for k in ("HMMA", "IMMA", "QMMA"):
+                    c[k] += op.startswith(k)
     return out
+
+
+def _print_byte_sass(what, counts):
+    """The 8-bit pairs' instantiations of a family of kernels: how many, and
+    the fewest tensor-core products and 8-bit ones (IMMA / QMMA ...) and the
+    most FFMAs (outside ABFT) any of them holds.  int8 x int8 must hold
+    IMMA; e4m3 x e4m3 runs f16 HMMAs of its exactly widened operands (sm_90
+    has no e4m3 mma.sync of its own: it lowers one to the same)."""
+    for pair in ("int8", "fp8"):
+        ks = {k: c for k, c in counts.items() if byte_pair(k) == pair}
+        print(f"    {what} {pair} x {pair} SASS: {len(ks)} kernels, tensor-core "
+              f"instructions {min((c['mma'] for c in ks.values()), default=0)} or more each, "
+              f"8-bit ones {min((c['mma8'] for c in ks.values()), default=0)} or more, "
+              f"FFMAs at most "
+              f"{max((c['ffma'] for k, c in ks.items() if 'abft' not in k), default=0)} "
+              f"outside ABFT")
+        if not ks:
+            raise AssertionError(f"no {what} kernel instantiated on {pair} x {pair}")
 
 
 def _print_serve(r):

@@ -345,8 +345,8 @@ def _abft_grouped_gemm(x, w, group_sizes, *, activation, w_gate, a_s, b_s, bg_s,
     that expert's weight columns, with the grouped kernel's epilogue order,
     and only that expert's rows are written back: the fault-free grouped
     launch's bits (`recompute_fused` on the grouped launch's route,
-    `grouped_route`: "mma" sums the same K parts in the same order as the
-    grouped launch at any row count, "simt" runs the same serial K chain).
+    `grouped_route`, "mma" for every pair: it sums the same K parts in the
+    same order as the grouped launch at any row count).
     A flagged tile whose rows no group owns needs no recompute (its rows are
     zeros whatever the accumulator)."""
     T, K = x.shape

@@ -33,7 +33,8 @@ class TilePlan:
 
     ``route``: "decode", "mma" or "simt" (`HopperGemmTiling`); (bm, bn) the
     CTA tile (a decode CTA covers all M rows: bm = M), bk the K rows per
-    ring stage ("simt": per staged K step); ``stages``, ``split`` and
+    ring stage ("simt", the 2:4 and ABFT rows at M <= 16: per staged K
+    step); ``stages``, ``split`` and
     ``parts`` the ring depth, the CTAs per cluster and the K parts
     (`_build.prefill_parts`); ``ctas`` the grid; ``smem_bytes`` the dynamic
     shared memory per CTA; ``acc_bytes`` the register accumulator per CTA;

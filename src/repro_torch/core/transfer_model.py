@@ -360,9 +360,10 @@ class HopperGemmTiling:
     ``route``, ``stages``, ``split``, ``parts`` and ``gated`` describe the
     launch's ring (`kernels/_build.py`): "decode" (csrc/decode_tile.cuh, M
     <= 16 rows in one CTA row), "mma" (csrc/prefill_tile.cuh and the
-    grouped GEMM's csrc/grouped_mma.cuh) or "simt" (gemm_tile.cuh's loop,
-    which stages its tiles in static shared memory; its launch asks for no
-    dynamic shared memory); ``ring_bk`` the ring's K rows per stage where
+    grouped GEMM's csrc/grouped_mma.cuh; every pair at M > 16, int8 x int8
+    and e4m3 x e4m3 in their own byte) or "simt" (gemm_tile.cuh's loop,
+    the 2:4 and ABFT rows at M <= 16, which stages its tiles in static
+    shared memory; its launch asks for no dynamic shared memory); ``ring_bk`` the ring's K rows per stage where
     they are not ``bk`` (kernel 2 stages as kernel 1 does and round-trips
     every ``bk``).  `smem_bytes` replaces JAX's `vmem_bytes`.
     """
@@ -412,7 +413,7 @@ class HopperGemmTiling:
     def smem_bytes(self, p: GemmProblem) -> int:
         """Dynamic shared memory of one CTA, as the launch asks for it: the
         ring of `stages` slots of staged A rows and B (and gate) tiles, and
-        on the "mma" route the f32 tile a CTA folding several K parts keeps
+        on the "mma" route the f32 (int8 x int8: int32) tile a CTA folding several K parts keeps
         beside them (csrc/prefill_tile.cuh `prefill_smem`; kernel 2 has
         none); the accumulator itself stays in registers
         (`acc_register_bytes`).  Computed by the functions the launchers

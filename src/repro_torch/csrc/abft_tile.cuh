@@ -17,10 +17,10 @@
 // C++.  Every other pair compares |sum - checksum| > rtol * |.|-checksum +
 // atol, in f32.
 //
-// AbftHook serves gemm_tile.cuh's loop (the grouped GEMM, the decode rows
-// and int8 x int8, e4m3 x e4m3); AbftPrefillHook the tensor-core prefill
-// tile of prefill_tile.cuh (f32 or bf16 A, M > 16), whose CTA tile is
-// gemm_tile's.
+// AbftHook serves gemm_tile.cuh's loop (the fused GEMM's decode-height
+// rows); AbftPrefillHook the tensor-core prefill tile of prefill_tile.cuh
+// (every pair at M > 16, and the grouped GEMM at every height), whose CTA
+// tile is gemm_tile's or the grouped flag map's.
 #pragma once
 
 #include <type_traits>
@@ -166,99 +166,142 @@ struct AbftHook {
 // The same checksums over the prefill tile's staged operands (Cfg:
 // PrefillCfg): A's BM rows of BK and B's BK rows of BN as staged in A's
 // type T (a narrow weight already widened, or its raw rows under
-// kRegWiden), to f32 as they are summed; the
-// finished
-// tile (after the fold of every K part) is Cs.  The CTA tile is gemm_tile's
-// (BM x BN) and the launch has split 1, so one CTA owns one flag.
+// kRegWiden), to f32 as they are summed -- or, for int8 x int8 (an int32
+// tile), exactly in wrapping unsigned 32-bit sums, as AbftHook; the
+// finished tile (after the fold of every K part) is Cs, in the
+// accumulator's type.  The CTA tile is gemm_tile's (BM x BN) and the
+// launch has split 1, so one CTA owns one flag.
 template <typename Cfg, typename T, int BM, int BN>
 struct AbftPrefillHook {
+  using AccT = typename Cfg::AccT;
+  using C = CheckT<AccT>;
+  static constexpr bool kExact = std::is_same<AccT, int>::value;
   static constexpr int BK = Cfg::kBK, TH = Cfg::kThreads, CS = Cfg::kCStride;
   struct Sm {
-    float ccol[BN], crow[BM], acol[BN], arow[BM];  // the checksums, |.|-checksums
-    float colA[BK], rowB[BK], colAa[BK], rowBa[BK];  // this step's colsum(A), rowsum(B)
+    C ccol[BN], crow[BM];  // the checksums
+    C colA[BK], rowB[BK];  // this step's colsum(A), rowsum(B)
+    float acol[kExact ? 1 : BN], arow[kExact ? 1 : BM];  // |.|-checksums
+    float colAa[kExact ? 1 : BK], rowBa[kExact ? 1 : BK];
   };
   Sm& sm;
 
   __device__ __forceinline__ explicit AbftPrefillHook(Sm& s) : sm(s) {}
 
-  __device__ __forceinline__ static float at_a(const unsigned char* slot, int m, int k) {
-    return to_f32(*reinterpret_cast<const T*>(slot + m * Cfg::kAStride + k * Cfg::kE));
+  template <typename V>
+  __device__ __forceinline__ static C as_c(V x) {
+    if constexpr (kExact)
+      return static_cast<C>(static_cast<int>(x));
+    else
+      return to_f32(x);
   }
-  __device__ __forceinline__ static float at_b(const unsigned char* slot, int k, int n) {
+  __device__ __forceinline__ static C at_a(const unsigned char* slot, int m, int k) {
+    return as_c(*reinterpret_cast<const T*>(slot + m * Cfg::kAStride + k * Cfg::kE));
+  }
+  __device__ __forceinline__ static C at_b(const unsigned char* slot, int k, int n) {
     if constexpr (Cfg::kRegWiden)  // the raw narrow weight: the same value, unwidened
-      return to_f32(*reinterpret_cast<const typename Cfg::WeightT*>(
+      return as_c(*reinterpret_cast<const typename Cfg::WeightT*>(
           slot + Cfg::raw_off(0) + k * Cfg::kPRow + n));
-    return to_f32(
+    return as_c(
         *reinterpret_cast<const T*>(slot + Cfg::b_off(0) + k * Cfg::kBStride + n * Cfg::kE));
+  }
+  __device__ __forceinline__ static float mag(C x) {
+    if constexpr (kExact)
+      return 0.0f;
+    else
+      return fabsf(x);
   }
 
   // zero the checksums; the ring's first barrier orders this before use
   __device__ __forceinline__ void reset() {
-    for (int i = threadIdx.x; i < BN; i += TH) sm.ccol[i] = sm.acol[i] = 0.0f;
-    for (int i = threadIdx.x; i < BM; i += TH) sm.crow[i] = sm.arow[i] = 0.0f;
+    for (int i = threadIdx.x; i < BN; i += TH) {
+      sm.ccol[i] = C(0);
+      if constexpr (!kExact) sm.acol[i] = 0.0f;
+    }
+    for (int i = threadIdx.x; i < BM; i += TH) {
+      sm.crow[i] = C(0);
+      if constexpr (!kExact) sm.arow[i] = 0.0f;
+    }
   }
 
   // one staged K step: ccol += colsum(A) . B, crow += A . rowsum(B)
   __device__ __forceinline__ void step(const unsigned char* slot) {
     for (int k = threadIdx.x; k < BK; k += TH) {
-      float ca = 0.0f, caa = 0.0f, rb = 0.0f, rba = 0.0f;
+      C ca = C(0), rb = C(0);
+      float caa = 0.0f, rba = 0.0f;
       for (int m = 0; m < BM; ++m) {
-        const float x = at_a(slot, m, k);
+        const C x = at_a(slot, m, k);
         ca += x;
-        caa += fabsf(x);
+        caa += mag(x);
       }
       for (int n = 0; n < BN; ++n) {
-        const float x = at_b(slot, k, n);
+        const C x = at_b(slot, k, n);
         rb += x;
-        rba += fabsf(x);
+        rba += mag(x);
       }
       sm.colA[k] = ca;
-      sm.colAa[k] = caa;
       sm.rowB[k] = rb;
-      sm.rowBa[k] = rba;
+      if constexpr (!kExact) {
+        sm.colAa[k] = caa;
+        sm.rowBa[k] = rba;
+      }
     }
     __syncthreads();
     for (int n = threadIdx.x; n < BN; n += TH) {
-      float s = sm.ccol[n], sa = 0.0f;
+      C s = sm.ccol[n];
+      float sa = 0.0f;
       for (int k = 0; k < BK; ++k) {
-        const float x = at_b(slot, k, n);
+        const C x = at_b(slot, k, n);
         s += sm.colA[k] * x;
-        sa += sm.colAa[k] * fabsf(x);
+        if constexpr (!kExact) sa += sm.colAa[k] * mag(x);
       }
       sm.ccol[n] = s;
-      sm.acol[n] += sa;
+      if constexpr (!kExact) sm.acol[n] += sa;
     }
     for (int m = threadIdx.x; m < BM; m += TH) {
-      float s = sm.crow[m], sa = 0.0f;
+      C s = sm.crow[m];
+      float sa = 0.0f;
       for (int k = 0; k < BK; ++k) {
-        const float x = at_a(slot, m, k);
+        const C x = at_a(slot, m, k);
         s += x * sm.rowB[k];
-        sa += fabsf(x) * sm.rowBa[k];
+        if constexpr (!kExact) sa += mag(x) * sm.rowBa[k];
       }
       sm.crow[m] = s;
-      sm.arow[m] += sa;
+      if constexpr (!kExact) sm.arow[m] += sa;
     }
   }
 
   // The fault operand of this tile: delta added to element (row, col) of
-  // the finished tile.
-  __device__ __forceinline__ void inject(float* Cs, float delta, int row, int col) {
-    if (threadIdx.x == 0 && delta != 0.0f) Cs[row * CS + col] += delta;
+  // the finished tile (as an integer, wrapping, for the int32 tile).
+  __device__ __forceinline__ void inject(AccT* Cs, float delta, int row, int col) {
+    if (threadIdx.x == 0 && delta != 0.0f) {
+      AccT& x = Cs[row * CS + col];
+      if constexpr (kExact)
+        x = static_cast<int>(static_cast<unsigned>(x) +
+                             static_cast<unsigned>(static_cast<int>(delta)));
+      else
+        x += delta;
+    }
     __syncthreads();
   }
 
   // The tile's verdict (1 = corrupt), the same in every thread.
-  __device__ __forceinline__ int verify(const float* Cs, float rtol, float atol) {
+  __device__ __forceinline__ int verify(const AccT* Cs, float rtol, float atol) {
     int bad = 0;
     for (int n = threadIdx.x; n < BN; n += TH) {
-      float s = 0.0f;
-      for (int m = 0; m < BM; ++m) s += Cs[m * CS + n];
-      bad |= fabsf(s - sm.ccol[n]) > rtol * sm.acol[n] + atol;
+      C s = C(0);
+      for (int m = 0; m < BM; ++m) s += static_cast<C>(Cs[m * CS + n]);
+      if constexpr (kExact)
+        bad |= s != sm.ccol[n];
+      else
+        bad |= fabsf(s - sm.ccol[n]) > rtol * sm.acol[n] + atol;
     }
     for (int m = threadIdx.x; m < BM; m += TH) {
-      float s = 0.0f;
-      for (int n = 0; n < BN; ++n) s += Cs[m * CS + n];
-      bad |= fabsf(s - sm.crow[m]) > rtol * sm.arow[m] + atol;
+      C s = C(0);
+      for (int n = 0; n < BN; ++n) s += static_cast<C>(Cs[m * CS + n]);
+      if constexpr (kExact)
+        bad |= s != sm.crow[m];
+      else
+        bad |= fabsf(s - sm.crow[m]) > rtol * sm.arow[m] + atol;
     }
     return __syncthreads_or(bad);
   }

@@ -1,7 +1,8 @@
-// The (BM x BN) output-tile machinery shared by the MX, grouped and baseline GEMMs:
-// masked operand staging through shared memory, and the register MAC chain
-// (sweep_k); the 2:4 weight staging and the hooked K loop of the sparse and
-// ABFT variants (sweep_k_variant).
+// The epilogue every MX GEMM kernel stores through (mx_store), and the
+// serial K chain of the fused GEMM's decode-height (M <= 16) 2:4 and ABFT
+// rows: masked operand staging through shared memory, the 2:4 weight
+// staging and the hooked register MAC chain (sweep_k_variant), which keeps
+// them bitwise equal to the dense decode tile (csrc/decode_tile.cuh).
 //
 // A is (M, K) row-major, B is (K, N) row-major (the JAX layout: w is
 // (d_in, d_out), read as stored, no transpose).  Ragged M/N/K edges are
@@ -147,56 +148,6 @@ __device__ __forceinline__ void fma_tile(S (&acc)[TM][TN], S (&accg)[TM][TN],
   }
 }
 
-// The whole K loop of one (BM x BN) output tile, shared by the MX GEMM and
-// the grouped GEMM: the register accumulators (type S) are zeroed (the
-// C-tile reset) and never reloaded; A (type TA) and B and the gate weight Bg
-// when GATE (type TB) stage through shared memory one BK step at a time,
-// the next step's operands fetched into registers while the current step's
-// MACs run.  A is read for rows < M, B for columns < N.  Ends after a
-// barrier, so the caller may stage another sweep into the same shared
-// memory at once.
-template <typename S, typename TA, typename TB, int BM, int BN, int BK, int TM, int TN,
-          bool GATE>
-__device__ __forceinline__ void sweep_k(S (&acc)[TM][TN], S (&accg)[TM][TN],
-                                        S (*As)[BM + 1], S (*Bs)[BN], S (*Bgs)[BN],
-                                        const TA* __restrict__ A, const TB* __restrict__ B,
-                                        const TB* __restrict__ Bg, int M, int N, int K,
-                                        int m0, int n0, int tx, int ty) {
-  using Cfg = TileCfg<BM, BN, BK, TM, TN>;
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = accg[i][j] = S(0);
-
-  S ra[Cfg::kAPer], rb[Cfg::kBPer], rg[Cfg::kBPer];  // rg: gate weight
-  const int nk = (K + BK - 1) / BK;
-  load_a<Cfg, BM, BK>(ra, A, M, K, m0, 0);
-  load_b<Cfg, BN, BK>(rb, B, N, K, n0, 0);
-  if constexpr (GATE) load_b<Cfg, BN, BK>(rg, Bg, N, K, n0, 0);
-  store_a<Cfg, BM, BK>(As, ra);
-  store_b<Cfg, BN, BK>(Bs, rb);
-  if constexpr (GATE) store_b<Cfg, BN, BK>(Bgs, rg);
-  __syncthreads();
-
-  for (int kt = 0; kt < nk; ++kt) {
-    const bool more = kt + 1 < nk;
-    if (more) {  // next K step's operands in flight during this step's FMAs
-      const int k0 = (kt + 1) * BK;
-      load_a<Cfg, BM, BK>(ra, A, M, K, m0, k0);
-      load_b<Cfg, BN, BK>(rb, B, N, K, n0, k0);
-      if constexpr (GATE) load_b<Cfg, BN, BK>(rg, Bg, N, K, n0, k0);
-    }
-    fma_tile<Cfg, BM, BN, BK, TM, TN, GATE>(acc, accg, As, Bs, Bgs, tx, ty);
-    __syncthreads();
-    if (more) {
-      store_a<Cfg, BM, BK>(As, ra);
-      store_b<Cfg, BN, BK>(Bs, rb);
-      if constexpr (GATE) store_b<Cfg, BN, BK>(Bgs, rg);
-      __syncthreads();
-    }
-  }
-}
-
 // The B operand's staging for one K step, 2:4 sparse (stage 1c / 5c): the
 // step's BK/2 payload rows of the (K/2, N) payload, read in the payload's
 // own width, and its BK/8 rows of the (K/8, N) uint8 metadata, expanded
@@ -265,14 +216,15 @@ struct NoHook {
   __device__ __forceinline__ void step(Staged...) {}
 };
 
-// sweep_k for the 2:4 and ABFT variants (csrc/mx_matmul.cuh,
-// csrc/mx_grouped_matmul.cuh): the same K loop and the same MAC chain, with
-// B and the gate weight Bg (type TB) dense or, with SPARSE, their 2:4
-// payloads with metadata Bm / Bgm, and `hook.step` (NoHook, or the ABFT
-// checksums of abft_tile.cuh) seeing each staged step after its MACs (all
-// threads call it).  The dense kernels keep sweep_k above: built from this
-// one they took longer at decode on the H100 (more registers), so the
-// dense code is left as it was.
+// The whole K loop of one (BM x BN) output tile of the 2:4 and ABFT
+// variants at decode height (csrc/mx_matmul.cuh): the register accumulators
+// (type S) are zeroed (the C-tile reset) and never reloaded; A (type TA)
+// and B and the gate weight Bg (type TB) -- dense or, with SPARSE, their
+// 2:4 payloads with metadata Bm / Bgm -- stage through shared memory one BK
+// step at a time, the next step's operands fetched into registers while the
+// current step's MACs run; `hook.step` (NoHook, or the ABFT checksums of
+// abft_tile.cuh) sees each staged step after its MACs (all threads call
+// it).  A is read for rows < M, B for columns < N.
 template <typename S, typename TA, typename TB, int BM, int BN, int BK, int TM, int TN,
           bool GATE, bool SPARSE, typename Hook>
 __device__ __forceinline__ void sweep_k_variant(S (&acc)[TM][TN], S (&accg)[TM][TN],

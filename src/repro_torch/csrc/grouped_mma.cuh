@@ -1,12 +1,12 @@
 // The grouped (ragged) MX GEMM on the tensor cores, for Hopper (sm_90a): the
 // kernel body of the dense (csrc/mx_grouped_matmul.cu), 2:4 sparse
 // (mx_grouped_matmul_sparse.cu) and ABFT (mx_grouped_matmul_abft.cu)
-// launches of the "mma" route (kernels/_build.grouped_tile): f32 x f32,
-// bf16 x bf16, and bf16 x int8 / e4m3 with the weight widened to bf16.
-// int8 x int8 and e4m3 x e4m3 keep gemm_tile.cuh's loop (route "simt",
-// csrc/mx_grouped_matmul.cuh).
+// launches (kernels/_build.grouped_tile): f32 x f32, bf16 x bf16, bf16 x
+// int8 / e4m3 with the weight widened to bf16, and int8 x int8 and e4m3 x
+// e4m3 in their own byte (the s8 MMA; e4m3 widened to f16 in registers)
+// (the 2:4 variant: its pairs, f32, bf16, bf16 x int8).
 //
-// One CTA per (BM x BN) output tile, as the "simt" kernel: it reads the
+// One CTA per (BM x BN) output tile: it reads the
 // group sizes itself (no host sync; a negative size counts as 0, the running
 // sum is clamped to T) and, for every non-empty group that owns rows of its
 // tile, runs prefill_tile.cuh's K loop -- the same ring, MMAs, K parts and
@@ -102,11 +102,11 @@ grouped_mma_kernel(const PrefillShape d0, const GroupedArgs r) {
                       r.b_scale != nullptr ? r.b_scale + static_cast<int64_t>(g) * N : nullptr,
                       r.bg_scale != nullptr ? r.bg_scale + static_cast<int64_t>(g) * N : nullptr,
                       nullptr, 0, nullptr, 0, r.out, r.out_dt, N, r.act, 0, 0.0f};
-    const float* Cs;
+    const typename Cfg::AccT* Cs;
     if constexpr (MODE == kGroupedAbft) {
       Hook hook(ck);
       hook.reset();
-      float* C = prefill_sweep<T, BM, BN, GATE, false, TB>(d, hook);
+      auto* C = prefill_sweep<T, BM, BN, GATE, false, TB>(d, hook);
       if (r.fault_delta != nullptr)
         hook.inject(C, r.fault_delta[tile], r.fault_row[tile], r.fault_col[tile]);
       flag |= hook.verify(C, r.rtol, r.atol);
@@ -166,8 +166,11 @@ static int grouped_mma_dispatch(const PrefillShape& d, const GroupedArgs& r, int
   if (x_dt == kF32 && w_dt == kF32) return tiles(float(), float());
   if (x_dt == kBF16 && w_dt == kBF16) return tiles(__nv_bfloat16(), __nv_bfloat16());
   if (x_dt == kBF16 && w_dt == kI8) return tiles(__nv_bfloat16(), int8_t());
-  if constexpr (MODE != kGroupedSparse)
+  if constexpr (MODE != kGroupedSparse) {
     if (x_dt == kBF16 && w_dt == kF8) return tiles(__nv_bfloat16(), __nv_fp8_e4m3());
+    if (x_dt == kI8 && w_dt == kI8) return tiles(int8_t(), int8_t());
+    if (x_dt == kF8 && w_dt == kF8) return tiles(__nv_fp8_e4m3(), __nv_fp8_e4m3());
+  }
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -4,7 +4,9 @@
 // mma.sync products -- m16n8k16 bf16 and m16n8k8 TF32 into f32, with the
 // split of an f32 value into a TF32 high part and its TF32 remainder for
 // 3xTF32 (hi*hi + hi*lo + lo*hi, about f32's accuracy when the products
-// are added to a long sum with rounding: csrc/prefill_tile.cuh pf_3xtf32).
+// are added to a long sum with rounding: csrc/prefill_tile.cuh pf_3xtf32),
+// the m16n8k16 f16 products (e4m3 widened exactly to f16) and the s8
+// m16n8k32 product into exact int32 sums.
 // Included by the decode tile (csrc/decode_tile.cuh), the prefill tile
 // (csrc/prefill_tile.cuh), the flash attention (csrc/mx_flash_attention.cu)
 // and the paged decode / verify (csrc/mx_flash_decode.cu).
@@ -160,6 +162,44 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4],
       "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// d = a b, from zero, f16 operands (two per register)
+__device__ __forceinline__ void mma_f16_zero(float (&d)[4], const unsigned (&a)[4],
+                                             const unsigned (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 {%0,%1,%2,%3}, "
+      "{%4,%5,%6,%7}, {%8,%9}, {%10,%10,%10,%10};\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]), "f"(0.0f));
+}
+
+__device__ __forceinline__ void mma_f16(float (&d)[4], const unsigned (&a)[4],
+                                        const unsigned (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 {%0,%1,%2,%3}, "
+      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// d += a b over 32 K of int8 (four per register): exact int32 sums, which
+// wrap as the int32 MAC of JAX's dot_f32 would (|sum| <= K * 127^2 stays
+// below 2^31 for K < 133,143, checked where the launch is built)
+__device__ __forceinline__ void mma_s8(int (&d)[4], const unsigned (&a)[4],
+                                       const unsigned (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0,%1,%2,%3}, "
+      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// The two e4m3 in the low 16 bits of v as two f16 (the low byte in the low
+// half): exact, since every e4m3 value (|x| <= 448, down to 2^-9) is an f16
+// value.
+__device__ __forceinline__ unsigned e4m3x2_f16x2(unsigned v) {
+  unsigned r;
+  const unsigned short h = static_cast<unsigned short>(v);
+  asm("cvt.rn.f16x2.e4m3x2 %0, %1;\n" : "=r"(r) : "h"(h));
+  return r;
 }
 
 __device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const void* p) {

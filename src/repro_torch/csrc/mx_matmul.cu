@@ -18,24 +18,26 @@
 // Operand pairs (A, B): (f32, f32), (bf16, bf16), and the quantized ones
 // core/precision.NAMED_POLICIES produce: (bf16, int8) "int8", (bf16, fp8)
 // "fp8", (int8, int8) "int8_all" / "int8_tensor", (fp8, fp8) "fp8_all".
-// Each operand is read in its own width and widened in registers; float
-// pairs accumulate in f32, int8 x int8 in an exact int32 MAC over the
-// whole K loop, widened once at the store.  Scales are per row of A (M, 1)
-// and per column of B (1, N), constant along K, so they apply once, at the
-// store, to the finished accumulator.
+// Each operand is read in its own width; float pairs accumulate in f32,
+// int8 x int8 in exact int32 sums over the whole K loop, widened once at
+// the store.  Scales are per row of A (M, 1) and per column of B (1, N),
+// constant along K, so they apply once, at the store, to the finished
+// accumulator.
 //
-// Three loops, each tile chosen in Python:
+// Two loops, each tile chosen in Python:
 //   * decode (M <= 16; mx_matmul_decode_launch, tile from
 //     kernels/_build.decode_tile): HBM-bytes bound weight streaming, the K
 //     loop of decode_tile.cuh -- a ring of 16-byte cp.async stages, one
 //     barrier per K step, no padding rows, narrow weights kept narrow in
 //     shared memory.  Its header says what bounds it and what it does
 //     about it.  Threads own (TM rows x 1 column) with TM in {1, 2, 4}.
-//   * prefill, f32, bf16 and (bf16, int8 / fp8) (M > 16;
-//     mx_matmul_prefill_launch, tile from kernels/_build.prefill_tile): the
-//     tensor-core loop of prefill_tile.cuh -- mma.sync (3xTF32 for f32, bf16
-//     with f32 sums; an int8 or e4m3 weight copied in its own width and
-//     widened to bf16 in shared memory, exactly), a ring of 16-byte
+//   * prefill, every pair (M > 16; mx_matmul_prefill_launch, tile from
+//     kernels/_build.prefill_tile): the tensor-core loop of prefill_tile.cuh
+//     -- mma.sync (3xTF32 for f32, bf16 with f32 sums; an int8 or e4m3
+//     weight beside bf16 copied in its own width and widened to bf16 in
+//     shared memory, exactly; int8 x int8 on the s8 m16n8k32 MMA and e4m3 x
+//     e4m3 widened exactly to f16 in registers, both operands copied in
+//     their own width), a ring of 16-byte
 //     cp.async stages, K split across a thread-block cluster (a small grid)
 //     or folded part by part in one CTA (a large one), the tile stored once
 //     from shared memory.  At M = 64 the weight's bytes and the operations
@@ -43,12 +45,6 @@
 //     of 3xTF32 products at 495 TFLOP/s), from M = 256 on the products
 //     bound it.  Its header says what its design does about it; the times
 //     beside the bounds are in PERF.md section 6.
-//   * prefill, (int8, int8) and (fp8, fp8) (M > 16; mx_matmul_fused_launch,
-//     tile from kernels/_build.gemm_tile), and any pair when the caller asks for
-//     gemm_tile.cuh's serial K chain (the grouped GEMM's ABFT recovery):
-//     the MACs on the CUDA cores in 2 x 4 (M <= 64) or 4 x 4 register tiles
-//     per thread over 32 x 64 or 64 x 64 CTA tiles, staged through
-//     gemm_tile.cuh's sweep_k.
 #include "prefill_tile.cuh"  // and decode_tile.cuh, gemm_tile.cuh
 
 REPRO_EXPORT_ERROR_STRING
@@ -64,36 +60,6 @@ struct Args {
   int out_dt, M, N, K, act, has_scale;
   float out_scale;
 };
-
-template <typename S, typename TA, typename TB, int BM, int BN, int BK, int TM, int TN,
-          bool GATE>
-__global__ void __launch_bounds__(TileCfg<BM, BN, BK, TM, TN>::kThreads)
-mx_matmul_kernel(const TA* __restrict__ A, const TB* __restrict__ B,
-                 const TB* __restrict__ Bg, const Args r) {
-  using Cfg = TileCfg<BM, BN, BK, TM, TN>;
-  __shared__ S As[BK][BM + 1];
-  __shared__ S Bs[BK][BN];
-  __shared__ S Bgs[GATE ? BK : 1][BN];
-
-  const int tx = threadIdx.x % Cfg::kTX, ty = threadIdx.x / Cfg::kTX;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-
-  S acc[TM][TN], accg[TM][TN];  // the inter-k buffer(s)
-  sweep_k<S, TA, TB, BM, BN, BK, TM, TN, GATE>(acc, accg, As, Bs, Bgs, A, B, Bg, r.M, r.N,
-                                               r.K, m0, n0, tx, ty);
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int gm = m0 + ty * TM + i;
-    if (gm >= r.M) continue;
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int gn = n0 + tx + j * Cfg::kTX;
-      if (gn < r.N)
-        mx_store<GATE>(r, static_cast<float>(acc[i][j]), static_cast<float>(accg[i][j]), gm,
-                       gn);
-    }
-  }
-}
 
 // The decode tile: thread (column c, rows r0 .. r0 + TM - 1) of a CTA that
 // owns bn columns and all M rows.
@@ -116,7 +82,7 @@ mx_matmul_decode_kernel(const DecodeShape d, const Args r) {
 template <typename T, typename TB, int BM, int BN, bool GATE>
 __device__ __forceinline__ void prefill_body(const PrefillShape& d, const Args& r) {
   NoHook hook;
-  const float* Cs = prefill_sweep<T, BM, BN, GATE, false, TB>(d, hook);
+  const auto* Cs = prefill_sweep<T, BM, BN, GATE, false, TB>(d, hook);
   prefill_store<PrefillCfg<T, BM, BN, GATE, false, TB>, BM, BN, GATE>(r, d, Cs);
 }
 
@@ -157,38 +123,6 @@ static int prefill_dispatch(const PrefillShape& d, const Args& r, int bm, int bn
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-template <typename S, typename TA, typename TB, int BM, int BN, int BK, int TM, int TN>
-static void launch(const void* a, const void* b, const void* bg, const Args& r,
-                   cudaStream_t stream) {
-  using Cfg = TileCfg<BM, BN, BK, TM, TN>;
-  dim3 grid((r.N + BN - 1) / BN, (r.M + BM - 1) / BM);
-  const TA* A = static_cast<const TA*>(a);
-  const TB* B = static_cast<const TB*>(b);
-  if (r.act == kSwiglu)
-    mx_matmul_kernel<S, TA, TB, BM, BN, BK, TM, TN, true>
-        <<<grid, Cfg::kThreads, 0, stream>>>(A, B, static_cast<const TB*>(bg), r);
-  else
-    mx_matmul_kernel<S, TA, TB, BM, BN, BK, TM, TN, false>
-        <<<grid, Cfg::kThreads, 0, stream>>>(A, B, nullptr, r);
-}
-
-// gemm_tile.cuh's tiles of kernels/_build.gemm_tile for M > 16 (the one
-// tile rule: the caller passes the tile, and no other is instantiated): a
-// prefill chunk (M <= 64: half-height tiles), larger M.  The decode rows go
-// to mx_matmul_decode_launch, the prefill rows of f32 or bf16 A to
-// mx_matmul_prefill_launch unless the caller asks for this serial K chain.
-template <typename S, typename TA, typename TB>
-static int dispatch(const void* a, const void* b, const void* bg, const Args& r, int bm,
-                    int bn, int bk, cudaStream_t s) {
-  if (bm == 32 && bn == 64 && bk == 16)
-    launch<S, TA, TB, 32, 64, 16, 2, 4>(a, b, bg, r, s);
-  else if (bm == 64 && bn == 64 && bk == 16)
-    launch<S, TA, TB, 64, 64, 16, 4, 4>(a, b, bg, r, s);
-  else
-    return static_cast<int>(cudaErrorInvalidValue);
-  return 0;
-}
-
 template <typename S, typename TA, typename TB, int TM>
 static int decode_gate(const DecodeShape& d, const Args& r, cudaStream_t s) {
   if (r.act == kSwiglu)
@@ -221,30 +155,10 @@ static int with_pair(int a_dt, int b_dt, F f) {
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// a (M, K) of dtype a_dt; b, b_gate (K, N) of dtype b_dt, one of the pairs
-// above; row-major, contiguous.  a_scale (M,), b_scale / bg_scale (N,) f32
-// or null.  bias (N,), residual (M, N), out (M, N): their own dtypes; null
-// when absent.  (bm, bn, bk): the prefill tile, one of `dispatch`'s.  An
-// unsupported pair or tile returns cudaErrorInvalidValue.
-extern "C" int mx_matmul_fused_launch(const void* a, const void* b, const void* b_gate,
-                                      const void* a_scale, const void* b_scale,
-                                      const void* bg_scale, const void* bias, int bias_dt,
-                                      const void* residual, int res_dt, void* out,
-                                      int out_dt, int M, int N, int K, int a_dt, int b_dt,
-                                      int act, int has_scale, float out_scale, int bm,
-                                      int bn, int bk, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const Args r{static_cast<const float*>(a_scale), static_cast<const float*>(b_scale),
-               static_cast<const float*>(bg_scale), bias, bias_dt, residual, res_dt, out,
-               out_dt, M, N, K, act, has_scale, out_scale};
-  const int err = with_pair(a_dt, b_dt, [&](auto s_, auto ta, auto tb) {
-    return dispatch<decltype(s_), decltype(ta), decltype(tb)>(a, b, b_gate, r, bm, bn, bk, s);
-  });
-  if (err) return err;
-  return static_cast<int>(cudaGetLastError());
-}
-
-// The decode rows (M <= 16): as mx_matmul_fused_launch, with the tile of
+// The decode rows (M <= 16).  a (M, K) of dtype a_dt; b, b_gate (K, N) of
+// dtype b_dt, one of the pairs above; row-major, contiguous.  a_scale (M,),
+// b_scale / bg_scale (N,) f32 or null.  bias (N,), residual (M, N), out
+// (M, N): their own dtypes; null when absent.  The tile of
 // kernels/_build.decode_tile -- bn columns per CTA, bk K rows per ring
 // stage, tm rows per thread, `stages` ring slots, `threads` per CTA (those
 // past M / tm * bn only copy) -- and the copy widths va
@@ -271,9 +185,10 @@ extern "C" int mx_matmul_decode_launch(const void* a, const void* b, const void*
   return static_cast<int>(cudaGetLastError());
 }
 
-// The tensor-core prefill tile (f32 x f32, bf16 x bf16, and bf16 x int8 /
-// e4m3 with the weight widened to bf16 in shared memory): as
-// mx_matmul_fused_launch, with the tile of kernels/_build.prefill_tile --
+// The tensor-core prefill tile (f32 x f32, bf16 x bf16, bf16 x int8 / e4m3
+// with the weight widened to bf16 in shared memory, int8 x int8 and e4m3 x
+// e4m3 in their own byte): as mx_matmul_decode_launch, with the tile of
+// kernels/_build.prefill_tile --
 // (bm, bn) CTA tile, `stages` ring slots, K cut into `parts` parts, `split`
 // CTAs per cluster (1 or parts) -- and the copy widths va / vb (bytes) of
 // A's and B's rows (kernels/_build.copy_width).  A pair, tile or width that
@@ -301,6 +216,10 @@ extern "C" int mx_matmul_prefill_launch(const void* a, const void* b, const void
     err = prefill_dispatch<__nv_bfloat16, int8_t>(d, r, bm, bn, s);
   else if (a_dt == kBF16 && b_dt == kF8)
     err = prefill_dispatch<__nv_bfloat16, __nv_fp8_e4m3>(d, r, bm, bn, s);
+  else if (a_dt == kI8 && b_dt == kI8)
+    err = prefill_dispatch<int8_t, int8_t>(d, r, bm, bn, s);
+  else if (a_dt == kF8 && b_dt == kF8)
+    err = prefill_dispatch<__nv_fp8_e4m3, __nv_fp8_e4m3>(d, r, bm, bn, s);
   if (err) return err;
   return static_cast<int>(cudaGetLastError());
 }

@@ -4,17 +4,17 @@
 // 1d), each source built by its own nvcc, all in parallel.  It is the
 // dense kernel of mx_matmul.cu (stages 1a / 1b) with, for ABFT, the verify
 // at the store, on one of two K loops:
-//   * f32 x f32, bf16 x bf16 and bf16 x int8 / e4m3 at M > 16 (the
-//     *_prefill_launch entries): the dense kernel's tensor-core loop,
-//     prefill_tile.cuh, the 2:4 payloads expanded (and a narrow weight
-//     widened) into the same staged B tile; the dense and 2:4
-//     kernels share the tile of kernels/_build.prefill_tile, the ABFT
-//     kernel runs gemm_tile's CTA tile with split 1 (one CTA per flag),
-//     folding the same K parts in the same order, so all three are bitwise
-//     equal;
-//   * every other launch (decode rows, int8 x int8 and e4m3 x e4m3, and any
-//     pair when the caller asks for the serial chain): gemm_tile.cuh's
-//     sweep_k_variant with the tile of kernels/_build.gemm_tile.
+//   * every pair at M > 16 (the *_prefill_launch entries; 2:4 only for its
+//     pairs): the dense kernel's tensor-core loop, prefill_tile.cuh, the
+//     2:4 payloads expanded (and a narrow weight widened) into the same
+//     staged B tile, int8 x int8 and e4m3 x e4m3 in their own byte; the
+//     dense and 2:4 kernels share the tile of kernels/_build.prefill_tile,
+//     the ABFT kernel runs gemm_tile's CTA tile with split 1 (one CTA per
+//     flag), folding the same K parts in the same order, so all three are
+//     bitwise equal;
+//   * the decode-height rows (M <= 16) of the 2:4 and ABFT variants:
+//     gemm_tile.cuh's sweep_k_variant with the tile of
+//     kernels/_build.gemm_tile, the serial K chain of the dense decode tile.
 //
 // What it computes and how (the inter-k register accumulator, one store
 // with the fused epilogue, the operand pairs and scales): see mx_matmul.cu.
@@ -112,19 +112,13 @@ static void launch(const GemmArgs& r, cudaStream_t stream) {
         <<<grid, Cfg::kThreads, 0, stream>>>(r);
 }
 
-// The tiles of kernels/_build.gemm_tile: decode (M <= 16: HBM-bound weight
-// streaming, narrow tiles for more CTAs), a prefill chunk (M <= 64:
-// FMA-bound, half-height tiles), larger M.
+// The tile of kernels/_build.gemm_tile at decode height (M <= 16: the
+// only rows this loop serves; every pair's M > 16 rows take the
+// *_prefill_launch entries).
 template <int MODE, typename S, typename TA, typename TB>
 static int dispatch(const GemmArgs& r, int bm, int bn, int bk, cudaStream_t s) {
-  if (bm == 16 && bn == 16 && bk == 128)
-    launch<MODE, S, TA, TB, 16, 16, 128, 1, 1>(r, s);
-  else if (bm == 32 && bn == 64 && bk == 16)
-    launch<MODE, S, TA, TB, 32, 64, 16, 2, 4>(r, s);
-  else if (bm == 64 && bn == 64 && bk == 16)
-    launch<MODE, S, TA, TB, 64, 64, 16, 4, 4>(r, s);
-  else
-    return static_cast<int>(cudaErrorInvalidValue);
+  if (bm != 16 || bn != 16 || bk != 128 || r.M > 16) return static_cast<int>(cudaErrorInvalidValue);
+  launch<MODE, S, TA, TB, 16, 16, 128, 1, 1>(r, s);
   return 0;
 }
 
@@ -142,7 +136,7 @@ __global__ void __launch_bounds__(PrefillCfg<T, BM, BN, GATE, MODE == kSparseB, 
 mx_matmul_prefill_kernel(const PrefillShape d, const GemmArgs r) {
   constexpr bool kSparse = MODE == kSparseB;
   using Cfg = PrefillCfg<T, BM, BN, GATE, kSparse, TB>;
-  float* Cs;
+  typename Cfg::AccT* Cs;
   if constexpr (MODE == kAbftB) {
     using Hook = AbftPrefillHook<Cfg, T, BM, BN>;
     __shared__ typename Hook::Sm ck;
@@ -174,7 +168,8 @@ static int prefill_gate(const PrefillShape& d, const GemmArgs& r, cudaStream_t s
 // The CTA tiles of kernels/_build.prefill_tile: the 2:4 kernel takes every
 // one of PREFILL_TILES, the ABFT kernel gemm_tile's (32 x 64, 64 x 64).
 // The pairs: f32, bf16, and bf16 with an int8 (2:4 and ABFT) or e4m3 (ABFT)
-// weight widened to bf16 in shared memory.
+// weight widened to bf16 in shared memory; int8 x int8 and e4m3 x e4m3
+// (ABFT) in their own byte.
 template <int MODE>
 static int prefill_dispatch(const PrefillShape& d, const GemmArgs& r, int a_dt, int b_dt,
                             int bm, int bn, cudaStream_t s) {
@@ -190,7 +185,10 @@ static int prefill_dispatch(const PrefillShape& d, const GemmArgs& r, int a_dt, 
   if (a_dt == kF32 && b_dt == kF32) return tiles(float(), float());
   if (a_dt == kBF16 && b_dt == kBF16) return tiles(__nv_bfloat16(), __nv_bfloat16());
   if (a_dt == kBF16 && b_dt == kI8) return tiles(__nv_bfloat16(), int8_t());
-  if constexpr (MODE == kAbftB)
+  if constexpr (MODE == kAbftB) {
     if (a_dt == kBF16 && b_dt == kF8) return tiles(__nv_bfloat16(), __nv_fp8_e4m3());
+    if (a_dt == kI8 && b_dt == kI8) return tiles(int8_t(), int8_t());
+    if (a_dt == kF8 && b_dt == kF8) return tiles(__nv_fp8_e4m3(), __nv_fp8_e4m3());
+  }
   return static_cast<int>(cudaErrorInvalidValue);
 }

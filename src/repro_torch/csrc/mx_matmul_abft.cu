@@ -11,12 +11,14 @@
 // kernel's.  Pairs: every dense pair (2:4 weights are expanded before a
 // checksummed launch, as in JAX).
 //
-// At M > 16 the pairs with f32 or bf16 A take the dense kernel's
-// tensor-core loop (prefill_tile.cuh) on gemm_tile's CTA tile with split 1,
-// folding the same K parts in the same order as the dense kernel (so on is
-// bitwise off), the checksums over the staged tiles (in A's type: an int8 or
-// e4m3 weight widened) and the verify over the finished tile in shared
-// memory (mx_matmul_abft_prefill_launch).
+// At M > 16 every pair takes the dense kernel's tensor-core loop
+// (prefill_tile.cuh) on gemm_tile's CTA tile with split 1, folding the same
+// K parts in the same order as the dense kernel (so on is bitwise off), the
+// checksums over the staged tiles (in A's type: an int8 or e4m3 weight
+// widened; int8 x int8 exact, in wrapping 32-bit sums) and the verify over
+// the finished tile in shared memory (mx_matmul_abft_prefill_launch).  The
+// decode-height rows keep gemm_tile.cuh's serial chain
+// (mx_matmul_abft_launch).
 //
 // What it costs on the H100: per K step two reductions over the staged
 // tiles and (BM + BN) * BK extra MACs in shared memory, with two more
@@ -37,9 +39,10 @@ static int dispatch_pair(const GemmArgs& r, int a_dt, int b_dt, int bm, int bn, 
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// As mx_matmul_fused_launch, plus flags (grid_m, grid_n) int32, the fault
+// As mx_matmul_decode_launch's operands, plus flags (grid_m, grid_n) int32, the fault
 // operands fault_delta (f32) / fault_row / fault_col (int32) of the same
-// shape or null, and the float compare's rtol / atol.
+// shape or null, and the float compare's rtol / atol; the tile of
+// kernels/_build.gemm_tile at decode height, (16, 16, 128), M <= 16.
 extern "C" int mx_matmul_abft_launch(const void* a, const void* b, const void* b_gate,
                                      const void* a_scale, const void* b_scale,
                                      const void* bg_scale, const void* bias, int bias_dt,
@@ -61,7 +64,7 @@ extern "C" int mx_matmul_abft_launch(const void* a, const void* b, const void* b
   return static_cast<int>(cudaGetLastError());
 }
 
-// The tensor-core prefill tile (f32 or bf16 A; M > 16): as mx_matmul_abft_launch,
+// The tensor-core prefill tile (M > 16): as mx_matmul_abft_launch,
 // with the tile of kernels/_build.prefill_tile (bm, bn: gemm_tile's; stages;
 // split 1; parts) and the copy widths va / vb.
 extern "C" int mx_matmul_abft_prefill_launch(

@@ -33,8 +33,9 @@ static int dispatch_pair(const GemmArgs& r, int a_dt, int b_dt, int bm, int bn, 
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// As mx_matmul_fused_launch, with b / b_gate the (K/2, N) payloads and
-// b_meta / bg_meta their (K/8, N) metadata; K % 8 == 0.
+// As mx_matmul_decode_launch's operands, with b / b_gate the (K/2, N) payloads and
+// b_meta / bg_meta their (K/8, N) metadata; K % 8 == 0; the tile of
+// kernels/_build.gemm_tile at decode height, (16, 16, 128), M <= 16.
 extern "C" int mx_matmul_sparse_launch(const void* a, const void* b, const void* b_gate,
                                        const void* b_meta, const void* bg_meta,
                                        const void* a_scale, const void* b_scale,

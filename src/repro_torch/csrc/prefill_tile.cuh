@@ -59,11 +59,26 @@
 // against widening in registers).
 //
 // The route, per pair: mma.sync for f32 (3xTF32), bf16 and the widened
-// pairs alike; int8 x int8 and e4m3 x e4m3 (s8 and e4m3 MMAs, whose B
-// fragments pack 4 K rows per register) stay on gemm_tile.cuh.  wgmma,
-// the route to the tensor cores' full rate, takes B from shared memory
-// K-major for TF32 (and 8-bit types), so the f32 weight would need a
-// transposing pass per stage; it is not built yet (ROADMAP, queue 2).
+// pairs alike, and for int8 x int8 and e4m3 x e4m3 the m16n8k32 operand
+// layout: both operands copied in their own byte width (128 K per
+// stage), A's fragments by ldmatrix, B's -- 4 consecutive K rows of one
+// column per register, which the (K, N) weight does not hold -- by four
+// 32-bit reads of a 4 x 4 byte block per register quad and a byte
+// transpose in registers (b_frags_8bit; the staged rows padded by 32
+// bytes and each lane's four reads rotated, so a warp's reads fall on 32
+// banks).  int8 x int8 runs the s8 MMA (IMMA), its exact int32 sums folded
+// as int32 and widened to f32 only at mx_store.  e4m3 x e4m3: the card has
+// no e4m3 mma.sync of its own (sm_90 lowers it to conversions and f16
+// HMMAs: no QMMA in the SASS, tools/e4m3_mma_probe.py), so the fragments
+// are widened to f16 in registers, exactly (cvt.rn.f16x2.e4m3x2), for two
+// m16n8k16 f16 products per k32 step, the k32 product summed from zero and
+// added to the f32 accumulator with rounding FADDs, as pf_3xtf32 does (the
+// MMAs' own f32 accumulation truncates).  wgmma, the route to the tensor
+// cores' full rate and to native e4m3 products, takes B from shared memory
+// K-major for TF32 and 8-bit types, so the weight would need a transposing
+// pass per stage; it is not built yet (ROADMAP, queue 2).  A transposing
+// pass into K-major slots, read by ldmatrix, timed 1.2-2.4x slower than the
+// transpose in registers (PERF.md section 6).
 // Measured on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md section 6;
 // tools/prefill_variants.py for the variants): f32 M = 64, K = 8192,
 // N = 2048 + residual 0.098 ms against addmm's 0.062, bf16 0.032 against
@@ -96,15 +111,29 @@ struct PrefillShape {
   int stages, split, parts, va, vb, vm;
 };
 
+// Per A type: the K rows of one 128-byte staged A row, and the
+// accumulator's type (int8 x int8: exact int32 sums).
 template <typename T>
 struct MmaOf;
 template <>
 struct MmaOf<float> {  // 3xTF32, m16n8k8
   static constexpr int kBK = 32;
+  using Acc = float;
 };
 template <>
 struct MmaOf<__nv_bfloat16> {  // m16n8k16
   static constexpr int kBK = 64;
+  using Acc = float;
+};
+template <>
+struct MmaOf<int8_t> {  // m16n8k32 s8
+  static constexpr int kBK = 128;
+  using Acc = int;
+};
+template <>
+struct MmaOf<__nv_fp8_e4m3> {  // m16n8k32 e4m3
+  static constexpr int kBK = 128;
+  using Acc = float;
 };
 
 // The layout of one (BM x BN) tile: 2 x (BN / 32) warps of (BM / 2) x 32
@@ -113,14 +142,18 @@ struct MmaOf<__nv_bfloat16> {  // m16n8k16
 // of 16 x 32; one ring slot holds A's BM
 // rows, B's (and the gate's) BK rows in A's type T and, for 2:4 or a
 // narrower weight type TB (int8 or e4m3 beside bf16 A), the raw rows they
-// are expanded or widened from; Cs holds the finished f32 tile (and the
-// gate's).
+// are expanded or widened from; Cs holds the finished tile in the
+// accumulator's type (f32, or int32 for int8 x int8), and the gate's.
 template <typename T, int BM, int BN, bool GATE, bool SPARSE, typename TB = T>
 struct PrefillCfg {
   using WeightT = TB;
+  using AccT = typename MmaOf<T>::Acc;
   static constexpr int kBK = MmaOf<T>::kBK;  // 128 bytes of each A row per stage
   static constexpr int kE = sizeof(T), kEB = sizeof(TB);
   static constexpr bool kWiden = !std::is_same<T, TB>::value;
+  // int8 x int8 and e4m3 x e4m3: both operands staged in their own byte
+  static constexpr bool kByte = sizeof(T) == 1;
+  static_assert(!kByte || (!kWiden && !SPARSE), "8-bit pairs: same type, dense");
   // On the one-warp-row tile (BM = 16) a narrow dense weight is widened in
   // registers as its B fragments are built (b_frags_widen): no widened copy
   // in shared memory, no widening pass and barrier per step.  Its raw rows
@@ -133,6 +166,9 @@ struct PrefillCfg {
 #else
   static constexpr bool kRegWiden = kWiden && !SPARSE && BM == 16;
 #endif
+  // B fragments built in registers from 32-bit row reads (b_frags_widen,
+  // b_frags_8bit): tile nt's column j is the warp's column 4j + nt.
+  static constexpr bool kInterleaved = kRegWiden || kByte;
   static constexpr int kWarpsN = BN / 32;
   static constexpr int kWarpsM = BM == 16 ? 1 : 2;
   static constexpr int kThreads = 32 * kWarpsM * kWarpsN;
@@ -144,7 +180,9 @@ struct PrefillCfg {
       std::is_same<T, float>::value && !GATE && !SPARSE && BM == 64 && BN == 128;
   static constexpr int kWM = BM / kWarpsM, kMT = kWM / 16, kNT = 4;
   static constexpr int kAStride = kBK * kE + 16;  // bytes per staged A row (128 + 16)
-  static constexpr int kBStride = (BN + 8) * kE;  // bytes per staged B row
+  // bytes per staged B row: 8-bit rows padded by 32 bytes, so four rows 4
+  // apart (b_frags_8bit) start 8 banks apart
+  static constexpr int kBStride = kByte ? BN + 32 : (BN + 8) * kE;
   static constexpr int kABytes = BM * kAStride;
   static constexpr int kBBytes = kBK * kBStride;
   static constexpr int kPRow = BN * kEB + (kRegWiden ? 16 : 0);  // a raw weight or 2:4 payload row
@@ -385,7 +423,7 @@ __device__ __forceinline__ void pf_widen(unsigned char* bdst, const unsigned cha
 // rows wm0 + 16 mt, columns wn0 + 8 nt; lane (g, c) = (lane / 4, lane % 4)
 // holds its rows g and g + 8, columns 2c and 2c + 1.
 template <typename Cfg>
-using Acc = float[Cfg::kMT][Cfg::kNT][4];
+using Acc = typename Cfg::AccT[Cfg::kMT][Cfg::kNT][4];
 
 // One B operand's fragments for k sub-step kk (bf16: ldmatrix.trans of two
 // n8 tiles at a time).
@@ -446,6 +484,92 @@ __device__ __forceinline__ void b_frags_widen(unsigned (&b)[Cfg::kNT][2],
     b[nt][0] = pack_bf16x2(f[0][nt], f[1][nt]);
     b[nt][1] = pack_bf16x2(f[2][nt], f[3][nt]);
   }
+}
+
+// The 4 x 4 bytes of four 32-bit words (w[q]: row q) transposed: word j
+// holds byte j of every row, row q in byte q.
+__device__ __forceinline__ void byte_transpose4(uint32_t (&r)[4], const uint32_t (&w)[4]) {
+  const uint32_t t0 = __byte_perm(w[0], w[1], 0x5140), t1 = __byte_perm(w[2], w[3], 0x5140);
+  const uint32_t t2 = __byte_perm(w[0], w[1], 0x7362), t3 = __byte_perm(w[2], w[3], 0x7362);
+  r[0] = __byte_perm(t0, t1, 0x5410);
+  r[1] = __byte_perm(t0, t1, 0x7632);
+  r[2] = __byte_perm(t2, t3, 0x5410);
+  r[3] = __byte_perm(t2, t3, 0x7632);
+}
+
+// An 8-bit B operand's fragments for the k32 sub-step at byte kk: the m16n8k32
+// MMA wants K rows 4c .. 4c + 3 (b[nt][0]) and 16 + 4c .. (b[nt][1]) of
+// column g in one register each, and the slot holds (K, N) rows.  Lane
+// (g, c) reads the 32-bit word of columns 4g .. 4g + 3 (tile nt's column g
+// is the warp's column 4g + nt, as b_frags_widen) from each of its four K
+// rows and transposes the 4 x 4 bytes with byte permutes.  The four reads
+// are rotated by c (read q is row 4c + ((q + c) & 3)), so with rows
+// kBStride = BN + 32 bytes apart the warp's 32 words of one read fall on
+// 32 banks; a funnel shift by 8c bytes undoes the rotation.
+template <typename Cfg>
+__device__ __forceinline__ void b_frags_8bit(unsigned (&b)[Cfg::kNT][2],
+                                             const unsigned char* Bs, int kk, int wn0,
+                                             int lane) {
+  const int g = lane >> 2, c = lane & 3;
+  const unsigned char* p = Bs + (kk + 4 * c) * Cfg::kBStride + wn0 + 4 * g;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    uint32_t w[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      w[q] = *reinterpret_cast<const uint32_t*>(p + (16 * h + ((q + c) & 3)) * Cfg::kBStride);
+    uint32_t r[4];
+    byte_transpose4(r, w);
+#pragma unroll
+    for (int nt = 0; nt < Cfg::kNT; ++nt) b[nt][h] = __funnelshift_l(r[nt], r[nt], 8 * c);
+  }
+}
+
+// acc += a b for one k32 step of 8-bit operands.  int8: the MMA's exact
+// int32 sums.  e4m3: the k32 product as two f16 m16n8k16 products of the
+// exactly widened operands (ah / bh: the fragments as f16 pairs,
+// pf_f16_frags), summed by the tensor cores from zero, then added to acc
+// with rounding FADDs (the MMAs' f32 accumulation truncates: csrc/mma.cuh
+// mma_3xtf32).
+__device__ __forceinline__ void pf_mma8(int (&acc)[4], const unsigned (&a)[4],
+                                        const unsigned (&b)[2], const unsigned (&)[8],
+                                        const unsigned (&)[4]) {
+  mma_s8(acc, a, b);
+}
+
+__device__ __forceinline__ void pf_mma8(float (&acc)[4], const unsigned (&)[4],
+                                        const unsigned (&)[2], const unsigned (&ah)[8],
+                                        const unsigned (&bh)[4]) {
+  float t[4];
+  const unsigned a0[4] = {ah[0], ah[1], ah[2], ah[3]}, a1[4] = {ah[4], ah[5], ah[6], ah[7]};
+  const unsigned b0[2] = {bh[0], bh[1]}, b1[2] = {bh[2], bh[3]};
+  mma_f16_zero(t, a0, b0);
+  mma_f16(t, a1, b1);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) acc[i] += t[i];
+}
+
+// The f16 operands of an e4m3 k32 step's two m16n8k16 products, from the
+// 8-bit fragments (a register's bytes 0, 1 are the lower f16 pair, bytes 2,
+// 3 the upper, in A and B alike: the first product takes K 4c .. 4c + 3,
+// the second 16 + 4c .., every K once).  Called for int8 too, where nothing
+// reads them (dead code for the compiler).
+__device__ __forceinline__ void pf_f16_frags(unsigned (&ah)[8], const unsigned (&a)[4]) {
+  ah[0] = e4m3x2_f16x2(a[0]);
+  ah[1] = e4m3x2_f16x2(a[1]);
+  ah[2] = e4m3x2_f16x2(a[0] >> 16);
+  ah[3] = e4m3x2_f16x2(a[1] >> 16);
+  ah[4] = e4m3x2_f16x2(a[2]);
+  ah[5] = e4m3x2_f16x2(a[3]);
+  ah[6] = e4m3x2_f16x2(a[2] >> 16);
+  ah[7] = e4m3x2_f16x2(a[3] >> 16);
+}
+
+__device__ __forceinline__ void pf_f16_frags(unsigned (&bh)[4], const unsigned (&b)[2]) {
+  bh[0] = e4m3x2_f16x2(b[0]);
+  bh[1] = e4m3x2_f16x2(b[0] >> 16);
+  bh[2] = e4m3x2_f16x2(b[1]);
+  bh[3] = e4m3x2_f16x2(b[1] >> 16);
 }
 
 // acc += a b in 3xTF32 for one k8 step: lo*hi, hi*lo, hi*hi summed by the
@@ -519,6 +643,34 @@ __device__ __forceinline__ void pf_mma_stage(
             pf_3xtf32(accg[mt][nt], ah[mt], al[mt], bh[nt], bl[nt]);
       }
     }
+  } else if constexpr (Cfg::kByte) {
+#pragma unroll
+    for (int kk = 0; kk < Cfg::kBK; kk += 32) {
+      unsigned a[MT][4], ah[MT][8];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        ldsm_x4(a[mt], slot + (wm0 + mt * 16 + (lane & 15)) * Cfg::kAStride + kk +
+                           (lane >> 4) * 16);
+        pf_f16_frags(ah[mt], a[mt]);
+      }
+      unsigned b[NT][2], bh[NT][4];
+      b_frags_8bit<Cfg>(b, Bs, kk, wn0, lane);
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) pf_f16_frags(bh[nt], b[nt]);
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) pf_mma8(acc[mt][nt], a[mt], b[nt], ah[mt], bh[nt]);
+      if constexpr (GATE) {
+        b_frags_8bit<Cfg>(b, Bgs, kk, wn0, lane);
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) pf_f16_frags(bh[nt], b[nt]);
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt) pf_mma8(accg[mt][nt], a[mt], b[nt], ah[mt], bh[nt]);
+      }
+    }
   } else {
 #pragma unroll
     for (int kk = 0; kk < Cfg::kBK; kk += 16) {
@@ -557,26 +709,26 @@ __device__ __forceinline__ void pf_zero(Acc<Cfg>& acc) {
 #pragma unroll
     for (int nt = 0; nt < Cfg::kNT; ++nt)
 #pragma unroll
-      for (int i = 0; i < 4; ++i) acc[mt][nt][i] = 0.0f;
+      for (int i = 0; i < 4; ++i) acc[mt][nt][i] = 0;
 }
 
-// A warp's accumulators into the f32 tile C (row stride kCStride): copied
-// (first) or added to the total there (total + partial).  Each thread
-// touches only its own elements (tile nt's column j is the warp's column
-// 8 nt + j, or 4 j + nt under kRegWiden).
+// A warp's accumulators into the tile C (row stride kCStride, the
+// accumulator's type): copied (first) or added to the total there (total +
+// partial).  Each thread touches only its own elements (tile nt's column j
+// is the warp's column 8 nt + j, or 4 j + nt under kInterleaved).
 template <typename Cfg>
-__device__ __forceinline__ void pf_to_tile(float* C, const Acc<Cfg>& acc, int wm0, int wn0,
-                                           int lane, bool first) {
+__device__ __forceinline__ void pf_to_tile(typename Cfg::AccT* C, const Acc<Cfg>& acc, int wm0,
+                                           int wn0, int lane, bool first) {
   const int g = lane >> 2, c = lane & 3;
-  if constexpr (Cfg::kRegWiden) {
+  if constexpr (Cfg::kInterleaved) {
 #pragma unroll
     for (int mt = 0; mt < Cfg::kMT; ++mt)
 #pragma unroll
       for (int nt = 0; nt < Cfg::kNT; ++nt)
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
-          float* p = C + (wm0 + mt * 16 + g + 8 * (i >> 1)) * Cfg::kCStride + wn0 +
-                     4 * (2 * c + (i & 1)) + nt;
+          typename Cfg::AccT* p = C + (wm0 + mt * 16 + g + 8 * (i >> 1)) * Cfg::kCStride +
+                                  wn0 + 4 * (2 * c + (i & 1)) + nt;
           *p = first ? acc[mt][nt][i] : *p + acc[mt][nt][i];
         }
     return;
@@ -587,14 +739,20 @@ __device__ __forceinline__ void pf_to_tile(float* C, const Acc<Cfg>& acc, int wm
     for (int nt = 0; nt < Cfg::kNT; ++nt)
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
-        float2* p = reinterpret_cast<float2*>(
-            C + (wm0 + mt * 16 + g + 8 * h) * Cfg::kCStride + wn0 + nt * 8 + 2 * c);
-        float2 v = make_float2(acc[mt][nt][2 * h], acc[mt][nt][2 * h + 1]);
-        if (!first) {
-          const float2 t = *p;
-          v = make_float2(t.x + v.x, t.y + v.y);
+        typename Cfg::AccT* q =
+            C + (wm0 + mt * 16 + g + 8 * h) * Cfg::kCStride + wn0 + nt * 8 + 2 * c;
+        if constexpr (std::is_same<typename Cfg::AccT, float>::value) {
+          float2* p = reinterpret_cast<float2*>(q);
+          float2 v = make_float2(acc[mt][nt][2 * h], acc[mt][nt][2 * h + 1]);
+          if (!first) {
+            const float2 t = *p;
+            v = make_float2(t.x + v.x, t.y + v.y);
+          }
+          *p = v;
+        } else {
+#pragma unroll
+          for (int j = 0; j < 2; ++j) q[j] = first ? acc[mt][nt][2 * h + j] : q[j] + acc[mt][nt][2 * h + j];
         }
-        *p = v;
       }
 }
 
@@ -651,12 +809,13 @@ __device__ __forceinline__ void pf_ring(const PrefillShape& d, unsigned char* sm
 // (split == parts, a cluster) or all parts, each finished part folded into
 // the total in Cs (split == 1).  `hook.step(slot)` sees every staged step
 // after its MMAs (all threads call it; NoHook, or abft_tile.cuh's
-// AbftPrefillHook).  Returns Cs, the finished f32 tile
-// (the gate's follows at Cs + BM * kCStride), complete for every thread of
-// the CTA.
+// AbftPrefillHook).  Returns Cs, the finished tile in the accumulator's
+// type (the gate's follows at Cs + BM * kCStride), complete for every
+// thread of the CTA.
 template <typename T, int BM, int BN, bool GATE, bool SPARSE, typename TB = T,
           typename Hook>
-__device__ __forceinline__ float* prefill_sweep(const PrefillShape& d, Hook& hook) {
+__device__ __forceinline__ typename PrefillCfg<T, BM, BN, GATE, SPARSE, TB>::AccT* prefill_sweep(
+    const PrefillShape& d, Hook& hook) {
   using Cfg = PrefillCfg<T, BM, BN, GATE, SPARSE, TB>;
   extern __shared__ __align__(128) unsigned char pf_smem[];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -666,8 +825,9 @@ __device__ __forceinline__ float* prefill_sweep(const PrefillShape& d, Hook& hoo
   const int p0 = d.split > 1 ? static_cast<int>(blockIdx.z) : 0;
   const int p1 = d.split > 1 ? p0 + 1 : d.parts;
   const bool fold = p1 - p0 > 1;
-  float* Cs = reinterpret_cast<float*>(pf_smem + (fold ? d.stages * Cfg::kSlot : 0));
-  float* Cg = Cs + BM * Cfg::kCStride;
+  using AccT = typename Cfg::AccT;
+  AccT* Cs = reinterpret_cast<AccT*>(pf_smem + (fold ? d.stages * Cfg::kSlot : 0));
+  AccT* Cg = Cs + BM * Cfg::kCStride;
   Acc<Cfg> acc, accg;  // the partial sums of the current part
   pf_zero<Cfg>(acc);
   pf_zero<Cfg>(accg);
@@ -703,23 +863,26 @@ __device__ __forceinline__ float* prefill_sweep(const PrefillShape& d, Hook& hoo
 // r * BM / split onward of every rank's partial, in rank order, through
 // distributed shared memory, and stores them.  Neighbouring threads store
 // neighbouring columns.  Only rows row0 .. d.M - 1 are stored (the grouped
-// GEMM stores one group's rows per visit).
+// GEMM stores one group's rows per visit).  An int32 tile (int8 x int8) is
+// summed as int32 and widened to f32 only here, at mx_store.
 template <typename Cfg, int BM, int BN, bool GATE, typename R>
 __device__ __forceinline__ void prefill_store(const R& r, const PrefillShape& d,
-                                              const float* Cs, int row0 = 0) {
+                                              const typename Cfg::AccT* Cs, int row0 = 0) {
+  using AccT = typename Cfg::AccT;
   const int m0 = pf_tile_m() * BM, n0 = pf_tile_n() * BN;
   constexpr int CS = Cfg::kCStride, GOFF = BM * Cfg::kCStride;
   if (d.split == 1) {
     for (int e = threadIdx.x; e < BM * BN; e += Cfg::kThreads) {
       const int m = e / BN, n = e % BN, gm = m0 + m, gn = n0 + n;
       if (gm >= row0 && gm < d.M && gn < d.N)
-        mx_store<GATE>(r, Cs[m * CS + n], GATE ? Cs[GOFF + m * CS + n] : 0.0f, gm, gn);
+        mx_store<GATE>(r, static_cast<float>(Cs[m * CS + n]),
+                       GATE ? static_cast<float>(Cs[GOFF + m * CS + n]) : 0.0f, gm, gn);
     }
     return;
   }
   cg::cluster_group cl = cg::this_cluster();
   cl.sync();  // every rank's partial is in its Cs
-  const float* src[kPrefillMaxParts];
+  const AccT* src[kPrefillMaxParts];
 #pragma unroll
   for (int q = 0; q < kPrefillMaxParts; ++q)
     src[q] = q < d.split ? cl.map_shared_rank(Cs, q) : Cs;
@@ -728,14 +891,14 @@ __device__ __forceinline__ void prefill_store(const R& r, const PrefillShape& d,
     const int m = r0 + e / BN, n = e % BN, gm = m0 + m, gn = n0 + n;
     if (gm < row0 || gm >= d.M || gn >= d.N) continue;
     const int o = m * CS + n;
-    float y = src[0][o], g = GATE ? src[0][GOFF + o] : 0.0f;
+    AccT y = src[0][o], g = GATE ? src[0][GOFF + o] : AccT(0);
 #pragma unroll
     for (int q = 1; q < kPrefillMaxParts; ++q)
       if (q < d.split) {
         y = y + src[q][o];
         if constexpr (GATE) g = g + src[q][GOFF + o];
       }
-    mx_store<GATE>(r, y, g, gm, gn);
+    mx_store<GATE>(r, static_cast<float>(y), static_cast<float>(g), gm, gn);
   }
   cl.sync();  // no CTA leaves while its shared memory is read
 }

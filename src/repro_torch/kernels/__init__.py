@@ -71,9 +71,9 @@ def decode_launch_counts() -> Dict[str, int]:
 
 
 def prefill_launch_counts() -> Dict[str, int]:
-    """The dense GEMMs' launches on the tensor-core prefill tile (f32 and
-    bf16, M > 16 and the ABFT tiles recomputed from such launches,
-    csrc/prefill_tile.cuh; every variant) since the last reset."""
+    """The dense GEMMs' launches on the tensor-core prefill tile (every
+    operand pair at M > 16, and the ABFT tiles recomputed from such
+    launches, csrc/prefill_tile.cuh; every variant) since the last reset."""
     return {name: fn.prefill_launches for name, fn in WRAPPERS.items()
             if hasattr(fn, "prefill_launches")}
 

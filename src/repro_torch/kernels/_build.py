@@ -209,20 +209,20 @@ def pair_codes(a: torch.Tensor, b: torch.Tensor, what: str, sparse: bool = False
 
 # The one tile rule of the GEMM kernels: every launch takes its tile from
 # this module (the launchers take these and refuse any other).  gemm_tile's
-# (BM, BN, BK) are the CTA tiles of gemm_tile.cuh's loop: the 2:4 and ABFT
-# variants at M <= 16, and every variant of int8 x int8 and e4m3 x e4m3 at
-# M > 16; the ABFT flag map's grid, the fault operands' grid, abft_rtol and
-# the plain versions' ABFT tiling all read them, on the CPU too.  The dense
-# kernels' decode rows (M <= 16) launch decode_tile's; the MMA_PAIRS rows
-# at M > 16 of every variant launch prefill_tile's, whose CTA tile is a
-# whole multiple of gemm_tile's (the ABFT variant's is gemm_tile's).
+# (BM, BN, BK): at M <= 16 the CTA tile of gemm_tile.cuh's loop, which the
+# 2:4 and ABFT variants launch there; at every M the ABFT flag map's grid,
+# the fault operands' grid, abft_rtol and the plain versions' ABFT tiling,
+# on the CPU too.  The dense kernels' decode rows (M <= 16) launch
+# decode_tile's; the rows at M > 16 of every pair and variant launch
+# prefill_tile's, whose CTA tile is a whole multiple of gemm_tile's (the
+# ABFT variant's is gemm_tile's).
 def gemm_tile(M: int):
     """The MX GEMM's (BM, BN, BK) for M rows: decode (M <= 16, bytes
     bound: narrow tiles for more CTAs), a prefill chunk (M <= 64), larger
-    M.  The tile of gemm_tile.cuh's loop (the 2:4 and ABFT variants at
-    M <= 16, int8 x int8 and e4m3 x e4m3 at every M); it gives every ABFT
-    flag map its grid.  The dense decode rows launch `decode_tile`'s loop,
-    the MMA_PAIRS rows at M > 16 `prefill_tile`'s."""
+    M.  gemm_tile.cuh's loop launches the decode tile (the 2:4 and ABFT
+    variants at M <= 16); every ABFT flag map takes its grid from (BM, BN).
+    The dense decode rows launch `decode_tile`'s loop, every row at M > 16
+    `prefill_tile`'s."""
     if M <= 16:
         return 16, 16, 128
     if M <= 64:
@@ -347,30 +347,51 @@ def copy_width(row_bytes: int, *addresses: int, vec: int = COPY_BYTES) -> int:
 
 
 # The tensor-core prefill tile (csrc/prefill_tile.cuh): the operand pairs
-# it takes (an int8 or e4m3 weight beside bf16 activations is widened to
-# bf16 in shared memory), its CTA tiles (bm, bn), largest first (2 x bn / 32
-# warps of (bm / 2) x 32 outputs), and its K parts.
-MMA_PAIRS = ((torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
-             (torch.bfloat16, torch.int8), (torch.bfloat16, torch.float8_e4m3fn))
+# it takes -- every pair of the GEMMs: f32 (3xTF32), bf16, an int8 or e4m3
+# weight beside bf16 activations widened to bf16 in shared memory, int8 x
+# int8 and e4m3 x e4m3 both in their own byte (the s8 m16n8k32 MMA; e4m3
+# widened exactly to f16 in registers) -- its CTA tiles (bm,
+# bn), largest first (2 x bn / 32 warps of (bm / 2) x 32 outputs), and its
+# K parts.
+MMA_PAIRS = GEMM_PAIRS
 PREFILL_TILES = ((64, 128), (64, 64), (32, 64))
 PREFILL_VARIANTS = ("dense", "sparse", "abft", "baseline")
-PREFILL_STAGE_ROW = 128   # bytes of each A row per ring stage: BK = 32 f32, 64 bf16
+PREFILL_STAGE_ROW = 128   # bytes of each A row per ring stage: BK = 32 f32, 64 bf16, 128 8-bit
 PREFILL_PART_ROWS = 512   # K rows per part at least
 PREFILL_MAX_PARTS = 8     # a portable cluster
 PREFILL_MAX_STAGES = 4
 PREFILL_SPLIT_BELOW = 1.5  # split K across a cluster below this many tiles per SM
-PREFILL_ABFT_STATIC = 2048  # the ABFT checksums' static shared memory (at most)
+PREFILL_ABFT_STATIC = 2048  # the ABFT checksums' static shared memory (at most, bk <= 64)
+BYTE_ROW_PAD = 32         # bytes past an 8-bit B row's bn (csrc/prefill_tile.cuh kBStride)
+# int8 x int8 sums exactly in int32: |sum| <= K * 127^2 < 2^31 for K < 133,143
+# (csrc/gemm_tile.cuh's note)
+INT8_MAX_K = 133_142
+
+
+def prefill_abft_static(bk: int) -> int:
+    """The ABFT checksums' static shared memory beside a prefill ring (at
+    most): csrc/abft_tile.cuh AbftPrefillHook::Sm of a 64 x 64 tile, four
+    f32 sums per row and column and four per K row of a stage."""
+    return max(PREFILL_ABFT_STATIC, 1024 + 16 * bk)
+
+
+def check_int8_k(a_dtype: torch.dtype, b_dtype: torch.dtype, K: int, what: str) -> None:
+    """Refuse an int8 x int8 launch whose exact int32 sums could pass 2^31
+    (K > INT8_MAX_K): the kernels' sums would wrap where JAX's dot_f32
+    would not."""
+    if a_dtype == b_dtype == torch.int8 and K > INT8_MAX_K:
+        raise ValueError(f"{what}: int8 x int8 sums in int32 hold K <= {INT8_MAX_K} "
+                         f"(K * 127^2 < 2^31), got K={K}")
 
 
 class PrefillTile(NamedTuple):
     """The M > 16 launch of the GEMMs: route "mma" (csrc/prefill_tile.cuh)
-    for MMA_PAIRS, "simt" (gemm_tile.cuh's loop, gemm_tile's tile) for
-    int8 x int8 and e4m3 x e4m3."""
-    route: str    # "mma" or "simt"
+    for every pair."""
+    route: str    # "mma"
     bm: int       # CTA tile rows (a multiple of gemm_tile(M)[0])
     bn: int       # CTA tile columns (a multiple of gemm_tile(M)[1])
     bk: int       # K rows per ring stage
-    stages: int   # ring slots (1: gemm_tile.cuh's register double buffer)
+    stages: int   # ring slots
     split: int    # CTAs per cluster: 1, or `parts` (one part each)
     parts: int    # equal K parts, each summed from zero, folded in order
     threads: int  # per CTA
@@ -396,12 +417,15 @@ def prefill_slot_bytes(bm: int, bn: int, bk: int, ea: int, eb: int, gated: bool,
                        sparse: bool) -> int:
     """One ring slot of csrc/prefill_tile.cuh (`PrefillCfg::kSlot`): A's bm
     rows of bk elements (ea bytes each) padded by 16 bytes, B's (and the
-    gate's) bk rows of bn + 8 elements in A's type, and the raw rows they
-    come from when they are 2:4 payloads (with metadata) or narrower than A
-    (eb < ea).  A narrow dense weight on a 16-row tile is widened in
-    registers (`kRegWiden`): its raw rows alone, padded by 16 bytes."""
+    gate's) bk rows of bn + 8 elements in A's type (8-bit pairs: bn bytes
+    and BYTE_ROW_PAD), and the raw rows they come from when they are 2:4
+    payloads (with metadata) or narrower than A (eb < ea).  A narrow dense
+    weight on a 16-row tile is widened in registers (`kRegWiden`): its raw
+    rows alone, padded by 16 bytes."""
     mats = 2 if gated else 1
     a = bm * (bk * ea + 16)
+    if ea == 1:  # int8 x int8, e4m3 x e4m3: both in their own byte
+        return a + mats * bk * (bn + BYTE_ROW_PAD)
     if sparse:
         raw = (bk // 2) * bn * eb + (bk // 8) * bn
     elif eb != ea and bm == 16:
@@ -414,8 +438,9 @@ def prefill_slot_bytes(bm: int, bn: int, bk: int, ea: int, eb: int, gated: bool,
 def prefill_smem(bm: int, bn: int, bk: int, ea: int, eb: int, stages: int, split: int,
                  parts: int, gated: bool, sparse: bool, epilogue: bool = True) -> int:
     """A launch's dynamic shared memory (csrc/prefill_tile.cuh
-    `prefill_smem`): the ring, and the f32 tile Cs (and the gate's), which
-    has its own room only when one CTA folds several parts."""
+    `prefill_smem`): the ring, and the tile Cs (and the gate's; f32, or
+    int32 for int8 x int8), which has its own room only when one CTA folds
+    several parts."""
     ring = stages * prefill_slot_bytes(bm, bn, bk, ea, eb, gated, sparse)
     if not epilogue:
         return ring
@@ -426,10 +451,8 @@ def prefill_smem(bm: int, bn: int, bk: int, ea: int, eb: int, stages: int, split
 @functools.lru_cache(maxsize=None)  # a pure function of the launch's shape
 def prefill_tile(M: int, N: int, K: int, a_dtype: torch.dtype, b_dtype: torch.dtype,
                  gated: bool = False, variant: str = "dense") -> PrefillTile:
-    """The GEMMs' tile for M > 16 rows.
-
-    int8 x int8 and e4m3 x e4m3 keep gemm_tile.cuh's loop on gemm_tile's
-    tile (route "simt").  MMA_PAIRS take the tensor-core loop:
+    """The GEMMs' tile for M > 16 rows: every pair takes the tensor-core
+    loop (route "mma"; int8 x int8 and e4m3 x e4m3 in their own byte):
     - parts: `prefill_parts(K, bk)`, bk = 128 bytes of A row per stage;
     - a small grid (fewer than PREFILL_SPLIT_BELOW * SMS tiles of 64 x 64,
       or 32 x 64 for M <= 32): those tiles, each part its own CTA in a
@@ -449,11 +472,9 @@ def prefill_tile(M: int, N: int, K: int, a_dtype: torch.dtype, b_dtype: torch.dt
         raise ValueError(f"the prefill tile takes M > {DECODE_MAX_M}, got {M}")
     if variant not in PREFILL_VARIANTS:
         raise ValueError(f"variant must be one of {PREFILL_VARIANTS}, got {variant!r}")
-    gm, gn, gk = gemm_tile(M)
+    gm, gn, _ = gemm_tile(M)
     if (a_dtype, b_dtype) not in MMA_PAIRS:
-        tm = 2 if M <= 64 else 4
-        return PrefillTile("simt", gm, gn, gk, 1, 1, 1, (gm // tm) * (gn // 4), 0,
-                           -(-M // gm) * -(-N // gn))
+        raise ValueError(f"no prefill tile for the pair ({a_dtype}, {b_dtype})")
     e, eb = a_dtype.itemsize, b_dtype.itemsize
     bk = PREFILL_STAGE_ROW // e
     baseline = variant == "baseline"  # no parts, no Cs: its partials go to the output
@@ -472,7 +493,7 @@ def prefill_tile(M: int, N: int, K: int, a_dtype: torch.dtype, b_dtype: torch.dt
         (bm, bn), split = (small if tiles(*small) >= SMS else (gm, gn)), 1
     else:
         (bm, bn), split = small, parts
-    reserve = PREFILL_ABFT_STATIC if variant == "abft" else 0
+    reserve = prefill_abft_static(bk) if variant == "abft" else 0
 
     def ring(bm, bn, split):  # the most stages that fit, two CTAs per SM first
         for budget in ((SMEM_PER_SM // 2 - 1024 - reserve) if tiles(bm, bn) * split > SMS
@@ -496,18 +517,15 @@ def prefill_tile(M: int, N: int, K: int, a_dtype: torch.dtype, b_dtype: torch.dt
                                     sparse, not baseline), ctas)
 
 
-# The grouped GEMM (csrc/mx_grouped_matmul*.cu).  Route "mma"
-# (csrc/grouped_mma.cuh) for MMA_PAIRS: prefill_tile.cuh's K loop run once
+# The grouped GEMM (csrc/mx_grouped_matmul*.cu), route "mma"
+# (csrc/grouped_mma.cuh) for every pair: prefill_tile.cuh's K loop run once
 # per group that owns rows of a CTA tile, on the tiles GROUPED_TILES (the
-# ABFT launch on GROUPED_ABFT_TILES, the flag map's); route "simt"
-# (gemm_tile.cuh's loop, csrc/mx_grouped_matmul.cuh) for int8 x int8 and
-# e4m3 x e4m3, on GROUPED_SIMT_TILES.  Both pick the tile height by the mean
-# rows per group T / G (the rows one expert's weights are streamed for), as
-# the JAX dispatch plans for max(T // G, 1): decode height (<= 8, an MoE's
-# capacity floor), up to 64, an expert-major prefill chunk.
+# ABFT launch on GROUPED_ABFT_TILES, the flag map's).  The tile height
+# follows the mean rows per group T / G (the rows one expert's weights are
+# streamed for), as the JAX dispatch plans for max(T // G, 1): decode height
+# (<= 8, an MoE's capacity floor), up to 64, an expert-major prefill chunk.
 GROUPED_MEANS = (8, 64)            # mean rows per group: the regimes' upper edges
-GROUPED_ROWS = (16, 32, 64)        # "mma" CTA tile rows per regime
-GROUPED_SIMT_TILES = ((8, 128, 32), (32, 64, 16), (64, 64, 16))  # (bm, bn, bk) per regime
+GROUPED_ROWS = (16, 32, 64)        # CTA tile rows per regime
 GROUPED_TILES = ((16, 128), (32, 64), (64, 128), (64, 64))
 GROUPED_ABFT_TILES = ((16, 64), (32, 64), (64, 64))
 GROUPED_STAGES = (2, 3, 3)  # ring slots per regime (fewer where they do not fit)
@@ -519,13 +537,12 @@ GROUPED_SPLIT_GAIN = 1.25   # a cluster split must score this much above one CTA
 
 class GroupedTile(NamedTuple):
     """The launch of the grouped GEMM: route "mma" (csrc/grouped_mma.cuh)
-    for MMA_PAIRS, "simt" (gemm_tile.cuh's loop) for int8 x int8 and
-    e4m3 x e4m3."""
-    route: str    # "mma" or "simt"
+    for every pair."""
+    route: str    # "mma"
     bm: int       # CTA tile rows
     bn: int       # CTA tile columns
-    bk: int       # K rows per ring stage ("mma") or staged K step ("simt")
-    stages: int   # ring slots (1: gemm_tile.cuh's register double buffer)
+    bk: int       # K rows per ring stage
+    stages: int   # ring slots
     split: int    # CTAs per cluster: 1, or `parts` (one part each)
     parts: int    # equal K parts, each summed from zero, folded in order
     threads: int  # per CTA
@@ -540,13 +557,13 @@ def _grouped_regime(T: int, G: int) -> int:
 
 def grouped_flag_tile(T: int, G: int, a_dtype: torch.dtype, b_dtype: torch.dtype):
     """(bm, bn) of the grouped GEMM's ABFT flag map: the CTA tile of its ABFT
-    launch (one CTA per flag), by the mean rows per group and the route.
-    abft_rtol, the fault operands' grid and the plain version's flag map
-    (kernels/ref._grouped_flags) read it."""
-    r = _grouped_regime(T, G)
-    if (a_dtype, b_dtype) in MMA_PAIRS:
-        return GROUPED_ABFT_TILES[r]
-    return GROUPED_SIMT_TILES[r][:2]
+    launch (one CTA per flag), by the mean rows per group, for every pair
+    (`a_dtype`, `b_dtype`: one of MMA_PAIRS).  abft_rtol, the fault
+    operands' grid and the plain version's flag map (kernels/ref._grouped_flags)
+    read it."""
+    if (a_dtype, b_dtype) not in MMA_PAIRS:
+        raise ValueError(f"no grouped tile for the pair ({a_dtype}, {b_dtype})")
+    return GROUPED_ABFT_TILES[_grouped_regime(T, G)]
 
 
 def _mma_threads(bm: int, bn: int) -> int:
@@ -566,9 +583,9 @@ def grouped_tile(T: int, N: int, K: int, G: int, a_dtype: torch.dtype,
                  variant: str = "dense") -> GroupedTile:
     """The grouped GEMM's tile for x (T, K), w (G, K, N).
 
-    int8 x int8 and e4m3 x e4m3 keep gemm_tile.cuh's loop on
-    GROUPED_SIMT_TILES (route "simt").  MMA_PAIRS take the tensor-core
-    loop, one visit per group that owns rows of a tile (route "mma"):
+    Every pair takes the tensor-core loop, one visit per group that owns
+    rows of a tile (route "mma"; int8 x int8 and e4m3 x e4m3 the 8-bit
+    MMAs):
     - bm: 16, 32 or 64 rows by the mean rows per group (<= 8, <= 64, more):
       at an MoE's decode height (8 rows per expert) a 16-row tile covers two
       groups, and each expert's weight is streamed once;
@@ -601,16 +618,13 @@ def grouped_tile(T: int, N: int, K: int, G: int, a_dtype: torch.dtype,
         raise ValueError(f"variant must be dense, sparse or abft, got {variant!r}")
     r = _grouped_regime(T, G)
     if (a_dtype, b_dtype) not in MMA_PAIRS:
-        bm, bn, bk = GROUPED_SIMT_TILES[r]
-        tm, tn = ((8, 1), (2, 4), (4, 4))[r]
-        return GroupedTile("simt", bm, bn, bk, 1, 1, 1, (bm // tm) * (bn // tn), 0,
-                           -(-T // bm) * -(-N // bn))
+        raise ValueError(f"no grouped tile for the pair ({a_dtype}, {b_dtype})")
     e, eb = a_dtype.itemsize, b_dtype.itemsize
     bk = PREFILL_STAGE_ROW // e
     parts = prefill_parts(K, bk)
     sparse = variant == "sparse"
     bm = GROUPED_ROWS[r]
-    reserve = PREFILL_ABFT_STATIC if variant == "abft" else 0
+    reserve = prefill_abft_static(bk) if variant == "abft" else 0
     if variant == "abft":
         bn = GROUPED_ABFT_TILES[r][1]
     elif bm == 32 or (bm == 64 and a_dtype == torch.float32 and not gated):

@@ -6,13 +6,14 @@ by group.  On a CUDA tensor it launches `csrc/mx_grouped_matmul.cu`: one
 CTA per output tile reads the group sizes from the device itself (no host
 sync), runs a whole K loop per overlapping non-empty group and stores only
 that group's rows, so every output row is written once.  The K loop is
-`_build.grouped_tile`'s route (`mx_matmul.grouped_route`): "mma" for f32,
-bf16 and bf16 x int8 / e4m3 (`csrc/grouped_mma.cuh`: the fused GEMM's
-tensor-core prefill loop per group, the weight streamed through a ring of
-16-byte copies, K cut into parts by K alone, so every variant -- and the
-fused GEMM on one expert's rows -- gets the same bits); "simt" for
-int8 x int8 and e4m3 x e4m3 (`csrc/mx_grouped_matmul.cuh`, gemm_tile.cuh's
-serial K chain).  On a CPU tensor it runs the plain version,
+`_build.grouped_tile`'s (`mx_matmul.grouped_route`: "mma" for every pair,
+`csrc/grouped_mma.cuh`: the fused GEMM's tensor-core prefill loop per
+group -- 3xTF32 for f32, bf16 m16n8k16, an int8 or e4m3 weight beside bf16
+widened exactly, int8 x int8 on the s8 m16n8k32 MMA, e4m3 x e4m3 widened
+exactly to f16 in registers --
+the weight streamed through a ring of 16-byte copies, K cut into parts by
+K alone, so every variant -- and the fused GEMM on one expert's rows --
+gets the same bits).  On a CPU tensor it runs the plain version,
 `kernels.ref.grouped_matmul_ref`.
 
 Quantized experts (stage 5b): x and w carry int8 / fp8 payloads (or bf16
@@ -42,19 +43,15 @@ from .ref import grouped_matmul_ref
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # x, w, w_gate, [w_meta, wg_meta], a_scale, b_scale, bg_scale, sizes, out,
-# then _TAIL (out_dt, T, N, K, G, x_dt, w_dt, act), then the tile: "simt"'s
-# (bm, bn, bk) or "mma"'s (bm, bn, stages, split, parts, va, vb, vm); then
-# [flags, fault_delta, fault_row, fault_col, rtol, atol], stream
-_TAIL, _SIMT, _MMA = (_I,) * 8, (_I,) * 3, (_I,) * 8
+# then _TAIL (out_dt, T, N, K, G, x_dt, w_dt, act), then the tile (bm, bn,
+# stages, split, parts, va, vb, vm); then [flags, fault_delta, fault_row,
+# fault_col, rtol, atol], stream
+_TAIL, _MMA = (_I,) * 8, (_I,) * 8
 _LAUNCHERS = {  # (variant, route) -> (source, symbol, argtypes)
-    ("dense", "simt"): ("mx_grouped_matmul", "mx_grouped_matmul_launch",
-                        (_P,) * 8 + _TAIL + _SIMT + (_P,)),
     ("dense", "mma"): ("mx_grouped_matmul", "mx_grouped_matmul_mma_launch",
                        (_P,) * 8 + _TAIL + _MMA + (_P,)),
     ("sparse", "mma"): ("mx_grouped_matmul_sparse", "mx_grouped_matmul_sparse_mma_launch",
                         (_P,) * 10 + _TAIL + _MMA + (_P,)),
-    ("abft", "simt"): ("mx_grouped_matmul_abft", "mx_grouped_matmul_abft_launch",
-                       (_P,) * 8 + _TAIL + _SIMT + (_P,) * 4 + (_F, _F, _P)),
     ("abft", "mma"): ("mx_grouped_matmul_abft", "mx_grouped_matmul_abft_mma_launch",
                       (_P,) * 8 + _TAIL + _MMA + (_P,) * 4 + (_F, _F, _P)),
 }
@@ -69,15 +66,13 @@ def abft_spec_for(x: torch.Tensor, w: torch.Tensor, *, inject: bool = False) -> 
 
 def launch_tile(x, w, w_gate=None, w_meta=None, wg_meta=None, variant: str = "dense"):
     """(route, tile arguments) of a launch on x (T, K), w (G, K, N) or its
-    2:4 payload (G, K/2, N): `_build.grouped_tile`, and for "mma" the copy
-    widths of x's, the weights' and the metadata's rows from their row bytes
-    and base addresses (`_build.copy_width`; an expert's offset keeps its
-    stack's alignment)."""
+    2:4 payload (G, K/2, N): `_build.grouped_tile`, and the copy widths of
+    x's, the weights' and the metadata's rows from their row bytes and base
+    addresses (`_build.copy_width`; an expert's offset keeps its stack's
+    alignment)."""
     T, K = x.shape
     G, _, N = w.shape
     t = _build.grouped_tile(T, N, K, G, x.dtype, w.dtype, w_gate is not None, variant)
-    if t.route == "simt":
-        return t.route, (t.bm, t.bn, t.bk)
     va = _build.copy_width(K * x.element_size(), x.data_ptr())
     vb = _build.copy_width(N * w.element_size(), w.data_ptr(),
                            *(() if w_gate is None else (w_gate.data_ptr(),)))
@@ -94,6 +89,7 @@ def _launch(x, w, w_gate, group_sizes, activation, a_scale, b_scale, bg_scale,
     G, _, N = w.shape
     variant = "sparse" if w_meta is not None else "abft" if abft is not None else "dense"
     x_dt, w_dt = _build.pair_codes(x, w, "mx_grouped_matmul", sparse=variant == "sparse")
+    _build.check_int8_k(x.dtype, w.dtype, K, "mx_grouped_matmul")
     if w_gate is not None and w_gate.dtype != w.dtype:
         raise TypeError(f"mx_grouped_matmul: w_gate dtype {w_gate.dtype} != w dtype "
                         f"{w.dtype}")

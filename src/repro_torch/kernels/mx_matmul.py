@@ -5,9 +5,9 @@
 the Hopper kernel `csrc/mx_matmul.cu` (f32 accumulators held for the whole
 K loop, the epilogue applied once, one store; decode rows, M <= 16, stream
 the weight through `csrc/decode_tile.cuh`'s loop with `_build.decode_tile`'s
-tile; the rows at M > 16 with f32 or bf16 activations run the tensor-core
-loop of `csrc/prefill_tile.cuh` with `_build.prefill_tile`'s tile, int8 x
-int8 and e4m3 x e4m3 `_build.gemm_tile`'s); on a CPU
+tile; the rows at M > 16 of every operand pair run the tensor-core loop of
+`csrc/prefill_tile.cuh` with `_build.prefill_tile`'s tile, int8 x int8 and
+e4m3 x e4m3 on the 8-bit route: the s8 MMA, e4m3 widened to f16); on a CPU
 tensor it runs `mx_matmul_fused_plain`, the plain PyTorch version of the
 same function, which the tests hold against the JAX kernel and which
 `chip_smoke.py` holds the CUDA kernel against on the card.
@@ -15,7 +15,8 @@ same function, which the tests hold against the JAX kernel and which
 Quantized operands (stage 1b): a / b / b_gate carry int8 or fp8 payloads
 (or bf16 casts), with per-row `a_scale` (M, 1) and per-column `b_scale` /
 `bg_scale` (1, N) f32 dequant scales applied at the single write-back;
-int8 x int8 accumulates exactly (an integer MAC), every other pair in f32.
+int8 x int8 accumulates exactly (int32 sums, K <= `_build.INT8_MAX_K`),
+every other pair in f32.
 
 2:4 sparse weights (stage 1c): b / b_gate carry the compressed payloads
 (K/2, N) with uint8 metadata (K/8, N) (`kernels/sparse.py`); the CUDA
@@ -243,13 +244,13 @@ def mx_matmul_fused_plain(a, b, *, epilogue: Epilogue = Epilogue(),
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # a, b, b_gate, [b_meta, bg_meta], a_scale, b_scale, bg_scale, bias, then
-# _EPI, then the tile: (bm, bn, bk), the decode tile's (bn, bk, tm, stages,
-# threads, va, vb) or the prefill tile's (bm, bn, stages, split, parts, va,
-# vb, vm); then [flags, fault_delta, fault_row, fault_col, rtol, atol], stream
+# _EPI, then the tile: gemm_tile's (bm, bn, bk) (the 2:4 and ABFT rows at
+# M <= 16), the decode tile's (bn, bk, tm, stages, threads, va, vb) or the
+# prefill tile's (bm, bn, stages, split, parts, va, vb, vm); then [flags,
+# fault_delta, fault_row, fault_col, rtol, atol], stream
 _EPI = (_I, _P, _I, _P) + (_I,) * 8 + (_F,)  # bias_dt .. out_scale
 _TILE, _DECODE_TILE, _PREFILL_TILE = (_I,) * 3, (_I,) * 7, (_I,) * 8
 _LAUNCHERS = {  # variant -> (source, symbol, argtypes)
-    "dense": ("mx_matmul", "mx_matmul_fused_launch", (_P,) * 7 + _EPI + _TILE + (_P,)),
     "decode": ("mx_matmul", "mx_matmul_decode_launch",
                (_P,) * 7 + _EPI + _DECODE_TILE + (_P,)),
     "sparse": ("mx_matmul_sparse", "mx_matmul_sparse_launch",
@@ -336,9 +337,9 @@ def fused_route(M: int, N: int, K: int, a_dtype: torch.dtype, b_dtype: torch.dty
                 gated: bool = False, variant: str = "dense") -> str:
     """The K loop a launch of `mx_matmul_fused` runs on the card: "decode"
     (the dense rows at M <= 16, csrc/decode_tile.cuh), "mma" (the rows at
-    M > 16 of `_build.MMA_PAIRS`, csrc/prefill_tile.cuh) or "simt"
-    (gemm_tile.cuh's serial K chain).  `variant`: "dense", "sparse" or
-    "abft"."""
+    M > 16 of every pair, csrc/prefill_tile.cuh) or "simt" (the 2:4 and
+    ABFT rows at M <= 16: gemm_tile.cuh's serial K chain, bitwise the
+    decode tile's).  `variant`: "dense", "sparse" or "abft"."""
     if M <= _build.DECODE_MAX_M:
         return "decode" if variant == "dense" else "simt"
     return _build.prefill_tile(M, N, K, a_dtype, b_dtype, gated, variant).route
@@ -347,10 +348,9 @@ def fused_route(M: int, N: int, K: int, a_dtype: torch.dtype, b_dtype: torch.dty
 def grouped_route(T: int, N: int, K: int, G: int, a_dtype: torch.dtype,
                   b_dtype: torch.dtype, gated: bool = False, variant: str = "dense") -> str:
     """The K loop a launch of `mx_grouped_matmul` on x (T, K), w (G, K, N)
-    runs on the card: "mma" (`_build.MMA_PAIRS`: prefill_tile.cuh's loop
-    per group, csrc/grouped_mma.cuh) or "simt" (int8 x int8 and e4m3 x
-    e4m3: gemm_tile.cuh's serial K chain), `_build.grouped_tile`'s.  The
-    grouped GEMM's ABFT recovery recomputes a flagged tile on it through
+    runs on the card: "mma" for every pair (prefill_tile.cuh's loop per
+    group, csrc/grouped_mma.cuh), `_build.grouped_tile`'s.  The grouped
+    GEMM's ABFT recovery recomputes a flagged tile on it through
     `recompute_fused`, which gives the grouped launch's bits."""
     return _build.grouped_tile(T, N, K, G, a_dtype, b_dtype, gated, variant).route
 
@@ -365,6 +365,7 @@ def _launch_fused(a, b, epilogue, b_gate, bias, residual, a_scale, b_scale, bg_s
     N = b.shape[1]
     variant = "sparse" if b_meta is not None else "abft" if abft is not None else "dense"
     a_dt, b_dt = _build.pair_codes(a, b, "mx_matmul_fused", sparse=variant == "sparse")
+    _build.check_int8_k(a.dtype, b.dtype, K, "mx_matmul_fused")
     if b_gate is not None and b_gate.dtype != b.dtype:
         raise TypeError(f"mx_matmul_fused: b_gate dtype {b_gate.dtype} != b dtype "
                         f"{b.dtype}")
@@ -491,7 +492,7 @@ def mx_matmul_fused(a: torch.Tensor, b: torch.Tensor, *,
     (bf16, bf16), (bf16, int8), (bf16, fp8), (int8, int8), (fp8, fp8)),
     `csrc/mx_matmul_sparse.cu` (2:4; (f32, f32), (bf16, bf16), (bf16,
     int8)) or `csrc/mx_matmul_abft.cu` (ABFT; the dense pairs); a TypeError
-    for any other pair.  The rows at M > 16 of `_build.MMA_PAIRS` run the
+    for any other pair.  The rows at M > 16 of every pair run the
     tensor-core loop (csrc/prefill_tile.cuh) in all three (`fused_route`).
     A CPU `a` takes `mx_matmul_fused_plain`.
     """
@@ -552,8 +553,8 @@ def recompute_fused(route: str, a: torch.Tensor, b: torch.Tensor, *, epilogue: E
     """An ABFT launch of `mx_matmul_fused` on a given K loop, for the tile
     recoveries of core/ops.py (operands as the launch being recovered,
     sliced to the flagged tile's rows and columns): a CUDA `a` runs `route`
-    ("mma" or "simt": `fused_route` or `grouped_route` of the launch it
-    recovers) whatever its
+    ("mma", or "simt" for a decode-height launch: `fused_route` or
+    `grouped_route` of the launch it recovers) whatever its
     own M, so the recomputed tile gets that launch's bits; a CPU `a` takes
     `mx_matmul_fused_plain`.  Returns (out, flags)."""
     _build.refuse_grad("mx_matmul_fused", a, b, b_gate, bias, residual, a_scale, b_scale,

@@ -969,6 +969,147 @@ def test_prefill_tile_widened_pairs_match_plain(cuda, M, pol, ep):
     _close(got, ref, torch.float32)
 
 
+BYTE_POLICIES = ["int8_all", "fp8_all"]  # int8 x int8, e4m3 x e4m3: the 8-bit route
+
+
+def _byte_inputs(pol, M, K, N, ep, dev):
+    """Quantized operands of one 8-bit pair with scales and the epilogue's
+    operands: (a, b, kw) for mx_matmul_fused."""
+    x, w = _randn((M, K), torch.float32, dev, 0), _randn((K, N), torch.float32, dev, 1)
+    gated = ep.get("activation") == "swiglu"
+    wg = _randn((K, N), torch.float32, dev, 2) if gated else None
+    qa, a_s, qb, b_s, qg, bg_s = _quantized(pol, x, w, wg)
+    e = mm.Epilogue(**ep, a_scale=True, b_scale=True)
+    return qa, qb, dict(epilogue=e, b_gate=qg, a_scale=a_s, b_scale=b_s,
+                        bg_scale=bg_s if gated else None,
+                        bias=_randn((N,), torch.float32, dev, 3) if e.bias else None,
+                        residual=_randn((M, N), torch.float32, dev, 4) if e.residual else None,
+                        out_dtype=torch.float32)
+
+
+@pytest.mark.parametrize("ep", [dict(), dict(residual=True, bias=True),
+                                dict(activation="swiglu"),
+                                dict(activation="gelu", residual=True)])
+@pytest.mark.parametrize("K,N", [(2048, 2048), (301, 77), (2056, 200)])  # ragged off 16 bytes
+@pytest.mark.parametrize("pol", BYTE_POLICIES)
+@pytest.mark.parametrize("M", PREFILL_ROWS)
+def test_prefill_tile_8bit_pairs_match_plain(cuda, M, pol, K, N, ep):
+    """int8 x int8 and e4m3 x e4m3 on the prefill tile's 8-bit route (both
+    operands in their own byte, B transposed in registers; the s8 MMA, e4m3
+    widened to f16): one tensor-core
+    launch; int8 bitwise the plain version wherever the epilogue has no
+    activation (exact int32 sums, the same f32 roundings after), else and
+    for fp8 within 1e-4 * max|ref|."""
+    a, b, kw = _byte_inputs(pol, M, K, N, ep, cuda)
+    assert mm.fused_route(M, N, K, a.dtype, b.dtype, kw["b_gate"] is not None) == "mma"
+    kernels.reset_launch_counts()
+    got = mm.mx_matmul_fused(a, b, **kw)
+    ref = mm.mx_matmul_fused_plain(a, b, **kw)
+    torch.cuda.synchronize()
+    assert kernels.prefill_launch_counts()["mx_matmul_fused"] == 1
+    _close(got, ref, torch.float32)
+    if pol == "int8_all" and "activation" not in ep:
+        assert torch.equal(got, ref)
+
+
+@pytest.mark.parametrize("K", [301, 2048])
+@pytest.mark.parametrize("pol", BYTE_POLICIES)
+@pytest.mark.parametrize("M", PREFILL_ROWS)
+def test_prefill_8bit_abft_bitwise_flags_and_recovery(cuda, M, pol, K):
+    """ABFT on the 8-bit prefill tile (gemm_tile's CTA tile, split 1; int8
+    checksums exact in wrapping 32-bit sums): on is bitwise off with no flag,
+    a fault flags exactly its tile as the plain version's map does, and the
+    flagged last row tile recomputed alone is bitwise the clean launch."""
+    from repro_torch.kernels import abft as ab
+
+    N = 200
+    a, b, kw = _byte_inputs(pol, M, K, N, dict(activation="swiglu"), cuda)
+    spec = mm.abft_spec_for(a, b)
+    assert mm.fused_route(M, N, K, a.dtype, b.dtype, True, "abft") == "mma"
+    off = mm.mx_matmul_fused(a, b, **kw)
+    on, flags = mm.mx_matmul_fused(a, b, abft=spec, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(on, off) and not flags.any()
+    bm, bn, _ = _build.gemm_tile(M)
+    gm, gn = flags.shape
+    fault = ab.TileFault(gm - 1, gn - 1, 1, 5, 1e8)
+    fd, fr, fc = ab.build_fault_operands(fault, gm, gn, bm, bn, device=cuda)
+    fkw = dict(abft=spec.with_inject(True), fault_delta=fd, fault_row=fr, fault_col=fc)
+    _, kflags = mm.mx_matmul_fused(a, b, **fkw, **kw)
+    _, pflags = mm.mx_matmul_fused_plain(a, b, **fkw, **kw)
+    assert kflags.sum() == 1 and kflags[gm - 1, gn - 1] == 1
+    assert torch.equal(kflags, pflags)
+    ab.reset_abft_stats()
+    rkw = dict(ep=kw["epilogue"], bias=None, residual=None, w_gate=kw["b_gate"],
+               a_s=kw["a_scale"], b_s=kw["b_scale"], bg_s=kw["bg_scale"],
+               out_dtype=torch.float32)
+    clean = ops._abft_fused_gemm(a, b, cfg=ab.AbftConfig(), **rkw)
+    got = ops._abft_fused_gemm(
+        a, b, cfg=ab.AbftConfig(fault=ab.TileFault(gm - 1, gn - 1, 0, 7, 1e8)), **rkw)
+    torch.cuda.synchronize()
+    assert torch.equal(clean, off) and torch.equal(got, clean)
+    assert ab.abft_stats()["tiles_recovered"] == 1
+
+
+@pytest.mark.parametrize("M,K,N,gated", [(64, 8192, 2048, False), (64, 2048, 8192, True)])
+def test_prefill_fp8_as_close_to_f64_as_plain(cuda, M, K, N, gated):
+    """e4m3 x e4m3 at llama3.2-1b's prefill-chunk down and up+gate widths:
+    the kernel (each k32 product from zero, added with rounding FADDs) is no
+    more than twice as far from the f64 product of the same payloads and
+    scales as the plain version (relative RMS and max): the tensor cores'
+    truncating accumulation would not be."""
+    a, b, kw = _byte_inputs("fp8_all", M, K, N,
+                            dict(activation="swiglu") if gated else {}, cuda)
+    kw = dict(kw, epilogue=mm.Epilogue(a_scale=True, b_scale=True), b_gate=None,
+              bg_scale=None)
+    got = mm.mx_matmul_fused(a, b, **kw)
+    ref = mm.mx_matmul_fused_plain(a, b, **kw)
+    r64 = (a.double() * kw["a_scale"].double()) @ (b.double() * kw["b_scale"].double())
+    torch.cuda.synchronize()
+
+    def dist(y):
+        d = y.double() - r64
+        return d.abs().max().item(), (d.pow(2).mean() / r64.pow(2).mean()).sqrt().item()
+
+    (kmax, krms), (pmax, prms) = dist(got), dist(ref)
+    assert krms <= 2 * prms and kmax <= 2 * pmax, ((kmax, krms), (pmax, prms))
+
+
+@pytest.mark.parametrize("pol", BYTE_POLICIES)
+def test_abft_grouped_8bit_recovery_at_decode_height_is_bitwise(cuda, pol):
+    """grok's decode height for the 8-bit pairs (16-row flag tiles over two
+    8-row groups, K in 8 parts): every row tile's fault is flagged and
+    recovered through `_abft_grouped_gemm` on the tensor-core route, bitwise
+    the clean launch; int8 bitwise the plain version."""
+    from repro_torch.kernels import abft as ab
+
+    T, K, N, G = 64, 4096, 200, 8
+    x = _randn((T, K), torch.float32, cuda, 0)
+    w, wg = (_randn((G, K, N), torch.float32, cuda, s) / K ** 0.5 for s in (1, 2))
+    qa, a_s, qb, b_s, qg, bg_s = _quantized(pol, x, w, wg)
+    sz = torch.full((G,), 8, dtype=torch.int32, device=cuda)
+    assert mm.grouped_route(T, N, K, G, qa.dtype, qb.dtype, True, "abft") == "mma"
+    assert _build.grouped_flag_tile(T, G, qa.dtype, qb.dtype) == (16, 64)
+    ab.reset_abft_stats()
+    kw = dict(activation="swiglu", w_gate=qg, a_s=a_s, b_s=b_s, bg_s=bg_s,
+              out_dtype=torch.float32)
+    clean = ops._abft_grouped_gemm(qa, qb, sz, cfg=ab.AbftConfig(), **kw)
+    gkw = dict(w_gate=qg, activation="swiglu", a_scale=a_s, b_scale=b_s, bg_scale=bg_s,
+               out_dtype=torch.float32)
+    assert torch.equal(clean, mx_grouped_matmul(qa, qb, sz, **gkw))
+    if pol == "int8_all":
+        bare = dict(gkw, w_gate=None, activation="none", bg_scale=None)
+        assert torch.equal(mx_grouped_matmul(qa, qb, sz, **bare),
+                           grouped_matmul_ref(qa, qb, sz, **bare))
+    for ti in range(T // 16):
+        fault = ab.TileFault(ti, 2, 9 if ti % 2 else 3, 7, 1e8)
+        got = ops._abft_grouped_gemm(qa, qb, sz, cfg=ab.AbftConfig(fault=fault), **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(got, clean), ti
+    s = ab.abft_stats()
+    assert s["tiles_flagged"] == T // 16 and s["tiles_recovered"] == T // 16
+
+
 @pytest.mark.parametrize("act", ["none", "swiglu"])
 @pytest.mark.parametrize("K", [296, 4096])
 @pytest.mark.parametrize("pair", ["sparse24 bf16", "sparse24 f32", "sparse24_int8"])
@@ -1117,7 +1258,7 @@ GROUPED_EDGES = {
 
 
 @pytest.mark.parametrize("act", ["none", "swiglu"])
-@pytest.mark.parametrize("pol", ["f32", "bf16", "int8", "fp8"])  # every "mma" pair
+@pytest.mark.parametrize("pol", ["f32", "bf16", "int8", "fp8", "int8_all", "fp8_all"])
 @pytest.mark.parametrize("case", sorted(GROUPED_EDGES))
 def test_grouped_kernel_at_mma_edges(cuda, case, pol, act):
     """The tensor-core route at group heights around the MMA's 16 rows:
@@ -1143,8 +1284,10 @@ def test_grouped_kernel_at_mma_edges(cuda, case, pol, act):
     got = mx_grouped_matmul(qa, qb, sz, **kw)
     ref = grouped_matmul_ref(qa, qb, sz, **kw)
     torch.cuda.synchronize()
-    _close(got, ref, torch.float32 if pol == "f32" else torch.bfloat16)
+    _close(got, ref, torch.float32 if pol in ("f32", "int8_all", "fp8_all") else torch.bfloat16)
     assert torch.all(got[min(sum(sizes), T):] == 0)
+    if pol == "int8_all" and act == "none":  # exact int32 sums
+        assert torch.equal(got, ref)
     ep = mm.Epilogue(activation=act, a_scale=a_s is not None, b_scale=b_s is not None)
     start = 0
     for g, n in enumerate(sizes):
@@ -1193,9 +1336,9 @@ def test_abft_grouped_recovery_at_decode_height_is_bitwise(cuda, dtype):
 
 @pytest.mark.parametrize("pol", ["f32", "bf16", "int8", "fp8", "int8_all", "fp8_all"])
 def test_grouped_route_launches_its_loop(cuda, monkeypatch, pol):
-    """grouped_route is "mma" for every MMA_PAIRS pair and "simt" for
-    int8 x int8 and e4m3 x e4m3, and each launch enters its route's C
-    entry (the dense, 2:4 and ABFT variants alike)."""
+    """grouped_route is "mma" for every pair (int8 x int8 and e4m3 x e4m3
+    in their own byte), and each launch enters the "mma" C entry (the dense
+    and ABFT variants alike)."""
     from repro_torch.kernels.mx_grouped_matmul import abft_spec_for
 
     T, K, N, G = 64, 256, 128, 8
@@ -1203,7 +1346,8 @@ def test_grouped_route_launches_its_loop(cuda, monkeypatch, pol):
     w = _randn((G, K, N), torch.float32, cuda, 1) / K ** 0.5
     qa, a_s, qb, b_s, _, _ = (x, None, w, None, None, None) if pol == "f32" \
         else _quantized(pol, x, w)
-    want = "mma" if (qa.dtype, qb.dtype) in _build.MMA_PAIRS else "simt"
+    want = "mma"
+    assert (qa.dtype, qb.dtype) in _build.MMA_PAIRS
     assert mm.grouped_route(T, N, K, G, qa.dtype, qb.dtype) == want
     symbols = []
     real = _build.function
@@ -1455,34 +1599,37 @@ def test_abft_grouped_kernel_flag_maps_equal_plain(cuda, pol, case):
 
 
 def test_one_tile_rule_the_kernels_take_the_python_table_and_nothing_else(cuda):
-    """The tile of every launch comes from _build: prefill_tile for the f32
-    and bf16 rows at M > 16 (the tensor-core loop, every variant); gemm_tile
-    for gemm_tile.cuh's loop (the 2:4 and ABFT variants' decode rows, the
-    int8 / fp8 x int8 / fp8 and the serial chain at M > 16) and every ABFT flag map;
-    decode_tile for the dense decode rows (M <= 16); grouped_tile for the
-    grouped GEMM.  Each launcher takes its table's tiles and refuses any
-    other (the old 16 x 16 x 128 tile included: the dense decode rows take
-    the decode launcher)."""
+    """The tile of every launch comes from _build: prefill_tile for every
+    pair's rows at M > 16 (the tensor-core loop, every variant); gemm_tile
+    for gemm_tile.cuh's loop (the 2:4 and ABFT variants' decode rows, and
+    nothing at M > 16) and every ABFT flag map; decode_tile for the dense
+    decode rows (M <= 16); grouped_tile for the grouped GEMM, every pair.
+    Each launcher takes its table's tiles and refuses any other."""
     from repro_torch.kernels.mx_matmul import _LAUNCHERS
 
     x = _randn((100, 64), torch.float32, cuda, 0)
     w = _randn((64, 48), torch.float32, cuda, 1)
     out = torch.empty((100, 48), device=cuda)
-    fn = _build.function(*_LAUNCHERS["dense"])
+    flags = torch.zeros(64, dtype=torch.int32, device=cuda)
+    afn = _build.function(*_LAUNCHERS["abft"])
     dfn = _build.function(*_LAUNCHERS["decode"])
     pfn = _build.function(*_LAUNCHERS["dense prefill"])
 
-    def launch(M, tile, f=fn, a=x, K=64):
-        return f(a.data_ptr(), w.data_ptr(), None, None, None, None, None, 0, None, 0,
-                 out.data_ptr(), 0, M, 48, K, 0, 0, 0, 0, 0.0, *tile,
-                 _build.stream_ptr(x))
+    def launch(M, tile, f=None, a=x, K=64):
+        abft = f is None  # gemm_tile.cuh's loop: the ABFT launcher's serial chain
+        return (afn if abft else f)(
+            a.data_ptr(), w.data_ptr(), None, None, None, None, None, 0, None, 0,
+            out.data_ptr(), 0, M, 48, K, 0, 0, 0, 0, 0.0, *tile,
+            *((flags.data_ptr(), None, None, None, 1e-3, 1e-3) if abft else ()),
+            _build.stream_ptr(x))
 
     tiles = {_build.gemm_tile(M) for M in (17, 64, 65, 100)}
     assert len(tiles) == 2
-    for tile in tiles:  # gemm_tile.cuh's loop (the serial chain)
-        assert launch(100, tile) == 0
-    for tile in ((16, 16, 128), (16, 16, 16), (8, 128, 32)):
-        assert launch(100, tile) != 0
+    for tile in tiles:  # gemm_tile.cuh's loop serves no row above 16 any more
+        assert launch(100, tile) != 0 and launch(8, tile) != 0
+    assert launch(8, _build.gemm_tile(8)) == 0 and launch(100, _build.gemm_tile(8)) != 0
+    for tile in ((16, 16, 16), (8, 128, 32)):
+        assert launch(8, tile) != 0
     for M in (17, 64, 65, 100):  # the prefill tile's
         t = _build.prefill_tile(M, 48, 64, torch.float32, torch.float32)
         assert launch(M, (t.bm, t.bn, t.stages, t.split, t.parts, 16, 16, 16), pfn) == 0
@@ -1510,7 +1657,7 @@ def test_one_tile_rule_the_kernels_take_the_python_table_and_nothing_else(cuda):
     assert launch(8, (*tile, 16, 16), dfn, shifted) != 0
     assert launch(8, (*tile, 4, 16), dfn, shifted) == 0
     # the grouped GEMM: "mma" launches take grouped_tile's tile and refuse a
-    # CTA tile, ring, split or parts outside the table; "simt" its 3 tiles
+    # CTA tile, ring, split or parts outside the table, for every pair
     xg, wg_ = _randn((520, 64), torch.float32, cuda, 3), _randn((8, 64, 48), torch.float32,
                                                                 cuda, 2)
     gout = torch.empty((520, 48), device=cuda)
@@ -1547,12 +1694,17 @@ def test_one_tile_rule_the_kernels_take_the_python_table_and_nothing_else(cuda):
     assert (ta.bm, ta.bn) == _build.grouped_flag_tile(64, 8, torch.float32, torch.float32)
     assert glaunch(agood, variant="abft") == 0
     assert glaunch((16, 128) + agood[2:], variant="abft") != 0  # not a flag map's tile
-    q = torch.zeros((64, 64), dtype=torch.int8, device=cuda)
-    qw = torch.zeros((8, 64, 48), dtype=torch.int8, device=cuda)
-    for tile in _build.GROUPED_SIMT_TILES:
-        assert glaunch(tile, "simt", a=q, b=qw) == 0
-    for tile in ((16, 16, 128), (16, 64, 32)):
-        assert glaunch(tile, "simt", a=q, b=qw) != 0
+    for dt in (torch.int8, torch.float8_e4m3fn):  # the 8-bit pairs: the same table
+        q = torch.zeros((64, 64), dtype=dt, device=cuda)
+        qw = torch.zeros((8, 64, 48), dtype=dt, device=cuda)
+        t8 = _build.grouped_tile(64, 48, 64, 8, dt, dt)
+        good8 = (t8.bm, t8.bn, t8.stages, t8.split, t8.parts, 16, 16, 16)
+        assert glaunch(good8, a=q, b=qw) == 0
+        for bad in ((8, 128), (16, 32)):
+            assert glaunch(bad + good8[2:], a=q, b=qw) != 0
+        t8 = _build.grouped_tile(64, 48, 64, 8, dt, dt, variant="abft")
+        assert glaunch((t8.bm, t8.bn, t8.stages, t8.split, t8.parts, 16, 16, 16), a=q, b=qw,
+                       variant="abft") == 0
     for M in (5, 40, 100):
         _, flags = mm.mx_matmul_fused(x[:M], w, abft=mm.abft_spec_for(x[:M], w))
         bm, bn, _ = _build.gemm_tile(M)

@@ -51,12 +51,8 @@ def test_grouped_tile_fits_the_card_and_the_loop(pair, variant):
                     t = _build.grouped_tile(T, N, K, G, a_dt, b_dt, gated, variant)
                     what = (T, G, N, K, gated, t)
                     assert t.ctas == math.ceil(T / t.bm) * math.ceil(N / t.bn) * t.split, what
-                    if t.route == "simt":  # gemm_tile.cuh's loop on its own tiles
-                        assert (a_dt, b_dt) not in _build.MMA_PAIRS, what
-                        assert (t.bm, t.bn, t.bk) in _build.GROUPED_SIMT_TILES, what
-                        assert t.split == t.parts == t.stages == 1, what
-                        assert (t.bm, t.bn) == flag, what
-                        continue
+                    # every pair on the tensor cores (int8 x int8, fp8 x fp8 on
+                    # the 8-bit route), none on gemm_tile.cuh's loop any more
                     assert (a_dt, b_dt) in _build.MMA_PAIRS and t.route == "mma", what
                     if variant == "abft":  # one CTA per flag
                         assert (t.bm, t.bn) == flag and t.split == 1, what
@@ -66,7 +62,7 @@ def test_grouped_tile_fits_the_card_and_the_loop(pair, variant):
                         assert t.bm == flag[0], what
                     # shared memory of at most 227 KB per CTA, the ABFT
                     # checksums' static shared memory beside it
-                    reserve = _build.PREFILL_ABFT_STATIC if variant == "abft" else 0
+                    reserve = _build.prefill_abft_static(t.bk) if variant == "abft" else 0
                     assert t.smem + reserve <= _build.SMEM_PER_CTA, what
                     assert t.smem == _build.prefill_smem(
                         t.bm, t.bn, t.bk, a_dt.itemsize, b_dt.itemsize, t.stages, t.split,
@@ -82,7 +78,7 @@ def test_grouped_tile_fits_the_card_and_the_loop(pair, variant):
 
 
 @pytest.mark.parametrize("a_dt,b_dt", _build.MMA_PAIRS,
-                         ids=["f32", "bf16", "bf16-int8", "bf16-fp8"])
+                         ids=["f32", "bf16", "bf16-int8", "bf16-fp8", "int8", "fp8"])
 def test_grouped_parts_are_the_fused_prefill_tiles(a_dt, b_dt):
     """A grouped launch cuts K into the parts the fused GEMM's prefill tile
     cuts it into for the same K and pair, at every T, G, N and variant, so
@@ -100,10 +96,11 @@ def test_grouped_parts_are_the_fused_prefill_tiles(a_dt, b_dt):
 @pytest.mark.parametrize("pair", sorted(PAIRS))
 def test_grouped_route_by_pair(pair):
     """The one place the grouped K loop is chosen: the tensor cores for
-    MMA_PAIRS at every regime and variant, gemm_tile.cuh's chain for
-    int8 x int8 and e4m3 x e4m3."""
+    every pair at every regime and variant (int8 x int8 and e4m3 x e4m3 on
+    the 8-bit route)."""
     a_dt, b_dt = PAIRS[pair]
-    want = "mma" if (a_dt, b_dt) in _build.MMA_PAIRS else "simt"
+    assert (a_dt, b_dt) in _build.MMA_PAIRS
+    want = "mma"
     for T, G in SHAPES:
         for variant in ("dense", "abft") + (("sparse",) if (a_dt, b_dt) in
                                             _build.SPARSE_PAIRS else ()):
@@ -117,12 +114,11 @@ def test_grouped_route_by_pair(pair):
 def test_grouped_rows_follow_the_mean_rows_per_group(T, G, bm):
     """16-row tiles at decode height (<= 8 rows per group: a tile covers two
     of an MoE's 8-row capacity groups, each expert read once), 32 up to 64,
-    64 above; the flag map keeps gemm_tile.cuh's tiles on the "simt" route."""
+    64 above; the flag map's tiles are the same for the 8-bit pairs."""
     for a_dt, b_dt in _build.MMA_PAIRS:
         assert _build.grouped_tile(T, 2048, 4096, G, a_dt, b_dt).bm == bm
         assert _build.grouped_flag_tile(T, G, a_dt, b_dt) == (bm, 64)
-    simt = _build.GROUPED_SIMT_TILES[(16, 32, 64).index(bm)]
-    assert _build.grouped_flag_tile(T, G, torch.int8, torch.int8) == simt[:2]
+    assert _build.grouped_flag_tile(T, G, torch.int8, torch.int8) == (bm, 64)
 
 
 @pytest.mark.parametrize("label,T,G,K,N,gated,tile", [
@@ -180,18 +176,20 @@ def test_grouped_launch_tile_narrows_a_misaligned_view(dtype):
     meta = torch.zeros((G, K // 8, 100), dtype=torch.uint8)
     payload = torch.zeros((G, K // 2, 100), dtype=dtype)
     assert launch_tile(x, payload, w_meta=meta, variant="sparse")[1][7] == 4
-    q = torch.zeros((G, K, N), dtype=torch.int8)
-    assert launch_tile(x.to(torch.int8), q) == (
-        "simt", _build.GROUPED_SIMT_TILES[0])
+    q = torch.zeros((G, K, N), dtype=torch.int8)  # int8 x int8: the 8-bit route
+    x8 = torch.zeros(T * K + 16, dtype=torch.int8)[4:][:T * K].view(T, K)
+    t8 = _build.grouped_tile(T, N, K, G, torch.int8, torch.int8)
+    assert launch_tile(x8, q) == (
+        "mma", (t8.bm, t8.bn, t8.stages, t8.split, t8.parts, 4, 16, 16))
 
 
 @pytest.mark.parametrize("dtype,want", [
-    (torch.float32, "mma"), (torch.bfloat16, "mma"), (torch.int8, "simt"),
+    (torch.float32, "mma"), (torch.bfloat16, "mma"), (torch.int8, "mma"),
 ])
 @pytest.mark.parametrize("sizes", [[8] * 8, [0, 13, 0, 0, 40, 3, 0, 7]])
 def test_grouped_recovery_recomputes_on_the_grouped_route(monkeypatch, sizes, dtype, want):
     """A flagged grouped tile is recomputed per overlapping expert on
-    `grouped_route`'s loop (not a fixed "simt"), so the recovered rows are
+    `grouped_route`'s loop ("mma" for every pair), so the recovered rows are
     the grouped launch's bits on the card
     (`test_torch_cuda.py::test_abft_grouped_recovery_at_decode_height_is_bitwise`)."""
     T, K, N, G = sum(sizes) + 6, 96, 200, len(sizes)

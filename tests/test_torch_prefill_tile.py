@@ -51,16 +51,14 @@ def test_prefill_tile_fits_the_card_and_the_loop(M, pair, variant):
                 if variant == "abft":
                     assert (t.bm, t.bn) == (gm, gn), what
                 assert t.ctas == math.ceil(M / t.bm) * math.ceil(N / t.bn) * t.split, what
-                if t.route == "simt":  # int8 x int8, fp8 x fp8 keep gemm_tile.cuh's loop
-                    assert (a_dt, b_dt) not in _build.MMA_PAIRS
-                    assert (t.bm, t.bn, t.bk) == _build.gemm_tile(M), what
-                    assert t.split == t.parts == t.stages == 1, what
-                    continue
-                assert (a_dt, b_dt) in _build.MMA_PAIRS and t.route == "mma"
+                # every pair on the tensor cores (int8 x int8, fp8 x fp8 on the
+                # 8-bit route), none on gemm_tile.cuh's loop any more
+                assert (a_dt, b_dt) in _build.MMA_PAIRS and t.route == "mma", what
+                assert (t.bm, t.bn, t.bk) != _build.gemm_tile(M) or variant == "abft", what
                 assert (t.bm, t.bn) in _build.PREFILL_TILES, what
                 # shared memory of at most 227 KB per CTA (the ABFT variant's
                 # checksums take static shared memory beside it)
-                reserve = _build.PREFILL_ABFT_STATIC if variant == "abft" else 0
+                reserve = _build.prefill_abft_static(t.bk) if variant == "abft" else 0
                 assert t.smem + reserve <= _build.SMEM_PER_CTA, what
                 # threads: 2 x bn / 32 warps, and 255 registers for each fit an SM
                 assert t.threads == 2 * t.bn and t.threads % 32 == 0, what
@@ -84,7 +82,7 @@ def test_prefill_tile_fits_the_card_and_the_loop(M, pair, variant):
 
 
 @pytest.mark.parametrize("a_dt,b_dt", _build.MMA_PAIRS,
-                         ids=["f32", "bf16", "bf16-int8", "bf16-fp8"])
+                         ids=["f32", "bf16", "bf16-int8", "bf16-fp8", "int8", "fp8"])
 def test_prefill_parts_depend_on_k_alone(a_dt, b_dt):
     """Every launch at one K -- dense, 2:4, ABFT, any M, N or CTA tile --
     cuts K into the same parts, so they all sum in one order and give the
@@ -189,13 +187,14 @@ def test_gemm_tile_is_unchanged(M, tile):
 def test_fused_route_by_rows_pair_and_variant(M, pair, variant):
     """The one place the fused GEMM's K loop is chosen: the dense decode
     rows take the decode tile, the other variants' gemm_tile.cuh's chain;
-    above 16 rows MMA_PAIRS take the tensor cores, the rest the chain."""
+    above 16 rows every pair takes the tensor cores (int8 x int8 and
+    fp8 x fp8 in their own byte)."""
     a_dt, b_dt = PAIRS[pair]
     route = fused_route(M, 2048, 8192, a_dt, b_dt, False, variant)
     if M <= _build.DECODE_MAX_M:
         assert route == ("decode" if variant == "dense" else "simt")
     else:
-        assert route == ("mma" if (a_dt, b_dt) in _build.MMA_PAIRS else "simt")
+        assert (a_dt, b_dt) in _build.MMA_PAIRS and route == "mma"
 
 
 @pytest.mark.parametrize("M", [1, 8, 16])
@@ -212,7 +211,7 @@ def test_a_recomputed_abft_tile_of_few_rows_takes_the_tile_of_17_rows(M):
 
 @pytest.mark.parametrize("M,dtype,want", [
     (40, torch.float32, "mma"), (65, torch.float32, "mma"), (40, torch.bfloat16, "mma"),
-    (65, torch.int8, "simt"), (8, torch.float32, "simt"),
+    (65, torch.int8, "mma"), (8, torch.float32, "simt"),
 ])
 def test_fused_recovery_recomputes_on_the_route_of_the_launch(monkeypatch, M, dtype, want):
     """A fault in the LAST row tile (8 rows at M = 40, 1 at M = 65) is
@@ -247,3 +246,15 @@ def test_fused_recovery_recomputes_on_the_route_of_the_launch(monkeypatch, M, dt
     assert routes == [want]
     assert ab.abft_stats()["tiles_recovered"] == 1
     assert torch.equal(got, clean)
+
+
+def test_int8_launches_refuse_a_k_past_the_exact_int32_sums():
+    """int8 x int8 sums in int32 (|sum| <= K * 127^2 < 2^31 for K < 133,143):
+    both GEMM wrappers refuse a longer K before any launch is built; the
+    other pairs sum in f32 and take any K."""
+    assert _build.INT8_MAX_K * 127 ** 2 < 2 ** 31
+    _build.check_int8_k(torch.int8, torch.int8, _build.INT8_MAX_K, "k")
+    with pytest.raises(ValueError, match="int32"):
+        _build.check_int8_k(torch.int8, torch.int8, _build.INT8_MAX_K + 1, "k")
+    for dt in (torch.float8_e4m3fn, torch.bfloat16):
+        _build.check_int8_k(dt, dt, 10 ** 6, "k")

@@ -254,3 +254,104 @@ def test_kernel_scale_slots_validate_like_jax():
     with pytest.raises(ValueError, match="bg_scale"):
         mx_grouped_matmul(x, w, torch.tensor([3, 4]), activation="swiglu", w_gate=w,
                           b_scale=torch.ones(2, 1, 5))
+
+
+BYTE_NAMES = ["int8_all", "fp8_all"]  # int8 x int8, e4m3 x e4m3: the card's 8-bit route
+
+
+def _parts_product(qa, qb, bk, parts):
+    """The payload product A @ B summed in the order of the card's 8-bit
+    prefill tile: K in staged steps of bk rows, cut into `parts` equal
+    parts (part p from step p * steps // parts on), each part's partial from
+    zero, the partials folded in part order.  int8 x int8: exact integer
+    partials.  e4m3 x e4m3: each k32 product exact in f64 (32 products of
+    e4m3 values), rounded to f32 and added to the part's f32 sum."""
+    K = qa.shape[1]
+    steps = -(-K // bk)
+    a, b = qa.double(), qb.double()
+    total = None
+    for p in range(parts):
+        k0, k1 = p * steps // parts * bk, min((p + 1) * steps // parts * bk, K)
+        if qa.dtype == torch.int8:
+            part = a[:, k0:k1] @ b[k0:k1]
+        else:
+            part = torch.zeros((a.shape[0], b.shape[1]))
+            for k in range(k0, k1, 32):
+                part = part + (a[:, k:k + 32] @ b[k:k + 32]).float()
+        total = part if total is None else total + part
+    return total.float()
+
+
+@pytest.mark.parametrize("K,parts", [(300, 1), (1024, 2), (2048, 4), (4096, 8)])
+@pytest.mark.parametrize("name", BYTE_NAMES)
+def test_8bit_pairs_at_the_prefill_tiles_k_parts_match_jax(name, K, parts):
+    """"int8_all" and "fp8_all" at 40 rows, where the card runs the 8-bit
+    prefill tile (128 K rows a stage, K cut into `parts`): the tile table
+    gives these parts; the port's fused GEMM (its plain GEMM on the CPU)
+    matches JAX's, plain and Pallas in interpret mode, with every epilogue
+    operand; and the payload product summed part by part in the tile's
+    order matches JAX's dot_f32, as the port's plain one does (int8
+    bitwise)."""
+    from repro_torch.kernels import _build
+
+    M, N = 40, 77
+    pol = NAMED_POLICIES[name]
+    tile = _build.prefill_tile(M, N, K, pol.a.torch_dtype, pol.b.torch_dtype)
+    assert (tile.route, tile.bk, tile.parts) == ("mma", 128, parts)
+    rng = np.random.default_rng(K)
+    x = rng.standard_normal((M, K)).astype(np.float32)
+    w, wg = ((rng.standard_normal((K, N)) / np.sqrt(K)).astype(np.float32) for _ in range(2))
+    b, res = rng.standard_normal((N,)).astype(np.float32), rng.standard_normal(
+        (M, N)).astype(np.float32)
+
+    def call(mod, conv, **extra):
+        return mod.linear(conv(x), conv(w), conv(b), activation="swiglu", w_gate=conv(wg),
+                          residual=conv(res), precision=name, **extra)
+
+    for jax_backend in sorted(JAX_POLICIES):
+        with jops.use_policy(JAX_POLICIES[jax_backend]):
+            want = call(jops, jnp.asarray, out_dtype=jnp.float32)
+        for backend in PORT_BACKENDS:
+            got = call(tops, torch.from_numpy, out_dtype=torch.float32,
+                       policy=tops.MXPolicy(backend))
+            _close(got.numpy(), want)
+    jpol = J_POLICIES[name]
+    jqa, _ = j_quantize_operand(jnp.asarray(x), jpol.a, "a")
+    jqb, _ = j_quantize_operand(jnp.asarray(w), jpol.b, "b")
+    qa, _ = quantize_operand(torch.from_numpy(x), pol.a, "a")
+    qb, _ = quantize_operand(torch.from_numpy(w), pol.b, "b")
+    want = np.asarray(j_dot_f32(jqa, jqb))
+    for got in (tmm.dot_f32(qa, qb), _parts_product(qa, qb, tile.bk, tile.parts)):
+        if name == "int8_all":
+            np.testing.assert_array_equal(got.numpy(), want)
+        else:
+            _close(got.numpy(), want)
+
+
+@pytest.mark.parametrize("sizes", [[8] * 8, [0, 40, 3, 0, 21], [70, 0, 66]])  # every height
+@pytest.mark.parametrize("name", BYTE_NAMES)
+def test_8bit_grouped_at_every_height_matches_jax(name, sizes):
+    """"int8_all" and "fp8_all" through the port's grouped GEMM at decode
+    height (8 rows per expert: 16-row tiles over two groups), a ragged
+    middle and an expert-major chunk, with K = 1024 (two parts of the 8-bit
+    tile), against JAX's plain and Pallas GEMMs; rows past the groups stay
+    exact zeros."""
+    T, K, N = sum(sizes) + 3, 1024, 40
+    rng = np.random.default_rng(len(sizes) + T)
+    x = rng.standard_normal((T, K)).astype(np.float32)
+    w, wg = ((rng.standard_normal((len(sizes), K, N)) / np.sqrt(K)).astype(np.float32)
+             for _ in range(2))
+    gs = np.asarray(sizes, np.int32)
+
+    def call(mod, conv, **extra):
+        return mod.grouped_matmul(conv(x), conv(w), conv(gs), activation="swiglu",
+                                  w_gate=conv(wg), precision=name, **extra)
+
+    for jax_backend in sorted(JAX_POLICIES):
+        with jops.use_policy(JAX_POLICIES[jax_backend]):
+            want = call(jops, jnp.asarray, out_dtype=jnp.float32)
+        for backend in PORT_BACKENDS:
+            got = call(tops, torch.from_numpy, out_dtype=torch.float32,
+                       policy=tops.MXPolicy(backend))
+            _close(got.numpy(), want)
+            assert torch.all(got[sum(sizes):] == 0)

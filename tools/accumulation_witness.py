@@ -27,6 +27,20 @@ reference (the softmax over whole rows; the scan's recurrence one position
 at a time): the kernel's, the plain version's and, with `--parent`, the
 parent checkout's kernel's distance, and their times (`chip_smoke._time_ms`:
 CUDA events behind a spin, operand sets past L2).
+
+    PYTHONPATH=src python tools/accumulation_witness.py --fp8 [--parent <checkout>]
+
+runs instead the e4m3 x e4m3 GEMMs on "fp8_all" payloads and scales
+(`core/precision.NAMED_POLICIES`, drawn as `chip_smoke.py` phase 3 draws
+them): kernel 1 at llama3.2-1b's 64-row prefill chunk, the down projection
+(K = 8192, N = 2048) and the up + gate projection (K = 2048, N = 8192,
+swiglu), and kernel 5 at grok-1's decode down projection (8 experts x 8
+rows, K = 32768, N = 6144), each output's max and relative-RMS distance to
+the f64 computation of the same payloads and scales (the swiglu in f64
+too), for the kernel (two f16 products of the exactly widened operands per
+k32 step), the plain version and, with `--parent`, the parent checkout's
+kernel (its gemm_tile.cuh CUDA-core loop on its own tiles); the gate is the
+kernel at most twice the plain version's distance.
 """
 from __future__ import annotations
 
@@ -34,6 +48,7 @@ import contextlib
 import ctypes
 import json
 import math
+import statistics
 import subprocess
 import sys
 from pathlib import Path
@@ -297,6 +312,167 @@ def attention_scan(torch, dev, parent):
              scan_inputs, lambda *a: ssd_f64(torch, *a))
 
 
+def _parent_gemms(parent: Path) -> dict:
+    """The parent checkout's fused and grouped GEMM entries on gemm_tile.cuh's
+    CUDA-core loop (mx_matmul_fused_launch, mx_grouped_matmul_launch), both
+    nvcc started together with the package's own flags."""
+    from repro_torch.kernels import _build
+
+    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    argtypes = {
+        "mx_matmul": ("mx_matmul_fused_launch",
+                      (P,) * 7 + (I, P, I, P) + (I,) * 8 + (F,) + (I,) * 3 + (P,)),
+        "mx_grouped_matmul": ("mx_grouped_matmul_launch", (P,) * 8 + (I,) * 11 + (P,))}
+    out = ROOT / "build" / "witness_parent"
+    out.mkdir(parents=True, exist_ok=True)
+    pc = parent / "src" / "repro_torch" / "csrc"
+    procs = {name: subprocess.Popen(
+        [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(pc), "-o", str(out / f"{name}.so"),
+         str(pc / f"{name}.cu")], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for name in argtypes}
+    fns = {}
+    for name, proc in procs.items():
+        text = proc.communicate()[0]
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed for the parent's {name}:\n{text[-3000:]}")
+        symbol, types = argtypes[name]
+        fn = getattr(ctypes.CDLL(str(out / f"{name}.so")), symbol)
+        fn.argtypes, fn.restype = list(types), ctypes.c_int
+        fns[name] = fn
+    return fns
+
+
+def fp8(torch, dev, parent):
+    """The e4m3 x e4m3 GEMMs' distances to f64 (kernel, plain, parent
+    kernel) at llama's prefill chunk and grok's decode down
+    projection, with their times."""
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke as cs
+
+    from repro_torch.core.precision import NAMED_POLICIES
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import mx_matmul as mm
+    from repro_torch.kernels.mx_grouped_matmul import mx_grouped_matmul
+    from repro_torch.kernels.quant import quantize_operand
+    from repro_torch.kernels.ref import grouped_matmul_ref
+
+    P = NAMED_POLICIES["fp8_all"]
+    _build.build_all(names=("mx_matmul", "mx_grouped_matmul"))
+    old = _parent_gemms(parent) if parent is not None else {}
+    code = _build.dtype_code(torch.float8_e4m3fn, "fp8", _build.QUANTIZED)
+    for label, M, K, N, gated in (("llama M=64 down", 64, 8192, 2048, False),
+                                  ("llama M=64 up+gate", 64, 2048, 8192, True)):
+        g = torch.Generator(device=dev).manual_seed(K + N)
+
+        def inputs():
+            qa, a_s = quantize_operand(torch.randn((M, K), generator=g, device=dev), P.a, "a")
+            qb, b_s = quantize_operand(
+                torch.randn((K, N), generator=g, device=dev) / math.sqrt(K), P.b, "b")
+            qg, bg_s = quantize_operand(
+                torch.randn((K, N), generator=g, device=dev) / math.sqrt(K), P.b, "b")
+            return qa.contiguous(), a_s, qb, b_s, qg, bg_s
+
+        ep = mm.Epilogue(activation="swiglu" if gated else "none", a_scale=True, b_scale=True)
+
+        def kw(a_s, b_s, qg, bg_s):
+            return dict(epilogue=ep, a_scale=a_s, b_scale=b_s, out_dtype=torch.float32,
+                        b_gate=qg if gated else None, bg_scale=bg_s if gated else None)
+
+        def kernel(qa, a_s, qb, b_s, qg, bg_s):
+            return mm.mx_matmul_fused(qa, qb, **kw(a_s, b_s, qg, bg_s))
+
+        def plain(qa, a_s, qb, b_s, qg, bg_s):
+            return mm.mx_matmul_fused_plain(qa, qb, **kw(a_s, b_s, qg, bg_s))
+
+        def parent_kernel(qa, a_s, qb, b_s, qg, bg_s):
+            out = torch.empty((M, N), device=dev)
+            bm, bn, bk = _build.gemm_tile(M)
+            _build.check(old["mx_matmul"](
+                qa.data_ptr(), qb.data_ptr(), qg.data_ptr() if gated else None,
+                a_s.data_ptr(), b_s.data_ptr(), bg_s.data_ptr() if gated else None, None, 0,
+                None, 0, out.data_ptr(), 0, M, N, K, code, code, 4 if gated else 0, 0, 0.0,
+                bm, bn, bk, _build.stream_ptr(qa)), "mx_matmul", "the parent's fused GEMM")
+            return out
+
+        def exact(qa, a_s, qb, b_s, qg, bg_s):
+            a64 = qa.double() * a_s.double()
+            y = a64 @ (qb.double() * b_s.double())
+            if gated:
+                gt = a64 @ (qg.double() * bg_s.double())
+                y = gt / (1 + torch.exp(-gt)) * y
+            return y
+
+        fns = {"ms": kernel, "plain_ms": plain}
+        if old:
+            fns["library_ms"] = parent_kernel
+        _witness_fp8(torch, cs, f"mx_matmul_fused fp8 x fp8 {label} K={K} N={N}", fns,
+                     inputs, exact)
+    T, C, K, N = 64, 8, 32768, 6144
+    G = T // C
+    g = torch.Generator(device=dev).manual_seed(5)
+    gs = torch.full((G,), C, dtype=torch.int32, device=dev)
+
+    def ginputs():
+        qx, a_s = quantize_operand(torch.randn((T, K), generator=g, device=dev), P.a, "a")
+        w = torch.empty((G, K, N), dtype=torch.float8_e4m3fn, device=dev)
+        sc = torch.empty((G, 1, N), device=dev)
+        for e in range(G):
+            w[e], sc[e] = quantize_operand(
+                torch.randn((K, N), generator=g, device=dev) / math.sqrt(K), P.b, "b")
+        return qx.contiguous(), a_s, w, sc
+
+    def gkw(a_s, sc):
+        return dict(activation="none", a_scale=a_s, b_scale=sc, out_dtype=torch.float32)
+
+    def gparent(qx, a_s, w, sc):
+        out = torch.empty((T, N), device=dev)
+        _build.check(old["mx_grouped_matmul"](
+            qx.data_ptr(), w.data_ptr(), None, a_s.data_ptr(), sc.data_ptr(), None,
+            gs.data_ptr(), out.data_ptr(), 0, T, N, K, G, code, code, 0, 8, 128, 32,
+            _build.stream_ptr(qx)), "mx_grouped_matmul", "the parent's grouped GEMM")
+        return out
+
+    def gexact(qx, a_s, w, sc):
+        a64 = qx.double() * a_s.double()
+        return torch.cat([a64[e * C:(e + 1) * C] @ (w[e].double() * sc[e].double())
+                          for e in range(G)])
+
+    fns = {"ms": lambda qx, a_s, w, sc: mx_grouped_matmul(qx, w, gs, **gkw(a_s, sc)),
+           "plain_ms": lambda qx, a_s, w, sc: grouped_matmul_ref(qx, w, gs, **gkw(a_s, sc))}
+    if old:
+        fns["library_ms"] = gparent
+    _witness_fp8(torch, cs, f"mx_grouped_matmul fp8 x fp8 grok decode down T={T} G={G} "
+                 f"K={K} N={N}", fns, ginputs, gexact, copies=1)
+
+
+def _witness_fp8(torch, cs, what, fns, inputs, exact, copies=None):
+    """`_witness` of the kernel, the plain version and the parent's kernel:
+    one JSON line and one plain line, and the gate
+    (the kernel's relative RMS and max at most twice the plain version's)."""
+    args = inputs()
+    ref = exact(*args)
+    names = {"ms": "kernel", "plain_ms": "plain", "library_ms": "parent kernel"}
+    dist = {names[k]: _dist(torch, fn(*args), ref) for k, fn in fns.items()}
+    torch.cuda.synchronize()
+    del ref
+    nbytes = sum(t.numel() * t.element_size() for t in args) * 2
+    n = copies or cs._copies(nbytes)
+    sets = [args] + [inputs() for _ in range(n - 1)]
+    t = cs._time_ms(torch, {k: (fn, sets) for k, fn in fns.items()}, iters=5 if copies else 20)
+    times = {names[k]: statistics.median(t["windows_ms"][k]) for k in fns}
+    k, p = dist["kernel"], dist["plain"]
+    gate = k["relrms"] <= 2 * p["relrms"] and k["max"] <= 2 * p["max"]
+    print(json.dumps(dict(what=what, distance_to_f64=dist, ms=times, gate=gate)), flush=True)
+    print(f"{what}: to f64 " + ", ".join(f"{n} max {v['max']:.3e} relrms {v['relrms']:.3e}"
+                                         for n, v in dist.items())
+          + f"; kernel / plain relrms {k['relrms'] / p['relrms']:.2f} "
+          + f"({'within' if gate else 'PAST'} 2x); ms "
+          + ", ".join(f"{n} {v:.4f}" for n, v in times.items()), flush=True)
+    if not gate:
+        raise AssertionError(f"{what}: the kernel stands more than twice as far from f64 "
+                             f"as the plain version: {dist}")
+
+
 def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     import torch
@@ -312,8 +488,11 @@ def main() -> int:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip())
     dev = torch.device("cuda")
+    parent = Path(sys.argv[sys.argv.index("--parent") + 1]) if "--parent" in sys.argv else None
+    if "--fp8" in sys.argv:
+        fp8(torch, dev, parent)
+        return 0
     if "--attention-scan" in sys.argv:
-        parent = Path(sys.argv[sys.argv.index("--parent") + 1]) if "--parent" in sys.argv else None
         _build.build_all(names=("mx_flash_attention", "ssd_scan"))
         for name in ("mx_flash_attention", "ssd_scan"):
             print(_build.ptxas_report(name)[-2000:], flush=True)

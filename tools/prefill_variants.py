@@ -22,6 +22,20 @@ zamba2-2.7b's and xlstm-125m's M = 2048 ones, at the tiles
 `kernels/_build.prefill_tile` chooses among, and the baseline A/B's shape (M = 40, 64; K = 2048, N =
 8192) at MX's tile (64 x 64 split 4) and at the baseline's (32 x 64, one
 CTA per tile, split 1).
+
+    PYTHONPATH=src python tools/prefill_variants.py --bytes
+
+times instead the 8-bit pairs (int8 x int8, e4m3 x e4m3; "int8_all" and
+"fp8_all" payloads with their scales) through the package's own C entries,
+each source built once per variant (`_build.build_all` with the macros, one
+nvcc each, all started together): "full" (the B fragments transposed in
+registers, e4m3 widened exactly to f16 for two f16 products per k32 step)
+and "copies" (PREFILL_TIMING_NO_PRODUCTS: the ring alone; wrong results).
+Kernel 1 at llama3.2-1b's prefill-chunk down and up + gate projections (M = 64) and at M = 256 and 2048 (K = 2048, N =
+8192), at `_build.prefill_tile`'s tile and at candidate tiles; kernel 5 at
+grok-1's decode down and prefill up + gate projections at
+`_build.grouped_tile`'s tile and at candidate stages.  Times are
+`chip_smoke._time_ms`'s (CUDA events behind a spin, the median window).
 """
 from __future__ import annotations
 
@@ -150,6 +164,108 @@ def build(nvcc: str) -> None:
             raise RuntimeError(f"nvcc failed for variant {v}:\n{out[-3000:]}")
 
 
+BYTE_VARIANTS = {"full": (), "copies": ("PREFILL_TIMING_NO_PRODUCTS",)}
+# kernel 1: (label, M, K, N, gated, candidate (bm, bn, stages, split) beside the table's)
+BYTE_FUSED = (("llama down", 64, 8192, 2048, False, ((64, 64, 4, 1), (32, 64, 4, 8))),
+              ("llama up+gate", 64, 2048, 8192, True, ((64, 128, 3, 1), (32, 64, 4, 4))),
+              ("M=256", 256, 2048, 8192, False, ((64, 128, 3, 1), (64, 64, 3, 1))),
+              ("M=2048", 2048, 2048, 8192, False, ((64, 64, 3, 1),)))
+# kernel 5: (label, T, G, K, N, gated, candidate stages beside the table's)
+BYTE_GROUPED = (("grok decode down", 64, 8, 32768, 6144, False, (3, 4)),
+                ("grok prefill up+gate", 1024, 8, 6144, 32768, True, (2, 3)))
+
+
+def bytes_main(torch, _build, smi) -> int:
+    """The 8-bit pairs' variants and candidate tiles (module docstring)."""
+    import statistics
+
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke as cs
+
+    from repro_torch.core.precision import NAMED_POLICIES
+    from repro_torch.kernels.mx_grouped_matmul import _LAUNCHERS as GROUPED, launch_tile
+    from repro_torch.kernels.mx_matmul import _LAUNCHERS as FUSED
+    from repro_torch.kernels.quant import quantize_operand
+
+    t0 = time.perf_counter()
+    _build.build_all(["mx_matmul", "mx_grouped_matmul"],
+                     [(n, d) for n in ("mx_matmul", "mx_grouped_matmul")
+                      for d in BYTE_VARIANTS.values() if d])
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(0)
+    rows = []
+
+    def quant(pol, shape, side, scale=1.0):
+        q, sc = quantize_operand(torch.randn(shape, generator=g, device=dev) * scale,
+                                 getattr(NAMED_POLICIES[pol], side), side)
+        return q.contiguous(), sc
+
+    def median(fns):
+        """Each launch's median ms."""
+        t = cs._time_ms(torch, {k: (fn, [()]) for k, fn in fns.items()}, iters=10)
+        return {k: statistics.median(t["windows_ms"][k]) for k in fns}
+
+    for pol in ("int8_all", "fp8_all"):
+        for label, M, K, N, gated, cands in BYTE_FUSED:
+            a, a_s = quant(pol, (M, K), "a")
+            b, b_s = quant(pol, (K, N), "b", K ** -0.5)
+            bg, bg_s = quant(pol, (K, N), "b", K ** -0.5) if gated else (None, None)
+            out = torch.empty((M, N), device=dev)
+            t = _build.prefill_tile(M, N, K, a.dtype, b.dtype, gated)
+            code = _build.dtype_code(a.dtype, "a", _build.QUANTIZED)
+
+            def launch(defines, tile):
+                fn = _build.function(*FUSED["dense prefill"], defines=defines)
+                return lambda: _build.check(fn(
+                    a.data_ptr(), b.data_ptr(), None if bg is None else bg.data_ptr(),
+                    a_s.data_ptr(), b_s.data_ptr(), None if bg_s is None else bg_s.data_ptr(),
+                    None, 0, None, 0, out.data_ptr(), 0, M, N, K, code, code,
+                    4 if gated else 0, 0, 0.0, *tile, 16, 16, 16, _build.stream_ptr(a)),
+                    "mx_matmul", label)
+            table = (t.bm, t.bn, t.stages, t.split, t.parts)
+            fns = {f"{v}_ms": launch(d, table) for v, d in BYTE_VARIANTS.items()}
+            for bm, bn, st, sp in cands:
+                fns[f"{bm}x{bn} stages {st} split {sp}_ms"] = launch((), (bm, bn, st, sp, t.parts))
+            nbytes = a.numel() + b.numel() * (2 if gated else 1) + 4 * M * N
+            bound = _build_bound(cs, nbytes, 2 * M * N * K * (2 if gated else 1), pol)
+            rows.append(dict(kernel="mx_matmul_fused", pol=pol, label=label, M=M, K=K, N=N,
+                             tile=t._asdict(), bound_ms=bound, **median(fns)))
+            print(json.dumps(rows[-1]), flush=True)
+        for label, T, G, K, N, gated, stages in BYTE_GROUPED:
+            x, x_s = quant(pol, (T, K), "a")
+            ws = [quant(pol, (G, K, N), "b", K ** -0.5) for _ in range(2 if gated else 1)]
+            w, b_s = ws[0][0], ws[0][1]
+            out = torch.empty((T, N), device=dev)
+            sz = torch.full((G,), T // G, dtype=torch.int32, device=dev)
+            route, tile = launch_tile(x, w, ws[1][0] if gated else None)
+            code = _build.dtype_code(x.dtype, "x", _build.QUANTIZED)
+
+            def glaunch(defines, tile):
+                fn = _build.function(*GROUPED["dense", "mma"], defines=defines)
+                return lambda: _build.check(fn(
+                    x.data_ptr(), w.data_ptr(), ws[1][0].data_ptr() if gated else None,
+                    x_s.data_ptr(), b_s.data_ptr(), ws[1][1].data_ptr() if gated else None,
+                    sz.data_ptr(), out.data_ptr(), 0, T, N, K, G, code, code,
+                    4 if gated else 0, *tile, _build.stream_ptr(x)), "mx_grouped_matmul", label)
+            fns = {f"{v}_ms": glaunch(d, tile) for v, d in BYTE_VARIANTS.items()}
+            for st in stages:
+                fns[f"stages {st}_ms"] = glaunch((), tile[:2] + (st,) + tile[3:])
+            nbytes = x.numel() + G * K * N * (2 if gated else 1) + 4 * T * N
+            bound = _build_bound(cs, nbytes, 2 * T * K * N * (2 if gated else 1), pol)
+            rows.append(dict(kernel="mx_grouped_matmul", pol=pol, label=label, T=T, G=G, K=K,
+                             N=N, route=route, tile=tile, bound_ms=bound, **median(fns)))
+            print(json.dumps(rows[-1]), flush=True)
+            del ws, w
+            torch.cuda.empty_cache()
+    print(json.dumps(dict(device=smi, seconds=time.perf_counter() - t0, rows=rows)))
+    return 0
+
+
+def _build_bound(cs, nbytes, flops, pol):
+    """The roofline bound (ms) at the pair's 8-bit peak (chip_smoke._bound_ms)."""
+    return cs._bound_ms(nbytes, flops, "int8" if pol == "int8_all" else "float8_e4m3fn")[0]
+
+
 def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     import torch
@@ -161,6 +277,8 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip()
+    if "--bytes" in sys.argv:
+        return bytes_main(torch, _build, smi)
     t0 = time.perf_counter()
     build(_build._nvcc())
     rows = []
