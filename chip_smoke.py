@@ -318,6 +318,22 @@ any model is served, so its times come before every profiler session):
       against PagedKVDecode.paged_step_bytes through kv_decode_memory_s,
       beside phase 3's bound and the bytes between them (fails if the
       kernel's share of the model's bound reads above SHARE_LIMIT).
+The dry run against the card (after phase 13, before the zamba2 profile):
+  15. the op census (core/op_census.py) of steps run on "meta" tensors
+      (launch/specs.py) against the same steps on the card: 15a phase 13c's
+      llama3.2-1b train step (full width, 8 x 128, f32, in-place AdamW, the
+      "torch" backend): its FLOPs equal FlopCounterMode's on one step on the
+      card exactly, and its peak (arguments plus the live peak) over 13c's
+      measured peak - held lies in [0.9, 1.1]; 15b the same two checks on
+      llama3.2-1b's dense decode step, batch 8 against a 4096-position bf16
+      cache, under MXPolicy("torch") (no ctypes launch escapes the counter;
+      the peak measured from before the parameters exist); 15c each step's
+      RooflineReport bound printed beside its measured time (no gate); 15d
+      `python -m repro_torch.launch.dryrun --arch llama3.2-1b --shape
+      decode_32k` (a process of its own, beside 15a-15c) prints
+      fits_h100_80gb and its peak beside the card's total memory; 15e
+      `python examples/torch/quickstart.py` on the card (beside them too),
+      its kernel-versus-plain line ok.
 Every bound comes from core/roofline.py (`_bound_ms`, the TF32 route's
 `_route_bound_ms`).
 The line before the last is the kernel summary JSON; the last line is
@@ -4785,6 +4801,189 @@ def phase13(torch, dev):
     return out
 
 
+# phase 15's gate on the census's peak against the card's
+PEAK_RATIO = (0.9, 1.1)
+
+
+def phase15(torch, dev, p13):
+    """Phase 15, the dry run against the card: 15a the census of phase 13c's
+    train step, 15b of a dense decode step (FLOPs equal FlopCounterMode's on
+    the card, peaks within PEAK_RATIO of the measured), 15c the bounds
+    beside the measured step times, 15d the dry-run command line, 15e the
+    port's quickstart example on the card."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import ShapePreset
+    from repro_torch.core import ops
+    from repro_torch.core.op_census import census
+    from repro_torch.core.roofline import PEAK_FLOPS, RooflineReport
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.specs import cell_specs
+    from repro_torch.models import build_model
+    from repro_torch.models.modules import param_count
+    from repro_torch.optim.adamw import AdamW
+    from repro_torch.optim.schedules import constant
+    from repro_torch.parallel.sharding import make_rules
+
+    t_phase = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    dry_args = ["--arch", "llama3.2-1b", "--shape", "decode_32k", "--out",
+                str(ROOT / "chiprun_out" / "dryrun")]
+    dry = subprocess.Popen([sys.executable, "-m", "repro_torch.launch.dryrun", *dry_args],
+                           cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                           text=True)
+    quick = subprocess.Popen([sys.executable, str(ROOT / "examples" / "torch" / "quickstart.py")],
+                             cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                             text=True)
+    out, failed = {}, []
+    cfg = get_config("llama3.2-1b")
+    model = build_model(cfg)
+    rules = make_rules(make_mesh((1, 1), ("data", "model")))
+
+    def bound(res, model_flops):
+        return RooflineReport(hlo_flops=res.flops, hlo_bytes=res.floor_bytes,
+                              collective_bytes=0.0, chips=1, model_flops=model_flops,
+                              peak_flops=PEAK_FLOPS["float32"])
+
+    print("[15a] the census of phase 13c's train step (llama3.2-1b, 8 x 128, f32, in-place "
+          "AdamW) on meta against FlopCounterMode on the card and 13c's measured peak")
+    opt = AdamW(lr=constant(3e-4), weight_decay=0.0)
+    spec = cell_specs(cfg, ShapePreset("13c", 128, 8, "train"), rules,
+                      param_dtype=torch.float32, opt=opt)
+    step = steps.make_train_step(model, cfg, opt, inplace=True)
+    t0 = time.perf_counter()
+    cen, _ = census(step, *spec.args)
+    census_s = time.perf_counter() - t0
+    params = model.init(0, device=dev)
+    n_params = param_count(params)
+    batch = steps.batch_to(SyntheticLM(cfg, seq_len=128, global_batch=8, seed=0).next_batch(),
+                           dev)
+    state = opt.init(params)
+    with FlopCounterMode(display=False) as fc:
+        step(params, state, batch)
+    torch.cuda.synchronize()
+    card_flops = fc.get_total_flops()
+    measured = p13["13c_train"]["peak_gib"] * 2**30
+    tr = bound(cen, 6 * n_params * spec.tokens_per_step)
+    out["15a"] = dict(census_flops=cen.flops, card_flops=card_flops,
+                      census_peak_bytes=cen.peak_bytes, census_peak_live_bytes=cen.peak_live_bytes,
+                      argument_bytes=cen.argument_bytes, floor_bytes=cen.floor_bytes,
+                      op_bytes=cen.op_bytes, measured_peak_bytes=measured,
+                      peak_ratio=cen.peak_bytes / measured, census_s=census_s,
+                      roofline=tr.as_dict(), step_ms=p13["13c_train"]["median_ms"])
+    a = out["15a"]
+    print(f"    FLOPs: census {cen.flops} / FlopCounterMode on the card {card_flops} "
+          f"(equal {cen.flops == card_flops}; 6 N T = {6 * n_params * spec.tokens_per_step:.4g})"
+          f"; peak: census {cen.peak_bytes / 2**30:.3f} GiB (arguments "
+          f"{cen.argument_bytes / 2**30:.3f} + live {cen.peak_live_bytes / 2**30:.3f}) / 13c "
+          f"{measured / 2**30:.3f} GiB = {a['peak_ratio']:.4f} (gate {PEAK_RATIO}); census "
+          f"{census_s:.1f} s on the host")
+    if cen.flops != card_flops:
+        failed.append(f"15a FLOPs: {a}")
+    if not PEAK_RATIO[0] <= a["peak_ratio"] <= PEAK_RATIO[1]:
+        failed.append(f"15a peak: {a}")
+    del state, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    print("[15b] the census of llama3.2-1b's dense decode step (batch 8, 4096-position bf16 "
+          "cache, f32 weights) on meta against the card, under MXPolicy(\"torch\")")
+    dspec = cell_specs(cfg, ShapePreset("15b", 4096, 8, "decode"), rules,
+                       param_dtype=torch.float32)
+    serve = steps.make_serve_step(model, cfg)
+    dcen, _ = census(serve, *dspec.args)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    params = model.init(0, device=dev)
+    cache = model.make_cache(8, 4096, device=dev)
+    token = torch.zeros((8, 1), dtype=torch.int32, device=dev)
+    index = dspec.args[3]
+    with ops.use_policy(ops.MXPolicy("torch")):
+        serve(params, cache, token, index)
+        torch.cuda.synchronize()
+        dmeasured = torch.cuda.max_memory_allocated() - held
+        with FlopCounterMode(display=False) as fc:
+            serve(params, cache, token, index)
+        dcard = fc.get_total_flops()
+        ms = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, _ = serve(params, cache, token, index)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+    if not (logits.shape == (8, 1, cfg.vocab) and torch.isfinite(logits).all()):
+        failed.append(f"15b logits: {tuple(logits.shape)}")
+    dr = bound(dcen, 2 * n_params * dspec.tokens_per_step)
+    out["15b"] = dict(census_flops=dcen.flops, card_flops=dcard,
+                      census_peak_bytes=dcen.peak_bytes, argument_bytes=dcen.argument_bytes,
+                      census_peak_live_bytes=dcen.peak_live_bytes, floor_bytes=dcen.floor_bytes,
+                      op_bytes=dcen.op_bytes, measured_peak_bytes=dmeasured,
+                      peak_ratio=dcen.peak_bytes / dmeasured, roofline=dr.as_dict(),
+                      step_ms=ms, step_ms_median=statistics.median(ms))
+    b = out["15b"]
+    print(f"    FLOPs: census {dcen.flops} / FlopCounterMode on the card {dcard} (equal "
+          f"{dcen.flops == dcard}); peak: census {dcen.peak_bytes / 2**30:.3f} GiB (arguments "
+          f"{dcen.argument_bytes / 2**30:.3f} + live {dcen.peak_live_bytes / 2**30:.3f}) / "
+          f"measured {dmeasured / 2**30:.3f} GiB = {b['peak_ratio']:.4f} (gate {PEAK_RATIO})")
+    if dcen.flops != dcard:
+        failed.append(f"15b FLOPs: {b}")
+    if not PEAK_RATIO[0] <= b["peak_ratio"] <= PEAK_RATIO[1]:
+        failed.append(f"15b peak: {b}")
+    del params, cache, token, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    print("[15c] each step's roofline bound (census FLOPs at the f32 peak off the tensor "
+          "cores, the floor bytes at 3.35 TB/s) beside its measured time; no gate")
+    for what, r, t in (("13c train step", tr, a["step_ms"]),
+                       ("15b decode step", dr, b["step_ms_median"])):
+        print(f"    {what}: measured {t:.2f} ms; bound {r.step_time_lower_bound_s * 1e3:.2f} ms "
+              f"({r.bound}: compute {r.compute_s * 1e3:.2f} ms, memory {r.memory_s * 1e3:.2f} "
+              f"ms; {r.step_time_lower_bound_s * 1e3 / t:.1%} of the measured); useful FLOPs "
+              f"{r.useful_flops_ratio:.4f}")
+
+    so, se = dry.communicate(timeout=600)
+    if dry.returncode != 0:
+        raise AssertionError(f"15d dryrun exited {dry.returncode}:\n{so[-2000:]}\n{se[-4000:]}")
+    rec = json.loads((ROOT / "chiprun_out" / "dryrun"
+                      / "llama3.2-1b__decode_32k__1x1.json").read_text())
+    total = torch.cuda.get_device_properties(0).total_memory
+    m = rec["memory"]
+    out["15d"] = dict(lines=so.strip().splitlines()[-3:], memory=m, total_memory=total,
+                      roofline=rec["roofline"], cost={k: v for k, v in rec["cost"].items()
+                                                     if not k.startswith("top_")})
+    print(f"[15d] $ python -m repro_torch.launch.dryrun {' '.join(dry_args[:4])}")
+    for ln in out["15d"]["lines"]:
+        print(f"      {ln}")
+    print(f"    fits_h100_80gb {m['fits_h100_80gb']}: peak {m['peak_bytes_per_device'] / 2**30:.2f}"
+          f" GiB per device beside the card's total memory {total / 2**30:.2f} GiB")
+    if rec["status"] != "ok" or "fits_h100_80gb=" not in so:
+        failed.append(f"15d: {rec.get('status')}")
+
+    so, se = quick.communicate(timeout=600)
+    lines = so.strip().splitlines()
+    out["15e"] = dict(rc=quick.returncode, lines=lines)
+    kv = [ln for ln in lines if "kernel vs plain" in ln]
+    print("[15e] $ python examples/torch/quickstart.py (on the card)")
+    for ln in lines:
+        if "kernel vs plain" in ln or "loss fell" in ln or "mx_matmul_fused" in ln:
+            print(f"      {ln}")
+    if quick.returncode != 0 or not kv or not kv[0].endswith(" ok"):
+        failed.append(f"15e quickstart exited {quick.returncode}: {lines[-6:]} {se[-2000:]}")
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"    phase 15: {out['seconds']:.1f} s")
+    if failed:
+        raise AssertionError("phase 15: " + "; ".join(failed))
+    return out
+
+
 def _slice_tree(tree, n):
     """The first n layers of a layer-stacked tree."""
     if isinstance(tree, dict):
@@ -5075,6 +5274,7 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     p13 = phase13(torch, dev)
+    p15 = phase15(torch, dev, p13)
     print("[8p] zamba2-2.7b decode step and full forward profiled")
     zamba2["profile_decode"], zamba2["profile_forward"] = zamba2_profile(torch, dev, zmodel,
                                                                           zparams)
@@ -5277,7 +5477,7 @@ def main() -> int:
         grouped_sass=grouped_sass,
         attention_sass=attn_sass, ssd_sass=ssd_sass,
         **llama, grok=grok, zamba2=zamba2, families=families, phase11=p11, phase12=p12,
-        phase13=p13, phase14=p14,
+        phase13=p13, phase14=p14, phase15=p15,
         kernels=summary),
         indent=1,
         default=str))

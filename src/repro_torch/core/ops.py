@@ -746,3 +746,70 @@ def grouped_matmul(x: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tensor, 
                                   out_dtype=out_dtype, cfg=cfg)
     return mx_grouped_matmul(x.contiguous(), w, group_sizes, **kw,
                              b_sparse=b_meta is not None, w_meta=b_meta, wg_meta=bg_meta)
+
+
+# ---------------------------------------------------------------------------
+# einsum routing
+# ---------------------------------------------------------------------------
+
+
+def _parse_matmul_subscripts(subscripts: str, lhs_ndim: int, rhs_ndim: int
+                             ) -> Optional[str]:
+    """Structural check: does this einsum reduce to (..., M, K) @ (K, N)?
+
+    Returns the contraction letter when the spec is
+        lhs = <leading...> + [k],  rhs = [k, n],  out = <leading...> + [n]
+    with no repeated/summed-out leading letters and no ellipsis -- any real
+    model contraction like "bsd,df->bsf" or "mk,kn->mn", not just the
+    literal "mk,kn" spelling.  Arrow-less specs get einsum's implicit
+    output (letters appearing once, alphabetical) before the same check.
+    JAX's parser, unchanged."""
+    if "." in subscripts:
+        return None
+    spec = subscripts.replace(" ", "")
+    try:
+        if "->" in spec:
+            ins, out = spec.split("->")
+        else:  # implicit output: once-only letters, alphabetical order
+            ins = spec
+            counts = {}
+            for ch in ins.replace(",", ""):
+                counts[ch] = counts.get(ch, 0) + 1
+            out = "".join(sorted(ch for ch, c in counts.items() if c == 1))
+        lhs, rhs = ins.split(",")
+    except ValueError:
+        return None
+    # lhs must be at least (M, K): a 1-D lhs would come back from matmul
+    # with a phantom leading dim of 1 instead of the einsum contract's rank.
+    if len(lhs) < 2 or len(lhs) != lhs_ndim or len(rhs) != rhs_ndim or len(rhs) != 2:
+        return None
+    if len(set(lhs)) != len(lhs) or len(set(rhs)) != len(rhs):
+        return None
+    k, n = rhs[0], rhs[1]
+    if not lhs.endswith(k) or k in out or n in lhs:
+        return None
+    if out != lhs[:-1] + n:
+        return None
+    return k
+
+
+def einsum(subscripts: str, *operands, policy: Optional[MXPolicy] = None,
+           preferred_element_type=None) -> torch.Tensor:
+    """Einsum that routes matmul-shaped two-operand contractions through
+    `matmul` (kernel 1 on a CUDA tensor under "cuda_mx"); everything else,
+    and every contraction on "torch", goes to `torch.einsum`.  Only
+    `preferred_element_type` is honoured, as `out_dtype` on the routed
+    path (the kernels accumulate in f32 whatever it is); the fallback
+    computes in the wider of it and the operands' type, then casts.  JAX's
+    other einsum keywords (`precision`, ...) have no counterpart here."""
+    policy = policy or current_policy()
+    if len(operands) == 2 and policy.resolve(operands[0]) != "torch":
+        lhs, rhs = operands
+        if _parse_matmul_subscripts(subscripts, lhs.dim(), rhs.dim()):
+            return matmul(lhs, rhs, policy=policy, out_dtype=preferred_element_type)
+    if preferred_element_type is None:
+        return torch.einsum(subscripts, *operands)
+    wide = functools.reduce(torch.promote_types, [o.dtype for o in operands],
+                            preferred_element_type)
+    return torch.einsum(subscripts, *[o.to(wide) for o in operands]
+                        ).to(preferred_element_type)

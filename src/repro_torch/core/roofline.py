@@ -26,6 +26,7 @@ PEAK_FLOPS = {"float32": 67e12,  # FLOP/s off the tensor cores
               "int8": 1979e12, "float8_e4m3fn": 1979e12}
 HBM_BW = 3.35e12   # B/s, HBM3
 NVLINK_BW = 450e9  # B/s each way, per card (NVLink 4, 900 GB/s both ways)
+HBM_CAPACITY = 80e9  # bytes of HBM3 on the card (the data sheet's 80 GB)
 
 
 def bound_ms(nbytes: float, flops: float, dtype: str):

@@ -21,7 +21,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -69,11 +69,12 @@ class Linear(Module):
     bias: bool = False
     tp_mode: Optional[str] = None
     precision: Optional[str] = None
+    axes: Tuple[Optional[str], Optional[str]] = ("embed", "mlp")  # logical axes of w
 
     def build(self, mk: Builder):
-        p = {"w": mk.param("w", (self.d_in, self.d_out))}
+        p = {"w": mk.param("w", (self.d_in, self.d_out), self.axes)}
         if self.bias:
-            p["b"] = mk.param("b", (self.d_out,), init="zeros")
+            p["b"] = mk.param("b", (self.d_out,), (self.axes[1],), init="zeros")
         return p
 
     def __call__(self, p, x):
@@ -88,7 +89,7 @@ class Embedding(Module):
     d: int
 
     def build(self, mk: Builder):
-        return {"table": mk.param("table", (self.vocab, self.d), scale=0.02)}
+        return {"table": mk.param("table", (self.vocab, self.d), ("vocab", "embed"), scale=0.02)}
 
     def __call__(self, p, ids):
         return p["table"][ids]
@@ -190,15 +191,15 @@ class Attention(Module):
     def build(self, mk: Builder):
         hd = self.hd
         p = {
-            "wq": mk.param("wq", (self.d_model, self.n_heads * hd)),
-            "wk": mk.param("wk", (self.d_model, self.n_kv_heads * hd)),
-            "wv": mk.param("wv", (self.d_model, self.n_kv_heads * hd)),
-            "wo": mk.param("wo", (self.n_heads * hd, self.d_model)),
+            "wq": mk.param("wq", (self.d_model, self.n_heads * hd), ("embed", "heads")),
+            "wk": mk.param("wk", (self.d_model, self.n_kv_heads * hd), ("embed", "heads")),
+            "wv": mk.param("wv", (self.d_model, self.n_kv_heads * hd), ("embed", "heads")),
+            "wo": mk.param("wo", (self.n_heads * hd, self.d_model), ("heads", "embed")),
         }
         if self.qkv_bias:
-            p["bq"] = mk.param("bq", (self.n_heads * hd,), init="zeros")
-            p["bk"] = mk.param("bk", (self.n_kv_heads * hd,), init="zeros")
-            p["bv"] = mk.param("bv", (self.n_kv_heads * hd,), init="zeros")
+            p["bq"] = mk.param("bq", (self.n_heads * hd,), ("heads",), init="zeros")
+            p["bk"] = mk.param("bk", (self.n_kv_heads * hd,), ("heads",), init="zeros")
+            p["bv"] = mk.param("bv", (self.n_kv_heads * hd,), ("heads",), init="zeros")
         return p
 
     def _proj(self, p, x, name, heads, positions):
@@ -262,21 +263,29 @@ class Attention(Module):
         return {"k": torch.zeros(shape, dtype=dtype, device=device),
                 "v": torch.zeros(shape, dtype=dtype, device=device)}
 
+    def cache_axes(self):
+        ax = ("batch", "cache_seq", "kv_heads", "head_dim")
+        return {"k": ax, "v": ax}
+
     def decode(self, p, x, cache, index, *, residual=None):
         """One decode step against the dense cache.  x: (B, 1, D); index: a
         scalar position shared by the batch, or (B,) per-slot positions
         (continuous batching).  The new K/V row is written IN PLACE (JAX:
         `dynamic_update_slice` or a scatter into a copy); the attention is
         plain PyTorch on every backend, as it is jnp in JAX.  Returns
-        (out, cache)."""
+        (out, cache).  A scalar index given as a Python int stays on the
+        host for the row write, so no tensor is read back (a "meta" step
+        can run: `launch/dryrun.py`)."""
         b = x.shape[0]
+        row = index if isinstance(index, int) else None
         index = torch.as_tensor(index, device=x.device)
         idx_b = torch.broadcast_to(index, (b,)).long()
         q, k_new, v_new = self._qkv(p, x, idx_b[:, None])
         dt = cache["k"].dtype
         if index.dim() == 0:
-            cache["k"][:, int(index)] = k_new[:, 0].to(dt)
-            cache["v"][:, int(index)] = v_new[:, 0].to(dt)
+            row = int(index) if row is None else row
+            cache["k"][:, row] = k_new[:, 0].to(dt)
+            cache["v"][:, row] = v_new[:, 0].to(dt)
         else:  # per-slot scatter
             rows = torch.arange(b, device=x.device)
             cache["k"][rows, idx_b] = k_new[:, 0].to(dt)
@@ -452,10 +461,10 @@ class MLP(Module):
         return self.activation == "silu"
 
     def build(self, mk: Builder):
-        p = {"wi": mk.param("wi", (self.d_model, self.d_ff)),
-             "wo": mk.param("wo", (self.d_ff, self.d_model))}
+        p = {"wi": mk.param("wi", (self.d_model, self.d_ff), ("embed", "mlp")),
+             "wo": mk.param("wo", (self.d_ff, self.d_model), ("mlp", "embed"))}
         if self.gated:
-            p["wg"] = mk.param("wg", (self.d_model, self.d_ff))
+            p["wg"] = mk.param("wg", (self.d_model, self.d_ff), ("embed", "mlp"))
         return p
 
     def __call__(self, p, x, *, residual=None):

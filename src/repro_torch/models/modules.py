@@ -5,8 +5,10 @@ A module is a frozen dataclass of hyperparameters implementing
 
     def build(self, mk: Builder) -> nested dict of tensors
 
-where every leaf is created through `mk.param(name, shape, ...)` and
-submodules through `mk.child` / `mk.stacked`.  Parameters are plain
+where every leaf is created through `mk.param(name, shape, axes, ...)` and
+submodules through `mk.child` / `mk.stacked`; `axes` are the leaf's
+logical axes, as in JAX (`Module.axes()` gives their tree, which
+`parallel/sharding.tree_specs` turns into specs).  Parameters are plain
 tensors in nested dicts with the JAX package's layout (a linear weight is
 (d_in, d_out); segment weights carry a leading layer axis), so a JAX
 params pytree converts leaf by leaf (`models/convert.py`) and both
@@ -18,7 +20,7 @@ ones for norms, zeros for biases.  Every leaf draws from its own
 `torch.Generator`, seeded from (seed, parameter path), so a leaf's values do
 not depend on build order.  The numbers differ from JAX's (threefry is not
 reproduced); tests carry JAX weights across with `from_jax_params`.  On the
-"meta" device the tree carries shapes only.
+"meta" device the tree carries shapes only (JAX's `abstract`).
 """
 from __future__ import annotations
 
@@ -44,10 +46,15 @@ class Builder:
     # preallocated leaves by full parameter path (`stacked` fills each layer
     # of its stacks in place through these)
     into: Optional[Dict[Tuple[str, ...], torch.Tensor]] = None
+    axes_only: bool = False  # build the tree of logical axes instead
 
-    def param(self, name: str, shape: Sequence[int], *, init: str = "normal",
-              scale: Optional[float] = None) -> torch.Tensor:
+    def param(self, name: str, shape: Sequence[int], axes: Sequence[Optional[str]], *,
+              init: str = "normal", scale: Optional[float] = None) -> torch.Tensor:
         shape = tuple(int(s) for s in shape)
+        if len(axes) != len(shape):
+            raise ValueError(f"{self.path + (name,)}: shape {shape} vs axes {tuple(axes)}")
+        if self.axes_only:
+            return tuple(axes)
         out = None if self.into is None else self.into[self.path + (name,)]
         if self.device.type == "meta" or init == "zeros":
             return self._const(out, shape, 0.0)
@@ -79,7 +86,11 @@ class Builder:
         """Parameters for `n` identical layers stacked on a leading layer
         axis; each layer has its own seed path.  Each stacked leaf is
         allocated once and layer i is drawn into its slice, so a segment is
-        never held twice (grok-1's 2 layers are 39 GB in f32)."""
+        never held twice (grok-1's 2 layers are 39 GB in f32).  Axes get a
+        leading "layers" axis."""
+        if self.axes_only:
+            one = module.build(dataclasses.replace(self, path=self.path + (name, "0")))
+            return _map(lambda a: ("layers",) + a, one)
         shapes = module.build(dataclasses.replace(
             self, device=torch.device("meta"), path=self.path + (name, "0"), into=None))
         stack = _map(lambda t: torch.empty((n, *t.shape), dtype=self.dtype,
@@ -133,6 +144,10 @@ class Module:
 
         dev = torch.device("meta") if str(device) == "meta" else resolve_device(device)
         return self.build(Builder(seed, dev, dtype))
+
+    def axes(self):
+        """The tree of each leaf's logical-axes tuple (JAX's `axes()`)."""
+        return self.build(Builder(0, torch.device("meta"), axes_only=True))
 
 
 def param_count(params) -> int:

@@ -69,12 +69,12 @@ class MoE(Module):
     def build(self, mk: Builder):
         E, D, Fd = self.n_experts, self.d_model, self.d_ff
         p = {
-            "router": mk.param("router", (D, E), scale=0.02),
-            "wi": mk.param("wi", (E, D, Fd)),
-            "wo": mk.param("wo", (E, Fd, D)),
+            "router": mk.param("router", (D, E), ("embed", "expert"), scale=0.02),
+            "wi": mk.param("wi", (E, D, Fd), ("expert", "embed", "mlp")),
+            "wo": mk.param("wo", (E, Fd, D), ("expert", "mlp", "embed")),
         }
         if self.gated:
-            p["wg"] = mk.param("wg", (E, D, Fd))
+            p["wg"] = mk.param("wg", (E, D, Fd), ("expert", "embed", "mlp"))
         return p
 
     def capacity(self, tokens_per_group: int) -> int:

@@ -58,15 +58,16 @@ class Mamba2Block(Module):
         di, g, s, h = self.d_inner, self.n_groups, self.d_state, self.n_heads
         d_in_proj = 2 * di + 2 * g * s + h  # z, x, B, C, dt
         return {
-            "ln": mk.param("ln", (self.d_model,), init="ones"),
-            "in_proj": mk.param("in_proj", (self.d_model, d_in_proj)),
-            "conv_w": mk.param("conv_w", (self.d_conv, self.conv_channels), scale=0.5),
-            "conv_b": mk.param("conv_b", (self.conv_channels,), init="zeros"),
-            "a_log": mk.param("a_log", (h,), init="zeros"),
-            "dt_bias": mk.param("dt_bias", (h,), init="zeros"),
-            "d_skip": mk.param("d_skip", (h,), init="ones"),
-            "norm_w": mk.param("norm_w", (di,), init="ones"),
-            "out_proj": mk.param("out_proj", (di, self.d_model)),
+            "ln": mk.param("ln", (self.d_model,), ("embed",), init="ones"),
+            "in_proj": mk.param("in_proj", (self.d_model, d_in_proj), ("embed", "mlp")),
+            "conv_w": mk.param("conv_w", (self.d_conv, self.conv_channels), (None, "mlp"),
+                               scale=0.5),
+            "conv_b": mk.param("conv_b", (self.conv_channels,), ("mlp",), init="zeros"),
+            "a_log": mk.param("a_log", (h,), ("heads",), init="zeros"),
+            "dt_bias": mk.param("dt_bias", (h,), ("heads",), init="zeros"),
+            "d_skip": mk.param("d_skip", (h,), ("heads",), init="ones"),
+            "norm_w": mk.param("norm_w", (di,), ("mlp",), init="ones"),
+            "out_proj": mk.param("out_proj", (di, self.d_model), ("mlp", "embed")),
         }
 
     def _split(self, zxbcdt):
@@ -127,6 +128,9 @@ class Mamba2Block(Module):
             "ssm": torch.zeros((batch, self.n_heads, self.d_state, self.head_dim),
                                dtype=torch.float32, device=device),
         }
+
+    def state_axes(self):
+        return {"conv": ("batch", None, "mlp"), "ssm": ("batch", "heads", None, None)}
 
     def decode(self, p, x, state):
         """One token.  x: (B, 1, D) -> (y, state), the state updated IN

@@ -48,6 +48,10 @@ def _stacked(one, n: int):
     return {k: v.expand(n, *v.shape).clone() for k, v in one.items()}
 
 
+def _stacked_axes(one):
+    return {k: (None,) + ax for k, ax in one.items()}
+
+
 @dataclasses.dataclass(frozen=True)
 class TransformerBlock(Module):
     """Pre-norm attention + MLP or MoE block (an encoder block with
@@ -96,18 +100,21 @@ class TransformerBlock(Module):
 
     def build(self, mk: Builder):
         p = {
-            "ln1": mk.param("ln1", (self.d_model,), init="ones"),
+            "ln1": mk.param("ln1", (self.d_model,), ("embed",), init="ones"),
             "attn": mk.child("attn", self._attn()),
-            "ln2": mk.param("ln2", (self.d_model,), init="ones"),
+            "ln2": mk.param("ln2", (self.d_model,), ("embed",), init="ones"),
             "ffn": mk.child("ffn", self._ffn()),
         }
         if self.cross_attention:
-            p["ln_x"] = mk.param("ln_x", (self.d_model,), init="ones")
+            p["ln_x"] = mk.param("ln_x", (self.d_model,), ("embed",), init="ones")
             p["xattn"] = mk.child("xattn", self._xattn())
         return p
 
     def init_cache(self, batch, max_len, *, dtype=torch.bfloat16, device="cuda"):
         return self._attn().init_cache(batch, max_len, dtype=dtype, device=device)
+
+    def cache_axes(self):
+        return self._attn().cache_axes()
 
     def init_paged_cache(self, num_pages, page_size, *, dtype=torch.float32,
                          device="cuda", kv_quant=None):
@@ -228,9 +235,9 @@ class DecoderLM(Module):
             p["shared"] = mk.child("shared", self._shared_block())
         if cfg.frontend_dim:
             p["frontend_proj"] = mk.child("frontend_proj", self._frontend())
-        p["ln_f"] = mk.param("ln_f", (cfg.d_model,), init="ones")
+        p["ln_f"] = mk.param("ln_f", (cfg.d_model,), ("embed",), init="ones")
         if not cfg.tie_embeddings:
-            p["lm_head"] = mk.param("lm_head", (cfg.d_model, cfg.vocab))
+            p["lm_head"] = mk.param("lm_head", (cfg.d_model, cfg.vocab), ("embed", "vocab"))
         return p
 
     def _walk(self, seg: Segment):
@@ -254,7 +261,7 @@ class DecoderLM(Module):
     def _frontend(self) -> Linear:
         """The modality projector: frontend_dim -> d_model, on the MX
         dispatch (JAX: a `Linear`)."""
-        return Linear(self.cfg.frontend_dim, self.cfg.d_model)
+        return Linear(self.cfg.frontend_dim, self.cfg.d_model, axes=(None, "embed"))
 
     def _embed_inputs(self, p, tokens, prefix_embeds=None):
         """Token embeddings (B, S, D), after the projected prefix embeddings
@@ -316,6 +323,19 @@ class DecoderLM(Module):
                                                       device=device)
                 cache[f"shared{i}"] = _stacked(one, seg.n // cfg.shared_attn_every)
         return cache
+
+    def cache_axes(self):
+        """The logical axes of `make_cache`'s tree (JAX's make_cache(mode=
+        "axes")): a stacked layer axis of None before each block's."""
+        cfg = self.cfg
+        axes = {}
+        for i, seg in enumerate(self.segments()):
+            block = make_block(seg.kind, cfg)
+            one = block.state_axes() if seg.kind in STATE_KINDS else block.cache_axes()
+            axes[f"seg{i}"] = _stacked_axes(one)
+            if cfg.shared_attn_every:
+                axes[f"shared{i}"] = _stacked_axes(self._shared_block().cache_axes())
+        return axes
 
     def supports_chunked_prefill(self) -> bool:
         """`prefill_step` covers attention-only segments (state-block,
@@ -454,12 +474,13 @@ class EncDecLM(Module):
     def build(self, mk: Builder):
         cfg = self.cfg
         return {
-            "frontend_proj": mk.child("frontend_proj", Linear(cfg.frontend_dim, cfg.d_model)),
+            "frontend_proj": mk.child("frontend_proj", Linear(cfg.frontend_dim, cfg.d_model,
+                                                               axes=(None, "embed"))),
             "embed": mk.child("embed", Embedding(cfg.vocab, cfg.d_model)),
             "enc": mk.stacked("enc", self._enc_block(), cfg.enc_layers),
-            "enc_ln": mk.param("enc_ln", (cfg.d_model,), init="ones"),
+            "enc_ln": mk.param("enc_ln", (cfg.d_model,), ("embed",), init="ones"),
             "dec": mk.stacked("dec", make_block("encdec", cfg), cfg.n_layers),
-            "ln_f": mk.param("ln_f", (cfg.d_model,), init="ones"),
+            "ln_f": mk.param("ln_f", (cfg.d_model,), ("embed",), init="ones"),
         }
 
     def encode(self, p, frames):
@@ -510,6 +531,9 @@ class EncDecLM(Module):
         one = make_block("encdec", self.cfg).init_cache(batch, max_len, dtype=dtype,
                                                         device=device)
         return {"dec": _stacked(one, self.cfg.n_layers)}
+
+    def cache_axes(self):
+        return {"dec": _stacked_axes(make_block("encdec", self.cfg).cache_axes())}
 
     def decode_step(self, p, token, cache, index, *, enc_out):
         """One decoder token against the dense cache and the encoder output

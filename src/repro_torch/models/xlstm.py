@@ -129,15 +129,15 @@ class MLSTMBlock(Module):
     def build(self, mk: Builder):
         d, di, h = self.d_model, self.d_inner, self.n_heads
         return {
-            "ln": mk.param("ln", (d,), init="ones"),
-            "up": mk.param("up", (d, 2 * di)),
-            "wq": mk.param("wq", (di, di)),
-            "wk": mk.param("wk", (di, di)),
-            "wv": mk.param("wv", (di, di)),
-            "wif": mk.param("wif", (di, 2 * h), scale=0.02),
-            "bif": mk.param("bif", (2 * h,), init="zeros"),
-            "norm_w": mk.param("norm_w", (di,), init="ones"),
-            "down": mk.param("down", (di, d)),
+            "ln": mk.param("ln", (d,), ("embed",), init="ones"),
+            "up": mk.param("up", (d, 2 * di), ("embed", "mlp")),
+            "wq": mk.param("wq", (di, di), ("mlp", "heads")),
+            "wk": mk.param("wk", (di, di), ("mlp", "heads")),
+            "wv": mk.param("wv", (di, di), ("mlp", "heads")),
+            "wif": mk.param("wif", (di, 2 * h), ("mlp", "heads"), scale=0.02),
+            "bif": mk.param("bif", (2 * h,), ("heads",), init="zeros"),
+            "norm_w": mk.param("norm_w", (di,), ("mlp",), init="ones"),
+            "down": mk.param("down", (di, d), ("mlp", "embed")),
         }
 
     def _up(self, p, x):
@@ -175,6 +175,10 @@ class MLSTMBlock(Module):
                 "n": torch.zeros((batch, h, hd), device=device),
                 "m": torch.full((batch, h), M_INIT, device=device)}
 
+    def state_axes(self):
+        return {"C": ("batch", "heads", None, None), "n": ("batch", "heads", None),
+                "m": ("batch", "heads")}
+
     def decode(self, p, x, state):
         """One token.  x: (B, 1, D) -> (y, state), the state updated IN
         PLACE."""
@@ -205,12 +209,12 @@ class SLSTMBlock(Module):
     def build(self, mk: Builder):
         d, h, hd = self.d_model, self.n_heads, self.hd
         return {
-            "ln": mk.param("ln", (d,), init="ones"),
-            "w_in": mk.param("w_in", (d, 4 * d)),  # i, f, z, o
-            "r": mk.param("r", (h, hd, 4 * hd), scale=0.02),
-            "b": mk.param("b", (4 * d,), init="zeros"),
-            "norm_w": mk.param("norm_w", (d,), init="ones"),
-            "out": mk.param("out", (d, d)),
+            "ln": mk.param("ln", (d,), ("embed",), init="ones"),
+            "w_in": mk.param("w_in", (d, 4 * d), ("embed", "mlp")),  # i, f, z, o
+            "r": mk.param("r", (h, hd, 4 * hd), ("heads", None, None), scale=0.02),
+            "b": mk.param("b", (4 * d,), ("mlp",), init="zeros"),
+            "norm_w": mk.param("norm_w", (d,), ("embed",), init="ones"),
+            "out": mk.param("out", (d, d), ("embed", "embed")),
         }
 
     def _pre(self, p, x):
@@ -255,6 +259,10 @@ class SLSTMBlock(Module):
         return {"h": torch.zeros(shape, device=device), "c": torch.zeros(shape, device=device),
                 "n": torch.zeros(shape, device=device),
                 "m": torch.full(shape, M_INIT, device=device)}
+
+    def state_axes(self):
+        ax = ("batch", "heads", None)
+        return {"h": ax, "c": ax, "n": ax, "m": ax}
 
     def decode(self, p, x, state):
         """One token.  x: (B, 1, D) -> (y, state), the state updated IN

@@ -307,7 +307,9 @@ def _is_axes_leaf(x) -> bool:
 def tree_specs(rules: AxisRules, shape_tree, axes_tree):
     """The spec tree of a tree of shapes (tensors, "meta" ones included, or
     shape tuples) and the matching tree of logical-axes tuples (nested
-    dicts, lists or tuples)."""
+    dicts, lists or tuples).  JAX's `tree_shardings` (a tree of
+    `NamedSharding`s) has no counterpart: a process of the port holds whole
+    tensors, and these specs are what `launch/dryrun.py` reads."""
     if isinstance(axes_tree, dict):
         return {k: tree_specs(rules, shape_tree[k], v) for k, v in axes_tree.items()}
     if _is_axes_leaf(axes_tree):

@@ -48,7 +48,9 @@ sources, and the disaggregated engine emits the paged batcher's streams.
 Training (chip_smoke.py phase 13): the kernels refuse an operand that
 requires grad, a smoke train step on the card against the CPU's, GPipe's
 gradient over LocalRing(4) on CUDA tensors, the deterministic recovery
-child and the train launcher.
+child and the train launcher.  The dry run (chip_smoke.py phase 15): the op
+census of a smoke train step and a dense decode step on "meta" equals
+FlopCounterMode's count of the same steps on the card.
 """
 import ctypes
 
@@ -2550,3 +2552,46 @@ def test_train_launcher_recovers_on_the_card(cuda, tmp_path):
                        env=dict(os.environ, PYTHONPATH=str(cs.ROOT / "src")))
     assert r.returncode == 0, r.stderr[-4000:]
     assert "1 restarts" in r.stdout and "done: " in r.stdout
+
+
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "grok-1-314b"])
+def test_census_flops_equal_flop_counter_on_the_card(cuda, arch):
+    """The dry run's census of a smoke train step and a dense decode step,
+    counted on "meta", equals FlopCounterMode on the same steps on the
+    card, exactly (the decode under "torch", so no ctypes launch escapes
+    the counter)."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import ShapePreset
+    from repro_torch.core import ops
+    from repro_torch.core import tree as T
+    from repro_torch.core.op_census import census
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.specs import cell_specs
+    from repro_torch.models import build_model
+    from repro_torch.optim.adamw import AdamW
+    from repro_torch.parallel.sharding import make_rules
+
+    cfg = get_config(arch + "-smoke")
+    model, opt = build_model(cfg), AdamW()
+    rules = make_rules(make_mesh((1, 1), ("data", "model")))
+    train = cell_specs(cfg, ShapePreset("t", 32, 2, "train"), rules, opt=opt,
+                       param_dtype=torch.float32)
+    step = steps.make_train_step(model, cfg, opt, inplace=True)
+    on_meta, _ = census(step, *train.args)
+    params = model.init(0, device=cuda)
+    batch = SyntheticLM(cfg, seq_len=32, global_batch=2).next_batch()
+    with FlopCounterMode(display=False) as fc:
+        step(T.map(torch.clone, params), opt.init(params), batch)
+    assert on_meta.flops == fc.get_total_flops() > 0
+    dec = cell_specs(cfg, ShapePreset("d", 64, 4, "decode"), rules, param_dtype=torch.float32)
+    serve = steps.make_serve_step(model, cfg)
+    on_meta, _ = census(serve, *dec.args)
+    cache = model.make_cache(4, 64, device=cuda)
+    token = torch.zeros((4, 1), dtype=torch.int32, device=cuda)
+    with ops.use_policy(ops.MXPolicy("torch")), FlopCounterMode(display=False) as fc:
+        serve(params, cache, token, 63)
+    assert on_meta.flops == fc.get_total_flops() > 0

@@ -35,7 +35,8 @@ def test_port_imports_no_jax_and_no_reference_package():
             "repro_torch.runtime.elastic", "repro_torch.launch.train",
             "repro_torch.core.tree", "repro_torch.core.paper_data",
             "repro_torch.core.energy", "repro_torch.core.roofline",
-            "repro_torch.core.tiling"} <= set(mods)
+            "repro_torch.core.tiling", "repro_torch.core.op_census",
+            "repro_torch.launch.specs", "repro_torch.launch.dryrun"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"sys.path[:0] = [{str(ROOT / 'src')!r}, {str(ROOT)!r}]\n"
@@ -51,18 +52,23 @@ def test_port_imports_no_jax_and_no_reference_package():
     assert out.stdout.startswith("ok")
 
 
-def test_xla_specific_analytics_are_deliberately_absent():
-    """JAX's HLO census, dry run and cell specs read XLA's HLO text and
-    ShapeDtypeStruct specs, `parse_collective_bytes` reads HLO text and
-    `tpu_step_energy_j` prices a TPU step: none has a counterpart, and the
-    docstrings say so."""
+def test_dry_run_is_ported_and_the_hlo_readers_stay_absent():
+    """JAX's HLO census, dry run and cell specs have their counterparts
+    (`core/op_census.py` counts the aten ops of a step on "meta" tensors in
+    place of the HLO, and its docstring names the module it replaces);
+    `parse_collective_bytes` reads HLO text and `tpu_step_energy_j` prices
+    a TPU step: those two have none, and the docstrings say so."""
     from repro_torch import core
-    from repro_torch.core import energy, roofline
+    from repro_torch.core import energy, op_census, roofline
+    from repro_torch.launch import dryrun, specs
 
-    for name in ("hlo_census", "dryrun", "specs"):
-        assert not any(m.name.endswith(f".{name}") for m in pkgutil.walk_packages(
-            repro_torch.__path__, "repro_torch."))
-        assert name in core.__doc__
+    mods = {m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch.")}
+    assert {"repro_torch.core.op_census", "repro_torch.launch.dryrun",
+            "repro_torch.launch.specs"} <= mods
+    assert not any(m.endswith(".hlo_census") for m in mods)
+    assert "hlo_census" in op_census.__doc__ and "op_census" in core.__doc__
+    assert "repro/launch/dryrun.py" in dryrun.__doc__
+    assert "repro/launch/specs.py" in specs.__doc__
     assert not hasattr(roofline, "parse_collective_bytes")
     assert "parse_collective_bytes" in roofline.__doc__
     assert not hasattr(energy, "tpu_step_energy_j")
