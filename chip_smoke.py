@@ -107,7 +107,8 @@ The quantized path (stages 1b and 5b of the GEMMs, fp8 KV pages):
       weights under Config.precision "int8" (the phase 4 trace),
       "int8_all" (a shorter pass) and "fp8" with fp8 pages (plain and
       k = 4 n-gram), each run's kernel-1 launches printed by route (its
-      prefill chunks on the tensor cores, none on gemm_tile.cuh's chain);
+      decode steps' on the decode tile, its prefill chunks' on the tensor
+      cores, nothing else);
   5q. (after phase 5) each held against the plain path on one cache
       state: every GEMM call of a prefill chunk and a decode step against
       its plain version at 1e-3 * max|ref|, and the logits at half the
@@ -129,7 +130,9 @@ The 2:4 sparse and ABFT stages of the GEMMs (1c, 1d, 5c, 5d):
       groups, straddled tiles), against the plain versions at phase 3's
       tolerances and BITWISE against the dense kernel on expand_24(payload,
       meta); the bound counts payload and metadata bytes; the library
-      yardstick is torch.sparse.to_sparse_semi_structured (bf16);
+      yardstick is torch.sparse.to_sparse_semi_structured (bf16); each
+      decode row printed with its decode tile (the payload's and the
+      metadata's copy widths);
   3a. both GEMMs, ABFT on the six dense pairs and the three sparse policies
       (expanded first; the fused GEMM at M = 8 and at M = 40 and 65, the
       prefill tile's): on bitwise equal to off with no flag, an injected
@@ -137,16 +140,21 @@ The 2:4 sparse and ABFT stages of the GEMMs (1c, 1d, 5c, 5d):
       exactly its tile and the flag map equals the plain version's,
       recovery bitwise, the int8 pair catches a delta of 1,
       max_retries = 0 raises SDCError naming the tile; time on against off;
+      each row printed with its decode or prefill tile;
   4s. (before any profiler session) llama3.2-1b under "sparse24" and
-      "sparse24_int8" on the phase 4 trace, every GEMM the 2:4 variant;
+      "sparse24_int8" on the phase 4 trace, every GEMM the 2:4 variant,
+      every decode step's on the decode tile and every chunk's on the
+      prefill tile;
   4a. llama3.2-1b with abft=True on the phase 4 trace: streams bitwise those
-      of phase 4, no tile flagged; a short k = 4 n-gram pass with and without
+      of phase 4, no tile flagged, every decode step's GEMM the ABFT
+      variant on the decode tile; a short k = 4 n-gram pass with and without
       ABFT, bitwise equal; the step time against phase 4's;
   5s. each 2:4 run held against the plain path on its cache state (every
       GEMM call at 1e-3 * max|ref|; "sparse24" logits at 1e-3 * max|ref|,
       "sparse24_int8" at half the quantization's own effect), one decode
-      step profiled, identical smoke streams across backends under both
-      policies and with abft=True;
+      step profiled (kernel 1 on the decode tile only, as in phase 5's
+      ABFT decode step), identical smoke streams across backends under
+      both policies and with abft=True;
   6s. / 6a. grok-1 (the same cut) under "sparse24_int8" (peak memory and
       kept payloads printed, 2 grouped launches per MoE layer, all 2:4),
       and a short f32 pass with abft=True (grouped checksums, no flag,
@@ -357,8 +365,9 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 # FFMAs a prefill kernel may hold outside the ABFT checksums (its epilogue's
-# activations): fewer than one K step of gemm_tile.cuh's prefill loop, whose
-# smallest tile unrolls 128 (2 x 4 outputs per thread, 16 K rows)
+# activations): fewer than one K step of the CUDA-core loop the prefill tile
+# replaced, whose smallest tile unrolled 128 (2 x 4 outputs per thread, 16 K
+# rows)
 PREFILL_MAX_FFMA = 127
 PREFILL_LIBS = ("mx_matmul", "mx_matmul_sparse", "mx_matmul_abft", "baseline_matmul")
 # the grouped GEMM's libraries: their "mma" route (csrc/grouped_mma.cuh) is
@@ -493,17 +502,20 @@ def _offset(torch, t, nbytes):
     return v
 
 
-def _decode_tile(a, b, b_gate=None):
-    """The decode tile a launch on these operands takes (M <= 16), as a dict."""
+def _decode_tile(a, b, b_gate=None, b_meta=None, bg_meta=None, variant="dense"):
+    """The decode tile a launch of `variant` on these operands takes (M <=
+    16), as a dict (with the metadata's copy width vm for 2:4)."""
     from repro_torch.kernels import _build
     from repro_torch.kernels import mx_matmul as mm
 
     if a.shape[0] > _build.DECODE_MAX_M:
         return None
-    bn, bk, tm, stages, threads, va, vb = mm.decode_launch_tile(a, b, b_gate)
-    t = _build.decode_tile(a.shape[0], b.shape[1], a.dtype, b.dtype, b_gate is not None)
+    bn, bk, tm, stages, threads, va, vb, *vm = mm.decode_launch_tile(a, b, b_gate, b_meta,
+                                                                     bg_meta, variant)
+    t = _build.decode_tile(a.shape[0], b.shape[1], a.dtype, b.dtype, b_gate is not None,
+                           variant)
     return dict(bn=bn, bk=bk, tm=tm, stages=stages, threads=threads, va=va, vb=vb,
-                smem=t.smem, ctas=t.ctas)
+                smem=t.smem, ctas=t.ctas, variant=variant, **dict(zip(("vm",), vm)))
 
 
 def _prefill_tile(a, b, b_gate=None, variant="dense"):
@@ -1210,7 +1222,9 @@ def check_sparse_gemm(torch, dev, pol, M, K, N, ep_kw, seed):
                 pair=f"{a.dtype} x {qb.dtype}", epilogue=ep_kw, max_abs_err=err, tol=tol,
                 bitwise_vs_dense=bool(torch.equal(got, dense)),
                 finite=bool(torch.isfinite(got).all()), **times, library=library,
-                library_error=lib_error, bound_ms=bound, bound_by=by, weight_bytes=wbytes)
+                library_error=lib_error, bound_ms=bound, bound_by=by, weight_bytes=wbytes,
+                tile=_decode_tile(a, qb, qg, bm_, gm_, "sparse"),
+                prefill_tile=_prefill_tile(a, qb, qg, "sparse"))
 
 
 def check_sparse_grouped(torch, dev, pol, label, T, sizes, K, N, act, seed):
@@ -1425,15 +1439,23 @@ def check_abft(torch, dev, pol, grouped, seed, fused_shape=(8, 2048, 8192),
                  and out["sdc_raised"] is True and err <= tol)
     if grouped:
         out["grouped_tile"] = _grouped_tile(x, w, wg, "abft")
+    else:
+        out["tile"] = _decode_tile(x, w, wg, variant="abft")
+        out["prefill_tile"] = _prefill_tile(x, w, wg, "abft")
     return dict(kernel="mx_grouped_matmul" if grouped else "mx_matmul_fused", variant="abft",
                 dtype=pol, pair=f"{x.dtype} x {w.dtype}", M=M, K=K, N=N, exact=spec.exact,
                 delta=delta, **out)
 
 
 def _tile_note(c) -> str:
-    t = c.get("grouped_tile")
-    return (f" [{t['route']} tile {t['bm']}x{t['bn']} stages {t['stages']} parts "
-            f"{t['parts']} ctas {t['ctas']}]" if t else "")
+    t = c.get("grouped_tile") or c.get("prefill_tile")
+    if t:
+        return (f" [{t['route']} tile {t['bm']}x{t['bn']} stages {t['stages']} parts "
+                f"{t['parts']} ctas {t['ctas']}]")
+    t = c.get("tile")
+    return (f" [decode tile bn {t['bn']} bk {t['bk']} tm {t['tm']} stages {t['stages']} "
+            f"threads {t['threads']} smem {t['smem']} ctas {t['ctas']} copies "
+            f"{t['va']}/{t['vb']} B]" if t else "")
 
 
 def abft_checks(torch, dev):
@@ -1603,7 +1625,7 @@ def phase_kernels(torch, dev):
             t = c["tile"]
             extra += (f" [decode tile bn {t['bn']} bk {t['bk']} tm {t['tm']} stages "
                       f"{t['stages']} threads {t['threads']} smem {t['smem']} ctas {t['ctas']}"
-                      f" copies {t['va']}/{t['vb']} B]")
+                      f" copies {t['va']}/{t['vb']}{'/%d' % t['vm'] if 'vm' in t else ''} B]")
         print(f"  {c['kernel']:16s} {c['dtype']:8s} {shape:40s} err {c['max_abs_err']:.3e} "
               f"(tol {c['tol']:.3e}){extra} {'ok' if ok else 'FAIL'}  ms {c['ms']:.4f} "
               f"(spread {100 * _spread(c):.0f}%) plain "
@@ -1870,6 +1892,10 @@ def _profile(torch, fn):
     # the paged decode and verify)
     attention = {}
     grouped = dict(ms=0.0, calls=0)  # the grouped GEMM's kernels (both routes)
+    # kernel 1 by K loop: the decode tile (every variant), the prefill tile,
+    # and the 16 x 16 CUDA-core loop the decode-height 2:4 and ABFT rows ran
+    # before the decode tile took them (it must not appear)
+    fused = {k: dict(ms=0.0, calls=0) for k in ("decode", "prefill", "cuda_core_16x16")}
     scan = dict(ms=0.0, calls=0)  # ssd_scan
     library_gemm = dict(ms=0.0, calls=0)  # cuBLAS / CUTLASS GEMMs (the plain path's)
     for k, ms, n in rows:
@@ -1882,14 +1908,24 @@ def _profile(torch, fn):
                 a["ms"] += ms
                 a["calls"] += n
         for name, tally in (("grouped_kernel", grouped), ("grouped_mma_kernel", grouped),
-                            ("ssd_scan_kernel", scan)):
+                            ("ssd_scan_kernel", scan), ("mx_matmul_decode", fused["decode"]),
+                            ("mx_matmul_prefill", fused["prefill"]),
+                            ("mx_matmul_kernel<", fused["cuda_core_16x16"])):
             if name in k:
                 tally["ms"] += ms
                 tally["calls"] += n
     return dict(measured=True, window_ms=wall_ms, device_ms=device_ms,
                 busy_share=device_ms / wall_ms, attention=attention, grouped=grouped,
-                scan=scan, library_gemm=library_gemm,
+                scan=scan, library_gemm=library_gemm, fused=fused,
                 top=[dict(name=k[:90], ms=ms, calls=n) for k, ms, n in rows[:12]])
+
+
+def _check_decode_profile(what, p):
+    """A profiled decode step's GEMMs all on the decode tile: kernel 1's
+    decode kernels ran, the 16 x 16 CUDA-core loop did not."""
+    if p["measured"] and (not p["fused"]["decode"]["calls"]
+                          or p["fused"]["cuda_core_16x16"]["calls"]):
+        raise AssertionError(f"{what}: kernel 1 off the decode tile: {p['fused']}")
 
 
 def profile_steps(torch, dev, model, params, cfg, cache, num_pages, n_decode=4):
@@ -2134,13 +2170,7 @@ def llama_quant_serve(torch, dev, cfg, params):
                                 gen=gen, label=label, **kw)
         _print_serve(run)
         _check_launches(label, run)
-        n, dec = run["launches"]["mx_matmul_fused"], run["decode_launches"]["mx_matmul_fused"]
-        mma = run["prefill_tile_launches"]["mx_matmul_fused"]
-        run["fused_by_route"] = dict(decode=dec, mma=mma, simt=n - dec - mma)
-        print(f"      kernel 1 launches by route: {run['fused_by_route']}")
-        if not mma or n - dec - mma:  # prefill chunks on the tensor cores, none on the chain
-            raise AssertionError(f"{label}: kernel 1 off the tensor-core prefill route: "
-                                 f"{run['fused_by_route']}")
+        _fused_routes(label, run)
         runs[label] = (run, model, batcher)
     return runs
 
@@ -2186,6 +2216,7 @@ def llama_quant_holds(torch, dev, params, served):
             profs[label] = _profile(torch, lambda: model.decode_step_paged(
                 params, tok, batcher.cache, index, table, lengths))
         _print_profile(f"{label}: 1 decode step, 8 slots", profs[label])
+        _check_decode_profile(f"{label}: 1 decode step", profs[label])
     ops.clear_weight_cache()
     print("    quantized token streams at smoke size across backends:")
     streams = smoke_streams_across_backends(
@@ -2240,6 +2271,20 @@ def divergences(torch, model, params, plain, other, kv_quant=None):
     return out
 
 
+def _fused_routes(label, run):
+    """Kernel 1's launches in a serving run by K loop: every decode step's
+    (M <= 16) on the decode tile, every prefill chunk's and verify step's
+    on the tensor-core prefill tile, in every variant; nothing else."""
+    n, dec = run["launches"]["mx_matmul_fused"], run["decode_launches"]["mx_matmul_fused"]
+    mma = run["prefill_tile_launches"]["mx_matmul_fused"]
+    run["fused_by_route"] = dict(decode=dec, mma=mma)
+    print(f"      kernel 1 launches by route: {run['fused_by_route']} of {n}")
+    decode_steps = run["speculate"] == 0  # a speculating run verifies on the prefill tile
+    if bool(dec) != decode_steps or not mma or dec + mma != n:
+        raise AssertionError(f"{label}: kernel 1 off the decode and prefill tiles: "
+                             f"{run['fused_by_route']} of {n}")
+
+
 def _sparse_payload_gib(ops):
     """The kept 2:4 payloads and metadata (the weight cache's sparse entries)."""
     return sum(t.numel() * t.element_size() for key, (_, _, made) in ops._weights.items()
@@ -2282,6 +2327,7 @@ def llama_sparse_serve(torch, dev, cfg, params):
               f"launches by variant {run['variants']}")
         _check_launches(label, run)
         _check_variant(label, run, "sparse")
+        _fused_routes(label, run)
         runs[label] = (run, model, batcher)
     return runs
 
@@ -2323,6 +2369,10 @@ def llama_abft_serve(torch, dev, cfg, model, params, main_run):
           f"{spec[True]['abft_stats']}")
     _check_launches("(i) abft", run)
     _check_variant("(i) abft", run, "abft")
+    _fused_routes("(i) abft", run)
+    if run["variants"]["mx_matmul_fused abft"] != run["fused_by_route"]["decode"]:
+        raise AssertionError(f"(i) abft: the decode steps' GEMMs off the ABFT decode tile: "
+                             f"{run['variants']} {run['fused_by_route']}")
     _check_variant("(i) spec4 ngram abft", spec[True], "abft")
     if not ok:
         raise AssertionError(f"ABFT serving: {run['abft_stats']} {run['abft']} "
@@ -2359,6 +2409,7 @@ def llama_sparse_holds(torch, dev, params, served):
             profs[label] = _profile(torch, lambda: model.decode_step_paged(
                 params, tok, batcher.cache, index, table, lengths))
         _print_profile(f"{label}: 1 decode step, 8 slots", profs[label])
+        _check_decode_profile(f"{label}: 1 decode step", profs[label])
     ops.clear_weight_cache()
     print("    2:4 and ABFT token streams at smoke size across backends:")
     streams = smoke_streams_across_backends(
@@ -2526,6 +2577,7 @@ def llama_phases(torch, dev):
     prof_a = profile_abft_step(torch, dev, model, params, cfg, batcher.cache,
                                batcher.pool.total_pages)
     _print_profile("1 decode step with ABFT (a host sync per GEMM)", prof_a)
+    _check_decode_profile("1 decode step with ABFT", prof_a)
     abft["profile_decode"] = prof_a
     same, streams = smoke_streams(torch, dev)
     print(f"    smoke-size token streams equal across cuda_mx / torch, plain / "
@@ -2647,7 +2699,8 @@ def _print_profile(what, p):
         for k, a in p["attention"].items():
             print(f"      attention: {k} {a['ms']:.3f} ms over {a['calls']} calls "
                   f"({100 * a['ms'] / p['device_ms']:.1f}% of device time)")
-        for what_, g in (("grouped GEMM", p["grouped"]), ("ssd_scan", p["scan"])):
+        for what_, g in (("grouped GEMM", p["grouped"]), ("ssd_scan", p["scan"]),
+                         *((f"kernel 1 {k}", v) for k, v in p["fused"].items())):
             if g["calls"]:
                 print(f"      {what_}: {g['ms']:.3f} ms over {g['calls']} launches "
                       f"({100 * g['ms'] / p['device_ms']:.1f}% of device time)")

@@ -31,10 +31,9 @@ BASELINE_BK = 128  # kernel 2's K step between output round trips (baseline_matm
 class TilePlan:
     """The tile one GEMM launch takes, priced.
 
-    ``route``: "decode", "mma" or "simt" (`HopperGemmTiling`); (bm, bn) the
-    CTA tile (a decode CTA covers all M rows: bm = M), bk the K rows per
-    ring stage ("simt", the 2:4 and ABFT rows at M <= 16: per staged K
-    step); ``stages``, ``split`` and
+    ``route``: "decode" or "mma" (`HopperGemmTiling`); (bm, bn) the CTA
+    tile (a decode CTA covers all M rows: bm = M), bk the K rows per ring
+    stage; ``stages``, ``split`` and
     ``parts`` the ring depth, the CTAs per cluster and the K parts
     (`_build.prefill_parts`); ``ctas`` the grid; ``smem_bytes`` the dynamic
     shared memory per CTA; ``acc_bytes`` the register accumulator per CTA;
@@ -72,12 +71,10 @@ def _launch_tile(M, N, K, a_dtype, b_dtype, variant, gated, groups):
         flag = _build.grouped_flag_tile(M, groups, a_dtype, b_dtype) if variant == "abft" else None
         return (t.route, t.bm, t.bn, t.bk, t.stages, t.split, t.parts, t.ctas, t.smem, flag)
     flag = _build.gemm_tile(M)[:2] if variant == "abft" else None
-    if M <= _build.DECODE_MAX_M:
-        if variant in ("dense", "baseline"):  # kernel 1's decode tile, kernel 2's too
-            t = _build.decode_tile(M, N, a_dtype, b_dtype, gated)
-            return ("decode", M, t.bn, t.bk, t.stages, 1, 1, t.ctas, t.smem, flag)
-        bm, bn, bk = _build.gemm_tile(M)  # 2:4 and ABFT rows: gemm_tile.cuh's loop
-        return ("simt", bm, bn, bk, 1, 1, 1, -(-M // bm) * -(-N // bn), 0, flag)
+    if M <= _build.DECODE_MAX_M:  # kernel 1's decode tile of the variant, kernel 2's dense one
+        t = _build.decode_tile(M, N, a_dtype, b_dtype, gated,
+                               "dense" if variant == "baseline" else variant)
+        return ("decode", M, t.bn, t.bk, t.stages, 1, 1, t.ctas, t.smem, flag)
     t = _build.prefill_tile(M, N, K, a_dtype, b_dtype, gated, variant)
     return (t.route, t.bm, t.bn, t.bk, t.stages, t.split, t.parts, t.ctas, t.smem, flag)
 
@@ -108,12 +105,12 @@ def plan_matmul_tiles(M: int, N: int, K: int, a_dtype: torch.dtype, b_dtype: tor
                               accumulate_in_registers=not baseline,
                               fused_epilogue_ops=fused_epilogue_ops, route=route,
                               stages=stages, split=split, parts=parts, gated=gated,
-                              ring_bk=bk if baseline else 0)
+                              ring_bk=bk if baseline else 0, abft=variant == "abft")
     # the grouped GEMM streams each expert's weights for its own rows:
     # priced as G groups of T / G rows (uniform routing)
     hbm = (tiling.hbm_bytes(p) if groups is None else groups * tiling.hbm_bytes(
         dataclasses.replace(p, M=-(-M // groups))))
-    if route != "simt" and tiling.smem_bytes(p) != smem:
+    if tiling.smem_bytes(p) != smem:
         raise AssertionError(f"the priced shared memory {tiling.smem_bytes(p)} is not the "
                              f"launch's {smem} ({route} {bm} x {bn}, {variant})")
     if smem > _build.SMEM_PER_CTA:

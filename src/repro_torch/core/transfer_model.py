@@ -361,11 +361,11 @@ class HopperGemmTiling:
     launch's ring (`kernels/_build.py`): "decode" (csrc/decode_tile.cuh, M
     <= 16 rows in one CTA row), "mma" (csrc/prefill_tile.cuh and the
     grouped GEMM's csrc/grouped_mma.cuh; every pair at M > 16, int8 x int8
-    and e4m3 x e4m3 in their own byte) or "simt" (gemm_tile.cuh's loop,
-    the 2:4 and ABFT rows at M <= 16, which stages its tiles in static
-    shared memory; its launch asks for no dynamic shared memory); ``ring_bk`` the ring's K rows per stage where
-    they are not ``bk`` (kernel 2 stages as kernel 1 does and round-trips
-    every ``bk``).  `smem_bytes` replaces JAX's `vmem_bytes`.
+    and e4m3 x e4m3 in their own byte); ``ring_bk`` the ring's K rows per
+    stage where they are not ``bk`` (kernel 2 stages as kernel 1 does and
+    round-trips every ``bk``); ``abft`` an ABFT launch, whose decode ring
+    keeps the checksums' scratch beside it.  `smem_bytes` replaces JAX's
+    `vmem_bytes`.
     """
 
     bm: int
@@ -380,8 +380,9 @@ class HopperGemmTiling:
     parts: int = 1
     gated: bool = False
     ring_bk: int = 0  # K rows per ring stage, where they differ from bk (kernel 2)
+    abft: bool = False
 
-    ROUTES = ("decode", "mma", "simt")
+    ROUTES = ("decode", "mma")
 
     def __post_init__(self):
         if self.route not in self.ROUTES:
@@ -412,23 +413,24 @@ class HopperGemmTiling:
 
     def smem_bytes(self, p: GemmProblem) -> int:
         """Dynamic shared memory of one CTA, as the launch asks for it: the
-        ring of `stages` slots of staged A rows and B (and gate) tiles, and
-        on the "mma" route the f32 (int8 x int8: int32) tile a CTA folding several K parts keeps
-        beside them (csrc/prefill_tile.cuh `prefill_smem`; kernel 2 has
-        none); the accumulator itself stays in registers
-        (`acc_register_bytes`).  Computed by the functions the launchers
-        use (`_build.decode_slot_bytes`, `_build.prefill_smem`).  The
-        "simt" route's tiles sit in static shared memory: 0."""
+        ring of `stages` slots of staged A rows and B (and gate) tiles (a
+        2:4 B as payload and metadata), beside it on the "decode" route an
+        ABFT launch's checksum scratch, and on the "mma" route the f32
+        (int8 x int8: int32) tile a CTA folding several K parts keeps
+        (csrc/prefill_tile.cuh `prefill_smem`; kernel 2 has none); the
+        accumulator itself stays in registers (`acc_register_bytes`).
+        Computed by the functions the launchers use (`_build.decode_smem`,
+        `_build.prefill_smem`)."""
         from ..kernels import _build
 
         ea, eb, bk = p.a_elem_bytes, p.b_elem_bytes, self.ring_bk or self.bk
         if self.route == "decode":
-            return self.stages * _build.decode_slot_bytes(p.M, self.bn, bk, ea, eb, self.gated)
-        if self.route == "mma":
-            return _build.prefill_smem(self.bm, self.bn, bk, ea, eb, self.stages,
-                                       self.split, self.parts, self.gated, p.b_sparse,
-                                       self.accumulate_in_registers)
-        return 0
+            variant = "sparse" if p.b_sparse else "abft" if self.abft else "dense"
+            return _build.decode_smem(p.M, self.bn, bk, ea, eb, self.stages, self.gated,
+                                      variant)
+        return _build.prefill_smem(self.bm, self.bn, bk, ea, eb, self.stages, self.split,
+                                   self.parts, self.gated, p.b_sparse,
+                                   self.accumulate_in_registers)
 
     def acc_register_bytes(self, p: GemmProblem, acc_bytes: int = 4) -> int:
         """The f32 accumulator of one CTA's output tile, held in registers

@@ -162,19 +162,24 @@ baseline_decode_kernel(const DecodeShape d, void* out, int out_dt, int bk) {
       part[i] = 0.0f;
     }
   };
-  decode_sweep<float, T, T, TM, false>(part, unused, d, blockIdx.x * d.bn, c, r0, flush);
+  NoHook hook;
+  decode_sweep<float, T, T, TM, false, kDecodeDense>(part, unused, d, blockIdx.x * d.bn, c, r0,
+                                                     flush, hook);
 }
 
 template <typename T>
 static int decode_dispatch(const DecodeShape& d, void* out, int out_dt, int bk, int tm,
                            cudaStream_t s) {
   switch (tm) {
-    case 1: return decode_launch<T, T, 1, false>(baseline_decode_kernel<T, 1>, d, s, out,
-                                                 out_dt, bk);
-    case 2: return decode_launch<T, T, 2, false>(baseline_decode_kernel<T, 2>, d, s, out,
-                                                 out_dt, bk);
-    case 4: return decode_launch<T, T, 4, false>(baseline_decode_kernel<T, 4>, d, s, out,
-                                                 out_dt, bk);
+    case 1:
+      return decode_launch<T, T, 1, false, kDecodeDense>(baseline_decode_kernel<T, 1>, d,
+                                                           s, out, out_dt, bk);
+    case 2:
+      return decode_launch<T, T, 2, false, kDecodeDense>(baseline_decode_kernel<T, 2>, d,
+                                                           s, out, out_dt, bk);
+    case 4:
+      return decode_launch<T, T, 4, false, kDecodeDense>(baseline_decode_kernel<T, 4>, d,
+                                                           s, out, out_dt, bk);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -207,7 +212,8 @@ extern "C" int baseline_matmul_decode_launch(const void* a, const void* b, void*
                                              int threads, int va, int vb, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bk % 128) return static_cast<int>(cudaErrorInvalidValue);  // KERNEL_BK
-  const DecodeShape d{a, b, nullptr, M, N, K, bn, bks, stages, threads, va, vb};
+  const DecodeShape d{a, b, nullptr, M, N, K, bn, bks, stages, threads, va, vb, nullptr, nullptr,
+                      0};
   const int err = in_dt == kBF16
                       ? decode_dispatch<__nv_bfloat16>(d, out, out_dt, bk, tm, s)
                       : decode_dispatch<float>(d, out, out_dt, bk, tm, s);

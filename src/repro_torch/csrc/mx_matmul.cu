@@ -1,6 +1,7 @@
 // MX GEMM with the fused epilogue, for Hopper (sm_90a): dense B (stages 1a
 // and 1b).  The 2:4 sparse (1c) and ABFT (1d) variants are
-// mx_matmul_sparse.cu and mx_matmul_abft.cu (kernel body mx_matmul.cuh).
+// mx_matmul_sparse.cu and mx_matmul_abft.cu (kernel bodies mx_matmul.cuh),
+// on the same two loops.
 //
 // Replaces the TPU kernel repro/kernels/mx_matmul.py::mx_matmul_fused
 // (_fused_kernel): D = epilogue(A @ B [, A @ B_gate]), with quantized
@@ -70,7 +71,8 @@ mx_matmul_decode_kernel(const DecodeShape d, const Args r) {
   const int n0 = blockIdx.x * d.bn;
   S acc[TM], accg[TM];  // the inter-k buffer(s)
   NoChunk none;
-  decode_sweep<S, TA, TB, TM, GATE>(acc, accg, d, n0, c, r0, none);
+  NoHook hook;
+  decode_sweep<S, TA, TB, TM, GATE, kDecodeDense>(acc, accg, d, n0, c, r0, none, hook);
   if (r0 >= d.M || n0 + c >= d.N) return;  // a copy-only thread, or past N
 #pragma unroll
   for (int i = 0; i < TM; ++i)
@@ -126,10 +128,10 @@ static int prefill_dispatch(const PrefillShape& d, const Args& r, int bm, int bn
 template <typename S, typename TA, typename TB, int TM>
 static int decode_gate(const DecodeShape& d, const Args& r, cudaStream_t s) {
   if (r.act == kSwiglu)
-    return decode_launch<TA, TB, TM, true>(mx_matmul_decode_kernel<S, TA, TB, TM, true>, d, s,
-                                           r);
-  return decode_launch<TA, TB, TM, false>(mx_matmul_decode_kernel<S, TA, TB, TM, false>, d,
-                                          s, r);
+    return decode_launch<TA, TB, TM, true, kDecodeDense>(
+        mx_matmul_decode_kernel<S, TA, TB, TM, true>, d, s, r);
+  return decode_launch<TA, TB, TM, false, kDecodeDense>(
+      mx_matmul_decode_kernel<S, TA, TB, TM, false>, d, s, r);
 }
 
 template <typename S, typename TA, typename TB>
@@ -140,19 +142,6 @@ static int decode_dispatch(const DecodeShape& d, const Args& r, int tm, cudaStre
     case 4: return decode_gate<S, TA, TB, 4>(d, r, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
-}
-
-// The operand pair's instantiation: F(S, TA, TB) for the pair (a_dt, b_dt),
-// cudaErrorInvalidValue for any other.
-template <typename F>
-static int with_pair(int a_dt, int b_dt, F f) {
-  if (a_dt == kF32 && b_dt == kF32) return f(float(), float(), float());
-  if (a_dt == kBF16 && b_dt == kBF16) return f(float(), __nv_bfloat16(), __nv_bfloat16());
-  if (a_dt == kBF16 && b_dt == kI8) return f(float(), __nv_bfloat16(), int8_t());
-  if (a_dt == kBF16 && b_dt == kF8) return f(float(), __nv_bfloat16(), __nv_fp8_e4m3());
-  if (a_dt == kI8 && b_dt == kI8) return f(int(), int8_t(), int8_t());
-  if (a_dt == kF8 && b_dt == kF8) return f(float(), __nv_fp8_e4m3(), __nv_fp8_e4m3());
-  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // The decode rows (M <= 16).  a (M, K) of dtype a_dt; b, b_gate (K, N) of
@@ -177,7 +166,7 @@ extern "C" int mx_matmul_decode_launch(const void* a, const void* b, const void*
                static_cast<const float*>(bg_scale), bias, bias_dt, residual, res_dt, out,
                out_dt, M, N, K, act, has_scale, out_scale};
   const DecodeShape d{a, b, act == kSwiglu ? b_gate : nullptr, M, N, K, bn, bk, stages,
-                      threads, va, vb};
+                      threads, va, vb, nullptr, nullptr, 0};
   const int err = with_pair(a_dt, b_dt, [&](auto s_, auto ta, auto tb) {
     return decode_dispatch<decltype(s_), decltype(ta), decltype(tb)>(d, r, tm, s);
   });

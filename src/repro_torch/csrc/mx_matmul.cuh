@@ -1,9 +1,15 @@
-// MX GEMM with the fused epilogue, for Hopper (sm_90a): the kernel body of
+// MX GEMM with the fused epilogue, for Hopper (sm_90a): the kernel bodies of
 // its 2:4 sparse variant (mx_matmul_sparse.cu, stage 1c) and its ABFT
 // variant (mx_matmul_abft.cu, checksums and the per-tile flag map, stage
-// 1d), each source built by its own nvcc, all in parallel.  It is the
+// 1d), each source built by its own nvcc, all in parallel.  Each is the
 // dense kernel of mx_matmul.cu (stages 1a / 1b) with, for ABFT, the verify
-// at the store, on one of two K loops:
+// at the store, on the dense kernel's two K loops:
+//   * the decode-height rows (M <= 16; the *_launch entries): decode_tile.cuh's
+//     weight-streaming ring with the tile of kernels/_build.decode_tile
+//     (variant "sparse" or "abft"), the 2:4 payloads and metadata copied
+//     raw and expanded in registers, the ABFT checksums beside the dense
+//     chain (abft_tile.cuh AbftDecodeHook) over gemm_tile's 16-column flag
+//     tiles; both bitwise the dense decode tile;
 //   * every pair at M > 16 (the *_prefill_launch entries; 2:4 only for its
 //     pairs): the dense kernel's tensor-core loop, prefill_tile.cuh, the
 //     2:4 payloads expanded (and a narrow weight widened) into the same
@@ -11,15 +17,12 @@
 //     dense and 2:4 kernels share the tile of kernels/_build.prefill_tile,
 //     the ABFT kernel runs gemm_tile's CTA tile with split 1 (one CTA per
 //     flag), folding the same K parts in the same order, so all three are
-//     bitwise equal;
-//   * the decode-height rows (M <= 16) of the 2:4 and ABFT variants:
-//     gemm_tile.cuh's sweep_k_variant with the tile of
-//     kernels/_build.gemm_tile, the serial K chain of the dense decode tile.
+//     bitwise equal.
 //
 // What it computes and how (the inter-k register accumulator, one store
 // with the fused epilogue, the operand pairs and scales): see mx_matmul.cu.
 //
-// Both tiles are chosen in Python and passed in: gemm_tile gives the ABFT
+// Both tiles are chosen in Python and passed in; gemm_tile gives the ABFT
 // flag map's grid, the fault operands' grid, abft_rtol and the plain
 // version's tiling.  A tile outside the instantiated set returns
 // cudaErrorInvalidValue.
@@ -29,10 +32,8 @@
 
 enum GemmMode : int { kSparseB = 1, kAbftB = 2 };
 
-// Every launch argument past the template parameters.
+// Every launch argument past the operands (DecodeShape / PrefillShape).
 struct GemmArgs {
-  const void *a, *b, *bg;             // A (M, K); B, B_gate (K, N) or 2:4 payloads (K/2, N)
-  const uint8_t *b_meta, *bg_meta;    // 2:4 metadata (K/8, N)
   const float *a_scale, *b_scale, *bg_scale;
   const void* bias;
   int bias_dt;
@@ -47,85 +48,56 @@ struct GemmArgs {
   float rtol, atol;
 };
 
-template <int MODE, typename S, typename TA, typename TB, int BM, int BN, int BK, int TM,
-          int TN, bool GATE>
-__global__ void __launch_bounds__(TileCfg<BM, BN, BK, TM, TN>::kThreads)
-mx_matmul_kernel(const GemmArgs r) {
-  using Cfg = TileCfg<BM, BN, BK, TM, TN>;
-  constexpr bool kSparse = MODE == kSparseB;
-  using Abft = AbftHook<Cfg, S, BM, BN, BK, TM, TN>;
-  __shared__ S As[BK][BM + 1];
-  __shared__ S Bs[BK][BN];
-  __shared__ S Bgs[GATE ? BK : 1][BN];
-  __shared__ typename std::conditional<MODE == kAbftB, typename Abft::Sm, char>::type ck;
-
-  const int tx = threadIdx.x % Cfg::kTX, ty = threadIdx.x / Cfg::kTX;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-
-  S acc[TM][TN], accg[TM][TN];  // the inter-k buffer(s)
-  const TA* A = static_cast<const TA*>(r.a);
-  const TB* B = static_cast<const TB*>(r.b);
-  const TB* Bg = static_cast<const TB*>(r.bg);
+// The decode tile (M <= 16; csrc/decode_tile.cuh): thread (column c, rows
+// r0 .. r0 + TM - 1) of a CTA that owns bn columns and all M rows; the 2:4
+// variant streams the payloads and metadata, the ABFT variant keeps the
+// checksums of its flag tiles beside the dense chain and writes their
+// flags before the store.
+template <int MODE, typename S, typename TA, typename TB, int TM, bool GATE>
+__global__ void __launch_bounds__(kDecodeMaxThreads)
+mx_matmul_decode_variant_kernel(const DecodeShape d, const GemmArgs r) {
+  const int c = threadIdx.x % d.bn, r0 = threadIdx.x / d.bn * TM;
+  const int n0 = blockIdx.x * d.bn;
+  S acc[TM], accg[TM];  // the inter-k buffer(s)
+  NoChunk none;
   if constexpr (MODE == kAbftB) {
-    Abft hook(ck);
-    hook.reset();
-    sweep_k_variant<S, TA, TB, BM, BN, BK, TM, TN, GATE, kSparse>(
-        acc, accg, As, Bs, Bgs, A, B, Bg, r.b_meta, r.bg_meta, hook, r.M, r.N, r.K, m0, n0,
-        tx, ty);
-    const int tile = blockIdx.y * gridDim.x + blockIdx.x;
-    if (r.fault_delta != nullptr)
-      hook.inject(acc, r.fault_delta[tile], r.fault_row[tile], r.fault_col[tile], tx, ty);
-    const int bad = hook.verify(acc, r.rtol, r.atol, tx, ty);
-    if (threadIdx.x == 0) r.flags[tile] = bad;
+    extern __shared__ __align__(16) unsigned char decode_ring[];  // the ring, then the scratch
+    const DecodeSlot L = decode_slot<TA, TB, GATE, kDecodeAbft>(d);
+    AbftDecodeHook<S, TA, TB, TM> hook(d, decode_ring + d.stages * L.bytes);
+    decode_sweep<S, TA, TB, TM, GATE, kDecodeAbft>(acc, accg, d, n0, c, r0, none, hook);
+    hook.finish(acc, d, r, n0, c, r0);
   } else {
     NoHook hook;
-    sweep_k_variant<S, TA, TB, BM, BN, BK, TM, TN, GATE, kSparse>(
-        acc, accg, As, Bs, Bgs, A, B, Bg, r.b_meta, r.bg_meta, hook, r.M, r.N, r.K, m0, n0,
-        tx, ty);
+    decode_sweep<S, TA, TB, TM, GATE, kDecodeSparse>(acc, accg, d, n0, c, r0, none, hook);
   }
-
-  // the single write-back, dequant scales and epilogue applied in registers
+  if (r0 >= d.M || n0 + c >= d.N) return;  // a copy-only thread, or past N
 #pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int gm = m0 + ty * TM + i;
-    if (gm >= r.M) continue;
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int gn = n0 + tx + j * Cfg::kTX;
-      if (gn < r.N)
-        mx_store<GATE>(r, static_cast<float>(acc[i][j]), static_cast<float>(accg[i][j]), gm,
-                       gn);
-    }
-  }
+  for (int i = 0; i < TM; ++i)
+    mx_store<GATE>(r, static_cast<float>(acc[i]), static_cast<float>(accg[i]), r0 + i, n0 + c);
 }
 
-template <int MODE, typename S, typename TA, typename TB, int BM, int BN, int BK, int TM,
-          int TN>
-static void launch(const GemmArgs& r, cudaStream_t stream) {
-  using Cfg = TileCfg<BM, BN, BK, TM, TN>;
-  dim3 grid((r.N + BN - 1) / BN, (r.M + BM - 1) / BM);
+template <int MODE, typename S, typename TA, typename TB, int TM>
+static int decode_variant_gate(const DecodeShape& d, const GemmArgs& r, cudaStream_t s) {
+  constexpr int kVar = MODE == kSparseB ? kDecodeSparse : kDecodeAbft;
   if (r.act == kSwiglu)
-    mx_matmul_kernel<MODE, S, TA, TB, BM, BN, BK, TM, TN, true>
-        <<<grid, Cfg::kThreads, 0, stream>>>(r);
-  else
-    mx_matmul_kernel<MODE, S, TA, TB, BM, BN, BK, TM, TN, false>
-        <<<grid, Cfg::kThreads, 0, stream>>>(r);
+    return decode_launch<TA, TB, TM, true, kVar>(
+        mx_matmul_decode_variant_kernel<MODE, S, TA, TB, TM, true>, d, s, r);
+  return decode_launch<TA, TB, TM, false, kVar>(
+      mx_matmul_decode_variant_kernel<MODE, S, TA, TB, TM, false>, d, s, r);
 }
 
-// The tile of kernels/_build.gemm_tile at decode height (M <= 16: the
-// only rows this loop serves; every pair's M > 16 rows take the
-// *_prefill_launch entries).
+// The decode tile of kernels/_build.decode_tile (its tm: 1, 2 or 4 rows per
+// thread); any other tile returns cudaErrorInvalidValue (decode_check).
 template <int MODE, typename S, typename TA, typename TB>
-static int dispatch(const GemmArgs& r, int bm, int bn, int bk, cudaStream_t s) {
-  if (bm != 16 || bn != 16 || bk != 128 || r.M > 16) return static_cast<int>(cudaErrorInvalidValue);
-  launch<MODE, S, TA, TB, 16, 16, 128, 1, 1>(r, s);
-  return 0;
+static int decode_variant_dispatch(const DecodeShape& d, const GemmArgs& r, int tm,
+                                   cudaStream_t s) {
+  switch (tm) {
+    case 1: return decode_variant_gate<MODE, S, TA, TB, 1>(d, r, s);
+    case 2: return decode_variant_gate<MODE, S, TA, TB, 2>(d, r, s);
+    case 4: return decode_variant_gate<MODE, S, TA, TB, 4>(d, r, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
-
-// One operand pair of a source's dispatch_pair (each .cu lists the pairs
-// it instantiates; any other returns cudaErrorInvalidValue).
-#define REPRO_GEMM_PAIR(MODE, ADT, BDT, S, TA, TB) \
-  if (a_dt == ADT && b_dt == BDT) return dispatch<MODE, S, TA, TB>(r, bm, bn, bk, s);
 
 // The tensor-core prefill tile (bf16 or f32 A, M > 16): the 2:4 variant on the
 // dense kernel's tile and split, the ABFT variant on gemm_tile's CTA tile

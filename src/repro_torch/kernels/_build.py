@@ -209,20 +209,18 @@ def pair_codes(a: torch.Tensor, b: torch.Tensor, what: str, sparse: bool = False
 
 # The one tile rule of the GEMM kernels: every launch takes its tile from
 # this module (the launchers take these and refuse any other).  gemm_tile's
-# (BM, BN, BK): at M <= 16 the CTA tile of gemm_tile.cuh's loop, which the
-# 2:4 and ABFT variants launch there; at every M the ABFT flag map's grid,
-# the fault operands' grid, abft_rtol and the plain versions' ABFT tiling,
-# on the CPU too.  The dense kernels' decode rows (M <= 16) launch
-# decode_tile's; the rows at M > 16 of every pair and variant launch
-# prefill_tile's, whose CTA tile is a whole multiple of gemm_tile's (the
-# ABFT variant's is gemm_tile's).
+# (BM, BN, BK): at every M the ABFT flag map's grid, the fault operands'
+# grid, abft_rtol and the plain versions' ABFT tiling, on the CPU too; at
+# M > 16 the ABFT prefill launch's CTA tile.  The decode rows (M <= 16) of
+# every variant launch decode_tile's; the rows at M > 16 of every pair and
+# variant launch prefill_tile's, whose CTA tile is a whole multiple of
+# gemm_tile's (the ABFT variant's is gemm_tile's).
 def gemm_tile(M: int):
-    """The MX GEMM's (BM, BN, BK) for M rows: decode (M <= 16, bytes
-    bound: narrow tiles for more CTAs), a prefill chunk (M <= 64), larger
-    M.  gemm_tile.cuh's loop launches the decode tile (the 2:4 and ABFT
-    variants at M <= 16); every ABFT flag map takes its grid from (BM, BN).
-    The dense decode rows launch `decode_tile`'s loop, every row at M > 16
-    `prefill_tile`'s."""
+    """The MX GEMM's (BM, BN, BK) for M rows: decode (M <= 16), a prefill
+    chunk (M <= 64), larger M.  Every ABFT flag map takes its grid from
+    (BM, BN) -- at M <= 16 one row of 16-column tiles, which the decode
+    tile's ABFT launch flags -- and the ABFT prefill launch (M > 16) its
+    CTA tile.  BK is the plain version's ABFT step, and no launch's."""
     if M <= 16:
         return 16, 16, 128
     if M <= 64:
@@ -241,10 +239,13 @@ DECODE_IN_FLIGHT = 32768    # weight bytes the ring keeps in flight per SM
 DECODE_MAX_STAGES = 8
 COPY_BYTES = 16          # the widest copy (cp.async.cg)
 DECODE_SUB = 64          # K rows per MAC block (csrc/decode_tile.cuh kDecodeSub)
+DECODE_VARIANTS = ("dense", "sparse", "abft")
+ABFT_FLAG_COLS = 16      # an ABFT flag tile's columns at M <= 16 (gemm_tile)
+ABFT_HOOK_THREADS = 128  # the ABFT checksums' own warps (csrc/decode_tile.cuh), at least
 
 
 class DecodeTile(NamedTuple):
-    """The dense decode launch of csrc/mx_matmul.cu / baseline_matmul.cu."""
+    """The decode launch (M <= 16) of csrc/mx_matmul*.cu / baseline_matmul.cu."""
     bn: int       # output columns per CTA (a power of two, >= 16 bytes of weight)
     bk: int       # K rows per ring stage
     tm: int       # output rows per thread (divides M)
@@ -255,10 +256,66 @@ class DecodeTile(NamedTuple):
     ctas: int     # ceil(N / bn)
 
 
-def decode_slot_bytes(M: int, bn: int, bk: int, ea: int, eb: int, gated: bool) -> int:
+def decode_slot_bytes(M: int, bn: int, bk: int, ea: int, eb: int, gated: bool,
+                      variant: str = "dense") -> int:
     """One ring slot of csrc/decode_tile.cuh (`decode_slot`): A's M rows of
-    bk elements padded by 16 bytes, B's (and the gate's) bk x bn tile."""
-    return M * (bk * ea + 16) + bk * bn * eb * (2 if gated else 1)
+    bk elements padded by 16 bytes, and B's (and the gate's) bk x bn tile
+    -- for "sparse" the payload's bk/2 x bn tile in its own width and the
+    metadata's bk/8 x bn bytes."""
+    mats = 2 if gated else 1
+    if variant == "sparse":
+        weight = (bk // 2) * bn * eb + (bk // 8) * bn
+    else:
+        weight = bk * bn * eb
+    return M * (bk * ea + 16) + mats * weight
+
+
+def decode_threads(M: int, bn: int, variant: str = "dense", gated: bool = False,
+                   eb: int = 4):
+    """(tm, threads) of a decode CTA of M rows and bn columns (a weight of
+    eb-byte elements): tm, the rows per thread, the smallest of 1, 2, 4
+    that divides M and keeps M / tm * bn <= 256 computing threads (else the
+    largest that divides M) -- for "sparse", whose expansion of each K row
+    feeds all of a thread's rows, the largest that divides M up to 4
+    gated, 2 for an f32 or int8 payload, 1 for bf16 (as timed best on an
+    H100 at llama3.2-1b's decode projections), within 256 computing
+    threads where M allows;
+    threads, those that compute and copy-only threads up to
+    DECODE_MIN_THREADS -- for "abft" at least ABFT_HOOK_THREADS past the
+    computing threads' last warp, which keep the checksums."""
+    tm_max = max(t for t in (1, 2, 4) if M % t == 0)
+    tm = next((t for t in (1, 2, 4) if M % t == 0 and M // t * bn <= 256), tm_max)
+    if variant == "sparse":
+        want = 4 if gated else 1 if eb == 2 else 2
+        fit = [t for t in (1, 2, 4) if M % t == 0 and M // t * bn <= 256] or [tm_max]
+        tm = max((t for t in fit if t <= want), default=fit[0])
+    compute = M // tm * bn
+    if variant == "abft":
+        return tm, max(-(-compute // 32) * 32 + ABFT_HOOK_THREADS, DECODE_MIN_THREADS)
+    return tm, max(compute, DECODE_MIN_THREADS)
+
+
+def decode_abft_bytes(M: int, bn: int, bk: int) -> int:
+    """The ABFT checksums' scratch after a decode ring
+    (csrc/decode_tile.cuh `decode_abft_bytes`): a staged step's colsum(A)
+    and rowsum(B) per 16-column flag tile with their |.|-sums, or after the
+    loop the hook threads' partial checksums (4 columns' and one row
+    item's each) and the accumulator's sums."""
+    nt = bn // ABFT_FLAG_COLS
+    threads = decode_threads(M, bn, "abft")[1]
+    return 4 * max(bk * (2 + 2 * nt), 10 * threads + M * bn + M * nt + nt)
+
+
+def decode_smem(M: int, bn: int, bk: int, ea: int, eb: int, stages: int, gated: bool,
+                variant: str = "dense") -> int:
+    """A decode launch's dynamic shared memory (csrc/decode_tile.cuh
+    `decode_smem`): the ring, and after it the ABFT scratch."""
+    return stages * decode_slot_bytes(M, bn, bk, ea, eb, gated, variant) + _decode_extra(
+        M, bn, bk, variant)
+
+
+def _decode_extra(M: int, bn: int, bk: int, variant: str) -> int:
+    return decode_abft_bytes(M, bn, bk) if variant == "abft" else 0
 
 
 def _waves_used(ctas: int) -> float:
@@ -268,29 +325,31 @@ def _waves_used(ctas: int) -> float:
 
 @functools.lru_cache(maxsize=None)  # a pure function of the launch's shape
 def decode_tile(M: int, N: int, a_dtype: torch.dtype, b_dtype: torch.dtype,
-                gated: bool = False) -> DecodeTile:
-    """The dense GEMMs' decode tile for M <= 16 rows (csrc/decode_tile.cuh).
+                gated: bool = False, variant: str = "dense") -> DecodeTile:
+    """The GEMMs' decode tile for M <= 16 rows (csrc/decode_tile.cuh), for
+    kernel 1's "dense", "sparse" (b_dtype the 2:4 payload's) or "abft"
+    launch; kernel 2's is the dense one.
 
     - bn, the columns per CTA: from one 16-byte copy per weight row (4 f32,
-      8 bf16, 16 int8 / fp8), doubled up to 64 while the wider strip still
-      gives about one CTA per SM (ceil(N / bn) >= 0.9 * SMS) and fills at
-      least 80% of the last wave's slots, and M * bn stays within 512
-      threads at the largest tm M allows; then halved while the ring would
-      hold fewer than 4 stages;
-    - bk, the K rows per ring stage: DECODE_STAGE_BYTES of weight (both
-      matrices when gated), between one 64-row MAC block and 512 rows, so
-      a narrow weight takes deeper K steps for the same bytes; halved while
-      fewer than 4 slots fit (A's M rows take the rest of a slot);
+      8 bf16, 16 int8 / fp8; "abft" at least one 16-column flag tile),
+      doubled up to 64 while the wider strip still gives about one CTA per
+      SM (ceil(N / bn) >= 0.9 * SMS) and fills at least 80% of the last
+      wave's slots, and M * bn (and the ABFT checksums' warps) stay within
+      512 threads at the largest tm M allows; then halved while the ring
+      would hold fewer than 4 stages;
+    - bk, the K rows per ring stage: the most (a power of two) whose weight
+      bytes -- both matrices when gated; payload and metadata for "sparse"
+      -- stay within DECODE_STAGE_BYTES, between one 64-row MAC block and
+      512 rows, so a narrow or compressed weight takes deeper K steps for
+      the same bytes; halved while fewer than 4 slots fit (A's M rows, and
+      for "abft" the checksums' scratch, take the rest);
     - stages: the fewest, from 4, that keep DECODE_IN_FLIGHT bytes of
       weight in flight per SM (stages - 1 of them, in each CTA an SM holds
       at once: ceil(ctas / SMS), at most 2, since a larger grid runs in
       waves), as shared memory allows, at most DECODE_MAX_STAGES;
-    - tm, the rows per thread: the smallest of 1, 2, 4 that divides M and
-      keeps M / tm * bn <= 256 computing threads (else the largest that
-      divides M); each computing thread owns one column, so none computes a
-      padding row;
-    - threads: those that compute, and copy-only threads up to
-      DECODE_MIN_THREADS, so the ring's copies are issued by many warps.
+    - tm and threads: `decode_threads`; each computing thread owns one
+      column, so none computes a padding row, and the threads past them
+      only issue the ring's copies.
 
     The constants (about one CTA per SM, 32 KB stages, 4 stages, 256
     threads) are those that timed best on an H100 among candidate tiles at
@@ -298,14 +357,19 @@ def decode_tile(M: int, N: int, a_dtype: torch.dtype, b_dtype: torch.dtype,
     """
     if not 1 <= M <= DECODE_MAX_M:
         raise ValueError(f"the decode tile takes 1 <= M <= {DECODE_MAX_M}, got {M}")
+    if variant not in DECODE_VARIANTS:
+        raise ValueError(f"variant must be one of {DECODE_VARIANTS}, got {variant!r}")
     ea, eb = a_dtype.itemsize, b_dtype.itemsize
     mats = 2 if gated else 1
     tm_max = max(t for t in (1, 2, 4) if M % t == 0)
     narrowest = COPY_BYTES // eb
+    hook = 0  # the ABFT checksums' own threads
+    if variant == "abft":
+        narrowest, hook = max(narrowest, ABFT_FLAG_COLS), ABFT_HOOK_THREADS
     bn = narrowest
     while (bn < 64 and -(-N // (2 * bn)) >= 0.9 * SMS
            and _waves_used(-(-N // (2 * bn))) >= 0.8
-           and M // tm_max * 2 * bn <= DECODE_MAX_THREADS):
+           and M // tm_max * 2 * bn + hook <= DECODE_MAX_THREADS):
         bn *= 2
 
     def ring(bn):  # (bk, stages) of a bn-wide strip
@@ -313,24 +377,29 @@ def decode_tile(M: int, N: int, a_dtype: torch.dtype, b_dtype: torch.dtype,
         resident = min(-(-ctas // SMS), 2)  # CTAs an SM holds at once
         budget = min(SMEM_PER_CTA, SMEM_PER_SM // resident - 1024)
 
-        def fits(bk):  # slots that fit the budget
-            slot = decode_slot_bytes(M, bn, bk, ea, eb, gated)
-            return min(DECODE_MAX_STAGES, budget // slot)
+        def row_bytes(bk):  # weight bytes per K row of one matrix
+            return decode_slot_bytes(0, bn, bk, ea, eb, False, variant) / bk
 
-        bk = min(512, max(DECODE_SUB, DECODE_STAGE_BYTES // (bn * eb * mats)))
+        def fits(bk):  # slots that fit the budget
+            slot = decode_slot_bytes(M, bn, bk, ea, eb, gated, variant)
+            free = budget - _decode_extra(M, bn, bk, variant)
+            return min(DECODE_MAX_STAGES, free // slot)
+
+        bk = DECODE_SUB
+        while bk < 512 and 2 * bk * row_bytes(2 * bk) * mats <= DECODE_STAGE_BYTES:
+            bk *= 2
         while bk > DECODE_SUB and fits(bk) < 4:  # A's rows crowd the ring
             bk //= 2
-        stage = bk * bn * eb * mats * resident  # weight bytes per stage and SM
-        want = max(4, 1 + -(-DECODE_IN_FLIGHT // stage))
+        stage = bk * row_bytes(bk) * mats * resident  # weight bytes per stage and SM
+        want = max(4, 1 + -(-DECODE_IN_FLIGHT // int(stage)))
         return bk, min(want, fits(bk))
 
     bk, stages = ring(bn)
     while stages < 4 and bn > narrowest:  # a narrower strip for a 4-deep ring
         bn //= 2
         bk, stages = ring(bn)
-    tm = next((t for t in (1, 2, 4) if M % t == 0 and M // t * bn <= 256), tm_max)
-    smem = stages * decode_slot_bytes(M, bn, bk, ea, eb, gated)
-    threads = max(M // tm * bn, DECODE_MIN_THREADS)
+    tm, threads = decode_threads(M, bn, variant, gated, eb)
+    smem = decode_smem(M, bn, bk, ea, eb, stages, gated, variant)
     return DecodeTile(bn, bk, tm, COPY_BYTES, stages, threads, smem, -(-N // bn))
 
 

@@ -7,7 +7,8 @@ K loop, the epilogue applied once, one store; decode rows, M <= 16, stream
 the weight through `csrc/decode_tile.cuh`'s loop with `_build.decode_tile`'s
 tile; the rows at M > 16 of every operand pair run the tensor-core loop of
 `csrc/prefill_tile.cuh` with `_build.prefill_tile`'s tile, int8 x int8 and
-e4m3 x e4m3 on the 8-bit route: the s8 MMA, e4m3 widened to f16); on a CPU
+e4m3 x e4m3 on the 8-bit route: the s8 MMA, e4m3 widened to f16; the 2:4
+and ABFT variants run the same two loops); on a CPU
 tensor it runs `mx_matmul_fused_plain`, the plain PyTorch version of the
 same function, which the tests hold against the JAX kernel and which
 `chip_smoke.py` holds the CUDA kernel against on the card.
@@ -20,8 +21,9 @@ every other pair in f32.
 
 2:4 sparse weights (stage 1c): b / b_gate carry the compressed payloads
 (K/2, N) with uint8 metadata (K/8, N) (`kernels/sparse.py`); the CUDA
-variant `csrc/mx_matmul_sparse.cu` expands them in shared memory, the plain
-version through `expand_24`.
+variant `csrc/mx_matmul_sparse.cu` streams them as they are and expands
+them on the card (in registers at decode height, in shared memory on the
+tensor cores), the plain version through `expand_24`.
 
 ABFT (stage 1d): with ``abft`` (an `AbftSpec`) the call returns (out,
 flags), flags the (grid_m, grid_n) int32 per-tile corruption map over the
@@ -244,19 +246,18 @@ def mx_matmul_fused_plain(a, b, *, epilogue: Epilogue = Epilogue(),
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # a, b, b_gate, [b_meta, bg_meta], a_scale, b_scale, bg_scale, bias, then
-# _EPI, then the tile: gemm_tile's (bm, bn, bk) (the 2:4 and ABFT rows at
-# M <= 16), the decode tile's (bn, bk, tm, stages, threads, va, vb) or the
-# prefill tile's (bm, bn, stages, split, parts, va, vb, vm); then [flags,
-# fault_delta, fault_row, fault_col, rtol, atol], stream
+# _EPI, then the tile: the decode tile's (bn, bk, tm, stages, threads, va,
+# vb[, vm]) or the prefill tile's (bm, bn, stages, split, parts, va, vb,
+# vm); then [flags, fault_delta, fault_row, fault_col, rtol, atol], stream
 _EPI = (_I, _P, _I, _P) + (_I,) * 8 + (_F,)  # bias_dt .. out_scale
-_TILE, _DECODE_TILE, _PREFILL_TILE = (_I,) * 3, (_I,) * 7, (_I,) * 8
-_LAUNCHERS = {  # variant -> (source, symbol, argtypes)
+_DECODE_TILE, _PREFILL_TILE = (_I,) * 7, (_I,) * 8
+_LAUNCHERS = {  # variant -> (source, symbol, argtypes); "decode" is the dense one
     "decode": ("mx_matmul", "mx_matmul_decode_launch",
                (_P,) * 7 + _EPI + _DECODE_TILE + (_P,)),
     "sparse": ("mx_matmul_sparse", "mx_matmul_sparse_launch",
-               (_P,) * 9 + _EPI + _TILE + (_P,)),
+               (_P,) * 9 + _EPI + _DECODE_TILE + (_I, _P)),
     "abft": ("mx_matmul_abft", "mx_matmul_abft_launch",
-             (_P,) * 7 + _EPI + _TILE + (_P,) * 4 + (_F, _F, _P)),
+             (_P,) * 7 + _EPI + _DECODE_TILE + (_P,) * 4 + (_F, _F, _P)),
     "dense prefill": ("mx_matmul", "mx_matmul_prefill_launch",
                       (_P,) * 7 + _EPI + _PREFILL_TILE + (_P,)),
     "sparse prefill": ("mx_matmul_sparse", "mx_matmul_sparse_prefill_launch",
@@ -266,18 +267,26 @@ _LAUNCHERS = {  # variant -> (source, symbol, argtypes)
 }
 
 
-def decode_launch_tile(a: torch.Tensor, b: torch.Tensor, b_gate=None):
-    """The dense decode launch's tile arguments (bn, bk, tm, stages,
-    threads, va, vb) for operands a (M <= 16, K) and b / b_gate (K, N):
-    `_build.decode_tile`, and the copy widths of A's and B's rows from their
-    row bytes and base addresses (`_build.copy_width`)."""
+def decode_launch_tile(a: torch.Tensor, b: torch.Tensor, b_gate=None, b_meta=None,
+                       bg_meta=None, variant: str = "dense"):
+    """The decode launch's tile arguments (bn, bk, tm, stages, threads, va,
+    vb), and for "sparse" vm, for operands a (M <= 16, K) and b / b_gate
+    (K, N), or their 2:4 payloads (K/2, N) with metadata (K/8, N):
+    `_build.decode_tile` of the variant, and the copy widths of A's, B's
+    and the metadata's rows from their row bytes and base addresses
+    (`_build.copy_width`; a metadata row takes at most bn bytes a copy)."""
     M, K = a.shape
     N = b.shape[1]
-    t = _build.decode_tile(M, N, a.dtype, b.dtype, gated=b_gate is not None)
+    t = _build.decode_tile(M, N, a.dtype, b.dtype, b_gate is not None, variant)
     va = _build.copy_width(K * a.element_size(), a.data_ptr(), vec=t.vec)
     vb = _build.copy_width(N * b.element_size(), b.data_ptr(),
                            *(() if b_gate is None else (b_gate.data_ptr(),)), vec=t.vec)
-    return t.bn, t.bk, t.tm, t.stages, t.threads, va, vb
+    tile = (t.bn, t.bk, t.tm, t.stages, t.threads, va, vb)
+    if variant != "sparse":
+        return tile
+    vm = _build.copy_width(N, *(m.data_ptr() for m in (b_meta, bg_meta) if m is not None),
+                           vec=min(t.vec, t.bn))
+    return (*tile, vm)
 
 
 def prefill_launch_tile(a: torch.Tensor, b: torch.Tensor, b_gate=None, b_meta=None,
@@ -336,12 +345,11 @@ def _fault_operands(fault, device):
 def fused_route(M: int, N: int, K: int, a_dtype: torch.dtype, b_dtype: torch.dtype,
                 gated: bool = False, variant: str = "dense") -> str:
     """The K loop a launch of `mx_matmul_fused` runs on the card: "decode"
-    (the dense rows at M <= 16, csrc/decode_tile.cuh), "mma" (the rows at
-    M > 16 of every pair, csrc/prefill_tile.cuh) or "simt" (the 2:4 and
-    ABFT rows at M <= 16: gemm_tile.cuh's serial K chain, bitwise the
-    decode tile's).  `variant`: "dense", "sparse" or "abft"."""
+    (the rows at M <= 16 of every variant, csrc/decode_tile.cuh) or "mma"
+    (the rows at M > 16 of every pair, csrc/prefill_tile.cuh).  `variant`:
+    "dense", "sparse" or "abft"."""
     if M <= _build.DECODE_MAX_M:
-        return "decode" if variant == "dense" else "simt"
+        return "decode"
     return _build.prefill_tile(M, N, K, a_dtype, b_dtype, gated, variant).route
 
 
@@ -386,22 +394,23 @@ def _launch_fused(a, b, epilogue, b_gate, bias, residual, a_scale, b_scale, bg_s
     out = torch.empty((M, N), dtype=out_dtype, device=a.device)
     if route is None:
         route = (fused_route(M, N, K, a.dtype, b.dtype, b_gate is not None, variant)
-                 if M and N else "simt")
-    decode, prefill = route == "decode", route == "mma"
+                 if M and N else "decode")
+    if route not in ("decode", "mma"):
+        raise ValueError(f"mx_matmul_fused: unknown route {route!r}; 'decode' or 'mma'")
+    decode = route == "decode"
     flags = None
     if abft is not None:  # gemm_tile's grid; <= 16 rows on "mma" take M = 17's CTA tile
-        bm, bn, _ = _build.gemm_tile(max(M, _build.DECODE_MAX_M + 1) if prefill else M)
+        bm, bn, _ = _build.gemm_tile(M if decode else max(M, _build.DECODE_MAX_M + 1))
         flags = torch.zeros((-(-M // bm), -(-N // bn)), dtype=torch.int32, device=a.device)
     if M == 0 or N == 0:
         return out if flags is None else (out, flags)
     if decode:
-        tile = decode_launch_tile(a, b, b_gate)
-    elif prefill:
-        tile = prefill_launch_tile(a, b, b_gate, b_meta, bg_meta, variant)
+        tile = decode_launch_tile(a, b, b_gate, b_meta, bg_meta, variant)
+        key = "decode" if variant == "dense" else variant
     else:
-        tile = _build.gemm_tile(M)
-    source, symbol, argtypes = _LAUNCHERS[
-        "decode" if decode else f"{variant} prefill" if prefill else variant]
+        tile = prefill_launch_tile(a, b, b_gate, b_meta, bg_meta, variant)
+        key = f"{variant} prefill"
+    source, symbol, argtypes = _LAUNCHERS[key]
     fn = _build.function(source, symbol, argtypes)
     head = [a.data_ptr(), b.data_ptr(), _ptr(b_gate)]
     if variant == "sparse":
@@ -420,7 +429,7 @@ def _launch_fused(a, b, epilogue, b_gate, bias, residual, a_scale, b_scale, bg_s
     mx_matmul_fused.launches += 1
     mx_matmul_fused.variants[variant] += 1
     mx_matmul_fused.decode_launches += decode
-    mx_matmul_fused.prefill_launches += prefill
+    mx_matmul_fused.prefill_launches += not decode
     return out if flags is None else (out, flags)
 
 
@@ -492,8 +501,9 @@ def mx_matmul_fused(a: torch.Tensor, b: torch.Tensor, *,
     (bf16, bf16), (bf16, int8), (bf16, fp8), (int8, int8), (fp8, fp8)),
     `csrc/mx_matmul_sparse.cu` (2:4; (f32, f32), (bf16, bf16), (bf16,
     int8)) or `csrc/mx_matmul_abft.cu` (ABFT; the dense pairs); a TypeError
-    for any other pair.  The rows at M > 16 of every pair run the
-    tensor-core loop (csrc/prefill_tile.cuh) in all three (`fused_route`).
+    for any other pair.  The rows at M <= 16 run the decode tile
+    (csrc/decode_tile.cuh), those at M > 16 of every pair the tensor-core
+    loop (csrc/prefill_tile.cuh), in all three (`fused_route`).
     A CPU `a` takes `mx_matmul_fused_plain`.
     """
     if a.dim() != 2 or b.dim() != 2:
@@ -543,7 +553,7 @@ def mx_matmul_fused(a: torch.Tensor, b: torch.Tensor, *,
 
 mx_matmul_fused.launches = 0  # kernel launches (CUDA tensors only), every variant
 mx_matmul_fused.variants = {"dense": 0, "sparse": 0, "abft": 0}  # by variant
-mx_matmul_fused.decode_launches = 0  # of the dense ones, those on the decode tile
+mx_matmul_fused.decode_launches = 0  # of every variant, those on the decode tile
 mx_matmul_fused.prefill_launches = 0  # of every variant, those on the tensor-core prefill tile
 
 
@@ -553,9 +563,9 @@ def recompute_fused(route: str, a: torch.Tensor, b: torch.Tensor, *, epilogue: E
     """An ABFT launch of `mx_matmul_fused` on a given K loop, for the tile
     recoveries of core/ops.py (operands as the launch being recovered,
     sliced to the flagged tile's rows and columns): a CUDA `a` runs `route`
-    ("mma", or "simt" for a decode-height launch: `fused_route` or
-    `grouped_route` of the launch it recovers) whatever its
-    own M, so the recomputed tile gets that launch's bits; a CPU `a` takes
+    ("decode" or "mma": `fused_route` or `grouped_route` of the launch it
+    recovers) whatever its own M, so the recomputed tile gets that
+    launch's bits; a CPU `a` takes
     `mx_matmul_fused_plain`.  Returns (out, flags)."""
     _build.refuse_grad("mx_matmul_fused", a, b, b_gate, bias, residual, a_scale, b_scale,
                         bg_scale)

@@ -11,10 +11,11 @@ largest-magnitude survive.  The weight then travels as
     bits[3:2] its second, bits[5:4] / bits[7:6] group 2b+1's pair; the
     indices are strictly increasing within a group.
 
-`expand_24` is the plain decompress.  The CUDA GEMMs (`csrc/gemm_tile.cuh`
-`load_b24` / `store_b24`) expand each staged (BK/2, BN) payload block and its (BK/8, BN)
-metadata block in shared memory with the same compare-select rule, so
-their output is bitwise that of the dense kernel on `expand_24`'s weight.
+`expand_24` is the plain decompress.  The CUDA GEMMs expand each staged
+payload block and its metadata block with the same compare-select rule --
+in registers on the decode tile (`csrc/decode_tile.cuh` `expand_row`), in
+shared memory on the tensor cores (`csrc/prefill_tile.cuh`) -- so their
+output is bitwise that of the dense kernel on `expand_24`'s weight.
 
 An expert stack (G, K, N) is pruned and compressed one expert at a time
 (`prune_24` / `compress_24` on a 3-D input), so no temporary of a whole

@@ -1602,11 +1602,11 @@ def test_abft_grouped_kernel_flag_maps_equal_plain(cuda, pol, case):
 
 def test_one_tile_rule_the_kernels_take_the_python_table_and_nothing_else(cuda):
     """The tile of every launch comes from _build: prefill_tile for every
-    pair's rows at M > 16 (the tensor-core loop, every variant); gemm_tile
-    for gemm_tile.cuh's loop (the 2:4 and ABFT variants' decode rows, and
-    nothing at M > 16) and every ABFT flag map; decode_tile for the dense
-    decode rows (M <= 16); grouped_tile for the grouped GEMM, every pair.
-    Each launcher takes its table's tiles and refuses any other."""
+    pair's rows at M > 16 (the tensor-core loop, every variant); decode_tile
+    for the decode rows (M <= 16) of every variant (the ABFT one's bn whole
+    16-column flag tiles); gemm_tile for every ABFT flag map; grouped_tile
+    for the grouped GEMM, every pair.  Each launcher takes its table's
+    tiles and refuses any other."""
     from repro_torch.kernels.mx_matmul import _LAUNCHERS
 
     x = _randn((100, 64), torch.float32, cuda, 0)
@@ -1618,20 +1618,22 @@ def test_one_tile_rule_the_kernels_take_the_python_table_and_nothing_else(cuda):
     pfn = _build.function(*_LAUNCHERS["dense prefill"])
 
     def launch(M, tile, f=None, a=x, K=64):
-        abft = f is None  # gemm_tile.cuh's loop: the ABFT launcher's serial chain
+        abft = f is None  # the ABFT launcher: its decode tile
         return (afn if abft else f)(
             a.data_ptr(), w.data_ptr(), None, None, None, None, None, 0, None, 0,
             out.data_ptr(), 0, M, 48, K, 0, 0, 0, 0, 0.0, *tile,
             *((flags.data_ptr(), None, None, None, 1e-3, 1e-3) if abft else ()),
             _build.stream_ptr(x))
 
-    tiles = {_build.gemm_tile(M) for M in (17, 64, 65, 100)}
-    assert len(tiles) == 2
-    for tile in tiles:  # gemm_tile.cuh's loop serves no row above 16 any more
-        assert launch(100, tile) != 0 and launch(8, tile) != 0
-    assert launch(8, _build.gemm_tile(8)) == 0 and launch(100, _build.gemm_tile(8)) != 0
-    for tile in ((16, 16, 16), (8, 128, 32)):
-        assert launch(8, tile) != 0
+    for M in (1, 8, 13, 16):  # the ABFT decode tile: whole flag tiles per CTA
+        t = _build.decode_tile(M, 48, torch.float32, torch.float32, variant="abft")
+        assert t.bn % 16 == 0
+        assert launch(M, (t.bn, t.bk, t.tm, t.stages, t.threads, 16, 16)) == 0
+    t = _build.decode_tile(8, 48, torch.float32, torch.float32, variant="abft")
+    agood = (t.bn, t.bk, t.tm, t.stages, t.threads, 16, 16)
+    assert launch(17, agood) != 0 and launch(100, agood) != 0  # the prefill tile's rows
+    assert launch(8, (8,) + agood[1:]) != 0  # half a flag tile per CTA
+    assert launch(8, agood[:4] + (272,) + agood[5:]) != 0  # threads off whole warps
     for M in (17, 64, 65, 100):  # the prefill tile's
         t = _build.prefill_tile(M, 48, 64, torch.float32, torch.float32)
         assert launch(M, (t.bm, t.bn, t.stages, t.split, t.parts, 16, 16, 16), pfn) == 0
@@ -1759,6 +1761,140 @@ def test_sparse_and_abft_dispatch_launch_their_kernels_or_raise(cuda):
     with ops.use_policy(ops.MXPolicy("cuda_baseline")):
         with pytest.raises(NotImplementedError, match="2:4"):
             ops.linear(x, w, precision="sparse24")
+
+
+@pytest.mark.parametrize("offset", [None, "a", "payload", "meta"])
+@pytest.mark.parametrize("act", ["none", "swiglu"])
+@pytest.mark.parametrize("pair", sorted(SPARSE_PAIRS))
+@pytest.mark.parametrize("M", [1, 8, 16])
+def test_sparse_decode_tile_bitwise_equals_dense_decode_tile(cuda, pair, act, M, offset):
+    """The 2:4 launch at decode height (the decode tile, payload and
+    metadata expanded in registers) at qwen2's ragged widths (K = 896, N =
+    128, with bias) is bitwise the dense decode tile on expand_24's weight;
+    also with A or the payloads 4 bytes off a 16-byte boundary, or the
+    metadata 1 byte off (their rows then take the narrow copies)."""
+    from repro_torch.kernels.sparse import expand_24
+
+    K, N = 896, 128
+    x, w, wg = (_randn(s, torch.float32, cuda, 10 + i) for i, s in
+                enumerate(((M, K), (K, N), (K, N))))
+    xa, pb, bs, mb = _sparse(pair, x, w)
+    _, pg, gs, mg = _sparse(pair, x, wg)
+    gated = act == "swiglu"
+    pg, mg, gs = (pg, mg, gs) if gated else (None, None, None)
+    if offset == "a":
+        xa = _offset_view(xa)
+    elif offset == "payload":
+        pb, pg = _offset_view(pb), pg if pg is None else _offset_view(pg)
+    elif offset == "meta":
+        mb, mg = _offset_view(mb, 1), mg if mg is None else _offset_view(mg, 1)
+    bn, *_, va, vb, vm = mm.decode_launch_tile(xa, pb, pg, mb, mg, "sparse")
+    wide = min(16, bn)  # a metadata row is bn bytes
+    assert (va, vb, vm) == {None: (16, 16, wide), "a": (4, 16, wide),
+                            "payload": (16, 4, wide), "meta": (16, 16, 1)}[offset]
+    out_dtype = torch.float32 if pb.dtype == torch.int8 else xa.dtype
+    e = mm.Epilogue(activation=act, b_scale=bs is not None, bias=True)
+    kw = dict(epilogue=e, b_gate=pg, b_scale=bs, bg_scale=gs, out_dtype=out_dtype,
+              bias=_randn((N,), out_dtype, cuda, 5))
+    kernels.reset_launch_counts()
+    got = mm.mx_matmul_fused(xa, pb, b_sparse=True, b_meta=mb, bg_meta=mg, **kw)
+    assert kernels.decode_launch_counts()["mx_matmul_fused"] == 1
+    dense = mm.mx_matmul_fused(xa, expand_24(pb, mb),
+                               **dict(kw, b_gate=None if pg is None else expand_24(pg, mg)))
+    ref = mm.mx_matmul_fused_plain(xa, pb, b_meta=mb, bg_meta=mg, **kw)
+    torch.cuda.synchronize()
+    assert kernels.decode_launch_counts()["mx_matmul_fused"] == 2
+    assert torch.equal(got, dense)
+    _close(got, ref, out_dtype)
+
+
+@pytest.mark.parametrize("act", ["none", "swiglu"])
+@pytest.mark.parametrize("pair", sorted(SPARSE_PAIRS))
+def test_sparse_decode_tile_expands_odd_metadata_as_expand_24(cuda, pair, act):
+    """Metadata compress_24 never writes -- nibbles out of order, and for f32
+    payloads nibbles naming one row twice (expand_24 adds the pair there;
+    the kernel's f32 add is expand_24's own for f32, not its bf16 rounding
+    or int8 wrap) -- and kept -0.0 payloads (read back as +0.0): the
+    decode tile's 2:4 launch is still bitwise the dense decode tile on
+    expand_24's weight."""
+    from repro_torch.kernels.sparse import expand_24
+
+    M, K, N = 8, 1024, 256
+    x, w, wg = (_randn(s, torch.float32, cuda, 30 + i) for i, s in
+                enumerate(((M, K), (K, N), (K, N))))
+    xa, pb, bs, mb = _sparse(pair, x, w)
+    _, pg, gs, mg = _sparse(pair, x, wg)
+    g = torch.Generator(device=cuda).manual_seed(7)
+    odd = [0x21, 0x63, 0xB7, 0x12, 0x76, 0x3B, 0xE4, 0x1B]  # nibbles (i0, i1) with i0 > i1
+    if pb.dtype == torch.float32:
+        odd += [0x00, 0x55, 0xAA, 0xFF, 0x05, 0x50]  # and i0 == i1
+    odd = torch.tensor(odd, dtype=torch.uint8, device=cuda)
+    for meta, payload in ((mb, pb), (mg, pg)):
+        pick = torch.rand(meta.shape, generator=g, device=cuda) < 0.25
+        meta[pick] = odd[torch.randint(0, len(odd), meta.shape, generator=g, device=cuda)][pick]
+        if payload.dtype != torch.int8:
+            payload[torch.rand(payload.shape, generator=g, device=cuda) < 0.05] = -0.0
+    gated = act == "swiglu"
+    pg, mg, gs = (pg, mg, gs) if gated else (None, None, None)
+    out_dtype = torch.float32 if pb.dtype == torch.int8 else xa.dtype
+    e = mm.Epilogue(activation=act, b_scale=bs is not None)
+    kw = dict(epilogue=e, b_gate=pg, b_scale=bs, bg_scale=gs, out_dtype=out_dtype)
+    got = mm.mx_matmul_fused(xa, pb, b_sparse=True, b_meta=mb, bg_meta=mg, **kw)
+    dense = mm.mx_matmul_fused(xa, expand_24(pb, mb),
+                               **dict(kw, b_gate=None if pg is None else expand_24(pg, mg)))
+    torch.cuda.synchronize()
+    assert torch.equal(got, dense)
+
+
+@pytest.mark.parametrize("M,K,N", [(1, 896, 128), (8, 2048, 512), (13, 300, 200),
+                                   (16, 296, 77)])
+@pytest.mark.parametrize("pol", ABFT_PAIRS)
+def test_abft_decode_tile_bitwise_flags_and_recovery(cuda, pol, M, K, N):
+    """ABFT at decode height (the decode tile with the checksums beside the
+    dense chain, 16-column flag tiles): on is bitwise off with no flag; a
+    fault flags exactly its tile, in a row of A or in a padding row past M,
+    and the flag map equals the plain version's; recovery is bitwise;
+    max_retries = 0 raises SDCError naming the tile; int8 x int8 catches a
+    delta of 1."""
+    from repro_torch.kernels import abft as ab
+
+    x, w, wg = (_randn(s, torch.float32, cuda, 20 + i) for i, s in
+                enumerate(((M, K), (K, N), (K, N))))
+    qa, a_s, qb, b_s, qg, bg_s = _quantized(pol, x, w, wg)
+    e = mm.Epilogue(activation="swiglu", a_scale=a_s is not None, b_scale=b_s is not None)
+    kw = dict(epilogue=e, b_gate=qg, a_scale=a_s, b_scale=b_s, bg_scale=bg_s,
+              out_dtype=torch.float32)
+    spec = mm.abft_spec_for(qa, qb)
+    off = mm.mx_matmul_fused(qa, qb, **kw)
+    kernels.reset_launch_counts()
+    on, flags = mm.mx_matmul_fused(qa, qb, abft=spec, **kw)
+    assert kernels.decode_launch_counts()["mx_matmul_fused"] == 1
+    assert torch.equal(on, off) and not flags.any()
+    assert tuple(flags.shape) == (1, -(-N // 16))
+    gn = flags.shape[1]
+    delta = 1.0 if spec.exact else 1e8
+    for tile, row in (((0, gn - 1), M - 1), ((0, gn // 2), 15)):
+        fault = ab.TileFault(*tile, row, 3, delta)
+        fd, fr, fc = ab.build_fault_operands(fault, 1, gn, 16, 16, device=cuda)
+        fkw = dict(abft=spec.with_inject(True), fault_delta=fd, fault_row=fr, fault_col=fc)
+        _, kflags = mm.mx_matmul_fused(qa, qb, **fkw, **kw)
+        _, pflags = mm.mx_matmul_fused_plain(qa, qb, **fkw, **kw)
+        want = torch.zeros_like(kflags)
+        want[tile] = 1
+        assert torch.equal(kflags, want) and torch.equal(kflags, pflags.to(cuda)), (tile, row)
+    fault = ab.TileFault(0, gn - 1, M - 1, 3, delta)
+
+    def recover(cfg):
+        return ops._abft_fused_gemm(qa, qb, ep=e, bias=None, residual=None, w_gate=qg,
+                                    a_s=a_s, b_s=b_s, bg_s=bg_s, out_dtype=torch.float32,
+                                    cfg=cfg)
+
+    ab.reset_abft_stats()
+    assert torch.equal(recover(ab.AbftConfig(fault=fault)), off)
+    assert ab.abft_stats()["tiles_recovered"] == 1
+    with pytest.raises(ab.SDCError) as err:
+        recover(ab.AbftConfig(max_retries=0, fault=fault))
+    assert list(err.value.flagged) == [(0, gn - 1)]
 
 
 @pytest.mark.parametrize("name,precision,abft", [

@@ -185,14 +185,13 @@ def test_gemm_tile_is_unchanged(M, tile):
 @pytest.mark.parametrize("pair", sorted(PAIRS))
 @pytest.mark.parametrize("M", (1, 8, 16, *ROWS))
 def test_fused_route_by_rows_pair_and_variant(M, pair, variant):
-    """The one place the fused GEMM's K loop is chosen: the dense decode
-    rows take the decode tile, the other variants' gemm_tile.cuh's chain;
-    above 16 rows every pair takes the tensor cores (int8 x int8 and
-    fp8 x fp8 in their own byte)."""
+    """The one place the fused GEMM's K loop is chosen: the decode rows of
+    every variant take the decode tile; above 16 rows every pair takes the
+    tensor cores (int8 x int8 and fp8 x fp8 in their own byte)."""
     a_dt, b_dt = PAIRS[pair]
     route = fused_route(M, 2048, 8192, a_dt, b_dt, False, variant)
     if M <= _build.DECODE_MAX_M:
-        assert route == ("decode" if variant == "dense" else "simt")
+        assert route == "decode"
     else:
         assert (a_dt, b_dt) in _build.MMA_PAIRS and route == "mma"
 
@@ -211,7 +210,7 @@ def test_a_recomputed_abft_tile_of_few_rows_takes_the_tile_of_17_rows(M):
 
 @pytest.mark.parametrize("M,dtype,want", [
     (40, torch.float32, "mma"), (65, torch.float32, "mma"), (40, torch.bfloat16, "mma"),
-    (65, torch.int8, "mma"), (8, torch.float32, "simt"),
+    (65, torch.int8, "mma"), (8, torch.float32, "decode"),
 ])
 def test_fused_recovery_recomputes_on_the_route_of_the_launch(monkeypatch, M, dtype, want):
     """A fault in the LAST row tile (8 rows at M = 40, 1 at M = 65) is

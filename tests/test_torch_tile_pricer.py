@@ -47,10 +47,13 @@ def test_pricer_takes_the_launch_tile(M, N, K, a, b, gated, variant):
         assert plan.smem_bytes == t.stages * _build.decode_slot_bytes(
             M, t.bn, t.bk, a.itemsize, b.itemsize, gated)
         assert mm.fused_route(M, N, K, a, b, gated) == "decode" or variant == "baseline"
-    elif M <= _build.DECODE_MAX_M:
-        assert (plan.route, plan.bm, plan.bn, plan.bk, plan.smem_bytes) == (
-            "simt", *_build.gemm_tile(M), 0)
-        assert mm.fused_route(M, N, K, a, b, gated, variant) == "simt"
+    elif M <= _build.DECODE_MAX_M:  # the 2:4 and ABFT rows: the decode tile of the variant
+        t = _build.decode_tile(M, N, a, b, gated, variant)
+        assert (plan.route, plan.bm, plan.bn, plan.bk, plan.stages, plan.ctas, plan.smem_bytes) \
+            == ("decode", M, t.bn, t.bk, t.stages, t.ctas, t.smem)
+        assert plan.smem_bytes == _build.decode_smem(
+            M, t.bn, t.bk, a.itemsize, b.itemsize, t.stages, gated, variant)
+        assert mm.fused_route(M, N, K, a, b, gated, variant) == "decode"
     else:
         t = _build.prefill_tile(M, N, K, a, b, gated, variant)
         assert (plan.route, plan.bm, plan.bn, plan.bk, plan.stages, plan.split, plan.parts,
@@ -64,7 +67,8 @@ def test_pricer_takes_the_launch_tile(M, N, K, a, b, gated, variant):
             gm, gn, _ = _build.gemm_tile(M)
             assert t.bm % gm == 0 and t.bn % gn == 0
     assert plan.flag_tile == (_build.gemm_tile(M)[:2] if variant == "abft" else None)
-    assert plan.acc_bytes == (M if dense_decode else plan.bm) * plan.bn * 4 * (1 + gated)
+    assert plan.acc_bytes == (M if M <= _build.DECODE_MAX_M else plan.bm) * plan.bn * 4 * (
+        1 + gated)
     # the HBM bytes are the transfer model's at that tile
     p = plan.problem
     assert (p.M, p.N, p.K, p.a_elem_bytes, p.b_elem_bytes, p.b_sparse) == (
